@@ -15,19 +15,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    K2 packed_encoder_attention (self: B=2, T=1500, H=20, Dh=64; cross:
    4 taps x B=2, Tq=64, Tkv=1500), K3 encoder_ffn (M=3000, D=1280,
    F=5120), K8 fused_decode_layers (Llama-3.1-8B, B=2, S=256 cache with
-   random contents and a different cache index per row);
+   random contents and a different cache index per row), and the W8A8
+   kernels K5 qkv_w8a8, K6 proj_w8a8 and K4 encoder_ffn_w8a8 at M=1500 and
+   M=3000 rows (D=1280, F=5120), plus K4 on weights whose GELU chunks
+   differ 64x in scale (the per-1280-column quantisation);
 5. build the flagship model (configs/desta25_llama31-8B_Qformer6L.yaml:
    Llama-3.1-8B + whisper-large-v3 + 6-layer Q-Former, bf16) on the card
    with random weights from a seed, with the hub-free CharTokenizer;
 6. write two synthetic 16 kHz WAVs of different lengths;
-7. after one short warm-up call, ``generate()`` a batch of 2 conversations
-   (transcriptions supplied, greedy, 32 new tokens), then a batch of 1;
-8. require that every kernel's launch counter moved during ``generate()``,
-   that the generated ids are well formed, and that the spliced
-   embeddings, the prefill logits and one decode step's logits of the
-   batch-2 input, computed step by step, are finite and give
+7. with the bf16 encoder, after one short warm-up call, ``generate()`` a
+   batch of 2 conversations (transcriptions supplied, greedy, 32 new
+   tokens), then a batch of 1;
+8. require that K2, K3 and K8's launch counters moved during
+   ``generate()``, that the generated ids are well formed, and that the
+   spliced embeddings, the prefill logits and one decode step's logits of
+   the batch-2 input, computed step by step, are finite and give
    ``generate()``'s first two tokens;
-9. print per-phase times (host clock, device synchronised).
+9. print per-phase times (host clock, device synchronised);
+10. switch the same model to the JAX package's inference encoder
+    (``apply_inference_encoder_quant()``: int8 FFN, "dual" attention
+    leaves); hold encoder layers 0 and 31 through the kernels against the
+    plain versions; print the int8-vs-bf16 taps difference (information)
+    and the encoder forward times of both attention arms at B=1, 2, 4;
+11. ``generate()`` at b2 and b1 (int8 attention arm: K5, K2, K6 and K4
+    launch, K3 does not) and at b4 (bf16 attention arm: K2 and K4 launch,
+    K5 and K6 do not); the b2 path step by step as in 8;
+12. print the int8 encoder's per-phase times.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -35,6 +48,7 @@ The line before the last is the kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -46,7 +60,13 @@ import time
 import numpy as np
 
 # stated tolerances (max |kernel - plain| / max |plain|)
-TOL_ENC = 2e-2       # K2, K3: bf16 outputs, f32 accumulation in both
+TOL_ENC = 2e-2       # K2, K3 and the int8 encoder layers: bf16 outputs of
+                     # f32 sums
+TOL_W8A8 = 1e-3      # K4-K6 alone: the int32 sums are exact and the f32
+                     # epilogues run in the plain version's order, so only
+                     # an erff-vs-erf step (~1e-4) may show; a K4 hidden
+                     # quantized per row instead of per 1280-column chunk
+                     # lands at ~1.5e-2 (~2e-1 on the skewed case)
 TOL_DECODE = 3e-2    # K8: the bound of tests/test_fused_decode.py:77
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
@@ -60,7 +80,19 @@ SOURCES = {
     "fused_decode_layers": (
         "desta25_audio_tpu_torch/csrc/fused_decode.cu",
         "desta25_audio_tpu/ops/fused_decode.py:235"),
+    "encoder_ffn_w8a8": (
+        "desta25_audio_tpu_torch/csrc/w8a8.cu",
+        "desta25_audio_tpu/ops/enc_ffn.py:169"),
+    "qkv_w8a8": (
+        "desta25_audio_tpu_torch/csrc/w8a8.cu",
+        "desta25_audio_tpu/ops/w8a8_proj.py:44"),
+    "proj_w8a8": (
+        "desta25_audio_tpu_torch/csrc/w8a8.cu",
+        "desta25_audio_tpu/ops/w8a8_proj.py:56"),
 }
+# the kernels of the bf16 generate() path and of the int8 encoder's
+BF16_PATH = ("packed_encoder_attention", "encoder_ffn", "fused_decode_layers")
+W8A8_KERNELS = ("encoder_ffn_w8a8", "qkv_w8a8", "proj_w8a8")
 
 
 def gpu_line() -> str:
@@ -141,6 +173,81 @@ def check_enc_ffn(gen):
     if rel > TOL_ENC:
         raise AssertionError(f"K3 disagrees: rel {rel}")
     return err, ms, plain_ms
+
+
+def _int8_leaf(gen, n: int, k: int, bias: bool = True, mult=1.0):
+    from desta25_audio_tpu_torch.ops.quant import quantize_linear
+    import torch
+    p = {"w": (torch.randn(n, k, generator=gen, device="cuda")
+               / k ** 0.5 * mult).to(torch.bfloat16)}
+    if bias:
+        p["b"] = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(
+            torch.bfloat16)
+    return quantize_linear(p)
+
+
+def check_w8a8(gen):
+    """K5 qkv_w8a8, K6 proj_w8a8 and K4 encoder_ffn_w8a8 against their
+    plain versions at the int8 encoder's shapes: M = B*1500 rows for B=1
+    and B=2, D=1280, F=5120, within TOL_W8A8.  Then K4 at M=1500 on
+    weights that make hidden chunks 1-3 64x smaller than chunk 0 (fc2
+    makes up for it), so that a quantisation over the whole hidden row
+    fails.  Returns {name: (worst err, ms, plain_ms)}, the times at
+    M=3000."""
+    import torch
+    from desta25_audio_tpu_torch.ops.enc_ffn import (encoder_ffn_w8a8,
+                                                     encoder_ffn_w8a8_plain)
+    from desta25_audio_tpu_torch.ops.w8a8_proj import (
+        proj_w8a8, proj_w8a8_plain, qkv_w8a8, qkv_w8a8_plain)
+    D, Fd = 1280, 5120
+    lq, lk, lv, lo = (_int8_leaf(gen, D, D, bias=b)
+                      for b in (True, False, True, True))
+    l1, l2 = _int8_leaf(gen, Fd, D), _int8_leaf(gen, D, Fd)
+    ffn = (l1["q"], l1["s"], l1["b"], l2["q"], l2["s"], l2["b"])
+    cases = {
+        "qkv_w8a8": ("K5", lambda x: qkv_w8a8(x, lq, lk, lv),
+                     lambda x: qkv_w8a8_plain(x, lq, lk, lv)),
+        "proj_w8a8": ("K6", lambda x: (proj_w8a8(x, lo),),
+                      lambda x: (proj_w8a8_plain(x, lo),)),
+        "encoder_ffn_w8a8": ("K4", lambda x: (encoder_ffn_w8a8(x, *ffn),),
+                             lambda x: (encoder_ffn_w8a8_plain(x, *ffn),)),
+    }
+    rows = {}
+    for M in (1500, 3000):
+        x = torch.randn(1, M, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for name, (tag, kern, plain) in cases.items():
+            err, rel = 0.0, 0.0
+            for g, w in zip(kern(x), plain(x)):
+                e, r = rel_err(g, w)
+                err, rel = max(err, e), max(rel, r)
+            ms = cuda_time_ms(lambda: kern(x))
+            plain_ms = cuda_time_ms(lambda: plain(x))
+            print(f"{tag} {name} M={M} D={D}"
+                  + (f" F={Fd}" if tag == "K4" else f" N={D}")
+                  + f": max_abs_err={err:.3e} rel={rel:.3e} (tol "
+                  f"{TOL_W8A8}) kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
+                  flush=True)
+            if rel > TOL_W8A8:
+                raise AssertionError(f"{tag} disagrees at M={M}: rel {rel}")
+            prev = rows.get(name, (0.0, 0.0, 0.0))
+            rows[name] = (max(prev[0], err), ms, plain_ms)
+    mult = torch.where(torch.arange(Fd, device="cuda") >= 1280, 1 / 64, 1.0)
+    s1, s2 = (_int8_leaf(gen, Fd, D, mult=mult[:, None]),
+              _int8_leaf(gen, D, Fd, mult=1 / mult[None, :]))
+    skew = (s1["q"], s1["s"], s1["b"], s2["q"], s2["s"], s2["b"])
+    x = torch.randn(1, 1500, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    err, rel = rel_err(encoder_ffn_w8a8(x, *skew),
+                       encoder_ffn_w8a8_plain(x, *skew))
+    print(f"K4 encoder_ffn_w8a8 M=1500 D={D} F={Fd}, GELU chunks 64x apart"
+          f": max_abs_err={err:.3e} rel={rel:.3e} (tol {TOL_W8A8})",
+          flush=True)
+    if rel > TOL_W8A8:
+        raise AssertionError(f"K4 disagrees on skewed chunks: rel {rel}")
+    prev = rows["encoder_ffn_w8a8"]
+    rows["encoder_ffn_w8a8"] = (max(prev[0], err),) + prev[1:]
+    return rows
 
 
 def _layer_slice(params, lo: int, hi: int):
@@ -237,7 +344,7 @@ def check_fused_decode(params, cfg, gen):
 def write_wavs(d: str):
     from desta25_audio_tpu_torch.audio.io import write_wav
     rng = np.random.default_rng(0)
-    paths = []
+    paths, signals = [], []
     for i, (secs, f0) in enumerate(((3.0, 440.0), (5.5, 300.0))):
         t = np.arange(int(secs * 16000)) / 16000.0
         sig = (0.5 * np.sin(2 * np.pi * f0 * t)
@@ -245,7 +352,227 @@ def write_wavs(d: str):
         sig += 0.01 * rng.standard_normal(t.size).astype(np.float32)
         paths.append(os.path.join(d, f"clip{i}.wav"))
         write_wav(paths[-1], sig)
-    return paths
+        signals.append(sig)
+    return paths, signals
+
+
+def conversations(wavs):
+    """Four conversations, one clip each: b2 = the first two, b1 = the
+    second, b4 = all four (an encoder batch of 4, above the int8
+    attention arm's limit of 2)."""
+    wav_a, wav_b = wavs
+    conv_a = [{"role": "system", "content": "Focus on the audio."},
+              {"role": "user", "content": "What do you hear? <|AUDIO|>",
+               "audios": [{"audio": wav_a, "text": "a test tone"}]}]
+    conv_b = [{"role": "user",
+               "content": "Describe this clip: <|AUDIO|> in one line.",
+               "audios": [{"audio": wav_b, "text": "a longer lower tone"}]}]
+    conv_c = [{"role": "user", "content": "Is <|AUDIO|> speech or music?",
+               "audios": [{"audio": wav_b, "text": "a lower tone"}]}]
+    conv_d = [{"role": "system", "content": "Answer briefly."},
+              {"role": "user", "content": "<|AUDIO|> How loud is it?",
+               "audios": [{"audio": wav_a, "text": "tone"}]}]
+    return [conv_a, conv_b, conv_c, conv_d]
+
+
+def check_outputs(model, outs) -> None:
+    V = model.llm_cfg.vocab_size
+    for out, b in outs:
+        ids = np.asarray(out.generated_ids)
+        if ids.shape != (b, 32) or ids.min() < 0 or ids.max() >= V:
+            raise AssertionError(f"bad generated_ids shape/range {ids.shape}")
+        if len(out.text) != b:
+            raise AssertionError("one text per conversation expected")
+
+
+def check_step_by_step(model, convs, out) -> None:
+    """The batch's path once more, step by step (the cache length of
+    llm_generate): the spliced embeddings, the prefill logits and one fused
+    decode step's logits must be finite and give generate()'s first two
+    greedy tokens (rows that stopped at the first token are skipped)."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    with torch.no_grad():
+        embeds, mask, _, _ = model._run_generation_phases(convs, {})
+        B, T, _ = embeds.shape
+        S = -(-(T + 32) // 128) * 128
+        cache = tllm.init_kv_cache(model.llm_cfg, B, S, embeds.dtype,
+                                   embeds.device)
+        full = torch.zeros(B, S, dtype=torch.int32, device=embeds.device)
+        full[:, :T + 1] = 1
+        full[:, :T] = mask
+        pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
+        logits, cache = tllm.llm_apply(
+            model.params["llm"], model.llm_cfg, inputs_embeds=embeds,
+            attention_mask=full, positions=pos, cache=cache, cache_index=0)
+        step, _ = tllm.llm_apply(
+            model.params["llm"], model.llm_cfg,
+            input_ids=logits[:, -1].argmax(-1)[:, None],
+            attention_mask=full, positions=pos[:, -1:] + 1, cache=cache,
+            cache_index=T)
+    V = model.llm_cfg.vocab_size
+    if (embeds.shape[-1] != model.llm_cfg.hidden_size
+            or logits.shape != (B, T, V) or step.shape != (B, 1, V)
+            or not all(bool(t.float().isfinite().all())
+                       for t in (embeds, logits, step))):
+        raise AssertionError("non-finite or misshaped embeddings/logits")
+    ids = np.asarray(out.generated_ids)
+    first = logits[:, -1].argmax(-1).cpu().numpy()
+    second = step[:, 0].argmax(-1).cpu().numpy()
+    live = ~np.isin(ids[:, 0], model._terminators())
+    if (first != ids[:, 0]).any() or (second != ids[:, 1])[live].any():
+        raise AssertionError(f"step-by-step tokens {first} {second} differ "
+                             f"from generate()'s {ids[:, :2].tolist()}")
+
+
+def print_times(label, runs, gpu) -> None:
+    for b, t in runs:
+        steps = max(int(t["decode_steps"]), 1)
+        print(f"{label} batch {b}: host {t['host_ms']:.1f} ms, perception "
+              f"{t['perception_ms']:.1f} ms, prefill {t['prefill_ms']:.1f} "
+              f"ms, decode {t['decode_ms'] / steps:.2f} ms/step over "
+              f"{t['decode_steps']} steps ({gpu})", flush=True)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route models/whisper.py's kernel calls to their plain versions."""
+    from desta25_audio_tpu_torch.models import whisper as tw
+    from desta25_audio_tpu_torch.ops.enc_attention import (
+        packed_encoder_attention_plain)
+    from desta25_audio_tpu_torch.ops.enc_ffn import (encoder_ffn_plain,
+                                                     encoder_ffn_w8a8_plain)
+    from desta25_audio_tpu_torch.ops.w8a8_proj import (proj_w8a8_plain,
+                                                       qkv_w8a8_plain)
+    swap = {"packed_encoder_attention": packed_encoder_attention_plain,
+            "encoder_ffn": encoder_ffn_plain,
+            "encoder_ffn_w8a8": encoder_ffn_w8a8_plain,
+            "qkv_w8a8": qkv_w8a8_plain, "proj_w8a8": proj_w8a8_plain}
+    saved = {k: getattr(tw, k) for k in swap}
+    for k, v in swap.items():
+        setattr(tw, k, v)
+    yield  # an exception ends the script: nothing to restore then
+    for k, v in saved.items():
+        setattr(tw, k, v)
+
+
+def encoder_ms(model, mel, maxb=None) -> float:
+    """Device time of the encoder forward (taps) on mel; maxb, if given,
+    stands in for models/whisper.py's INT8_ATTN_MAXB during the call (which
+    attention arm "dual" leaves take)."""
+    from desta25_audio_tpu_torch.models import whisper as tw
+    old = tw.INT8_ATTN_MAXB
+    if maxb is not None:
+        tw.INT8_ATTN_MAXB = maxb
+    ms = cuda_time_ms(lambda: tw.whisper_encoder_apply(
+        model.params["whisper"]["encoder"], mel, model.enc_cfg,
+        model.config.target_layer_ids), iters=3)
+    tw.INT8_ATTN_MAXB = old
+    return ms
+
+
+def check_int8_layers(model, mel) -> None:
+    """Encoder layers 0 and 31 of the int8 tree through the kernels against
+    the plain versions, both fed the same bf16 input (the kernels'
+    trajectory up to that layer), within TOL_ENC."""
+    from desta25_audio_tpu_torch.models import whisper as tw
+    from desta25_audio_tpu_torch.ops.core import index_tree
+    cfg = model.enc_cfg
+    H, L = cfg.encoder_attention_heads, cfg.encoder_layers
+    enc = model.params["whisper"]["encoder"]
+    x = tw.encoder_stem(enc, mel, cfg)
+    for layer in range(L):
+        p = index_tree(enc["layers"], layer)
+        got = tw._enc_layer_apply(p, x, H)
+        if layer in (0, L - 1):
+            with plain_kernels():
+                want = tw._enc_layer_apply(p, x, H)
+            err, rel = rel_err(got, want)
+            print(f"int8 encoder layer {layer} B={mel.shape[0]} (int8 "
+                  f"attention arm: {tw.int8_attention(p['attn'], mel.shape[0])}"
+                  f"): kernels vs plain max_abs_err={err:.3e} rel={rel:.3e} "
+                  f"(tol {TOL_ENC})", flush=True)
+            if rel > TOL_ENC:
+                raise AssertionError(f"int8 layer {layer} disagrees: {rel}")
+        x = got
+
+
+def check_int8_encoder(model, signals, convs, gpu):
+    """Phases 10-12: the JAX package's inference encoder on the same model.
+
+    10. the bf16 encoder's taps and forward times at B=1, 2, 4; then
+        apply_inference_encoder_quant() ("dual": int8 FFN, attention
+        leaves with int8 q/s beside the bf16 w); layers 0 and 31 against
+        the plain versions; the int8-vs-bf16 taps difference (information:
+        random deep stacks amplify rounding); the encoder forward at
+        B=1, 2, 4 with each attention arm forced (the crossover);
+    11. generate() at b2 and b1 (int8 attention arm: K5, K2, K6, K4 launch,
+        K3 does not) and b4 (bf16 arm: K2 and K4 launch, K5/K6 do not),
+        after a warm-up call; the b2 path step by step;
+    12. phase times per batch.
+    Returns the launch counts summed over the three generate() runs."""
+    import torch
+    from desta25_audio_tpu_torch.models import whisper as tw
+    from desta25_audio_tpu_torch.ops import _build
+    cfg = model.enc_cfg
+    batch = np.zeros((2, cfg.expected_mel_frames * 160), np.float32)
+    for j, sig in enumerate(signals):
+        n = min(sig.size, batch.shape[1])
+        batch[j, :n] = sig[:n]
+    mel2 = model._mel(batch)
+    mels = {1: mel2[1:], 2: mel2, 4: torch.cat([mel2, mel2])}
+    taps_ids = model.config.target_layer_ids
+    enc = model.params["whisper"]["encoder"]
+    _, taps_bf16 = tw.whisper_encoder_apply(enc, mel2, cfg, taps_ids)
+    bf16_ms = {b: encoder_ms(model, m) for b, m in mels.items()}
+
+    model.apply_inference_encoder_quant()
+    enc = model.params["whisper"]["encoder"]
+    if (set(enc["layers"]["fc1"]) != {"q", "s", "b"}
+            or set(enc["layers"]["attn"]["q"]) != {"w", "q", "s", "b"}):
+        raise AssertionError("apply_inference_encoder_quant: not the dual tree")
+    check_int8_layers(model, mel2)
+    _, taps_int8 = tw.whisper_encoder_apply(enc, mel2, cfg, taps_ids)
+    for i, layer in enumerate(taps_ids):
+        err, rel = rel_err(taps_int8[i], taps_bf16[i])
+        print(f"int8 vs bf16 encoder tap {layer} (B=2, information): "
+              f"max_abs_err={err:.3e} rel={rel:.3e}", flush=True)
+    for b, m in mels.items():
+        print(f"encoder forward B={b} ({gpu}): bf16 {bf16_ms[b]:.3f} ms; "
+              f"int8 FFN + bf16 attention {encoder_ms(model, m, 0):.3f} ms;"
+              f" int8 FFN + int8 attention {encoder_ms(model, m, 1 << 20):.3f}"
+              f" ms", flush=True)
+
+    runs = {2: convs[:2], 1: convs[1], 4: convs}
+    model.generate(runs[2], do_sample=False, max_new_tokens=2)  # warm-up
+    outs, times, total = {}, {}, {}
+    for b, msgs in runs.items():
+        _build.reset_launch_counts()
+        outs[b] = model.generate(msgs, do_sample=False, max_new_tokens=32)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        times[b] = dict(model.last_timings)
+        print(f"int8 encoder: launches during generate() b{b}: "
+              f"{json.dumps(counts)}", flush=True)
+        arm = ("qkv_w8a8", "proj_w8a8")
+        must = ("packed_encoder_attention", "encoder_ffn_w8a8",
+                "fused_decode_layers") + (arm if b <= 2 else ())
+        never = ("encoder_ffn",) + (() if b <= 2 else arm)
+        for name in must:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"b{b}: {name} was not launched")
+        for name in never:
+            if counts.get(name, 0):
+                raise AssertionError(f"b{b}: {name} was launched")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    check_outputs(model, [(outs[b], b) for b in runs])
+    check_step_by_step(model, runs[2], outs[2])
+    print(f"int8 encoder generated ids b2 row0[:8]="
+          f"{outs[2].generated_ids[0][:8]} b4 row3[:8]="
+          f"{outs[4].generated_ids[3][:8]}", flush=True)
+    print_times("int8 encoder", sorted(times.items()), gpu)
+    return total
 
 
 def main() -> int:
@@ -281,6 +608,8 @@ def main() -> int:
     with torch.no_grad():
         k2 = check_enc_attention(gen)
         k3 = check_enc_ffn(gen)
+        # its own generator: K8's inputs below stay those of the bf16 slice
+        w8 = check_w8a8(torch.Generator("cuda").manual_seed(1))
 
         # -- 5. flagship model, random weights ------------------------------
         from desta25_audio_tpu_torch import DeSTA25AudioModel
@@ -297,99 +626,50 @@ def main() -> int:
               flush=True)
         k8 = check_fused_decode(model.params["llm"], model.llm_cfg, gen)
 
-    # -- 6-8. generate() through the kernels ---------------------------------
-    from desta25_audio_tpu_torch.models import llm as tllm
-    with tempfile.TemporaryDirectory() as d:
-        wav_a, wav_b = write_wavs(d)
-        conv_a = [{"role": "system", "content": "Focus on the audio."},
-                  {"role": "user", "content": "What do you hear? <|AUDIO|>",
-                   "audios": [{"audio": wav_a, "text": "a test tone"}]}]
-        conv_b = [{"role": "user",
-                   "content": "Describe this clip: <|AUDIO|> in one line.",
-                   "audios": [{"audio": wav_b,
-                               "text": "a longer lower tone"}]}]
-        # one short warm-up call: the first generate() pays one-time CUDA
-        # library set-up (cuBLAS/cuDNN handles, convolution algorithm)
-        model.generate([conv_a, conv_b], do_sample=False, max_new_tokens=2)
-        _build.reset_launch_counts()
-        out2 = model.generate([conv_a, conv_b], do_sample=False,
-                              max_new_tokens=32)
-        t2 = dict(model.last_timings)
-        out1 = model.generate(conv_b, do_sample=False, max_new_tokens=32)
-        t1 = dict(model.last_timings)
-        torch.cuda.synchronize()
-        launches = _build.launch_counts()
-        # the batch-2 path once more, step by step (the cache length of
-        # llm_generate): the spliced embeddings, the prefill logits and one
-        # fused decode step's logits
-        with torch.no_grad():
-            embeds, mask, _, _ = model._run_generation_phases(
-                [conv_a, conv_b], {})
-            B, T, _ = embeds.shape
-            S = -(-(T + 32) // 128) * 128
-            cache = tllm.init_kv_cache(model.llm_cfg, B, S, torch.bfloat16,
-                                       "cuda")
-            full = torch.zeros(B, S, dtype=torch.int32, device="cuda")
-            full[:, :T + 1] = 1
-            full[:, :T] = mask
-            pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
-            logits, cache = tllm.llm_apply(
-                model.params["llm"], model.llm_cfg, inputs_embeds=embeds,
-                attention_mask=full, positions=pos, cache=cache,
-                cache_index=0)
-            step, _ = tllm.llm_apply(
-                model.params["llm"], model.llm_cfg,
-                input_ids=logits[:, -1].argmax(-1)[:, None],
-                attention_mask=full, positions=pos[:, -1:] + 1, cache=cache,
-                cache_index=T)
+    # -- 6-9. bf16 generate() through the kernels ---------------------------
+    tmp = tempfile.TemporaryDirectory()
+    wavs, signals = write_wavs(tmp.name)
+    convs = conversations(wavs)
+    # one short warm-up call: the first generate() pays one-time CUDA
+    # library set-up (cuBLAS/cuDNN handles, convolution algorithm)
+    model.generate(convs[:2], do_sample=False, max_new_tokens=2)
+    _build.reset_launch_counts()
+    out2 = model.generate(convs[:2], do_sample=False, max_new_tokens=32)
+    t2 = dict(model.last_timings)
+    out1 = model.generate(convs[1], do_sample=False, max_new_tokens=32)
+    t1 = dict(model.last_timings)
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
     print(f"launches during generate(): {json.dumps(launches)}", flush=True)
-    for name in SOURCES:
+    for name in BF16_PATH:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched by generate()")
-    V = model.llm_cfg.vocab_size
-    for out, b in ((out2, 2), (out1, 1)):
-        ids = np.asarray(out.generated_ids)
-        if ids.shape != (b, 32) or ids.min() < 0 or ids.max() >= V:
-            raise AssertionError(f"bad generated_ids shape/range {ids.shape}")
-        if len(out.text) != b:
-            raise AssertionError("one text per conversation expected")
-    if (embeds.shape[-1] != model.llm_cfg.hidden_size
-            or logits.shape != (2, T, V) or step.shape != (2, 1, V)
-            or not all(bool(t.float().isfinite().all())
-                       for t in (embeds, logits, step))):
-        raise AssertionError("non-finite or misshaped embeddings/logits")
-    # ... and they give generate()'s first two greedy tokens (same kernels,
-    # same inputs; rows that stopped at the first token are skipped)
-    ids2 = np.asarray(out2.generated_ids)
-    first = logits[:, -1].argmax(-1).cpu().numpy()
-    second = step[:, 0].argmax(-1).cpu().numpy()
-    live = ~np.isin(ids2[:, 0], model._terminators())
-    if (first != ids2[:, 0]).any() or (second != ids2[:, 1])[live].any():
-        raise AssertionError(f"step-by-step tokens {first} {second} differ "
-                             f"from generate()'s {ids2[:, :2].tolist()}")
+    check_outputs(model, ((out2, 2), (out1, 1)))
+    check_step_by_step(model, convs[:2], out2)
     print(f"generated ids b2 row0[:8]={out2.generated_ids[0][:8]} "
           f"b1[:8]={out1.generated_ids[0][:8]}", flush=True)
+    print_times("bf16 encoder", ((2, t2), (1, t1)), gpu)
 
-    # -- 9. times -------------------------------------------------------------
-    for b, t in ((2, t2), (1, t1)):
-        steps = max(int(t["decode_steps"]), 1)
-        print(f"batch {b}: host {t['host_ms']:.1f} ms, perception "
-              f"{t['perception_ms']:.1f} ms, prefill {t['prefill_ms']:.1f} "
-              f"ms, decode {t['decode_ms'] / steps:.2f} ms/step over "
-              f"{t['decode_steps']} steps ({gpu})", flush=True)
+    # -- 10-12. the int8 (W8A8) inference encoder ----------------------------
+    with torch.no_grad():
+        int8_launches = check_int8_encoder(model, signals, convs, gpu)
+    tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # K2's entry: the worse error of its two shapes, the times of the
     # self-attention shape; K8's: the 2-layer logits error, the 32-layer
-    # step times
+    # step times; K4-K6: the worse error of M=1500/3000, the M=3000 times.
+    # Launches: K2, K3, K8 from the bf16 generate() run, K4-K6 from the
+    # int8 generate() runs.
+    measured = {"packed_encoder_attention":
+                (max(k2[0][0], k2[1][0]), k2[0][1], k2[0][2]),
+                "encoder_ffn": k3, "fused_decode_layers": k8, **w8}
     kernels = []
-    for name, (err, ms, plain_ms) in (
-            ("packed_encoder_attention",
-             (max(k2[0][0], k2[1][0]), k2[0][1], k2[0][2])),
-            ("encoder_ffn", k3), ("fused_decode_layers", k8)):
-        src, replaces = SOURCES[name]
+    for name, (src, replaces) in SOURCES.items():
+        err, ms, plain_ms = measured[name]
+        counts = int8_launches if name in W8A8_KERNELS else launches
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces, "launches": counts[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 Hopper (sm_90a) CUDA kernels.
 
 The port of the JAX/TPU package ``desta25_audio_tpu``, which stays the
-reference.  This package imports torch and never jax.  First slice:
-``DeSTA25AudioModel.generate()`` on the Q-Former configurations in bf16,
-with transcriptions supplied; see ROADMAP.md for what follows.
+reference.  This package imports torch and never jax.  Ported so far:
+``DeSTA25AudioModel.generate()`` on the Q-Former configurations with
+transcriptions supplied, bf16 towers with the Whisper encoder in bf16 or
+int8 (W8A8); see ROADMAP.md for what follows.
 """
 
 from .config import DeSTA25Config

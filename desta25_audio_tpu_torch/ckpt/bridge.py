@@ -28,7 +28,16 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _linear(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
-    out = {"w": _tensor(np.swapaxes(np.asarray(p["w"]), -1, -2), device)}
+    """A linear leaf, bf16/f32 ``{"w", "b"?}`` or int8 ``{"q", "s", "b"?}``
+    (with the "dual" leaves' ``w`` beside ``q``): ``w`` and ``q`` go from
+    ``[in, out]`` to ``[out, in]``; the per-output-channel scale ``s`` stays
+    f32 and ``b`` as it is."""
+    out = {}
+    for k in ("w", "q"):
+        if k in p:
+            out[k] = _tensor(np.swapaxes(np.asarray(p[k]), -1, -2), device)
+    if "s" in p:
+        out["s"] = _tensor(np.asarray(p["s"], np.float32), device)
     if "b" in p:
         out["b"] = _tensor(p["b"], device)
     return out
@@ -113,13 +122,15 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
                     device) -> Dict[str, Any]:
     """Convert a ``desta25_audio_tpu`` DeSTA param tree (leaves as numpy
     arrays, e.g. ``jax.tree.map(np.asarray, model.params)``) into the
-    port's tree on ``device``.  Quantized (int8) leaves are not supported
-    yet (ROADMAP.md Queue 1: int8 encoder and LLM)."""
+    port's tree on ``device``.  A quantized encoder
+    (``quantize_encoder_params``) is carried across; int8 LLM leaves are
+    not ported yet (ROADMAP.md Queue 1: int8 LLM)."""
     if config.connector_mode != "qformer_1":
         raise NotImplementedError("only the Q-Former connector is ported")
-    if (isinstance(np_tree["llm"]["layers"]["wq"], dict)
-            or "w" not in np_tree["whisper"]["encoder"]["layers"]["fc1"]):
-        raise NotImplementedError("int8 leaves are not ported yet")
+    if isinstance(np_tree["llm"]["layers"]["wq"], dict):
+        raise NotImplementedError(
+            "int8 LLM leaves are not ported yet (ROADMAP.md Queue 1: int8 "
+            "LLM)")
     return {
         "whisper": {"encoder": whisper_encoder_from_jax(
             np_tree["whisper"]["encoder"], device)},

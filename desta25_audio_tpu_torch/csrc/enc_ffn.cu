@@ -27,20 +27,6 @@ namespace {
 constexpr int BM = 128, BN = 128, BKT = 32;
 constexpr int LDA = BKT + 8;  // 40 bf16 = 80 bytes per row
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 __global__ void __launch_bounds__(256)
 gemm_bias_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
                  const bf16* __restrict__ bias, bf16* __restrict__ out,

@@ -1,8 +1,11 @@
 """DeSTA25AudioModel for the PyTorch port: the public ``generate()`` API.
 
-Counterpart of ``desta25_audio_tpu/models/desta.py`` for the first slice of
-the port: bf16 (or f32) towers, the Q-Former connector, transcriptions
-supplied by the caller.
+Counterpart of ``desta25_audio_tpu/models/desta.py`` for the slices ported
+so far: bf16 (or f32) towers, the Whisper encoder in bf16 or int8 (W8A8,
+``encoder_quant``), the Q-Former connector, transcriptions supplied by the
+caller.  The port has no ``from_pretrained`` yet, so the JAX package's
+inference default (``encoder_quant="auto"`` -> int8) is reached by calling
+:meth:`DeSTA25AudioModel.apply_inference_encoder_quant` after construction.
 
 - host phase A: WAV decode + energy VAD (a clip without speech gets the
   transcription " ");
@@ -31,6 +34,7 @@ from ..audio.vad import has_speech
 from ..config import DeSTA25Config
 from ..data.tokenizer import build_tokenizer
 from ..generate.decode import llm_generate
+from ..ops.quant import quantize_encoder_params
 from . import llm as tllm
 from .perception import perception_apply
 from .qformer import init_qformer_connector
@@ -68,11 +72,7 @@ def check_slice(config: DeSTA25Config) -> None:
     if config.llm_quant != "none":
         raise NotImplementedError(
             "int8 LLM weights are not ported yet (ROADMAP.md Queue 1: "
-            "int8 encoder and LLM)")
-    if config.resolved_encoder_quant(inference=False) != "none":
-        raise NotImplementedError(
-            "int8 encoder is not ported yet (ROADMAP.md Queue 1: int8 "
-            "encoder and LLM)")
+            "int8 LLM)")
 
 
 class DeSTA25AudioModel:
@@ -110,14 +110,31 @@ class DeSTA25AudioModel:
     def init_params(self, seed: int) -> Dict[str, Any]:
         g = torch.Generator(self.device).manual_seed(seed)
         with torch.no_grad():
-            return {
-                "whisper": {"encoder": init_whisper_encoder(
-                    self.enc_cfg, self.dtype, self.device, g)},
+            enc = init_whisper_encoder(self.enc_cfg, self.dtype, self.device,
+                                       g)
+            params = {
+                "whisper": {"encoder": enc},
                 "llm": tllm.init_llm(self.llm_cfg, self.dtype, self.device,
                                      g),
                 "connector": init_qformer_connector(
                     self.config, torch.float32, self.device, g),
             }
+            if self.config.resolved_encoder_quant(inference=False) == "int8":
+                params["whisper"]["encoder"] = quantize_encoder_params(enc)
+            return params
+
+    def apply_inference_encoder_quant(self) -> None:
+        """``encoder_quant="auto"`` resolves to int8 on the inference path
+        (the JAX package's ``_apply_inference_encoder_quant``): quantize the
+        frozen encoder ("dual" attention leaves, int8 FFN) unless it already
+        holds int8 leaves.  A no-op for ``encoder_quant="none"``."""
+        if self.config.resolved_encoder_quant(inference=True) != "int8":
+            return
+        enc = self.params["whisper"]["encoder"]
+        if "q" in enc["layers"]["fc1"]:
+            return
+        with torch.no_grad():
+            self.params["whisper"]["encoder"] = quantize_encoder_params(enc)
 
     @property
     def tokenizer(self):

@@ -4,11 +4,22 @@
 conv1 -> gelu -> conv2 (stride 2) -> gelu -> + sinusoidal positions ->
 pre-LN layers, each ``x + attn(ln1(x))`` then ``x + ffn(ln2(x))``, with the
 hidden state after each target layer collected as a tap (pre final LN, what
-the connector consumes).  Self-attention runs through
-``ops/enc_attention.packed_encoder_attention`` and the FFN through
-``ops/enc_ffn.encoder_ffn``: the hand-written kernels on the card.  Mel input
-is NWC ([B, frames, n_mels]) as in the JAX package.  The decoder (ASR in the
-loop) is not ported yet.
+the connector consumes).  Mel input is NWC ([B, frames, n_mels]) as in the
+JAX package.  The decoder (ASR in the loop) is not ported yet.
+
+Kernels, with the JAX package's dispatch (``whisper.py:167-273``):
+
+- self-attention: K2 ``packed_encoder_attention`` between the projections.
+  With int8 attention leaves (``ops/quant.quantize_encoder_params``) the
+  projections are the W8A8 kernels K5 ``qkv_w8a8`` and K6 ``proj_w8a8``
+  when the leaves have no bf16 ``w`` or the encoder batch is at most
+  ``INT8_ATTN_MAXB`` (env ``DESTA_ENC_ATTN_INT8_MAXB``, default 2);
+  otherwise ``linear`` on ``w``.
+- FFN: K3 ``encoder_ffn`` when ``fc1`` has a bf16 ``w``, K4
+  ``encoder_ffn_w8a8`` when it has int8 ``q``.
+
+The JAX package's TPU-only gates (tiling, ``T >= 512``, block sizes) are not
+mirrored: the kernels raise on shapes they do not take.
 
 Parameters: stacked layers (leading layer axis), linear weights
 ``[out, in]``, conv weights ``[out, in, 3]``.
@@ -17,6 +28,7 @@ Parameters: stacked layers (leading layer axis), linear weights
 from __future__ import annotations
 
 import math
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -25,7 +37,9 @@ import torch
 from ..config import WhisperConfig
 from ..ops.core import Params, conv1d, gelu, index_tree, layer_norm, linear
 from ..ops.enc_attention import packed_encoder_attention
-from ..ops.enc_ffn import encoder_ffn
+from ..ops.enc_ffn import encoder_ffn, encoder_ffn_w8a8
+from ..ops.quant import is_quantized
+from ..ops.w8a8_proj import proj_w8a8, qkv_w8a8
 
 
 def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
@@ -95,16 +109,53 @@ def init_whisper_encoder(cfg: WhisperConfig, dtype, device,
     }
 
 
+# The largest encoder batch at which "dual" attention leaves take the W8A8
+# arm: the JAX package's DESTA_ENC_ATTN_INT8_MAXB (default 2), read once
+# here as JAX reads it once per traced shape.
+INT8_ATTN_MAXB = int(os.environ.get("DESTA_ENC_ATTN_INT8_MAXB", "2"))
+
+
+def int8_attention(a: Params, batch: int) -> bool:
+    """The JAX package's per-batch arm choice (``whisper.py:190-193``):
+    int8 leaves without a bf16 ``w`` always take the W8A8 arm; "dual"
+    leaves take it up to :data:`INT8_ATTN_MAXB`."""
+    return is_quantized(a["q"]) and ("w" not in a["q"]
+                                     or batch <= INT8_ATTN_MAXB)
+
+
+def _enc_self_attn(a: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
+    if int8_attention(a, h.shape[0]):
+        q, k, v = qkv_w8a8(h, a["q"], a["k"], a["v"])
+        return proj_w8a8(packed_encoder_attention(q, k, v, n_heads), a["o"])
+    q, k, v = linear(a["q"], h), linear(a["k"], h), linear(a["v"], h)
+    return linear(a["o"], packed_encoder_attention(q, k, v, n_heads))
+
+
+def _enc_ffn(p: Params, h: torch.Tensor) -> torch.Tensor:
+    fc1, fc2 = p["fc1"], p["fc2"]
+    if "w" in fc1:
+        return encoder_ffn(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
+    return encoder_ffn_w8a8(h, fc1["q"], fc1["s"], fc1["b"], fc2["q"],
+                            fc2["s"], fc2["b"])
+
+
 def _enc_layer_apply(p: Params, x: torch.Tensor, n_heads: int
                      ) -> torch.Tensor:
-    a = p["attn"]
-    h = layer_norm(p["ln1"], x)
-    q, k, v = linear(a["q"], h), linear(a["k"], h), linear(a["v"], h)
-    x = x + linear(a["o"], packed_encoder_attention(q, k, v, n_heads))
-    h = layer_norm(p["ln2"], x)
-    h = encoder_ffn(h, p["fc1"]["w"], p["fc1"]["b"], p["fc2"]["w"],
-                    p["fc2"]["b"])
-    return x + h
+    x = x + _enc_self_attn(p["attn"], layer_norm(p["ln1"], x), n_heads)
+    return x + _enc_ffn(p, layer_norm(p["ln2"], x))
+
+
+def encoder_stem(params: Params, mel: torch.Tensor, cfg: WhisperConfig
+                 ) -> torch.Tensor:
+    """mel [B, 3000, n_mels] -> the first layer's input [B, 1500, D]:
+    conv1 -> gelu -> conv2 (stride 2) -> gelu -> + positions."""
+    if mel.shape[1] != cfg.expected_mel_frames:
+        raise ValueError(
+            f"Whisper expects mel length {cfg.expected_mel_frames}, got "
+            f"{mel.shape[1]}; pad/truncate the features first.")
+    x = gelu(conv1d(params["conv1"], mel, stride=1, padding=1))
+    x = gelu(conv1d(params["conv2"], x, stride=2, padding=1))
+    return x + params["embed_positions"][None, :x.shape[1]].to(x.dtype)
 
 
 def whisper_encoder_apply(params: Params, mel: torch.Tensor,
@@ -113,13 +164,7 @@ def whisper_encoder_apply(params: Params, mel: torch.Tensor,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """mel [B, 3000, n_mels] -> (final hidden [B, 1500, D] after ln_post,
     taps [n_taps, B, 1500, D]: the hidden state after each target layer)."""
-    if mel.shape[1] != cfg.expected_mel_frames:
-        raise ValueError(
-            f"Whisper expects mel length {cfg.expected_mel_frames}, got "
-            f"{mel.shape[1]}; pad/truncate the features first.")
-    x = gelu(conv1d(params["conv1"], mel, stride=1, padding=1))
-    x = gelu(conv1d(params["conv2"], x, stride=2, padding=1))
-    x = x + params["embed_positions"][None, :x.shape[1]].to(x.dtype)
+    x = encoder_stem(params, mel, cfg)
     taps = []
     wanted = set(target_layer_ids)
     for i in range(cfg.encoder_layers):

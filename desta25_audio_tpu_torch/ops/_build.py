@@ -49,6 +49,10 @@ SIGNATURES: Dict[str, Tuple] = {
     # k_norm, out, B, S, H, Hkv, Dh, eps, scale, stream
     "desta_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _F, _F, _P),
+    # x, x_is_f32, q, scale, M, K, seg, stream
+    "desta_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _P),
+    # epi, a, sa, nproj, (w, s, bias, out) x 3, M, N, K, seg, stream
+    "desta_gemm_s8": (_I, _P, _P, _I) + (_P,) * 12 + (_I, _I, _I, _I, _P),
 }
 
 _launches: Dict[str, int] = {}

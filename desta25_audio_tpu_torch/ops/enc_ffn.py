@@ -1,11 +1,22 @@
 """Whisper encoder FFN: fc2(gelu(fc1(x))) (port of
-``desta25_audio_tpu/ops/enc_ffn.py``'s bf16 kernel).
+``desta25_audio_tpu/ops/enc_ffn.py``: the bf16 kernel K3 and the W8A8
+kernel K4).
 
 Weights in the port's ``[out, in]`` layout: w1 [F, D], b1 [F], w2 [D, F],
-b2 [D].  On a CUDA tensor this launches the hand-written tiled bf16 GEMM of
-``csrc/enc_ffn.cu`` twice (fc1 with the bias + erf-GELU epilogue, fc2 with
-the bias epilogue); on a CPU tensor it runs :func:`encoder_ffn_plain`.  It
-never falls back from the card.
+b2 [D]; the int8 ones likewise (q1 [F, D], q2 [D, F], one f32 scale per
+output channel, ``ops/quant.py``).
+
+- :func:`encoder_ffn` (bf16): on a CUDA tensor the tiled bf16 GEMM of
+  ``csrc/enc_ffn.cu`` twice (fc1 with the bias + erf-GELU epilogue, fc2 with
+  the bias epilogue).
+- :func:`encoder_ffn_w8a8` (int8 weights): on a CUDA tensor four launches
+  of ``csrc/w8a8.cu``: per-row int8 quantisation of x, the int8 fc1 GEMM
+  with an f32 bias + GELU epilogue, the per-row per-1280-column
+  quantisation of the GELU output, and the segmented int8 fc2 GEMM.
+
+On a CPU tensor each runs its ``*_plain`` version; neither falls back from
+the card.  The row quantiser and the launches of ``csrc/w8a8.cu`` live in
+``ops/quant.py``, shared with ``ops/w8a8_proj.py``.
 """
 
 from __future__ import annotations
@@ -14,6 +25,19 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .quant import (
+    EPI_GELU,
+    EPI_SEG,
+    int_dot,
+    launch_gemm_s8,
+    launch_quant_rows,
+    quant_rows,
+    require_int8_leaf,
+)
+
+# K4 quantizes the GELU output per row and per chunk of this many columns
+# (desta25_audio_tpu/ops/enc_ffn.py:174-185), not over the whole row
+CHUNK_F = 1280
 
 
 def encoder_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -58,4 +82,46 @@ def encoder_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     out = torch.empty(B * T, D, dtype=x.dtype, device=x.device)
     _gemm(lib, x2, w1, b1, hidden, gelu=True)
     _gemm(lib, hidden, w2, b2, out, gelu=False)
+    return out.reshape(B, T, D)
+
+
+# -- W8A8 (K4) ----------------------------------------------------------------
+
+def encoder_ffn_w8a8_plain(x, q1, s1, b1, q2, s2, b2) -> torch.Tensor:
+    """Reference math of the TPU kernel K4, at its f32 rounding points.
+    (Exact erf here; the TPU kernel's A&S 7.1.26 erf is within 1.5e-7.)"""
+    B, T, D = x.shape
+    xq, sx = quant_rows(x.reshape(-1, D).float())
+    h = int_dot(xq, q1) * (sx * s1.float()) + b1.float()
+    g = F.gelu(h)
+    acc = None
+    for c0 in range(0, g.shape[1], CHUNK_F):
+        gq, sg = quant_rows(g[:, c0:c0 + CHUNK_F])
+        p = int_dot(gq, q2[:, c0:c0 + CHUNK_F]) * sg * s2.float()
+        acc = p if acc is None else acc + p
+    return (acc + b2.float()).to(x.dtype).reshape(B, T, D)
+
+
+def encoder_ffn_w8a8(x: torch.Tensor, q1, s1, b1, q2, s2, b2
+                     ) -> torch.Tensor:
+    """x [B, T, D] -> [B, T, D] through int8 fc1 (q1 [F, D]) and fc2
+    (q2 [D, F]) with per-output-channel scales s1 [F], s2 [D]."""
+    if x.device.type == "cpu":
+        return encoder_ffn_w8a8_plain(x, q1, s1, b1, q2, s2, b2)
+    name = "encoder_ffn_w8a8"
+    B, T, D = x.shape
+    Fd = q1.shape[0]
+    M = B * T
+    require_int8_leaf(name, q1, s1, b1, Fd, D)
+    require_int8_leaf(name, q2, s2, b2, D, Fd)
+    x2 = x.reshape(M, D)
+    _build.require_cuda(name, x2, dtype=torch.bfloat16)
+    lib = _build.library()
+    xq, sx = launch_quant_rows(lib, x2, D, name)
+    h = torch.empty(M, Fd, dtype=torch.float32, device=x.device)
+    launch_gemm_s8(lib, EPI_GELU, xq, sx, [(q1, s1, b1, h)], Fd, D, name)
+    gq, sg = launch_quant_rows(lib, h, CHUNK_F, name)
+    out = torch.empty(M, D, dtype=x.dtype, device=x.device)
+    launch_gemm_s8(lib, EPI_SEG, gq, sg, [(q2, s2, b2, out)], D, CHUNK_F,
+                   name)
     return out.reshape(B, T, D)

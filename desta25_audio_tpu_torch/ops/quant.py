@@ -1,0 +1,150 @@
+"""Symmetric int8 quantisation for the Whisper encoder (counterpart of
+``desta25_audio_tpu/ops/quant.py:30-53, 262-327`` and of the row quantiser
+``desta25_audio_tpu/ops/enc_ffn.py:161-166``).
+
+A quantized leaf is ``{"q": int8 [..., out, in], "s": float32 [..., out]}``
+(plus the linear's ``"b"``): one scale per output channel, in the port's
+``[out, in]`` layout, so the max runs over the last (``in``) axis.  Leading
+axes (the stacked layer axis) are carried through, which is what the JAX
+package's ``jax.vmap(quantize_weight)`` over layers computes.
+
+Activations are quantized per row at run time (:func:`quant_rows`).  This
+module also owns the launch interface of ``csrc/w8a8.cu`` (the row
+quantiser and the int8 GEMM), which the W8A8 kernels K4
+(``ops/enc_ffn.py``) and K5/K6 (``ops/w8a8_proj.py``) share.  The int8 LLM
+(``quantize_llm_params``, the weight-streaming matmul) is not ported yet
+(ROADMAP.md Queue 1: int8 LLM).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from . import _build
+
+QuantLeaf = Dict[str, torch.Tensor]
+
+# gemm_s8 epilogues (csrc/w8a8.cu)
+EPI_PROJ, EPI_GELU, EPI_SEG = 0, 1, 2
+
+
+def quantize_weight(w: torch.Tensor) -> QuantLeaf:
+    """[..., out, in] float -> {"q": int8, "s": f32 [..., out]}.
+
+    ``s = max(max|w| / 127, 1e-8)`` (a division, as in the JAX package) and
+    ``q = clip(round_half_even(w / s), -127, 127)``, all in f32."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(wf / s[..., None]), -127, 127)
+    return {"q": q.to(torch.int8), "s": s}
+
+
+def dequantize_weight(leaf: QuantLeaf, dtype=torch.bfloat16) -> torch.Tensor:
+    return (leaf["q"].float() * leaf["s"][..., None]).to(dtype)
+
+
+def is_quantized(leaf) -> bool:
+    return isinstance(leaf, dict) and "q" in leaf and "s" in leaf
+
+
+def quantize_linear(p: Dict[str, Any]) -> Dict[str, Any]:
+    """{"w", "b"?} -> {"q", "s", "b"?}; works on stacked weights too."""
+    out: Dict[str, Any] = dict(quantize_weight(p["w"]))
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def quantize_encoder_params(params: Dict[str, Any],
+                            attention: str = "dual") -> Dict[str, Any]:
+    """Quantize the Whisper encoder's stacked FFN (fc1, fc2) and, unless
+    ``attention="none"``, its q/k/v/o projections.
+
+    ``"dual"`` (the inference default) keeps each attention leaf's bf16
+    ``w`` beside ``q``/``s``, so ``models/whisper._enc_self_attn`` can pick
+    the int8 arm at small batch and the bf16 arm above
+    ``models/whisper.INT8_ATTN_MAXB``; ``"int8"`` drops ``w``.  The FFN
+    leaves become ``{q, s, b}``.  Conv stem, positions and LayerNorms are
+    kept as they are."""
+    if attention not in ("dual", "int8", "none"):
+        raise ValueError(f"attention={attention!r}")
+    layers = dict(params["layers"])
+    if attention != "none":
+        attn = dict(layers["attn"])
+        for k in ("q", "k", "v", "o"):
+            leaf = quantize_linear(attn[k])
+            if attention == "dual":
+                leaf["w"] = attn[k]["w"]
+            attn[k] = leaf
+        layers["attn"] = attn
+    for k in ("fc1", "fc2"):
+        layers[k] = quantize_linear(layers[k])
+    return {**params, "layers": layers}
+
+
+# -- activations: plain math -----------------------------------------------
+
+def quant_rows(x: torch.Tensor):
+    """f32 [m, k] -> (int8 [m, k], f32 [m, 1] scale); symmetric per row:
+    ``s = max(max|x|, 1e-8) * (1/127)`` (a multiplication, unlike the
+    weight scale), ``q = clip(round_half_even(x / s), -127, 127)``."""
+    s = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-8) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Exact integer product int8 a [m, k] . int8 w [n, k]^T -> f32 [m, n].
+    The sums stay below 2**53, so float64 is exact (f32 is not, for
+    127*127*1280-sized sums); one rounding to f32, as int32 -> f32."""
+    return (a.double() @ w.double().t()).float()
+
+
+# -- csrc/w8a8.cu launches ---------------------------------------------------
+
+def launch_quant_rows(lib, x: torch.Tensor, seg: int, name: str):
+    """quant_rows_kernel: x [M, K] bf16 or f32 -> (int8 [M, K], f32 scales
+    [M, ceil(K / seg)]); counts one launch of ``name``."""
+    M, K = x.shape
+    q = torch.empty(M, K, dtype=torch.int8, device=x.device)
+    s = torch.empty(M, -(-K // seg), dtype=torch.float32, device=x.device)
+    _build.check(lib.desta_quant_rows(
+        x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(),
+        s.data_ptr(), M, K, seg, _build.stream_ptr(x.device)), name)
+    _build.count_launch(name)
+    return q, s
+
+
+def launch_gemm_s8(lib, epi: int, a, sa, operands, N: int, seg: int,
+                   name: str) -> None:
+    """gemm_s8_kernel: a int8 [M, K] with row scales sa, against up to
+    three (w int8 [N, K], s f32 [N], bias bf16 [N] or None, out [M, N])
+    sets in one launch; counts one launch of ``name``."""
+    M, K = a.shape
+    ptrs = []
+    for w, s, b, out in operands:
+        ptrs += [w.data_ptr(), s.data_ptr(),
+                 None if b is None else b.data_ptr(), out.data_ptr()]
+    ptrs += [None] * (12 - len(ptrs))
+    _build.check(lib.desta_gemm_s8(
+        epi, a.data_ptr(), sa.data_ptr(), len(operands), *ptrs, M, N, K, seg,
+        _build.stream_ptr(a.device)), name)
+    _build.count_launch(name)
+
+
+def require_int8_leaf(name: str, q, s, b, n: int, k: int) -> None:
+    """Shapes, types and placement of one int8 linear (bias optional) as
+    the W8A8 kernels take it: q [n, k] int8, s [n] f32, b [n] bf16."""
+    if q.shape != (n, k) or s.shape != (n,) or (
+            b is not None and b.shape != (n,)):
+        raise ValueError(f"{name}: int8 leaf shapes {tuple(q.shape)} "
+                         f"{tuple(s.shape)} for [{n}, {k}]")
+    if n % 128 or k % 64:
+        raise ValueError(f"{name}: kernel needs N % 128 == 0 and K % 64 == 0"
+                         f", got N={n} K={k}")
+    _build.require_cuda(name, q, dtype=torch.int8)
+    _build.require_cuda(name, s, dtype=torch.float32)
+    if b is not None:
+        _build.require_cuda(name, b, dtype=torch.bfloat16)

@@ -1,11 +1,14 @@
 """Where the time of the flagship ``generate()`` goes, on one GPU.
 
-    python -m desta25_audio_tpu_torch.profile_generate [--batch 2]
+    python -m desta25_audio_tpu_torch.profile_generate [--batch 2] \
+        [--int8-encoder]
 
 Builds the flagship configuration (configs/desta25_llama31-8B_Qformer6L.yaml,
-bf16, random weights from a seed, CharTokenizer), warms up once, then runs
-three phases under ``torch.profiler``: perception (host phases, mel,
-encoder, Q-Former, splice), prefill (``llm_generate`` with one new token),
+bf16, random weights from a seed, CharTokenizer; with ``--int8-encoder``
+the encoder is switched to the JAX package's inference default, int8 W8A8),
+warms up once, then runs three phases under ``torch.profiler``: perception
+(host phases, mel, encoder, Q-Former, splice), prefill (``llm_generate``
+with one new token),
 and prefill + 32 greedy decode steps.  For each phase it prints the wall
 time (host clock, device synchronised), the device busy time (sum of kernel
 times), the idle share, and the kernels by total device time.  Needs CUDA;
@@ -64,6 +67,10 @@ def report(name: str, fn, top: int = 12):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--int8-encoder", action="store_true",
+                    help="the JAX package's inference encoder: "
+                    "apply_inference_encoder_quant() (int8 FFN, dual "
+                    "attention leaves) before the runs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
@@ -73,6 +80,8 @@ def main() -> None:
     cfg = config_from_yaml_file(CONFIG)
     model = DeSTA25AudioModel(cfg, device="cuda", seed=0,
                               tokenizer=CharTokenizer("llama3"))
+    if args.int8_encoder:
+        model.apply_inference_encoder_quant()
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as d, torch.no_grad():
         convs = []

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card, at odd
 shapes the flagship run does not reach (ragged tiles, one row, 3/5/9 decode
-rows, grouped-query ratios, qk-norm).  Marked ``cuda``: each test skips
+rows, grouped-query ratios, qk-norm, a K4 hidden narrower than one
+1280-wide chunk, of two chunks and of two and a half, and one whose chunks
+differ 64x in scale).  Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -18,11 +20,23 @@ from desta25_audio_tpu_torch.ops.enc_attention import (
     packed_encoder_attention,
     packed_encoder_attention_plain,
 )
-from desta25_audio_tpu_torch.ops.enc_ffn import encoder_ffn, encoder_ffn_plain
+from desta25_audio_tpu_torch.ops.enc_ffn import (
+    encoder_ffn,
+    encoder_ffn_plain,
+    encoder_ffn_w8a8,
+    encoder_ffn_w8a8_plain,
+)
 from desta25_audio_tpu_torch.ops.fused_decode import (
     KVCache,
     fused_decode_layers,
     fused_decode_layers_plain,
+)
+from desta25_audio_tpu_torch.ops.quant import quantize_linear
+from desta25_audio_tpu_torch.ops.w8a8_proj import (
+    proj_w8a8,
+    proj_w8a8_plain,
+    qkv_w8a8,
+    qkv_w8a8_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -63,6 +77,59 @@ def test_enc_ffn_kernel(gen, M, D, F):
     b2 = torch.randn(D, generator=gen, device="cuda").to(bf)
     got = encoder_ffn(x, w1, b1, w2, b2)
     assert _rel(got, encoder_ffn_plain(x, w1, b1, w2, b2)) < 2e-2
+
+
+# K4-K6 against their plain versions: the int32 sums are exact and the f32
+# epilogues run in the plain version's order (bit-identical on the H100), so
+# only an erff-vs-erf step (~1e-4 of the output scale) may show; a K4 hidden
+# quantized per row instead of per 1280-column chunk lands at ~1.5e-2
+TOL_W8A8 = 1e-3
+
+
+def _int8_leaf(gen, n, k, bias=True, mult=1.0):
+    p = {"w": (torch.randn(n, k, generator=gen, device="cuda")
+               / k ** .5 * mult).bfloat16()}
+    if bias:
+        p["b"] = (0.1 * torch.randn(n, generator=gen, device="cuda")
+                  ).bfloat16()
+    return quantize_linear(p)
+
+
+@pytest.mark.parametrize("B,T,D,N", [(1, 1, 128, 128), (1, 130, 256, 384),
+                                     (2, 75, 128, 256)])
+def test_w8a8_proj_kernels(gen, B, T, D, N):
+    x = torch.randn(B, T, D, generator=gen, device="cuda").bfloat16()
+    lq, lk, lv = (_int8_leaf(gen, N, D, bias=b) for b in (True, False, True))
+    _build.reset_launch_counts()
+    got = qkv_w8a8(x, lq, lk, lv)
+    one = proj_w8a8(x, lq)
+    # one row quantisation and one GEMM launch for each wrapper call
+    assert _build.launch_counts() == {"qkv_w8a8": 2, "proj_w8a8": 2}
+    for g, w in zip(got + (one,), qkv_w8a8_plain(x, lq, lk, lv) + (
+            proj_w8a8_plain(x, lq),)):
+        assert g.shape == (B, T, N) and g.is_contiguous()
+        assert _rel(g, w) < TOL_W8A8
+
+
+@pytest.mark.parametrize("M,D,F,skew", [
+    (1, 128, 256, False), (130, 128, 384, False), (257, 256, 2560, False),
+    (257, 256, 3200, False),   # a last chunk of 640 columns
+    (130, 128, 2560, True),    # chunk 1 64x below chunk 0, fc2 64x above
+])
+def test_encoder_ffn_w8a8_kernel(gen, M, D, F, skew):
+    x = torch.randn(1, M, D, generator=gen, device="cuda").bfloat16()
+    mult = torch.ones(F, device="cuda")
+    if skew:
+        mult[1280:] = 1 / 64
+    l1 = _int8_leaf(gen, F, D, mult=mult[:, None])
+    l2 = _int8_leaf(gen, D, F, mult=1 / mult[None, :])
+    args = (x, l1["q"], l1["s"], l1["b"], l2["q"], l2["s"], l2["b"])
+    _build.reset_launch_counts()
+    got = encoder_ffn_w8a8(*args)
+    # quantise x, fc1 + GELU, quantise the hidden per 1280 columns, fc2
+    assert _build.launch_counts() == {"encoder_ffn_w8a8": 4}
+    assert got.shape == (1, M, D)
+    assert _rel(got, encoder_ffn_w8a8_plain(*args)) < TOL_W8A8
 
 
 @pytest.mark.parametrize("B,qk_norm,heads", [
@@ -110,3 +177,9 @@ def test_wrappers_raise_on_what_they_do_not_take(gen):
     b = torch.zeros(256, device="cuda").bfloat16()
     with pytest.raises(ValueError, match="contiguous"):
         encoder_ffn(qb, w, b, w.t(), b[:128])
+    leaf = quantize_linear({"w": w, "b": b})
+    with pytest.raises(ValueError, match="bfloat16"):
+        qkv_w8a8(q, leaf, leaf, leaf)                    # f32 on the card
+    with pytest.raises(ValueError, match="N % 128"):
+        proj_w8a8(torch.zeros(1, 8, 256, device="cuda").bfloat16(),
+                  quantize_linear({"w": w.t()[:96].contiguous()}))
