@@ -40,7 +40,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 11. ``generate()`` at b2 and b1 (int8 attention arm: K5, K2, K6 and K4
     launch, K3 does not) and at b4 (bf16 attention arm: K2 and K4 launch,
     K5 and K6 do not); the b2 path step by step as in 8;
-12. print the int8 encoder's per-phase times.
+12. print the int8 encoder's per-phase times;
+13. the int8 LLM's kernels against their plain versions, on the model's LLM
+    quantized into a second tree (``quantize_llm_params``): K7
+    quant_matmul at M=2 on the head (N=130560) and at M=125 on each layer
+    shape, the W8A8 prefill GEMM at M=250 on each layer shape and the head
+    (both in f32, gated at TOL_QMM), K8 with the int8 stream (32 layers,
+    B=2, S=256, per-row ci) and the verify step K8v (Kd=4, B=2, one row's
+    block ending at S) on the bf16 and the int8 tower, gated as K8;
+14. quantize the model's own LLM in place (``apply_llm_quant``);
+15. ``generate()`` with the int8 LLM (and the int8 encoder) at b2 and b1
+    (the 121-token conversation), greedy, 32 new tokens: W8A8 (b2
+    prefill, M = 296), K7 (b1 prefill at M = 121, every decode step's
+    head) and K8-int8 must launch, the bf16 K8 must not; the b2 path step
+    by step as in 8;
+16. ``generate(speculative_k=4)`` at b2 on the int8 tower: K8v must
+    launch; the first verify step's position-0 logits against one K8-int8
+    step on the same cache, within TOL_DECODE; verify steps, tokens per
+    step, ms per emitted token and the agreement with 15's greedy ids are
+    printed (information).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,7 +85,11 @@ TOL_W8A8 = 1e-3      # K4-K6 alone: the int32 sums are exact and the f32
                      # an erff-vs-erf step (~1e-4) may show; a K4 hidden
                      # quantized per row instead of per 1280-column chunk
                      # lands at ~1.5e-2 (~2e-1 on the skewed case)
-TOL_DECODE = 3e-2    # K8: the bound of tests/test_fused_decode.py:77
+TOL_DECODE = 3e-2    # K8, K8-int8, K8v: the bound of
+                     # tests/test_fused_decode.py:77
+TOL_QMM = 1e-3       # K7 and the LLM's W8A8 GEMM, both in f32: W8A8's int32
+                     # sums are exact and its epilogue runs in the plain
+                     # version's order; K7's f32 sums differ only in order
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 SOURCES = {
@@ -89,10 +111,24 @@ SOURCES = {
     "proj_w8a8": (
         "desta25_audio_tpu_torch/csrc/w8a8.cu",
         "desta25_audio_tpu/ops/w8a8_proj.py:56"),
+    "quant_matmul": (
+        "desta25_audio_tpu_torch/csrc/qmm.cu",
+        "desta25_audio_tpu/ops/quant.py:63"),
+    # the int8 LLM's prefill at M >= 128: XLA on the TPU, not Pallas
+    "w8a8_matmul": (
+        "desta25_audio_tpu_torch/csrc/w8a8.cu",
+        "desta25_audio_tpu/ops/quant.py:123"),
+    "fused_decode_layers_int8": (
+        "desta25_audio_tpu_torch/csrc/fused_decode.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:423"),
+    "fused_verify_layers": (
+        "desta25_audio_tpu_torch/csrc/fused_decode.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:1159"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("packed_encoder_attention", "encoder_ffn", "fused_decode_layers")
 W8A8_KERNELS = ("encoder_ffn_w8a8", "qkv_w8a8", "proj_w8a8")
+INT8_LLM_KERNELS = ("quant_matmul", "w8a8_matmul", "fused_decode_layers_int8")
 
 
 def gpu_line() -> str:
@@ -251,38 +287,44 @@ def check_w8a8(gen):
 
 
 def _layer_slice(params, lo: int, hi: int):
-    """Layers lo..hi-1 of a stacked LLM param tree (views, no copies)."""
-    lay = {k: ({"scale": v["scale"][lo:hi]} if isinstance(v, dict)
+    """Layers lo..hi-1 of a stacked LLM param tree (views, no copies); a
+    dict leaf (norm scale, int8 q/s) is sliced key by key."""
+    lay = {k: ({kk: vv[lo:hi] for kk, vv in v.items()} if isinstance(v, dict)
                else v[lo:hi]) for k, v in params["layers"].items()}
     return {**params, "layers": lay}
 
 
-def check_fused_decode(params, cfg, gen):
-    """K8 on the flagship LLM params (full width, all 32 layers).
+def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8"):
+    """A decode step (kd = 1: K8, or K8-int8 on an int8 tree) or a verify
+    step (kd > 1: K8v) on the flagship LLM params (full width, all 32
+    layers), kd tokens per row written at ci..ci+kd-1.
 
     Checked three ways: (1) every layer alone, both versions fed the same
-    input (the plain trajectory), hidden and written k row within
+    input (the plain trajectory), hidden and written k rows within
     TOL_DECODE; (2) logits through the first two layers within TOL_DECODE,
     the setting of tests/test_fused_decode.py; (3) logits through all 32
     layers, printed beside the plain version's own change when one input
     element moves by one bf16 ulp: with random weights small rounding
     differences grow through the stack, so (3) is informative.  The cache
-    must change at the rows ci and nowhere else."""
+    must change at the rows ci..ci+kd-1 and nowhere else."""
     import torch
     from desta25_audio_tpu_torch.models import llm as tllm
     from desta25_audio_tpu_torch.ops.core import rms_norm
     from desta25_audio_tpu_torch.ops.fused_decode import (
-        KVCache, fused_decode_layers, fused_decode_layers_plain)
+        KVCache, fused_decode_layers, fused_decode_layers_plain,
+        fused_verify_layers)
+    kernel = fused_decode_layers if kd == 1 else fused_verify_layers
     B, S, L = 2, 256, cfg.num_hidden_layers
-    ci = torch.tensor([100, 200], device="cuda")
+    ci = torch.tensor(ci, device="cuda")
     cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
     cache0.k.normal_(generator=gen)
     cache0.v.normal_(generator=gen)
     mask = torch.zeros(B, S, dtype=torch.int32, device="cuda")
-    mask[0, 10:101] = 1          # row 0: left padding of 10, token at 100
-    mask[1, :201] = 1
-    positions = (ci - torch.tensor([10, 0], device="cuda"))[:, None]
-    ids = torch.randint(0, 512, (B, 1), generator=gen, device="cuda")
+    mask[0, 10:] = 1             # row 0: left padding of 10
+    mask[1, :] = 1
+    steps = torch.arange(kd, device="cuda")[None, :]
+    positions = (ci - torch.tensor([10, 0], device="cuda"))[:, None] + steps
+    ids = torch.randint(0, 512, (B, kd), generator=gen, device="cuda")
     x = tllm.embed_tokens(params, ids)
 
     def fresh(lo=0, hi=L):
@@ -297,46 +339,48 @@ def check_fused_decode(params, cfg, gen):
     h, worst, worst_row = x, 0.0, 0.0
     for l in range(L):
         pl_ = _layer_slice(params, l, l + 1)
-        hk, _ = fused_decode_layers(pl_, cfg, h, mask, positions,
-                                    KVCache(ck.k[l:l + 1], ck.v[l:l + 1]), ci)
+        hk, _ = kernel(pl_, cfg, h, mask, positions,
+                       KVCache(ck.k[l:l + 1], ck.v[l:l + 1]), ci)
         hp, _ = fused_decode_layers_plain(
             pl_, cfg, h, mask, positions,
             KVCache(cp.k[l:l + 1], cp.v[l:l + 1]), ci)
         worst = max(worst, rel_err(hk, hp)[1])
         for b in range(B):
-            worst_row = max(worst_row, rel_err(ck.k[l, b, ci[b]],
-                                               cp.k[l, b, ci[b]])[1])
+            rows = slice(int(ci[b]), int(ci[b]) + kd)
+            worst_row = max(worst_row, rel_err(ck.k[l, b, rows],
+                                               cp.k[l, b, rows])[1])
         h = hp
     changed = (ck.k != cache0.k).any(-1) | (ck.v != cache0.v).any(-1)
     expect = torch.zeros_like(changed)
-    expect[:, torch.arange(B, device="cuda"), ci] = True
+    for b in range(B):
+        expect[:, b, int(ci[b]):int(ci[b]) + kd] = True
     if not bool((changed == expect).all()):
-        raise AssertionError("K8 wrote cache rows other than ci")
+        raise AssertionError(f"{tag} wrote cache rows other than ci..ci+kd-1")
     # (2) logits through two layers
     p2 = _layer_slice(params, 0, 2)
-    err2, rel2 = rel_err(logits(fused_decode_layers, p2, fresh(0, 2)),
+    err2, rel2 = rel_err(logits(kernel, p2, fresh(0, 2)),
                          logits(fused_decode_layers_plain, p2, fresh(0, 2)))
     # (3) logits through the whole stack, and the plain version's own
     # sensitivity to a one-ulp change of one input element
     want = logits(fused_decode_layers_plain, params, fresh())
-    _, rel_all = rel_err(logits(fused_decode_layers, params, fresh()), want)
+    _, rel_all = rel_err(logits(kernel, params, fresh()), want)
     x_ulp = x.clone()
     x_ulp.view(torch.int16)[0, 0, 0] += 1
     _, rel_ulp = rel_err(logits(fused_decode_layers_plain, params, fresh(),
                                 x_ulp), want)
-    ms = cuda_time_ms(lambda: fused_decode_layers(
+    ms = cuda_time_ms(lambda: kernel(
         params, cfg, x, mask, positions, ck, ci), iters=5)
     plain_ms = cuda_time_ms(lambda: fused_decode_layers_plain(
         params, cfg, x, mask, positions, cp, ci), iters=5)
-    print(f"K8 fused_decode_layers L={L} B={B} S={S} ci={ci.tolist()}: "
-          f"per-layer hidden rel={worst:.3e}, written k-row rel="
-          f"{worst_row:.3e}, 2-layer logits max_abs_err={err2:.3e} "
-          f"rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at ci only; "
-          f"{L}-layer logits rel={rel_all:.3e} (plain vs plain with one "
-          f"input ulp moved: {rel_ulp:.3e}); kernel {ms:.4f} ms/step, "
-          f"plain {plain_ms:.4f} ms/step", flush=True)
+    print(f"{tag} {kernel.__name__} L={L} B={B} Kd={kd} S={S} "
+          f"ci={ci.tolist()}: per-layer hidden rel={worst:.3e}, written "
+          f"k-row rel={worst_row:.3e}, 2-layer logits max_abs_err="
+          f"{err2:.3e} rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at "
+          f"ci..ci+{kd - 1} only; {L}-layer logits rel={rel_all:.3e} (plain "
+          f"vs plain with one input ulp moved: {rel_ulp:.3e}); kernel "
+          f"{ms:.4f} ms/step, plain {plain_ms:.4f} ms/step", flush=True)
     if max(worst, worst_row, rel2) > TOL_DECODE:
-        raise AssertionError(f"K8 disagrees: layer {worst} k-row "
+        raise AssertionError(f"{tag} disagrees: layer {worst} k-row "
                              f"{worst_row} logits {rel2}")
     return err2, ms, plain_ms
 
@@ -359,7 +403,10 @@ def write_wavs(d: str):
 def conversations(wavs):
     """Four conversations, one clip each: b2 = the first two, b1 = the
     second, b4 = all four (an encoder batch of 4, above the int8
-    attention arm's limit of 2)."""
+    attention arm's limit of 2).  With the CharTokenizer their prompts are
+    148, 141, 121 and 135 tokens long: the int8 LLM's b1 run takes the
+    third, whose prefill (M = 121 rows) goes through K7, while b2's
+    (M = 2 * 148) goes through the W8A8 GEMM."""
     wav_a, wav_b = wavs
     conv_a = [{"role": "system", "content": "Focus on the audio."},
               {"role": "user", "content": "What do you hear? <|AUDIO|>",
@@ -575,6 +622,177 @@ def check_int8_encoder(model, signals, convs, gpu):
     return total
 
 
+def check_int8_matmuls(qllm, gen):
+    """Phase 13a: K7 (quant_matmul) at M=2 on the int8 head and at M=125 on
+    layer 0's four weight shapes, and the W8A8 prefill GEMM at M=250 on the
+    same shapes and the head, each against its plain version in f32 within
+    TOL_QMM.  Returns {name: (worst err, ms, plain_ms)}: K7's times are the
+    M=2 head's (every decode step runs it), W8A8's the sum over one layer's
+    four shapes (one layer of the b2 prefill)."""
+    import torch
+    from desta25_audio_tpu_torch.ops.qmm import (qmm, qmm_plain, w8a8_matmul,
+                                                 w8a8_matmul_plain)
+    lay = qllm["layers"]
+    leaves = {k: {"q": lay[k]["q"][0], "s": lay[k]["s"][0]}
+              for k in ("wqkv", "wo", "w_gu", "w_down")}
+    leaves["head"] = qllm["lm_head"]
+
+    def run(tag, kern, plain, M, name):
+        leaf = leaves[name]
+        N, K = leaf["q"].shape
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+
+        def call(fn):
+            return fn(x, leaf["q"], leaf["s"], torch.float32)
+        err, rel = rel_err(call(kern), call(plain))
+        ms = cuda_time_ms(lambda: call(kern))
+        plain_ms = cuda_time_ms(lambda: call(plain), iters=3)
+        print(f"{tag} {kern.__name__} {name} M={M} N={N} K={K}: max_abs_err="
+              f"{err:.3e} rel={rel:.3e} (tol {TOL_QMM}) kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms", flush=True)
+        if rel > TOL_QMM:
+            raise AssertionError(f"{tag} disagrees on {name} M={M}: {rel}")
+        return err, ms, plain_ms
+
+    k7 = [run("K7", qmm, qmm_plain, 2, "head")]
+    k7 += [run("K7", qmm, qmm_plain, 125, n) for n in list(leaves)[:4]]
+    w8 = [run("W8A8", w8a8_matmul, w8a8_matmul_plain, 250, n) for n in leaves]
+    return {"quant_matmul": (max(r[0] for r in k7), k7[0][1], k7[0][2]),
+            "w8a8_matmul": (max(r[0] for r in w8),
+                            sum(r[1] for r in w8[:4]),
+                            sum(r[2] for r in w8[:4]))}
+
+
+def check_verify_position0(model, convs, drafts) -> float:
+    """Phase 16's check: after the b2 prefill, the first verify step's
+    position-0 logits (token 0 = the first greedy token, then the drafts)
+    against one K8-int8 decode step of that token on a copy of the same
+    cache, within TOL_DECODE (same math: the draft block of token 0 is the
+    token itself)."""
+    import torch
+    from desta25_audio_tpu_torch.generate.speculative import spec_cache_len
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.core import rms_norm
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        KVCache, fused_decode_layers, fused_verify_layers)
+    llm, cfg = model.params["llm"], model.llm_cfg
+    embeds, mask, _, _ = model._run_generation_phases(convs, {})
+    B, T, _ = embeds.shape
+    kd = 1 + drafts.shape[1]
+    S = spec_cache_len(T, 32, kd)
+    cache = tllm.init_kv_cache(cfg, B, S, embeds.dtype, embeds.device)
+    full = torch.zeros(B, S, dtype=torch.int32, device=embeds.device)
+    full[:, :T] = mask
+    pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
+    logits, cache = tllm.llm_apply(llm, cfg, inputs_embeds=embeds,
+                                   attention_mask=full, positions=pos,
+                                   cache=cache, cache_index=0)
+    full[:, T:] = 1
+    tok0 = logits[:, -1].argmax(-1)
+    toks = torch.cat([tok0[:, None], drafts], 1)
+    steps = torch.arange(kd, device=embeds.device)[None, :]
+    cv = KVCache(cache.k.clone(), cache.v.clone())
+    hv, _ = fused_verify_layers(llm, cfg, tllm.embed_tokens(llm, toks), full,
+                                pos[:, -1:] + 1 + steps, cv, T)
+    hd, _ = fused_decode_layers(llm, cfg, tllm.embed_tokens(llm, toks[:, :1]),
+                                full, pos[:, -1:] + 1, cache, T)
+
+    def head(h):
+        return tllm.head_logits(llm, rms_norm(llm["norm"], h,
+                                              cfg.rms_norm_eps))
+    err, rel = rel_err(head(hv[:, :1]), head(hd))
+    print(f"K8v position 0 vs one K8-int8 step on the same cache (b2, T={T},"
+          f" Kd={kd}): max_abs_err={err:.3e} rel={rel:.3e} (tol "
+          f"{TOL_DECODE})", flush=True)
+    if rel > TOL_DECODE:
+        raise AssertionError(f"K8v position 0 disagrees with K8-int8: {rel}")
+    return err
+
+
+def run_int8_llm(model, convs, gpu):
+    """Phases 14-16 on the flagship model (int8 encoder already applied).
+    Returns (launch counts summed over the int8 generate() runs, launch
+    counts of the speculative run, the position-0 error)."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.ops.quant import is_quantized
+    # -- 14. quantize the model's LLM in place -------------------------------
+    t0 = time.perf_counter()
+    model.apply_llm_quant()
+    torch.cuda.synchronize()
+    llm = model.params["llm"]
+    if not (is_quantized(llm["layers"]["w_gu"])
+            and llm["lm_head"]["q"].shape[0] % 2560 == 0):
+        raise AssertionError("apply_llm_quant: not the int8 tree")
+    torch.cuda.empty_cache()
+    print(f"LLM quantized in place in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
+
+    # -- 15. int8 generate() at b2 and b1 ------------------------------------
+    L = model.llm_cfg.num_hidden_layers
+    runs = {2: convs[:2], 1: convs[2]}
+    model.generate(runs[2], do_sample=False, max_new_tokens=2)   # warm-up
+    outs, times, total = {}, {}, {}
+    for b, msgs in runs.items():
+        _build.reset_launch_counts()
+        outs[b] = model.generate(msgs, do_sample=False, max_new_tokens=32)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        times[b] = dict(model.last_timings)
+        print(f"int8 LLM: launches during generate() b{b}: "
+              f"{json.dumps(counts)}", flush=True)
+        must = ("quant_matmul", "fused_decode_layers_int8") + (
+            ("w8a8_matmul",) if b == 2 else ())
+        for name in must:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"int8 LLM b{b}: {name} not launched")
+        if counts.get("fused_decode_layers", 0):
+            raise AssertionError("int8 LLM: the bf16 K8 was launched")
+        if b == 1 and (counts.get("w8a8_matmul", 0)
+                       or counts["quant_matmul"] < 4 * L + 1):
+            raise AssertionError("int8 LLM b1: the prefill did not take K7")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    check_outputs(model, [(outs[b], b) for b in runs])
+    check_step_by_step(model, runs[2], outs[2])
+    print(f"int8 LLM generated ids b2 row0[:8]={outs[2].generated_ids[0][:8]}"
+          f" b1[:8]={outs[1].generated_ids[0][:8]}", flush=True)
+    print_times("int8 LLM + int8 encoder", sorted(times.items()), gpu)
+
+    # -- 16. speculative generate() at b2 ------------------------------------
+    model.generate(runs[2], do_sample=False, max_new_tokens=4,
+                   speculative_k=4)                              # warm-up
+    _build.reset_launch_counts()
+    spec = model.generate(runs[2], do_sample=False, max_new_tokens=32,
+                          speculative_k=4)
+    torch.cuda.synchronize()
+    spec_counts = _build.launch_counts()
+    t = dict(model.last_timings)
+    print(f"speculative b2: launches during generate(): "
+          f"{json.dumps(spec_counts)}", flush=True)
+    if spec_counts.get("fused_verify_layers", 0) <= 0:
+        raise AssertionError("speculative b2: K8v was not launched")
+    check_outputs(model, [(spec, 2)])
+    err0 = check_verify_position0(
+        model, runs[2],
+        torch.tensor(spec.generated_ids, device=model.device)[:, 1:4])
+    steps, emitted = int(t["decode_steps"]), int(t["spec_tokens"])
+    plain = times[2]
+    plain_tokens = sum(len(r) - 1 for r in outs[2].generated_ids)
+    agree = [next((i for i, (a, c) in enumerate(zip(r, p)) if a != c),
+                  len(r)) for r, p in zip(spec.generated_ids,
+                                          outs[2].generated_ids)]
+    print(f"speculative b2 (k=4) ({gpu}): prefill {t['prefill_ms']:.1f} ms, "
+          f"{steps} verify steps for {emitted} tokens after the first "
+          f"({emitted / max(steps, 1):.2f} tokens/step for the batch), decode"
+          f" {t['decode_ms'] / max(emitted, 1):.3f} ms per emitted token "
+          f"(plain greedy: {plain['decode_ms'] / max(plain_tokens, 1):.3f});"
+          f" leading ids equal to the plain greedy run (information): "
+          f"{agree} of 32", flush=True)
+    return total, spec_counts, err0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -653,21 +871,45 @@ def main() -> int:
     # -- 10-12. the int8 (W8A8) inference encoder ----------------------------
     with torch.no_grad():
         int8_launches = check_int8_encoder(model, signals, convs, gpu)
+
+    # -- 13. the int8 LLM's kernels vs plain, on a quantized copy ------------
+    from desta25_audio_tpu_torch.ops.quant import quantize_llm_params
+    with torch.no_grad():
+        gen8 = torch.Generator("cuda").manual_seed(2)
+        k8v_bf16 = check_fused_decode(model.params["llm"], model.llm_cfg,
+                                      gen8, kd=4, ci=(100, 252), tag="K8v")
+        qllm = quantize_llm_params(model.params["llm"])
+        llm8 = check_int8_matmuls(qllm, gen8)
+        llm8["fused_decode_layers_int8"] = check_fused_decode(
+            qllm, model.llm_cfg, gen8, tag="K8-int8")
+        k8v = check_fused_decode(qllm, model.llm_cfg, gen8, kd=4,
+                                 ci=(100, 252), tag="K8v")
+        llm8["fused_verify_layers"] = (max(k8v[0], k8v_bf16[0]),) + k8v[1:]
+        del qllm
+
+        # -- 14-16. the int8 LLM in generate(), plain and speculative -------
+        llm_launches, spec_launches, _ = run_int8_llm(model, convs, gpu)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # K2's entry: the worse error of its two shapes, the times of the
     # self-attention shape; K8's: the 2-layer logits error, the 32-layer
-    # step times; K4-K6: the worse error of M=1500/3000, the M=3000 times.
-    # Launches: K2, K3, K8 from the bf16 generate() run, K4-K6 from the
-    # int8 generate() runs.
+    # step times; K4-K6: the worse error of M=1500/3000, the M=3000 times;
+    # K7: the worst error, the M=2 head times; W8A8 (LLM): the worst
+    # error, one layer's four shapes at M=250; K8-int8 and K8v (int8
+    # tower; error the worse of both towers): as K8.  Launches: K2, K3, K8
+    # from the bf16 generate() run, K4-K6 from the int8-encoder runs, K7,
+    # W8A8 and K8-int8 from the int8-LLM runs, K8v from the speculative run.
     measured = {"packed_encoder_attention":
                 (max(k2[0][0], k2[1][0]), k2[0][1], k2[0][2]),
-                "encoder_ffn": k3, "fused_decode_layers": k8, **w8}
+                "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         err, ms, plain_ms = measured[name]
-        counts = int8_launches if name in W8A8_KERNELS else launches
+        counts = (int8_launches if name in W8A8_KERNELS
+                  else llm_launches if name in INT8_LLM_KERNELS
+                  else spec_launches if name == "fused_verify_layers"
+                  else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})

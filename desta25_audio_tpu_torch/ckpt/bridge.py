@@ -91,22 +91,43 @@ def connector_from_jax(p, device):
     }
 
 
+def _fused_weight(leaves, how: str, device):
+    """JAX per-projection weights -> one port weight: bf16 ``[L, in, out]``
+    arrays, or int8 leaves ``{"q" [L, in, out], "s" [L, out]}``, joined
+    along ``out`` (``how="concat"``: q, k, v) or row-interleaved
+    (``how="interleave"``: gate, up), then stored ``[L, out, in]``."""
+    def join(arrs):
+        arrs = [np.asarray(a) for a in arrs]
+        if how == "concat":
+            return np.concatenate(arrs, axis=-1)
+        return np.stack(arrs, axis=-1).reshape(*arrs[0].shape[:-1], -1)
+    if isinstance(leaves[0], dict):
+        return _linear({"q": join([l["q"] for l in leaves]),
+                        "s": join([l["s"] for l in leaves])}, device)
+    return _linear({"w": join(leaves)}, device)["w"]
+
+
+def _weight(p, device):
+    """One JAX weight (bf16 [.., in, out] or an int8 leaf) -> port layout."""
+    if isinstance(p, dict):
+        return _linear(p, device)
+    return _linear({"w": p}, device)["w"]
+
+
 def llm_from_jax(p, device):
-    """JAX LLM subtree -> port layout (fused wqkv, interleaved w_gu)."""
+    """JAX LLM subtree -> port layout (fused wqkv, interleaved w_gu), bf16
+    or int8 (``quantize_llm_params``: ``{q, s}`` leaves and a padded int8
+    ``lm_head``)."""
     lay = p["layers"]
-    T = lambda a: np.swapaxes(np.asarray(a), -1, -2)  # noqa: E731
-    wqkv = np.concatenate([np.asarray(lay[k]) for k in ("wq", "wk", "wv")],
-                          axis=-1)                       # [L, D, HD+2KVD]
-    gate, up = np.asarray(lay["w_gate"]), np.asarray(lay["w_up"])
-    w_gu = np.stack([gate, up], axis=-1).reshape(
-        gate.shape[0], gate.shape[1], -1)                # [L, D, 2I]
     layers = {
         "ln1": _norm(lay["ln1"], device),
-        "wqkv": _tensor(T(wqkv), device),
-        "wo": _tensor(T(lay["wo"]), device),
+        "wqkv": _fused_weight([lay[k] for k in ("wq", "wk", "wv")],
+                              "concat", device),
+        "wo": _weight(lay["wo"], device),
         "ln2": _norm(lay["ln2"], device),
-        "w_gu": _tensor(T(w_gu), device),
-        "w_down": _tensor(T(lay["w_down"]), device),
+        "w_gu": _fused_weight([lay["w_gate"], lay["w_up"]], "interleave",
+                              device),
+        "w_down": _weight(lay["w_down"], device),
     }
     for k in ("q_norm", "k_norm"):
         if k in lay:
@@ -114,7 +135,7 @@ def llm_from_jax(p, device):
     out = {"embed": _tensor(p["embed"], device), "layers": layers,
            "norm": _norm(p["norm"], device)}
     if "lm_head" in p:
-        out["lm_head"] = _tensor(T(p["lm_head"]), device)
+        out["lm_head"] = _weight(p["lm_head"], device)
     return out
 
 
@@ -123,14 +144,10 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
     """Convert a ``desta25_audio_tpu`` DeSTA param tree (leaves as numpy
     arrays, e.g. ``jax.tree.map(np.asarray, model.params)``) into the
     port's tree on ``device``.  A quantized encoder
-    (``quantize_encoder_params``) is carried across; int8 LLM leaves are
-    not ported yet (ROADMAP.md Queue 1: int8 LLM)."""
+    (``quantize_encoder_params``) and a quantized LLM
+    (``quantize_llm_params``) are carried across."""
     if config.connector_mode != "qformer_1":
         raise NotImplementedError("only the Q-Former connector is ported")
-    if isinstance(np_tree["llm"]["layers"]["wq"], dict):
-        raise NotImplementedError(
-            "int8 LLM leaves are not ported yet (ROADMAP.md Queue 1: int8 "
-            "LLM)")
     return {
         "whisper": {"encoder": whisper_encoder_from_jax(
             np_tree["whisper"]["encoder"], device)},

@@ -349,7 +349,6 @@ class DeSTA25Config:
     # Compute dtype for the frozen towers ("bfloat16" | "float32").
     dtype: str = "bfloat16"
     # Weight-only quantization for the frozen LLM ("none" | "int8").
-    # The port runs "none" only so far (int8 is a ROADMAP item).
     llm_quant: str = "none"
     # Activation-dynamic int8 for the frozen whisper encoder ("auto" |
     # "none" | "int8"): int8xint8 MXU matmuls (~2x bf16 on v5e) with

@@ -1,35 +1,48 @@
-// One LLM decode step (Kd = 1 token per row) as a fixed set of kernels per
-// layer: RMSNorm, skinny bf16 GEMMs with fused epilogues, and a
-// decode-attention kernel that also writes the new K/V row into the cache.
+// One LLM decode step (Kd = 1 token per row) or speculative-verify step
+// (Kd = 2..8 tokens per row) as a fixed set of kernels per layer: RMSNorm,
+// skinny weight-streaming GEMMs with fused epilogues (bf16 or int8
+// weights), and an attention kernel that also writes the new K/V rows into
+// the cache.
 //
-// Replaces: desta25_audio_tpu/ops/fused_decode.py::_make_kernel with the
-//   bf16 weight stream (w_int8=False, Kd=1, no ORCA injection) -- the
-//   single-launch Pallas TPU kernel behind fused_decode_layers.
+// Replaces: desta25_audio_tpu/ops/fused_decode.py::_make_kernel (no ORCA
+//   injection) -- the single-launch Pallas TPU kernel behind
+//   fused_decode_layers (K8: bf16 stream w_int8=False and int8 stream
+//   w_int8=True, Kd=1) and fused_verify_layers (K8v: Kd=2..8, draft block
+//   ops/fused_decode.py:581-660).
 // What bounds it on the H100: device-memory bandwidth.  Every step streams
-//   every weight once (Llama-3.1-8B: 14 GB of layer weights, ~4.2 ms at
-//   3.35 TB/s) against 2*B FLOP per weight, far below the 295 FLOP/byte
-//   ridge; the KV cache adds B*S*Hkv*Dh*4 bytes per layer.
+//   every weight once (Llama-3.1-8B: 13.96 GB of bf16 or 6.98 GB of int8
+//   layer weights, ~4.2 / ~2.1 ms at 3.35 TB/s) against 2*B*Kd FLOP per
+//   weight, far below the 295 FLOP/byte ridge; the KV cache adds
+//   B*S*Hkv*Dh*4 bytes per layer (Kd times for the verify step, whose
+//   draft tokens each read it).
 // Design:
-//   * skinny_gemm: one warp per output column n streams the weight row
-//     w[n, :] with 16-byte loads (each weight byte is read once for up to
-//     8 rows), the few activation rows come through L1, partial sums are
-//     f32 and reduced with shuffles.  Epilogues: store bf16; residual add
-//     h = bf16(h + bf16(acc)) (the TPU kernel's bf16 residual stream); and
-//     SwiGLU over row-interleaved gate/up weights, mid = bf16(bf16(silu(
-//     bf16(gate))) * bf16(up)) -- the TPU kernel's rounding points.
-//   * decode_attention: one block per (batch row, kv head).  It applies
-//     qk-norm (Qwen3) and RoPE to the new q/k in f32, writes the bf16 k and
-//     v rows into the packed cache [B, S, Hkv*Dh] at the row's own ci, then
-//     attends the G = H/Hkv query heads over the cached keys < ci that the
-//     attention mask allows plus the current token, with an f32 softmax.
-//     P is normalised in f32 and rounded to bf16 for the cached keys; the
-//     current token's weight stays f32, as in the TPU kernel.
+//   * skinny_gemm (csrc/skinny_gemm.cuh): one warp per output column, the
+//     weight row streamed with 16-byte loads (8 bf16 or 16 int8 values), the
+//     int8 scale applied to the f32 sum, epilogues store / residual /
+//     SwiGLU at the TPU kernel's rounding points.  R = B*Kd rows go 16 per
+//     pass; above 16 rows each pass re-streams the weights.
+//   * decode_attention: one block per (batch row b, kv head, draft token j).
+//     It applies qk-norm (Qwen3) and RoPE in f32 to the k of draft tokens
+//     0..j of row b (rounded to bf16) and to the G = H/Hkv queries of token
+//     j, writes token j's k and v rows into the packed cache
+//     [B, S, Hkv*Dh] at ci + j (ci is row b's first write position; a
+//     position past the cache writes nothing), then attends the cached keys
+//     < ci that the attention mask allows plus the draft block 0..j, with
+//     an f32 softmax.  P is normalised in f32 and rounded to bf16 for the
+//     cached keys; the draft tokens' weights stay f32 against their bf16 v,
+//     as in the TPU kernel's in-register block (here in registers too:
+//     every thread holds the draft scores).  Blocks of one row read only
+//     cache positions < ci and write only ci..ci+Kd-1, so no block reads
+//     what another writes.  Kd = 1 is the decode step, compiled apart
+//     with a one-token draft block.  The scores of one token's G heads
+//     over the cache live in shared memory (G*S f32), which bounds S
+//     (ops/fused_decode.py states the limit).
 //   * rms_norm: one block per row, f32 statistics, bf16 output.
 //   A step costs 7 launches per layer (norm, qkv, attention, o+residual,
 //   norm, gate/up+SwiGLU, down+residual).  One persistent kernel or a CUDA
 //   graph over them is a later PR.
 
-#include "common.cuh"
+#include "skinny_gemm.cuh"
 
 namespace {
 
@@ -58,107 +71,12 @@ rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Skinny GEMM: out[m, n] = epi(x[m, :] . w[n, :]) for m < MT rows
-// ---------------------------------------------------------------------------
-
-enum Epilogue { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2 };
-
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float f[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(p[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-template <int MT, int EPI>
-__global__ void __launch_bounds__(256)
-skinny_gemm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                   bf16* __restrict__ out, int M, int N, int K) {
-  constexpr int NW = (EPI == EPI_SWIGLU) ? 2 : 1;  // weight rows per output
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (n >= N) return;  // whole warp exits together
-  const bf16* wr = w + (size_t)n * NW * K;
-
-  float acc[NW][MT];
-#pragma unroll
-  for (int j = 0; j < NW; ++j)
-#pragma unroll
-    for (int m = 0; m < MT; ++m) acc[j][m] = 0.f;
-
-#pragma unroll 2
-  for (int k = lane * 8; k < K; k += 256) {
-    float wf[NW][8];
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      const uint4 wu = __ldg(reinterpret_cast<const uint4*>(wr + (size_t)j * K + k));
-      bf16x8_to_f32(wu, wf[j]);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      if (m < M) {
-        float xf[8];
-        bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(x + (size_t)m * K + k)), xf);
-#pragma unroll
-        for (int j = 0; j < NW; ++j)
-#pragma unroll
-          for (int i = 0; i < 8; ++i) acc[j][m] = fmaf(wf[j][i], xf[i], acc[j][m]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-#pragma unroll
-    for (int j = 0; j < NW; ++j) acc[j][m] = warp_sum(acc[j][m]);
-    if (lane == m && m < M) {
-      bf16* o = out + (size_t)m * N + n;
-      if (EPI == EPI_STORE) {
-        *o = __float2bfloat16(acc[0][m]);
-      } else if (EPI == EPI_RESID) {
-        *o = __float2bfloat16(__bfloat162float(*o) + round_bf16(acc[0][m]));
-      } else {
-        const float gt = round_bf16(acc[0][m]);
-        const float up = round_bf16(acc[NW - 1][m]);
-        const float act = round_bf16(gt / (1.f + expf(-gt)));
-        *o = __float2bfloat16(act * up);
-      }
-    }
-  }
-}
-
-template <int EPI>
-cudaError_t launch_skinny(const bf16* x, const bf16* w, bf16* out, int M,
-                          int N, int K, cudaStream_t stream) {
-  const dim3 block(256), grid((N + 7) / 8);
-  // rows go 8 at a time; each pass re-streams the weights (decode M <= 8
-  // reads them once)
-  for (int m0 = 0; m0 < M; m0 += 8) {
-    const int mr = M - m0 < 8 ? M - m0 : 8;
-    const bf16* xm = x + (size_t)m0 * K;
-    bf16* om = out + (size_t)m0 * N;
-    if (mr == 1)
-      skinny_gemm_kernel<1, EPI><<<grid, block, 0, stream>>>(xm, w, om, mr, N, K);
-    else if (mr == 2)
-      skinny_gemm_kernel<2, EPI><<<grid, block, 0, stream>>>(xm, w, om, mr, N, K);
-    else if (mr <= 4)
-      skinny_gemm_kernel<4, EPI><<<grid, block, 0, stream>>>(xm, w, om, mr, N, K);
-    else
-      skinny_gemm_kernel<8, EPI><<<grid, block, 0, stream>>>(xm, w, om, mr, N, K);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  return cudaSuccess;
-}
-
-// ---------------------------------------------------------------------------
-// Decode attention with in-place cache write (Dh = 128, one thread per dim)
+// Decode / verify attention with in-place cache write (Dh = 128, one thread
+// per dim)
 // ---------------------------------------------------------------------------
 
 constexpr int DHD = 128;
+constexpr int KD_MAX = 8;  // draft tokens per row (the TPU kernel's kd <= 8)
 
 // qk-norm (optional) + half-split RoPE of one head vector, one element per
 // thread.  `xchg` is DHD floats of shared memory.
@@ -177,7 +95,10 @@ __device__ __forceinline__ float norm_rope(float v, const bf16* nw, float eps,
   return v * c + rot * s;
 }
 
-template <int G>
+// KDM: the most draft tokens a block may see (1 for the decode step,
+// KD_MAX for the verify step); the draft block's scores and weights stay in
+// registers, dsc[gq][j2], every thread holding the same values.
+template <int G, int KDM>
 __global__ void __launch_bounds__(DHD)
 decode_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
                         bf16* __restrict__ vc, const float* __restrict__ cosb,
@@ -186,41 +107,55 @@ decode_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
                         const int* __restrict__ ci_arr,
                         const bf16* __restrict__ q_norm,
                         const bf16* __restrict__ k_norm,
-                        bf16* __restrict__ out, int S, int Hkv, float eps,
-                        float scale) {
+                        bf16* __restrict__ out, int S, int Hkv, int kd,
+                        float eps, float scale) {
   extern __shared__ float smem[];
   float* qf = smem;                   // [G][DHD] bf16-rounded q (as f32)
   float* xchg = qf + G * DHD;         // [DHD]
   float* red = xchg + DHD;            // [32]
-  float* pc = red + 32;               // [G] current-token probabilities
-  float* sc = pc + G;                 // [G][S] scores, then probabilities
+  float* sc = red + 32;               // [G][S] scores, then probabilities
 
-  const int b = blockIdx.x, kvh = blockIdx.y, d = threadIdx.x;
+  const int b = blockIdx.x, kvh = blockIdx.y, j = blockIdx.z, d = threadIdx.x;
   const int warp = d >> 5, lane = d & 31;
   const int H = Hkv * G;
   const int HD = H * DHD, KVD = Hkv * DHD;
   const int ci = ci_arr[b];
-  const float c = cosb[b * DHD + d], s = sinb[b * DHD + d];
-  const bf16* row = qkv + (size_t)b * (HD + 2 * KVD);
+  const int row_j = b * kd + j;       // this block's query row
 
-  // new k: qk-norm + rope, rounded to bf16, written at ci; new v as is
-  const float kr = round_bf16(norm_rope(__bfloat162float(row[HD + kvh * DHD + d]),
-                                        k_norm, eps, c, s, xchg, red));
-  const bf16 vnew = row[HD + KVD + kvh * DHD + d];
-  if (ci >= 0 && ci < S) {  // a row index past the cache writes nothing
-    const size_t cache_row = ((size_t)b * S + ci) * KVD + kvh * DHD + d;
-    kc[cache_row] = __float2bfloat16(kr);
-    vc[cache_row] = vnew;
+  // draft tokens 0..j of row b: post-rope k rounded to bf16, and v (this
+  // thread's dim); token j's pair goes into the cache at ci + j
+  float kr[KDM], vd[KDM];
+#pragma unroll
+  for (int j2 = 0; j2 < KDM; ++j2) {
+    if (j2 <= j) {  // uniform over the block: norm_rope synchronises
+      const int r2 = b * kd + j2;
+      const bf16* row2 = qkv + (size_t)r2 * (HD + 2 * KVD);
+      kr[j2] = round_bf16(norm_rope(__bfloat162float(row2[HD + kvh * DHD + d]),
+                                    k_norm, eps, cosb[r2 * DHD + d],
+                                    sinb[r2 * DHD + d], xchg, red));
+      const bf16 vnew = row2[HD + KVD + kvh * DHD + d];
+      vd[j2] = __bfloat162float(vnew);
+      if (j2 == j && ci >= 0 && ci + j < S) {
+        const size_t cache_row = ((size_t)b * S + ci + j) * KVD + kvh * DHD + d;
+        kc[cache_row] = __float2bfloat16(kr[j2]);
+        vc[cache_row] = vnew;
+      }
+    }
   }
 
-  float cur[G];
+  const float c = cosb[row_j * DHD + d], s = sinb[row_j * DHD + d];
+  const bf16* row = qkv + (size_t)row_j * (HD + 2 * KVD);
+  float dsc[G][KDM];  // the draft block: scores, then probabilities
 #pragma unroll
   for (int gq = 0; gq < G; ++gq) {
     const int h = kvh * G + gq;
     const float qv = round_bf16(norm_rope(__bfloat162float(row[h * DHD + d]),
                                           q_norm, eps, c, s, xchg, red));
     qf[gq * DHD + d] = qv;
-    cur[gq] = block_sum(qv * kr, red) * scale;  // the current token's score
+    // token j attends draft tokens 0..j
+#pragma unroll
+    for (int j2 = 0; j2 < KDM; ++j2)
+      if (j2 <= j) dsc[gq][j2] = block_sum(qv * kr[j2], red) * scale;
   }
   __syncthreads();
 
@@ -250,23 +185,31 @@ decode_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
   }
   __syncthreads();
 
-  // softmax per head: P over cached keys (f32, normalised) + current token
+  // softmax per head: P over cached keys (f32, normalised) + draft block
 #pragma unroll
   for (int gq = 0; gq < G; ++gq) {
-    float mx = cur[gq];
+    float mx = dsc[gq][0];
+#pragma unroll
+    for (int j2 = 1; j2 < KDM; ++j2)
+      if (j2 <= j) mx = fmaxf(mx, dsc[gq][j2]);
     for (int key = d; key < nkeys; key += DHD) mx = fmaxf(mx, sc[gq * S + key]);
     mx = block_max(mx, red);
     float den = 0.f;
     for (int key = d; key < nkeys; key += DHD) den += expf(sc[gq * S + key] - mx);
-    den = block_sum(den, red) + expf(cur[gq] - mx);
+    den = block_sum(den, red);
+#pragma unroll
+    for (int j2 = 0; j2 < KDM; ++j2)
+      if (j2 <= j) den += expf(dsc[gq][j2] - mx);
     const float inv = 1.f / den;
     for (int key = d; key < nkeys; key += DHD)
       sc[gq * S + key] = expf(sc[gq * S + key] - mx) * inv;
-    if (d == 0) pc[gq] = expf(cur[gq] - mx) * inv;
+#pragma unroll
+    for (int j2 = 0; j2 < KDM; ++j2)
+      if (j2 <= j) dsc[gq][j2] = expf(dsc[gq][j2] - mx) * inv;
   }
   __syncthreads();
 
-  // out = sum_s bf16(P) v_s + p_cur v_new, thread d owns dim d
+  // out = sum_s bf16(P) v_s + sum_{j2 <= j} p_j2 v_j2, thread d owns dim d
   float o[G];
 #pragma unroll
   for (int gq = 0; gq < G; ++gq) o[gq] = 0.f;
@@ -276,11 +219,38 @@ decode_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ kc,
 #pragma unroll
     for (int gq = 0; gq < G; ++gq) o[gq] += round_bf16(sc[gq * S + key]) * vv;
   }
-  const float vn = __bfloat162float(vnew);
-  bf16* orow = out + (size_t)b * HD;
+#pragma unroll
+  for (int j2 = 0; j2 < KDM; ++j2) {
+    if (j2 <= j) {
+#pragma unroll
+      for (int gq = 0; gq < G; ++gq) o[gq] += dsc[gq][j2] * vd[j2];
+    }
+  }
+  bf16* orow = out + (size_t)row_j * HD;
 #pragma unroll
   for (int gq = 0; gq < G; ++gq)
-    orow[(kvh * G + gq) * DHD + d] = __float2bfloat16(o[gq] + pc[gq] * vn);
+    orow[(kvh * G + gq) * DHD + d] = __float2bfloat16(o[gq]);
+}
+
+template <int G, int KDM>
+cudaError_t launch_attention_kdm(const bf16* qkv, bf16* kc, bf16* vc,
+                                 const float* cosb, const float* sinb,
+                                 const int* mask, int mask_stride,
+                                 const int* ci, const bf16* qn, const bf16* kn,
+                                 bf16* out, int B, int kd, int S, int Hkv,
+                                 float eps, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((size_t)G * DHD + DHD + 32
+                                       + (size_t)G * S);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_attention_kernel<G, KDM>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  decode_attention_kernel<G, KDM><<<dim3(B, Hkv, kd), DHD, smem, stream>>>(
+      qkv, kc, vc, cosb, sinb, mask, mask_stride, ci, qn, kn, out, S, Hkv, kd,
+      eps, scale);
+  return cudaGetLastError();
 }
 
 template <int G>
@@ -288,20 +258,15 @@ cudaError_t launch_attention(const bf16* qkv, bf16* kc, bf16* vc,
                              const float* cosb, const float* sinb,
                              const int* mask, int mask_stride, const int* ci,
                              const bf16* qn, const bf16* kn, bf16* out, int B,
-                             int S, int Hkv, float eps, float scale,
+                             int kd, int S, int Hkv, float eps, float scale,
                              cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)G * DHD + DHD + 32 + G
-                                       + (size_t)G * S);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  decode_attention_kernel<G><<<dim3(B, Hkv), DHD, smem, stream>>>(
-      qkv, kc, vc, cosb, sinb, mask, mask_stride, ci, qn, kn, out, S, Hkv, eps,
-      scale);
-  return cudaGetLastError();
+  return kd == 1
+      ? launch_attention_kdm<G, 1>(qkv, kc, vc, cosb, sinb, mask, mask_stride,
+                                   ci, qn, kn, out, B, kd, S, Hkv, eps, scale,
+                                   stream)
+      : launch_attention_kdm<G, KD_MAX>(qkv, kc, vc, cosb, sinb, mask,
+                                        mask_stride, ci, qn, kn, out, B, kd, S,
+                                        Hkv, eps, scale, stream);
 }
 
 }  // namespace
@@ -313,34 +278,47 @@ extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int desta_skinny_gemm(const void* x, const void* w, void* out,
-                                 int M, int N, int K, int epilogue,
+// w is bf16 (scale null) or int8 (w_int8 = 1, one f32 scale per row of w)
+extern "C" int desta_skinny_gemm(const void* x, const void* w,
+                                 const void* scale, void* out, int M, int N,
+                                 int K, int epilogue, int w_int8,
                                  void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
+  const bf16* xb = (const bf16*)x;
+  const float* sc = (const float*)scale;
+#define DESTA_SKINNY(WT, EPI) \
+  launch_skinny<WT, EPI>(xb, (const WT*)w, sc, out, M, N, K, st)
   cudaError_t e;
-  if (epilogue == EPI_STORE)
-    e = launch_skinny<EPI_STORE>((const bf16*)x, (const bf16*)w, (bf16*)out, M, N, K, st);
-  else if (epilogue == EPI_RESID)
-    e = launch_skinny<EPI_RESID>((const bf16*)x, (const bf16*)w, (bf16*)out, M, N, K, st);
-  else if (epilogue == EPI_SWIGLU)
-    e = launch_skinny<EPI_SWIGLU>((const bf16*)x, (const bf16*)w, (bf16*)out, M, N, K, st);
-  else
-    e = cudaErrorInvalidValue;
+  if (w_int8) {
+    if (epilogue == EPI_STORE) e = DESTA_SKINNY(int8_t, EPI_STORE);
+    else if (epilogue == EPI_RESID) e = DESTA_SKINNY(int8_t, EPI_RESID);
+    else if (epilogue == EPI_SWIGLU) e = DESTA_SKINNY(int8_t, EPI_SWIGLU);
+    else e = cudaErrorInvalidValue;
+  } else {
+    if (epilogue == EPI_STORE) e = DESTA_SKINNY(bf16, EPI_STORE);
+    else if (epilogue == EPI_RESID) e = DESTA_SKINNY(bf16, EPI_RESID);
+    else if (epilogue == EPI_SWIGLU) e = DESTA_SKINNY(bf16, EPI_SWIGLU);
+    else e = cudaErrorInvalidValue;
+  }
+#undef DESTA_SKINNY
   return (int)e;
 }
 
+// qkv [B*kd, (H+2*Hkv)*Dh], cos/sin [B*kd, Dh], mask [B, >=S], ci [B],
+// out [B*kd, H*Dh]; rows are token-major within a batch row (r = b*kd + j)
 extern "C" int desta_decode_attention(
     const void* qkv, void* k_cache, void* v_cache, const void* cosb,
     const void* sinb, const void* mask, int mask_stride, const void* ci,
-    const void* q_norm, const void* k_norm, void* out, int B, int S, int H,
-    int Hkv, int Dh, float eps, float scale, void* stream) {
-  if (Dh != DHD || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+    const void* q_norm, const void* k_norm, void* out, int B, int kd, int S,
+    int H, int Hkv, int Dh, float eps, float scale, void* stream) {
+  if (Dh != DHD || Hkv <= 0 || H % Hkv != 0 || kd < 1 || kd > KD_MAX)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
 #define DESTA_ATTN_ARGS                                                      \
   (const bf16*)qkv, (bf16*)k_cache, (bf16*)v_cache, (const float*)cosb,      \
       (const float*)sinb, (const int*)mask, mask_stride, (const int*)ci,     \
-      (const bf16*)q_norm, (const bf16*)k_norm, (bf16*)out, B, S, Hkv, eps,  \
-      scale, st
+      (const bf16*)q_norm, (const bf16*)k_norm, (bf16*)out, B, kd, S, Hkv,   \
+      eps, scale, st
   cudaError_t e;
   switch (H / Hkv) {
     case 1: e = launch_attention<1>(DESTA_ATTN_ARGS); break;

@@ -6,12 +6,16 @@
 //   K5 ops/w8a8_proj.py::_kernel_qkv   (q, k, v projections, one act quant)
 //   K6 ops/w8a8_proj.py::_kernel_one   (the attention output projection)
 //   K4 ops/enc_ffn.py::_kernel_w8a8    (fc1 -> GELU -> fc2)
+// and serves the int8 LLM's prefill at M >= 128 rows, which the JAX
+// package runs through XLA on the TPU (ops/quant.py:116-130, the LLM
+// formula below).
 // Two kernels, launched by ops/w8a8_proj.py and ops/enc_ffn.py:
 //   quant_rows_kernel: x[M, K] (bf16 or f32) -> int8 q[M, K] and f32 scales
 //     [M, nseg], one scale per row and per `seg`-wide column segment:
 //     s = max(max|x|, 1e-8) * (1/127), q = clip(rint(x / s), -127, 127)
 //     (IEEE division, __fdiv_rn: a different rounding would move int8
-//     values).  Bandwidth-bound: one warp per (row, segment), 16-byte
+//     values); the LLM formula divides, s = max(max|x|, 1e-8) / 127
+//     (`div127`).  Bandwidth-bound: one warp per (row, segment), 16-byte
 //     loads, two passes (the second hits L1/L2).
 //   gemm_s8_kernel<EPI>: int32 acc = a[M, K] . w[N, K]^T with
 //     mma.sync m16n8k32 s8 (the [out, in] weight is the K-contiguous "col"
@@ -22,6 +26,8 @@
 //       SEG:  acc is closed at every `seg`-wide K segment c and folded
 //             as accf += (f32(acc_c) * sa[row, c]) * s[col]; then
 //             bf16(accf + b[col])                                  K4 fc2
+//       LLM:  (f32(acc) * sa[row]) * s[col], no bias, f32 or bf16 out
+//                                                   int8 LLM at M >= 128
 //     K4 quantizes the GELU output per row *per 1280-column chunk*
 //     (enc_ffn.py:174-185), so fc2 must not sum int32 across chunks.
 //     Up to three operand sets share one launch and one quantized A: the
@@ -48,13 +54,14 @@ namespace {
 constexpr int BM = 128, BN = 128, BK = 64;  // BK in int8 elements (bytes)
 constexpr int LDS = BK + 16;                // 80 bytes per shared row
 
-enum { EPI_PROJ = 0, EPI_GELU = 1, EPI_SEG = 2 };
+enum { EPI_PROJ = 0, EPI_GELU = 1, EPI_SEG = 2, EPI_LLM_BF16 = 3,
+       EPI_LLM_F32 = 4 };
 
 struct Operand {
   const int8_t* w;   // [N, K]
   const float* s;    // [N]
   const bf16* bias;  // [N], or null for zeros
-  void* out;         // [M, N]: bf16 (PROJ, SEG) or f32 (GELU)
+  void* out;         // [M, N]: bf16 (PROJ, SEG, LLM_BF16) or f32
 };
 struct Operands {
   Operand op[3];
@@ -91,7 +98,8 @@ __device__ __forceinline__ signed char quant8(float v, float s) {
 template <typename T>
 __global__ void __launch_bounds__(256)
 quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
-                  float* __restrict__ scale, int M, int K, int seg) {
+                  float* __restrict__ scale, int M, int K, int seg,
+                  int div127) {
   using namespace desta;
   const int nseg = (K + seg - 1) / seg;
   const long item = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -107,7 +115,8 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ q,
                              fmaxf(fabsf(v.z), fabsf(v.w))));
   }
   amax = warp_max(amax);
-  const float s = fmaxf(amax, 1e-8f) * (1.0f / 127.0f);
+  const float s = div127 ? __fdiv_rn(fmaxf(amax, 1e-8f), 127.0f)
+                         : fmaxf(amax, 1e-8f) * (1.0f / 127.0f);
   if (lane == 0) scale[item] = s;
   int8_t* qr = q + (size_t)row * K;
   for (int k = c0 + 4 * lane; k < c1; k += 128) {
@@ -248,6 +257,10 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const float* __restrict__ sa,
         if (EPI == EPI_SEG) {
           y0 = __fadd_rn(accf[mi][ni][2 * hh], b0);
           y1 = __fadd_rn(accf[mi][ni][2 * hh + 1], b1);
+        } else if (EPI == EPI_LLM_BF16 || EPI == EPI_LLM_F32) {
+          const float sr = sa[row];
+          y0 = __fmul_rn(__fmul_rn((float)acc[mi][ni][2 * hh], sr), s0);
+          y1 = __fmul_rn(__fmul_rn((float)acc[mi][ni][2 * hh + 1], sr), s1);
         } else {
           const float sr = sa[row];
           y0 = __fadd_rn(__fmul_rn((float)acc[mi][ni][2 * hh], __fmul_rn(sr, s0)), b0);
@@ -256,6 +269,9 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const float* __restrict__ sa,
         if (EPI == EPI_GELU) {
           *reinterpret_cast<float2*>((float*)op.out + (size_t)row * N + col) =
               make_float2(gelu_f32(y0), gelu_f32(y1));
+        } else if (EPI == EPI_LLM_F32) {
+          *reinterpret_cast<float2*>((float*)op.out + (size_t)row * N + col) =
+              make_float2(y0, y1);
         } else {
           *reinterpret_cast<__nv_bfloat162*>((bf16*)op.out + (size_t)row * N + col) =
               __floats2bfloat162_rn(y0, y1);
@@ -269,19 +285,20 @@ gemm_s8_kernel(const int8_t* __restrict__ a, const float* __restrict__ sa,
 
 extern "C" int desta_quant_rows(const void* x, int x_is_f32, void* q,
                                 void* scale, int M, int K, int seg,
-                                void* stream) {
+                                int div127, void* stream) {
   const long items = (long)M * ((K + seg - 1) / seg);
   const dim3 grid((unsigned)((items + 7) / 8));
   if (x_is_f32)
     quant_rows_kernel<float><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (int8_t*)q, (float*)scale, M, K, seg);
+        (const float*)x, (int8_t*)q, (float*)scale, M, K, seg, div127);
   else
     quant_rows_kernel<bf16><<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const bf16*)x, (int8_t*)q, (float*)scale, M, K, seg);
+        (const bf16*)x, (int8_t*)q, (float*)scale, M, K, seg, div127);
   return (int)cudaGetLastError();
 }
 
-// epi: 0 PROJ, 1 GELU, 2 SEG; nproj operand sets (1..3) share `a` and `sa`.
+// epi: 0 PROJ, 1 GELU, 2 SEG, 3 LLM_BF16, 4 LLM_F32; nproj operand sets
+// (1..3) share `a` and `sa`.
 extern "C" int desta_gemm_s8(int epi, const void* a, const void* sa,
                              int nproj, const void* w0, const void* s0,
                              const void* b0, void* o0, const void* w1,
@@ -301,7 +318,13 @@ extern "C" int desta_gemm_s8(int epi, const void* a, const void* sa,
     gemm_s8_kernel<EPI_PROJ><<<grid, 256, 0, st>>>(A, SA, ops, M, N, K, seg);
   else if (epi == EPI_GELU)
     gemm_s8_kernel<EPI_GELU><<<grid, 256, 0, st>>>(A, SA, ops, M, N, K, seg);
-  else
+  else if (epi == EPI_SEG)
     gemm_s8_kernel<EPI_SEG><<<grid, 256, 0, st>>>(A, SA, ops, M, N, K, seg);
+  else if (epi == EPI_LLM_BF16)
+    gemm_s8_kernel<EPI_LLM_BF16><<<grid, 256, 0, st>>>(A, SA, ops, M, N, K, seg);
+  else if (epi == EPI_LLM_F32)
+    gemm_s8_kernel<EPI_LLM_F32><<<grid, 256, 0, st>>>(A, SA, ops, M, N, K, seg);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -2,17 +2,22 @@
 
 Counterpart of ``desta25_audio_tpu/models/desta.py`` for the slices ported
 so far: bf16 (or f32) towers, the Whisper encoder in bf16 or int8 (W8A8,
-``encoder_quant``), the Q-Former connector, transcriptions supplied by the
-caller.  The port has no ``from_pretrained`` yet, so the JAX package's
-inference default (``encoder_quant="auto"`` -> int8) is reached by calling
-:meth:`DeSTA25AudioModel.apply_inference_encoder_quant` after construction.
+``encoder_quant``), the LLM in bf16 or int8 (``llm_quant``), the Q-Former
+connector, transcriptions supplied by the caller, plain or speculative
+(``speculative_k >= 2``) decoding.  The port has no ``from_pretrained`` yet,
+so the JAX package's inference default (``encoder_quant="auto"`` -> int8)
+is reached by calling
+:meth:`DeSTA25AudioModel.apply_inference_encoder_quant` after construction,
+and an existing bf16 LLM is quantized with
+:meth:`DeSTA25AudioModel.apply_llm_quant`.
 
 - host phase A: WAV decode + energy VAD (a clip without speech gets the
   transcription " ");
 - host phase B: chat template, ``<start_audio><|AUDIO|><end_audio>`` wrap,
   placeholder expansion, left-pad tokenization, splice maps;
 - device phase C: mel -> Whisper encoder taps -> Q-Former -> splice into
-  the embedding stream -> prefill -> KV-cached decode.
+  the embedding stream -> prefill -> KV-cached decode (one token a step,
+  or n-gram drafts verified k at a time).
 
 Everything the slice does not cover raises ``NotImplementedError`` naming
 the ROADMAP item (Queue 1 of ``ROADMAP.md``).
@@ -20,6 +25,7 @@ the ROADMAP item (Queue 1 of ``ROADMAP.md``).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -34,7 +40,17 @@ from ..audio.vad import has_speech
 from ..config import DeSTA25Config
 from ..data.tokenizer import build_tokenizer
 from ..generate.decode import llm_generate
-from ..ops.quant import quantize_encoder_params
+from ..generate.speculative import (
+    left_aligned,
+    llm_generate_spec,
+    spec_cache_len,
+    spec_limits,
+)
+from ..ops.quant import (
+    is_quantized,
+    quantize_encoder_params,
+    quantize_llm_params,
+)
 from . import llm as tllm
 from .perception import perception_apply
 from .qformer import init_qformer_connector
@@ -69,10 +85,8 @@ def check_slice(config: DeSTA25Config) -> None:
     if config.use_lora:
         raise NotImplementedError(
             "LoRA is not ported yet (ROADMAP.md Queue 1: training)")
-    if config.llm_quant != "none":
-        raise NotImplementedError(
-            "int8 LLM weights are not ported yet (ROADMAP.md Queue 1: "
-            "int8 LLM)")
+    if config.llm_quant not in ("none", "int8"):
+        raise ValueError(f"llm_quant={config.llm_quant!r} (none | int8)")
 
 
 class DeSTA25AudioModel:
@@ -119,9 +133,22 @@ class DeSTA25AudioModel:
                 "connector": init_qformer_connector(
                     self.config, torch.float32, self.device, g),
             }
+            if self.config.llm_quant == "int8":
+                params["llm"] = quantize_llm_params(params["llm"])
             if self.config.resolved_encoder_quant(inference=False) == "int8":
                 params["whisper"]["encoder"] = quantize_encoder_params(enc)
             return params
+
+    def apply_llm_quant(self) -> None:
+        """Replace the model's bf16 LLM with its int8 tree
+        (``quantize_llm_params``; the bf16 weights are released) and make
+        the config ``llm_quant="int8"``.  A no-op when the LLM already
+        holds int8 leaves."""
+        if is_quantized(self.params["llm"]["layers"]["wqkv"]):
+            return
+        with torch.no_grad():
+            self.params["llm"] = quantize_llm_params(self.params["llm"])
+        self.config = dataclasses.replace(self.config, llm_quant="int8")
 
     def apply_inference_encoder_quant(self) -> None:
         """``encoder_quant="auto"`` resolves to int8 on the inference path
@@ -172,14 +199,12 @@ class DeSTA25AudioModel:
                  auto_chunk_long_audio: bool = False,
                  speculative_k: int = 0) -> GenerationOutput:
         """Reference-compatible inference entry point
-        (modeling_desta25.py:1491-1721)."""
+        (modeling_desta25.py:1491-1721).  ``speculative_k >= 2`` decodes
+        with n-gram drafts verified ``speculative_k`` tokens at a time
+        (``generate/speculative.py``); below 2, one token a step."""
         if auto_chunk_long_audio:
             raise NotImplementedError(
                 "long-audio chunking needs ASR (ROADMAP.md Queue 1: ASR)")
-        if speculative_k > 0:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md "
-                "Queue 1: speculation)")
         if isinstance(messages, list):
             messages_list = ([messages] if isinstance(messages[0], dict)
                              else messages)
@@ -188,14 +213,20 @@ class DeSTA25AudioModel:
                 "messages should be a list of dicts or a list of lists.")
         with torch.no_grad():
             return self._generate_impl(messages_list, temperature, top_p,
-                                       do_sample, max_new_tokens)
+                                       do_sample, max_new_tokens,
+                                       speculative_k)
 
     def _run_generation_phases(self, messages_list,
-                               timings: Dict[str, float]):
+                               timings: Dict[str, float],
+                               return_prompt_ids: bool = False):
         """Host phases A+B and device perception/splice.  Returns None for
-        a text-only batch, else (embeds, attn_mask, audios, transcripts).
-        Records ``host_ms`` (phases A+B) and ``perception_ms`` (mel,
-        encoder, connector and splice, device synchronised) in timings."""
+        a text-only batch, else (embeds, attn_mask, audios, transcripts),
+        plus, with ``return_prompt_ids``, the prompt ids [B, T] (numpy)
+        with each transcription's ids at its splice positions -- the text
+        the model is most likely to echo, which n-gram drafting feeds on
+        (``desta.py:593-602`` of the JAX package).  Records ``host_ms``
+        (phases A+B) and ``perception_ms`` (mel, encoder, connector and
+        splice, device synchronised) in timings."""
         t0 = time.perf_counter()
         tk = self.tokenizer
         all_audios: List[str] = []
@@ -290,7 +321,13 @@ class DeSTA25AudioModel:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings["perception_ms"] = (time.perf_counter() - t0) * 1e3
-        return embeds, as_dev(attn_mask), all_audios, all_transcriptions
+        out = (embeds, as_dev(attn_mask), all_audios, all_transcriptions)
+        if return_prompt_ids:
+            # pos at audio-token slots runs past trans_max: clamp before the
+            # gather (np.where evaluates both arms)
+            pos_c = np.minimum(pos, trans_ids.shape[1] - 1)
+            out += (np.where(kind == 2, trans_ids[aidx, pos_c], input_ids),)
+        return out
 
     def _terminators(self) -> Tuple[int, ...]:
         tk = self.tokenizer
@@ -305,32 +342,67 @@ class DeSTA25AudioModel:
                 terms.add(int(tid))
         return tuple(sorted(terms))
 
+    def _spec_eligible(self, speculative_k: int, B: int, T: int,
+                       max_new_tokens: int) -> bool:
+        """Does this request take the speculative loop?  Below 2 tokens per
+        step it does not (the plain loop runs, as in the JAX package); at
+        2 or more it must, and a request the verify kernel cannot take
+        raises with the kernel's limits (``spec_limits``).  LoRA and ORCA,
+        which the JAX package also checks here, are refused by
+        :func:`check_slice`."""
+        if speculative_k < 2:
+            return False
+        bad = spec_limits(self.params["llm"], self.llm_cfg, B,
+                          spec_cache_len(T, max_new_tokens, speculative_k),
+                          speculative_k, self.dtype)
+        if bad:
+            raise ValueError(f"speculative_k={speculative_k}: the verify "
+                             "kernel cannot take this request: "
+                             + "; ".join(bad))
+        return True
+
     def _generate_impl(self, messages_list, temperature, top_p, do_sample,
-                       max_new_tokens) -> GenerationOutput:
+                       max_new_tokens, speculative_k: int = 0
+                       ) -> GenerationOutput:
         tk = self.tokenizer
         timings: Dict[str, float] = {}
-        prep = self._run_generation_phases(messages_list, timings)
+        prep = self._run_generation_phases(messages_list, timings,
+                                           return_prompt_ids=True)
         if prep is None:  # text-only chat (modeling_desta25.py:1686-1721)
             texts = tk.apply_chat_template(messages_list, tokenize=False,
                                            add_generation_prompt=True)
             if isinstance(texts, str):
                 texts = [texts]
             enc = tk(texts, padding="longest", add_special_tokens=False)
-            ids = torch.as_tensor(np.asarray(enc["input_ids"], np.int64),
-                                  device=self.device)
-            embeds = tllm.embed_tokens(self.params["llm"], ids)
+            prompt_ids = np.asarray(enc["input_ids"], np.int64)
+            embeds = tllm.embed_tokens(
+                self.params["llm"],
+                torch.as_tensor(prompt_ids, device=self.device))
             attn_mask = torch.as_tensor(
                 np.asarray(enc["attention_mask"], np.int32),
                 device=self.device)
             audios, transcripts = [], []
         else:
-            embeds, attn_mask, audios, transcripts = prep
-        tokens, _ = llm_generate(
-            self.params["llm"], self.llm_cfg, embeds, attn_mask,
-            self.generator, max_new_tokens=max_new_tokens,
-            temperature=temperature, top_p=top_p, do_sample=do_sample,
-            eos_ids=self._terminators(), pad_id=tk.pad_token_id,
-            timings=timings)
+            embeds, attn_mask, audios, transcripts, prompt_ids = prep
+        B, T = embeds.shape[:2]
+        common = dict(max_new_tokens=max_new_tokens, temperature=temperature,
+                      top_p=top_p, do_sample=do_sample,
+                      eos_ids=self._terminators(), pad_id=tk.pad_token_id,
+                      timings=timings)
+        if self._spec_eligible(speculative_k, B, T, max_new_tokens):
+            # left-padded rows -> left-aligned n-gram history
+            lens = attn_mask.sum(1).cpu().numpy()
+            tokens, _ = llm_generate_spec(
+                self.params["llm"], self.llm_cfg, embeds, attn_mask,
+                self.generator, speculative_k=speculative_k,
+                prompt_ids=torch.as_tensor(left_aligned(prompt_ids, lens),
+                                           device=self.device),
+                prompt_lens=torch.as_tensor(lens, device=self.device),
+                **common)
+        else:
+            tokens, _ = llm_generate(
+                self.params["llm"], self.llm_cfg, embeds, attn_mask,
+                self.generator, **common)
         self.last_timings = timings
         tokens = tokens.cpu().numpy()
         return GenerationOutput(

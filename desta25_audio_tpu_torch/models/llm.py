@@ -6,17 +6,23 @@ per-head q/k RMSNorm, tied or untied head, and a packed KV cache
 [L, B, S, Hkv*Dh].  Accepts ``inputs_embeds`` so the DeSTA audio splice can
 feed it.
 
-Prefill (and any cached call with T > 1) is plain torch, mirroring
-``llm.py:174-257``.  A cached call with T == 1 goes to
-``ops/fused_decode.fused_decode_layers`` (the hand-written decode kernels on
-the card).  The heads are ``torch.mm`` products with f32 output, as the JAX
-package leaves them to XLA.
+Prefill (and any cached call with T > 1) is plain torch around the
+projections, mirroring ``llm.py:174-257``.  A cached call with T == 1 goes
+to ``ops/fused_decode.fused_decode_layers`` (the hand-written decode kernels
+on the card).  With bf16 weights the projections and heads are ``torch.mm``
+products with f32 accumulation, as the JAX package leaves them to XLA; with
+int8 leaves (``ops/quant.quantize_llm_params``, ``llm_quant="int8"``) every
+projection and the head go through ``ops/qmm.quant_matmul`` (K7 below 128
+rows, W8A8 above), as ``llm.py:136-156`` does.
 
 Parameters (layers stacked on a leading axis, linear weights ``[out, in]``):
 ``embed`` [V, D], ``lm_head`` [V, D] (untied only), ``norm``, and
 ``layers`` with ``ln1``, ``wqkv``, ``wo``, ``ln2``, ``w_gu`` (gate/up rows
 interleaved), ``w_down`` and, for qk-norm, ``q_norm``/``k_norm`` -- see
-``ops/fused_decode.py`` for the shapes.  The cache is updated in place.
+``ops/fused_decode.py`` for the shapes.  An int8 tree holds ``{"q", "s"}``
+leaves in place of the four weight stacks and an int8 ``lm_head`` with its
+rows padded to a multiple of 2560 (tied models too).  The cache is updated
+in place.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import torch
 from ..config import LLMConfig
 from ..ops.core import Params, index_tree, matmul_f32, rms_norm
 from ..ops.fused_decode import KVCache, fused_decode_layers
+from ..ops.qmm import quant_matmul
+from ..ops.quant import is_quantized
 from ..ops.rope import apply_rope, llm_rope_cos_sin
 
 __all__ = ["KVCache", "init_kv_cache", "init_llm", "llm_apply",
@@ -80,9 +88,21 @@ def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def head_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """Final hidden [..., D] -> f32 logits [..., V] (tied or untied)."""
+    """Final hidden [..., D] -> f32 logits [..., V] (tied, untied or int8;
+    the int8 head's padded rows are sliced off)."""
     w = params.get("lm_head", params["embed"])
+    if is_quantized(w):
+        V = params["embed"].shape[0]
+        return quant_matmul(hidden, w, torch.float32)[..., :V]
     return matmul_f32(hidden, w.t())
+
+
+def _linear(w, x: torch.Tensor, l: int) -> torch.Tensor:
+    """x [..., in] through layer l's [out, in] weight (bf16, or an int8
+    leaf through quant_matmul), rounded once to x's dtype."""
+    if is_quantized(w):
+        return quant_matmul(x, {"q": w["q"][l], "s": w["s"][l]})
+    return matmul_f32(x, w[l].t()).to(x.dtype)
 
 
 def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
@@ -91,7 +111,7 @@ def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     HD, KVD = H * Dh, Hkv * Dh
-    qkv = matmul_f32(x, p["wqkv"][l].t()).to(x.dtype)
+    qkv = _linear(p["wqkv"], x, l)
     q = qkv[..., :HD].reshape(B, T, H, Dh)
     k = qkv[..., HD:HD + KVD].reshape(B, T, Hkv, Dh)
     v = qkv[..., HD + KVD:].reshape(B, T, Hkv, Dh)
@@ -119,15 +139,14 @@ def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs.float(), v.float())
     out = out.to(x.dtype).reshape(B, T, HD)
-    return matmul_f32(out, p["wo"][l].t()).to(x.dtype)
+    return _linear(p["wo"], out, l)
 
 
 def _mlp(p, x, l: int):
-    gu = matmul_f32(x, p["w_gu"][l].t())
-    g = gu[..., 0::2].to(x.dtype)
-    u = gu[..., 1::2].to(x.dtype)
+    gu = _linear(p["w_gu"], x, l)       # gate/up outputs rounded apart
+    g, u = gu[..., 0::2], gu[..., 1::2]
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return matmul_f32(h, p["w_down"][l].t()).to(x.dtype)
+    return _linear(p["w_down"], h, l)
 
 
 def llm_apply(params: Params, cfg: LLMConfig, *,

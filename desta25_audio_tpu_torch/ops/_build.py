@@ -43,14 +43,16 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_gemm_bias": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, out, rows, D, eps, stream
     "desta_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
-    # x, w, out, M, N, K, epilogue, stream
-    "desta_skinny_gemm": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w, scale, out, M, N, K, epilogue, w_int8, stream
+    "desta_skinny_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # qkv, k_cache, v_cache, cos, sin, mask, mask_stride, ci, q_norm,
-    # k_norm, out, B, S, H, Hkv, Dh, eps, scale, stream
+    # k_norm, out, B, kd, S, H, Hkv, Dh, eps, scale, stream
     "desta_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _F, _F, _P),
-    # x, x_is_f32, q, scale, M, K, seg, stream
-    "desta_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _P),
+                               _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # x, x_is_f32, q, scale, M, K, seg, div127, stream
+    "desta_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # x, q, s, out, part, M, N, K, splits, out_f32, stream
+    "desta_qmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # epi, a, sa, nproj, (w, s, bias, out) x 3, M, N, K, seg, stream
     "desta_gemm_s8": (_I, _P, _P, _I) + (_P,) * 12 + (_I, _I, _I, _I, _P),
 }

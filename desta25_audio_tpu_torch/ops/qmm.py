@@ -1,0 +1,144 @@
+"""The int8 LLM's matmul: x [..., K] against an int8 leaf ``{"q" [N, K],
+"s" [N]}`` (counterpart of ``desta25_audio_tpu/ops/quant.py:93-231``,
+``quant_matmul`` with the TPU dispatch of ``_qmm_dispatch``).
+
+The rows M = prod(x.shape[:-1]) pick the path, as they do on the TPU:
+
+- M < 128 (``W8A8_MIN_ROWS``): :func:`qmm`, kernel K7 (``_qmm_kernel``,
+  ``quant.py:63-77``): weight-only, the f32 sum of bf16 x times the int8
+  weight, times ``s`` after the sum, one rounding to the output dtype.  On
+  the card ``csrc/qmm.cu``.
+- M >= 128: :func:`w8a8_matmul`, the W8A8 prefill (``quant.py:116-130``,
+  XLA on the TPU): x quantized per row with ``a = max(max|x|, 1e-8) / 127``,
+  an exact int32 product, ``(f32(acc) * a) * s``.  On the card the row
+  quantiser and the int8 GEMM of ``csrc/w8a8.cu`` (its LLM epilogue), bit
+  for bit the plain version.
+
+On a CPU tensor each runs its ``*_plain`` version; on a CUDA tensor it
+launches its kernel or raises.  Counts: ``quant_matmul`` one per K7 call,
+``w8a8_matmul`` two per call (row quantiser, GEMM).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from . import _build
+from .quant import (
+    EPI_LLM_BF16,
+    EPI_LLM_F32,
+    QuantLeaf,
+    int_dot,
+    launch_gemm_s8,
+    launch_quant_rows,
+    quant_rows_llm,
+    require_int8_leaf,
+)
+
+W8A8_MIN_ROWS = 128   # the TPU dispatch's crossover (quant.py:107)
+QMM_K_MULTIPLE = 64   # csrc/qmm.cu walks K in steps of 64
+_QMM_TILE_N = 128     # output columns per tensor-core block
+_QMM_SKINNY_ROWS = 16  # csrc/skinny_gemm.cuh rows per pass
+
+
+def qmm_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+              out_dtype) -> torch.Tensor:
+    """K7's math: bf16 x [M, K] . int8 q [N, K]^T summed in f32, times s
+    after the sum (the products are exact in f32)."""
+    acc = x2.to(torch.bfloat16).float() @ q.float().t()
+    return (acc * s.float()).to(out_dtype)
+
+
+def w8a8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                      out_dtype) -> torch.Tensor:
+    """The LLM's W8A8 formula (quant.py:123-130): per-row int8 x, exact
+    integer product, ``(f32(acc) * a) * s``."""
+    xq, a = quant_rows_llm(x2.float())
+    return ((int_dot(xq, q) * a) * s.float()).to(out_dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def qmm_splits(M: int, N: int, K: int, sms: int) -> int:
+    """K-splits of K7's tensor-core path: enough blocks for two per SM
+    when the column tiles alone give fewer, each split at least four
+    64-wide K steps; 1 for the skinny path (M <= 16)."""
+    tiles = -(-N // _QMM_TILE_N)
+    kt = K // QMM_K_MULTIPLE
+    if M <= _QMM_SKINNY_ROWS or tiles >= 2 * sms:
+        return 1
+    splits = max(1, min(kt // 4, -(-2 * sms // tiles)))
+    return -(-kt // -(-kt // splits))   # no empty split
+
+
+def _check_leaf(name: str, x2, q, s, out_dtype) -> None:
+    M, K = x2.shape
+    if q.dim() != 2 or q.shape[1] != K or s.shape != (q.shape[0],):
+        raise ValueError(f"{name}: x [{M}, {K}] against q {tuple(q.shape)} "
+                         f"s {tuple(s.shape)}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{name}: output dtype {out_dtype} (bf16 or f32)")
+
+
+def qmm(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+        out_dtype) -> torch.Tensor:
+    """K7: x2 [M, K] (M < 128) -> [M, N] in out_dtype."""
+    name = "quant_matmul"
+    _check_leaf(name, x2, q, s, out_dtype)
+    if x2.device.type == "cpu":
+        return qmm_plain(x2, q, s, out_dtype)
+    M, K = x2.shape
+    N = q.shape[0]
+    if not 1 <= M < W8A8_MIN_ROWS or K % QMM_K_MULTIPLE:
+        raise ValueError(f"{name}: kernel takes 1 <= M < {W8A8_MIN_ROWS} "
+                         f"rows and K % {QMM_K_MULTIPLE} == 0, got M={M} "
+                         f"K={K}")
+    _build.require_cuda(name, x2, dtype=torch.bfloat16)
+    _build.require_cuda(name, q, dtype=torch.int8)
+    _build.require_cuda(name, s, dtype=torch.float32)
+    dev = x2.device
+    out = torch.empty(M, N, dtype=out_dtype, device=dev)
+    splits = qmm_splits(M, N, K, _sm_count(dev.index or 0))
+    part = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    _build.check(_build.library().desta_qmm(
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
+        None if part is None else part.data_ptr(), M, N, K, splits,
+        int(out_dtype == torch.float32), _build.stream_ptr(dev)), name)
+    _build.count_launch(name)
+    return out
+
+
+def w8a8_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                out_dtype) -> torch.Tensor:
+    """The W8A8 prefill: x2 [M, K] -> [M, N] in out_dtype."""
+    name = "w8a8_matmul"
+    _check_leaf(name, x2, q, s, out_dtype)
+    if x2.device.type == "cpu":
+        return w8a8_matmul_plain(x2, q, s, out_dtype)
+    M, K = x2.shape
+    N = q.shape[0]
+    require_int8_leaf(name, q, s, None, N, K)
+    _build.require_cuda(name, x2, dtype=torch.bfloat16)
+    lib = _build.library()
+    xq, a = launch_quant_rows(lib, x2, K, name, div127=True)
+    out = torch.empty(M, N, dtype=out_dtype, device=x2.device)
+    epi = EPI_LLM_F32 if out_dtype == torch.float32 else EPI_LLM_BF16
+    launch_gemm_s8(lib, epi, xq, a, [(q, s, None, out)], N, K, name)
+    return out
+
+
+def quant_matmul(x: torch.Tensor, leaf: QuantLeaf,
+                 out_dtype=None) -> torch.Tensor:
+    """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's)."""
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    out_dtype = out_dtype or x.dtype
+    fn = qmm if x2.shape[0] < W8A8_MIN_ROWS else w8a8_matmul
+    y = fn(x2, leaf["q"], leaf["s"], out_dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -1,6 +1,6 @@
-"""Symmetric int8 quantisation for the Whisper encoder (counterpart of
-``desta25_audio_tpu/ops/quant.py:30-53, 262-327`` and of the row quantiser
-``desta25_audio_tpu/ops/enc_ffn.py:161-166``).
+"""Symmetric int8 quantisation for the Whisper encoder and the LLM
+(counterpart of ``desta25_audio_tpu/ops/quant.py:30-53, 262-356`` and of the
+row quantiser ``desta25_audio_tpu/ops/enc_ffn.py:161-166``).
 
 A quantized leaf is ``{"q": int8 [..., out, in], "s": float32 [..., out]}``
 (plus the linear's ``"b"``): one scale per output channel, in the port's
@@ -11,9 +11,8 @@ package's ``jax.vmap(quantize_weight)`` over layers computes.
 Activations are quantized per row at run time (:func:`quant_rows`).  This
 module also owns the launch interface of ``csrc/w8a8.cu`` (the row
 quantiser and the int8 GEMM), which the W8A8 kernels K4
-(``ops/enc_ffn.py``) and K5/K6 (``ops/w8a8_proj.py``) share.  The int8 LLM
-(``quantize_llm_params``, the weight-streaming matmul) is not ported yet
-(ROADMAP.md Queue 1: int8 LLM).
+(``ops/enc_ffn.py``) and K5/K6 (``ops/w8a8_proj.py``) and the int8 LLM's
+W8A8 prefill (``ops/qmm.py``) share.
 """
 
 from __future__ import annotations
@@ -27,7 +26,13 @@ from . import _build
 QuantLeaf = Dict[str, torch.Tensor]
 
 # gemm_s8 epilogues (csrc/w8a8.cu)
-EPI_PROJ, EPI_GELU, EPI_SEG = 0, 1, 2
+EPI_PROJ, EPI_GELU, EPI_SEG, EPI_LLM_BF16, EPI_LLM_F32 = 0, 1, 2, 3, 4
+
+# the LLM's quantized head is zero-padded to a multiple of this many output
+# rows, padded scales 1.0 (desta25_audio_tpu/ops/quant.py:352-355)
+HEAD_PAD = 2560
+# the matmul weights of a port LLM layer stack ([L, out, in])
+LLM_QUANT_KEYS = ("wqkv", "wo", "w_gu", "w_down")
 
 
 def quantize_weight(w: torch.Tensor) -> QuantLeaf:
@@ -55,6 +60,48 @@ def quantize_linear(p: Dict[str, Any]) -> Dict[str, Any]:
     if "b" in p:
         out["b"] = p["b"]
     return out
+
+
+def _quantize_stacked(w: torch.Tensor) -> QuantLeaf:
+    """quantize_weight over a stacked [L, out, in] weight, one layer at a
+    time (identical results; bounds the f32 temporaries to one layer)."""
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty(w.shape[:-1], dtype=torch.float32, device=w.device)
+    for l in range(w.shape[0]):
+        leaf = quantize_weight(w[l])
+        q[l], s[l] = leaf["q"], leaf["s"]
+    return {"q": q, "s": s}
+
+
+def _quantize_head(w: torch.Tensor) -> QuantLeaf:
+    """[V, D] head (or embedding) -> int8 leaf with V zero-padded to a
+    multiple of HEAD_PAD rows (padded scales 1.0), quantized in row blocks
+    of HEAD_PAD."""
+    V, D = w.shape
+    Vp = -(-V // HEAD_PAD) * HEAD_PAD
+    q = torch.zeros(Vp, D, dtype=torch.int8, device=w.device)
+    s = torch.ones(Vp, dtype=torch.float32, device=w.device)
+    for v0 in range(0, V, HEAD_PAD):
+        v1 = min(V, v0 + HEAD_PAD)
+        leaf = quantize_weight(w[v0:v1])
+        q[v0:v1], s[v0:v1] = leaf["q"], leaf["s"]
+    return {"q": q, "s": s}
+
+
+def quantize_llm_params(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The LLM's matmul weights to int8 (``quantize_llm_params`` of the JAX
+    package): every ``LLM_QUANT_KEYS`` stack per layer and output row, plus
+    an int8 ``lm_head`` padded to a multiple of HEAD_PAD rows -- built from
+    ``embed`` for a tied model.  Scales are per output row, so quantizing
+    the fused ``wqkv`` and the row-interleaved ``w_gu`` equals quantizing
+    q/k/v and gate/up apart (the scales concatenate or interleave with the
+    rows).  ``embed`` and the norms stay as they are.  Returns a new tree;
+    the input is not modified."""
+    layers = dict(params["layers"])
+    for key in LLM_QUANT_KEYS:
+        layers[key] = _quantize_stacked(layers[key])
+    return {**params, "layers": layers,
+            "lm_head": _quantize_head(params.get("lm_head", params["embed"]))}
 
 
 def quantize_encoder_params(params: Dict[str, Any],
@@ -95,6 +142,18 @@ def quant_rows(x: torch.Tensor):
     return q, s
 
 
+def quant_rows_llm(x: torch.Tensor):
+    """The LLM's W8A8 row quantiser (desta25_audio_tpu/ops/quant.py:123-126):
+    f32 [m, k] -> (int8, f32 [m, 1]); ``s = max(max|x|, 1e-8) / 127`` (a
+    division, unlike :func:`quant_rows`), ``q = round_half_even(x / s)``
+    (|x / s| <= 127, so no clip is needed).  The divisor is a tensor: a
+    Python-number divisor makes PyTorch's CUDA kernel multiply by its
+    reciprocal, which rounds differently."""
+    amax = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-8)
+    s = amax / torch.full_like(amax, 127.0)
+    return torch.round(x / s).to(torch.int8), s
+
+
 def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Exact integer product int8 a [m, k] . int8 w [n, k]^T -> f32 [m, n].
     The sums stay below 2**53, so float64 is exact (f32 is not, for
@@ -104,15 +163,18 @@ def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 # -- csrc/w8a8.cu launches ---------------------------------------------------
 
-def launch_quant_rows(lib, x: torch.Tensor, seg: int, name: str):
+def launch_quant_rows(lib, x: torch.Tensor, seg: int, name: str,
+                      div127: bool = False):
     """quant_rows_kernel: x [M, K] bf16 or f32 -> (int8 [M, K], f32 scales
-    [M, ceil(K / seg)]); counts one launch of ``name``."""
+    [M, ceil(K / seg)]); counts one launch of ``name``.  ``div127`` takes
+    the LLM's scale ``max(max|x|, 1e-8) / 127`` (``quant_rows_llm``)."""
     M, K = x.shape
     q = torch.empty(M, K, dtype=torch.int8, device=x.device)
     s = torch.empty(M, -(-K // seg), dtype=torch.float32, device=x.device)
     _build.check(lib.desta_quant_rows(
         x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(),
-        s.data_ptr(), M, K, seg, _build.stream_ptr(x.device)), name)
+        s.data_ptr(), M, K, seg, int(div127), _build.stream_ptr(x.device)),
+        name)
     _build.count_launch(name)
     return q, s
 

@@ -1,15 +1,18 @@
 """Where the time of the flagship ``generate()`` goes, on one GPU.
 
     python -m desta25_audio_tpu_torch.profile_generate [--batch 2] \
-        [--int8-encoder]
+        [--int8-encoder] [--int8-llm] [--speculative-k K]
 
 Builds the flagship configuration (configs/desta25_llama31-8B_Qformer6L.yaml,
 bf16, random weights from a seed, CharTokenizer; with ``--int8-encoder``
-the encoder is switched to the JAX package's inference default, int8 W8A8),
+the encoder is switched to the JAX package's inference default, int8 W8A8;
+with ``--int8-llm`` the LLM is quantized to int8, ``apply_llm_quant``),
 warms up once, then runs three phases under ``torch.profiler``: perception
 (host phases, mel, encoder, Q-Former, splice), prefill (``llm_generate``
-with one new token),
-and prefill + 32 greedy decode steps.  For each phase it prints the wall
+with one new token), and prefill + 31 greedy decode steps (with
+``--speculative-k K >= 2``: ``llm_generate_spec`` verifying K tokens a step,
+32 new tokens, the n-gram history seeded with the prompt ids, as
+``generate()`` seeds it).  For each phase it prints the wall
 time (host clock, device synchronised), the device busy time (sum of kernel
 times), the idle share, and the kernels by total device time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
@@ -32,6 +35,7 @@ from .audio.io import write_wav
 from .config import config_from_yaml_file
 from .data.tokenizer import CharTokenizer
 from .generate.decode import llm_generate
+from .generate.speculative import left_aligned, llm_generate_spec
 from .models.desta import DeSTA25AudioModel
 
 NEW_TOKENS = 32
@@ -71,6 +75,12 @@ def main() -> None:
                     help="the JAX package's inference encoder: "
                     "apply_inference_encoder_quant() (int8 FFN, dual "
                     "attention leaves) before the runs")
+    ap.add_argument("--int8-llm", action="store_true",
+                    help="quantize the LLM to int8 (apply_llm_quant) "
+                    "before the runs")
+    ap.add_argument("--speculative-k", type=int, default=0,
+                    help="decode phase: speculative decoding verifying K "
+                    "tokens a step (K >= 2)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
@@ -82,6 +92,8 @@ def main() -> None:
                               tokenizer=CharTokenizer("llama3"))
     if args.int8_encoder:
         model.apply_inference_encoder_quant()
+    if args.int8_llm:
+        model.apply_llm_quant()
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as d, torch.no_grad():
         convs = []
@@ -95,19 +107,39 @@ def main() -> None:
                            "content": f"Clip {i}: <|AUDIO|> What is it?",
                            "audios": [{"audio": path,
                                        "text": "a synthetic tone"}]}])
-        model.generate(convs, do_sample=False, max_new_tokens=2)  # warm-up
-        embeds, mask, _, _ = report(
+        model.generate(convs, do_sample=False, max_new_tokens=2,
+                       speculative_k=args.speculative_k)  # warm-up
+        embeds, mask, _, _, prompt_ids = report(
             f"perception b{args.batch}",
-            lambda: model._run_generation_phases(convs, {}))
+            lambda: model._run_generation_phases(convs, {},
+                                                 return_prompt_ids=True))
+        common = dict(do_sample=False, eos_ids=(),
+                      pad_id=model.tokenizer.pad_token_id)
+        llm, cfg = model.params["llm"], model.llm_cfg
 
         def gen(n):
-            return lambda: llm_generate(
-                model.params["llm"], model.llm_cfg, embeds, mask,
-                model.generator, max_new_tokens=n, do_sample=False,
-                eos_ids=(), pad_id=model.tokenizer.pad_token_id)
+            return lambda: llm_generate(llm, cfg, embeds, mask,
+                                        model.generator, max_new_tokens=n,
+                                        **common)
         report(f"prefill b{args.batch} (T={embeds.shape[1]})", gen(1))
-        report(f"prefill + {NEW_TOKENS - 1} decode steps b{args.batch}",
-               gen(NEW_TOKENS))
+        if args.speculative_k >= 2:
+            lens = mask.sum(1).cpu().numpy()
+            aligned = torch.as_tensor(left_aligned(prompt_ids, lens),
+                                      device="cuda")
+            stats = {}
+            report(f"prefill + speculative decode (k={args.speculative_k}, "
+                   f"{NEW_TOKENS} tokens) b{args.batch}",
+                   lambda: llm_generate_spec(
+                       llm, cfg, embeds, mask, model.generator,
+                       max_new_tokens=NEW_TOKENS,
+                       speculative_k=args.speculative_k, prompt_ids=aligned,
+                       prompt_lens=torch.as_tensor(lens, device="cuda"),
+                       timings=stats, **common))
+            print(f"   {stats['decode_steps']} verify steps, "
+                  f"{stats['spec_tokens']} tokens after the first")
+        else:
+            report(f"prefill + {NEW_TOKENS - 1} decode steps b{args.batch}",
+                   gen(NEW_TOKENS))
 
 
 if __name__ == "__main__":

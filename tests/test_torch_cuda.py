@@ -2,7 +2,10 @@
 shapes the flagship run does not reach (ragged tiles, one row, 3/5/9 decode
 rows, grouped-query ratios, qk-norm, a K4 hidden narrower than one
 1280-wide chunk, of two chunks and of two and a half, and one whose chunks
-differ 64x in scale).  Marked ``cuda``: each test skips
+differ 64x in scale; K7 on both of its paths with a ragged last column
+tile, the LLM's W8A8 GEMM at ragged M, the int8 decode step, the verify
+step at 2/4/8 draft tokens with the block ending at the cache's end).
+Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
@@ -30,8 +33,19 @@ from desta25_audio_tpu_torch.ops.fused_decode import (
     KVCache,
     fused_decode_layers,
     fused_decode_layers_plain,
+    fused_verify_layers,
 )
-from desta25_audio_tpu_torch.ops.quant import quantize_linear
+from desta25_audio_tpu_torch.ops.qmm import (
+    qmm,
+    qmm_plain,
+    w8a8_matmul,
+    w8a8_matmul_plain,
+)
+from desta25_audio_tpu_torch.ops.quant import (
+    quantize_linear,
+    quantize_llm_params,
+    quantize_weight,
+)
 from desta25_audio_tpu_torch.ops.w8a8_proj import (
     proj_w8a8,
     proj_w8a8_plain,
@@ -183,3 +197,153 @@ def test_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="N % 128"):
         proj_w8a8(torch.zeros(1, 8, 256, device="cuda").bfloat16(),
                   quantize_linear({"w": w.t()[:96].contiguous()}))
+
+
+# K7 and the LLM's W8A8 GEMM against their plain versions, within 1e-3 of the
+# output scale: W8A8's int32 sums are exact and its epilogue runs in the plain
+# version's order; K7's f32 sums differ from the plain version's only in
+# order (~1e-6), so it is compared in f32, where a bf16 rounding flip cannot
+# hide behind the tolerance
+TOL_QMM = 1e-3
+
+
+@pytest.mark.parametrize("M", [1, 3, 9, 100, 127])
+def test_qmm_kernel(gen, M):
+    N, K = 1000, 512                      # N: a ragged last 128-column tile
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    leaf = quantize_weight(torch.randn(N, K, generator=gen, device="cuda")
+                           / K ** .5)
+    _build.reset_launch_counts()
+    got = qmm(x, leaf["q"], leaf["s"], torch.float32)
+    got_bf = qmm(x, leaf["q"], leaf["s"], torch.bfloat16)
+    assert _build.launch_counts() == {"quant_matmul": 2}
+    assert got.shape == (M, N) and got_bf.dtype == torch.bfloat16
+    want = qmm_plain(x, leaf["q"], leaf["s"], torch.float32)
+    assert _rel(got, want) < TOL_QMM
+    assert _rel(got_bf, want) < 1e-2      # one bf16 rounding
+
+
+@pytest.mark.parametrize("M", [128, 130, 257])
+def test_w8a8_llm_kernel(gen, M):
+    N, K = 384, 256
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    x[3] = 0                              # the 1e-8 scale floor
+    leaf = quantize_weight(torch.randn(N, K, generator=gen, device="cuda"))
+    _build.reset_launch_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        got = w8a8_matmul(x, leaf["q"], leaf["s"], dt)
+        want = w8a8_matmul_plain(x, leaf["q"], leaf["s"], dt)
+        assert got.dtype == dt and got.shape == (M, N)
+        assert _rel(got, want) < TOL_QMM
+    # row quantisation + GEMM for each call
+    assert _build.launch_counts() == {"w8a8_matmul": 4}
+
+
+def _tower(gen, cfg, int8):
+    params = tllm.init_llm(cfg, torch.bfloat16, "cuda", gen)
+    return quantize_llm_params(params) if int8 else params
+
+
+@pytest.mark.parametrize("B,qk_norm,heads", [
+    (1, False, (4, 4)), (3, True, (4, 1)), (5, True, (8, 2)),
+])
+def test_fused_decode_int8_kernel(gen, B, qk_norm, heads):
+    H, Hkv = heads
+    cfg = dataclasses.replace(
+        llm_config_for("test/llama-nano128"), num_attention_heads=H,
+        num_key_value_heads=Hkv, qk_norm=qk_norm)
+    params = _tower(gen, cfg, int8=True)
+    S = 256
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.randint(1, S, (B,), generator=gen, device="cuda")
+    mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.2).int()
+    x = tllm.embed_tokens(params, torch.randint(
+        0, 512, (B, 1), generator=gen, device="cuda"))
+    ck = KVCache(cache0.k.clone(), cache0.v.clone())
+    cp = KVCache(cache0.k.clone(), cache0.v.clone())
+    _build.reset_launch_counts()
+    hk, _ = fused_decode_layers(params, cfg, x, mask, ci[:, None], ck, ci)
+    assert _build.launch_counts() == {
+        "fused_decode_layers_int8": 7 * cfg.num_hidden_layers}
+    hp, _ = fused_decode_layers_plain(params, cfg, x, mask, ci[:, None], cp,
+                                      ci)
+    assert _rel(hk, hp) < 3e-2
+    rows = (slice(None), torch.arange(B, device="cuda"), ci)
+    assert _rel(ck.k[rows], cp.k[rows]) < 3e-2
+    changed = (ck.k != cache0.k).any(-1)
+    expect = torch.zeros_like(changed)
+    expect[rows] = True
+    assert torch.equal(changed, expect)
+
+
+@pytest.mark.parametrize("kd,B,int8", [
+    (2, 1, True), (4, 3, True), (8, 3, False), (8, 1, True), (4, 1, False),
+])
+def test_fused_verify_kernel(gen, kd, B, int8):
+    cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
+                              qk_norm=True)
+    params = _tower(gen, cfg, int8)
+    S = 128
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.full((B,), S - kd, device="cuda")   # the block ends at S
+    if B > 1:
+        ci[0] = S // 3
+    mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.2).int()
+    x = tllm.embed_tokens(params, torch.randint(
+        0, 512, (B, kd), generator=gen, device="cuda"))
+    pos = ci[:, None] + torch.arange(kd, device="cuda")[None, :]
+    ck = KVCache(cache0.k.clone(), cache0.v.clone())
+    cp = KVCache(cache0.k.clone(), cache0.v.clone())
+    _build.reset_launch_counts()
+    hk, _ = fused_verify_layers(params, cfg, x, mask, pos, ck, ci)
+    assert _build.launch_counts() == {
+        "fused_verify_layers": 7 * cfg.num_hidden_layers}
+    hp, _ = fused_decode_layers_plain(params, cfg, x, mask, pos, cp, ci)
+    assert hk.shape == (B, kd, cfg.hidden_size)
+    assert _rel(hk, hp) < 3e-2
+    changed = (ck.k != cache0.k).any(-1)
+    expect = torch.zeros_like(changed)
+    for b in range(B):
+        new = slice(int(ci[b]), int(ci[b]) + kd)
+        expect[:, b, new] = True
+        assert _rel(ck.k[:, b, new], cp.k[:, b, new]) < 3e-2
+        assert _rel(ck.v[:, b, new], cp.v[:, b, new]) < 3e-2
+    assert torch.equal(changed, expect)
+    # token 0 of the verify step is the decode step on the same cache
+    c1 = KVCache(cache0.k.clone(), cache0.v.clone())
+    h1, _ = fused_decode_layers(params, cfg, x[:, :1], mask, pos[:, :1], c1,
+                                ci)
+    assert _rel(hk[:, :1], h1) < 3e-2
+
+
+def test_llm_wrappers_raise_on_what_they_do_not_take(gen):
+    leaf = quantize_weight(torch.randn(256, 96, device="cuda"))
+    x = torch.randn(4, 96, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="K % 64"):
+        qmm(x, leaf["q"], leaf["s"], torch.float32)        # K = 96
+    leaf = quantize_weight(torch.randn(200, 128, device="cuda"))
+    with pytest.raises(ValueError, match="bfloat16"):
+        qmm(torch.randn(4, 128, device="cuda"), leaf["q"], leaf["s"],
+            torch.float32)                                  # f32 x
+    with pytest.raises(ValueError, match="M < 128"):
+        qmm(torch.randn(130, 128, device="cuda").bfloat16(), leaf["q"],
+            leaf["s"], torch.float32)
+    with pytest.raises(ValueError, match="N % 128"):
+        w8a8_matmul(torch.randn(130, 128, device="cuda").bfloat16(),
+                    leaf["q"], leaf["s"], torch.float32)    # N = 200
+    cfg = llm_config_for("test/llama-nano128")
+    params = _tower(gen, cfg, int8=True)
+    cache = tllm.init_kv_cache(cfg, 1, 128, torch.bfloat16, "cuda")
+    x = torch.zeros(1, 9, cfg.hidden_size, device="cuda").bfloat16()
+    with pytest.raises(ValueError, match="tokens per row"):
+        fused_verify_layers(params, cfg, x, torch.ones(1, 128, device="cuda"),
+                            torch.zeros(1, 9, device="cuda").long(), cache, 0)
+    big = tllm.init_kv_cache(cfg, 1, 32768, torch.bfloat16, "cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_decode_layers(params, cfg, x[:, :1],
+                            torch.ones(1, 32768, device="cuda"),
+                            torch.zeros(1, 1, device="cuda").long(), big, 0)

@@ -92,8 +92,6 @@ def test_missing_transcription_needs_asr(models, wavs):
             "audios": [{"audio": wavs[0], "text": None}]}]
     with pytest.raises(NotImplementedError, match="ASR"):
         tm.generate(msg, max_new_tokens=2)
-    with pytest.raises(NotImplementedError, match="speculation"):
-        tm.generate(msg, max_new_tokens=2, speculative_k=4)
     with pytest.raises(ValueError, match="does not exist"):
         tm.generate([{"role": "user", "content": "hi <|AUDIO|>",
                       "audios": [{"audio": "/nonexistent.wav",

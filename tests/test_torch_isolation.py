@@ -126,7 +126,6 @@ def test_wav_io_vad_and_splice_maps_match(tmp_path):
 @pytest.mark.parametrize("override,match", [
     (dict(connector_mode="orca_hybrid"), "ORCA"),
     (dict(use_lora=True), "LoRA"),
-    (dict(llm_quant="int8"), "int8 LLM"),
 ])
 def test_outside_the_slice_raises(override, match):
     from desta25_audio_tpu_torch.models.desta import check_slice
