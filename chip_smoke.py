@@ -58,7 +58,32 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     launch; the first verify step's position-0 logits against one K8-int8
     step on the same cache, within TOL_DECODE; verify steps, tokens per
     step, ms per emitted token and the agreement with 15's greedy ids are
-    printed (information).
+    printed (information);
+17. K8i, the decode / verify step with the ORCA injection inside, against
+    its plain version: the 32-layer int8 Llama-3.1-8B tower with a random
+    int8 cross-attention stack, B=2, S=256, per-row ci, Ta=375 audio
+    tokens, on=[1, 1], at Kd=1 and Kd=4 (injection head dim 128), and a
+    2-layer Qwen3-4B tower (D=2560, H=32, qk-norm: head dim 80) at Kd=1 and
+    Kd=4, gated as K8; the K8-int8 step time without injection beside;
+18. the ORCA model (configs/desta25_llama31-8B_ORCAHybrid.yaml: 2-layer
+    global Q-Former, 64 global tokens, local branch, injection in all 32
+    layers), sharing the model's int8 encoder and int8 LLM, connector and
+    f32 stack random from a seed: ``generate()`` at b2 with the float stack
+    (injection in PyTorch: K8i must not launch), then
+    ``apply_orca_xattn_quant()``;
+19. ``generate()`` at b2 and b1, greedy, 32 new tokens: K8i, K8-int8, K7,
+    W8A8, K2 and K4 must launch; the b2 path step by step as in 8 (the
+    prefill through the PyTorch injection hook, the decode step through
+    K8i);
+20. ``generate(speculative_k=4)`` at b2: the verify step with injection
+    must launch; its first step's position-0 logits against one K8i decode
+    step on the same cache, within TOL_DECODE.
+
+Every kernel's entry in the JSON line carries its bound (the larger of its
+bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16 or 1,979
+TOP/s int8, counted from this run's inputs) and, where one PyTorch call
+computes the same function, that call's time (``library_ms``; K2 against
+``scaled_dot_product_attention``), else null.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +92,7 @@ The line before the last is the kernel table as JSON; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import os
@@ -74,6 +100,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -92,6 +119,10 @@ TOL_QMM = 1e-3       # K7 and the LLM's W8A8 GEMM, both in f32: W8A8's int32
                      # version's order; K7's f32 sums differ only in order
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
+ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 SOURCES = {
     "packed_encoder_attention": (
         "desta25_audio_tpu_torch/csrc/enc_attention.cu",
@@ -124,11 +155,64 @@ SOURCES = {
     "fused_verify_layers": (
         "desta25_audio_tpu_torch/csrc/fused_decode.cu",
         "desta25_audio_tpu/ops/fused_decode.py:1159"),
+    "fused_decode_inject": (
+        "desta25_audio_tpu_torch/csrc/fused_inject.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:731"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("packed_encoder_attention", "encoder_ffn", "fused_decode_layers")
 W8A8_KERNELS = ("encoder_ffn_w8a8", "qkv_w8a8", "proj_w8a8")
 INT8_LLM_KERNELS = ("quant_matmul", "w8a8_matmul", "fused_decode_layers_int8")
+# what ORCA generate() with the int8 stack must launch (phase 19)
+ORCA_PATH = ("fused_decode_inject", "fused_decode_layers_int8",
+             "quant_matmul", "w8a8_matmul", "packed_encoder_attention",
+             "encoder_ffn_w8a8")
+
+
+def bound(nbytes: float, ops: float, kind: str):
+    """(least ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def llm_step_work(params, cfg, B: int, kd: int, ci, inject=None):
+    """(bytes, operations) one decode / verify step needs: every layer
+    weight, scale and norm read once; per row the cached keys and values
+    below its ci read once and kd new rows written; x in, h out.  With
+    ``inject``: the stack's q / o / gate1 / gate2 / LayerNorm leaves read
+    once, each row's ta audio keys and values read once; operations 2 per
+    weight per token row, 4*Dh per (query head, key) pair, 4*D per (token
+    row, audio token)."""
+    L, D = cfg.num_hidden_layers, cfg.hidden_size
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+    KVD = cfg.num_key_value_heads * Dh
+    R = B * kd
+    lay = params["layers"]
+    nb = tree_bytes(lay)
+    weights = sum((w["q"] if isinstance(w, dict) else w).numel()
+                  for k, w in lay.items()
+                  if k in ("wqkv", "wo", "w_gu", "w_down"))
+    nb += L * sum(int(c) for c in ci) * KVD * 2 * 2 + L * R * KVD * 2 * 2
+    nb += 2 * R * D * 2
+    ops = 2 * R * weights + L * 4 * H * Dh * sum(
+        kd * int(c) + kd * (kd + 1) // 2 for c in ci)
+    if inject is not None:
+        il = inject["params"]["layers"]
+        nb += sum(tree_bytes(il[k]) for k in ("q", "o", "gate1", "gate2",
+                                              "ln"))
+        ta = int(inject["ta_real"])
+        nb += 2 * L * B * ta * D * 2
+        ops += 2 * R * sum(il[k]["q"].numel() for k in ("q", "o", "gate1"))
+        ops += L * R * 4 * ta * D
+    return nb, ops
 
 
 def gpu_line() -> str:
@@ -177,13 +261,22 @@ def check_enc_attention(gen):
         ms = cuda_time_ms(lambda: packed_encoder_attention(q, k, v, 20))
         plain_ms = cuda_time_ms(
             lambda: packed_encoder_attention_plain(q, k, v, 20))
+        # the library yardstick: one scaled_dot_product_attention call on
+        # the same tensors viewed [n, H, T, Dh]
+        heads = lambda t: t.view(n, t.shape[1], 20, 64).transpose(1, 2)  # noqa
+        lib_ms = cuda_time_ms(lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  heads(q), heads(k), heads(v)))
+        nbytes = 2 * n * 1280 * (2 * tq + 2 * tkv)
+        b_ms, b_by = bound(nbytes, 4 * n * tq * tkv * 1280, "bf16")
         print(f"K2 packed_encoder_attention[{label}] B={n} Tq={tq} "
               f"Tkv={tkv} H=20 Dh=64: max_abs_err={err:.3e} "
               f"rel={rel:.3e} (tol {TOL_ENC}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
         if rel > TOL_ENC:
             raise AssertionError(f"K2 {label} disagrees: rel {rel}")
-        rows.append((err, ms, plain_ms))
+        rows.append((err, ms, plain_ms, b_ms, b_by, lib_ms))
     return rows
 
 
@@ -203,12 +296,14 @@ def check_enc_ffn(gen):
     err, rel = rel_err(got, want)
     ms = cuda_time_ms(lambda: encoder_ffn(x, w1, b1, w2, b2))
     plain_ms = cuda_time_ms(lambda: encoder_ffn_plain(x, w1, b1, w2, b2))
+    b_ms, b_by = bound(2 * (2 * M * D + 2 * D * Fd + Fd + D),
+                       4 * M * D * Fd, "bf16")
     print(f"K3 encoder_ffn M={M} D={D} F={Fd}: max_abs_err={err:.3e} "
           f"rel={rel:.3e} (tol {TOL_ENC}) kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms", flush=True)
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     if rel > TOL_ENC:
         raise AssertionError(f"K3 disagrees: rel {rel}")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, b_ms, b_by
 
 
 def _int8_leaf(gen, n: int, k: int, bias: bool = True, mult=1.0):
@@ -283,21 +378,46 @@ def check_w8a8(gen):
         raise AssertionError(f"K4 disagrees on skewed chunks: rel {rel}")
     prev = rows["encoder_ffn_w8a8"]
     rows["encoder_ffn_w8a8"] = (max(prev[0], err),) + prev[1:]
+    # bounds at M = 3000 (the times' shape): bf16 x in and out, int8
+    # weights with f32 scales and bf16 biases, int8 operations
+    M, io = 3000, 2 * 3000 * D * 2
+    work = {"qkv_w8a8": (io + 2 * 3000 * D * 2 + 3 * D * (D + 6),
+                         6 * M * D * D),
+            "proj_w8a8": (io + D * (D + 6), 2 * M * D * D),
+            "encoder_ffn_w8a8": (io + 2 * D * Fd + 6 * (Fd + D),
+                                 4 * M * D * Fd)}
+    for name, (nb, ops) in work.items():
+        rows[name] = rows[name] + bound(nb, ops, "int8")
     return rows
 
 
+def _slice(tree, lo: int, hi: int):
+    """Layers lo..hi-1 of a stacked tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _slice(v, lo, hi) for k, v in tree.items()}
+    return tree[lo:hi]
+
+
 def _layer_slice(params, lo: int, hi: int):
-    """Layers lo..hi-1 of a stacked LLM param tree (views, no copies); a
-    dict leaf (norm scale, int8 q/s) is sliced key by key."""
-    lay = {k: ({kk: vv[lo:hi] for kk, vv in v.items()} if isinstance(v, dict)
-               else v[lo:hi]) for k, v in params["layers"].items()}
-    return {**params, "layers": lay}
+    """Layers lo..hi-1 of a stacked LLM param tree."""
+    return {**params, "layers": _slice(params["layers"], lo, hi)}
 
 
-def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8"):
+def _inject_slice(inject, lo: int, hi: int):
+    """Layers lo..hi-1 of an injection spec (stack and audio K/V)."""
+    if inject is None:
+        return None
+    return {**inject, "params": {"layers": _slice(
+        inject["params"]["layers"], lo, hi)},
+        "k": inject["k"][lo:hi], "v": inject["v"][lo:hi]}
+
+
+def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
+                       inject=None):
     """A decode step (kd = 1: K8, or K8-int8 on an int8 tree) or a verify
     step (kd > 1: K8v) on the flagship LLM params (full width, all 32
-    layers), kd tokens per row written at ci..ci+kd-1.
+    layers), kd tokens per row written at ci..ci+kd-1; with ``inject``
+    (K8i) the ORCA injection runs inside the step.
 
     Checked three ways: (1) every layer alone, both versions fed the same
     input (the plain trajectory), hidden and written k rows within
@@ -330,20 +450,21 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8"):
     def fresh(lo=0, hi=L):
         return KVCache(cache0.k[lo:hi].clone(), cache0.v[lo:hi].clone())
 
-    def logits(fn, p, cache, xin=x):
-        h, _ = fn(p, cfg, xin, mask, positions, cache, ci)
+    def logits(fn, p, cache, xin=x, inj=inject):
+        h, _ = fn(p, cfg, xin, mask, positions, cache, ci, inject=inj)
         return tllm.head_logits(p, rms_norm(p["norm"], h, cfg.rms_norm_eps))
 
     # (1) layer by layer on the plain trajectory
     ck, cp = fresh(), fresh()
     h, worst, worst_row = x, 0.0, 0.0
     for l in range(L):
-        pl_ = _layer_slice(params, l, l + 1)
+        pl_, il_ = _layer_slice(params, l, l + 1), _inject_slice(inject, l,
+                                                                l + 1)
         hk, _ = kernel(pl_, cfg, h, mask, positions,
-                       KVCache(ck.k[l:l + 1], ck.v[l:l + 1]), ci)
+                       KVCache(ck.k[l:l + 1], ck.v[l:l + 1]), ci, inject=il_)
         hp, _ = fused_decode_layers_plain(
             pl_, cfg, h, mask, positions,
-            KVCache(cp.k[l:l + 1], cp.v[l:l + 1]), ci)
+            KVCache(cp.k[l:l + 1], cp.v[l:l + 1]), ci, inject=il_)
         worst = max(worst, rel_err(hk, hp)[1])
         for b in range(B):
             rows = slice(int(ci[b]), int(ci[b]) + kd)
@@ -357,9 +478,10 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8"):
     if not bool((changed == expect).all()):
         raise AssertionError(f"{tag} wrote cache rows other than ci..ci+kd-1")
     # (2) logits through two layers
-    p2 = _layer_slice(params, 0, 2)
-    err2, rel2 = rel_err(logits(kernel, p2, fresh(0, 2)),
-                         logits(fused_decode_layers_plain, p2, fresh(0, 2)))
+    p2, i2 = _layer_slice(params, 0, 2), _inject_slice(inject, 0, 2)
+    err2, rel2 = rel_err(logits(kernel, p2, fresh(0, 2), inj=i2),
+                         logits(fused_decode_layers_plain, p2, fresh(0, 2),
+                                inj=i2))
     # (3) logits through the whole stack, and the plain version's own
     # sensitivity to a one-ulp change of one input element
     want = logits(fused_decode_layers_plain, params, fresh())
@@ -369,20 +491,30 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8"):
     _, rel_ulp = rel_err(logits(fused_decode_layers_plain, params, fresh(),
                                 x_ulp), want)
     ms = cuda_time_ms(lambda: kernel(
-        params, cfg, x, mask, positions, ck, ci), iters=5)
+        params, cfg, x, mask, positions, ck, ci, inject=inject), iters=5)
     plain_ms = cuda_time_ms(lambda: fused_decode_layers_plain(
-        params, cfg, x, mask, positions, cp, ci), iters=5)
+        params, cfg, x, mask, positions, cp, ci, inject=inject), iters=5)
+    b_ms, b_by = bound(*llm_step_work(params, cfg, B, kd, ci.tolist(),
+                                      inject), "bf16")
+    extra = ""
+    if inject is not None:
+        no_inj = cuda_time_ms(lambda: kernel(
+            params, cfg, x, mask, positions, ck, ci), iters=5)
+        extra = (f", the same step without injection {no_inj:.4f} ms/step "
+                 f"(Ta={inject['ta_real']}, injection head dim "
+                 f"{cfg.hidden_size // inject['heads']})")
     print(f"{tag} {kernel.__name__} L={L} B={B} Kd={kd} S={S} "
           f"ci={ci.tolist()}: per-layer hidden rel={worst:.3e}, written "
           f"k-row rel={worst_row:.3e}, 2-layer logits max_abs_err="
           f"{err2:.3e} rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at "
           f"ci..ci+{kd - 1} only; {L}-layer logits rel={rel_all:.3e} (plain "
           f"vs plain with one input ulp moved: {rel_ulp:.3e}); kernel "
-          f"{ms:.4f} ms/step, plain {plain_ms:.4f} ms/step", flush=True)
+          f"{ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, bound "
+          f"{b_ms:.4f} ms ({b_by}){extra}", flush=True)
     if max(worst, worst_row, rel2) > TOL_DECODE:
         raise AssertionError(f"{tag} disagrees: layer {worst} k-row "
                              f"{worst_row} logits {rel2}")
-    return err2, ms, plain_ms
+    return err2, ms, plain_ms, b_ms, b_by
 
 
 def write_wavs(d: str):
@@ -432,15 +564,40 @@ def check_outputs(model, outs) -> None:
             raise AssertionError("one text per conversation expected")
 
 
+def orca_injection(model, aux):
+    """generate()'s ORCA injection for perception's aux: (extra_layer_fn,
+    the in-kernel spec, or None where the model does not inject or the
+    dispatch keeps the injection in PyTorch)."""
+    from desta25_audio_tpu_torch.generate.decode import build_injection
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        fused_inject_supported)
+    tokens = model._orca_inject_tokens(aux)
+    if tokens is None:
+        return None, None
+    xa = model.params["orca_cross_attns"]
+    heads = model.llm_cfg.num_attention_heads
+    extra, spec = build_injection(model.llm_cfg, xa, tokens,
+                                  model.config.orca_audio_position_scale,
+                                  heads)
+    if not fused_inject_supported(model.params["llm"], model.llm_cfg, xa,
+                                  heads, spec["ta_real"]):
+        spec = None
+    return extra, spec
+
+
 def check_step_by_step(model, convs, out) -> None:
     """The batch's path once more, step by step (the cache length of
     llm_generate): the spliced embeddings, the prefill logits and one fused
     decode step's logits must be finite and give generate()'s first two
-    greedy tokens (rows that stopped at the first token are skipped)."""
+    greedy tokens (rows that stopped at the first token are skipped).  An
+    ORCA model injects as generate() does: the prefill through the PyTorch
+    hook, the decode step inside the kernel (int8 stack) or through the
+    hook."""
     import torch
     from desta25_audio_tpu_torch.models import llm as tllm
     with torch.no_grad():
-        embeds, mask, _, _ = model._run_generation_phases(convs, {})
+        embeds, mask, aux, _, _ = model._run_generation_phases(convs, {})
+        extra, spec = orca_injection(model, aux)
         B, T, _ = embeds.shape
         S = -(-(T + 32) // 128) * 128
         cache = tllm.init_kv_cache(model.llm_cfg, B, S, embeds.dtype,
@@ -451,12 +608,13 @@ def check_step_by_step(model, convs, out) -> None:
         pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
         logits, cache = tllm.llm_apply(
             model.params["llm"], model.llm_cfg, inputs_embeds=embeds,
-            attention_mask=full, positions=pos, cache=cache, cache_index=0)
+            attention_mask=full, positions=pos, cache=cache, cache_index=0,
+            extra_layer_fn=extra)
         step, _ = tllm.llm_apply(
             model.params["llm"], model.llm_cfg,
             input_ids=logits[:, -1].argmax(-1)[:, None],
             attention_mask=full, positions=pos[:, -1:] + 1, cache=cache,
-            cache_index=T)
+            cache_index=T, extra_layer_fn=extra, fused_injection=spec)
     V = model.llm_cfg.vocab_size
     if (embeds.shape[-1] != model.llm_cfg.hidden_size
             or logits.shape != (B, T, V) or step.shape != (B, 1, V)
@@ -475,8 +633,12 @@ def check_step_by_step(model, convs, out) -> None:
 def print_times(label, runs, gpu) -> None:
     for b, t in runs:
         steps = max(int(t["decode_steps"]), 1)
+        kv = t.get("inject_kv_ms")
+        perc = (f"{t['perception_ms']:.1f} ms" if kv is None else
+                f"{t['perception_ms'] + kv:.1f} ms (incl. the audio K/V "
+                f"precompute {kv:.1f} ms)")
         print(f"{label} batch {b}: host {t['host_ms']:.1f} ms, perception "
-              f"{t['perception_ms']:.1f} ms, prefill {t['prefill_ms']:.1f} "
+              f"{perc}, prefill {t['prefill_ms']:.1f} "
               f"ms, decode {t['decode_ms'] / steps:.2f} ms/step over "
               f"{t['decode_steps']} steps ({gpu})", flush=True)
 
@@ -652,23 +814,30 @@ def check_int8_matmuls(qllm, gen):
               f"plain {plain_ms:.4f} ms", flush=True)
         if rel > TOL_QMM:
             raise AssertionError(f"{tag} disagrees on {name} M={M}: {rel}")
-        return err, ms, plain_ms
+        # bf16 x, int8 weight and f32 scales read, f32 out written
+        return err, ms, plain_ms, M * K * 2 + N * K + N * 4 + M * N * 4, \
+            2 * M * N * K
 
     k7 = [run("K7", qmm, qmm_plain, 2, "head")]
     k7 += [run("K7", qmm, qmm_plain, 125, n) for n in list(leaves)[:4]]
     w8 = [run("W8A8", w8a8_matmul, w8a8_matmul_plain, 250, n) for n in leaves]
-    return {"quant_matmul": (max(r[0] for r in k7), k7[0][1], k7[0][2]),
+    # K7's bound at the M=2 head (its operations are bf16 x int8 products in
+    # f32: the bf16 rate); W8A8's over one layer's four shapes (int8)
+    return {"quant_matmul": (max(r[0] for r in k7), k7[0][1], k7[0][2])
+            + bound(k7[0][3], k7[0][4], "bf16"),
             "w8a8_matmul": (max(r[0] for r in w8),
                             sum(r[1] for r in w8[:4]),
-                            sum(r[2] for r in w8[:4]))}
+                            sum(r[2] for r in w8[:4]))
+            + bound(sum(r[3] for r in w8[:4]), sum(r[4] for r in w8[:4]),
+                    "int8")}
 
 
 def check_verify_position0(model, convs, drafts) -> float:
-    """Phase 16's check: after the b2 prefill, the first verify step's
-    position-0 logits (token 0 = the first greedy token, then the drafts)
-    against one K8-int8 decode step of that token on a copy of the same
-    cache, within TOL_DECODE (same math: the draft block of token 0 is the
-    token itself)."""
+    """Phase 16's (and 20's) check: after the b2 prefill, the first verify
+    step's position-0 logits (token 0 = the first greedy token, then the
+    drafts) against one K8-int8 (K8i with ORCA) decode step of that token on
+    a copy of the same cache, within TOL_DECODE (same math: the draft block
+    of token 0 is the token itself)."""
     import torch
     from desta25_audio_tpu_torch.generate.speculative import spec_cache_len
     from desta25_audio_tpu_torch.models import llm as tllm
@@ -676,7 +845,8 @@ def check_verify_position0(model, convs, drafts) -> float:
     from desta25_audio_tpu_torch.ops.fused_decode import (
         KVCache, fused_decode_layers, fused_verify_layers)
     llm, cfg = model.params["llm"], model.llm_cfg
-    embeds, mask, _, _ = model._run_generation_phases(convs, {})
+    embeds, mask, aux, _, _ = model._run_generation_phases(convs, {})
+    extra, spec = orca_injection(model, aux)
     B, T, _ = embeds.shape
     kd = 1 + drafts.shape[1]
     S = spec_cache_len(T, 32, kd)
@@ -686,26 +856,29 @@ def check_verify_position0(model, convs, drafts) -> float:
     pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
     logits, cache = tllm.llm_apply(llm, cfg, inputs_embeds=embeds,
                                    attention_mask=full, positions=pos,
-                                   cache=cache, cache_index=0)
+                                   cache=cache, cache_index=0,
+                                   extra_layer_fn=extra)
     full[:, T:] = 1
     tok0 = logits[:, -1].argmax(-1)
     toks = torch.cat([tok0[:, None], drafts], 1)
     steps = torch.arange(kd, device=embeds.device)[None, :]
     cv = KVCache(cache.k.clone(), cache.v.clone())
     hv, _ = fused_verify_layers(llm, cfg, tllm.embed_tokens(llm, toks), full,
-                                pos[:, -1:] + 1 + steps, cv, T)
+                                pos[:, -1:] + 1 + steps, cv, T, inject=spec)
     hd, _ = fused_decode_layers(llm, cfg, tllm.embed_tokens(llm, toks[:, :1]),
-                                full, pos[:, -1:] + 1, cache, T)
+                                full, pos[:, -1:] + 1, cache, T, inject=spec)
 
     def head(h):
         return tllm.head_logits(llm, rms_norm(llm["norm"], h,
                                               cfg.rms_norm_eps))
     err, rel = rel_err(head(hv[:, :1]), head(hd))
-    print(f"K8v position 0 vs one K8-int8 step on the same cache (b2, T={T},"
-          f" Kd={kd}): max_abs_err={err:.3e} rel={rel:.3e} (tol "
-          f"{TOL_DECODE})", flush=True)
+    what = "K8v" if spec is None else "K8v with K8i"
+    print(f"{what} position 0 vs one {'K8-int8' if spec is None else 'K8i'} "
+          f"step on the same cache (b2, T={T}, Kd={kd}): max_abs_err="
+          f"{err:.3e} rel={rel:.3e} (tol {TOL_DECODE})", flush=True)
     if rel > TOL_DECODE:
-        raise AssertionError(f"K8v position 0 disagrees with K8-int8: {rel}")
+        raise AssertionError(f"{what} position 0 disagrees with the decode "
+                             f"step: {rel}")
     return err
 
 
@@ -793,6 +966,177 @@ def run_int8_llm(model, convs, gpu):
     return total, spec_counts, err0
 
 
+def inject_spec(cfg, gen, B: int, ta: int):
+    """A random int8 cross-attention stack for cfg (its gate2 weight made
+    non-zero, so the gate path shows) and random audio K/V [L, B, ta, D]:
+    an in-kernel injection spec with on = 1 for every row."""
+    import torch
+    from desta25_audio_tpu_torch.models.orca import init_orca_cross_attns
+    from desta25_audio_tpu_torch.ops.quant import quantize_orca_cross_attns
+    stack = init_orca_cross_attns(
+        types.SimpleNamespace(llm_config=cfg, orca_gate_init=0.1),
+        torch.bfloat16, "cuda", gen)
+    stack["layers"]["gate2"]["w"].normal_(0.0, 0.2, generator=gen)
+    stack = quantize_orca_cross_attns(stack)
+    L, D = cfg.num_hidden_layers, cfg.hidden_size
+    kv = torch.randn(2, L, B, ta, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    return dict(params=stack, k=kv[0], v=kv[1], ta_real=ta,
+                heads=cfg.num_attention_heads,
+                on=torch.ones(B, dtype=torch.float32, device="cuda"))
+
+
+def check_fused_inject(model, gen):
+    """Phase 17: K8i against its plain version, gated as K8, on the model's
+    int8 Llama-3.1-8B tower (32 layers, injection head dim 128) and on a
+    2-layer int8 Qwen3-4B tower (D=2560, H=32: head dim 80), each at Kd=1
+    and Kd=4 with Ta=375 audio tokens.  Returns (worst error of the four,
+    then the Llama Kd=1 step's ms, plain_ms, bound_ms, bound_by)."""
+    import torch
+    from desta25_audio_tpu_torch.config import llm_config_for
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.quant import quantize_llm_params
+    cfg = model.llm_cfg
+    spec = inject_spec(cfg, gen, 2, 375)
+    llama = [check_fused_decode(model.params["llm"], cfg, gen, tag="K8i",
+                                inject=spec),
+             check_fused_decode(model.params["llm"], cfg, gen, kd=4,
+                                ci=(100, 252), tag="K8i", inject=spec)]
+    del spec
+    cfg4 = dataclasses.replace(llm_config_for("Qwen/Qwen3-4B"),
+                               num_hidden_layers=2)
+    q4 = quantize_llm_params(tllm.init_llm(cfg4, torch.bfloat16, "cuda",
+                                           gen))
+    spec4 = inject_spec(cfg4, gen, 2, 375)
+    qwen = [check_fused_decode(q4, cfg4, gen, tag="K8i Qwen3-4B",
+                               inject=spec4),
+            check_fused_decode(q4, cfg4, gen, kd=4, ci=(100, 252),
+                               tag="K8i Qwen3-4B", inject=spec4)]
+    del q4, spec4
+    torch.cuda.empty_cache()
+    return (max(r[0] for r in llama + qwen),) + llama[0][1:]
+
+
+def run_orca(model, convs, gpu):
+    """Phases 18-20: the ORCA model on the card, sharing the model's int8
+    encoder and int8 LLM.  Returns K8i's launches over phases 19-20."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.models.orca import (init_orca_connector,
+                                                     init_orca_cross_attns)
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.ops.quant import is_quantized
+    # -- 18. the ORCA model, float stack -------------------------------------
+    ocfg = dataclasses.replace(config_from_yaml_file(ORCA_CONFIG),
+                               llm_quant="int8")
+    t0 = time.perf_counter()
+    g = torch.Generator("cuda").manual_seed(3)
+    params = {"whisper": model.params["whisper"], "llm": model.params["llm"],
+              "connector": init_orca_connector(ocfg, torch.float32, "cuda",
+                                               g),
+              "orca_cross_attns": init_orca_cross_attns(
+                  ocfg, getattr(torch, ocfg.orca_xattn_dtype), "cuda", g)}
+    orca = DeSTA25AudioModel(ocfg, device="cuda", params=params,
+                             tokenizer=model.tokenizer)
+    torch.cuda.synchronize()
+    print(f"ORCA model ({ORCA_CONFIG}: {ocfg.qformer_num_hidden_layers}-layer"
+          f" global Q-Former, {ocfg.orca_global_num_tokens} global tokens, "
+          f"{orca.config.orca_xattn_dtype} stack in "
+          f"{orca.llm_cfg.num_hidden_layers} layers) built on the card in "
+          f"{time.perf_counter() - t0:.1f} s, sharing the int8 encoder and "
+          f"LLM ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
+    runs = {2: convs[:2], 1: convs[2]}
+    _, _, aux, _, _ = orca._run_generation_phases(runs[2], {})
+    D = orca.llm_cfg.hidden_size
+    if (tuple(aux[0].shape) != (2, ocfg.orca_global_num_tokens, D)
+            or tuple(aux[1].shape) != (2, 375, D)):
+        raise AssertionError(f"ORCA tokens {tuple(aux[0].shape)} / "
+                             f"{tuple(aux[1].shape)}")
+    orca.generate(runs[2], do_sample=False, max_new_tokens=2)   # warm-up
+    _build.reset_launch_counts()
+    fout = orca.generate(runs[2], do_sample=False, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"ORCA float stack: launches during generate() b2: "
+          f"{json.dumps(counts)}", flush=True)
+    if counts.get("fused_decode_inject", 0) or counts.get(
+            "fused_decode_layers_int8", 0):
+        raise AssertionError("ORCA float stack: a fused decode step ran")
+    check_outputs(orca, [(fout, 2)])
+    check_step_by_step(orca, runs[2], fout)
+    print_times("ORCA float stack (injection in PyTorch)",
+                [(2, dict(orca.last_timings))], gpu)
+    t0 = time.perf_counter()
+    orca.apply_orca_xattn_quant()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    if not (is_quantized(orca.params["orca_cross_attns"]["layers"]["o"])
+            and orca.config.orca_xattn_quant == "int8"):
+        raise AssertionError("apply_orca_xattn_quant: not the int8 stack")
+    print(f"ORCA stack quantized in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
+
+    # -- 19. generate() with the int8 stack at b2 and b1 ---------------------
+    orca.generate(runs[2], do_sample=False, max_new_tokens=2)   # warm-up
+    outs, times, launched = {}, {}, 0
+    for b, msgs in runs.items():
+        _build.reset_launch_counts()
+        outs[b] = orca.generate(msgs, do_sample=False, max_new_tokens=32)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        times[b] = dict(orca.last_timings)
+        print(f"ORCA int8 stack: launches during generate() b{b}: "
+              f"{json.dumps(counts)}", flush=True)
+        for name in ORCA_PATH:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"ORCA b{b}: {name} was not launched")
+        if counts.get("fused_decode_layers", 0):
+            raise AssertionError("ORCA: the bf16 K8 was launched")
+        launched += counts["fused_decode_inject"]
+    check_outputs(orca, [(outs[b], b) for b in runs])
+    check_step_by_step(orca, runs[2], outs[2])
+    print(f"ORCA generated ids b2 row0[:8]={outs[2].generated_ids[0][:8]} "
+          f"b1[:8]={outs[1].generated_ids[0][:8]}; float-stack b2 row0[:8]="
+          f"{fout.generated_ids[0][:8]} (information)", flush=True)
+    print_times("ORCA int8 stack (K8i)", sorted(times.items()), gpu)
+
+    # -- 20. speculative generate() at b2 ------------------------------------
+    orca.generate(runs[2], do_sample=False, max_new_tokens=4,
+                  speculative_k=4)                               # warm-up
+    _build.reset_launch_counts()
+    spec = orca.generate(runs[2], do_sample=False, max_new_tokens=32,
+                         speculative_k=4)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    t = dict(orca.last_timings)
+    print(f"ORCA speculative b2: launches during generate(): "
+          f"{json.dumps(counts)}", flush=True)
+    for name in ("fused_verify_layers", "fused_decode_inject"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"ORCA speculative b2: {name} not launched")
+    launched += counts["fused_decode_inject"]
+    check_outputs(orca, [(spec, 2)])
+    check_verify_position0(
+        orca, runs[2],
+        torch.tensor(spec.generated_ids, device=orca.device)[:, 1:4])
+    steps, emitted = int(t["decode_steps"]), int(t["spec_tokens"])
+    plain_tokens = sum(len(r) - 1 for r in outs[2].generated_ids)
+    agree = [next((i for i, (a, c) in enumerate(zip(r, p)) if a != c),
+                  len(r)) for r, p in zip(spec.generated_ids,
+                                          outs[2].generated_ids)]
+    print(f"ORCA speculative b2 (k=4) ({gpu}): prefill {t['prefill_ms']:.1f}"
+          f" ms, {steps} verify steps for {emitted} tokens after the first "
+          f"({emitted / max(steps, 1):.2f} tokens/step for the batch), decode"
+          f" {t['decode_ms'] / max(emitted, 1):.3f} ms per emitted token "
+          f"(plain greedy: {times[2]['decode_ms'] / max(plain_tokens, 1):.3f}"
+          f"); leading ids equal to the plain greedy run (information): "
+          f"{agree} of 32", flush=True)
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -851,14 +1195,20 @@ def main() -> int:
     # one short warm-up call: the first generate() pays one-time CUDA
     # library set-up (cuBLAS/cuDNN handles, convolution algorithm)
     model.generate(convs[:2], do_sample=False, max_new_tokens=2)
-    _build.reset_launch_counts()
-    out2 = model.generate(convs[:2], do_sample=False, max_new_tokens=32)
-    t2 = dict(model.last_timings)
-    out1 = model.generate(convs[1], do_sample=False, max_new_tokens=32)
-    t1 = dict(model.last_timings)
-    torch.cuda.synchronize()
-    launches = _build.launch_counts()
-    print(f"launches during generate(): {json.dumps(launches)}", flush=True)
+    launches = {}
+    for b, msgs in ((2, convs[:2]), (1, convs[1])):
+        _build.reset_launch_counts()
+        out = model.generate(msgs, do_sample=False, max_new_tokens=32)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        print(f"launches during generate() b{b}: {json.dumps(counts)}",
+              flush=True)
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+        if b == 2:
+            out2, t2 = out, dict(model.last_timings)
+        else:
+            out1, t1 = out, dict(model.last_timings)
     for name in BF16_PATH:
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"{name} was not launched by generate()")
@@ -889,30 +1239,42 @@ def main() -> int:
 
         # -- 14-16. the int8 LLM in generate(), plain and speculative -------
         llm_launches, spec_launches, _ = run_int8_llm(model, convs, gpu)
+
+        # -- 17. K8i vs plain; 18-20. ORCA generate() ------------------------
+        k8i = check_fused_inject(model, torch.Generator("cuda").manual_seed(4))
+        inject_launches = run_orca(model, convs, gpu)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # K2's entry: the worse error of its two shapes, the times of the
-    # self-attention shape; K8's: the 2-layer logits error, the 32-layer
-    # step times; K4-K6: the worse error of M=1500/3000, the M=3000 times;
-    # K7: the worst error, the M=2 head times; W8A8 (LLM): the worst
-    # error, one layer's four shapes at M=250; K8-int8 and K8v (int8
-    # tower; error the worse of both towers): as K8.  Launches: K2, K3, K8
-    # from the bf16 generate() run, K4-K6 from the int8-encoder runs, K7,
-    # W8A8 and K8-int8 from the int8-LLM runs, K8v from the speculative run.
+    # K2's entry: the worse error of its two shapes, the times, bound and
+    # scaled_dot_product_attention time of the self-attention shape; K8's:
+    # the 2-layer logits error, the 32-layer step times; K4-K6: the worse
+    # error of M=1500/3000, the M=3000 times; K7: the worst error, the M=2
+    # head times; W8A8 (LLM): the worst error, one layer's four shapes at
+    # M=250; K8-int8 and K8v (int8 tower; error the worse of both towers):
+    # as K8; K8i: the worst of its four checks, the Llama Kd=1 step times.
+    # Launches: K2, K3, K8 from the bf16 generate() run, K4-K6 from the
+    # int8-encoder runs, K7, W8A8 and K8-int8 from the int8-LLM runs, K8v
+    # from the speculative run, K8i from the ORCA runs of phases 19-20.
+    # Each tuple: (err, ms, plain_ms, bound_ms, bound_by[, library_ms]).
     measured = {"packed_encoder_attention":
-                (max(k2[0][0], k2[1][0]), k2[0][1], k2[0][2]),
-                "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8}
+                (max(k2[0][0], k2[1][0]),) + k2[0][1:],
+                "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
+                "fused_decode_inject": k8i}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        err, ms, plain_ms = measured[name]
+        row = measured[name]
         counts = (int8_launches if name in W8A8_KERNELS
                   else llm_launches if name in INT8_LLM_KERNELS
                   else spec_launches if name == "fused_verify_layers"
-                  else launches)
+                  else {name: inject_launches}
+                  if name == "fused_decode_inject" else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": row[0], "ms": row[1],
+                        "plain_ms": row[2], "bound_ms": row[3],
+                        "bound_by": row[4],
+                        "library_ms": row[5] if len(row) > 5 else None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}))

@@ -3,9 +3,10 @@ Hopper (sm_90a) CUDA kernels.
 
 The port of the JAX/TPU package ``desta25_audio_tpu``, which stays the
 reference.  This package imports torch and never jax.  Ported so far:
-``DeSTA25AudioModel.generate()`` on the Q-Former configurations with
-transcriptions supplied, bf16 towers with the Whisper encoder in bf16 or
-int8 (W8A8); see ROADMAP.md for what follows.
+``DeSTA25AudioModel.generate()`` on the Q-Former and ORCA hybrid
+configurations with transcriptions supplied, the Whisper encoder in bf16 or
+int8 (W8A8), the LLM in bf16 or int8, the ORCA cross-attention stack float
+or int8, plain or speculative decoding; see ROADMAP.md for what follows.
 """
 
 from .config import DeSTA25Config

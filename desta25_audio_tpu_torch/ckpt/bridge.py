@@ -6,7 +6,8 @@ the stacking and stores weights in the layout its kernels read: linear
 ``[out, in]``, conv ``[out, in, kernel]``; the LLM's q/k/v weights fused
 into ``wqkv`` and its gate/up weights row-interleaved into ``w_gu`` (see
 ``ops/fused_decode.py``).  Only the subtrees the port runs are converted
-(Whisper encoder, Q-Former connector, LLM); the Whisper decoder is skipped.
+(Whisper encoder, Q-Former or ORCA connector, ORCA cross-attention stack,
+LLM); the Whisper decoder is skipped.
 """
 
 from __future__ import annotations
@@ -55,12 +56,9 @@ def _attn(p, device):
 def whisper_encoder_from_jax(p, device):
     """JAX Whisper encoder subtree -> port layout."""
     lay = p["layers"]
-    conv = lambda c: {"w": _tensor(np.transpose(np.asarray(c["w"]),  # noqa
-                                                (2, 1, 0)), device),
-                      "b": _tensor(c["b"], device)}
     return {
-        "conv1": conv(p["conv1"]),
-        "conv2": conv(p["conv2"]),
+        "conv1": _conv(p["conv1"], device),
+        "conv2": _conv(p["conv2"], device),
         "embed_positions": _tensor(p["embed_positions"], device),
         "layers": {
             "ln1": _norm(lay["ln1"], device),
@@ -73,22 +71,63 @@ def whisper_encoder_from_jax(p, device):
     }
 
 
+def _bert_encoder(p, device):
+    lay = p["layers"]
+    return {"layers": {
+        "self": _attn(lay["self"], device),
+        "cross": _attn(lay["cross"], device),
+        "inter": _linear(lay["inter"], device),
+        "out": _linear(lay["out"], device),
+        "out_ln": _norm(lay["out_ln"], device),
+    }}
+
+
+def _conv(p, device):
+    """Conv1d leaf: JAX ``[kernel, in, out]`` -> ``[out, in, kernel]``."""
+    return {"w": _tensor(np.transpose(np.asarray(p["w"]), (2, 1, 0)), device),
+            "b": _tensor(p["b"], device)}
+
+
 def connector_from_jax(p, device):
     """JAX Q-Former connector subtree -> port layout."""
-    lay = p["qformer"]["layers"]
     return {
         "layer_prompts": _tensor(p["layer_prompts"], device),
         "layer_weights": _tensor(p["layer_weights"], device),
-        "qformer": {"layers": {
-            "self": _attn(lay["self"], device),
-            "cross": _attn(lay["cross"], device),
-            "inter": _linear(lay["inter"], device),
-            "out": _linear(lay["out"], device),
-            "out_ln": _norm(lay["out_ln"], device),
-        }},
+        "qformer": _bert_encoder(p["qformer"], device),
         "proj_ln": _norm(p["proj_ln"], device),
         "proj": _linear(p["proj"], device),
     }
+
+
+def orca_connector_from_jax(p, device):
+    """JAX ORCA hybrid connector subtree -> port layout (the local branch
+    only where the checkpoint has it)."""
+    out = {
+        "global_queries": _tensor(p["global_queries"], device),
+        "global_layer_weights": _tensor(p["global_layer_weights"], device),
+        "global_qformer": _bert_encoder(p["global_qformer"], device),
+        "global_proj_ln": _norm(p["global_proj_ln"], device),
+        "global_proj": _linear(p["global_proj"], device),
+    }
+    if "local_conv" in p:
+        out.update(local_layer_weights=_tensor(p["local_layer_weights"],
+                                               device),
+                   local_proj_in=_linear(p["local_proj_in"], device),
+                   local_conv=_conv(p["local_conv"], device),
+                   local_ln=_norm(p["local_ln"], device))
+    return out
+
+
+def orca_cross_attns_from_jax(p, device):
+    """JAX ORCA cross-attention stack -> port layout: float ``{w, b}`` or
+    int8 ``{q, s, b}`` (``quantize_orca_cross_attns``) linears go to
+    ``[L, out, in]``; gate2's weight ``[L, D/4, 1]`` becomes
+    ``[L, 1, D/4]``; the LayerNorm is carried as it is."""
+    lay = p["layers"]
+    layers = {k: _linear(lay[k], device)
+              for k in ("q", "k", "v", "o", "gate1", "gate2")}
+    layers["ln"] = _norm(lay["ln"], device)
+    return {"layers": layers}
 
 
 def _fused_weight(leaves, how: str, device):
@@ -144,13 +183,23 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
     """Convert a ``desta25_audio_tpu`` DeSTA param tree (leaves as numpy
     arrays, e.g. ``jax.tree.map(np.asarray, model.params)``) into the
     port's tree on ``device``.  A quantized encoder
-    (``quantize_encoder_params``) and a quantized LLM
-    (``quantize_llm_params``) are carried across."""
-    if config.connector_mode != "qformer_1":
-        raise NotImplementedError("only the Q-Former connector is ported")
-    return {
+    (``quantize_encoder_params``), a quantized LLM
+    (``quantize_llm_params``) and a quantized ORCA stack
+    (``quantize_orca_cross_attns``) are carried across."""
+    if config.connector_mode == "qformer_1":
+        connector = connector_from_jax(np_tree["connector"], device)
+    elif config.connector_mode == "orca_hybrid":
+        connector = orca_connector_from_jax(np_tree["connector"], device)
+    else:
+        raise NotImplementedError(
+            f"connector_mode {config.connector_mode!r}")
+    out = {
         "whisper": {"encoder": whisper_encoder_from_jax(
             np_tree["whisper"]["encoder"], device)},
-        "connector": connector_from_jax(np_tree["connector"], device),
+        "connector": connector,
         "llm": llm_from_jax(np_tree["llm"], device),
     }
+    if "orca_cross_attns" in np_tree:
+        out["orca_cross_attns"] = orca_cross_attns_from_jax(
+            np_tree["orca_cross_attns"], device)
+    return out

@@ -278,21 +278,27 @@ extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
   return (int)cudaGetLastError();
 }
 
-// w is bf16 (scale null) or int8 (w_int8 = 1, one f32 scale per row of w)
+// w is bf16 (scale null) or int8 (w_int8 = 1, one f32 scale per row of w);
+// bias (N floats) is read by the BIAS epilogues, which take int8 weights
+// only (the ORCA injection stack of K8i)
 extern "C" int desta_skinny_gemm(const void* x, const void* w,
-                                 const void* scale, void* out, int M, int N,
-                                 int K, int epilogue, int w_int8,
-                                 void* stream) {
+                                 const void* scale, const void* bias,
+                                 void* out, int M, int N, int K, int epilogue,
+                                 int w_int8, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const bf16* xb = (const bf16*)x;
   const float* sc = (const float*)scale;
+  const float* bs = (const float*)bias;
 #define DESTA_SKINNY(WT, EPI) \
-  launch_skinny<WT, EPI>(xb, (const WT*)w, sc, out, M, N, K, st)
+  launch_skinny<WT, EPI>(xb, (const WT*)w, sc, out, M, N, K, st, bs)
   cudaError_t e;
   if (w_int8) {
     if (epilogue == EPI_STORE) e = DESTA_SKINNY(int8_t, EPI_STORE);
     else if (epilogue == EPI_RESID) e = DESTA_SKINNY(int8_t, EPI_RESID);
     else if (epilogue == EPI_SWIGLU) e = DESTA_SKINNY(int8_t, EPI_SWIGLU);
+    else if (epilogue == EPI_BIAS && bs) e = DESTA_SKINNY(int8_t, EPI_BIAS);
+    else if (epilogue == EPI_BIAS_GELU && bs)
+      e = DESTA_SKINNY(int8_t, EPI_BIAS_GELU);
     else e = cudaErrorInvalidValue;
   } else {
     if (epilogue == EPI_STORE) e = DESTA_SKINNY(bf16, EPI_STORE);

@@ -2,8 +2,9 @@
 // for a few activation rows m, with the weight in the port's [out, in]
 // layout as bf16 or int8 (one f32 scale per output row).
 //
-// Used by the decode step (csrc/fused_decode.cu: K8, its int8 stream and
-// the verify step K8v) and by the int8 matmul at small M (csrc/qmm.cu: K7).
+// Used by the decode step (csrc/fused_decode.cu: K8, its int8 stream, the
+// verify step K8v and the ORCA injection's q / o / gate1 projections of
+// K8i) and by the int8 matmul at small M (csrc/qmm.cu: K7).
 // Bound by device-memory bandwidth: each weight byte is read once for up
 // to 16 activation rows (2*M FLOP per weight).
 // Design: one warp per output column n streams the weight row w[n, :] with
@@ -17,6 +18,8 @@
 //   RESID      h = bf16(h + bf16(v))                      (bf16 residual)
 //   SWIGLU     mid = bf16(bf16(silu(bf16(gate))) * bf16(up)) over
 //              row-interleaved gate/up weights, each with its own scale
+//   BIAS       bf16(v + b[n])                 (f32 bias, no fused multiply-add)
+//   BIAS_GELU  bf16(gelu(bf16(v + b[n])))     erf GELU in f32
 // Rows go 16 at a time; a pass over more rows re-streams the weights.
 #pragma once
 
@@ -25,7 +28,7 @@
 namespace desta {
 
 enum Epilogue { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2,
-                EPI_STORE_F32 = 3 };
+                EPI_STORE_F32 = 3, EPI_BIAS = 4, EPI_BIAS_GELU = 5 };
 
 constexpr int SKINNY_ROWS = 16;  // activation rows per pass
 
@@ -64,7 +67,7 @@ template <typename WT, int MT, int EPI>
 __global__ void __launch_bounds__(256)
 skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
                    const float* __restrict__ scale, void* __restrict__ out,
-                   int M, int N, int K) {
+                   int M, int N, int K, const float* __restrict__ bias) {
   constexpr int NW = (EPI == EPI_SWIGLU) ? 2 : 1;  // weight rows per output
   constexpr int VEC = WeightVec<WT>::VEC;
   const int lane = threadIdx.x & 31;
@@ -118,6 +121,12 @@ skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
           *ob = __float2bfloat16(v[0]);
         } else if (EPI == EPI_RESID) {
           *ob = __float2bfloat16(__bfloat162float(*ob) + round_bf16(v[0]));
+        } else if (EPI == EPI_BIAS) {
+          *ob = __float2bfloat16(__fadd_rn(v[0], bias[n]));
+        } else if (EPI == EPI_BIAS_GELU) {
+          const float y = round_bf16(__fadd_rn(v[0], bias[n]));
+          *ob = __float2bfloat16(0.5f * y
+                                 * (1.f + erff(y * 0.70710678118654752f)));
         } else {
           const float gt = round_bf16(v[0]);
           const float up = round_bf16(v[NW - 1]);
@@ -130,10 +139,11 @@ skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
 }
 
 // All M rows in passes of SKINNY_ROWS; K % VEC == 0, 16-byte aligned rows.
+// bias: N floats, read by the BIAS epilogues only.
 template <typename WT, int EPI>
 cudaError_t launch_skinny(const bf16* x, const WT* w, const float* scale,
                           void* out, int M, int N, int K,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, const float* bias = nullptr) {
   const dim3 block(256), grid((N + 7) / 8);
   const size_t out_bytes = EPI == EPI_STORE_F32 ? sizeof(float) : sizeof(bf16);
   for (int m0 = 0; m0 < M; m0 += SKINNY_ROWS) {
@@ -141,15 +151,15 @@ cudaError_t launch_skinny(const bf16* x, const WT* w, const float* scale,
     const bf16* xm = x + (size_t)m0 * K;
     void* om = static_cast<char*>(out) + (size_t)m0 * N * out_bytes;
     if (mr == 1)
-      skinny_gemm_kernel<WT, 1, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K);
+      skinny_gemm_kernel<WT, 1, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
     else if (mr == 2)
-      skinny_gemm_kernel<WT, 2, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K);
+      skinny_gemm_kernel<WT, 2, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
     else if (mr <= 4)
-      skinny_gemm_kernel<WT, 4, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K);
+      skinny_gemm_kernel<WT, 4, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
     else if (mr <= 8)
-      skinny_gemm_kernel<WT, 8, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K);
+      skinny_gemm_kernel<WT, 8, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
     else
-      skinny_gemm_kernel<WT, 16, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K);
+      skinny_gemm_kernel<WT, 16, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }

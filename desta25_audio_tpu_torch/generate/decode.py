@@ -3,7 +3,12 @@
 
 Prefill over the spliced context, then one token per step through the fused
 decode step, with greedy / temperature / nucleus (top-p) sampling and stop
-tokens.  The loop keeps the JAX semantics: the cache is rounded up to a
+tokens.  With ORCA deep injection (``inject_*`` arguments) the audio tokens
+are RoPE'd and every layer's audio K/V projected once per request; the
+prefill injects layer by layer in PyTorch, and the decode steps inject inside
+the fused step when the LLM and the cross-attention stack hold int8 leaves
+the kernels take, else layer by layer in PyTorch (``decode.py:151-198`` of
+the JAX package).  The loop keeps the JAX semantics: the cache is rounded up to a
 multiple of 128 positions, RoPE positions are ``cumsum(mask) - 1`` clamped
 at 0 (left padding), every step writes its k/v at the same ``T + t`` for all
 rows, rows that stopped emit ``pad_id``, and the loop ends early once every
@@ -13,12 +18,16 @@ row has stopped.  Whisper ASR decoding is not ported yet.
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..config import LLMConfig
 from ..models import llm as tllm
+from ..models.orca import gated_cross_attention_apply, precompute_cross_kv
+from ..ops.core import index_tree
+from ..ops.fused_decode import fused_inject_supported
+from ..ops.rope import fractional_rope_apply
 
 # top-p runs on the 256 most likely candidates, normalised by the FULL-vocab
 # logsumexp, so the nucleus cut is exact whenever it fits in 256 tokens
@@ -58,22 +67,65 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def build_injection(cfg: LLMConfig, inject_params, inject_tokens,
+                    inject_scale: float, inject_heads: int
+                    ) -> Tuple[Callable, dict]:
+    """ORCA deep injection for one request: RoPE the audio tokens
+    [B, Ta, D] at positions ``i / inject_scale``, project every layer's
+    audio K/V once, and return (extra_layer_fn(l, h) for ``llm_apply``, the
+    ``inject`` spec of ``ops/fused_decode.py`` with bf16 K/V and
+    ``on = ones(B)``)."""
+    roped = fractional_rope_apply(inject_tokens, inject_scale,
+                                  cfg.rope_theta)
+    inj_k, inj_v = precompute_cross_kv(inject_params, roped)
+
+    def extra_layer_fn(l, h):
+        return gated_cross_attention_apply(
+            index_tree(inject_params["layers"], l), h, None, inject_heads,
+            cached_kv=(inj_k[l], inj_v[l]))
+
+    B = inject_tokens.shape[0]
+    spec = dict(params=inject_params, k=inj_k.to(torch.bfloat16),
+                v=inj_v.to(torch.bfloat16), ta_real=inj_k.shape[2],
+                heads=inject_heads,
+                on=torch.ones(B, dtype=torch.float32,
+                              device=inject_tokens.device))
+    return extra_layer_fn, spec
+
+
 def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                  attention_mask: torch.Tensor, generator: torch.Generator, *,
                  max_new_tokens: int, temperature: float = 1.0,
                  top_p: float = 1.0, do_sample: bool = False,
                  eos_ids: Sequence[int] = (), pad_id: int = 0,
-                 timings: Optional[Dict[str, float]] = None
+                 timings: Optional[Dict[str, float]] = None,
+                 inject_params=None, inject_tokens=None,
+                 inject_scale: float = 2.5, inject_heads: int = 0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + decode.  inputs_embeds [B, T, D] (left-padded context),
     attention_mask [B, T] 1/0.  Returns (tokens [B, max_new_tokens] int64,
     n_generated [B]); positions past a row's stop token hold ``pad_id``.
 
+    inject_params / inject_tokens [B, Ta, D]: ORCA deep injection after
+    every layer, in the prefill and every decode step (module docstring).
+
     timings: if given, filled with host-clock ``prefill_ms``, ``decode_ms``
-    and ``decode_steps`` (synchronising the device at phase boundaries).
+    and ``decode_steps`` (synchronising the device at phase boundaries),
+    and with injection ``inject_kv_ms`` (RoPE + audio K/V projection).
     """
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
+    extra_layer_fn = fused_spec = None
+    if inject_params is not None:
+        t0 = time.perf_counter()
+        extra_layer_fn, spec = build_injection(
+            cfg, inject_params, inject_tokens, inject_scale, inject_heads)
+        if fused_inject_supported(params, cfg, inject_params, inject_heads,
+                                  spec["ta_real"]):
+            fused_spec = spec
+        if timings is not None:
+            _sync(dev)
+            timings["inject_kv_ms"] = (time.perf_counter() - t0) * 1e3
     Tmax = -(-(T + max_new_tokens) // 128) * 128
     cache = tllm.init_kv_cache(cfg, B, Tmax, dtype=inputs_embeds.dtype,
                                device=dev)
@@ -84,7 +136,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     t0 = time.perf_counter()
     logits, cache = tllm.llm_apply(params, cfg, inputs_embeds=inputs_embeds,
                                    attention_mask=mask, positions=positions,
-                                   cache=cache, cache_index=0)
+                                   cache=cache, cache_index=0,
+                                   extra_layer_fn=extra_layer_fn)
     cur = sample_token(logits[:, -1], generator, temperature, top_p,
                        do_sample)
     if timings is not None:
@@ -109,7 +162,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         mask[:, write_idx] = 1
         logits, cache = tllm.llm_apply(
             params, cfg, input_ids=cur[:, None], attention_mask=mask,
-            positions=pos[:, None], cache=cache, cache_index=write_idx)
+            positions=pos[:, None], cache=cache, cache_index=write_idx,
+            extra_layer_fn=extra_layer_fn, fused_injection=fused_spec)
         nxt = sample_token(logits[:, -1], generator, temperature, top_p,
                            do_sample)
         nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)

@@ -39,11 +39,12 @@ from ..config import LLMConfig
 from ..models import llm as tllm
 from ..ops.core import rms_norm
 from ..ops.fused_decode import (
+    fused_inject_limits,
     fused_verify_layers,
     kernel_limits,
     tower_is_int8,
 )
-from .decode import _sync, sample_token
+from .decode import _sync, build_injection, sample_token
 
 
 def ngram_propose(hist: torch.Tensor, hlen: torch.Tensor,
@@ -81,18 +82,29 @@ def ngram_propose(hist: torch.Tensor, hlen: torch.Tensor,
 
 
 def spec_limits(params, cfg: LLMConfig, batch: int, cache_len: int,
-                speculative_k: int, dtype) -> List[str]:
+                speculative_k: int, dtype, inject_params=None,
+                inject_heads: int = 0, inject_len: int = 0) -> List[str]:
     """Why the verify kernel cannot run this request (empty: it can):
     a bf16 tower or cache, and the shape limits of ``csrc/fused_decode.cu``
     (``ops/fused_decode.kernel_limits``) at ``speculative_k`` tokens per
-    row and a cache of ``cache_len`` positions."""
+    row and a cache of ``cache_len`` positions.  With ORCA injection
+    (``inject_params``, ``inject_len`` audio tokens) the verify step runs
+    it inside, which needs the int8 tower and a stack the injection kernels
+    take (``fused_inject_limits``; ``desta.py:619-628`` of the JAX
+    package)."""
     bad = []
     if speculative_k < 2:
         bad.append(f"speculative_k={speculative_k} (needs >= 2)")
     if dtype != torch.bfloat16:
         bad.append(f"dtype {dtype} (the kernels take bfloat16)")
-    return bad + kernel_limits(cfg, batch, speculative_k, cache_len,
-                               tower_is_int8(params))
+    int8 = tower_is_int8(params)
+    if inject_params is not None:
+        if not int8:
+            bad.append("ORCA injection in the verify step needs the int8 "
+                       "LLM (apply_llm_quant)")
+        bad += fused_inject_limits(inject_params, cfg, inject_heads,
+                                   inject_len, speculative_k)
+    return bad + kernel_limits(cfg, batch, speculative_k, cache_len, int8)
 
 
 def spec_generate_supported(params, cfg: LLMConfig, batch: int,
@@ -127,7 +139,9 @@ def llm_generate_spec(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                       prompt_ids: Optional[torch.Tensor] = None,
                       prompt_lens: Optional[torch.Tensor] = None,
                       timings: Optional[Dict[str, float]] = None,
-                      return_stats: bool = False):
+                      return_stats: bool = False, inject_params=None,
+                      inject_tokens=None, inject_scale: float = 2.5,
+                      inject_heads: int = 0):
     """Prefill + speculative decode.  Same contract as ``llm_generate``:
     returns (tokens [B, max_new_tokens] int64, n_generated [B]); a stop
     token stays in the output and later positions hold ``pad_id``.
@@ -136,14 +150,25 @@ def llm_generate_spec(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     seed the n-gram history; generated tokens always extend it.  timings,
     if given, gets host-clock ``prefill_ms``, ``decode_ms``,
     ``decode_steps`` (verify steps) and ``spec_tokens`` (tokens the verify
-    steps emitted).  return_stats appends (verify steps, tokens emitted by
-    them) to the result.
+    steps emitted), and with injection ``inject_kv_ms``.  return_stats
+    appends (verify steps, tokens emitted by them) to the result.
+    inject_*: ORCA deep injection as in ``llm_generate``; the prefill
+    injects layer by layer, every verify step inside the kernel (the caller
+    checks ``spec_limits``; the wrapper raises on what it cannot take).
     """
     Kd = speculative_k
     if Kd < 2:
         raise ValueError(f"speculative_k={Kd}: the spec loop needs >= 2")
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
+    extra_layer_fn = fspec = None
+    if inject_params is not None:
+        t0 = time.perf_counter()
+        extra_layer_fn, fspec = build_injection(
+            cfg, inject_params, inject_tokens, inject_scale, inject_heads)
+        if timings is not None:
+            _sync(dev)
+            timings["inject_kv_ms"] = (time.perf_counter() - t0) * 1e3
     Tmax = spec_cache_len(T, max_new_tokens, Kd)
     cache = tllm.init_kv_cache(cfg, B, Tmax, dtype=inputs_embeds.dtype,
                                device=dev)
@@ -154,7 +179,8 @@ def llm_generate_spec(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     t0 = time.perf_counter()
     logits, cache = tllm.llm_apply(params, cfg, inputs_embeds=inputs_embeds,
                                    attention_mask=mask, positions=positions,
-                                   cache=cache, cache_index=0)
+                                   cache=cache, cache_index=0,
+                                   extra_layer_fn=extra_layer_fn)
     tok0 = sample_token(logits[:, -1], generator, temperature, top_p,
                         do_sample)
     if timings is not None:
@@ -200,7 +226,7 @@ def llm_generate_spec(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         toks = torch.cat([cur[:, None], draft], dim=1)          # [B, Kd]
         hidden, cache = fused_verify_layers(
             params, cfg, tllm.embed_tokens(params, toks), mask,
-            pos[:, None] + jidx, cache, ci)
+            pos[:, None] + jidx, cache, ci, inject=fspec)
         lg = tllm.head_logits(params, rms_norm(params["norm"], hidden,
                                                cfg.rms_norm_eps))
         if do_sample:

@@ -3,21 +3,24 @@
 Counterpart of ``desta25_audio_tpu/models/desta.py`` for the slices ported
 so far: bf16 (or f32) towers, the Whisper encoder in bf16 or int8 (W8A8,
 ``encoder_quant``), the LLM in bf16 or int8 (``llm_quant``), the Q-Former
-connector, transcriptions supplied by the caller, plain or speculative
-(``speculative_k >= 2``) decoding.  The port has no ``from_pretrained`` yet,
-so the JAX package's inference default (``encoder_quant="auto"`` -> int8)
-is reached by calling
+or the ORCA hybrid connector with deep injection (``models/orca.py``; its
+cross-attention stack float or int8), transcriptions supplied by the
+caller, plain or speculative (``speculative_k >= 2``) decoding.  The port
+has no ``from_pretrained`` yet, so the JAX package's inference default
+(``encoder_quant="auto"`` -> int8) is reached by calling
 :meth:`DeSTA25AudioModel.apply_inference_encoder_quant` after construction,
-and an existing bf16 LLM is quantized with
-:meth:`DeSTA25AudioModel.apply_llm_quant`.
+an existing bf16 LLM is quantized with
+:meth:`DeSTA25AudioModel.apply_llm_quant`, and the ORCA stack with
+:meth:`DeSTA25AudioModel.apply_orca_xattn_quant`.
 
 - host phase A: WAV decode + energy VAD (a clip without speech gets the
   transcription " ");
 - host phase B: chat template, ``<start_audio><|AUDIO|><end_audio>`` wrap,
   placeholder expansion, left-pad tokenization, splice maps;
-- device phase C: mel -> Whisper encoder taps -> Q-Former -> splice into
-  the embedding stream -> prefill -> KV-cached decode (one token a step,
-  or n-gram drafts verified k at a time).
+- device phase C: mel -> Whisper encoder taps -> Q-Former (or ORCA's
+  global and local branches) -> splice into the embedding stream ->
+  prefill -> KV-cached decode (one token a step, or n-gram drafts verified
+  k at a time), with ORCA's gated cross-attention after every layer.
 
 Everything the slice does not cover raises ``NotImplementedError`` naming
 the ROADMAP item (Queue 1 of ``ROADMAP.md``).
@@ -50,8 +53,10 @@ from ..ops.quant import (
     is_quantized,
     quantize_encoder_params,
     quantize_llm_params,
+    quantize_orca_cross_attns,
 )
 from . import llm as tllm
+from .orca import init_orca_connector, init_orca_cross_attns
 from .perception import perception_apply
 from .qformer import init_qformer_connector
 from .splice import (
@@ -78,10 +83,9 @@ def _round_up(x: int, m: int) -> int:
 
 def check_slice(config: DeSTA25Config) -> None:
     """Raise NotImplementedError for configurations the port lacks."""
-    if config.connector_mode != "qformer_1" or config.is_orca:
+    if config.connector_mode not in ("qformer_1", "orca_hybrid"):
         raise NotImplementedError(
-            "ORCA connector / deep injection is not ported yet "
-            "(ROADMAP.md Queue 1: ORCA)")
+            f"connector_mode {config.connector_mode!r} not implemented")
     if config.use_lora:
         raise NotImplementedError(
             "LoRA is not ported yet (ROADMAP.md Queue 1: training)")
@@ -90,7 +94,7 @@ def check_slice(config: DeSTA25Config) -> None:
 
 
 class DeSTA25AudioModel:
-    """Frozen Whisper encoder + Q-Former connector + frozen LLM.
+    """Frozen Whisper encoder + Q-Former or ORCA connector + frozen LLM.
 
     device: where the params live and every device phase runs (no default:
     pass "cuda" or "cpu").  params: a port param tree (``ckpt/bridge.py``
@@ -130,9 +134,18 @@ class DeSTA25AudioModel:
                 "whisper": {"encoder": enc},
                 "llm": tllm.init_llm(self.llm_cfg, self.dtype, self.device,
                                      g),
-                "connector": init_qformer_connector(
-                    self.config, torch.float32, self.device, g),
             }
+            if self.config.connector_mode == "qformer_1":
+                params["connector"] = init_qformer_connector(
+                    self.config, torch.float32, self.device, g)
+            else:
+                params["connector"] = init_orca_connector(
+                    self.config, torch.float32, self.device, g)
+                if self.config.orca_deep_injection_enabled:
+                    params["orca_cross_attns"] = init_orca_cross_attns(
+                        self.config,
+                        getattr(torch, self.config.orca_xattn_dtype),
+                        self.device, g)
             if self.config.llm_quant == "int8":
                 params["llm"] = quantize_llm_params(params["llm"])
             if self.config.resolved_encoder_quant(inference=False) == "int8":
@@ -149,6 +162,21 @@ class DeSTA25AudioModel:
         with torch.no_grad():
             self.params["llm"] = quantize_llm_params(self.params["llm"])
         self.config = dataclasses.replace(self.config, llm_quant="int8")
+
+    def apply_orca_xattn_quant(self) -> None:
+        """Quantize the ORCA cross-attention stack for serving
+        (``quantize_orca_cross_attns``; the float stack is released) and
+        make the config ``orca_xattn_quant="int8"``: with an int8 LLM the
+        decode and verify steps then run the injection inside their
+        kernels.  A no-op without a stack or when it already holds int8
+        leaves (the JAX package's ``_apply_orca_xattn_quant``)."""
+        xa = self.params.get("orca_cross_attns")
+        if xa is None or is_quantized(xa["layers"]["q"]):
+            return
+        with torch.no_grad():
+            self.params["orca_cross_attns"] = quantize_orca_cross_attns(xa)
+        self.config = dataclasses.replace(self.config,
+                                          orca_xattn_quant="int8")
 
     def apply_inference_encoder_quant(self) -> None:
         """``encoder_quant="auto"`` resolves to int8 on the inference path
@@ -182,14 +210,32 @@ class DeSTA25AudioModel:
             self.dtype)
 
     def prepare_inputs_embeds(self, input_ids, mel, trans_ids, kind, aidx,
-                              pos) -> torch.Tensor:
-        """Perception + splice -> inputs_embeds [B, T, D]."""
+                              pos):
+        """Perception + splice -> (inputs_embeds [B, T, D], aux), aux =
+        (audio tokens, ORCA local tokens or None) per clip."""
         llm = self.params["llm"]
         text_embeds = tllm.embed_tokens(llm, input_ids)
-        audio_feats = perception_apply(self.params, mel, self.config)
+        audio_feats, local_tokens = perception_apply(self.params, mel,
+                                                     self.config)
         trans_embeds = tllm.embed_tokens(llm, trans_ids)
-        return apply_splice(text_embeds, audio_feats, trans_embeds, kind,
-                            aidx, pos)
+        embeds = apply_splice(text_embeds, audio_feats, trans_embeds, kind,
+                              aidx, pos)
+        return embeds, (audio_feats, local_tokens)
+
+    def _orca_inject_tokens(self, aux):
+        """The deep-injection tokens [N, Ta, D] from perception's aux: the
+        local tokens (with ``orca_global_cross_attn``, the global tokens
+        before them), or None when the model does not deep-inject
+        (``desta.py:415-427`` of the JAX package)."""
+        if not (self.config.is_orca
+                and self.config.orca_deep_injection_enabled
+                and "orca_cross_attns" in self.params
+                and aux is not None and aux[1] is not None):
+            return None
+        audio_feats, local_tokens = aux
+        if self.config.orca_global_cross_attn:
+            return torch.cat([audio_feats, local_tokens], dim=1)
+        return local_tokens
 
     # -- generate ---------------------------------------------------------
 
@@ -220,8 +266,9 @@ class DeSTA25AudioModel:
                                timings: Dict[str, float],
                                return_prompt_ids: bool = False):
         """Host phases A+B and device perception/splice.  Returns None for
-        a text-only batch, else (embeds, attn_mask, audios, transcripts),
-        plus, with ``return_prompt_ids``, the prompt ids [B, T] (numpy)
+        a text-only batch, else (embeds, attn_mask, aux, audios,
+        transcripts), aux = (audio tokens, ORCA local tokens or None) per
+        clip, plus, with ``return_prompt_ids``, the prompt ids [B, T] (numpy)
         with each transcription's ids at its splice positions -- the text
         the model is most likely to echo, which n-gram drafting feeds on
         (``desta.py:593-602`` of the JAX package).  Records ``host_ms``
@@ -315,13 +362,14 @@ class DeSTA25AudioModel:
             batch[j, :min(len(s), max_len)] = s[:max_len]
         dev = self.device
         as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        embeds = self.prepare_inputs_embeds(
+        embeds, aux = self.prepare_inputs_embeds(
             as_dev(input_ids), self._mel(batch), as_dev(trans_ids),
             as_dev(kind), as_dev(aidx), as_dev(pos))
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings["perception_ms"] = (time.perf_counter() - t0) * 1e3
-        out = (embeds, as_dev(attn_mask), all_audios, all_transcriptions)
+        out = (embeds, as_dev(attn_mask), aux, all_audios,
+               all_transcriptions)
         if return_prompt_ids:
             # pos at audio-token slots runs past trans_max: clamp before the
             # gather (np.where evaluates both arms)
@@ -343,18 +391,25 @@ class DeSTA25AudioModel:
         return tuple(sorted(terms))
 
     def _spec_eligible(self, speculative_k: int, B: int, T: int,
-                       max_new_tokens: int) -> bool:
+                       max_new_tokens: int, inject_kwargs=None) -> bool:
         """Does this request take the speculative loop?  Below 2 tokens per
         step it does not (the plain loop runs, as in the JAX package); at
         2 or more it must, and a request the verify kernel cannot take
-        raises with the kernel's limits (``spec_limits``).  LoRA and ORCA,
-        which the JAX package also checks here, are refused by
+        raises with the kernel's limits (``spec_limits``), ORCA's included:
+        the verify step injects inside the kernel, which needs the int8
+        stack and the int8 LLM (``desta.py:619-628`` of the JAX package).
+        LoRA, which the JAX package also checks here, is refused by
         :func:`check_slice`."""
         if speculative_k < 2:
             return False
+        inj = inject_kwargs or {}
         bad = spec_limits(self.params["llm"], self.llm_cfg, B,
                           spec_cache_len(T, max_new_tokens, speculative_k),
-                          speculative_k, self.dtype)
+                          speculative_k, self.dtype,
+                          inject_params=inj.get("inject_params"),
+                          inject_heads=inj.get("inject_heads", 0),
+                          inject_len=(inj["inject_tokens"].shape[1]
+                                      if inj else 0))
         if bad:
             raise ValueError(f"speculative_k={speculative_k}: the verify "
                              "kernel cannot take this request: "
@@ -381,15 +436,29 @@ class DeSTA25AudioModel:
             attn_mask = torch.as_tensor(
                 np.asarray(enc["attention_mask"], np.int32),
                 device=self.device)
-            audios, transcripts = [], []
+            audios, transcripts, aux = [], [], None
         else:
-            embeds, attn_mask, audios, transcripts, prompt_ids = prep
+            embeds, attn_mask, aux, audios, transcripts, prompt_ids = prep
         B, T = embeds.shape[:2]
         common = dict(max_new_tokens=max_new_tokens, temperature=temperature,
                       top_p=top_p, do_sample=do_sample,
                       eos_ids=self._terminators(), pad_id=tk.pad_token_id,
                       timings=timings)
-        if self._spec_eligible(speculative_k, B, T, max_new_tokens):
+        inject_tokens = self._orca_inject_tokens(aux)
+        inject_kwargs = {}
+        if inject_tokens is not None:
+            if inject_tokens.shape[0] != B:
+                raise NotImplementedError(
+                    f"ORCA injection takes one clip per conversation, got "
+                    f"{inject_tokens.shape[0]} clips for {B} rows")
+            inject_kwargs = dict(
+                inject_params=self.params["orca_cross_attns"],
+                inject_tokens=inject_tokens,
+                inject_scale=self.config.orca_audio_position_scale,
+                inject_heads=self.llm_cfg.num_attention_heads)
+        common.update(inject_kwargs)
+        if self._spec_eligible(speculative_k, B, T, max_new_tokens,
+                               inject_kwargs):
             # left-padded rows -> left-aligned n-gram history
             lens = attn_mask.sum(1).cpu().numpy()
             tokens, _ = llm_generate_spec(

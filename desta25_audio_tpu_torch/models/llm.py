@@ -9,7 +9,8 @@ feed it.
 Prefill (and any cached call with T > 1) is plain torch around the
 projections, mirroring ``llm.py:174-257``.  A cached call with T == 1 goes
 to ``ops/fused_decode.fused_decode_layers`` (the hand-written decode kernels
-on the card).  With bf16 weights the projections and heads are ``torch.mm``
+on the card), with ORCA's injection inside it or, for a per-layer hook,
+layer by layer in torch.  With bf16 weights the projections and heads are ``torch.mm``
 products with f32 accumulation, as the JAX package leaves them to XLA; with
 int8 leaves (``ops/quant.quantize_llm_params``, ``llm_quant="int8"``) every
 projection and the head go through ``ops/qmm.quant_matmul`` (K7 below 128
@@ -27,7 +28,7 @@ in place.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -154,7 +155,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
               inputs_embeds: Optional[torch.Tensor] = None,
               attention_mask: Optional[torch.Tensor] = None,
               positions: Optional[torch.Tensor] = None,
-              cache: Optional[KVCache] = None, cache_index=None):
+              cache: Optional[KVCache] = None, cache_index=None,
+              extra_layer_fn: Optional[Callable] = None,
+              fused_injection=None):
     """Forward pass -> (logits [B, T, V] f32, cache).
 
     input_ids [B, T] or inputs_embeds [B, T, D] (exactly one).
@@ -162,8 +165,14 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     positions [B, T] RoPE positions; default cumsum(mask)-1 without a
     cache, cache_index + arange(T) with one.  With a cache the new k/v rows
     land at ``cache_index`` (int or [B]) and the queries attend the whole
-    cache under a causal-by-position mask; T == 1 takes the fused decode
-    step.
+    cache under a causal-by-position mask.
+
+    extra_layer_fn(l, h) -> h runs after every layer (ORCA's injection in
+    PyTorch).  A cached T == 1 call takes the fused decode step: with
+    ``fused_injection`` (the ``inject`` spec of ``ops/fused_decode.py``) the
+    injection runs inside it; with only ``extra_layer_fn`` the step runs
+    layer by layer here so the hook can run between layers
+    (``llm.py:356-454`` of the JAX package).
     """
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("provide exactly one of input_ids / inputs_embeds")
@@ -186,9 +195,11 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
                 & (attention_mask[:, None, :S] > 0))[:, None]   # [B,1,T,S]
         if positions is None:
             positions = q_pos
-        if T == 1:
+        if T == 1 and (fused_injection is not None
+                       or extra_layer_fn is None):
             hidden, cache = fused_decode_layers(
-                params, cfg, x, attention_mask, positions, cache, ci)
+                params, cfg, x, attention_mask, positions, cache, ci,
+                inject=fused_injection)
             hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
             return head_logits(params, hidden), cache
     else:
@@ -207,5 +218,7 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
                            cos, sin, mask, cfg, l, cache, ci)
         x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
                                    cfg.rms_norm_eps), l)
+        if extra_layer_fn is not None:
+            x = extra_layer_fn(l, x)
     hidden = rms_norm(params["norm"], x, cfg.rms_norm_eps)
     return head_logits(params, hidden), cache

@@ -29,12 +29,11 @@ from .whisper import init_layer_norm_stack, init_linear_stack
 _BERT_EPS = 1e-12
 
 
-def init_qformer_connector(cfg: DeSTA25Config, dtype, device,
-                           generator: torch.Generator) -> Params:
-    qcfg = cfg.qformer_config
-    n_taps = len(cfg.target_layer_ids)
-    d = cfg.encoder_config.d_model
-    d_llm = cfg.llm_config.hidden_size
+def init_bert_encoder(qcfg: QFormerConfig, dtype, device,
+                      generator: torch.Generator) -> Params:
+    """The stacked BERT layers of a Q-Former (``qformer.py`` of the JAX
+    package, ``init_bert_encoder``)."""
+    d = qcfg.hidden_size
     L, Fi = qcfg.num_hidden_layers, qcfg.intermediate_size
 
     def attn():
@@ -42,6 +41,20 @@ def init_qformer_connector(cfg: DeSTA25Config, dtype, device,
                    for n in ("q", "k", "v", "o")},
                 "ln": init_layer_norm_stack(L, d, dtype, device)}
 
+    return {"layers": {
+        "self": attn(),
+        "cross": attn(),
+        "inter": init_linear_stack(L, d, Fi, dtype, device, generator),
+        "out": init_linear_stack(L, Fi, d, dtype, device, generator),
+        "out_ln": init_layer_norm_stack(L, d, dtype, device),
+    }}
+
+
+def init_qformer_connector(cfg: DeSTA25Config, dtype, device,
+                           generator: torch.Generator) -> Params:
+    n_taps = len(cfg.target_layer_ids)
+    d = cfg.encoder_config.d_model
+    d_llm = cfg.llm_config.hidden_size
     return {
         # torch.randn init (std 1.0) -- modeling_desta25.py:148-150
         "layer_prompts": torch.empty(n_taps, cfg.prompt_size, d, dtype=dtype,
@@ -49,13 +62,8 @@ def init_qformer_connector(cfg: DeSTA25Config, dtype, device,
                                          generator=generator),
         "layer_weights": torch.zeros(cfg.prompt_size, n_taps,
                                      dtype=torch.float32, device=device),
-        "qformer": {"layers": {
-            "self": attn(),
-            "cross": attn(),
-            "inter": init_linear_stack(L, d, Fi, dtype, device, generator),
-            "out": init_linear_stack(L, Fi, d, dtype, device, generator),
-            "out_ln": init_layer_norm_stack(L, d, dtype, device),
-        }},
+        "qformer": init_bert_encoder(cfg.qformer_config, dtype, device,
+                                     generator),
         "proj_ln": {"scale": torch.ones(d, dtype=dtype, device=device),
                     "bias": torch.zeros(d, dtype=dtype, device=device)},
         "proj": init_linear_stack(0, d, d_llm, dtype, device, generator),

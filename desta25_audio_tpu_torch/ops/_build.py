@@ -43,8 +43,13 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_gemm_bias": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, out, rows, D, eps, stream
     "desta_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
-    # x, w, scale, out, M, N, K, epilogue, w_int8, stream
-    "desta_skinny_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w, scale, bias, out, M, N, K, epilogue, w_int8, stream
+    "desta_skinny_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # iq, ka, va, out, B, kd, Ta, ta_real, D, heads, scale, stream
+    "desta_inject_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                               _P),
+    # h, ig, iao, wg2, bg2, ln scale, ln bias, on, R, kd, D, Dg, stream
+    "desta_inject_gate": (_P,) * 8 + (_I, _I, _I, _I, _P),
     # qkv, k_cache, v_cache, cos, sin, mask, mask_stride, ci, q_norm,
     # k_norm, out, B, kd, S, H, Hkv, Dh, eps, scale, stream
     "desta_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,

@@ -1,6 +1,6 @@
 """One LLM decode step through all layers, and the speculative verify step
 (port of ``desta25_audio_tpu/ops/fused_decode.py::fused_decode_layers`` and
-``fused_verify_layers``, without ORCA injection).
+``fused_verify_layers``, with the optional in-kernel ORCA injection).
 
 Per layer, for R = B*Kd token rows (Kd = 1 decodes, Kd = 2..8 verifies a
 draft): RMSNorm -> fused q/k/v projection -> qk-norm (Qwen3) + RoPE -> GQA
@@ -21,10 +21,24 @@ are all bf16 tensors (the bf16 stream) or all int8 leaves ``{"q": int8
 [L, out, in], "s": f32 [L, out]}`` (``ops/quant.quantize_llm_params``; the
 int8 stream, scale applied to the f32 sum, ``fused_decode.py:423-443``).
 
+ORCA deep injection (``inject=``, K8i; ``fused_decode.py:731-823`` of the
+JAX package): after each layer's down-projection residual, every token row
+gets the gated cross-attention of ``models/orca.gated_cross_attention_apply``
+over its batch row's precomputed audio K/V, at the TPU kernel's rounding
+points (``csrc/fused_inject.cu`` lists them).  ``inject`` is a dict:
+``params`` (the int8 cross-attention stack of
+``ops/quant.quantize_orca_cross_attns``), ``k``/``v`` ([L, B, Ta, D] audio
+K/V, keys past ``ta_real`` unused), ``ta_real``, ``heads`` (injection
+heads; head dim D/heads) and ``on`` ([B] float, 1 = inject this row; every
+draft token of a row shares it).  It needs the int8 tower, as the TPU
+kernel does.
+
 On CUDA tensors this launches the kernels of ``csrc/fused_decode.cu`` (7 per
 layer, counted as ``fused_decode_layers`` for the bf16 decode step,
 ``fused_decode_layers_int8`` for the int8 one and ``fused_verify_layers``
-for a verify step on either tower); on CPU tensors it runs
+for a verify step on either tower) and, with ``inject``, those of
+``csrc/fused_inject.cu`` (5 more per layer, counted as
+``fused_decode_inject``); on CPU tensors it runs
 :func:`fused_decode_layers_plain`, the same function at the same rounding
 points in the activation dtype.  The cache is updated IN PLACE on both paths
 and also returned, so callers keep the JAX API shape.
@@ -42,11 +56,14 @@ from .core import matmul_f32
 from .quant import LLM_QUANT_KEYS, is_quantized
 from .rope import llm_rope_cos_sin
 
-EPI_STORE, EPI_RESID, EPI_SWIGLU = 0, 1, 2
+EPI_STORE, EPI_RESID, EPI_SWIGLU, EPI_BIAS, EPI_BIAS_GELU = 0, 1, 2, 4, 5
 KERNEL_DH = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
 KD_MAX = 8                          # draft tokens per row (the JAX kd <= 8)
 VERIFY_SCORES_BUDGET = 6 * 1024 * 1024   # B*Kd*H*S*4 (JAX _SCORES_BUDGET)
+INJECT_THREADS = 512                # csrc/fused_inject.cu IA_THREADS
+INJECT_DH_MAX = 256                 # injection head dims the kernel takes
+INJECT_LN_EPS = 1e-5
 _SMEM_LIMIT = 227 * 1024
 
 
@@ -101,6 +118,57 @@ def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
     return bad
 
 
+def _inject_groups(dh: int) -> int:
+    """Key groups of the P.V loop of csrc/fused_inject.cu (ia_groups)."""
+    return INJECT_THREADS // (dh // 4)
+
+
+def fused_inject_limits(inject_params, cfg, heads: int, ta: int,
+                        kd: int = 1) -> List[str]:
+    """What the injection kernels of ``csrc/fused_inject.cu`` cannot take
+    (the port's ``fused_inject_supported``, ``fused_decode.py:1115-1145`` of
+    the JAX package), one message per broken limit (empty: they take it).
+    The stack must hold int8 q/o/gate1 leaves with biases and the
+    full-precision gate2 and LayerNorm leaves; ``ta`` audio tokens at ``kd``
+    tokens per row must fit the attention kernel's shared memory."""
+    layers = (inject_params or {}).get("layers", {})
+    bad = [f"{k} is not an int8 leaf with a bias (apply_orca_xattn_quant)"
+           for k in ("q", "o", "gate1")
+           if not (is_quantized(layers.get(k)) and "b" in layers[k])]
+    g2, ln = layers.get("gate2"), layers.get("ln")
+    if not (isinstance(g2, dict) and {"w", "b"} <= set(g2)):
+        bad.append("gate2 needs its float w and b")
+    if not (isinstance(ln, dict) and {"scale", "bias"} <= set(ln)):
+        bad.append("ln needs scale and bias")
+    D = cfg.hidden_size
+    if heads <= 0 or D % heads:
+        return bad + [f"D={D} is not a multiple of {heads} heads"]
+    dh = D // heads
+    if dh % 4 or dh > INJECT_DH_MAX:
+        return bad + [f"injection head dim {dh} (kernel: a multiple of 4 "
+                      f"up to {INJECT_DH_MAX})"]
+    if D % 16:
+        bad.append(f"D={D} must be a multiple of 16 (int8 weight loads)")
+    if not 1 <= kd <= KD_MAX:
+        bad.append(f"{kd} tokens per row (kernel: 1..{KD_MAX})")
+    if ta < 1:
+        bad.append(f"{ta} audio tokens")
+    smem = 4 * (kd * dh + kd * ta + _inject_groups(dh) * kd * dh)
+    if smem > _SMEM_LIMIT:
+        bad.append(f"{ta} audio tokens at {kd} tokens per row need {smem} "
+                   f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    return bad
+
+
+def fused_inject_supported(params, cfg, inject_params, heads: int, ta: int,
+                           kd: int = 1) -> bool:
+    """Does the ORCA injection run inside the decode / verify step?  It
+    needs the int8 tower and a stack the injection kernels take (the JAX
+    dispatch, ``models/llm.py:377-381`` of the JAX package)."""
+    return (tower_is_int8(params)
+            and not fused_inject_limits(inject_params, cfg, heads, ta, kd))
+
+
 def _weight(w, l: int):
     """(weight [out, in], scale [out] or None) of layer l."""
     if is_quantized(w):
@@ -116,11 +184,53 @@ def _proj(x: torch.Tensor, w, l: int) -> torch.Tensor:
     return y if s is None else y * s.float()
 
 
+def _inject_plain(h: torch.Tensor, inject, l: int, B: int, Kd: int):
+    """Layer l's gated cross-attention on the residual h [R, D] at the TPU
+    kernel's rounding points (``fused_decode.py:747-823`` of the JAX
+    package), in h's dtype: the k (.) q products are rounded before the
+    per-head sum, P after the f32 softmax; GELU is the exact erf."""
+    dt, dev = h.dtype, h.device
+    R, D = h.shape
+    il = inject["params"]["layers"]
+    Hi, ta = int(inject["heads"]), int(inject["ta_real"])
+    dh = D // Hi
+
+    def lin(x, key):
+        return _proj(x, il[key], l) + il[key]["b"][l].float()
+
+    iq = lin(h, "q").to(dt)
+    ka = inject["k"][l, :, :ta].float()                       # [B, ta, D]
+    va = inject["v"][l, :, :ta].float()
+    prod = (ka[:, None] * iq.float().reshape(B, Kd, 1, D)).to(dt).float()
+    sc = prod.reshape(B, Kd, ta, Hi, dh).sum(-1) * dh ** -0.5  # [B,Kd,ta,Hi]
+    e = torch.exp(sc - sc.amax(2, keepdim=True))
+    p = (e / e.sum(2, keepdim=True)).to(dt).float()
+    iat = torch.einsum("bjth,bthd->bjhd", p,
+                       va.reshape(B, ta, Hi, dh)).reshape(R, D).to(dt)
+    iao = lin(iat, "o").to(dt)
+    ig = F.gelu(lin(h, "gate1").to(dt).float()).to(dt)
+    g2 = il["gate2"]
+    gate = torch.sigmoid((ig.float() * g2["w"][l].float().reshape(1, -1)
+                          ).sum(-1, keepdim=True)
+                         + g2["b"][l].float().reshape(1, 1))   # [R, 1]
+    xo = iao.float()
+    mu = xo.mean(-1, keepdim=True)
+    var = (xo - mu).square().mean(-1, keepdim=True)
+    lno = ((xo - mu) * torch.rsqrt(var + INJECT_LN_EPS)
+           * il["ln"]["scale"][l].float() + il["ln"]["bias"][l].float())
+    contrib = (gate * lno).to(dt)
+    on = torch.as_tensor(inject["on"], device=dev).float()
+    on = on.repeat_interleave(Kd).to(dt)[:, None]
+    return h + on * contrib
+
+
 def fused_decode_layers_plain(params, cfg, inputs_embeds, attention_mask,
-                              positions, cache: KVCache, cache_index):
+                              positions, cache: KVCache, cache_index,
+                              inject=None):
     """Reference math of the TPU kernel (bf16 or int8 stream, Kd >= 1
-    tokens per row), with every rounding point taken in the activation
-    dtype (a no-op in f32).  Cache positions past S are not written."""
+    tokens per row, optionally with the in-kernel ORCA injection), with
+    every rounding point taken in the activation dtype (a no-op in f32).
+    Cache positions past S are not written."""
     B, Kd, D = inputs_embeds.shape
     R = B * Kd
     dt = inputs_embeds.dtype
@@ -195,12 +305,60 @@ def fused_decode_layers_plain(params, cfg, inputs_embeds, attention_mask,
         mid = (F.silu(gate).to(dt).float() * up).to(dt)
         h = (h.float() + _proj(mid, lay["w_down"], l).to(dt).float()
              ).to(dt)
+        if inject is not None:
+            h = _inject_plain(h, inject, l, B, Kd)
     return h.reshape(B, Kd, D), cache
 
 
+def _inject_operands(inject, cfg, name: str, L: int, B: int, Kd: int):
+    """Checked kernel operands of the injection: the int8 weights with
+    their scales and f32 biases, the f32 gate2 and LayerNorm vectors, the
+    audio K/V and the per-row flags.  Raises on what the kernels cannot
+    take."""
+    D = cfg.hidden_size
+    heads, ta = int(inject["heads"]), int(inject["ta_real"])
+    ka, va = inject["k"], inject["v"]
+    bad = fused_inject_limits(inject["params"], cfg, heads, ta, Kd)
+    if (ka.dim() != 4 or tuple(ka.shape[:2]) != (L, B) or ka.shape[3] != D
+            or va.shape != ka.shape or ta > ka.shape[2]):
+        bad.append(f"audio K/V {tuple(ka.shape)} / {tuple(va.shape)} for "
+                   f"[{L}, {B}, >={ta}, {D}]")
+    if bad:
+        raise ValueError(f"{name}: injection: " + "; ".join(bad))
+    il = inject["params"]["layers"]
+    Dg = il["gate1"]["q"].shape[1]
+    shapes = {"q": (L, D, D), "o": (L, D, D), "gate1": (L, Dg, D)}
+    for key, shp in shapes.items():
+        leaf = il[key]
+        if (tuple(leaf["q"].shape) != shp or tuple(leaf["s"].shape) != shp[:2]
+                or tuple(leaf["b"].shape) != shp[:2]):
+            raise ValueError(f"{name}: injection {key} {tuple(leaf['q'].shape)}"
+                             f", expected {shp}")
+    f32 = lambda t: t.float().contiguous()  # noqa: E731
+    op = {
+        "w": [il[k]["q"] for k in shapes], "s": [il[k]["s"] for k in shapes],
+        "b": [f32(il[k]["b"]) for k in shapes],
+        "wg2": f32(il["gate2"]["w"]).reshape(L, Dg),
+        "bg2": f32(il["gate2"]["b"]).reshape(L, 1),
+        "lns": f32(il["ln"]["scale"]), "lnb": f32(il["ln"]["bias"]),
+        "on": torch.as_tensor(inject["on"], device=ka.device
+                              ).float().contiguous(),
+        "k": ka, "v": va, "heads": heads, "ta": ta, "Dg": Dg,
+    }
+    if op["on"].shape != (B,) or tuple(op["lns"].shape) != (L, D):
+        raise ValueError(f"{name}: injection on {tuple(op['on'].shape)} / ln "
+                         f"{tuple(op['lns'].shape)}")
+    _build.require_cuda(name, ka, va, dtype=torch.bfloat16)
+    _build.require_cuda(name, *op["w"], dtype=torch.int8)
+    _build.require_cuda(name, *op["s"], *op["b"], op["wg2"], op["bg2"],
+                        op["lns"], op["lnb"], op["on"], dtype=torch.float32)
+    return op
+
+
 def _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
-               cache: KVCache, cache_index, name: str):
-    """The kernels of one decode (Kd = 1) or verify (Kd > 1) step."""
+               cache: KVCache, cache_index, name: str, inject=None):
+    """The kernels of one decode (Kd = 1) or verify (Kd > 1) step, with the
+    injection kernels after each layer when ``inject`` is given."""
     B, Kd, D = inputs_embeds.shape
     R = B * Kd
     L, Bc, S, KVD = cache.k.shape
@@ -247,6 +405,11 @@ def _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
         _build.require_cuda(name, *ss, dtype=torch.float32)
     _build.require_cuda(name, mask, ci)
     _build.require_cuda(name, cos, sin)
+    if inject is not None:
+        if not int8:
+            raise ValueError(f"{name}: in-kernel injection needs the int8 "
+                             "tower (the TPU kernel's int8 weight ring)")
+        inj = _inject_operands(inject, cfg, name, L, B, Kd)
 
     lib = _build.library()
     stream = _build.stream_ptr(dev)
@@ -257,16 +420,45 @@ def _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
     mid = torch.empty(R, I, **bf)
     eps = float(cfg.rms_norm_eps)
 
-    def launch(status):
-        _build.check(status, name)
-        _build.count_launch(name)
+    def launch(status, what=name):
+        _build.check(status, what)
+        _build.count_launch(what)
 
     def gemm(x, key, l, out, N, K, epi):
         w, s = _weight(lay[key], l)
         launch(lib.desta_skinny_gemm(x.data_ptr(), w.data_ptr(),
                                      None if s is None else s.data_ptr(),
-                                     out.data_ptr(), R, N, K, epi, int(int8),
-                                     stream))
+                                     None, out.data_ptr(), R, N, K, epi,
+                                     int(int8), stream))
+
+    def inject_layer(l):
+        """The 5 injection launches of layer l (q, gate1, attention, o,
+        gate), counted as fused_decode_inject."""
+        what = "fused_decode_inject"
+        (wq, wo, wg), (sq, so, sg), (bq, bo, bg) = inj["w"], inj["s"], inj["b"]
+
+        def proj(x, w, s, b, out, epi):
+            N, K = w.shape[1:]
+            launch(lib.desta_skinny_gemm(x.data_ptr(), w[l].data_ptr(),
+                                         s[l].data_ptr(), b[l].data_ptr(),
+                                         out.data_ptr(), R, N, K, epi, 1,
+                                         stream), what)
+        proj(h, wq, sq, bq, iq, EPI_BIAS)
+        proj(h, wg, sg, bg, ig, EPI_BIAS_GELU)
+        launch(lib.desta_inject_attention(
+            iq.data_ptr(), inj["k"][l].data_ptr(), inj["v"][l].data_ptr(),
+            iat.data_ptr(), B, Kd, inj["k"].shape[2], inj["ta"], D,
+            inj["heads"], (D // inj["heads"]) ** -0.5, stream), what)
+        proj(iat, wo, so, bo, iao, EPI_BIAS)
+        launch(lib.desta_inject_gate(
+            h.data_ptr(), ig.data_ptr(), iao.data_ptr(),
+            inj["wg2"][l].data_ptr(), inj["bg2"][l].data_ptr(),
+            inj["lns"][l].data_ptr(), inj["lnb"][l].data_ptr(),
+            inj["on"].data_ptr(), R, Kd, D, inj["Dg"], stream), what)
+
+    if inject is not None:
+        iq, iat, iao = (torch.empty(R, D, **bf) for _ in range(3))
+        ig = torch.empty(R, inj["Dg"], **bf)
 
     for l in range(L):
         launch(lib.desta_rms_norm(h.data_ptr(), norms[0][l].data_ptr(),
@@ -284,17 +476,20 @@ def _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
                                   xn.data_ptr(), R, D, eps, stream))
         gemm(xn, "w_gu", l, mid, I, D, EPI_SWIGLU)
         gemm(mid, "w_down", l, h, D, I, EPI_RESID)
+        if inject is not None:
+            inject_layer(l)
     return h.reshape(B, Kd, D), cache
 
 
 def fused_decode_layers(params, cfg, inputs_embeds, attention_mask,
-                        positions, cache: KVCache, cache_index):
+                        positions, cache: KVCache, cache_index, inject=None):
     """One decode step through all layers.
 
     inputs_embeds [B, 1, D]; attention_mask [B, >=S] (1 = attend);
     positions [B, 1]; cache: KVCache [L, B, S, Hkv*Dh], written in place at
     ``cache_index`` (int or [B]).  Attends, per row, the cached keys below
-    its cache index that the mask allows, plus the current token.  Returns
+    its cache index that the mask allows, plus the current token.  inject:
+    the optional in-kernel ORCA injection (module docstring).  Returns
     (hidden [B, 1, D] before the final norm, cache).
     """
     if inputs_embeds.shape[1] != 1:
@@ -302,15 +497,15 @@ def fused_decode_layers(params, cfg, inputs_embeds, attention_mask,
     if inputs_embeds.device.type == "cpu":
         return fused_decode_layers_plain(params, cfg, inputs_embeds,
                                          attention_mask, positions, cache,
-                                         cache_index)
+                                         cache_index, inject)
     name = ("fused_decode_layers_int8" if tower_is_int8(params)
             else "fused_decode_layers")
     return _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
-                      cache, cache_index, name)
+                      cache, cache_index, name, inject)
 
 
 def fused_verify_layers(params, cfg, inputs_embeds, attention_mask,
-                        positions, cache: KVCache, cache_index):
+                        positions, cache: KVCache, cache_index, inject=None):
     """Speculative-verify step: Kd = 2..8 tokens per row in one weight
     stream.
 
@@ -319,13 +514,14 @@ def fused_verify_layers(params, cfg, inputs_embeds, attention_mask,
     write position ci.  Token j attends the cached keys < ci that the mask
     allows plus draft tokens 0..j; all Kd (k, v) rows land at
     ci..ci+Kd-1, which needs ci <= S - Kd (rows past the accepted count are
-    dead until overwritten).  Returns (hidden [B, Kd, D], cache).
+    dead until overwritten).  With ``inject`` every draft token of a row
+    attends the row's audio K/V.  Returns (hidden [B, Kd, D], cache).
     """
     if inputs_embeds.shape[1] < 2:
         raise ValueError("fused_verify_layers takes 2 or more tokens per row")
     if inputs_embeds.device.type == "cpu":
         return fused_decode_layers_plain(params, cfg, inputs_embeds,
                                          attention_mask, positions, cache,
-                                         cache_index)
+                                         cache_index, inject)
     return _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
-                      cache, cache_index, "fused_verify_layers")
+                      cache, cache_index, "fused_verify_layers", inject)

@@ -1,5 +1,6 @@
-"""Symmetric int8 quantisation for the Whisper encoder and the LLM
-(counterpart of ``desta25_audio_tpu/ops/quant.py:30-53, 262-356`` and of the
+"""Symmetric int8 quantisation for the Whisper encoder, the LLM and the ORCA
+cross-attention stack
+(counterpart of ``desta25_audio_tpu/ops/quant.py:30-53, 262-377`` and of the
 row quantiser ``desta25_audio_tpu/ops/enc_ffn.py:161-166``).
 
 A quantized leaf is ``{"q": int8 [..., out, in], "s": float32 [..., out]}``
@@ -102,6 +103,22 @@ def quantize_llm_params(params: Dict[str, Any]) -> Dict[str, Any]:
         layers[key] = _quantize_stacked(layers[key])
     return {**params, "layers": layers,
             "lm_head": _quantize_head(params.get("lm_head", params["embed"]))}
+
+
+def quantize_orca_cross_attns(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Weight-only int8 for the ORCA gated cross-attention stack
+    (``quantize_orca_cross_attns`` of the JAX package, an inference-time
+    transform): the stacked q, k, v, o and gate1 linears become ``{q, s,
+    b}`` leaves, per layer and output channel; gate2 (it feeds the sigmoid
+    directly) and the LayerNorm stay full precision.  Returns a new tree;
+    the input is not modified."""
+    layers = dict(params["layers"])
+    for k in ("q", "k", "v", "o", "gate1"):
+        leaf = _quantize_stacked(layers[k]["w"])
+        if "b" in layers[k]:
+            leaf["b"] = layers[k]["b"]
+        layers[k] = leaf
+    return {**params, "layers": layers}
 
 
 def quantize_encoder_params(params: Dict[str, Any],

@@ -1,7 +1,9 @@
 """Rotary position embeddings (counterpart of ``desta25_audio_tpu/ops/rope.py``).
 
 LLM attention RoPE: Llama-3.1 with NTK "llama3" frequency scaling, or plain
-theta (Qwen3); half-split rotation matching HF Llama/Qwen.  All trig in f32.
+theta (Qwen3); half-split rotation matching HF Llama/Qwen.  ORCA's audio
+tokens take the same rotation at fractional positions over the full width.
+All trig in f32.
 """
 
 from __future__ import annotations
@@ -72,3 +74,16 @@ def llm_rope_cos_sin(cfg: LLMConfig, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta,
                         cfg.rope_scaling)
+
+
+def fractional_rope_apply(x: torch.Tensor, scale: float, theta: float
+                          ) -> torch.Tensor:
+    """ORCA audio-token RoPE at fractional positions ``i / scale`` over the
+    whole hidden width (not per head), as the reference rotates it
+    (``rope.py:95-107`` of the JAX package).  x [B, T, D]; f32 math, x's
+    dtype out."""
+    T, D = x.shape[1], x.shape[2]
+    positions = torch.arange(T, dtype=torch.float32, device=x.device) / scale
+    cos, sin = rope_cos_sin(positions, D, theta)
+    xf = x.float()
+    return (xf * cos[None] + rotate_half(xf) * sin[None]).to(x.dtype)

@@ -1,7 +1,7 @@
 """Where the time of the flagship ``generate()`` goes, on one GPU.
 
     python -m desta25_audio_tpu_torch.profile_generate [--batch 2] \
-        [--int8-encoder] [--int8-llm] [--speculative-k K]
+        [--int8-encoder] [--int8-llm] [--speculative-k K] [--orca]
 
 Builds the flagship configuration (configs/desta25_llama31-8B_Qformer6L.yaml,
 bf16, random weights from a seed, CharTokenizer; with ``--int8-encoder``
@@ -12,7 +12,12 @@ warms up once, then runs three phases under ``torch.profiler``: perception
 with one new token), and prefill + 31 greedy decode steps (with
 ``--speculative-k K >= 2``: ``llm_generate_spec`` verifying K tokens a step,
 32 new tokens, the n-gram history seeded with the prompt ids, as
-``generate()`` seeds it).  For each phase it prints the wall
+``generate()`` seeds it).  ``--orca`` profiles the ORCA model
+(configs/desta25_llama31-8B_ORCAHybrid.yaml) at the serving setting: int8
+encoder, int8 LLM and int8 cross-attention stack
+(``apply_orca_xattn_quant``); perception then includes the local branch, a
+phase of its own times the audio K/V precompute, and the decode steps run
+the injection kernels (K8i).  For each phase it prints the wall
 time (host clock, device synchronised), the device busy time (sum of kernel
 times), the idle share, and the kernels by total device time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
@@ -34,14 +39,15 @@ from torch.profiler import ProfilerActivity, profile
 from .audio.io import write_wav
 from .config import config_from_yaml_file
 from .data.tokenizer import CharTokenizer
-from .generate.decode import llm_generate
+from .generate.decode import build_injection, llm_generate
 from .generate.speculative import left_aligned, llm_generate_spec
 from .models.desta import DeSTA25AudioModel
 
 NEW_TOKENS = 32
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "configs",
-    "desta25_llama31-8B_Qformer6L.yaml")
+_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
+CONFIG = os.path.join(_CONFIGS, "desta25_llama31-8B_Qformer6L.yaml")
+ORCA_CONFIG = os.path.join(_CONFIGS, "desta25_llama31-8B_ORCAHybrid.yaml")
 
 
 def _device_us(evt) -> float:
@@ -81,19 +87,25 @@ def main() -> None:
     ap.add_argument("--speculative-k", type=int, default=0,
                     help="decode phase: speculative decoding verifying K "
                     "tokens a step (K >= 2)")
+    ap.add_argument("--orca", action="store_true",
+                    help="the ORCA model at the serving setting (int8 "
+                    "encoder, LLM and cross-attention stack)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = config_from_yaml_file(CONFIG)
+    cfg = config_from_yaml_file(ORCA_CONFIG if args.orca else CONFIG)
     model = DeSTA25AudioModel(cfg, device="cuda", seed=0,
                               tokenizer=CharTokenizer("llama3"))
-    if args.int8_encoder:
+    if args.int8_encoder or args.orca:
         model.apply_inference_encoder_quant()
-    if args.int8_llm:
+    if args.int8_llm or args.orca:
         model.apply_llm_quant()
+    if args.orca:
+        model.apply_orca_xattn_quant()
+        torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as d, torch.no_grad():
         convs = []
@@ -109,13 +121,24 @@ def main() -> None:
                                        "text": "a synthetic tone"}]}])
         model.generate(convs, do_sample=False, max_new_tokens=2,
                        speculative_k=args.speculative_k)  # warm-up
-        embeds, mask, _, _, prompt_ids = report(
+        embeds, mask, aux, _, _, prompt_ids = report(
             f"perception b{args.batch}",
             lambda: model._run_generation_phases(convs, {},
                                                  return_prompt_ids=True))
         common = dict(do_sample=False, eos_ids=(),
                       pad_id=model.tokenizer.pad_token_id)
         llm, cfg = model.params["llm"], model.llm_cfg
+        tokens = model._orca_inject_tokens(aux)
+        if tokens is not None:
+            common.update(inject_params=model.params["orca_cross_attns"],
+                          inject_tokens=tokens,
+                          inject_scale=model.config.orca_audio_position_scale,
+                          inject_heads=cfg.num_attention_heads)
+            report(f"audio K/V precompute b{args.batch} (Ta="
+                   f"{tokens.shape[1]}, {cfg.num_hidden_layers} layers)",
+                   lambda: build_injection(
+                       cfg, common["inject_params"], tokens,
+                       common["inject_scale"], common["inject_heads"]))
 
         def gen(n):
             return lambda: llm_generate(llm, cfg, embeds, mask,

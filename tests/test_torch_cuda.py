@@ -4,7 +4,9 @@ rows, grouped-query ratios, qk-norm, a K4 hidden narrower than one
 1280-wide chunk, of two chunks and of two and a half, and one whose chunks
 differ 64x in scale; K7 on both of its paths with a ragged last column
 tile, the LLM's W8A8 GEMM at ragged M, the int8 decode step, the verify
-step at 2/4/8 draft tokens with the block ending at the cache's end).
+step at 2/4/8 draft tokens with the block ending at the cache's end, the
+ORCA injection K8i at injection head dims 128 and 80 and 1 or 4 tokens per
+row, with a row that does not inject, and the requests it refuses).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -12,12 +14,14 @@ where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 """
 
 import dataclasses
+import types
 
 import pytest
 import torch
 
 from desta25_audio_tpu_torch.config import llm_config_for
 from desta25_audio_tpu_torch.models import llm as tllm
+from desta25_audio_tpu_torch.models.orca import init_orca_cross_attns
 from desta25_audio_tpu_torch.ops import _build
 from desta25_audio_tpu_torch.ops.enc_attention import (
     packed_encoder_attention,
@@ -44,6 +48,7 @@ from desta25_audio_tpu_torch.ops.qmm import (
 from desta25_audio_tpu_torch.ops.quant import (
     quantize_linear,
     quantize_llm_params,
+    quantize_orca_cross_attns,
     quantize_weight,
 )
 from desta25_audio_tpu_torch.ops.w8a8_proj import (
@@ -347,3 +352,78 @@ def test_llm_wrappers_raise_on_what_they_do_not_take(gen):
         fused_decode_layers(params, cfg, x[:, :1],
                             torch.ones(1, 32768, device="cuda"),
                             torch.zeros(1, 1, device="cuda").long(), big, 0)
+
+
+def _inject_spec(gen, cfg, B, ta, on, int8=True):
+    """A random cross-attention stack (gate2 weight non-zero, so the gate
+    path shows) and audio K/V [L, B, ta, D] for the in-kernel injection."""
+    stack = init_orca_cross_attns(
+        types.SimpleNamespace(llm_config=cfg, orca_gate_init=0.1),
+        torch.bfloat16, "cuda", gen)
+    stack["layers"]["gate2"]["w"].normal_(0.0, 0.2, generator=gen)
+    if int8:
+        stack = quantize_orca_cross_attns(stack)
+    L, D = cfg.num_hidden_layers, cfg.hidden_size
+    kv = torch.randn(2, L, B, ta, D, generator=gen, device="cuda").bfloat16()
+    return dict(params=stack, k=kv[0], v=kv[1], ta_real=ta,
+                heads=cfg.num_attention_heads,
+                on=torch.tensor(on, dtype=torch.float32, device="cuda"))
+
+
+# K8i against its plain version at the TPU kernel's rounding points, within
+# the decode steps' 3e-2: head dim 128 (Llama-shaped) and 80 (Qwen3-4B's
+# D / H), Ta = 37 (not a multiple of 8), one row that does not inject
+@pytest.mark.parametrize("kd", [1, 4])
+@pytest.mark.parametrize("D,H", [(512, 4), (640, 8)])
+def test_fused_inject_kernel(gen, kd, D, H):
+    cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
+                              hidden_size=D, num_attention_heads=H,
+                              num_key_value_heads=2, qk_norm=True)
+    params = _tower(gen, cfg, int8=True)
+    B, S, ta = 2, 128, 37
+    spec = _inject_spec(gen, cfg, B, ta, [1.0, 0.0])
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.tensor([40, S - kd], device="cuda")
+    mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.2).int()
+    x = tllm.embed_tokens(params, torch.randint(
+        0, 512, (B, kd), generator=gen, device="cuda"))
+    pos = ci[:, None] + torch.arange(kd, device="cuda")[None, :]
+    fn = fused_decode_layers if kd == 1 else fused_verify_layers
+    tower = "fused_decode_layers_int8" if kd == 1 else "fused_verify_layers"
+    fresh = lambda: KVCache(cache0.k.clone(), cache0.v.clone())  # noqa
+    _build.reset_launch_counts()
+    hk, ck = fn(params, cfg, x, mask, pos, fresh(), ci, inject=spec)
+    L = cfg.num_hidden_layers
+    assert _build.launch_counts() == {tower: 7 * L,
+                                      "fused_decode_inject": 5 * L}
+    hp, cp = fused_decode_layers_plain(params, cfg, x, mask, pos, fresh(),
+                                       ci, inject=spec)
+    assert _rel(hk, hp) < 3e-2
+    assert torch.equal(ck.k != cache0.k, cp.k != cache0.k)
+    # the row with on = 0 is the injection-free step, bit for bit
+    h0, _ = fn(params, cfg, x, mask, pos, fresh(), ci)
+    assert torch.equal(hk[1], h0[1])
+    assert not torch.equal(hk[0], h0[0])
+
+
+def test_fused_inject_raises_on_what_it_does_not_take(gen):
+    cfg = llm_config_for("test/llama-nano128")
+    params = _tower(gen, cfg, int8=True)
+    cache = tllm.init_kv_cache(cfg, 1, 128, torch.bfloat16, "cuda")
+    x = torch.zeros(1, 1, cfg.hidden_size, device="cuda").bfloat16()
+    args = (cfg, x, torch.ones(1, 128, device="cuda"),
+            torch.zeros(1, 1, device="cuda").long(), cache, 0)
+    spec = _inject_spec(gen, cfg, 1, 16, [1.0])
+    with pytest.raises(ValueError, match="int8 tower"):
+        fused_decode_layers(_tower(gen, cfg, int8=False), *args, inject=spec)
+    with pytest.raises(ValueError, match="int8 leaf"):
+        fused_decode_layers(params, *args,
+                            inject=_inject_spec(gen, cfg, 1, 16, [1.0],
+                                                int8=False))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fused_decode_layers(params, *args, inject={**spec, "heads": 256})
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _inject_spec(gen, cfg, 1, 60000, [1.0])
+        fused_decode_layers(params, *args, inject=big)

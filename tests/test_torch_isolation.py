@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: it imports no jax, its re-homed host
 modules (config presets, tokenizer, WAV I/O, VAD, splice maps) stay equal to
-the JAX package's, and it refuses what the slice does not cover."""
+the JAX package's, and it refuses what the slices do not cover (LoRA) while
+taking the Q-Former and ORCA configurations."""
 
 import dataclasses
 import os
@@ -124,12 +125,22 @@ def test_wav_io_vad_and_splice_maps_match(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(connector_mode="orca_hybrid"), "ORCA"),
     (dict(use_lora=True), "LoRA"),
+    (dict(connector_mode="orca_hybrid", use_lora=True), "LoRA"),
 ])
 def test_outside_the_slice_raises(override, match):
     from desta25_audio_tpu_torch.models.desta import check_slice
     cfg = tcfg.DeSTA25Config(llm_model_id="test/llama-nano",
                              encoder_model_id="test/whisper-nano", **override)
     with pytest.raises(NotImplementedError, match=match):
+        check_slice(cfg)
+
+
+def test_the_slice_takes_orca():
+    from desta25_audio_tpu_torch.models.desta import check_slice
+    for path in ("desta25_llama31-8B_ORCAHybrid.yaml",
+                 "desta25_qwen3-4b_ORCAHybrid.yaml",
+                 "desta25_qwen3-0.6b_ORCAHybrid.yaml"):
+        cfg = tcfg.config_from_yaml_file(str(REPO / "configs" / path))
+        assert cfg.is_orca and cfg.orca_deep_injection_enabled
         check_slice(cfg)
