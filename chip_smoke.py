@@ -77,13 +77,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     K8i);
 20. ``generate(speculative_k=4)`` at b2: the verify step with injection
     must launch; its first step's position-0 logits against one K8i decode
-    step on the same cache, within TOL_DECODE.
+    step on the same cache, within TOL_DECODE;
+21. K11, the flash attention of the training forward, forward and backward
+    against ``flash_attention_plain`` (output and dq/dk/dv, all rows, tol
+    TOL_FLASH) at B=4, T=512, H=32, Hkv=8, Dh=128, causal, one row
+    right-padded from 400, and at T=520; CUDA-event times of the forward,
+    the backward, the plain version's and ``scaled_dot_product_attention``'s
+    (unpadded, ``enable_gqa``), and the bound;
+22. free the serving models; build the flagship training model fresh in
+    bf16 (random weights, seed 3) and write a synthetic corpus (12 WAVs and
+    a jsonl manifest of the reference schema);
+23. ``DeSTA25Trainer.train()`` for 3 steps at B=4, ``max_seq_length=512``
+    with ``gradient_checkpointing`` (remat) on, Adafactor with a 2-step
+    warm-up, then ``evaluate()`` on one batch: K11 forward and backward, K2
+    and K3 launch on every step, K8 during eval generation; losses and
+    ``grad_norm`` finite, ``grad_norm`` > 0; the trainable tree unchanged
+    by step 1 (lr 0) and changed by step 3; no frozen leaf requires or holds
+    a gradient;
+24. two train steps at the flagship config's own shape, B=12, T=300: K11
+    must not launch (the JAX dispatch takes it at T >= 512 only).  23 and
+    24 print ms/step, tokens/s and the peak device memory beside the card's
+    name and power limit.
 
 Every kernel's entry in the JSON line carries its bound (the larger of its
 bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16 or 1,979
 TOP/s int8, counted from this run's inputs) and, where one PyTorch call
-computes the same function, that call's time (``library_ms``; K2 against
-``scaled_dot_product_attention``), else null.
+computes the same function, that call's time (``library_ms``; K2 and K11
+against ``scaled_dot_product_attention``), else null.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -93,6 +113,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib.util
 import json
 import os
@@ -117,6 +138,9 @@ TOL_DECODE = 3e-2    # K8, K8-int8, K8v: the bound of
 TOL_QMM = 1e-3       # K7 and the LLM's W8A8 GEMM, both in f32: W8A8's int32
                      # sums are exact and its epilogue runs in the plain
                      # version's order; K7's f32 sums differ only in order
+TOL_FLASH = 2e-2     # K11 forward and backward: bf16 outputs of f32 sums;
+                     # the forward rounds the unnormalised weights to bf16
+                     # where the plain version rounds the normalised ones
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
@@ -158,6 +182,12 @@ SOURCES = {
     "fused_decode_inject": (
         "desta25_audio_tpu_torch/csrc/fused_inject.cu",
         "desta25_audio_tpu/ops/fused_decode.py:731"),
+    "flash_attention": (
+        "desta25_audio_tpu_torch/csrc/flash_attention.cu",
+        "desta25_audio_tpu/ops/attention.py:60"),
+    "flash_attention_bwd": (
+        "desta25_audio_tpu_torch/csrc/flash_attention.cu",
+        "desta25_audio_tpu/ops/attention.py:60"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("packed_encoder_attention", "encoder_ffn", "fused_decode_layers")
@@ -304,6 +334,96 @@ def check_enc_ffn(gen):
     if rel > TOL_ENC:
         raise AssertionError(f"K3 disagrees: rel {rel}")
     return err, ms, plain_ms, b_ms, b_by
+
+
+def _backward_ms(out, inputs, grad, iters: int = 10) -> float:
+    """Device time of the backward of ``out`` alone (its graph kept)."""
+    import torch
+    return cuda_time_ms(lambda: torch.autograd.grad(
+        out, inputs, grad, retain_graph=True), iters)
+
+
+def check_flash(gen):
+    """21. K11 forward and backward against flash_attention_plain at the
+    training shape (B=4, T=512, H=32, Hkv=8, Dh=128, causal, row 1
+    right-padded from 400) and at T=520 (not a multiple of the tile):
+    output and dq/dk/dv on all rows, gated at TOL_FLASH.  Returns the
+    T=512 rows of the two JSON entries."""
+    import torch
+    from desta25_audio_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_plain)
+    B, H, Hkv, Dh = 4, 32, 8, 128
+    scale = Dh ** -0.5
+    out = {}
+    for T in (512, 520):
+        mk = lambda h, s=1.0: (s * torch.randn(  # noqa: E731
+            B, T, h, Dh, generator=gen, device="cuda")).to(torch.bfloat16)
+        q, k, v, do = mk(H, 2.0), mk(Hkv), mk(Hkv), mk(H)
+        seg = torch.ones(B, T, dtype=torch.int32, device="cuda")
+        seg[1, 400:] = 0
+
+        def run(fn):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = fn(*leaves, seg, True, scale)
+            grads = torch.autograd.grad(o, leaves, do, retain_graph=True)
+            return (o.detach(), *grads), o, leaves
+
+        got, o_k, in_k = run(flash_attention)
+        want, o_p, in_p = run(flash_attention_plain)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        names = ("o", "dq", "dk", "dv")
+        print(f"K11 flash_attention B={B} T={T} H={H} Hkv={Hkv} Dh={Dh} "
+              f"causal, row 1 padded from 400: " + ", ".join(
+                  f"{n} max_abs_err={e:.3e} rel={r:.3e}"
+                  for n, (e, r) in zip(names, errs))
+              + f" (tol {TOL_FLASH})", flush=True)
+        for n, (_, r) in zip(names, errs):
+            if r > TOL_FLASH:
+                raise AssertionError(f"K11 T={T} {n} disagrees: rel {r}")
+        if T != 512:
+            continue
+        with torch.no_grad():
+            fwd_ms = cuda_time_ms(
+                lambda: flash_attention(q, k, v, seg, True, scale))
+            plain_fwd_ms = cuda_time_ms(
+                lambda: flash_attention_plain(q, k, v, seg, True, scale))
+        bwd_ms = _backward_ms(o_k, in_k, do)
+        plain_bwd_ms = _backward_ms(o_p, in_p, do)
+        # the library yardstick on the unpadded case: SDPA [B, H, T, Dh]
+        heads = lambda t: t.transpose(1, 2).detach()  # noqa: E731
+        lq, lk, lv = (heads(t).requires_grad_() for t in (q, k, v))
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            lq, lk, lv, is_causal=True, enable_gqa=True)
+        with torch.no_grad():
+            lib_fwd = cuda_time_ms(sdpa)
+        lib_bwd = _backward_ms(sdpa(), (lq, lk, lv), heads(do))
+        # work this run's data needs: the (query, key) pairs the causal and
+        # segment rules allow, 4*Dh operations a pair a head forward
+        # (q.k and p.v), 10*Dh backward (s, dp, dv, dk, dq)
+        allowed = ((seg[:, :, None] == seg[:, None, :])
+                   & torch.ones(T, T, dtype=torch.bool,
+                                device="cuda").tril())
+        pairs = int(allowed.sum())
+        bq, bkv, blse = 2 * B * T * H * Dh, 2 * B * T * Hkv * Dh, 4 * B * H * T
+        fwd_bound = bound(bq + 2 * bkv + bq + blse + 4 * B * T,
+                          4 * Dh * H * pairs, "bf16")
+        bwd_bound = bound(3 * bq + 2 * bkv + blse + 4 * B * T  # q,o,dO,lse
+                          + bq + 2 * bkv,                     # dq, dk, dv
+                          10 * Dh * H * pairs, "bf16")
+        print(f"K11 times ({gpu_line()}): forward {fwd_ms:.4f} ms, backward "
+              f"{bwd_ms:.4f} ms (forward+backward {fwd_ms + bwd_ms:.4f}); "
+              f"plain {plain_fwd_ms:.4f} + {plain_bwd_ms:.4f} ms; "
+              f"scaled_dot_product_attention {lib_fwd:.4f} + {lib_bwd:.4f} "
+              f"ms; bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) + "
+              f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); {pairs} allowed "
+              f"(query, key) pairs per head", flush=True)
+        out = {
+            "flash_attention": (errs[0][0], fwd_ms,
+                                plain_fwd_ms, *fwd_bound, lib_fwd),
+            "flash_attention_bwd": (max(e[0] for e in errs[1:]), bwd_ms,
+                                    plain_bwd_ms, *bwd_bound, lib_bwd),
+        }
+    return out
 
 
 def _int8_leaf(gen, n: int, k: int, bias: bool = True, mult=1.0):
@@ -1137,6 +1257,180 @@ def run_orca(model, convs, gpu):
     return launched
 
 
+def write_corpus(d: str, n: int = 12) -> str:
+    """A synthetic training corpus: n gated tones as 16 kHz WAVs (1.5-4.25
+    s) and a jsonl manifest of the reference schema (id, dataset, prompt
+    with the audio locator, response)."""
+    from desta25_audio_tpu_torch.audio.io import write_wav
+    rng = np.random.default_rng(1)
+    os.makedirs(os.path.join(d, "clips"), exist_ok=True)
+    rows = []
+    for i in range(n):
+        t = np.arange(int((1.5 + 0.25 * i) * 16000)) / 16000.0
+        sig = (0.5 * np.sin(2 * np.pi * (200 + 40 * i) * t)
+               * (np.sin(2 * np.pi * 3 * t) > 0)).astype(np.float32)
+        sig += 0.01 * rng.standard_normal(t.size).astype(np.float32)
+        rel = f"clips/tone{i}.wav"
+        write_wav(os.path.join(d, rel), sig)
+        rows.append({"id": rel, "dataset": f"synthetic{i % 2}",
+                     "prompt": f"Describe sound {i}. <|AUDIO|>",
+                     "response": f"A gated tone at {200 + 40 * i} hertz."})
+    manifest = os.path.join(d, "train.jsonl")
+    with open(manifest, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    return manifest
+
+
+class StepProbe:
+    """Wraps a trainer's train step: per step, the launches it made, its
+    host-clock time (device synchronised), its peak device memory, its
+    metrics, and how far the trainable tree has moved from its start."""
+
+    def __init__(self, trainer, start):
+        self.trainer, self.start, self.rows = trainer, start, []
+        self.real = trainer.train_step
+        trainer.train_step = self
+
+    def __call__(self, trainable, frozen, opt_state, batch):
+        import torch
+        from desta25_audio_tpu_torch.ops import _build
+        from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = _build.launch_counts()
+        t0 = time.perf_counter()
+        out = self.real(trainable, frozen, opt_state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _build.launch_counts()
+        moved = max(float((v.detach() - self.start[k]).abs().max())
+                    for k, v in flatten_tree(out[0]).items())
+        self.rows.append({
+            "ms": ms, "moved": moved, "shape": tuple(batch["input_ids"].shape),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": {k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)},
+            "metrics": {k: float(v) for k, v in out[2].items()}})
+        return out
+
+
+def print_steps(label: str, rows, gpu: str) -> None:
+    for i, r in enumerate(rows):
+        B, T = r["shape"]
+        m = r["metrics"]
+        print(f"{label} step {i + 1} B={B} T={T} ({gpu}): {r['ms']:.1f} ms, "
+              f"{B * T / r['ms'] * 1e3:.0f} tokens/s, peak "
+              f"{r['peak_gib']:.2f} GiB allocated; lm_loss "
+              f"{m['lm_loss']:.4f} grad_norm {m['grad_norm']:.4f}; trainable "
+              f"moved {r['moved']:.3e}; launches {json.dumps(r['launches'])}",
+              flush=True)
+
+
+def run_training(gpu: str, tmpdir: str):
+    """22-24.  Returns K11's launches in phase 23's trainer run."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+
+    # -- 22. the flagship training model, fresh in bf16; the corpus ----------
+    cfg = config_from_yaml_file(CONFIG)
+    t0 = time.perf_counter()
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=3,
+                              tokenizer=CharTokenizer("llama3"))
+    torch.cuda.synchronize()
+    manifest = write_corpus(tmpdir)
+    print(f"training model built in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB); corpus "
+          f"{manifest}", flush=True)
+    trainable, frozen = model.split_params()
+    start = {k: v.detach().clone()
+             for k, v in flatten_tree(trainable).items()}
+
+    # -- 23. DeSTA25Trainer.train(), 3 steps at B=4 T=512, then evaluate() ---
+    dcfg = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
+                      batch_size=4, max_seq_length=512)
+    ds = AudioTextDataset(cfg, dcfg, model.tokenizer)
+    collate = CollateFn(cfg, dcfg, model.tokenizer)
+    tcfg = TrainerConfig(exp_dir=os.path.join(tmpdir, "exp"), max_steps=3,
+                         log_every_n_steps=1, remat=True,
+                         eval_before_train=False, val_check_interval=1e9,
+                         eval_max_batches=1, eval_max_new_tokens=16,
+                         keep_checkpoints=1)
+    # warm-up 2 steps: the first update has lr 0, the third lr 1e-4
+    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    trainer = DeSTA25Trainer(model, ds, ds, collate, ocfg, tcfg)
+    probe = StepProbe(trainer, start)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_counts = _build.launch_counts()
+    _build.reset_launch_counts()
+    report = trainer.evaluate(tag="smoke")
+    torch.cuda.synchronize()
+    eval_counts = _build.launch_counts()
+    print_steps("flagship-train (23)", probe.rows, gpu)
+    print(f"train() {train_s:.1f} s for 3 steps and a checkpoint; launches "
+          f"{json.dumps(train_counts)}; evaluate(): loss {report['loss']:.4f}"
+          f", accuracy {report['accuracy']:.3f} on {report['n_samples']} "
+          f"samples, launches {json.dumps(eval_counts)}", flush=True)
+    if len(probe.rows) != 3:
+        raise AssertionError(f"train() ran {len(probe.rows)} steps, not 3")
+    for i, r in enumerate(probe.rows):
+        for name in ("flash_attention", "flash_attention_bwd",
+                     "packed_encoder_attention", "encoder_ffn"):
+            if r["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"train step {i + 1}: {name} not "
+                                     "launched")
+        m = r["metrics"]
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                and m["grad_norm"] > 0):
+            raise AssertionError(f"train step {i + 1}: metrics {m}")
+    if probe.rows[0]["moved"] != 0.0:
+        raise AssertionError("the trainable tree moved at step 1 (lr 0)")
+    if not probe.rows[2]["moved"] > 0.0:
+        raise AssertionError("the trainable tree did not move by step 3")
+    if any(t.requires_grad or t.grad is not None
+           for t in flatten_tree(frozen).values()):
+        raise AssertionError("a frozen leaf requires or holds a gradient")
+    if eval_counts.get("fused_decode_layers", 0) <= 0:
+        raise AssertionError("evaluate(): fused_decode_layers not launched")
+    if not (np.isfinite(report["loss"]) and os.path.exists(os.path.join(
+            tcfg.exp_dir, "val@smoke-report.json"))):
+        raise AssertionError(f"evaluate() report: {report}")
+
+    # -- 24. one train step at the flagship's own shape, B=12 T=300 ----------
+    dcfg24 = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
+                        batch_size=12, max_seq_length=300)
+    batch = trainer._device_batch(CollateFn(cfg, dcfg24, model.tokenizer)(
+        list(ds.iter_valid())[:12]))
+    probe24 = StepProbe(trainer, start)
+    state = trainer.opt_state
+    for _ in range(2):       # the second step is the one without warm-up
+        trainable, state, _ = trainer.train_step(trainable, frozen, state,
+                                                 batch)
+    print_steps("flagship-train (24)", probe24.rows, gpu)
+    for r in probe24.rows:
+        if r["launches"].get("flash_attention", 0) \
+                or r["launches"].get("flash_attention_bwd", 0):
+            raise AssertionError("K11 launched at T=300 (the JAX dispatch "
+                                 "takes it at T >= 512 only)")
+        if not np.isfinite(r["metrics"]["loss"]):
+            raise AssertionError(f"B=12 step: metrics {r['metrics']}")
+    return {k: train_counts.get(k, 0)
+            for k in ("flash_attention", "flash_attention_bwd")}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -1243,6 +1537,15 @@ def main() -> int:
         # -- 17. K8i vs plain; 18-20. ORCA generate() ------------------------
         k8i = check_fused_inject(model, torch.Generator("cuda").manual_seed(4))
         inject_launches = run_orca(model, convs, gpu)
+
+    # -- 21. K11 vs plain at the training shape ------------------------------
+    k11 = check_flash(torch.Generator("cuda").manual_seed(5))
+
+    # -- 22-24. training, after the serving models are freed -----------------
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_launches = run_training(gpu, tmp.name)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -1255,12 +1558,15 @@ def main() -> int:
     # as K8; K8i: the worst of its four checks, the Llama Kd=1 step times.
     # Launches: K2, K3, K8 from the bf16 generate() run, K4-K6 from the
     # int8-encoder runs, K7, W8A8 and K8-int8 from the int8-LLM runs, K8v
-    # from the speculative run, K8i from the ORCA runs of phases 19-20.
+    # from the speculative run, K8i from the ORCA runs of phases 19-20; K11
+    # (forward and backward: the worse error of the output, resp. dq/dk/dv,
+    # at T=512, the T=512 times, bound and SDPA time) from the trainer run
+    # of phase 23.
     # Each tuple: (err, ms, plain_ms, bound_ms, bound_by[, library_ms]).
     measured = {"packed_encoder_attention":
                 (max(k2[0][0], k2[1][0]),) + k2[0][1:],
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
-                "fused_decode_inject": k8i}
+                "fused_decode_inject": k8i, **k11}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         row = measured[name]
@@ -1268,7 +1574,9 @@ def main() -> int:
                   else llm_launches if name in INT8_LLM_KERNELS
                   else spec_launches if name == "fused_verify_layers"
                   else {name: inject_launches}
-                  if name == "fused_decode_inject" else launches)
+                  if name == "fused_decode_inject"
+                  else train_launches if name in train_launches
+                  else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],
                         "max_abs_err": row[0], "ms": row[1],

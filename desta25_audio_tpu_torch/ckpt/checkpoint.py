@@ -1,0 +1,115 @@
+"""Train-state checkpoints: trainable params, optimizer state and step
+(port of ``desta25_audio_tpu/ckpt/checkpoint.py:30-80`` in the port's own
+format).
+
+- ``<exp_dir>/checkpoint-<step>/state.pt``: one ``torch.save`` of
+  ``{"trainable", "opt_state", "step"}`` (the frozen towers are never
+  written), plus ``config.json``;
+- ``<exp_dir>/checkpoint-latest`` is a symlink to the newest one, for
+  resume;
+- only the newest ``keep`` checkpoints are kept.
+
+Orbax checkpoints of the JAX package and the reference's safetensors export
+are not read or written (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import re
+import shutil
+from typing import Any, Dict, Tuple
+
+import torch
+
+from ..train.optimizer import flatten_tree
+
+logger = logging.getLogger(__name__)
+
+
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    return tree
+
+
+def _to_device(tree: Any, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+def save_train_state(exp_dir: str, step: int, trainable: Dict[str, Any],
+                     opt_state: Any, config=None, keep: int = 3) -> str:
+    path = os.path.abspath(os.path.join(exp_dir, f"checkpoint-{step}"))
+    state = os.path.join(path, "state.pt")
+    if os.path.exists(state):
+        logger.info("checkpoint-%d already exists; skipping save", step)
+        return path
+    os.makedirs(path, exist_ok=True)
+    tmp = state + ".tmp"
+    torch.save({"trainable": _to_cpu(trainable),
+                "opt_state": _to_cpu(opt_state), "step": int(step)}, tmp)
+    os.replace(tmp, state)
+    if config is not None:
+        with open(os.path.join(path, "config.json"), "w") as f:
+            f.write(config.to_json())
+    latest = os.path.join(exp_dir, "checkpoint-latest")
+    if os.path.islink(latest) or os.path.exists(latest):
+        os.unlink(latest)
+    os.symlink(path, latest)
+    _gc_checkpoints(exp_dir, keep)
+    logger.info("saved checkpoint-%d", step)
+    return path
+
+
+def _gc_checkpoints(exp_dir: str, keep: int) -> None:
+    ckpts = []
+    for name in os.listdir(exp_dir):
+        m = re.fullmatch(r"checkpoint-(\d+)", name)
+        if m:
+            ckpts.append((int(m.group(1)), name))
+    for _, name in sorted(ckpts)[:-keep] if keep > 0 else []:
+        shutil.rmtree(os.path.join(exp_dir, name), ignore_errors=True)
+
+
+def _copy_into(template: Any, loaded: Any, what: str) -> None:
+    if isinstance(template, dict):
+        if set(template) != set(loaded):
+            raise ValueError(f"checkpoint {what}: keys {sorted(loaded)} != "
+                             f"{sorted(template)}")
+        for k in template:
+            _copy_into(template[k], loaded[k], f"{what}/{k}")
+        return
+    if template.shape != loaded.shape:
+        raise ValueError(f"checkpoint {what}: shape {tuple(loaded.shape)} != "
+                         f"{tuple(template.shape)}")
+    with torch.no_grad():
+        template.copy_(loaded)
+
+
+def restore_train_state(path: str, trainable_template: Dict[str, Any],
+                        opt_state_template: Any
+                        ) -> Tuple[Dict[str, Any], Any, int]:
+    """path: a ``checkpoint-*`` dir, or an exp_dir (its
+    ``checkpoint-latest``).  The trainable values are copied into the
+    template's tensors (which keep their device and ``requires_grad``); the
+    optimizer state lands on the template's device."""
+    if not os.path.basename(os.path.normpath(path)).startswith("checkpoint-"):
+        path = os.path.join(path, "checkpoint-latest")
+    path = os.path.realpath(path)
+    restored = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
+                          weights_only=True)
+    _copy_into(trainable_template, restored["trainable"], "trainable")
+    opt_state = restored["opt_state"]
+    if set(opt_state) != set(opt_state_template):
+        raise ValueError(f"checkpoint opt_state: keys {sorted(opt_state)} "
+                         f"!= {sorted(opt_state_template)}")
+    device = next(iter(flatten_tree(trainable_template).values())).device
+    return (trainable_template, _to_device(opt_state, device),
+            int(restored["step"]))

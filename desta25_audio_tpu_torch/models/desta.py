@@ -191,6 +191,18 @@ class DeSTA25AudioModel:
         with torch.no_grad():
             self.params["whisper"]["encoder"] = quantize_encoder_params(enc)
 
+    def trainable_keys(self) -> Tuple[str, ...]:
+        """The top-level param subtrees that train: everything but the LLM
+        and Whisper (the reference's configure_trainable_parameters,
+        ``desta.py:158-165`` of the JAX package)."""
+        return tuple(k for k in self.params if k not in ("whisper", "llm"))
+
+    def split_params(self):
+        """(trainable, frozen) param trees, sharing the model's tensors."""
+        trainable = {k: self.params[k] for k in self.trainable_keys()}
+        frozen = {k: v for k, v in self.params.items() if k not in trainable}
+        return trainable, frozen
+
     @property
     def tokenizer(self):
         if self._tokenizer is None:

@@ -7,7 +7,14 @@ per-head q/k RMSNorm, tied or untied head, and a packed KV cache
 feed it.
 
 Prefill (and any cached call with T > 1) is plain torch around the
-projections, mirroring ``llm.py:174-257``.  A cached call with T == 1 goes
+projections, mirroring ``llm.py:174-257``.  The cache-less forward (the
+training step and the eval loss) routes its attention through
+``ops/attention.mha`` with the causal and per-token masks, as
+``llm.py:234-238`` does: K11 (the hand-written flash attention) at T >= 512,
+the masked path below; with ``remat`` each decoder layer runs under
+``torch.utils.checkpoint``, and ``skip_head``/``return_hidden`` hand the
+final hidden state to the chunked loss.  Nothing is updated in place on
+that path.  A cached call with T == 1 goes
 to ``ops/fused_decode.fused_decode_layers`` (the hand-written decode kernels
 on the card), with ORCA's injection inside it or, for a per-layer hook,
 layer by layer in torch.  With bf16 weights the projections and heads are ``torch.mm``
@@ -31,8 +38,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
+from ..ops import attention as attn
 from ..ops.core import Params, index_tree, matmul_f32, rms_norm
 from ..ops.fused_decode import KVCache, fused_decode_layers
 from ..ops.qmm import quant_matmul
@@ -107,7 +116,7 @@ def _linear(w, x: torch.Tensor, l: int) -> torch.Tensor:
 
 
 def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
-               cache: Optional[KVCache], ci):
+               cache: Optional[KVCache], ci, attention_mask=None):
     B, T, _ = x.shape
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
@@ -121,16 +130,19 @@ def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
         k = rms_norm(index_tree(p["k_norm"], l), k, cfg.rms_norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cache is not None:
-        # write the T new rows at each row's offset, then attend the cache
-        ck, cv = cache.k[l], cache.v[l]
-        rows = torch.arange(B, device=x.device)[:, None]
-        cols = ci[:, None] + torch.arange(T, device=x.device)[None, :]
-        ck[rows, cols] = k.reshape(B, T, KVD).to(ck.dtype)
-        cv[rows, cols] = v.reshape(B, T, KVD).to(cv.dtype)
-        S = ck.shape[1]
-        k = ck.reshape(B, S, Hkv, Dh)
-        v = cv.reshape(B, S, Hkv, Dh)
+    if cache is None:
+        # the cache-less forward: the JAX dispatch (flash at T >= 512)
+        out = attn.mha(q, k, v, causal=True, attention_mask=attention_mask)
+        return _linear(p["wo"], out.reshape(B, T, HD), l)
+    # write the T new rows at each row's offset, then attend the cache
+    ck, cv = cache.k[l], cache.v[l]
+    rows = torch.arange(B, device=x.device)[:, None]
+    cols = ci[:, None] + torch.arange(T, device=x.device)[None, :]
+    ck[rows, cols] = k.reshape(B, T, KVD).to(ck.dtype)
+    cv[rows, cols] = v.reshape(B, T, KVD).to(cv.dtype)
+    S = ck.shape[1]
+    k = ck.reshape(B, S, Hkv, Dh)
+    v = cv.reshape(B, S, Hkv, Dh)
     # grouped-query attention with an explicit mask (llm.py:239-254)
     G = H // Hkv
     qg = q.reshape(B, T, Hkv, G, Dh).float()
@@ -157,8 +169,11 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None, cache_index=None,
               extra_layer_fn: Optional[Callable] = None,
-              fused_injection=None):
-    """Forward pass -> (logits [B, T, V] f32, cache).
+              fused_injection=None, return_hidden: bool = False,
+              skip_head: bool = False, remat: bool = False):
+    """Forward pass -> (logits [B, T, V] f32, cache), or with
+    ``return_hidden`` (logits, cache, final hidden [B, T, D] after the last
+    norm); ``skip_head`` leaves logits None.
 
     input_ids [B, T] or inputs_embeds [B, T, D] (exactly one).
     attention_mask [B, T] 1/0 (left padding), or [B, S] covering the cache.
@@ -173,6 +188,10 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     injection runs inside it; with only ``extra_layer_fn`` the step runs
     layer by layer here so the hook can run between layers
     (``llm.py:356-454`` of the JAX package).
+
+    remat: without a cache and with grad mode on, each decoder layer runs
+    under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in
+    the backward, as ``jax.checkpoint`` does in the JAX package.
     """
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("provide exactly one of input_ids / inputs_embeds")
@@ -203,22 +222,32 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
             hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
             return head_logits(params, hidden), cache
     else:
+        mask = None
         if attention_mask is None:
             attention_mask = torch.ones(B, T, dtype=torch.int32, device=dev)
-        causal = torch.tril(torch.ones(T, T, dtype=torch.bool, device=dev))
-        mask = (causal[None] & (attention_mask[:, None, :] > 0))[:, None]
         if positions is None:
             positions = torch.clamp(torch.cumsum(attention_mask, 1) - 1, min=0)
 
     cos, sin = llm_rope_cos_sin(cfg, positions)
     lay = params["layers"]
-    for l in range(cfg.num_hidden_layers):
+
+    def layer(l: int, x: torch.Tensor) -> torch.Tensor:
         x = x + _attention(lay, rms_norm(index_tree(lay["ln1"], l), x,
                                          cfg.rms_norm_eps),
-                           cos, sin, mask, cfg, l, cache, ci)
+                           cos, sin, mask, cfg, l, cache, ci,
+                           attention_mask)
         x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
                                    cfg.rms_norm_eps), l)
         if extra_layer_fn is not None:
             x = extra_layer_fn(l, x)
+        return x
+
+    remat = remat and cache is None and torch.is_grad_enabled()
+    for l in range(cfg.num_hidden_layers):
+        x = (checkpoint(layer, l, x, use_reentrant=False) if remat
+             else layer(l, x))
     hidden = rms_norm(params["norm"], x, cfg.rms_norm_eps)
-    return head_logits(params, hidden), cache
+    logits = None if skip_head else head_logits(params, hidden)
+    if return_hidden:
+        return logits, cache, hidden
+    return logits, cache

@@ -18,10 +18,15 @@ def perception_apply(params, mel: torch.Tensor, config: DeSTA25Config
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """mel [N, 3000, n_mels] (NWC) -> (audio tokens [N, K, d_llm], ORCA
     local tokens [N, T', d_llm] or None); K = prompt_size (Q-Former) or
-    orca_global_num_tokens (ORCA)."""
-    _, taps = whisper_encoder_apply(
-        params["whisper"]["encoder"], mel, config.encoder_config,
-        target_layer_ids=config.target_layer_ids)
+    orca_global_num_tokens (ORCA).
+
+    The Whisper encoder is frozen: it runs under ``torch.no_grad()``, so its
+    kernels never see grad mode and its taps carry no graph; gradients start
+    at the connector."""
+    with torch.no_grad():
+        _, taps = whisper_encoder_apply(
+            params["whisper"]["encoder"], mel, config.encoder_config,
+            target_layer_ids=config.target_layer_ids)
     if config.connector_mode == "qformer_1":
         return qformer_connector_apply(params["connector"], taps, config), None
     if config.connector_mode == "orca_hybrid":

@@ -15,11 +15,17 @@ The connector params are f32 while the taps are bf16: every linear then
 takes an f32 product and rounds to the activation dtype, as ``jnp.dot``'s
 promotion does.  The shared-quant int8 K/V branch of the JAX package is not
 ported (TPU-gated and off in ``generate()``).
+
+The connector trains: with grad mode on, each BERT layer runs under
+``torch.utils.checkpoint`` (non-reentrant), as ``qformer.py:171-189`` wraps
+its layer in ``jax.checkpoint``, so the cross K/V of every layer (tap-sized)
+is recomputed in the backward instead of kept.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import DeSTA25Config, QFormerConfig
 from ..ops.core import Params, gelu, index_tree, layer_norm, linear, mha
@@ -89,6 +95,14 @@ def _cross_attn(p: Params, h: torch.Tensor, enc: torch.Tensor,
     return layer_norm(p["ln"], out + h, _BERT_EPS)
 
 
+def _bert_layer(p: Params, h: torch.Tensor, encoder_hidden: torch.Tensor,
+                n_heads: int) -> torch.Tensor:
+    h = _self_attn(p["self"], h, n_heads)
+    h = _cross_attn(p["cross"], h, encoder_hidden, n_heads)
+    out = linear(p["out"], gelu(linear(p["inter"], h)))
+    return layer_norm(p["out_ln"], out + h, _BERT_EPS)
+
+
 def bert_encoder_apply(params: Params, hidden: torch.Tensor,
                        encoder_hidden: torch.Tensor,
                        cfg: QFormerConfig) -> torch.Tensor:
@@ -97,10 +111,11 @@ def bert_encoder_apply(params: Params, hidden: torch.Tensor,
     h = hidden
     for i in range(cfg.num_hidden_layers):
         p = index_tree(params["layers"], i)
-        h = _self_attn(p["self"], h, H)
-        h = _cross_attn(p["cross"], h, encoder_hidden, H)
-        out = linear(p["out"], gelu(linear(p["inter"], h)))
-        h = layer_norm(p["out_ln"], out + h, _BERT_EPS)
+        if torch.is_grad_enabled():
+            h = checkpoint(_bert_layer, p, h, encoder_hidden, H,
+                           use_reentrant=False)
+        else:
+            h = _bert_layer(p, h, encoder_hidden, H)
     return h
 
 

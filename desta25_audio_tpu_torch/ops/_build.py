@@ -60,6 +60,16 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_qmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # epi, a, sa, nproj, (w, s, bias, out) x 3, M, N, K, seg, stream
     "desta_gemm_s8": (_I, _P, _P, _I) + (_P,) * 12 + (_I, _I, _I, _I, _P),
+    # q, k, v, seg, o, lse, B, T, H, Hkv, Dh, causal, scale, stream
+    "desta_flash_fwd": (_P,) * 6 + (_I,) * 6 + (_F, _P),
+    # o, dO, delta, B, T, H, Dh, stream
+    "desta_flash_bwd_delta": (_P,) * 3 + (_I,) * 4 + (_P,),
+    # q, k, v, seg, dO, lse, delta, dk, dv, B, T, H, Hkv, Dh, causal, scale,
+    # stream
+    "desta_flash_bwd_dkdv": (_P,) * 9 + (_I,) * 6 + (_F, _P),
+    # q, k, v, seg, dO, lse, delta, dq, B, T, H, Hkv, Dh, causal, scale,
+    # stream
+    "desta_flash_bwd_dq": (_P,) * 8 + (_I,) * 6 + (_F, _P),
 }
 
 _launches: Dict[str, int] = {}
@@ -165,7 +175,18 @@ def stream_ptr(device) -> int:
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:
     """Validate kernel inputs: one CUDA device, contiguous, 16-byte aligned,
-    optionally one dtype.  Raises ValueError otherwise."""
+    optionally one dtype.  Raises ValueError otherwise.
+
+    A kernel called through ctypes returns a tensor with no autograd graph,
+    so an input that requires grad while grad mode is on raises
+    RuntimeError: the gradient would be cut silently.  Kernels with a
+    backward (K2, K11) wrap their launches in an autograd function, whose
+    forward runs with grad mode off."""
+    import torch
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: an input requires grad, and this kernel has no "
+            "backward; call it under torch.no_grad()")
     dev = tensors[0].device
     for i, t in enumerate(tensors):
         if t.device != dev or t.device.type != "cuda":

@@ -7,6 +7,11 @@ hand-written Hopper kernel in ``csrc/enc_attention.cu`` (bf16, Dh = 64, the
 head size of every Whisper and Q-Former configuration); on a CPU tensor it
 runs :func:`packed_encoder_attention_plain`, the same function in plain
 torch at the same rounding points.  It never falls back from the card.
+
+On the card the kernel runs inside an autograd function (the Q-Former's
+cross-attention trains through it): its backward recomputes through the
+plain version under autograd, as the JAX package's custom VJP recomputes
+through XLA (``enc_attention.py:165-182``).
 """
 
 from __future__ import annotations
@@ -54,9 +59,31 @@ def packed_encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def packed_encoder_attention(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """Bidirectional MHA on packed [B, T, H*Dh] tensors -> [B, Tq, H*Dh]."""
+    """Bidirectional MHA on packed [B, T, H*Dh] tensors -> [B, Tq, H*Dh];
+    differentiable in q, k and v."""
     if q.device.type == "cpu":
         return packed_encoder_attention_plain(q, k, v, n_heads)
+    return _PackedAttention.apply(q, k, v, n_heads)
+
+
+class _PackedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, n_heads):
+        ctx.save_for_backward(q, k, v)
+        ctx.n_heads = n_heads
+        return _launch(q, k, v, n_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = packed_encoder_attention_plain(q, k, v, ctx.n_heads)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            n_heads: int) -> torch.Tensor:
     name = "packed_encoder_attention"
     B, Tq, DM = q.shape
     Tkv = k.shape[1]

@@ -55,7 +55,12 @@ def _device_us(evt) -> float:
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
 
-def report(name: str, fn, top: int = 12):
+def report(name: str, fn, top: int = 12, groups=None, stats=None):
+    """Run fn() under the profiler and print its wall time, device busy
+    time, idle share and top kernels; ``groups`` ({label: name substrings})
+    adds the device time per group, the first matching group taking a
+    kernel, the rest counted as "other".  A ``stats`` list gets (wall ms,
+    busy ms) appended."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -68,9 +73,19 @@ def report(name: str, fn, top: int = 12):
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     print(f"== {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
+    if stats is not None:
+        stats.append((wall_ms, busy_ms))
     for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
         print(f"   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
               f"{e.key[:100]}")
+    if groups:
+        sums = dict.fromkeys([*groups, "other"], 0.0)
+        for e in kernels:
+            label = next((g for g, subs in groups.items()
+                          if any(s in e.key for s in subs)), "other")
+            sums[label] += _device_us(e) / 1e3
+        print("   by group: " + "; ".join(f"{g} {ms:.2f} ms"
+                                          for g, ms in sums.items()))
     return out
 
 

@@ -6,7 +6,10 @@ differ 64x in scale; K7 on both of its paths with a ragged last column
 tile, the LLM's W8A8 GEMM at ragged M, the int8 decode step, the verify
 step at 2/4/8 draft tokens with the block ending at the cache's end, the
 ORCA injection K8i at injection head dims 128 and 80 and 1 or 4 tokens per
-row, with a row that does not inject, and the requests it refuses).
+row, with a row that does not inject, and the requests it refuses; the
+flash attention K11, forward and backward, at the training shape, at a T
+that is not a multiple of its tile, bidirectional, with left and right
+padding).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -427,3 +430,47 @@ def test_fused_inject_raises_on_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="shared memory"):
         big = _inject_spec(gen, cfg, 1, 60000, [1.0])
         fused_decode_layers(params, *args, inject=big)
+
+
+# -- K11: flash attention forward and backward ---------------------------------
+
+@pytest.mark.parametrize("B,T,H,Hkv,Dh,causal,pad", [
+    (4, 512, 32, 8, 128, True, "right"),    # the training shape
+    (4, 520, 32, 8, 128, True, "left"),     # T not a multiple of the tile
+    (2, 77, 4, 4, 64, False, "left"),       # MHA, bidirectional, one tile
+    (1, 200, 6, 2, 128, True, "none"),
+])
+def test_flash_attention_kernel(gen, B, T, H, Hkv, Dh, causal, pad):
+    from desta25_audio_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_plain)
+    mk = lambda h, s=1.0: (s * torch.randn(  # noqa: E731
+        B, T, h, Dh, generator=gen, device="cuda")).bfloat16()
+    q, k, v, do = mk(H, 2.0), mk(Hkv), mk(Hkv), mk(H)
+    seg = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    if pad == "right":
+        seg[-1, T - 112:] = 0
+    elif pad == "left":
+        seg[0, :37] = 0
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves, seg, causal, Dh ** -0.5)
+        return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+    _build.reset_launch_counts()
+    got = run(flash_attention)
+    assert _build.launch_counts() == {"flash_attention": 1,
+                                      "flash_attention_bwd": 3}
+    for g, w in zip(got, run(flash_attention_plain)):
+        assert _rel(g, w) < 2e-2
+
+
+def test_flash_attention_raises_on_what_it_does_not_take(gen):
+    from desta25_audio_tpu_torch.ops.attention import flash_attention
+    q = torch.zeros(1, 64, 4, 80, device="cuda").bfloat16()
+    seg = torch.ones(1, 64, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="Dh in"):
+        flash_attention(q, q, q, seg)
+    q = torch.zeros(1, 64, 4, 64, device="cuda")
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_attention(q, q, q, seg)
