@@ -12,7 +12,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    nvcc for sm_90a;
 4. hold each kernel against its plain PyTorch version on the card at the
    shapes of the flagship path, with CUDA-event times of both:
-   K2 packed_encoder_attention (self: B=2, T=1500, H=20, Dh=64; cross:
+   K1 log_mel (after the clip-wide clamp: B=2 x 3000 frames x 128 mels and
+   B=1 x 300 x 80 of noise plus a tone within TOL_MEL, the two synthetic
+   WAVs of phase 6, written first, zero-padded to 30 s within TOL_MEL_WAV;
+   both versions' times at B=1, 2, 4 for mel's share of perception after
+   phase 11), K2 packed_encoder_attention (self: B=2, T=1500, H=20, Dh=64; cross:
    4 taps x B=2, Tq=64, Tkv=1500), K3 encoder_ffn (M=3000, D=1280,
    F=5120), K8 fused_decode_layers (Llama-3.1-8B, B=2, S=256 cache with
    random contents and a different cache index per row), and the W8A8
@@ -26,7 +30,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 7. with the bf16 encoder, after one short warm-up call, ``generate()`` a
    batch of 2 conversations (transcriptions supplied, greedy, 32 new
    tokens), then a batch of 1;
-8. require that K2, K3 and K8's launch counters moved during
+8. require that K1, K2, K3 and K8's launch counters moved during
    ``generate()``, that the generated ids are well formed, and that the
    spliced embeddings, the prefill logits and one decode step's logits of
    the batch-2 input, computed step by step, are finite and give
@@ -36,7 +40,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     (``apply_inference_encoder_quant()``: int8 FFN, "dual" attention
     leaves); hold encoder layers 0 and 31 through the kernels against the
     plain versions; print the int8-vs-bf16 taps difference (information)
-    and the encoder forward times of both attention arms at B=1, 2, 4;
+    and the encoder forward times of both attention arms at B=1, 2, 4; K1
+    must launch in every generate() and train step from here on;
 11. ``generate()`` at b2 and b1 (int8 attention arm: K5, K2, K6 and K4
     launch, K3 does not) and at b4 (bf16 attention arm: K2 and K4 launch,
     K5 and K6 do not); the b2 path step by step as in 8;
@@ -47,7 +52,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     shape, the W8A8 prefill GEMM at M=250 on each layer shape and the head
     (both in f32, gated at TOL_QMM), K8 with the int8 stream (32 layers,
     B=2, S=256, per-row ci) and the verify step K8v (Kd=4, B=2, one row's
-    block ending at S) on the bf16 and the int8 tower, gated as K8;
+    block ending at S) on the bf16 and the int8 tower, gated as K8; K9, the
+    per-layer decode pair, on the int8 tower (32 layers, B=2, S=256, ci=
+    (100, 200)): each layer's attention and MLP half against plain, 2- and
+    32-layer logits through its layer loop, gated as K8, and layer 0 at the
+    p=2 and p=4 shard shapes (each rank against plain, the ranks' partials
+    summed against p=1);
 14. quantize the model's own LLM in place (``apply_llm_quant``);
 15. ``generate()`` with the int8 LLM (and the int8 encoder) at b2 and b1
     (the 121-token conversation), greedy, 32 new tokens: W8A8 (b2
@@ -69,7 +79,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     global Q-Former, 64 global tokens, local branch, injection in all 32
     layers), sharing the model's int8 encoder and int8 LLM, connector and
     f32 stack random from a seed: ``generate()`` at b2 with the float stack
-    (injection in PyTorch: K8i must not launch), then
+    (injection in PyTorch: K8i must not launch); again with the per-layer
+    opt-in (``ops/fused_decode_tp.FUSED_PERLAYER``): K9's halves must launch
+    and K8i / K8-int8 must not, the path step by step as in 8, ms/step
+    beside the layer loop's; then ``speculative_k=4`` on the float stack
+    must fall back to that loop (no verify launch, the same ids); then
     ``apply_orca_xattn_quant()``;
 19. ``generate()`` at b2 and b1, greedy, 32 new tokens: K8i, K8-int8, K7,
     W8A8, K2 and K4 must launch; the b2 path step by step as in 8 (the
@@ -100,8 +114,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     name and power limit.
 
 Every kernel's entry in the JSON line carries its bound (the larger of its
-bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16 or 1,979
-TOP/s int8, counted from this run's inputs) and, where one PyTorch call
+bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16, 1,979 TOP/s
+int8 or 67 TFLOP/s f32 outside the tensor cores (K1, whose operations are
+a real FFT's and the nonzero filterbank entries', not its dense products),
+counted from this run's inputs) and, where one PyTorch call
 computes the same function, that call's time (``library_ms``; K2 and K11
 against ``scaled_dot_product_attention``), else null.
 
@@ -141,12 +157,23 @@ TOL_QMM = 1e-3       # K7 and the LLM's W8A8 GEMM, both in f32: W8A8's int32
 TOL_FLASH = 2e-2     # K11 forward and backward: bf16 outputs of f32 sums;
                      # the forward rounds the unnormalised weights to bf16
                      # where the plain version rounds the normalised ones
+TOL_MEL = 1e-4       # K1, max |kernel - plain| after the clip-wide clamp
+                     # (absolute), on noise plus a tone: the bound of
+                     # tests/test_mel_pallas.py:40
+TOL_MEL_WAV = 1e-3   # K1 on the synthetic WAVs zero-padded to 30 s: a bin
+                     # near the clamp floor keeps an absolute f32 error of
+                     # ~eps * sum|terms| in its DFT sum, which log10 turns
+                     # into up to ~1e-4 after / 4; the frames that straddle
+                     # the zero padding are where such bins live
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
-# the H100 SXM's published peaks (NVIDIA's H100 datasheet)
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet: dense tensor-core
+# bf16 and int8; "f32" is FP32 outside the tensor cores, the rate of the
+# f32 FMA kernel K1; K9's int8-weight x bf16 products are held to bf16, as
+# K8-int8's are)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 SOURCES = {
     "packed_encoder_attention": (
         "desta25_audio_tpu_torch/csrc/enc_attention.cu",
@@ -188,15 +215,27 @@ SOURCES = {
     "flash_attention_bwd": (
         "desta25_audio_tpu_torch/csrc/flash_attention.cu",
         "desta25_audio_tpu/ops/attention.py:60"),
+    "log_mel": (
+        "desta25_audio_tpu_torch/csrc/mel.cu",
+        "desta25_audio_tpu/ops/mel_pallas.py:41"),
+    "fused_decode_tp_attn": (
+        "desta25_audio_tpu_torch/csrc/fused_decode_tp.cu",
+        "desta25_audio_tpu/ops/fused_decode_tp.py:209"),
+    "fused_decode_tp_mlp": (
+        "desta25_audio_tpu_torch/csrc/fused_decode_tp.cu",
+        "desta25_audio_tpu/ops/fused_decode_tp.py:467"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
-BF16_PATH = ("packed_encoder_attention", "encoder_ffn", "fused_decode_layers")
+BF16_PATH = ("log_mel", "packed_encoder_attention", "encoder_ffn",
+             "fused_decode_layers")
 W8A8_KERNELS = ("encoder_ffn_w8a8", "qkv_w8a8", "proj_w8a8")
 INT8_LLM_KERNELS = ("quant_matmul", "w8a8_matmul", "fused_decode_layers_int8")
 # what ORCA generate() with the int8 stack must launch (phase 19)
 ORCA_PATH = ("fused_decode_inject", "fused_decode_layers_int8",
              "quant_matmul", "w8a8_matmul", "packed_encoder_attention",
-             "encoder_ffn_w8a8")
+             "encoder_ffn_w8a8", "log_mel")
+# the per-layer pair K9 (phase 18, opt-in float-stack ORCA decode)
+K9_HALVES = ("fused_decode_tp_attn", "fused_decode_tp_mlp")
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -426,6 +465,277 @@ def check_flash(gen):
     return out
 
 
+def mel_work(B: int, frames: int, n_mels: int):
+    """(bytes, operations) of K1 on [B, frames * 160] audio.  Bytes: the
+    audio, the two DFT matrices [400, 201] and the filterbank [201, n_mels]
+    read once, the output written once.  Operations: what the function
+    needs, not the kernel's dense products: per frame the window (400
+    multiplies), a real 400-point FFT (2.5 N log2 N, half a complex FFT's
+    5 N log2 N), the power (3 a bin), 2 per nonzero filterbank entry (the
+    slaney filters overlap at most two a bin) and one log a mel."""
+    from desta25_audio_tpu_torch.audio.mel import mel_filter_bank
+    nb = 4 * (B * frames * 160 + 2 * 400 * 201 + 201 * n_mels
+              + B * frames * n_mels)
+    nnz = int(np.count_nonzero(mel_filter_bank(n_mels)))
+    per_frame = 400 + 2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz + n_mels
+    return nb, B * frames * per_frame
+
+
+def check_mel(gen, signals):
+    """4 (K1). The log-mel frontend against its plain version, after the
+    clip-wide clamp (what the model reads): B=2 x 3000 frames x 128 mels of
+    noise plus a tone and B=1 x 300 frames x 80 mels (a ragged tile), within
+    TOL_MEL; the two synthetic WAVs zero-padded to 30 s, within TOL_MEL_WAV.
+    CUDA-event times of both versions and the bound at B=2 x 3000 x 128,
+    and both versions' times at B=1, 2 and 4 on the WAVs (the perception
+    share after phase 11).  Returns (JSON row, {B: (kernel ms, plain ms)})."""
+    import torch
+    from desta25_audio_tpu_torch.audio.mel import normalize_log_spec
+    from desta25_audio_tpu_torch.ops.mel import (log_mel_spec,
+                                                 log_mel_spec_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wav = np.zeros((2, 480000), np.float32)
+    for j, sig in enumerate(signals):
+        wav[j, :min(sig.size, 480000)] = sig[:480000]
+    wav = torch.from_numpy(wav).cuda()
+    worst = 0.0
+    for label, B, frames, n_mels, tol in (
+            ("noise + tone", 2, 3000, 128, TOL_MEL),
+            ("noise + tone", 1, 300, 80, TOL_MEL),
+            ("synthetic WAVs, zero-padded", 2, 3000, 128, TOL_MEL_WAV)):
+        if label.startswith("noise"):
+            n = frames * 160
+            t = torch.arange(n, device="cuda") / 16000.0
+            audio = 0.3 * torch.randn(B, n, generator=gen, device="cuda")
+            audio[0] += 0.5 * torch.sin(2 * torch.pi * 523.0 * t)
+        else:
+            audio = wav
+        pre_k = log_mel_spec(audio, n_mels)
+        pre_p = log_mel_spec_plain(audio, n_mels)
+        err = float((normalize_log_spec(pre_k)
+                     - normalize_log_spec(pre_p)).abs().max())
+        live = pre_p > pre_p.amax(dim=(1, 2), keepdim=True) - 8.0
+        pre_err = float((pre_k - pre_p).abs()[live].max())
+        print(f"K1 log_mel B={B} frames={frames} mels={n_mels} ({label}): "
+              f"max_abs_err={err:.3e} after the clamp (tol {tol}); before "
+              f"it {pre_err:.3e} over the bins above the clamp", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"K1 disagrees ({label}, B={B}): {err}")
+        worst = max(worst, err)
+        if B == 2 and label.startswith("noise"):
+            ms = cuda_time_ms(lambda: log_mel_spec(audio, n_mels))
+            plain_ms = cuda_time_ms(lambda: log_mel_spec_plain(audio,
+                                                               n_mels))
+            b_ms, b_by = bound(*mel_work(B, frames, n_mels), "f32")
+    by_batch = {}
+    for B in (1, 2, 4):
+        a = wav[:1] if B == 1 else wav if B == 2 else torch.cat([wav, wav])
+        by_batch[B] = (cuda_time_ms(lambda: log_mel_spec(a, 128)),
+                       cuda_time_ms(lambda: log_mel_spec_plain(a, 128)))
+    print(f"K1 times ({gpu_line()}): B=2 x 3000 x 128 kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); at B=1, "
+          f"2, 4 kernel / plain: " + ", ".join(
+              f"{k:.4f} / {p:.4f} ms" for k, p in by_batch.values()),
+          flush=True)
+    return (worst, ms, plain_ms, b_ms, b_by), by_batch
+
+
+def decode_inputs(params, cfg, gen, kd: int, ci):
+    """The inputs of the decode-step checks: B=2 rows, a random bf16 cache
+    [L, 2, 256, Hkv*Dh], row 0 left-padded by 10, kd tokens a row written
+    at ci..ci+kd-1, their random ids' embeddings.  Returns (ci, cache0,
+    mask, positions, x)."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    B, S = 2, 256
+    ci = torch.tensor(ci, device="cuda")
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    mask = torch.zeros(B, S, dtype=torch.int32, device="cuda")
+    mask[0, 10:] = 1             # row 0: left padding of 10
+    mask[1, :] = 1
+    steps = torch.arange(kd, device="cuda")[None, :]
+    positions = (ci - torch.tensor([10, 0], device="cuda"))[:, None] + steps
+    ids = torch.randint(0, 512, (B, kd), generator=gen, device="cuda")
+    return ci, cache0, mask, positions, tllm.embed_tokens(params, ids)
+
+
+def fresh_cache(cache0, lo: int, hi: int):
+    from desta25_audio_tpu_torch.ops.fused_decode import KVCache
+    return KVCache(cache0.k[lo:hi].clone(), cache0.v[lo:hi].clone())
+
+
+def check_written_rows(cache, cache0, ci, kd: int, tag: str) -> None:
+    """The cache must change at the rows ci..ci+kd-1 and nowhere else."""
+    import torch
+    changed = (cache.k != cache0.k).any(-1) | (cache.v != cache0.v).any(-1)
+    expect = torch.zeros_like(changed)
+    for b in range(ci.shape[0]):
+        expect[:, b, int(ci[b]):int(ci[b]) + kd] = True
+    if not bool((changed == expect).all()):
+        raise AssertionError(f"{tag} wrote cache rows other than ci..ci+kd-1")
+
+
+def logit_checks(kernel, plain, params, cfg, inputs, extra=lambda lo, hi: {}):
+    """Logits through the first two layers, kernel against plain (the
+    setting of tests/test_fused_decode.py), and through the whole stack,
+    beside the plain version's own change when one input element moves by
+    one bf16 ulp (random layers amplify rounding: information).  extra(lo,
+    hi): the step's keyword arguments for layers lo..hi-1.  Returns (2-layer
+    max_abs_err, its rel, whole-stack rel, the ulp rel)."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.core import rms_norm
+    ci, cache0, mask, positions, x = inputs
+    L = cfg.num_hidden_layers
+
+    def logits(fn, lo, hi, xin=x):
+        p = _layer_slice(params, lo, hi)
+        h, _ = fn(p, cfg, xin, mask, positions, fresh_cache(cache0, lo, hi),
+                  ci, **extra(lo, hi))
+        return tllm.head_logits(p, rms_norm(p["norm"], h, cfg.rms_norm_eps))
+    err2, rel2 = rel_err(logits(kernel, 0, 2), logits(plain, 0, 2))
+    want = logits(plain, 0, L)
+    _, rel_all = rel_err(logits(kernel, 0, L), want)
+    x_ulp = x.clone()
+    x_ulp.view(torch.int16)[0, 0, 0] += 1
+    _, rel_ulp = rel_err(logits(plain, 0, L, x_ulp), want)
+    return err2, rel2, rel_all, rel_ulp
+
+
+def check_fused_tp(params, cfg, gen, ci=(100, 200)):
+    """13 (K9). The per-layer decode pair on the int8 Llama-3.1-8B tower
+    (full width, all 32 layers), B=2, S=256, per-row ci, row 0 left-padded
+    by 10, gated at TOL_DECODE: (1) each layer's attention and MLP half,
+    kernel against plain, fed the same f32 residual (the plain trajectory),
+    with the written k/v rows and no other cache row changed; (2) logits
+    through two layers of its layer loop; (3) logits through all 32
+    layers, beside the plain loop's own change for a one-ulp input move
+    (information).  Then layer 0 at the p=2 and p=4 shard shapes: each
+    rank's halves, kernel against plain, and the ranks' kernel partials
+    summed against the unsharded plain half.  Returns the JSON rows of the
+    two halves (worst error; layer 0's times and bound)."""
+    import torch
+    from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
+    from desta25_audio_tpu_torch.ops.fused_decode import KVCache
+    B, S, L, D = 2, 256, cfg.num_hidden_layers, cfg.hidden_size
+    inputs = decode_inputs(params, cfg, gen, 1, ci)
+    ci, cache0, mask, positions, x = inputs
+    step = ttp.decode_step_inputs(cfg, mask, positions, ci, B)
+
+    def fresh(lo=0, hi=L):
+        return fresh_cache(cache0, lo, hi)
+
+    # (1) each half of each layer on the plain trajectory
+    ck, cp = fresh(), fresh()
+    h = x.reshape(B, D).to(torch.bfloat16).float()
+    errs = {"attn": 0.0, "mlp": 0.0}
+    worst = {"attn": 0.0, "mlp": 0.0, "k row": 0.0, "v row": 0.0}
+    for l in range(L):
+        pl_ = _layer_slice(params, l, l + 1)
+        kc, pc = (KVCache(c.k[l:l + 1], c.v[l:l + 1]) for c in (ck, cp))
+        got = ttp.attn_half(pl_, cfg, h, step, kc, 0)
+        want = ttp.attn_half_plain(pl_, cfg, h, step, pc, 0)
+        e, r = rel_err(got, want)
+        errs["attn"], worst["attn"] = max(errs["attn"], e), max(worst["attn"],
+                                                                r)
+        for b in range(B):
+            for side in ("k", "v"):
+                worst[f"{side} row"] = max(worst[f"{side} row"], rel_err(
+                    getattr(kc, side)[0, b, int(ci[b])],
+                    getattr(pc, side)[0, b, int(ci[b])])[1])
+        h = h + want
+        got, want = (ttp.mlp_half(pl_, cfg, h, 0),
+                     ttp.mlp_half_plain(pl_, cfg, h, 0))
+        e, r = rel_err(got, want)
+        errs["mlp"], worst["mlp"] = max(errs["mlp"], e), max(worst["mlp"], r)
+        h = h + want
+    check_written_rows(ck, cache0, ci, 1, "K9")
+    kern, plain = (ttp.fused_decode_layers_perlayer,
+                   ttp.fused_decode_layers_perlayer_plain)
+    err2, rel2, rel_all, rel_ulp = logit_checks(kern, plain, params, cfg,
+                                                inputs)
+    step_ms = cuda_time_ms(lambda: kern(params, cfg, x, mask, positions, ck,
+                                        ci), iters=5)
+    plain_step_ms = cuda_time_ms(lambda: plain(params, cfg, x, mask,
+                                               positions, cp, ci), iters=3)
+    step_bound = bound(*llm_step_work(params, cfg, B, 1, ci.tolist()), "bf16")
+    print(f"K9 fused_decode_layers_perlayer L={L} B={B} S={S} ci="
+          f"{ci.tolist()}: per-layer rel attention half {worst['attn']:.3e}, "
+          f"MLP half {worst['mlp']:.3e}, written k / v rows {worst['k row']:.3e}"
+          f" / {worst['v row']:.3e}; 2-layer logits max_abs_err={err2:.3e} "
+          f"rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at ci only; "
+          f"{L}-layer logits rel={rel_all:.3e} (plain vs plain with one input "
+          f"ulp moved: {rel_ulp:.3e}); kernels {step_ms:.4f} ms/step, plain "
+          f"{plain_step_ms:.4f} ms/step, bound {step_bound[0]:.4f} ms "
+          f"({step_bound[1]})", flush=True)
+    if max(*worst.values(), rel2) > TOL_DECODE:
+        raise AssertionError(f"K9 disagrees: {worst}, logits {rel2}")
+
+    # layer 0's halves alone: times and bounds
+    p0 = _layer_slice(params, 0, 1)
+    c0 = fresh(0, 1)
+    h0 = x.reshape(B, D).to(torch.bfloat16).float()
+    lay = p0["layers"]
+    KVD = cfg.num_key_value_heads * cfg.head_dim
+    H, Dh = cfg.num_attention_heads, cfg.head_dim
+
+    def leaf_bytes(*keys):
+        return sum(tree_bytes(lay[k]) for k in keys)
+    attn_nb = (leaf_bytes("wqkv", "wo", "ln1") + 2 * 2 * KVD * (
+        int(ci.sum()) + B) + 2 * B * D * 4)
+    attn_ops = (2 * B * (lay["wqkv"]["q"].numel() + lay["wo"]["q"].numel())
+                + 4 * H * Dh * int((ci + 1).sum()))
+    mlp_nb = leaf_bytes("w_gu", "w_down", "ln2") + 2 * B * D * 4
+    mlp_ops = 2 * B * (lay["w_gu"]["q"].numel() + lay["w_down"]["q"].numel())
+    rows = {}
+    for name, kfn, pfn, work in (
+            ("fused_decode_tp_attn",
+             lambda: ttp.attn_half(p0, cfg, h0, step, c0, 0),
+             lambda: ttp.attn_half_plain(p0, cfg, h0, step, c0, 0),
+             (attn_nb, attn_ops)),
+            ("fused_decode_tp_mlp", lambda: ttp.mlp_half(p0, cfg, h0, 0),
+             lambda: ttp.mlp_half_plain(p0, cfg, h0, 0), (mlp_nb, mlp_ops))):
+        ms, plain_ms = cuda_time_ms(kfn), cuda_time_ms(pfn)
+        b_ms, b_by = bound(*work, "bf16")    # as K8-int8's same stream
+        half = "attn" if name.endswith("attn") else "mlp"
+        rows[name] = (errs[half], ms, plain_ms, b_ms, b_by)
+        print(f"K9 {name} (layer 0, B={B}, {gpu_line()}): kernels {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+
+    # layer 0 at the shard shapes of p = 2 and 4
+    want_a = ttp.attn_half_plain(p0, cfg, h0, step, fresh(0, 1), 0)
+    want_m = ttp.mlp_half_plain(p0, cfg, h0, 0)
+    for p in (2, 4):
+        parts_a, parts_m, rank_worst = [], [], 0.0
+        for r in range(p):
+            sp, sc = ttp.shard_layers(p0, cfg, p, r)
+            kc = ttp.shard_cache(fresh(0, 1), cfg, p, r)
+            pc = KVCache(kc.k.clone(), kc.v.clone())
+            ga = ttp.attn_half(sp, sc, h0, step, kc, 0)
+            gm = ttp.mlp_half(sp, sc, h0, 0)
+            rank_worst = max(
+                rank_worst,
+                rel_err(ga, ttp.attn_half_plain(sp, sc, h0, step, pc, 0))[1],
+                rel_err(gm, ttp.mlp_half_plain(sp, sc, h0, 0))[1],
+                rel_err(kc.k, pc.k)[1])
+            parts_a.append(ga)
+            parts_m.append(gm)
+        sum_a = rel_err(sum(parts_a), want_a)[1]
+        sum_m = rel_err(sum(parts_m), want_m)[1]
+        print(f"K9 layer 0 at p={p} ({sc.num_attention_heads} heads, "
+              f"{sc.num_key_value_heads} kv heads, I/p="
+              f"{sc.intermediate_size} a rank): each rank kernels vs plain "
+              f"rel <= {rank_worst:.3e}; summed kernel partials vs the p=1 "
+              f"plain half: attention {sum_a:.3e}, MLP {sum_m:.3e} (tol "
+              f"{TOL_DECODE})", flush=True)
+        if max(rank_worst, sum_a, sum_m) > TOL_DECODE:
+            raise AssertionError(f"K9 at p={p} disagrees")
+    return rows, step_ms
+
+
 def _int8_leaf(gen, n: int, k: int, bias: bool = True, mult=1.0):
     from desta25_audio_tpu_torch.ops.quant import quantize_linear
     import torch
@@ -547,35 +857,16 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
     element moves by one bf16 ulp: with random weights small rounding
     differences grow through the stack, so (3) is informative.  The cache
     must change at the rows ci..ci+kd-1 and nowhere else."""
-    import torch
-    from desta25_audio_tpu_torch.models import llm as tllm
-    from desta25_audio_tpu_torch.ops.core import rms_norm
     from desta25_audio_tpu_torch.ops.fused_decode import (
         KVCache, fused_decode_layers, fused_decode_layers_plain,
         fused_verify_layers)
     kernel = fused_decode_layers if kd == 1 else fused_verify_layers
     B, S, L = 2, 256, cfg.num_hidden_layers
-    ci = torch.tensor(ci, device="cuda")
-    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
-    cache0.k.normal_(generator=gen)
-    cache0.v.normal_(generator=gen)
-    mask = torch.zeros(B, S, dtype=torch.int32, device="cuda")
-    mask[0, 10:] = 1             # row 0: left padding of 10
-    mask[1, :] = 1
-    steps = torch.arange(kd, device="cuda")[None, :]
-    positions = (ci - torch.tensor([10, 0], device="cuda"))[:, None] + steps
-    ids = torch.randint(0, 512, (B, kd), generator=gen, device="cuda")
-    x = tllm.embed_tokens(params, ids)
-
-    def fresh(lo=0, hi=L):
-        return KVCache(cache0.k[lo:hi].clone(), cache0.v[lo:hi].clone())
-
-    def logits(fn, p, cache, xin=x, inj=inject):
-        h, _ = fn(p, cfg, xin, mask, positions, cache, ci, inject=inj)
-        return tllm.head_logits(p, rms_norm(p["norm"], h, cfg.rms_norm_eps))
+    inputs = decode_inputs(params, cfg, gen, kd, ci)
+    ci, cache0, mask, positions, x = inputs
 
     # (1) layer by layer on the plain trajectory
-    ck, cp = fresh(), fresh()
+    ck, cp = fresh_cache(cache0, 0, L), fresh_cache(cache0, 0, L)
     h, worst, worst_row = x, 0.0, 0.0
     for l in range(L):
         pl_, il_ = _layer_slice(params, l, l + 1), _inject_slice(inject, l,
@@ -591,25 +882,11 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
             worst_row = max(worst_row, rel_err(ck.k[l, b, rows],
                                                cp.k[l, b, rows])[1])
         h = hp
-    changed = (ck.k != cache0.k).any(-1) | (ck.v != cache0.v).any(-1)
-    expect = torch.zeros_like(changed)
-    for b in range(B):
-        expect[:, b, int(ci[b]):int(ci[b]) + kd] = True
-    if not bool((changed == expect).all()):
-        raise AssertionError(f"{tag} wrote cache rows other than ci..ci+kd-1")
-    # (2) logits through two layers
-    p2, i2 = _layer_slice(params, 0, 2), _inject_slice(inject, 0, 2)
-    err2, rel2 = rel_err(logits(kernel, p2, fresh(0, 2), inj=i2),
-                         logits(fused_decode_layers_plain, p2, fresh(0, 2),
-                                inj=i2))
-    # (3) logits through the whole stack, and the plain version's own
-    # sensitivity to a one-ulp change of one input element
-    want = logits(fused_decode_layers_plain, params, fresh())
-    _, rel_all = rel_err(logits(kernel, params, fresh()), want)
-    x_ulp = x.clone()
-    x_ulp.view(torch.int16)[0, 0, 0] += 1
-    _, rel_ulp = rel_err(logits(fused_decode_layers_plain, params, fresh(),
-                                x_ulp), want)
+    check_written_rows(ck, cache0, ci, kd, tag)
+    # (2), (3)
+    err2, rel2, rel_all, rel_ulp = logit_checks(
+        kernel, fused_decode_layers_plain, params, cfg, inputs,
+        lambda lo, hi: {"inject": _inject_slice(inject, lo, hi)})
     ms = cuda_time_ms(lambda: kernel(
         params, cfg, x, mask, positions, ck, ci, inject=inject), iters=5)
     plain_ms = cuda_time_ms(lambda: fused_decode_layers_plain(
@@ -839,7 +1116,8 @@ def check_int8_encoder(model, signals, convs, gpu):
         K3 does not) and b4 (bf16 arm: K2 and K4 launch, K5/K6 do not),
         after a warm-up call; the b2 path step by step;
     12. phase times per batch.
-    Returns the launch counts summed over the three generate() runs."""
+    Returns (the launch counts summed over the three generate() runs, each
+    run's timings by batch)."""
     import torch
     from desta25_audio_tpu_torch.models import whisper as tw
     from desta25_audio_tpu_torch.ops import _build
@@ -884,7 +1162,7 @@ def check_int8_encoder(model, signals, convs, gpu):
         print(f"int8 encoder: launches during generate() b{b}: "
               f"{json.dumps(counts)}", flush=True)
         arm = ("qkv_w8a8", "proj_w8a8")
-        must = ("packed_encoder_attention", "encoder_ffn_w8a8",
+        must = ("log_mel", "packed_encoder_attention", "encoder_ffn_w8a8",
                 "fused_decode_layers") + (arm if b <= 2 else ())
         never = ("encoder_ffn",) + (() if b <= 2 else arm)
         for name in must:
@@ -901,7 +1179,7 @@ def check_int8_encoder(model, signals, convs, gpu):
           f"{outs[2].generated_ids[0][:8]} b4 row3[:8]="
           f"{outs[4].generated_ids[3][:8]}", flush=True)
     print_times("int8 encoder", sorted(times.items()), gpu)
-    return total
+    return total, times
 
 
 def check_int8_matmuls(qllm, gen):
@@ -1035,7 +1313,7 @@ def run_int8_llm(model, convs, gpu):
         times[b] = dict(model.last_timings)
         print(f"int8 LLM: launches during generate() b{b}: "
               f"{json.dumps(counts)}", flush=True)
-        must = ("quant_matmul", "fused_decode_layers_int8") + (
+        must = ("log_mel", "quant_matmul", "fused_decode_layers_int8") + (
             ("w8a8_matmul",) if b == 2 else ())
         for name in must:
             if counts.get(name, 0) <= 0:
@@ -1064,8 +1342,9 @@ def run_int8_llm(model, convs, gpu):
     t = dict(model.last_timings)
     print(f"speculative b2: launches during generate(): "
           f"{json.dumps(spec_counts)}", flush=True)
-    if spec_counts.get("fused_verify_layers", 0) <= 0:
-        raise AssertionError("speculative b2: K8v was not launched")
+    for name in ("fused_verify_layers", "log_mel"):
+        if spec_counts.get(name, 0) <= 0:
+            raise AssertionError(f"speculative b2: {name} was not launched")
     check_outputs(model, [(spec, 2)])
     err0 = check_verify_position0(
         model, runs[2],
@@ -1139,9 +1418,11 @@ def check_fused_inject(model, gen):
 
 def run_orca(model, convs, gpu):
     """Phases 18-20: the ORCA model on the card, sharing the model's int8
-    encoder and int8 LLM.  Returns K8i's launches over phases 19-20."""
+    encoder and int8 LLM.  Returns (K8i's launches over phases 19-20, the
+    launch counts of phase 18's opt-in K9 run)."""
     import torch
     from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.ops import fused_decode_tp
     from desta25_audio_tpu_torch.config import config_from_yaml_file
     from desta25_audio_tpu_torch.models.orca import (init_orca_connector,
                                                      init_orca_cross_attns)
@@ -1181,13 +1462,55 @@ def run_orca(model, convs, gpu):
     counts = _build.launch_counts()
     print(f"ORCA float stack: launches during generate() b2: "
           f"{json.dumps(counts)}", flush=True)
-    if counts.get("fused_decode_inject", 0) or counts.get(
-            "fused_decode_layers_int8", 0):
-        raise AssertionError("ORCA float stack: a fused decode step ran")
+    if (counts.get("fused_decode_inject", 0)
+            or counts.get("fused_decode_layers_int8", 0)
+            or any(counts.get(k, 0) for k in K9_HALVES)
+            or counts.get("log_mel", 0) <= 0):
+        raise AssertionError("ORCA float stack: a fused decode step ran, or "
+                             "K1 did not")
     check_outputs(orca, [(fout, 2)])
     check_step_by_step(orca, runs[2], fout)
-    print_times("ORCA float stack (injection in PyTorch)",
-                [(2, dict(orca.last_timings))], gpu)
+    loop_t = dict(orca.last_timings)
+    print_times("ORCA float stack (injection in PyTorch)", [(2, loop_t)],
+                gpu)
+
+    # -- 18, opt-in: the same decode through the per-layer pair K9 ----------
+    fused_decode_tp.FUSED_PERLAYER = True
+    orca.generate(runs[2], do_sample=False, max_new_tokens=2)   # warm-up
+    _build.reset_launch_counts()
+    k9out = orca.generate(runs[2], do_sample=False, max_new_tokens=32)
+    torch.cuda.synchronize()
+    k9_counts = _build.launch_counts()
+    k9_t = dict(orca.last_timings)
+    print(f"ORCA float stack, DESTA_FUSED_PERLAYER on: launches during "
+          f"generate() b2: {json.dumps(k9_counts)}", flush=True)
+    for name in K9_HALVES + ("log_mel",):
+        if k9_counts.get(name, 0) <= 0:
+            raise AssertionError(f"ORCA opt-in: {name} was not launched")
+    for name in ("fused_decode_inject", "fused_decode_layers_int8"):
+        if k9_counts.get(name, 0):
+            raise AssertionError(f"ORCA opt-in: {name} was launched")
+    check_outputs(orca, [(k9out, 2)])
+    check_step_by_step(orca, runs[2], k9out)
+    steps = lambda t: max(int(t["decode_steps"]), 1)  # noqa: E731
+    print(f"ORCA float stack b2 decode ({gpu}): per-layer pair K9 "
+          f"{k9_t['decode_ms'] / steps(k9_t):.2f} ms/step, layer loop "
+          f"{loop_t['decode_ms'] / steps(loop_t):.2f} ms/step; ids equal to "
+          f"the layer loop's (information): "
+          f"{k9out.generated_ids == fout.generated_ids}", flush=True)
+    # a float stack falls back from speculation to the plain loop (K9 here)
+    _build.reset_launch_counts()
+    sout = orca.generate(runs[2], do_sample=False, max_new_tokens=32,
+                         speculative_k=4)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"ORCA float stack, speculative_k=4: launches {json.dumps(counts)};"
+          f" fallback reasons {orca.last_spec_fallback}", flush=True)
+    if (counts.get("fused_verify_layers", 0) or not orca.last_spec_fallback
+            or sout.generated_ids != k9out.generated_ids):
+        raise AssertionError("ORCA float stack, speculative_k=4: the verify "
+                             "step ran or the ids differ from the plain loop")
+    fused_decode_tp.FUSED_PERLAYER = False
     t0 = time.perf_counter()
     orca.apply_orca_xattn_quant()
     torch.cuda.synchronize()
@@ -1234,7 +1557,7 @@ def run_orca(model, convs, gpu):
     t = dict(orca.last_timings)
     print(f"ORCA speculative b2: launches during generate(): "
           f"{json.dumps(counts)}", flush=True)
-    for name in ("fused_verify_layers", "fused_decode_inject"):
+    for name in ("fused_verify_layers", "fused_decode_inject", "log_mel"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"ORCA speculative b2: {name} not launched")
     launched += counts["fused_decode_inject"]
@@ -1254,7 +1577,7 @@ def run_orca(model, convs, gpu):
           f"(plain greedy: {times[2]['decode_ms'] / max(plain_tokens, 1):.3f}"
           f"); leading ids equal to the plain greedy run (information): "
           f"{agree} of 32", flush=True)
-    return launched
+    return launched, k9_counts
 
 
 def write_corpus(d: str, n: int = 12) -> str:
@@ -1388,7 +1711,7 @@ def run_training(gpu: str, tmpdir: str):
         raise AssertionError(f"train() ran {len(probe.rows)} steps, not 3")
     for i, r in enumerate(probe.rows):
         for name in ("flash_attention", "flash_attention_bwd",
-                     "packed_encoder_attention", "encoder_ffn"):
+                     "packed_encoder_attention", "encoder_ffn", "log_mel"):
             if r["launches"].get(name, 0) <= 0:
                 raise AssertionError(f"train step {i + 1}: {name} not "
                                      "launched")
@@ -1403,8 +1726,9 @@ def run_training(gpu: str, tmpdir: str):
     if any(t.requires_grad or t.grad is not None
            for t in flatten_tree(frozen).values()):
         raise AssertionError("a frozen leaf requires or holds a gradient")
-    if eval_counts.get("fused_decode_layers", 0) <= 0:
-        raise AssertionError("evaluate(): fused_decode_layers not launched")
+    for name in ("fused_decode_layers", "log_mel"):
+        if eval_counts.get(name, 0) <= 0:
+            raise AssertionError(f"evaluate(): {name} not launched")
     if not (np.isfinite(report["loss"]) and os.path.exists(os.path.join(
             tcfg.exp_dir, "val@smoke-report.json"))):
         raise AssertionError(f"evaluate() report: {report}")
@@ -1427,6 +1751,8 @@ def run_training(gpu: str, tmpdir: str):
                                  "takes it at T >= 512 only)")
         if not np.isfinite(r["metrics"]["loss"]):
             raise AssertionError(f"B=12 step: metrics {r['metrics']}")
+        if r["launches"].get("log_mel", 0) <= 0:
+            raise AssertionError("B=12 step: log_mel was not launched")
     return {k: train_counts.get(k, 0)
             for k in ("flash_attention", "flash_attention_bwd")}
 
@@ -1460,8 +1786,14 @@ def main() -> int:
     print(f"kernels built in {secs:.1f} s: {path}", flush=True)
 
     # -- 4. kernels vs plain at the slice shapes -----------------------------
+    # (the synthetic WAVs of phase 6 are written first: K1 reads them)
+    tmp = tempfile.TemporaryDirectory()
+    wavs, signals = write_wavs(tmp.name)
     gen = torch.Generator("cuda").manual_seed(0)
     with torch.no_grad():
+        # its own generator: the other kernels' inputs stay as they were
+        k1, mel_ms = check_mel(torch.Generator("cuda").manual_seed(6),
+                               signals)
         k2 = check_enc_attention(gen)
         k3 = check_enc_ffn(gen)
         # its own generator: K8's inputs below stay those of the bf16 slice
@@ -1483,8 +1815,6 @@ def main() -> int:
         k8 = check_fused_decode(model.params["llm"], model.llm_cfg, gen)
 
     # -- 6-9. bf16 generate() through the kernels ---------------------------
-    tmp = tempfile.TemporaryDirectory()
-    wavs, signals = write_wavs(tmp.name)
     convs = conversations(wavs)
     # one short warm-up call: the first generate() pays one-time CUDA
     # library set-up (cuBLAS/cuDNN handles, convolution algorithm)
@@ -1514,7 +1844,14 @@ def main() -> int:
 
     # -- 10-12. the int8 (W8A8) inference encoder ----------------------------
     with torch.no_grad():
-        int8_launches = check_int8_encoder(model, signals, convs, gpu)
+        int8_launches, enc_times = check_int8_encoder(model, signals, convs,
+                                                      gpu)
+    for b, (k_ms, p_ms) in mel_ms.items():
+        perc = enc_times[b]["perception_ms"]
+        print(f"K1 share of perception_ms at b{b} (int8 encoder, {gpu}): "
+              f"{k_ms / perc:.4f} with the kernel ({k_ms:.4f} of {perc:.1f} "
+              f"ms), {p_ms / (perc - k_ms + p_ms):.4f} with the plain "
+              f"version ({p_ms:.4f} ms in its place)", flush=True)
 
     # -- 13. the int8 LLM's kernels vs plain, on a quantized copy ------------
     from desta25_audio_tpu_torch.ops.quant import quantize_llm_params
@@ -1529,6 +1866,7 @@ def main() -> int:
         k8v = check_fused_decode(qllm, model.llm_cfg, gen8, kd=4,
                                  ci=(100, 252), tag="K8v")
         llm8["fused_verify_layers"] = (max(k8v[0], k8v_bf16[0]),) + k8v[1:]
+        k9, _ = check_fused_tp(qllm, model.llm_cfg, gen8)
         del qllm
 
         # -- 14-16. the int8 LLM in generate(), plain and speculative -------
@@ -1536,7 +1874,7 @@ def main() -> int:
 
         # -- 17. K8i vs plain; 18-20. ORCA generate() ------------------------
         k8i = check_fused_inject(model, torch.Generator("cuda").manual_seed(4))
-        inject_launches = run_orca(model, convs, gpu)
+        inject_launches, k9_launches = run_orca(model, convs, gpu)
 
     # -- 21. K11 vs plain at the training shape ------------------------------
     k11 = check_flash(torch.Generator("cuda").manual_seed(5))
@@ -1561,12 +1899,14 @@ def main() -> int:
     # from the speculative run, K8i from the ORCA runs of phases 19-20; K11
     # (forward and backward: the worse error of the output, resp. dq/dk/dv,
     # at T=512, the T=512 times, bound and SDPA time) from the trainer run
-    # of phase 23.
+    # of phase 23; K1 (the worst of its three checks, the B=2 x 3000 x 128
+    # times) from the bf16 generate() runs; K9's halves (the worst per-layer
+    # error, layer 0's times at B=2) from phase 18's opt-in float-stack run.
     # Each tuple: (err, ms, plain_ms, bound_ms, bound_by[, library_ms]).
     measured = {"packed_encoder_attention":
                 (max(k2[0][0], k2[1][0]),) + k2[0][1:],
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
-                "fused_decode_inject": k8i, **k11}
+                "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         row = measured[name]
@@ -1576,6 +1916,7 @@ def main() -> int:
                   else {name: inject_launches}
                   if name == "fused_decode_inject"
                   else train_launches if name in train_launches
+                  else k9_launches if name in K9_HALVES
                   else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],

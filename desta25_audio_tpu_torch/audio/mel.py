@@ -1,16 +1,19 @@
 """Whisper-compatible log-mel spectrogram frontend in torch.
 
 Counterpart of the jnp ``log_mel`` of ``desta25_audio_tpu/audio/mel.py``
-(the one ``generate()`` runs; the JAX package's Pallas mel kernel is reached
-only from its benchmarks).  HF ``WhisperFeatureExtractor`` semantics:
+(the one ``generate()`` runs there; the JAX package's Pallas mel kernel K1
+is reached only from its benchmarks).  The port runs K1 on every CUDA call
+(``ops/mel.py``), so ``generate()``, the train step and evaluation take
+it.  HF ``WhisperFeatureExtractor`` semantics:
 16 kHz audio, n_fft=400, hop=160, periodic Hann window, center-reflect
 padding, power spectrum, slaney mel filterbank (80 or 128 mels, fmax 8 kHz),
 log10 with a 1e-10 clamp, per-clip clamp to max-8, then ``(x + 4) / 4``.
 
-GEMM-native as in the JAX package: audio is reshaped to hop-sized rows;
-since n_fft = 2.5 * hop every frame is three row slices, so ``frames @ DFT``
-is three dense f32 products with the window folded into the DFT matrices.
-Plain torch in f32; TF32 must be off on the card (the model turns it off).
+The plain version (:func:`power_spectrogram`) is GEMM-native as in the JAX
+package: audio is reshaped to hop-sized rows; since n_fft = 2.5 * hop every
+frame is three row slices, so ``frames @ DFT`` is three dense f32 products
+with the window folded into the DFT matrices.  Plain torch in f32; TF32
+must be off on the card (the model turns it off).
 The filterbank and DFT builders are re-homed verbatim.
 """
 
@@ -140,6 +143,13 @@ def power_spectrogram(audio: torch.Tensor) -> torch.Tensor:
     return re * re + im * im
 
 
+def normalize_log_spec(log_spec: torch.Tensor) -> torch.Tensor:
+    """[B, frames, n_mels] log10 mel energies -> Whisper features: each
+    clip clamped to its max - 8, then ``(x + 4) / 4``."""
+    max_val = log_spec.amax(dim=(1, 2), keepdim=True)
+    return (torch.maximum(log_spec, max_val - 8.0) + 4.0) / 4.0
+
+
 def log_mel(audio: torch.Tensor, num_mel_bins: int,
             layout: str = "btm") -> torch.Tensor:
     """Whisper log-mel features in f32.
@@ -147,14 +157,13 @@ def log_mel(audio: torch.Tensor, num_mel_bins: int,
     audio: [B, 480000] in [-1, 1].
     layout "btm" -> [B, 3000, n_mels] (NWC, conv-ready);
     layout "bmt" -> [B, n_mels, 3000] (HF layout).
+
+    The log10 mel energies come from ``ops/mel.log_mel_spec`` (the K1
+    kernel on the card, its plain version on the CPU); the clip-wide clamp
+    and the affine map stay here, as in the JAX wrapper.
     """
-    power = power_spectrogram(audio)
-    mel_fb = torch.as_tensor(mel_filter_bank(num_mel_bins),
-                             device=audio.device)
-    log_spec = torch.log10(torch.clamp(power @ mel_fb, min=1e-10))
-    max_val = log_spec.amax(dim=(1, 2), keepdim=True)
-    log_spec = torch.maximum(log_spec, max_val - 8.0)
-    log_spec = (log_spec + 4.0) / 4.0
+    from ..ops.mel import log_mel_spec  # ops/mel imports this module
+    log_spec = normalize_log_spec(log_mel_spec(audio, num_mel_bins))
     if layout == "bmt":
         return log_spec.transpose(1, 2)
     return log_spec

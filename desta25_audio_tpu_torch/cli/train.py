@@ -10,7 +10,7 @@ reference-schema YAML config (``model:``, ``trainer:``, ``optim:``,
 ``exp_dir/config.yaml``; fresh runs evaluate and checkpoint before training;
 ``resume_from_checkpoint`` resumes.  Warm-starting from
 ``init_from_pretrained_weights`` needs the safetensors key maps, which are
-not ported yet (ROADMAP.md Queue 1, item 5).
+not ported yet (ROADMAP.md Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -76,7 +76,7 @@ def build_from_config(cfg: Dict[str, Any], device: str = "cuda"):
     if init_w and init_w != "null":
         raise NotImplementedError(
             "init_from_pretrained_weights needs the safetensors key maps of "
-            "ckpt/desta_io.py, not ported yet (ROADMAP.md Queue 1, item 5)")
+            "ckpt/desta_io.py, not ported yet (ROADMAP.md Queue 1, item 4)")
     model_cfg = config_from_yaml_model_section(cfg["model"])
     model = DeSTA25AudioModel(model_cfg, device=device, seed=cfg.get("seed", 0))
 

@@ -4,7 +4,9 @@
 //
 // Used by the decode step (csrc/fused_decode.cu: K8, its int8 stream, the
 // verify step K8v and the ORCA injection's q / o / gate1 projections of
-// K8i) and by the int8 matmul at small M (csrc/qmm.cu: K7).
+// K8i), by the int8 matmul at small M (csrc/qmm.cu: K7) and by the
+// per-layer decode pair (csrc/fused_decode_tp.cu: K9's wo / down partial
+// sums, and its epilogues after the fused-norm projections).
 // Bound by device-memory bandwidth: each weight byte is read once for up
 // to 16 activation rows (2*M FLOP per weight).
 // Design: one warp per output column n streams the weight row w[n, :] with
@@ -15,6 +17,7 @@
 // ops/fused_decode.py:428-443), then the epilogue rounds:
 //   STORE      bf16(v)
 //   STORE_F32  v
+//   ADD_F32    out = out + v                   (f32, no fused multiply-add)
 //   RESID      h = bf16(h + bf16(v))                      (bf16 residual)
 //   SWIGLU     mid = bf16(bf16(silu(bf16(gate))) * bf16(up)) over
 //              row-interleaved gate/up weights, each with its own scale
@@ -28,7 +31,8 @@
 namespace desta {
 
 enum Epilogue { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2,
-                EPI_STORE_F32 = 3, EPI_BIAS = 4, EPI_BIAS_GELU = 5 };
+                EPI_STORE_F32 = 3, EPI_BIAS = 4, EPI_BIAS_GELU = 5,
+               EPI_ADD_F32 = 6 };
 
 constexpr int SKINNY_ROWS = 16;  // activation rows per pass
 
@@ -62,6 +66,37 @@ template <> struct WeightVec<int8_t> {
         f[4 * i + b] = (float)(int8_t)((w[i] >> (8 * b)) & 0xff);
   }
 };
+
+// The epilogue of output element o = (row m, column n), from its scaled f32
+// sums v (v[0]; SWIGLU: v[0] gate, v[1] up).  bias: the BIAS epilogues'.
+template <int EPI>
+__device__ __forceinline__ void skinny_epilogue(void* out, size_t o, int n,
+                                                const float* v,
+                                                const float* bias) {
+  if constexpr (EPI == EPI_STORE_F32) {
+    static_cast<float*>(out)[o] = v[0];
+  } else if constexpr (EPI == EPI_ADD_F32) {
+    float* of = static_cast<float*>(out) + o;
+    *of = __fadd_rn(*of, v[0]);
+  } else {
+    bf16* ob = static_cast<bf16*>(out) + o;
+    if constexpr (EPI == EPI_STORE) {
+      *ob = __float2bfloat16(v[0]);
+    } else if constexpr (EPI == EPI_RESID) {
+      *ob = __float2bfloat16(__bfloat162float(*ob) + round_bf16(v[0]));
+    } else if constexpr (EPI == EPI_BIAS) {
+      *ob = __float2bfloat16(__fadd_rn(v[0], bias[n]));
+    } else if constexpr (EPI == EPI_BIAS_GELU) {
+      const float y = round_bf16(__fadd_rn(v[0], bias[n]));
+      *ob = __float2bfloat16(0.5f * y * (1.f + erff(y * 0.70710678118654752f)));
+    } else {
+      const float gt = round_bf16(v[0]);
+      const float up = round_bf16(v[1]);
+      const float act = round_bf16(gt / (1.f + expf(-gt)));
+      *ob = __float2bfloat16(act * up);
+    }
+  }
+}
 
 template <typename WT, int MT, int EPI>
 __global__ void __launch_bounds__(256)
@@ -111,30 +146,8 @@ skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
       v[j] = warp_sum(acc[j][m]);
       if (scale != nullptr) v[j] *= scale[(size_t)n * NW + j];
     }
-    if (lane == m && m < M) {
-      const size_t o = (size_t)m * N + n;
-      if (EPI == EPI_STORE_F32) {
-        static_cast<float*>(out)[o] = v[0];
-      } else {
-        bf16* ob = static_cast<bf16*>(out) + o;
-        if (EPI == EPI_STORE) {
-          *ob = __float2bfloat16(v[0]);
-        } else if (EPI == EPI_RESID) {
-          *ob = __float2bfloat16(__bfloat162float(*ob) + round_bf16(v[0]));
-        } else if (EPI == EPI_BIAS) {
-          *ob = __float2bfloat16(__fadd_rn(v[0], bias[n]));
-        } else if (EPI == EPI_BIAS_GELU) {
-          const float y = round_bf16(__fadd_rn(v[0], bias[n]));
-          *ob = __float2bfloat16(0.5f * y
-                                 * (1.f + erff(y * 0.70710678118654752f)));
-        } else {
-          const float gt = round_bf16(v[0]);
-          const float up = round_bf16(v[NW - 1]);
-          const float act = round_bf16(gt / (1.f + expf(-gt)));
-          *ob = __float2bfloat16(act * up);
-        }
-      }
-    }
+    if (lane == m && m < M)
+      skinny_epilogue<EPI>(out, (size_t)m * N + n, n, v, bias);
   }
 }
 
@@ -145,7 +158,8 @@ cudaError_t launch_skinny(const bf16* x, const WT* w, const float* scale,
                           void* out, int M, int N, int K,
                           cudaStream_t stream, const float* bias = nullptr) {
   const dim3 block(256), grid((N + 7) / 8);
-  const size_t out_bytes = EPI == EPI_STORE_F32 ? sizeof(float) : sizeof(bf16);
+  const size_t out_bytes =
+      (EPI == EPI_STORE_F32 || EPI == EPI_ADD_F32) ? sizeof(float) : sizeof(bf16);
   for (int m0 = 0; m0 < M; m0 += SKINNY_ROWS) {
     const int mr = M - m0 < SKINNY_ROWS ? M - m0 : SKINNY_ROWS;
     const bf16* xm = x + (size_t)m0 * K;

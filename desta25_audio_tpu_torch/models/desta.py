@@ -29,6 +29,7 @@ the ROADMAP item (Queue 1 of ``ROADMAP.md``).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from dataclasses import dataclass
@@ -66,6 +67,8 @@ from .splice import (
     expand_audio_placeholders,
 )
 from .whisper import init_whisper_encoder
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -124,6 +127,9 @@ class DeSTA25AudioModel:
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
         # host-clock phase times of the last generate() call
         self.last_timings: Dict[str, float] = {}
+        # why the last generate(speculative_k >= 2) decoded one token a step
+        # instead (empty when it speculated)
+        self.last_spec_fallback: List[str] = []
 
     def init_params(self, seed: int) -> Dict[str, Any]:
         g = torch.Generator(self.device).manual_seed(seed)
@@ -405,13 +411,14 @@ class DeSTA25AudioModel:
     def _spec_eligible(self, speculative_k: int, B: int, T: int,
                        max_new_tokens: int, inject_kwargs=None) -> bool:
         """Does this request take the speculative loop?  Below 2 tokens per
-        step it does not (the plain loop runs, as in the JAX package); at
-        2 or more it must, and a request the verify kernel cannot take
-        raises with the kernel's limits (``spec_limits``), ORCA's included:
-        the verify step injects inside the kernel, which needs the int8
-        stack and the int8 LLM (``desta.py:619-628`` of the JAX package).
-        LoRA, which the JAX package also checks here, is refused by
-        :func:`check_slice`."""
+        step it does not.  At 2 or more it does unless the verify kernel
+        cannot take the request (``spec_limits``, ORCA's included: the
+        verify step injects inside the kernel, which needs the int8 stack
+        and the int8 LLM); then the plain loop runs, as the JAX package's
+        ``_spec_eligible`` falls back (``desta.py:607-633``), and the
+        reasons are logged and kept in ``last_spec_fallback``.  LoRA, which
+        the JAX package also checks here, is refused by :func:`check_slice`."""
+        self.last_spec_fallback = []
         if speculative_k < 2:
             return False
         inj = inject_kwargs or {}
@@ -423,9 +430,11 @@ class DeSTA25AudioModel:
                           inject_len=(inj["inject_tokens"].shape[1]
                                       if inj else 0))
         if bad:
-            raise ValueError(f"speculative_k={speculative_k}: the verify "
-                             "kernel cannot take this request: "
-                             + "; ".join(bad))
+            self.last_spec_fallback = bad
+            logger.info("speculative_k=%d: the verify kernel cannot take "
+                        "this request, decoding one token a step: %s",
+                        speculative_k, "; ".join(bad))
+            return False
         return True
 
     def _generate_impl(self, messages_list, temperature, top_p, do_sample,

@@ -17,8 +17,11 @@ final hidden state to the chunked loss.  Nothing is updated in place on
 that path.  A cached call with T == 1 goes
 to ``ops/fused_decode.fused_decode_layers`` (the hand-written decode kernels
 on the card), with ORCA's injection inside it or, for a per-layer hook,
-layer by layer in torch.  With bf16 weights the projections and heads are ``torch.mm``
-products with f32 accumulation, as the JAX package leaves them to XLA; with
+layer by layer in torch; with the opt-in ``DESTA_FUSED_PERLAYER`` and an
+int8 tower a hooked step runs the per-layer kernel pair K9
+(``ops/fused_decode_tp.py``) with the hook between layers.  With bf16
+weights the projections and heads are ``torch.mm`` products with f32
+accumulation, as the JAX package leaves them to XLA; with
 int8 leaves (``ops/quant.quantize_llm_params``, ``llm_quant="int8"``) every
 projection and the head go through ``ops/qmm.quant_matmul`` (K7 below 128
 rows, W8A8 above), as ``llm.py:136-156`` does.
@@ -44,6 +47,10 @@ from ..config import LLMConfig
 from ..ops import attention as attn
 from ..ops.core import Params, index_tree, matmul_f32, rms_norm
 from ..ops.fused_decode import KVCache, fused_decode_layers
+from ..ops.fused_decode_tp import (
+    fused_decode_layers_perlayer,
+    fused_perlayer_supported,
+)
 from ..ops.qmm import quant_matmul
 from ..ops.quant import is_quantized
 from ..ops.rope import apply_rope, llm_rope_cos_sin
@@ -52,8 +59,9 @@ __all__ = ["KVCache", "init_kv_cache", "init_llm", "llm_apply",
            "embed_tokens"]
 
 
-def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int,
-                  dtype=torch.bfloat16, device="cpu") -> KVCache:
+def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, dtype,
+                  device) -> KVCache:
+    """A zeroed cache [L, batch, max_len, Hkv*Dh] on ``device``."""
     shape = (cfg.num_hidden_layers, batch, max_len,
              cfg.num_key_value_heads * cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -186,8 +194,10 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     PyTorch).  A cached T == 1 call takes the fused decode step: with
     ``fused_injection`` (the ``inject`` spec of ``ops/fused_decode.py``) the
     injection runs inside it; with only ``extra_layer_fn`` the step runs
-    layer by layer here so the hook can run between layers
-    (``llm.py:356-454`` of the JAX package).
+    layer by layer here so the hook can run between layers, or, when
+    ``ops/fused_decode_tp.fused_perlayer_supported`` holds (the opt-in),
+    through the per-layer kernel pair (``llm.py:356-454`` of the JAX
+    package).
 
     remat: without a cache and with grad mode on, each decoder layer runs
     under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in
@@ -219,6 +229,14 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
             hidden, cache = fused_decode_layers(
                 params, cfg, x, attention_mask, positions, cache, ci,
                 inject=fused_injection)
+            hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
+            return head_logits(params, hidden), cache
+        if T == 1 and fused_perlayer_supported(params, cfg, cache):
+            # opt-in: the per-layer kernel pair with the hook between
+            # layers (llm.py:436-454 of the JAX package)
+            hidden, cache = fused_decode_layers_perlayer(
+                params, cfg, x, attention_mask, positions, cache, ci,
+                extra_layer_fn=extra_layer_fn)
             hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
             return head_logits(params, hidden), cache
     else:

@@ -224,25 +224,26 @@ def _inject_plain(h: torch.Tensor, inject, l: int, B: int, Kd: int):
     return h + on * contrib
 
 
-def fused_decode_layers_plain(params, cfg, inputs_embeds, attention_mask,
-                              positions, cache: KVCache, cache_index,
-                              inject=None):
-    """Reference math of the TPU kernel (bf16 or int8 stream, Kd >= 1
-    tokens per row, optionally with the in-kernel ORCA injection), with
-    every rounding point taken in the activation dtype (a no-op in f32).
-    Cache positions past S are not written."""
-    B, Kd, D = inputs_embeds.shape
-    R = B * Kd
-    dt = inputs_embeds.dtype
-    L, _, S, KVD = cache.k.shape
-    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
-    G, HD, eps = H // Hkv, H * Dh, cfg.rms_norm_eps
-    scale = Dh ** -0.5
-    lay = params["layers"]
-    dev = inputs_embeds.device
+class PlainStep(NamedTuple):
+    """What every layer of one plain decode / verify step shares: the RoPE
+    tables [R, Dh], the keys each row attends ([B, S]: below its ci and
+    allowed by the mask), the draft block's causal rule [Kd, Kd] and the
+    cache rows the step writes (row, position), positions past S dropped."""
+    B: int
+    Kd: int
+    cos: torch.Tensor
+    sin: torch.Tensor
+    valid: torch.Tensor
+    causal: torch.Tensor
+    wok: torch.Tensor
+    wrow: torch.Tensor
+    wpos: torch.Tensor
+
+
+def plain_step(cos, sin, attention_mask, cache_index, B: int, Kd: int,
+               S: int) -> PlainStep:
+    dev = cos.device
     ci = _row_indices(cache_index, B, dev).long()
-    cos, sin = llm_rope_cos_sin(cfg, positions.reshape(R))       # [R, Dh]
     valid = ((attention_mask[:, :S] > 0)
              & (torch.arange(S, device=dev)[None, :] < ci[:, None]))
     jj = torch.arange(Kd, device=dev)
@@ -250,16 +251,35 @@ def fused_decode_layers_plain(params, cfg, inputs_embeds, attention_mask,
     wpos = ci[:, None] + jj[None, :]             # [B, Kd] cache write rows
     wok = wpos < S
     wrow = torch.arange(B, device=dev)[:, None].expand(B, Kd)[wok]
-    wpos = wpos[wok]
-    ninf = torch.full((), float("-inf"), device=dev)
+    return PlainStep(B, Kd, cos, sin, valid, causal, wok, wrow, wpos[wok])
 
-    def rms(x, w):
-        xf = x.float()
-        return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-                * w.float()).to(dt)
+
+def rms_plain(x: torch.Tensor, w: torch.Tensor, eps: float, dt):
+    """RMSNorm in f32, rounded to dt (the kernels' ln1 / ln2)."""
+    xf = x.float()
+    return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+            * w.float()).to(dt)
+
+
+def attention_plain(lay, cfg, st: PlainStep, cache: KVCache, l: int,
+                    xn: torch.Tensor) -> torch.Tensor:
+    """Layer l's attention on the normalised rows xn [R, D] (dtype dt):
+    q/k/v, qk-norm and RoPE in f32, the new k/v rows written into the cache,
+    scores over the cache and the draft block, P rounded to dt for the
+    cached keys, P.V; returns the wo product's f32 sum [R, D] (scaled,
+    unrounded)."""
+    dt = xn.dtype
+    B, Kd = st.B, st.Kd
+    R = B * Kd
+    _, _, S, KVD = cache.k.shape
+    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    G, HD, eps = H // Hkv, H * Dh, cfg.rms_norm_eps
+    scale = Dh ** -0.5
+    ninf = torch.full((), float("-inf"), device=xn.device)
 
     def rope(t):                                               # [R, n, Dh]
-        c, s = cos[:, None, :], sin[:, None, :]
+        c, s = st.cos[:, None, :], st.sin[:, None, :]
         rot = torch.cat([-t[..., Dh // 2:], t[..., :Dh // 2]], -1)
         return t * c + rot * s
 
@@ -267,44 +287,69 @@ def fused_decode_layers_plain(params, cfg, inputs_embeds, attention_mask,
         return (t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps)
                 * w.float())
 
-    h = inputs_embeds.reshape(R, D)
+    qkv = _proj(xn, lay["wqkv"], l).to(dt)
+    q = qkv[:, :HD].float().reshape(R, H, Dh)
+    k = qkv[:, HD:HD + KVD].float().reshape(R, Hkv, Dh)
+    v = qkv[:, HD + KVD:]
+    if cfg.qk_norm:
+        q = head_norm(q, lay["q_norm"]["scale"][l])
+        k = head_norm(k, lay["k_norm"]["scale"][l])
+    qb = rope(q).to(dt).float().reshape(B, Kd, Hkv, G, Dh)
+    kb = rope(k).to(dt)
+    cache.k[l, st.wrow, st.wpos] = kb.reshape(B, Kd, KVD)[st.wok]
+    cache.v[l, st.wrow, st.wpos] = v.reshape(B, Kd, KVD)[st.wok]
+    kc = cache.k[l].float().reshape(B, S, Hkv, Dh)
+    vc = cache.v[l].float().reshape(B, S, Hkv, Dh)
+    s = torch.einsum("bjkgd,bskd->bjkgs", qb, kc) * scale
+    s = torch.where(st.valid[:, None, None, None, :], s, ninf)
+    kd_ = kb.float().reshape(B, Kd, Hkv, Dh)
+    sd = torch.einsum("bjkgd,bikd->bjkgi", qb, kd_) * scale
+    sd = torch.where(st.causal[None, :, None, None, :], sd, ninf)
+    mx = torch.maximum(s.amax(-1), sd.amax(-1))
+    e = torch.exp(s - mx[..., None])
+    ed = torch.exp(sd - mx[..., None])
+    inv = 1.0 / (e.sum(-1) + ed.sum(-1))
+    p = (e * inv[..., None]).to(dt).float()
+    vd = v.float().reshape(B, Kd, Hkv, Dh)
+    o = (torch.einsum("bjkgs,bskd->bjkgd", p, vc)
+         + torch.einsum("bjkgi,bikd->bjkgd", ed * inv[..., None], vd))
+    return _proj(o.reshape(R, HD).to(dt), lay["wo"], l)
+
+
+def mlp_plain(lay, l: int, xn: torch.Tensor) -> torch.Tensor:
+    """Layer l's SwiGLU MLP on the normalised rows xn [R, D]: gate and up
+    rounded to xn's dtype apart, SiLU in f32 rounded, their product
+    rounded; returns the down product's f32 sum (scaled, unrounded)."""
+    dt = xn.dtype
+    gu = _proj(xn, lay["w_gu"], l)
+    gate = gu[:, 0::2].to(dt).float()
+    up = gu[:, 1::2].to(dt).float()
+    mid = (F.silu(gate).to(dt).float() * up).to(dt)
+    return _proj(mid, lay["w_down"], l)
+
+
+def fused_decode_layers_plain(params, cfg, inputs_embeds, attention_mask,
+                              positions, cache: KVCache, cache_index,
+                              inject=None):
+    """Reference math of the TPU kernel (bf16 or int8 stream, Kd >= 1
+    tokens per row, optionally with the in-kernel ORCA injection), with
+    every rounding point taken in the activation dtype (a no-op in f32):
+    the residual is rounded after each half.  Cache positions past S are
+    not written."""
+    B, Kd, D = inputs_embeds.shape
+    dt = inputs_embeds.dtype
+    L, _, S, _ = cache.k.shape
+    eps = cfg.rms_norm_eps
+    lay = params["layers"]
+    cos, sin = llm_rope_cos_sin(cfg, positions.reshape(B * Kd))  # [R, Dh]
+    st = plain_step(cos, sin, attention_mask, cache_index, B, Kd, S)
+    h = inputs_embeds.reshape(B * Kd, D)
     for l in range(L):
-        xn = rms(h, lay["ln1"]["scale"][l])
-        qkv = _proj(xn, lay["wqkv"], l).to(dt)
-        q = qkv[:, :HD].float().reshape(R, H, Dh)
-        k = qkv[:, HD:HD + KVD].float().reshape(R, Hkv, Dh)
-        v = qkv[:, HD + KVD:]
-        if cfg.qk_norm:
-            q = head_norm(q, lay["q_norm"]["scale"][l])
-            k = head_norm(k, lay["k_norm"]["scale"][l])
-        qb = rope(q).to(dt).float().reshape(B, Kd, Hkv, G, Dh)
-        kb = rope(k).to(dt)
-        cache.k[l, wrow, wpos] = kb.reshape(B, Kd, KVD)[wok]
-        cache.v[l, wrow, wpos] = v.reshape(B, Kd, KVD)[wok]
-        kc = cache.k[l].float().reshape(B, S, Hkv, Dh)
-        vc = cache.v[l].float().reshape(B, S, Hkv, Dh)
-        s = torch.einsum("bjkgd,bskd->bjkgs", qb, kc) * scale
-        s = torch.where(valid[:, None, None, None, :], s, ninf)
-        kd_ = kb.float().reshape(B, Kd, Hkv, Dh)
-        sd = torch.einsum("bjkgd,bikd->bjkgi", qb, kd_) * scale
-        sd = torch.where(causal[None, :, None, None, :], sd, ninf)
-        mx = torch.maximum(s.amax(-1), sd.amax(-1))
-        e = torch.exp(s - mx[..., None])
-        ed = torch.exp(sd - mx[..., None])
-        inv = 1.0 / (e.sum(-1) + ed.sum(-1))
-        p = (e * inv[..., None]).to(dt).float()
-        vd = v.float().reshape(B, Kd, Hkv, Dh)
-        o = (torch.einsum("bjkgs,bskd->bjkgd", p, vc)
-             + torch.einsum("bjkgi,bikd->bjkgd", ed * inv[..., None], vd))
-        attn = o.reshape(R, HD).to(dt)
-        h = (h.float() + _proj(attn, lay["wo"], l).to(dt).float()).to(dt)
-        xn = rms(h, lay["ln2"]["scale"][l])
-        gu = _proj(xn, lay["w_gu"], l)
-        gate = gu[:, 0::2].to(dt).float()
-        up = gu[:, 1::2].to(dt).float()
-        mid = (F.silu(gate).to(dt).float() * up).to(dt)
-        h = (h.float() + _proj(mid, lay["w_down"], l).to(dt).float()
-             ).to(dt)
+        o = attention_plain(lay, cfg, st, cache, l,
+                            rms_plain(h, lay["ln1"]["scale"][l], eps, dt))
+        h = (h.float() + o.to(dt).float()).to(dt)
+        o = mlp_plain(lay, l, rms_plain(h, lay["ln2"]["scale"][l], eps, dt))
+        h = (h.float() + o.to(dt).float()).to(dt)
         if inject is not None:
             h = _inject_plain(h, inject, l, B, Kd)
     return h.reshape(B, Kd, D), cache

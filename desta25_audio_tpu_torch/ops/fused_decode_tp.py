@@ -1,0 +1,406 @@
+"""One int8 decode step as per-layer halves with f32 partial sums (port of
+``desta25_audio_tpu/ops/fused_decode_tp.py``, K9).
+
+The decode step of ``ops/fused_decode.py`` (K8) keeps the residual in bf16
+and spans every layer.  K9 splits each layer in two, on an f32 residual h
+[B, D], with each half ending in an f32 partial sum:
+
+    h += reduce(attn_half(bf16(h)))    # ln1, int8 q/k/v, qk-norm, RoPE, the
+                                       # cache write, scores, P.V, wo
+    h += reduce(mlp_half(bf16(h)))     # ln2, gate/up, SwiGLU, down
+
+Under tensor parallelism (p ranks, each holding H/p heads, Hkv/p kv heads
+and I/p of the MLP, :func:`shard_layers`) ``reduce`` sums the ranks'
+partials; at p = 1 it is the identity.  :func:`fused_decode_layers_perlayer`
+runs the pair layer by layer on one device with an optional
+``extra_layer_fn(l, bf16 hidden [B, 1, D])`` between layers (ORCA's deep
+injection in PyTorch), the hidden cast back to f32 after it
+(``fused_decode_tp.py:783-815`` of the JAX package).
+
+Rounding points (the TPU kernels'): each half reads bf16(h); RMSNorm in f32
+rounded to bf16; the q/k/v and gate/up sums in f32, times the int8 scale,
+rounded to bf16; qk-norm and RoPE in f32, q and k rounded to bf16; scores in
+f32; P normalised in f32, rounded to bf16 for the cached keys and kept f32
+for the current token; bf16(silu(gate)) * up rounded to bf16; the wo and
+down sums f32, times the scale, unrounded.  The attention and MLP math is
+K8's plain version (``ops/fused_decode.attention_plain`` / ``mlp_plain``);
+only the residual differs.
+
+On CUDA tensors the halves launch ``csrc/fused_decode_tp.cu``: the attention
+half 3 kernels (fused-RMSNorm q/k/v GEMV, attention with the cache write,
+wo), counted as ``fused_decode_tp_attn``; the MLP half 2 (fused-RMSNorm
+gate/up GEMV with SwiGLU, down), counted as ``fused_decode_tp_mlp``.  At
+p = 1 the layer loop adds the partials into h inside the wo / down epilogue
+(the same f32 add).  On CPU tensors the plain versions run.
+
+The per-layer path is opt-in, as in the JAX package: ``FUSED_PERLAYER`` is
+read once from ``DESTA_FUSED_PERLAYER`` ("1" turns it on); tests and
+``chip_smoke.py`` set the attribute.  ``models/llm.py`` routes a cached
+T == 1 step that has an ``extra_layer_fn`` and no in-kernel injection here
+when :func:`fused_perlayer_supported` holds.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from typing import List, NamedTuple, Optional
+
+import torch
+
+from . import _build
+from .fused_decode import (
+    _SMEM_LIMIT,
+    KVCache,
+    _row_indices,
+    attention_plain,
+    kernel_limits,
+    mlp_plain,
+    plain_step,
+    rms_plain,
+    tower_is_int8,
+)
+from .rope import llm_rope_cos_sin
+
+logger = logging.getLogger(__name__)
+
+# Off by default, as in the JAX package: off, the hooked step runs the
+# layer loop of ``models/llm.py``, whose bf16 residual between layers is the
+# JAX package's default numerics (its greedy ids are the ones the port's
+# default must reproduce); on, K9's f32 residual, whose ids can differ.
+FUSED_PERLAYER = os.environ.get("DESTA_FUSED_PERLAYER", "0") == "1"
+NORM_ROWS = 16            # rows a pass of csrc/fused_decode_tp.cu norm_gemv
+_logged: set = set()      # the fallback reasons logged once each
+
+
+class DecodeStep(NamedTuple):
+    """One decode step's per-row inputs, shared by every layer and rank:
+    RoPE tables cos / sin [B, Dh] f32, the attention mask [B, >=S] int32
+    (1 = attend) and each row's cache index ci [B] int32."""
+    cos: torch.Tensor
+    sin: torch.Tensor
+    mask: torch.Tensor
+    ci: torch.Tensor
+
+
+def decode_step_inputs(cfg, attention_mask, positions, cache_index,
+                       B: int) -> DecodeStep:
+    dev = attention_mask.device
+    cos, sin = llm_rope_cos_sin(cfg, positions.reshape(B))
+    return DecodeStep(cos.float().contiguous(), sin.float().contiguous(),
+                      attention_mask.to(torch.int32).contiguous(),
+                      _row_indices(cache_index, B, dev))
+
+
+# -- sharding ------------------------------------------------------------------
+
+def shard_layers(params, cfg, p: int, rank: int):
+    """Rank ``rank`` of p's shard of the int8 layer stack -> (params with
+    the shard's ``layers``, the shard's config).  ``wqkv``: the q rows of
+    the rank's heads, then its k rows, then its v rows (with their scales);
+    ``wo`` / ``w_down``: the input columns of its heads / its I/p slice,
+    made contiguous, with their scales whole (the partial sums scale
+    alike); ``w_gu``: the interleaved gate/up rows of its I/p slice; the
+    norms whole.  Its cache is the rank's slice of the packed Hkv*Dh axis
+    (:func:`shard_cache`)."""
+    H, Hkv, Dh, I = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                     cfg.head_dim, cfg.intermediate_size)
+    if H % p or Hkv % p or I % p:
+        raise ValueError(f"H={H}, Hkv={Hkv}, I={I} do not split {p} ways")
+    if not 0 <= rank < p:
+        raise ValueError(f"rank {rank} of {p}")
+    sc = dataclasses.replace(cfg, num_attention_heads=H // p,
+                             num_key_value_heads=Hkv // p,
+                             intermediate_size=I // p)
+    HD, KVD = H * Dh, Hkv * Dh
+    hd, kvd, il = sc.num_attention_heads * Dh, sc.num_key_value_heads * Dh, \
+        sc.intermediate_size
+    lay = params["layers"]
+    rows = torch.cat([torch.arange(rank * hd, (rank + 1) * hd),
+                      HD + torch.arange(rank * kvd, (rank + 1) * kvd),
+                      HD + KVD + torch.arange(rank * kvd, (rank + 1) * kvd)])
+
+    def out_rows(leaf, idx):
+        idx = idx.to(leaf["q"].device)
+        return {"q": leaf["q"][:, idx].contiguous(),
+                "s": leaf["s"][:, idx].contiguous()}
+
+    def in_cols(leaf, lo, hi):
+        return {"q": leaf["q"][:, :, lo:hi].contiguous(), "s": leaf["s"]}
+
+    layers = dict(lay)
+    layers["wqkv"] = out_rows(lay["wqkv"], rows)
+    layers["wo"] = in_cols(lay["wo"], rank * hd, (rank + 1) * hd)
+    layers["w_gu"] = out_rows(lay["w_gu"],
+                              torch.arange(2 * rank * il, 2 * (rank + 1) * il))
+    layers["w_down"] = in_cols(lay["w_down"], rank * il, (rank + 1) * il)
+    return {**params, "layers": layers}, sc
+
+
+def shard_cache(cache: KVCache, cfg, p: int, rank: int) -> KVCache:
+    """Rank ``rank``'s slice of a packed cache [L, B, S, Hkv*Dh] (a copy)."""
+    kvd = cfg.num_key_value_heads // p * cfg.head_dim
+    sl = slice(rank * kvd, (rank + 1) * kvd)
+    return KVCache(cache.k[..., sl].contiguous(), cache.v[..., sl].contiguous())
+
+
+# -- dispatch predicate ----------------------------------------------------------
+
+def perlayer_limits(params, cfg, cache: KVCache, batch: int) -> List[str]:
+    """Why the kernels cannot run this step (empty: they can): the JAX
+    predicate's semantic conditions (an int8 tower, a bf16 cache; the port
+    has no mesh and no LoRA on this path) and the CUDA kernels' own shape
+    limits (``ops/fused_decode.kernel_limits`` for the attention and the
+    weight loads, the fused-RMSNorm GEMV's shared memory)."""
+    bad = []
+    if not tower_is_int8(params):
+        bad.append("the LLM is not int8 (apply_llm_quant)")
+    if cache.k.dtype != torch.bfloat16 or cache.k.dim() != 4:
+        bad.append(f"cache {cache.k.dtype} of rank {cache.k.dim()} (the "
+                   "kernels take a bf16 [L, B, S, Hkv*Dh] cache)")
+        return bad
+    Hkv, Dh, D = cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
+    if cache.k.shape[3] != Hkv * Dh or cache.k.shape[1] != batch:
+        bad.append(f"cache {tuple(cache.k.shape)} for B={batch}, "
+                   f"Hkv*Dh={Hkv * Dh}")
+    bad += kernel_limits(cfg, batch, 1, cache.k.shape[2], True)
+    smem = min(batch, NORM_ROWS) * D * 2
+    if smem > _SMEM_LIMIT:
+        bad.append(f"D={D} at {batch} rows needs {smem} bytes of shared "
+                   f"memory for the normalised rows (limit {_SMEM_LIMIT})")
+    return bad
+
+
+def fused_perlayer_supported(params, cfg, cache: KVCache) -> bool:
+    """Does a cached T == 1 step with a per-layer hook take the per-layer
+    pair?  Only with the opt-in (``FUSED_PERLAYER``).  With the opt-in and
+    a step the kernels cannot take, the layer loop runs, as in the JAX
+    package, and the reasons are logged once."""
+    if not FUSED_PERLAYER:
+        return False
+    bad = perlayer_limits(params, cfg, cache, cache.k.shape[1])
+    if bad:
+        msg = "; ".join(bad)
+        if msg not in _logged:
+            _logged.add(msg)
+            logger.warning("DESTA_FUSED_PERLAYER: the per-layer decode "
+                           "kernels cannot take this step, running the "
+                           "layer loop: %s", msg)
+        return False
+    return True
+
+
+# -- the halves: plain versions ------------------------------------------------
+
+def attn_half_plain(params, cfg, h: torch.Tensor, step: DecodeStep,
+                    cache: KVCache, layer: int) -> torch.Tensor:
+    """Layer ``layer``'s attention half on the f32 residual h [B, D]: the wo
+    product's f32 partial sum [B, D]; the k/v rows of the step are written
+    at each row's ci in place."""
+    B = h.shape[0]
+    lay = params["layers"]
+    st = plain_step(step.cos, step.sin, step.mask, step.ci, B, 1,
+                    cache.k.shape[2])
+    xn = rms_plain(h.to(torch.bfloat16), lay["ln1"]["scale"][layer],
+                   cfg.rms_norm_eps, torch.bfloat16)
+    return attention_plain(lay, cfg, st, cache, layer, xn)
+
+
+def mlp_half_plain(params, cfg, h: torch.Tensor, layer: int) -> torch.Tensor:
+    """Layer ``layer``'s MLP half on the f32 residual h [B, D]: the down
+    product's f32 partial sum [B, D]."""
+    lay = params["layers"]
+    xn = rms_plain(h.to(torch.bfloat16), lay["ln2"]["scale"][layer],
+                   cfg.rms_norm_eps, torch.bfloat16)
+    return mlp_plain(lay, layer, xn)
+
+
+# -- the halves: kernels ----------------------------------------------------------
+
+class _Operands(NamedTuple):
+    lay: dict
+    qkv: torch.Tensor      # [B, (H+2Hkv)*Dh] bf16 scratch
+    attn: torch.Tensor     # [B, H*Dh] bf16 scratch
+    mid: torch.Tensor      # [B, I] bf16 scratch
+    stream: int
+
+
+def _operands(params, cfg, h, name: str, step: Optional[DecodeStep] = None,
+              cache: Optional[KVCache] = None) -> _Operands:
+    """Check once what the launches read (the attention's step inputs and
+    cache when given): the leaves' and the step's shapes, devices, dtypes
+    and alignment; allocate the step's scratch.  Raises ValueError.  The
+    kernel limits (``perlayer_limits``) are the dispatch predicate's to
+    check; the entry points of ``csrc/fused_decode_tp.cu`` refuse what they
+    cannot take with an error status, which raises RuntimeError."""
+    B, D = h.shape
+    bad = [] if tower_is_int8(params) else ["the LLM is not int8"]
+    KVD = cfg.num_key_value_heads * cfg.head_dim
+    if cache is not None and (cache.k.dim() != 4
+                              or tuple(cache.k.shape[1:]) != (
+                                  B, cache.k.shape[2], KVD)
+                              or cache.v.shape != cache.k.shape):
+        bad.append(f"cache {tuple(cache.k.shape)} / {tuple(cache.v.shape)} "
+                   f"for B={B}, Hkv*Dh={KVD}")
+    if D != cfg.hidden_size or h.dtype != torch.float32:
+        bad.append(f"h {tuple(h.shape)} {h.dtype} (expected [B, "
+                   f"{cfg.hidden_size}] float32)")
+    if step is not None and (step.mask.shape[0] != B
+                             or step.mask.shape[1] < cache.k.shape[2]
+                             or step.ci.shape != (B,)):
+        bad.append(f"mask {tuple(step.mask.shape)} / ci "
+                   f"{tuple(step.ci.shape)} for B={B}, S={cache.k.shape[2]}")
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
+    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    I = cfg.intermediate_size
+    lay = params["layers"]
+    L = lay["wqkv"]["q"].shape[0]
+    shapes = {"wqkv": (L, (H + 2 * Hkv) * Dh, D), "wo": (L, D, H * Dh),
+              "w_gu": (L, 2 * I, D), "w_down": (L, D, I)}
+    for key, shp in shapes.items():
+        leaf = lay[key]
+        if tuple(leaf["q"].shape) != shp or tuple(leaf["s"].shape) != shp[:2]:
+            raise ValueError(f"{name}: {key} {tuple(leaf['q'].shape)}, "
+                             f"expected {shp}")
+    norms = [lay["ln1"]["scale"], lay["ln2"]["scale"]]
+    if cfg.qk_norm:
+        norms += [lay["q_norm"]["scale"], lay["k_norm"]["scale"]]
+    _build.require_cuda(name, h, dtype=torch.float32)
+    _build.require_cuda(name, *norms, dtype=torch.bfloat16)
+    if cache is not None:
+        _build.require_cuda(name, step.cos, step.sin, dtype=torch.float32)
+        _build.require_cuda(name, cache.k, cache.v, dtype=torch.bfloat16)
+        _build.require_cuda(name, step.mask, step.ci, dtype=torch.int32)
+    _build.require_cuda(name, *(lay[k]["q"] for k in shapes),
+                        dtype=torch.int8)
+    _build.require_cuda(name, *(lay[k]["s"] for k in shapes),
+                        dtype=torch.float32)
+    bf = dict(dtype=torch.bfloat16, device=h.device)
+    return _Operands(lay, torch.empty(B, (H + 2 * Hkv) * Dh, **bf),
+                     torch.empty(B, H * Dh, **bf), torch.empty(B, I, **bf),
+                     _build.stream_ptr(h.device))
+
+
+def _launch(status: int, name: str) -> None:
+    _build.check(status, name)
+    _build.count_launch(name)
+
+
+def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
+                   l: int, out: torch.Tensor, accumulate: bool) -> None:
+    """The attention half's 3 launches on checked operands."""
+    name = "fused_decode_tp_attn"
+    lib, lay = _build.library(), op.lay
+    B, D = h.shape
+    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    eps = float(cfg.rms_norm_eps)
+    wqkv, wo = lay["wqkv"], lay["wo"]
+    _launch(lib.desta_tp_norm_gemv(
+        h.data_ptr(), lay["ln1"]["scale"][l].data_ptr(), eps,
+        wqkv["q"][l].data_ptr(), wqkv["s"][l].data_ptr(), op.qkv.data_ptr(),
+        B, (H + 2 * Hkv) * Dh, D, 0, op.stream), name)
+    qn = lay["q_norm"]["scale"][l].data_ptr() if cfg.qk_norm else None
+    kn = lay["k_norm"]["scale"][l].data_ptr() if cfg.qk_norm else None
+    _launch(lib.desta_tp_attention(
+        op.qkv.data_ptr(), cache.k[l].data_ptr(), cache.v[l].data_ptr(),
+        step.cos.data_ptr(), step.sin.data_ptr(), step.mask.data_ptr(),
+        step.mask.shape[1], step.ci.data_ptr(), qn, kn, op.attn.data_ptr(),
+        B, cache.k.shape[2], H, Hkv, Dh, eps, Dh ** -0.5, op.stream), name)
+    _launch(lib.desta_tp_gemm(
+        op.attn.data_ptr(), wo["q"][l].data_ptr(), wo["s"][l].data_ptr(),
+        out.data_ptr(), B, D, H * Dh, int(accumulate), op.stream), name)
+
+
+def _mlp_launches(op: _Operands, cfg, h, l: int, out: torch.Tensor,
+                  accumulate: bool) -> None:
+    """The MLP half's 2 launches on checked operands."""
+    name = "fused_decode_tp_mlp"
+    lib, lay = _build.library(), op.lay
+    B, D = h.shape
+    I = cfg.intermediate_size
+    wgu, wd = lay["w_gu"], lay["w_down"]
+    _launch(lib.desta_tp_norm_gemv(
+        h.data_ptr(), lay["ln2"]["scale"][l].data_ptr(),
+        float(cfg.rms_norm_eps), wgu["q"][l].data_ptr(),
+        wgu["s"][l].data_ptr(), op.mid.data_ptr(), B, I, D, 1, op.stream),
+        name)
+    _launch(lib.desta_tp_gemm(
+        op.mid.data_ptr(), wd["q"][l].data_ptr(), wd["s"][l].data_ptr(),
+        out.data_ptr(), B, D, I, int(accumulate), op.stream), name)
+
+
+def attn_half(params, cfg, h: torch.Tensor, step: DecodeStep,
+              cache: KVCache, layer: int) -> torch.Tensor:
+    """:func:`attn_half_plain`'s function: the kernels on CUDA tensors, the
+    plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return attn_half_plain(params, cfg, h, step, cache, layer)
+    op = _operands(params, cfg, h, "fused_decode_tp_attn", step, cache)
+    out = torch.empty_like(h)
+    _attn_launches(op, cfg, h, step, cache, layer, out, False)
+    return out
+
+
+def mlp_half(params, cfg, h: torch.Tensor, layer: int) -> torch.Tensor:
+    """:func:`mlp_half_plain`'s function: the kernels on CUDA tensors, the
+    plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return mlp_half_plain(params, cfg, h, layer)
+    op = _operands(params, cfg, h, "fused_decode_tp_mlp")
+    out = torch.empty_like(h)
+    _mlp_launches(op, cfg, h, layer, out, False)
+    return out
+
+
+# -- the p = 1 layer loop ----------------------------------------------------------
+
+def fused_decode_layers_perlayer(params, cfg, inputs_embeds, attention_mask,
+                                 positions, cache: KVCache, cache_index,
+                                 extra_layer_fn=None):
+    """One decode step through every layer as per-layer halves on one
+    device, the f32 residual carried between them, with an optional
+    ``extra_layer_fn(layer, hidden [B, 1, D] bf16) -> hidden`` after each
+    layer.  Same contract as ``ops/fused_decode.fused_decode_layers``:
+    inputs_embeds [B, 1, D]; attention_mask [B, >=S]; positions [B, 1];
+    the cache written in place at ``cache_index`` (int or [B]) and returned;
+    returns (hidden [B, 1, D] bf16 before the final norm, cache)."""
+    B, T, D = inputs_embeds.shape
+    if T != 1:
+        raise ValueError("fused_decode_layers_perlayer takes one token a row")
+    if inputs_embeds.device.type == "cpu":
+        return fused_decode_layers_perlayer_plain(
+            params, cfg, inputs_embeds, attention_mask, positions, cache,
+            cache_index, extra_layer_fn)
+    step = decode_step_inputs(cfg, attention_mask, positions, cache_index, B)
+    h = inputs_embeds.reshape(B, D).to(torch.bfloat16).float().contiguous()
+    op = _operands(params, cfg, h, "fused_decode_layers_perlayer", step,
+                   cache)
+    for l in range(cache.k.shape[0]):
+        _attn_launches(op, cfg, h, step, cache, l, h, True)
+        _mlp_launches(op, cfg, h, l, h, True)
+        if extra_layer_fn is not None:
+            hb = extra_layer_fn(l, h.to(torch.bfloat16).reshape(B, 1, D))
+            h = hb.reshape(B, D).float().contiguous()
+    return h.to(torch.bfloat16).reshape(B, 1, D), cache
+
+
+def fused_decode_layers_perlayer_plain(params, cfg, inputs_embeds,
+                                       attention_mask, positions,
+                                       cache: KVCache, cache_index,
+                                       extra_layer_fn=None):
+    """:func:`fused_decode_layers_perlayer` through the plain halves, on
+    any device (the CPU path, and the card's comparisons)."""
+    B, _, D = inputs_embeds.shape
+    step = decode_step_inputs(cfg, attention_mask, positions, cache_index, B)
+    h = inputs_embeds.reshape(B, D).to(torch.bfloat16).float()
+    for l in range(cache.k.shape[0]):
+        h = h + attn_half_plain(params, cfg, h, step, cache, l)
+        h = h + mlp_half_plain(params, cfg, h, l)
+        if extra_layer_fn is not None:
+            hb = extra_layer_fn(l, h.to(torch.bfloat16).reshape(B, 1, D))
+            h = hb.reshape(B, D).float()
+    return h.to(torch.bfloat16).reshape(B, 1, D), cache

@@ -1,7 +1,8 @@
 """Where the time of the flagship ``generate()`` goes, on one GPU.
 
     python -m desta25_audio_tpu_torch.profile_generate [--batch 2] \
-        [--int8-encoder] [--int8-llm] [--speculative-k K] [--orca]
+        [--int8-encoder] [--int8-llm] [--speculative-k K] [--orca
+        [--float-stack] [--perlayer]]
 
 Builds the flagship configuration (configs/desta25_llama31-8B_Qformer6L.yaml,
 bf16, random weights from a seed, CharTokenizer; with ``--int8-encoder``
@@ -17,7 +18,12 @@ with one new token), and prefill + 31 greedy decode steps (with
 encoder, int8 LLM and int8 cross-attention stack
 (``apply_orca_xattn_quant``); perception then includes the local branch, a
 phase of its own times the audio K/V precompute, and the decode steps run
-the injection kernels (K8i).  For each phase it prints the wall
+the injection kernels (K8i).  ``--orca --float-stack`` keeps the f32
+stack (the injection in PyTorch between the layers of a torch layer loop);
+``--orca --perlayer`` keeps it too and sets the per-layer opt-in
+(``ops/fused_decode_tp.FUSED_PERLAYER``, the ``DESTA_FUSED_PERLAYER``
+path): the decode steps run the per-layer pair K9 with the PyTorch
+injection between layers.  For each phase it prints the wall
 time (host clock, device synchronised), the device busy time (sum of kernel
 times), the idle share, and the kernels by total device time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
@@ -42,6 +48,7 @@ from .data.tokenizer import CharTokenizer
 from .generate.decode import build_injection, llm_generate
 from .generate.speculative import left_aligned, llm_generate_spec
 from .models.desta import DeSTA25AudioModel
+from .ops import fused_decode_tp
 
 NEW_TOKENS = 32
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
@@ -105,7 +112,16 @@ def main() -> None:
     ap.add_argument("--orca", action="store_true",
                     help="the ORCA model at the serving setting (int8 "
                     "encoder, LLM and cross-attention stack)")
+    ap.add_argument("--float-stack", action="store_true",
+                    help="with --orca: keep the f32 cross-attention stack "
+                    "(the injection in PyTorch, a torch layer loop)")
+    ap.add_argument("--perlayer", action="store_true",
+                    help="with --orca: keep the f32 stack and decode through "
+                    "the per-layer pair K9 (DESTA_FUSED_PERLAYER)")
     args = ap.parse_args()
+    if (args.perlayer or args.float_stack) and not args.orca:
+        raise SystemExit("--float-stack and --perlayer profile the ORCA "
+                         "float-stack decode: add --orca")
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -118,7 +134,9 @@ def main() -> None:
         model.apply_inference_encoder_quant()
     if args.int8_llm or args.orca:
         model.apply_llm_quant()
-    if args.orca:
+    if args.perlayer:
+        fused_decode_tp.FUSED_PERLAYER = True
+    elif args.orca and not args.float_stack:
         model.apply_orca_xattn_quant()
         torch.cuda.empty_cache()
     rng = np.random.default_rng(0)

@@ -37,8 +37,10 @@ from .optimizer import apply_updates, flatten_tree, global_norm
 
 
 def check_trainable(config: DeSTA25Config, params: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for what the port cannot train yet."""
-    if config.is_orca:
+    """Raise NotImplementedError for what the port cannot train yet.  The
+    Q-Former ablation (``qformer_1`` with ``orca_enabled``) trains: it
+    builds no injection and adds ``qformer_aux_losses`` to the loss."""
+    if config.connector_mode == "orca_hybrid":
         raise NotImplementedError(
             "ORCA training (deep injection and its aux losses in the step) "
             "is not ported yet (ROADMAP.md Queue 1, item 1)")

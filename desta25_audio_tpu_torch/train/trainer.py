@@ -73,7 +73,7 @@ def check_trainer_config(tc: TrainerConfig) -> None:
         raise NotImplementedError(
             "multi-device training (mesh, tensor/pipeline/sequence "
             "parallelism, fsdp) is not ported yet (ROADMAP.md Queue 1, "
-            "item 4: multi-GPU)")
+            "item 5: multi-GPU)")
     if tc.num_workers > 0:
         raise NotImplementedError(
             "the prefetching loader (data/prefetch.py) is not ported yet "

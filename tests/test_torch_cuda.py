@@ -9,7 +9,10 @@ ORCA injection K8i at injection head dims 128 and 80 and 1 or 4 tokens per
 row, with a row that does not inject, and the requests it refuses; the
 flash attention K11, forward and backward, at the training shape, at a T
 that is not a multiple of its tile, bidirectional, with left and right
-padding).
+padding; the log-mel frontend K1 at 3000, a ragged 300, 37 and 2 frames;
+the per-layer decode pair K9's halves at 1, 3 and 17 rows, at a p = 2
+shard's shapes, its layer loop with a hook between layers, and the requests it
+refuses).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -474,3 +477,140 @@ def test_flash_attention_raises_on_what_it_does_not_take(gen):
     q = torch.zeros(1, 64, 4, 64, device="cuda")
     with pytest.raises(ValueError, match="bfloat16"):
         flash_attention(q, q, q, seg)
+
+
+# -- K1: the log-mel frontend ----------------------------------------------------
+
+# within 1e-4 after the clamp (tests/test_mel_pallas.py's bound), on noise
+# plus a tone: one clip of 3000 frames, a ragged 300 (not a multiple of the
+# 32-frame tile), 37 frames over three clips, and the 2-frame minimum
+@pytest.mark.parametrize("B,frames,n_mels", [(2, 3000, 128), (1, 300, 80),
+                                             (3, 37, 128), (1, 2, 80)])
+def test_log_mel_kernel(gen, B, frames, n_mels):
+    from desta25_audio_tpu_torch.audio.mel import log_mel, normalize_log_spec
+    from desta25_audio_tpu_torch.ops.mel import (log_mel_spec,
+                                                 log_mel_spec_plain)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = frames * 160
+    t = torch.arange(n, device="cuda") / 16000.0
+    audio = 0.3 * torch.randn(B, n, generator=gen, device="cuda")
+    audio[0] += 0.5 * torch.sin(2 * torch.pi * 523.0 * t)
+    _build.reset_launch_counts()
+    got = log_mel(audio, n_mels)
+    assert _build.launch_counts() == {"log_mel": 1}
+    assert got.shape == (B, frames, n_mels)
+    want = normalize_log_spec(log_mel_spec_plain(audio, n_mels))
+    assert float((got - want).abs().max()) < 1e-4
+    pre = log_mel_spec(audio, n_mels)
+    assert _rel(pre, log_mel_spec_plain(audio, n_mels)) < 1e-4
+
+
+def test_log_mel_raises_on_what_it_does_not_take(gen):
+    from desta25_audio_tpu_torch.ops.mel import log_mel_spec
+    with pytest.raises(ValueError, match="mels"):
+        log_mel_spec(torch.zeros(1, 1600, device="cuda"), 129)
+    with pytest.raises(ValueError, match="samples"):
+        log_mel_spec(torch.zeros(1, 160, device="cuda"), 80)
+
+
+# -- K9: the per-layer decode pair ------------------------------------------------
+
+def _k9_inputs(gen, cfg, B, S=256):
+    from desta25_audio_tpu_torch.ops.fused_decode_tp import (
+        decode_step_inputs)
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.randint(1, S, (B,), generator=gen, device="cuda")
+    ci[0] = S - 1
+    mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.2).int()
+    step = decode_step_inputs(cfg, mask, ci[:, None], ci, B)
+    h = torch.randn(B, cfg.hidden_size, generator=gen, device="cuda")
+    return cache0, ci, mask, step, h
+
+
+# each half against its plain version within the decode steps' 3e-2: one
+# row, three, and 17 (two passes of the fused-norm GEMV), grouped-query
+# ratios 2, 8 and 4, qk-norm, and a p = 2 shard's shapes
+@pytest.mark.parametrize("B,qk_norm,heads,p", [
+    (1, False, (4, 2), 1), (3, True, (8, 1), 1), (17, True, (16, 4), 1),
+    (3, False, (8, 4), 2),
+])
+def test_fused_tp_halves_kernel(gen, B, qk_norm, heads, p):
+    from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
+    H, Hkv = heads
+    cfg = dataclasses.replace(
+        llm_config_for("test/llama-nano128"), num_attention_heads=H,
+        num_key_value_heads=Hkv, qk_norm=qk_norm)
+    params = _tower(gen, cfg, int8=True)
+    cache0, ci, mask, step, h = _k9_inputs(gen, cfg, B)
+    if p > 1:                                # rank 1 of p
+        cache0 = ttp.shard_cache(cache0, cfg, p, 1)
+        params, cfg = ttp.shard_layers(params, cfg, p, 1)
+    for l in range(cfg.num_hidden_layers):
+        ck = KVCache(cache0.k.clone(), cache0.v.clone())
+        cp = KVCache(cache0.k.clone(), cache0.v.clone())
+        _build.reset_launch_counts()
+        ak = ttp.attn_half(params, cfg, h, step, ck, l)
+        mk = ttp.mlp_half(params, cfg, h, l)
+        assert _build.launch_counts() == {"fused_decode_tp_attn": 3,
+                                          "fused_decode_tp_mlp": 2}
+        assert ak.dtype == mk.dtype == torch.float32
+        assert _rel(ak, ttp.attn_half_plain(params, cfg, h, step, cp, l)) \
+            < 3e-2
+        assert _rel(mk, ttp.mlp_half_plain(params, cfg, h, l)) < 3e-2
+        rows = (l, torch.arange(B, device="cuda"), ci)
+        assert _rel(ck.k[rows], cp.k[rows]) < 3e-2
+        assert _rel(ck.v[rows], cp.v[rows]) < 3e-2     # bf16 of f32 sums
+        changed = (ck.k != cache0.k).any(-1)
+        expect = torch.zeros_like(changed)
+        expect[rows] = True
+        assert torch.equal(changed, expect)
+
+
+def test_fused_decode_layers_perlayer_kernel(gen):
+    from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
+    cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
+                              qk_norm=True)
+    params = _tower(gen, cfg, int8=True)
+    B = 3
+    cache0, ci, mask, _, _ = _k9_inputs(gen, cfg, B)
+    x = tllm.embed_tokens(params, torch.randint(
+        0, 512, (B, 1), generator=gen, device="cuda"))
+
+    def hook(l, hb):
+        return hb + (0.05 * (1 + l) * torch.tanh(hb.float())).to(hb.dtype)
+    ck = KVCache(cache0.k.clone(), cache0.v.clone())
+    cp = KVCache(cache0.k.clone(), cache0.v.clone())
+    _build.reset_launch_counts()
+    hk, _ = ttp.fused_decode_layers_perlayer(params, cfg, x, mask,
+                                             ci[:, None], ck, ci, hook)
+    L = cfg.num_hidden_layers
+    assert _build.launch_counts() == {"fused_decode_tp_attn": 3 * L,
+                                      "fused_decode_tp_mlp": 2 * L}
+    hp, _ = ttp.fused_decode_layers_perlayer_plain(params, cfg, x, mask,
+                                                   ci[:, None], cp, ci, hook)
+    assert hk.shape == (B, 1, cfg.hidden_size) and hk.dtype == torch.bfloat16
+    assert _rel(hk, hp) < 3e-2
+    assert torch.equal(ck.k != cache0.k, cp.k != cache0.k)
+
+
+def test_fused_tp_raises_on_what_it_does_not_take(gen):
+    from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
+    cfg = llm_config_for("test/llama-nano128")
+    params = _tower(gen, cfg, int8=True)
+    cache0, ci, mask, step, h = _k9_inputs(gen, cfg, 2)
+    with pytest.raises(ValueError, match="float32"):
+        ttp.attn_half(params, cfg, h.bfloat16(), step, cache0, 0)
+    with pytest.raises(ValueError, match="not int8"):
+        ttp.mlp_half(_tower(gen, cfg, int8=False), cfg, h, 0)
+    big = tllm.init_kv_cache(cfg, 2, 32768, torch.bfloat16, "cuda")
+    bstep = ttp.decode_step_inputs(
+        cfg, torch.ones(2, 32768, dtype=torch.int32, device="cuda"),
+        ci[:, None], ci, 2)
+    # the dispatch predicate refuses it; called anyway, the kernel's entry
+    # point refuses it with an error status
+    assert any("shared memory" in r
+               for r in ttp.perlayer_limits(params, cfg, big, 2))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ttp.attn_half(params, cfg, h, bstep, big, 0)

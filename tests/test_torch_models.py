@@ -191,7 +191,7 @@ def test_llm_prefill_and_decode_match(model_id):
     full[:, :T] = am
     pos = np.maximum(np.cumsum(am, 1) - 1, 0)
     jcache = jl.init_kv_cache(cfg, B, S, dtype=jnp.float32)
-    tcache = tl.init_kv_cache(tcfg, B, S, dtype=torch.float32)
+    tcache = tl.init_kv_cache(tcfg, B, S, dtype=torch.float32, device="cpu")
     want, jcache, _ = jl.llm_apply(
         jp, cfg, input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(full),
         positions=jnp.asarray(pos), cache=jcache, cache_index=0)

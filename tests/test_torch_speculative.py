@@ -9,7 +9,8 @@
   JAX's spec loop (the nano config and seed of tests/test_speculative.py);
   tiny-temperature sampling equal to greedy.
 - ``generate(speculative_k=4)`` equal to ``speculative_k=0`` on the audio and
-  the text-only paths, and the request limits of the verify kernel.
+  the text-only paths, and the request limits of the verify kernel: past
+  them ``generate()`` decodes one token a step and keeps the reasons.
 """
 
 import jax
@@ -264,13 +265,25 @@ def test_spec_request_limits(wav):
     f32 = DeSTA25AudioModel(DeSTA25Config(**{**NANO, "dtype": "float32"}),
                             device="cpu", seed=0)
     msgs = [{"role": "user", "content": "hi"}]
-    with pytest.raises(ValueError, match="bfloat16"):
-        f32.generate(msgs, max_new_tokens=2, speculative_k=4)
+    # a request the verify kernel cannot take decodes one token a step, as
+    # the JAX package's _spec_eligible falls back, with the reasons kept
+    plain = f32.generate(msgs, do_sample=False, max_new_tokens=3)
+    assert f32.last_spec_fallback == []
+    got = f32.generate(msgs, do_sample=False, max_new_tokens=3,
+                       speculative_k=4)
+    assert got.generated_ids == plain.generated_ids
+    assert "spec_tokens" not in f32.last_timings
+    assert any("bfloat16" in r for r in f32.last_spec_fallback)
     assert len(f32.generate(msgs, max_new_tokens=2, speculative_k=1)
                .generated_ids[0]) == 2                  # < 2: plain loop
+    assert f32.last_spec_fallback == []
     model = DeSTA25AudioModel(DeSTA25Config(**NANO), device="cpu", seed=0)
-    with pytest.raises(ValueError, match="tokens per row"):
-        model.generate(msgs, max_new_tokens=2, speculative_k=9)
+    got = model.generate(msgs, do_sample=False, max_new_tokens=2,
+                         speculative_k=9)
+    assert got.generated_ids == model.generate(
+        msgs, do_sample=False, max_new_tokens=2).generated_ids
+    model.generate(msgs, do_sample=False, max_new_tokens=2, speculative_k=9)
+    assert any("tokens per row" in r for r in model.last_spec_fallback)
     cfg, p = model.llm_cfg, model.params["llm"]
     assert spec_generate_supported(p, cfg, 2, 256, 4)
     assert not spec_generate_supported(p, cfg, 2, 256, 4, torch.float32)

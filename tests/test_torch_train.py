@@ -273,14 +273,15 @@ def test_collate_matches_jax(corpus):
 
 # -- the nano train step against JAX's make_train_step -------------------------
 
-def _step_pair(corpus, dtype, monkeypatch):
+def _step_pair(corpus, dtype, monkeypatch, max_seq_length=512, **extra):
     """Three train steps of the JAX package (K11 in interpret mode) and of
-    the port (remat on) on the same collated batch and bridged params.
-    Returns (JAX metrics, port metrics, JAX trainable, port trainable, JAX
-    connector before the steps, the connector gradients of each step on
-    each side as (JAX, port), K11 uses on each side)."""
-    nano = dict(NANO, dtype=dtype)
-    kw = _data_kwargs(corpus, batch_size=2, max_seq_length=512)
+    the port (remat on) on the same collated batch and bridged params, with
+    ``extra`` config fields.  Returns (JAX metrics, port metrics, JAX
+    trainable, port trainable, JAX connector before the steps, the
+    connector gradients of each step on each side as (JAX, port), K11 uses
+    on each side)."""
+    nano = dict(NANO, dtype=dtype, **extra)
+    kw = _data_kwargs(corpus, batch_size=2, max_seq_length=max_seq_length)
     jm = JaxModel(JaxConfig(**nano), seed=0)
     init = jax.tree.map(np.array, jm.params["connector"])  # steps donate it
     cfg = DeSTA25Config(**nano)
@@ -400,6 +401,25 @@ def test_nano_train_step_matches_jax(corpus, monkeypatch):
     assert n_free <= FREE_SHARE * n_all, (n_free, n_all)     # 1.95 % here
 
 
+def test_nano_qformer_ablation_step_matches_jax(corpus, monkeypatch):
+    """The Q-Former ablation (``qformer_1`` with ``orca_enabled``) trains
+    with its aux losses, as JAX's ``make_train_step`` does; T = 96 takes the
+    masked attention path on both sides."""
+    aux = ("L_ortho_diversity", "L_align", "L_align_contrastive",
+           "L_align_target", "sim_trans", "sim_target")
+    jms, tms, *_, uses = _step_pair(
+        corpus, "float32", monkeypatch, max_seq_length=96, orca_enabled=True,
+        orca_ortho_diversity_weight=0.3, orca_align_weight_local=0.7)
+    assert uses == {"jax": 0, "port": 0}
+    for j, t in zip(jms, tms):
+        assert sorted(t) == sorted(j)
+        assert all(k in t for k in aux), sorted(t)
+        for k in ("lm_loss", "loss", "grad_norm") + aux:
+            assert abs(t[k] - j[k]) <= 1e-4 * abs(j[k]), (k, t[k], j[k])
+        assert t["loss"] > t["lm_loss"]          # the aux losses count
+    assert tms[0]["loss"] == tms[1]["loss"]      # lr 0 at count 0
+
+
 def test_nano_train_step_bf16_matches_jax(corpus, monkeypatch):
     jms, tms, *_, uses = _step_pair(corpus, "bfloat16", monkeypatch)
     assert uses["jax"] > 0 and uses["port"] > 0
@@ -507,7 +527,7 @@ def test_cli_trains_the_debug_config(corpus, tmp_path):
     out = apply_overrides({}, ["+dataset=debug", "trainer.max_steps=3"],
                           config_dir="configs")
     assert out["dataset"]["validation_ds"]["max_seq_length"] == 512
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
         main(["--config", "configs/desta25_debug.yaml", "--device", "cpu",
               f"exp_dir={exp}", "init_from_pretrained_weights=/x"])
 
