@@ -92,6 +92,33 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 20. ``generate(speculative_k=4)`` at b2: the verify step with injection
     must launch; its first step's position-0 logits against one K8i decode
     step on the same cache, within TOL_DECODE;
+20a. the all-reduce of tensor-parallel partial sums (``tp_allreduce``,
+    ``csrc/tp_allreduce.cu``) alone, at p = 2 and 4 virtual ranks of the
+    card and R = 2 and 8 rows of D = 4096: every rank's int8 peer-store GEMM
+    (the wo shape at p) into every rank's buffer, then every rank's
+    all-reduce; every rank's residual bit-identical to the plain reduce,
+    10 rounds on one stream and 200 with a stream per rank; the reduce's
+    time, the plain version's, the bound;
+20b. the prefill under a (1, 2) mesh against the unsharded one: layer 0's
+    wo / down products at M = 296 (W8A8) and M = 100 (K7) within
+    TOL_MESH_QMM, each beside a control (a rank-local amax, a dropped
+    partial) that must read above it; where the 2-layer prefills part
+    (layer 0's q/k/v, heads, wo output; information); the 2-layer logits
+    within TOL_MESH_PREFILL; then K10 (``fused_decode_layers_mesh``) against its
+    plain version on the model's int8 LLM at p = 2 and 4: 2 layers within
+    TOL_MESH (the control, a dropped partial, above it), the written cache
+    rows, every rank's residual equal bit for bit, one stream and a stream
+    per rank equal, and at p = 2 against the unsharded K8-int8 step; 32
+    layers as information (error, ms/step both ways, plain, bound); Kd = 4
+    verify, K8i with a random int8 ORCA stack, a random 2-layer bf16 tower
+    at p = 2, and a (2, 2) mesh (a "data" axis), gated alike;
+20c. the model's int8 LLM cut for a (1, 2) mesh of virtual ranks
+    (``apply_llm_sharding``): ``generate()`` b2 under ``use_mesh``, greedy,
+    32 new tokens: K10 and ``tp_allreduce`` launch, K8-int8 does not; the
+    teacher-forced per-step logits against the unsharded LLM's within
+    TOL_MESH_GEN (the control, a dropped partial, above it); ms/step beside an unsharded run's (virtual ranks share
+    one card: no tensor-parallel speed); ``speculative_k=4`` under the mesh
+    launches the tensor-parallel verify step; the cut copy is freed;
 21. K11, the flash attention of the training forward, forward and backward
     against ``flash_attention_plain`` (output and dq/dk/dv, all rows, tol
     TOL_FLASH) at B=4, T=512, H=32, Hkv=8, Dh=128, causal, one row
@@ -123,12 +150,20 @@ against ``scaled_dot_product_attention``), else null.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --mesh-only
+
+runs phases 1-3 and 20a-20c alone, on the flagship model built with the
+int8 LLM (work on the tensor-parallel path); ``--mesh-only --cards`` puts
+the ranks on distinct cards (p = 2 and 4: four cards, peer access over
+NVLink) instead of virtual ranks of the first.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib.util
 import json
@@ -160,6 +195,32 @@ TOL_FLASH = 2e-2     # K11 forward and backward: bf16 outputs of f32 sums;
 TOL_MEL = 1e-4       # K1, max |kernel - plain| after the clip-wide clamp
                      # (absolute), on noise plus a tone: the bound of
                      # tests/test_mel_pallas.py:40
+TOL_MESH = 2e-2      # K10 vs its plain version, 2-layer logits: at p = 2
+                     # K10 equals the unsharded K8 step bit for bit, so the
+                     # spread is K8's own kernel-vs-plain one (readings
+                     # <= 9.5e-3, bf16 tower); each check also prints its
+                     # control, the plain version with one rank's partial
+                     # dropped, which must read above the gate
+TOL_MESH_QMM = 1e-4  # the prefill's wo / down products under a mesh vs the
+                     # unsharded product, f32 (W8A8 at M = 296, K7 at
+                     # M = 100): exact int32 sums resp. f32 sums in another
+                     # order; controls: a rank-local amax, a dropped partial
+TOL_MESH_PREFILL = 1e-1  # the 2-layer prefill under a mesh vs the
+                     # unsharded one: layer 0's q/k/v and heads equal bit for
+                     # bit at W8A8 (K7 splits K by its column count, so its
+                     # shards round otherwise), the wo / down sums flip a
+                     # few bf16 roundings, and W8A8 turns a flip across an
+                     # int8 code into a whole step: readings <= 2.5e-2, the
+                     # unsharded prefill with its input moved one ulp at the
+                     # flipped elements alike; control, a dropped partial,
+                     # ~1.2 (the rank-local amax: TOL_MESH_QMM's leg)
+TOL_MESH_GEN = 2.5e-1  # generate() under a mesh, teacher-forced logits vs
+                     # the unsharded LLM's through 32 random layers: the
+                     # ranks' partial sums reassociate every wo / down
+                     # product, and 32 random layers amplify one input ulp
+                     # alone to ~4.5e-2; readings <= 1.36e-1 (the prefill
+                     # position); the control, the prefill with one rank's
+                     # partial dropped, must read above the gate
 TOL_MEL_WAV = 1e-3   # K1 on the synthetic WAVs zero-padded to 30 s: a bin
                      # near the clamp floor keeps an absolute f32 error of
                      # ~eps * sum|terms| in its DFT sum, which log10 turns
@@ -224,6 +285,13 @@ SOURCES = {
     "fused_decode_tp_mlp": (
         "desta25_audio_tpu_torch/csrc/fused_decode_tp.cu",
         "desta25_audio_tpu/ops/fused_decode_tp.py:467"),
+    # K10: K8's kernels per shard, wo / down through the peer-store GEMM
+    "fused_decode_layers_mesh": (
+        "desta25_audio_tpu_torch/csrc/fused_decode.cu",
+        "desta25_audio_tpu/ops/fused_decode_mesh.py:162"),
+    "tp_allreduce": (
+        "desta25_audio_tpu_torch/csrc/tp_allreduce.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:673"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("log_mel", "packed_encoder_attention", "encoder_ffn",
@@ -236,6 +304,9 @@ ORCA_PATH = ("fused_decode_inject", "fused_decode_layers_int8",
              "encoder_ffn_w8a8", "log_mel")
 # the per-layer pair K9 (phase 18, opt-in float-stack ORCA decode)
 K9_HALVES = ("fused_decode_tp_attn", "fused_decode_tp_mlp")
+# what generate() under a (1, 2) mesh must launch (phase 20c)
+MESH_PATH = ("fused_decode_layers_mesh", "tp_allreduce", "quant_matmul",
+             "w8a8_matmul", "log_mel")
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -1580,6 +1651,629 @@ def run_orca(model, convs, gpu):
     return launched, k9_counts
 
 
+def phase_mesh(p: int, cards: bool, n_data: int = 1):
+    """An (n_data, p) mesh: n_data * p virtual ranks on the first card, or
+    with ``cards`` one rank on each of the first n_data * p cards."""
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh
+    n = n_data * p
+    return make_mesh(n_data=n_data, n_model=p,
+                     devices=[f"cuda:{i}" for i in range(n)]
+                     if cards else ["cuda:0"] * n)
+
+
+def check_tp_allreduce(gen, cards: bool, rounds: int = 200):
+    """Phase 20a: the all-reduce alone, at p = 2 and 4 virtual ranks, R = 2
+    and 8 rows, D = 4096, bf16 residuals.  Each round: every rank's producer
+    (the int8 peer-store GEMM of x [R, 4096/p] with its own weight shard,
+    the wo shape of Llama-3.1-8B) stores its partial into every rank's
+    buffer, then every rank's all-reduce adds the sum into its residual.
+    Checked: every rank's buffer holds the same partials, each partial
+    within TOL_QMM of the plain product, and every rank's residual
+    bit-identical to ``allreduce_plain`` on those partials.  10 rounds on
+    the caller's stream (serial), then ``rounds`` rounds with each rank on
+    its own stream (concurrent), inputs fresh every round, the slot
+    alternating.  Returns the JSON row of the p=2, R=2 all-reduce (the
+    generate() shape): error, the reduce's time, the plain version's, the
+    bound (p partials read, h read and written)."""
+    import torch
+    from desta25_audio_tpu_torch.ops.qmm import qmm_plain
+    from desta25_audio_tpu_torch.ops.tp_allreduce import (MeshBuffers,
+                                                          allreduce_plain)
+    from desta25_audio_tpu_torch.parallel.mesh import on_device
+    D, row = 4096, None
+    for p in (2, 4):
+        mesh = phase_mesh(p, cards)
+        mesh.enable_peer_access()
+        devs = mesh.devices[0]
+        dev0, cur = devs[0], torch.cuda.current_stream(devs[0])
+        curs = [torch.cuda.current_stream(d) for d in devs]
+        K = 4096 // p
+        ws = [{k: v.to(d) for k, v in _int8_leaf(gen, D, K,
+                                                  bias=False).items()}
+              for d in devs]
+        for R in (2, 8):
+            bufs = MeshBuffers(devs, R, D)
+            worst_part, worst_h, n_checked = 0.0, 0.0, 0
+            for mode, n in (("serial", 10), ("concurrent", rounds)):
+                streams = curs if mode == "serial" else mesh.streams()[0]
+                for i in range(n):
+                    slot = i % 2
+                    xs = [torch.randn(R, K, generator=gen, device="cuda").to(
+                        d, torch.bfloat16) for d in devs]
+                    h0 = torch.randn(R, D, generator=gen, device="cuda").to(
+                        dev0, torch.bfloat16)
+                    hs = [h0.to(d, copy=True) for d in devs]
+                    for st, c in zip(streams, curs):
+                        if st != c:
+                            st.wait_stream(c)
+                    epoch = bufs.next_round()
+                    for m, d in enumerate(devs):
+                        with on_device(d):
+                            bufs.store(m, slot, epoch, xs[m], ws[m]["q"],
+                                       ws[m]["s"], "tp_allreduce_store",
+                                       streams[m].cuda_stream)
+                    for m, d in enumerate(devs):
+                        with on_device(d):
+                            bufs.reduce(m, slot, epoch, hs[m],
+                                        streams[m].cuda_stream)
+                    for st, c in zip(streams, curs):
+                        if st != c:
+                            c.wait_stream(st)
+                    bufs.check_timeouts("tp_allreduce")
+                    parts = list(bufs.rbuf[0][slot])
+                    for r in range(1, p):
+                        if not torch.equal(bufs.rbuf[r][slot].to(dev0),
+                                           bufs.rbuf[0][slot]):
+                            raise AssertionError(
+                                f"tp_allreduce p={p} R={R} {mode}: rank {r} "
+                                "received other partials than rank 0")
+                    want = allreduce_plain(parts, [h0])[0]
+                    for m in range(p):
+                        got = hs[m].to(dev0)
+                        worst_h = max(worst_h, rel_err(got, want)[0])
+                        if not torch.equal(got, want):
+                            raise AssertionError(
+                                f"tp_allreduce p={p} R={R} {mode} round {i}: "
+                                f"rank {m}'s residual is not bit-identical to "
+                                "the plain reduce")
+                    if i == 0:
+                        for m in range(p):
+                            worst_part = max(worst_part, rel_err(
+                                parts[m], qmm_plain(
+                                    xs[m], ws[m]["q"], ws[m]["s"],
+                                    torch.float32).to(dev0))[1])
+                    n_checked += 1
+            if worst_part > TOL_QMM:
+                raise AssertionError(f"tp_allreduce p={p} R={R}: a partial "
+                                     f"disagrees with plain: {worst_part}")
+            # time one rank's reduce on published flags (no wait), beside
+            # the plain version's, on the last round's partials
+            h = hs[0].clone()
+            ms = cuda_time_ms(lambda: bufs.reduce(0, slot, epoch, h,
+                                                  cur.cuda_stream), iters=20)
+            plain_ms = cuda_time_ms(lambda: allreduce_plain(parts, [h]),
+                                    iters=20)
+            b_ms, b_by = bound(p * R * D * 4 + 2 * R * D * 2, p * R * D,
+                               "f32")
+            print(f"tp_allreduce p={p} R={R} D={D} on {mesh} "
+                  f"({gpu_line()}): {n_checked} rounds (10 serial, {rounds} "
+                  f"concurrent on {p} streams), every rank's residual bit-identical to the "
+                  f"plain reduce (max_abs_err {worst_h:.3e}), partials vs "
+                  f"plain rel <= {worst_part:.3e} (tol {TOL_QMM}); reduce "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                  f"({b_by})", flush=True)
+            if (p, R) == (2, 2):
+                row = (worst_h, ms, plain_ms, b_ms, b_by, None)
+            del bufs
+    return row
+
+
+def _mesh_logits(params, cfg, h):
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.core import rms_norm
+    return tllm.head_logits(params, rms_norm(params["norm"], h,
+                                             cfg.rms_norm_eps))
+
+
+def _drop_last_partial(parts, hs):
+    """A control: ``allreduce_plain`` with the last rank's partial left
+    out."""
+    import torch
+    from desta25_audio_tpu_torch.ops.tp_allreduce import allreduce_plain
+    return allreduce_plain([*parts[:-1], torch.zeros_like(parts[-1])], hs)
+
+
+def control_rank_sum(fault: str):
+    """``models/llm._rank_sum`` with one fault, for the gates' controls:
+    "drop" leaves the last rank's partial out; "local_amax" quantizes each
+    rank's W8A8 rows with the amax of its own columns (the fault that the
+    ``row_amax`` argument prevents)."""
+    import torch
+    from desta25_audio_tpu_torch.ops.core import matmul_f32
+    from desta25_audio_tpu_torch.ops.qmm import W8A8_MIN_ROWS, quant_matmul
+    from desta25_audio_tpu_torch.ops.quant import is_quantized
+    from desta25_audio_tpu_torch.parallel.mesh import on_device
+
+    def rank_sum(ws, xs, l, device):
+        amax = None
+        if (fault != "local_amax" and is_quantized(ws[0])
+                and xs[0][..., :1].numel() >= W8A8_MIN_ROWS):
+            amax = torch.stack([x.float().abs().amax(-1, keepdim=True).to(
+                device) for x in xs]).amax(0)
+        n = len(ws) - 1 if fault == "drop" else len(ws)
+        tot = None
+        for w, x in list(zip(ws, xs))[:n]:
+            with on_device(x.device):
+                if is_quantized(w):
+                    part = quant_matmul(
+                        x, {"q": w["q"][l], "s": w["s"][l]}, torch.float32,
+                        row_amax=None if amax is None else amax.to(x.device))
+                else:
+                    part = matmul_f32(x, w[l].t())
+            tot = part.to(device) if tot is None else tot + part.to(device)
+        return tot
+    return rank_sum
+
+
+def check_mesh_step(params, cfg, gen, p: int, cards: bool, kd: int = 1,
+                    ci=(100, 200), tag="K10", inject=None, vs_k8=False,
+                    n_data: int = 1):
+    """One K10 decode (kd = 1) or verify step on ``params`` (its layer count
+    taken from the tree) on an (n_data, p) mesh, B=2, S=256, per-row ci,
+    row 0 left-padded, against its plain version: logits within TOL_MESH
+    (and the control, the plain version with one rank's partial dropped,
+    above it), the written cache rows within TOL_DECODE of the plain
+    version's and no other row changed, every rank's residual equal bit for
+    bit to its group's first, the serial launch order's residual equal to
+    the concurrent one's; with ``vs_k8`` the logits also against one K8
+    step (p = 1) on the unsharded tree within TOL_DECODE.  Returns
+    (max_abs_err, rel, the unsharded K8 rel or None, the control's rel)."""
+    import torch
+    from unittest import mock
+    from desta25_audio_tpu_torch.ops import fused_decode_mesh as fdm
+    from desta25_audio_tpu_torch.ops.fused_decode import (fused_decode_layers,
+                                                         fused_verify_layers)
+    from desta25_audio_tpu_torch.parallel.mesh import use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import (
+        apply_llm_sharding, gather_cache, shard_kv_cache)
+    L = params["layers"]["ln1"]["scale"].shape[0]
+    inputs = decode_inputs(params, cfg, gen, kd, ci)
+    ci, cache0, mask, positions, x = inputs
+    cache0 = fresh_cache(cache0, 0, L)
+    mesh = phase_mesh(p, cards, n_data)
+    with use_mesh(mesh):
+        sp = apply_llm_sharding(params, cfg, mesh)
+        caches = [shard_kv_cache(cache0, cfg, mesh) for _ in range(4)]
+        groups = fdm.mesh_step_ranks(sp, cfg, x, mask, positions, caches[0],
+                                     ci, inject=inject)
+        kern = (fdm.fused_decode_layers_mesh if kd == 1
+                else fdm.fused_verify_layers_mesh)
+        hser, _ = kern(sp, cfg, x, mask, positions, caches[1], ci,
+                       inject=inject, serial=True)
+        plain = functools.partial(fdm.fused_decode_layers_mesh_plain, sp,
+                                  cfg, x, mask, positions)
+        hp, _ = plain(caches[2], ci, inject=inject)
+        with mock.patch.object(fdm, "allreduce_plain", _drop_last_partial):
+            hc, _ = plain(caches[3], ci, inject=inject)
+    for g, hs in enumerate(groups):
+        for m, h in enumerate(hs[1:], 1):
+            if not torch.equal(h.to(hs[0].device), hs[0]):
+                raise AssertionError(f"{tag} p={p}: rank ({g}, {m})'s "
+                                     "residual differs from its group's "
+                                     "first")
+    h0 = torch.cat([hs[0].to(x.device) for hs in groups])
+    if not torch.equal(hser, h0):
+        raise AssertionError(f"{tag} p={p}: the serial and concurrent launch "
+                             "orders disagree")
+    want = _mesh_logits(params, cfg, hp)
+    err, rel = rel_err(_mesh_logits(params, cfg, h0), want)
+    ctl = rel_err(_mesh_logits(params, cfg, hc), want)[1]
+    got, ref = gather_cache(caches[0]), gather_cache(caches[2])
+    check_written_rows(got, cache0, ci, kd, tag)
+    row_rel = max(rel_err(getattr(got, side)[:, b, int(ci[b]):int(ci[b]) + kd],
+                          getattr(ref, side)[:, b, int(ci[b]):int(ci[b]) + kd]
+                          )[1] for b in range(2) for side in ("k", "v"))
+    k8 = None
+    if vs_k8:
+        fn = fused_decode_layers if kd == 1 else fused_verify_layers
+        h8, _ = fn(params, cfg, x, mask, positions, fresh_cache(cache0, 0, L),
+                   ci, inject=inject)
+        k8 = rel_err(_mesh_logits(params, cfg, h0),
+                     _mesh_logits(params, cfg, h8))[1]
+    print(f"{tag} ({n_data}, {p}) mesh L={L} B=2 Kd={kd} S=256 "
+          f"ci={ci.tolist()}: logits vs plain max_abs_err={err:.3e} "
+          f"rel={rel:.3e} (tol {TOL_MESH}; control, one rank's partial "
+          f"dropped: {ctl:.3e}); written k/v rows rel={row_rel:.3e} (tol "
+          f"{TOL_DECODE}), no other row changed; every group's ranks' "
+          f"residuals bit-identical; serial == concurrent"
+          + ("" if k8 is None else f"; vs the unsharded K8 step rel="
+             f"{k8:.3e} (tol {TOL_DECODE})"), flush=True)
+    if rel > TOL_MESH or max(row_rel, k8 or 0.0) > TOL_DECODE:
+        raise AssertionError(f"{tag} p={p} disagrees: logits {rel}, rows "
+                             f"{row_rel}, vs K8 {k8}")
+    if ctl <= TOL_MESH:
+        raise AssertionError(f"{tag} p={p}: the gate cannot see a dropped "
+                             f"partial ({ctl})")
+    del sp, caches
+    return err, rel, k8, ctl
+
+
+def _prefill_layer0(tree, cfg, ids, mask, mesh=None):
+    """Layer 0 of the prefill of ``ids`` on ``tree`` (unsharded, or cut for
+    ``mesh``), the intermediates ``models/llm.py`` computes: the q/k/v
+    projection and the attention heads (per rank, put back in the unsharded
+    column order), the wo output rounded to bf16 and the residual after
+    the attention."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.core import index_tree, rms_norm
+    from desta25_audio_tpu_torch.ops.rope import llm_rope_cos_sin
+    from desta25_audio_tpu_torch.parallel.mesh import on_device, use_mesh
+    B, T = ids.shape
+    S = mask.shape[1]
+    ci = torch.zeros(B, dtype=torch.long, device=ids.device)
+    q_pos = torch.arange(T, device=ids.device)[None, :].expand(B, T)
+    amask = ((torch.arange(S, device=ids.device)[None, None, :]
+              <= q_pos[:, :, None]) & (mask[:, None, :] > 0))[:, None]
+    cos, sin = llm_rope_cos_sin(cfg, q_pos)
+    x = tllm.embed_tokens(tree, ids)
+    xn = rms_norm(index_tree(tree["layers"]["ln1"], 0), x, cfg.rms_norm_eps)
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(use_mesh(mesh))
+        cache = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+        if mesh is None:
+            lays, caches, lcfg = [tree["layers"]], [cache], cfg
+            devs = [x.device]
+        else:
+            lays = [r["layers"] for r in tree.ranks[0]]
+            caches, lcfg = cache.shards[0], tree.local_cfg
+            devs = mesh.devices[0]
+        qkv, heads = [], []
+        for lp, c, dev in zip(lays, caches, devs):
+            with on_device(dev):
+                xd = xn.to(dev)
+                qkv.append(tllm._linear(lp["wqkv"], xd, 0).to(x.device))
+                heads.append(tllm._attention_heads(
+                    lp, xd, cos.to(dev), sin.to(dev), amask.to(dev), lcfg, 0,
+                    c, ci.to(dev), mask.to(dev)))
+        if mesh is None:
+            out = tllm._linear(lays[0]["wo"], heads[0], 0)
+        else:
+            out = tllm._rank_sum([lp["wo"] for lp in lays], heads, 0,
+                                 x.device).to(x.dtype)
+    heads = [h.to(x.device) for h in heads]
+    HD = lcfg.num_attention_heads * lcfg.head_dim
+    KVD = lcfg.num_key_value_heads * lcfg.head_dim
+    split = [(t[..., :HD], t[..., HD:HD + KVD], t[..., HD + KVD:])
+             for t in qkv]
+    qkv = torch.cat([torch.cat([s[i] for s in split], -1) for i in range(3)],
+                    -1)
+    return qkv, torch.cat(heads, -1), out, x + out
+
+
+def _ndiff(a, b) -> str:
+    """How many elements of two bf16 tensors differ, and by how much."""
+    n = int((a != b).sum())
+    d = (a.float() - b.float()).abs().max().item()
+    return f"{n} of {a.numel()} differ (max {d:.3e})"
+
+
+def check_mesh_prefill(params, cfg, gen, cards: bool, p: int = 2):
+    """The prefill under a mesh (``models/llm.py``'s per-rank layer loop)
+    against the unsharded one on ``params``, in three legs.  (1) The wo and
+    down products of layer 0 through ``_rank_sum`` against the unsharded
+    product, both f32, at M = 296 (W8A8, each row quantized with the
+    amax of the whole row) and M = 100 (K7): within TOL_MESH_QMM, with
+    their controls (a rank-local amax, a dropped partial) above it.  (2)
+    Where the two prefills part: layer 0's q/k/v, heads and wo output,
+    and the residual after it, element by element (information).  (3) B=2
+    rows of T=148 and T=50 random ids through 2 layers, logits at every
+    position within TOL_MESH_PREFILL, and the control (one rank's partial
+    dropped) above it, beside the unsharded prefill with its input moved
+    by one ulp where layer 0's residual differs.  Returns the worse rel of
+    (3)."""
+    import torch
+    from unittest import mock
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.qmm import quant_matmul
+    from desta25_audio_tpu_torch.parallel.mesh import use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import apply_llm_sharding
+    cfg = dataclasses.replace(
+        cfg, num_hidden_layers=params["layers"]["ln1"]["scale"].shape[0])
+    mesh = phase_mesh(p, cards)
+    with use_mesh(mesh):
+        sp = apply_llm_sharding(params, cfg, mesh)
+    ranks = [r["layers"] for r in sp.ranks[0]]
+    for key in ("wo", "w_down"):
+        w = params["layers"][key]
+        K = w["q"].shape[-1]
+        for M in (296, 100):
+            x = torch.randn(M, K, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            xs = list(x.chunk(p, -1))
+            ws = [r[key] for r in ranks]
+            want = quant_matmul(x, {"q": w["q"][0], "s": w["s"][0]},
+                                torch.float32)
+            rel = rel_err(tllm._rank_sum(ws, xs, 0, x.device), want)[1]
+            fault = "local_amax" if M == 296 else "drop"
+            ctl = rel_err(control_rank_sum(fault)(ws, xs, 0, x.device),
+                          want)[1]
+            leg = "W8A8" if M == 296 else "K7"
+            print(f"prefill {key} under a (1, {p}) mesh, {leg} M={M} K={K}: "
+                  f"the ranks' f32 sum vs the unsharded product rel="
+                  f"{rel:.3e} (tol {TOL_MESH_QMM}); control, "
+                  f"{fault.replace('_', ' ')}: {ctl:.3e}", flush=True)
+            if rel > TOL_MESH_QMM:
+                raise AssertionError(f"prefill {key} {leg} under a mesh "
+                                     f"disagrees: {rel}")
+            if ctl <= TOL_MESH_QMM:
+                raise AssertionError(f"prefill {key} {leg}: the gate cannot "
+                                     f"see a {fault}: {ctl}")
+    worst = 0.0
+    for T in (148, 50):
+        ids = torch.randint(0, cfg.vocab_size, (2, T), generator=gen,
+                            device="cuda")
+        mask = torch.ones(2, 256, dtype=torch.int32, device="cuda")
+        mask[0, :10] = 0                      # row 0: left padding of 10
+        a = _prefill_layer0(params, cfg, ids, mask)
+        b = _prefill_layer0(sp, cfg, ids, mask, mesh)
+        print(f"prefill under a (1, {p}) mesh, layer 0, B=2 T={T} "
+              f"({'W8A8' if T == 148 else 'K7'}) against the unsharded: "
+              f"q/k/v {_ndiff(b[0], a[0])}; heads {_ndiff(b[1], a[1])}; wo "
+              f"output {_ndiff(b[2], a[2])}; residual {_ndiff(b[3], a[3])} "
+              f"(information)", flush=True)
+
+        def logits(tree, emb=None):
+            cache = tllm.init_kv_cache(cfg, 2, 256, torch.bfloat16, "cuda")
+            return tllm.llm_apply(
+                tree, cfg, inputs_embeds=tllm.embed_tokens(tree, ids)
+                if emb is None else emb, attention_mask=mask, cache=cache,
+                cache_index=0)[0]
+        want = logits(params)
+        # how far one-ulp flips move these logits: the unsharded prefill
+        # with its input moved by one bf16 ulp where layer 0's residual
+        # differs under the mesh
+        emb = tllm.embed_tokens(params, ids).clone()
+        emb.view(torch.int16)[b[3] != a[3]] += 1
+        ulp = rel_err(logits(params, emb)[:, 10:], want[:, 10:])[1]
+        with use_mesh(mesh):
+            got = logits(sp)
+            with mock.patch.object(tllm, "_rank_sum",
+                                   control_rank_sum("drop")):
+                bad = logits(sp)
+        rel = rel_err(got[:, 10:], want[:, 10:])[1]
+        ctl = rel_err(bad[:, 10:], want[:, 10:])[1]
+        worst = max(worst, rel)
+        print(f"prefill under a (1, {p}) mesh, 2 layers, B=2 T={T} "
+              f"({'W8A8' if T == 148 else 'K7'}): logits vs the unsharded "
+              f"prefill rel={rel:.3e} (tol {TOL_MESH_PREFILL}; control, one rank's "
+              f"partial dropped: {ctl:.3e}; the unsharded prefill with its "
+              f"input moved by one ulp at those {int((b[3] != a[3]).sum())} "
+              f"residual elements: {ulp:.3e})", flush=True)
+        if ctl <= TOL_MESH_PREFILL:
+            raise AssertionError(f"the prefill check cannot see a dropped "
+                                 f"partial: {ctl}")
+    if worst > TOL_MESH_PREFILL:
+        raise AssertionError(f"the prefill under a mesh disagrees: {worst}")
+    return worst
+
+
+def check_fused_mesh(qllm, cfg, gen, cards: bool):
+    """Phase 20b: the prefill under a (1, 2) mesh against the unsharded one
+    (check_mesh_prefill); K10 against its plain version on the int8
+    Llama-3.1-8B tower at p = 2 and 4 virtual ranks: 2 layers gated
+    (check_mesh_step,
+    and at p = 2 against the unsharded K8-int8 step), then all 32 layers as
+    information (the error, the step times with each rank on its own stream
+    and with every rank on one, the plain version's, the bound of the
+    unsharded step's work); Kd = 4 verify at p = 2, K8i with a random int8
+    ORCA stack (Ta = 375) at p = 2, a random 2-layer bf16 tower at p = 2,
+    and the int8 tower on a (2, 2) mesh (two model groups, one batch row
+    each), each gated as the 2-layer decode.  Returns the JSON row of K10
+    (the worst 2-layer error, the p=2 32-layer times)."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops import fused_decode_mesh as fdm
+    from desta25_audio_tpu_torch.parallel.mesh import use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import (apply_llm_sharding,
+                                                           shard_kv_cache)
+    two = _layer_slice(qllm, 0, 2)
+    check_mesh_prefill(two, cfg, gen, cards)
+    errs = [check_mesh_step(two, cfg, gen, p, cards, vs_k8=(p == 2))
+            for p in (2, 4)]
+    errs.append(check_mesh_step(two, cfg, gen, 2, cards, kd=4,
+                                ci=(100, 252), tag="K10 verify"))
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    spec = inject_spec(cfg2, gen, 2, 375)
+    errs.append(check_mesh_step(two, cfg, gen, 2, cards, tag="K10 with K8i",
+                                inject=spec, vs_k8=True))
+    del spec
+    bf = tllm.init_llm(cfg2, torch.bfloat16, "cuda", gen)
+    errs.append(check_mesh_step(bf, cfg, gen, 2, cards,
+                                tag="K10 bf16 tower", vs_k8=True))
+    del bf
+    errs.append(check_mesh_step(two, cfg, gen, 2, cards, tag="K10 data axis",
+                                n_data=2))
+    torch.cuda.empty_cache()
+    row = None
+    B, L = 2, cfg.num_hidden_layers
+    for p in (2, 4):
+        inputs = decode_inputs(qllm, cfg, gen, 1, (100, 200))
+        ci, cache0, mask, positions, x = inputs
+        mesh = phase_mesh(p, cards)
+        with use_mesh(mesh):
+            sp = apply_llm_sharding(qllm, cfg, mesh)
+            ck, cp = (shard_kv_cache(cache0, cfg, mesh) for _ in range(2))
+            step = fdm.fused_decode_layers_mesh
+            _, rel = rel_err(
+                _mesh_logits(qllm, cfg, step(sp, cfg, x, mask, positions, ck,
+                                             ci)[0]),
+                _mesh_logits(qllm, cfg, fdm.fused_decode_layers_mesh_plain(
+                    sp, cfg, x, mask, positions, cp, ci)[0]))
+            ms = cuda_time_ms(lambda: step(sp, cfg, x, mask, positions, ck,
+                                           ci), iters=5)
+            ser_ms = cuda_time_ms(lambda: step(sp, cfg, x, mask, positions,
+                                               ck, ci, serial=True), iters=5)
+            plain_ms = cuda_time_ms(lambda: fdm.fused_decode_layers_mesh_plain(
+                sp, cfg, x, mask, positions, cp, ci), iters=2)
+        b_ms, b_by = bound(*llm_step_work(qllm, cfg, B, 1, ci.tolist()),
+                           "bf16")
+        where = (f"{p} cards" if cards else
+                 f"{p} virtual ranks of one card (they share its HBM: no "
+                 "tensor-parallel speed)")
+        print(f"K10 fused_decode_layers_mesh on {where}, L={L} B={B} S=256 "
+              f"({gpu_line()}): {L}-layer logits vs plain rel={rel:.3e} "
+              f"(information); {ms:.4f} ms/step with a stream per rank, "
+              f"{ser_ms:.4f} ms/step on each card's current stream, plain "
+              f"{plain_ms:.4f} ms/step, bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        if p == 2:
+            row = (max(e[0] for e in errs), ms, plain_ms, b_ms, b_by, None)
+        del sp, ck, cp, cache0
+        torch.cuda.empty_cache()
+    return row
+
+
+def teacher_forced_logits(model, convs, ids):
+    """The b2 path's logits with ``ids`` [B, 32] fed back: the prefill's
+    last position, then 31 decode steps (generate()'s cache length and
+    positions), [32, B, V] f32; under a mesh through its dispatch."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    llm, cfg = model.params["llm"], model.llm_cfg
+    embeds, mask, _, _, _ = model._run_generation_phases(convs, {})
+    B, T, _ = embeds.shape
+    S = -(-(T + 32) // 128) * 128
+    cache = tllm.init_kv_cache(cfg, B, S, embeds.dtype, embeds.device)
+    full = torch.zeros(B, S, dtype=torch.int32, device=embeds.device)
+    full[:, :T] = mask
+    pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
+    logits, cache = tllm.llm_apply(llm, cfg, inputs_embeds=embeds,
+                                   attention_mask=full, positions=pos,
+                                   cache=cache, cache_index=0)
+    out = [logits[:, -1]]
+    nxt = pos[:, -1:] + 1
+    for t in range(31):
+        full[:, T + t] = 1
+        logits, cache = tllm.llm_apply(llm, cfg, input_ids=ids[:, t:t + 1],
+                                       attention_mask=full, positions=nxt + t,
+                                       cache=cache, cache_index=T + t)
+        out.append(logits[:, 0])
+    return torch.stack(out)
+
+
+def run_mesh_generate(model, convs, gpu, cards: bool):
+    """Phase 20c: the model's int8 LLM cut for a (1, 2) mesh of virtual
+    ranks on the one card (``apply_llm_sharding``), ``generate()`` b2 under
+    ``use_mesh``, greedy, 32 new tokens: K10 and the all-reduce must launch,
+    K8-int8 must not; the per-step logits with its ids fed back, against the
+    unsharded LLM's on the same ids, within TOL_MESH_GEN, and the same with
+    the prefill's partial sums faulted (one rank's dropped: above the gate;
+    a rank-local amax: information); ms/step beside an unsharded run's.  Then ``speculative_k=4`` under the mesh: the
+    tensor-parallel verify step must launch.  The unsharded LLM is the
+    model's again at the end and the cut copy is freed.  Returns the launch
+    counts of the b2 run."""
+    import torch
+    from unittest import mock
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.parallel.mesh import use_mesh
+    full = model.params["llm"]
+    mesh = phase_mesh(2, cards)
+    t0 = time.perf_counter()
+    model.apply_llm_sharding(mesh)
+    sharded = model.params["llm"]
+    torch.cuda.synchronize()
+    print(f"LLM cut for {mesh} in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, the "
+          f"unsharded LLM kept for the comparison)", flush=True)
+    runs = convs[:2]
+    with use_mesh(mesh):
+        model.generate(runs, do_sample=False, max_new_tokens=2)   # warm-up
+        _build.reset_launch_counts()
+        out = model.generate(runs, do_sample=False, max_new_tokens=32)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        t_mesh = dict(model.last_timings)
+        print(f"mesh (1, 2): launches during generate() b2: "
+              f"{json.dumps(counts)}", flush=True)
+        for name in MESH_PATH:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"mesh generate(): {name} not launched")
+        if counts.get("fused_decode_layers_int8", 0):
+            raise AssertionError("mesh generate(): K8-int8 was launched")
+        check_outputs(model, [(out, 2)])
+        ids = torch.tensor(out.generated_ids, device=model.device)
+        tf_mesh = teacher_forced_logits(model, runs, ids)
+        tf_ctl = {}
+        for fault in ("drop", "local_amax"):      # the gate's controls
+            with mock.patch.object(tllm, "_rank_sum",
+                                   control_rank_sum(fault)):
+                tf_ctl[fault] = teacher_forced_logits(model, runs, ids)
+        model.generate(runs, do_sample=False, max_new_tokens=4,
+                       speculative_k=4)                            # warm-up
+        _build.reset_launch_counts()
+        spec = model.generate(runs, do_sample=False, max_new_tokens=32,
+                              speculative_k=4)
+        torch.cuda.synchronize()
+        spec_counts = _build.launch_counts()
+        t_spec = dict(model.last_timings)
+    print(f"mesh (1, 2) speculative_k=4: launches {json.dumps(spec_counts)}",
+          flush=True)
+    if spec_counts.get("fused_verify_layers_mesh", 0) <= 0 or spec_counts.get(
+            "fused_verify_layers", 0):
+        raise AssertionError("mesh speculative: the tensor-parallel verify "
+                             "step did not run, or the unsharded one did")
+    check_outputs(model, [(spec, 2)])
+    model.params["llm"] = full
+    tf_ref = teacher_forced_logits(model, runs, ids)
+    model.generate(runs, do_sample=False, max_new_tokens=2)        # warm-up
+    ref = model.generate(runs, do_sample=False, max_new_tokens=32)
+    t_ref = dict(model.last_timings)
+    per_step = [rel_err(a, b)[1] for a, b in zip(tf_mesh, tf_ref)]
+    ctl = {f: max(rel_err(a, b)[1] for a, b in zip(t, tf_ref))
+           for f, t in tf_ctl.items()}
+    steps = lambda t: max(int(t["decode_steps"]), 1)  # noqa: E731
+    print(f"mesh (1, 2) generate() b2 ({gpu}): teacher-forced logits vs the "
+          f"unsharded LLM rel: prefill {per_step[0]:.3e}, decode steps max "
+          f"{max(per_step[1:]):.3e} (tol {TOL_MESH_GEN}; controls, the "
+          f"prefill with one rank's partial dropped: {ctl['drop']:.3e}, with "
+          f"a rank-local amax: {ctl['local_amax']:.3e}); ids row0[:8]="
+          f"{out.generated_ids[0][:8]}, unsharded {ref.generated_ids[0][:8]}, "
+          f"equal {out.generated_ids == ref.generated_ids} (information); "
+          f"decode {t_mesh['decode_ms'] / steps(t_mesh):.2f} ms/step on "
+          + ("2 cards" if cards else "2 virtual ranks of one card (they "
+             "share its HBM: no tensor-parallel speed)")
+          + f", unsharded on one card {t_ref['decode_ms'] / steps(t_ref):.2f} "
+          f"ms/step; speculative {t_spec['decode_steps']} verify steps for "
+          f"{t_spec['spec_tokens']} tokens", flush=True)
+    if max(per_step) > TOL_MESH_GEN:
+        raise AssertionError(f"mesh generate(): teacher-forced logits differ "
+                             f"from the unsharded LLM's: {per_step}")
+    if ctl["drop"] <= TOL_MESH_GEN:
+        raise AssertionError(f"mesh generate(): the gate cannot see a "
+                             f"dropped partial: {ctl['drop']}")
+    del sharded, tf_mesh, tf_ref, tf_ctl
+    mesh.buffers.clear()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_mesh(model, convs, gpu, cards: bool = False):
+    """Phases 20a-20c on the model with its int8 LLM, on virtual ranks of
+    the first card or, with ``cards``, on the first p cards.  Returns (the
+    JSON rows of tp_allreduce and K10, the launch counts of 20c's b2
+    run)."""
+    import torch
+    gen = torch.Generator("cuda").manual_seed(7)
+    rows = {"tp_allreduce": check_tp_allreduce(gen, cards),
+            "fused_decode_layers_mesh": check_fused_mesh(
+                model.params["llm"], model.llm_cfg, gen, cards)}
+    torch.cuda.empty_cache()
+    return rows, run_mesh_generate(model, convs, gpu, cards)
+
+
 def write_corpus(d: str, n: int = 12) -> str:
     """A synthetic training corpus: n gated tones as 16 kHz WAVs (1.5-4.25
     s) and a jsonl manifest of the reference schema (id, dataset, prompt
@@ -1757,6 +2451,33 @@ def run_training(gpu: str, tmpdir: str):
             for k in ("flash_attention", "flash_attention_bwd")}
 
 
+def mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
+    """``--mesh-only``: phases 20a-20c alone, on the flagship model built
+    with the int8 LLM (bf16 encoder), for work on the tensor-parallel path;
+    with ``--cards`` the ranks are distinct cards (p = 2 and 4: run on four
+    cards).  Prints the two kernels' JSON rows and the last line."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    tmp = tempfile.TemporaryDirectory()
+    wavs, _ = write_wavs(tmp.name)
+    cfg = dataclasses.replace(config_from_yaml_file(CONFIG), llm_quant="int8")
+    with torch.no_grad():
+        model = DeSTA25AudioModel(cfg, device="cuda", seed=0,
+                                  tokenizer=CharTokenizer("llama3"))
+        rows, launches = run_mesh(model, conversations(wavs), gpu, cards)
+    tmp.cleanup()
+    print(json.dumps({"kernels": [
+        {"name": n, "route": "cuda", "source": SOURCES[n][0],
+         "replaces": SOURCES[n][1], "launches": launches[n],
+         "max_abs_err": r[0], "ms": r[1], "plain_ms": r[2], "bound_ms": r[3],
+         "bound_by": r[4], "library_ms": r[5]} for n, r in rows.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -1784,6 +2505,8 @@ def main() -> int:
     path, secs = _build.build()
     _build.library()
     print(f"kernels built in {secs:.1f} s: {path}", flush=True)
+    if "--mesh-only" in sys.argv[1:]:
+        return mesh_only(kind, count, gpu, "--cards" in sys.argv[1:])
 
     # -- 4. kernels vs plain at the slice shapes -----------------------------
     # (the synthetic WAVs of phase 6 are written first: K1 reads them)
@@ -1876,6 +2599,9 @@ def main() -> int:
         k8i = check_fused_inject(model, torch.Generator("cuda").manual_seed(4))
         inject_launches, k9_launches = run_orca(model, convs, gpu)
 
+        # -- 20a-20c. tensor-parallel decode on virtual ranks of the card ----
+        mesh_rows, mesh_launches = run_mesh(model, convs, gpu)
+
     # -- 21. K11 vs plain at the training shape ------------------------------
     k11 = check_flash(torch.Generator("cuda").manual_seed(5))
 
@@ -1901,12 +2627,17 @@ def main() -> int:
     # at T=512, the T=512 times, bound and SDPA time) from the trainer run
     # of phase 23; K1 (the worst of its three checks, the B=2 x 3000 x 128
     # times) from the bf16 generate() runs; K9's halves (the worst per-layer
-    # error, layer 0's times at B=2) from phase 18's opt-in float-stack run.
+    # error, layer 0's times at B=2) from phase 18's opt-in float-stack run;
+    # K10 (the worst 2-layer error of phase 20b, the p=2 32-layer times,
+    # library_ms null: NCCL cannot put two ranks on one card) and
+    # tp_allreduce (phase 20a: the worst error, the p=2 R=2 reduce's times)
+    # from phase 20c's generate() under the mesh.
     # Each tuple: (err, ms, plain_ms, bound_ms, bound_by[, library_ms]).
     measured = {"packed_encoder_attention":
                 (max(k2[0][0], k2[1][0]),) + k2[0][1:],
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
-                "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9}
+                "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9,
+                **mesh_rows}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         row = measured[name]
@@ -1917,6 +2648,7 @@ def main() -> int:
                   if name == "fused_decode_inject"
                   else train_launches if name in train_launches
                   else k9_launches if name in K9_HALVES
+                  else mesh_launches if name in mesh_rows
                   else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],

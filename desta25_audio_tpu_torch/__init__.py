@@ -6,7 +6,8 @@ reference.  This package imports torch and never jax.  Ported so far:
 ``DeSTA25AudioModel.generate()`` on the Q-Former and ORCA hybrid
 configurations with transcriptions supplied, the Whisper encoder in bf16 or
 int8 (W8A8), the LLM in bf16 or int8, the ORCA cross-attention stack float
-or int8, plain or speculative decoding; and training of the Q-Former
+or int8, plain or speculative decoding, on one GPU or tensor-parallel on a
+device mesh (``parallel/``, K10); and training of the Q-Former
 configuration on one GPU (``train/``, ``cli/train.py``) with the flash
 attention kernel K11; see ROADMAP.md for what follows.
 """

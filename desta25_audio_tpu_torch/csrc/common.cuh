@@ -9,6 +9,14 @@ typedef __nv_bfloat16 bf16;
 
 namespace desta {
 
+// A failed runtime call's status, with the runtime's last-error state read
+// and so cleared: the entry points return cudaGetLastError() after their
+// launches, and a refusal left behind would fail the next, good, launch.
+inline cudaError_t refuse(cudaError_t e) {
+  cudaGetLastError();
+  return e;
+}
+
 // Two floats -> one 32-bit register of two bf16 (round to nearest even);
 // `lo` lands in the low half, the element with the smaller index in an
 // mma fragment.

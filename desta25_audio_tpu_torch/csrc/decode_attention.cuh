@@ -193,7 +193,7 @@ cudaError_t launch_attention_kdm(const bf16* qkv, bf16* kc, bf16* vc,
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_kernel<G, KDM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return refuse(e);
   }
   decode_attention_kernel<G, KDM><<<dim3(B, Hkv, kd), DHD, smem, stream>>>(
       qkv, kc, vc, cosb, sinb, mask, mask_stride, ci, qn, kn, out, S, Hkv, kd,

@@ -126,7 +126,7 @@ cudaError_t launch_norm_gemv_mt(const float* h, const bf16* ln_w, float eps,
     const cudaError_t e = cudaFuncSetAttribute(
         norm_gemv_kernel<MT, EPI>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return refuse(e);
   }
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);

@@ -257,7 +257,7 @@ cudaError_t launch_inject_attention(const bf16* iq, const bf16* ka,
     const cudaError_t e = cudaFuncSetAttribute(
         inject_attention_kernel<KDM, CPL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+    if (e != cudaSuccess) return refuse(e);
   }
   inject_attention_kernel<KDM, CPL>
       <<<dim3(B, heads), IA_THREADS, smem, stream>>>(

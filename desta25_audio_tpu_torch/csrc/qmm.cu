@@ -183,7 +183,7 @@ cudaError_t launch_qmm_mma(const bf16* x, const int8_t* w, const float* s,
   const size_t smem = sizeof(QmmSmem<MI>);
   cudaError_t e = cudaFuncSetAttribute(
       qmm_mma_kernel<MI>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return refuse(e);
   const dim3 grid((N + QBN - 1) / QBN, splits);
   qmm_mma_kernel<MI><<<grid, 256, smem, st>>>(
       x, w, s, out, splits > 1 ? part : nullptr, M, N, K, kps, out_f32);

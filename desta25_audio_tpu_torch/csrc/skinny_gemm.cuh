@@ -23,6 +23,10 @@
 //              row-interleaved gate/up weights, each with its own scale
 //   BIAS       bf16(v + b[n])                 (f32 bias, no fused multiply-add)
 //   BIAS_GELU  bf16(gelu(bf16(v + b[n])))     erf GELU in f32
+//   PEER_F32   v into slot [slot][my] of every mesh rank's receive buffer,
+//              then, once every block of every pass has stored, the rank's
+//              epoch into each rank's flag word [slot][my] (PeerStore below;
+//              read by the all-reduce of csrc/tp_allreduce.cu)
 // Rows go 16 at a time; a pass over more rows re-streams the weights.
 #pragma once
 
@@ -32,9 +36,50 @@ namespace desta {
 
 enum Epilogue { EPI_STORE = 0, EPI_RESID = 1, EPI_SWIGLU = 2,
                 EPI_STORE_F32 = 3, EPI_BIAS = 4, EPI_BIAS_GELU = 5,
-               EPI_ADD_F32 = 6 };
+               EPI_ADD_F32 = 6, EPI_PEER_F32 = 7 };
 
 constexpr int SKINNY_ROWS = 16;  // activation rows per pass
+
+// The PEER_F32 epilogue's operands.  dst[d]: rank d's receive buffer [2, p,
+// M, N] f32 and flags[d]: its flag words [2, p] (device tables of p
+// pointers, the rank's own included); offset: this pass's first element in
+// slot [slot][my], (slot * p + my) * M * N + m0 * N; flag: slot * p + my.
+// Arrival: every block stores its outputs, fences them at system scope and
+// counts itself in *counter; the block that makes the count reach `blocks`
+// (all blocks of all passes) resets the counter for the next use and, after
+// another system-scope fence, release-stores `epoch` into every rank's flag
+// word.  Epochs only grow (one per all-reduce round of the mesh's buffers),
+// so no flag is ever reset.
+struct PeerStore {
+  const unsigned long long* dst = nullptr;
+  const unsigned long long* flags = nullptr;
+  unsigned int* counter = nullptr;
+  long long offset = 0;
+  long long epoch = 0;
+  unsigned int blocks = 0;
+  int p = 0;
+  int flag = 0;
+};
+
+__device__ __forceinline__ void st_release_sys(long long* addr, long long v) {
+  asm volatile("st.release.sys.global.b64 [%0], %1;" ::"l"(addr), "l"(v)
+               : "memory");
+}
+
+// Called by every thread of a block after its epilogue stores.
+__device__ __forceinline__ void peer_arrive(const PeerStore& ps) {
+  __threadfence_system();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (atomicAdd(ps.counter, 1u) + 1u == ps.blocks) {
+      __threadfence_system();
+      atomicExch(ps.counter, 0u);
+      for (int d = 0; d < ps.p; ++d)
+        st_release_sys(reinterpret_cast<long long*>(ps.flags[d]) + ps.flag,
+                       ps.epoch);
+    }
+  }
+}
 
 __device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float f[8]) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -72,8 +117,12 @@ template <> struct WeightVec<int8_t> {
 template <int EPI>
 __device__ __forceinline__ void skinny_epilogue(void* out, size_t o, int n,
                                                 const float* v,
-                                                const float* bias) {
-  if constexpr (EPI == EPI_STORE_F32) {
+                                                const float* bias,
+                                                const PeerStore& ps = {}) {
+  if constexpr (EPI == EPI_PEER_F32) {
+    for (int d = 0; d < ps.p; ++d)
+      reinterpret_cast<float*>(ps.dst[d])[ps.offset + (long long)o] = v[0];
+  } else if constexpr (EPI == EPI_STORE_F32) {
     static_cast<float*>(out)[o] = v[0];
   } else if constexpr (EPI == EPI_ADD_F32) {
     float* of = static_cast<float*>(out) + o;
@@ -98,18 +147,15 @@ __device__ __forceinline__ void skinny_epilogue(void* out, size_t o, int n,
   }
 }
 
+// One warp's output column n for all M rows (the whole warp calls it).
 template <typename WT, int MT, int EPI>
-__global__ void __launch_bounds__(256)
-skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
-                   const float* __restrict__ scale, void* __restrict__ out,
-                   int M, int N, int K, const float* __restrict__ bias) {
+__device__ __forceinline__ void skinny_rows(
+    const bf16* __restrict__ x, const WT* __restrict__ wr,
+    const float* __restrict__ scale, void* __restrict__ out, int M, int N,
+    int K, const float* __restrict__ bias, const PeerStore& ps, int n,
+    int lane) {
   constexpr int NW = (EPI == EPI_SWIGLU) ? 2 : 1;  // weight rows per output
   constexpr int VEC = WeightVec<WT>::VEC;
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (n >= N) return;  // whole warp exits together
-  const WT* wr = w + (size_t)n * NW * K;
-
   float acc[NW][MT];
 #pragma unroll
   for (int j = 0; j < NW; ++j)
@@ -147,33 +193,55 @@ skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
       if (scale != nullptr) v[j] *= scale[(size_t)n * NW + j];
     }
     if (lane == m && m < M)
-      skinny_epilogue<EPI>(out, (size_t)m * N + n, n, v, bias);
+      skinny_epilogue<EPI>(out, (size_t)m * N + n, n, v, bias, ps);
   }
 }
 
+template <typename WT, int MT, int EPI>
+__global__ void __launch_bounds__(256)
+skinny_gemm_kernel(const bf16* __restrict__ x, const WT* __restrict__ w,
+                   const float* __restrict__ scale, void* __restrict__ out,
+                   int M, int N, int K, const float* __restrict__ bias,
+                   const PeerStore ps) {
+  constexpr int NW = (EPI == EPI_SWIGLU) ? 2 : 1;  // weight rows per output
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (n < N) skinny_rows<WT, MT, EPI>(x, w + (size_t)n * NW * K, scale, out,
+                                      M, N, K, bias, ps, n, lane);
+  if constexpr (EPI == EPI_PEER_F32) peer_arrive(ps);
+}
+
+
 // All M rows in passes of SKINNY_ROWS; K % VEC == 0, 16-byte aligned rows.
-// bias: N floats, read by the BIAS epilogues only.
+// bias: N floats, read by the BIAS epilogues only; ps: PEER_F32's operands
+// (out unused), each pass's offset and the block count set here.
 template <typename WT, int EPI>
 cudaError_t launch_skinny(const bf16* x, const WT* w, const float* scale,
                           void* out, int M, int N, int K,
-                          cudaStream_t stream, const float* bias = nullptr) {
+                          cudaStream_t stream, const float* bias = nullptr,
+                          PeerStore ps = PeerStore()) {
   const dim3 block(256), grid((N + 7) / 8);
   const size_t out_bytes =
       (EPI == EPI_STORE_F32 || EPI == EPI_ADD_F32) ? sizeof(float) : sizeof(bf16);
+  const long long offset0 = ps.offset;
+  ps.blocks = grid.x * (unsigned int)((M + SKINNY_ROWS - 1) / SKINNY_ROWS);
   for (int m0 = 0; m0 < M; m0 += SKINNY_ROWS) {
     const int mr = M - m0 < SKINNY_ROWS ? M - m0 : SKINNY_ROWS;
     const bf16* xm = x + (size_t)m0 * K;
-    void* om = static_cast<char*>(out) + (size_t)m0 * N * out_bytes;
+    void* om = EPI == EPI_PEER_F32
+                   ? out
+                   : static_cast<char*>(out) + (size_t)m0 * N * out_bytes;
+    ps.offset = offset0 + (long long)m0 * N;
     if (mr == 1)
-      skinny_gemm_kernel<WT, 1, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
+      skinny_gemm_kernel<WT, 1, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias, ps);
     else if (mr == 2)
-      skinny_gemm_kernel<WT, 2, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
+      skinny_gemm_kernel<WT, 2, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias, ps);
     else if (mr <= 4)
-      skinny_gemm_kernel<WT, 4, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
+      skinny_gemm_kernel<WT, 4, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias, ps);
     else if (mr <= 8)
-      skinny_gemm_kernel<WT, 8, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
+      skinny_gemm_kernel<WT, 8, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias, ps);
     else
-      skinny_gemm_kernel<WT, 16, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias);
+      skinny_gemm_kernel<WT, 16, EPI><<<grid, block, 0, stream>>>(xm, w, scale, om, mr, N, K, bias, ps);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }

@@ -12,7 +12,10 @@ the JAX package).  The loop keeps the JAX semantics: the cache is rounded up to 
 multiple of 128 positions, RoPE positions are ``cumsum(mask) - 1`` clamped
 at 0 (left padding), every step writes its k/v at the same ``T + t`` for all
 rows, rows that stopped emit ``pad_id``, and the loop ends early once every
-row has stopped.  Whisper ASR decoding is not ported yet.
+row has stopped.  Under a mesh (``parallel/mesh.use_mesh`` with the LLM cut
+for it) the cache is the ranks' slices and the steps run on every rank
+(``models/llm.py``); the embeddings, the logits and sampling stay on the
+first rank's device.  Whisper ASR decoding is not ported yet.
 """
 
 from __future__ import annotations

@@ -8,6 +8,9 @@ tokens per row by prompt lookup (the continuation of the most recent earlier
 occurrence of the row's last trigram, else bigram, else a repeat of the last
 token), verifies [last token, drafts] in one ``fused_verify_layers`` step,
 and accepts the longest draft prefix that matches the model's own choices.
+Under a mesh the verify step is the tensor-parallel one
+(``ops/fused_decode_mesh.pick_verify_fn``); sampling and the acceptance run
+on the first rank's device.
 
 Acceptance semantics (``speculative.py:1-34`` of the JAX package): each
 verify position j draws its token from the model's processed next-token
@@ -40,10 +43,11 @@ from ..models import llm as tllm
 from ..ops.core import rms_norm
 from ..ops.fused_decode import (
     fused_inject_limits,
-    fused_verify_layers,
     kernel_limits,
     tower_is_int8,
 )
+from ..ops.fused_decode_mesh import fused_mesh_limits, pick_verify_fn
+from ..parallel.sharding import ShardedLLM
 from .decode import _sync, build_injection, sample_token
 
 
@@ -91,12 +95,18 @@ def spec_limits(params, cfg: LLMConfig, batch: int, cache_len: int,
     (``inject_params``, ``inject_len`` audio tokens) the verify step runs
     it inside, which needs the int8 tower and a stack the injection kernels
     take (``fused_inject_limits``; ``desta.py:619-628`` of the JAX
-    package)."""
+    package).  For an LLM cut for a mesh, the tensor-parallel verify
+    step's conditions (``ops/fused_decode_mesh.fused_mesh_limits``)."""
     bad = []
     if speculative_k < 2:
         bad.append(f"speculative_k={speculative_k} (needs >= 2)")
     if dtype != torch.bfloat16:
         bad.append(f"dtype {dtype} (the kernels take bfloat16)")
+    if isinstance(params, ShardedLLM):
+        # under a mesh: the tensor-parallel verify step's conditions
+        return bad + fused_mesh_limits(
+            params, cfg, batch, cache_len, speculative_k, inject_params,
+            inject_len, inject_heads, dtype)
     int8 = tower_is_int8(params)
     if inject_params is not None:
         if not int8:
@@ -221,10 +231,16 @@ def llm_generate_spec(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     jidx = torch.arange(Kd, device=dev)[None, :]
     steps = 0
     accepted = torch.zeros((), dtype=torch.long, device=dev)
+    verify = pick_verify_fn(
+        params, cfg, cache, Kd, inject_params,
+        0 if fspec is None else fspec["ta_real"], inject_heads)
+    if verify is None:
+        raise ValueError("llm_generate_spec: the verify kernels cannot take "
+                         "this request under the mesh (spec_limits says why)")
     while not bool(done.all()):
         draft = ngram_propose(hist, hlen, Kd - 1)
         toks = torch.cat([cur[:, None], draft], dim=1)          # [B, Kd]
-        hidden, cache = fused_verify_layers(
+        hidden, cache = verify(
             params, cfg, tllm.embed_tokens(params, toks), mask,
             pos[:, None] + jidx, cache, ci, inject=fspec)
         lg = tllm.head_logits(params, rms_norm(params["norm"], hidden,

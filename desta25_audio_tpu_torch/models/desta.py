@@ -22,6 +22,13 @@ an existing bf16 LLM is quantized with
   prefill -> KV-cached decode (one token a step, or n-gram drafts verified
   k at a time), with ORCA's gated cross-attention after every layer.
 
+Tensor-parallel serving: :meth:`DeSTA25AudioModel.apply_llm_sharding` cuts
+the LLM for a mesh (``parallel/mesh.make_mesh``), and ``generate()`` under
+``use_mesh(mesh)`` runs perception on the mesh's first device and the LLM's
+prefill and decode on every rank (``models/llm.py``: the tensor-parallel
+decode step K10, its verify step, the layer loop elsewhere); sampling stays
+on the first device.  ORCA's stack is replicated on every rank.
+
 Everything the slice does not cover raises ``NotImplementedError`` naming
 the ROADMAP item (Queue 1 of ``ROADMAP.md``).
 """
@@ -56,6 +63,7 @@ from ..ops.quant import (
     quantize_llm_params,
     quantize_orca_cross_attns,
 )
+from ..parallel.sharding import ShardedLLM, apply_llm_sharding
 from . import llm as tllm
 from .orca import init_orca_connector, init_orca_cross_attns
 from .perception import perception_apply
@@ -165,9 +173,32 @@ class DeSTA25AudioModel:
         holds int8 leaves."""
         if is_quantized(self.params["llm"]["layers"]["wqkv"]):
             return
+        if isinstance(self.params["llm"], ShardedLLM):
+            raise ValueError("apply_llm_quant before apply_llm_sharding")
         with torch.no_grad():
             self.params["llm"] = quantize_llm_params(self.params["llm"])
         self.config = dataclasses.replace(self.config, llm_quant="int8")
+
+    def apply_llm_sharding(self, mesh) -> None:
+        """Cut the model's LLM for ``mesh`` once (``parallel/sharding``:
+        tensor-parallel layer shards over its "model" axis, the rest
+        replicated; the unsharded tree is released), so that ``generate()``
+        under ``use_mesh(mesh)`` decodes through the tensor-parallel steps.
+        The mesh's first device must be the model's: perception runs there
+        and the spliced embeddings go from there to every rank.  Quantize
+        first (:meth:`apply_llm_quant`): a cut LLM is not quantized again.
+        A no-op when the LLM is already cut for ``mesh``."""
+        llm = self.params["llm"]
+        if isinstance(llm, ShardedLLM):
+            if llm.mesh is not mesh:
+                raise ValueError("the LLM is already cut for another mesh")
+            return
+        first = torch.empty(0, device=mesh.device(0, 0)).device
+        if first != torch.empty(0, device=self.device).device:
+            raise ValueError(f"the mesh's first device {mesh.device(0, 0)} is "
+                             f"not the model's {self.device}")
+        with torch.no_grad():
+            self.params["llm"] = apply_llm_sharding(llm, self.llm_cfg, mesh)
 
     def apply_orca_xattn_quant(self) -> None:
         """Quantize the ORCA cross-attention stack for serving

@@ -26,6 +26,15 @@ int8 leaves (``ops/quant.quantize_llm_params``, ``llm_quant="int8"``) every
 projection and the head go through ``ops/qmm.quant_matmul`` (K7 below 128
 rows, W8A8 above), as ``llm.py:136-156`` does.
 
+Under a mesh (``parallel/mesh.use_mesh``, the LLM cut by
+``parallel/sharding.apply_llm_sharding``, the cache a ``ShardedCache``) a
+cached T == 1 step takes the tensor-parallel kernels (K10, whose predicate
+takes every step K9's pair under a mesh could: the port has no VMEM
+budgets; ``llm.py:363-434`` of the JAX package), and every other cached
+call a
+per-rank layer loop whose wo / down partials are summed in f32 across the
+ranks and rounded once, as the JAX package leaves it to XLA's psum.
+
 Parameters (layers stacked on a leading axis, linear weights ``[out, in]``):
 ``embed`` [V, D], ``lm_head`` [V, D] (untied only), ``norm``, and
 ``layers`` with ``ln1``, ``wqkv``, ``wo``, ``ln2``, ``w_gu`` (gate/up rows
@@ -47,21 +56,37 @@ from ..config import LLMConfig
 from ..ops import attention as attn
 from ..ops.core import Params, index_tree, matmul_f32, rms_norm
 from ..ops.fused_decode import KVCache, fused_decode_layers
+from ..ops.fused_decode_mesh import (
+    fused_decode_layers_mesh,
+    fused_mesh_supported,
+)
 from ..ops.fused_decode_tp import (
     fused_decode_layers_perlayer,
     fused_perlayer_supported,
 )
-from ..ops.qmm import quant_matmul
+from ..ops.qmm import W8A8_MIN_ROWS, quant_matmul
 from ..ops.quant import is_quantized
 from ..ops.rope import apply_rope, llm_rope_cos_sin
+from ..parallel.mesh import current_mesh, on_device
+from ..parallel.sharding import (
+    ShardedCache,
+    ShardedLLM,
+    data_rows,
+    init_sharded_cache,
+)
 
 __all__ = ["KVCache", "init_kv_cache", "init_llm", "llm_apply",
            "embed_tokens"]
 
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, dtype,
-                  device) -> KVCache:
-    """A zeroed cache [L, batch, max_len, Hkv*Dh] on ``device``."""
+                  device):
+    """A zeroed cache [L, batch, max_len, Hkv*Dh] on ``device``; under a
+    mesh (``parallel/mesh.use_mesh``) the per-rank slices of one
+    (``parallel/sharding.ShardedCache``, on the ranks' devices), as the JAX
+    package shards its cache on the packed axis (``llm.py:47-59``)."""
+    if current_mesh() is not None:
+        return init_sharded_cache(cfg, batch, max_len, dtype)
     shape = (cfg.num_hidden_layers, batch, max_len,
              cfg.num_key_value_heads * cfg.head_dim)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -125,6 +150,14 @@ def _linear(w, x: torch.Tensor, l: int) -> torch.Tensor:
 
 def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
                cache: Optional[KVCache], ci, attention_mask=None):
+    return _linear(p["wo"], _attention_heads(p, x, cos, sin, mask, cfg, l,
+                                             cache, ci, attention_mask), l)
+
+
+def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
+                     cache: Optional[KVCache], ci, attention_mask=None):
+    """Layer l's attention up to the wo product: [B, T, H*Dh] in x's
+    dtype."""
     B, T, _ = x.shape
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
@@ -141,7 +174,7 @@ def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
     if cache is None:
         # the cache-less forward: the JAX dispatch (flash at T >= 512)
         out = attn.mha(q, k, v, causal=True, attention_mask=attention_mask)
-        return _linear(p["wo"], out.reshape(B, T, HD), l)
+        return out.reshape(B, T, HD)
     # write the T new rows at each row's offset, then attend the cache
     ck, cv = cache.k[l], cache.v[l]
     rows = torch.arange(B, device=x.device)[:, None]
@@ -159,15 +192,127 @@ def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
                          torch.full((), -1e30, device=x.device))
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs.float(), v.float())
-    out = out.to(x.dtype).reshape(B, T, HD)
-    return _linear(p["wo"], out, l)
+    return out.to(x.dtype).reshape(B, T, HD)
 
 
 def _mlp(p, x, l: int):
+    return _linear(p["w_down"], _mlp_mid(p, x, l), l)
+
+
+def _mlp_mid(p, x, l: int):
+    """Layer l's MLP up to the down product: silu(gate) * up."""
     gu = _linear(p["w_gu"], x, l)       # gate/up outputs rounded apart
     g, u = gu[..., 0::2], gu[..., 1::2]
-    h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
-    return _linear(p["w_down"], h, l)
+    return torch.nn.functional.silu(g.float()).to(x.dtype) * u
+
+
+def _rank_sum(ws, xs, l: int, device) -> torch.Tensor:
+    """Sum over the ranks of one model group of xs[m] [..., K/p] through
+    their input-column shards ws[m] of layer l: each rank's product in f32,
+    unrounded, summed in rank order on ``device`` (what the JAX package's
+    XLA psum does on a mesh).  An int8 W8A8 product quantizes each row
+    with its amax over every rank's columns, the row's amax unsharded."""
+    amax = None
+    if is_quantized(ws[0]) and xs[0][..., :1].numel() >= W8A8_MIN_ROWS:
+        amax = torch.stack([x.float().abs().amax(-1, keepdim=True).to(device)
+                            for x in xs]).amax(0)
+    tot = None
+    for w, x in zip(ws, xs):
+        with on_device(x.device):
+            if is_quantized(w):
+                part = quant_matmul(
+                    x, {"q": w["q"][l], "s": w["s"][l]}, torch.float32,
+                    row_amax=None if amax is None else amax.to(x.device))
+            else:
+                part = matmul_f32(x, w[l].t())
+        tot = part.to(device) if tot is None else tot + part.to(device)
+    return tot
+
+
+def _mesh_layers(params: ShardedLLM, cfg: LLMConfig, x, cos, sin, mask,
+                 cache: ShardedCache, ci, attention_mask,
+                 extra_layer_fn) -> torch.Tensor:
+    """The layer loop under a mesh, driven from the first rank's device:
+    per data row of the mesh and layer, each model rank's attention (its
+    heads, its cache slice) and MLP (its I/p) on its device; the wo and
+    down partials summed in f32 across the ranks (:func:`_rank_sum`) and
+    rounded once into the residual, which stays whole on the first device
+    for the norms and ``extra_layer_fn``."""
+    mesh, lcfg, lay = params.mesh, params.local_cfg, params["layers"]
+    dev0, eps = x.device, cfg.rms_norm_eps
+    groups = [data_rows(mesh, x.shape[0], g) for g in range(mesh.n_data)]
+    for l in range(cfg.num_hidden_layers):
+        xn = rms_norm(index_tree(lay["ln1"], l), x, eps)
+        outs = []
+        for g, rows in enumerate(groups):
+            lays = [r["layers"] for r in params.ranks[g]]
+            heads = []
+            for lp, c, dev in zip(lays, cache.shards[g], mesh.devices[g]):
+                with on_device(dev):
+                    heads.append(_attention_heads(
+                        lp, xn[rows].to(dev), cos[rows].to(dev),
+                        sin[rows].to(dev), mask[rows].to(dev), lcfg, l, c,
+                        ci[rows].to(dev), attention_mask[rows].to(dev)))
+            outs.append(_rank_sum([lp["wo"] for lp in lays], heads, l, dev0))
+        x = x + torch.cat(outs).to(x.dtype)
+        xn = rms_norm(index_tree(lay["ln2"], l), x, eps)
+        outs = []
+        for g, rows in enumerate(groups):
+            lays = [r["layers"] for r in params.ranks[g]]
+            mids = []
+            for lp, dev in zip(lays, mesh.devices[g]):
+                with on_device(dev):
+                    mids.append(_mlp_mid(lp, xn[rows].to(dev), l))
+            outs.append(_rank_sum([lp["w_down"] for lp in lays], mids, l,
+                                  dev0))
+        x = x + torch.cat(outs).to(x.dtype)
+        if extra_layer_fn is not None:
+            x = extra_layer_fn(l, x)
+    return x
+
+
+def _mesh_decode_step(params: ShardedLLM, cfg: LLMConfig, x, attention_mask,
+                      positions, cache: ShardedCache, ci, extra_layer_fn,
+                      fused_injection):
+    """The hidden state of a cached T == 1 step under a mesh through the
+    fused tensor-parallel kernels, or None where the layer loop must run
+    (the dispatch of ``llm.py:363-434`` of the JAX package): K10, with the
+    injection inside when it takes it, and without a hook.  The JAX
+    package's next choice, K9's pair under the mesh, takes no step that K10
+    refuses here (``fused_decode_tp.tp_limits`` is K10's limits and
+    more), so it is not dispatched."""
+    if fused_injection is not None:
+        if fused_mesh_supported(params, cfg, cache,
+                                inject_params=fused_injection["params"],
+                                ta=int(fused_injection["ta_real"]),
+                                heads=int(fused_injection["heads"])):
+            return fused_decode_layers_mesh(
+                params, cfg, x, attention_mask, positions, cache, ci,
+                inject=fused_injection)[0]
+        return None
+    if extra_layer_fn is None and fused_mesh_supported(params, cfg, cache):
+        return fused_decode_layers_mesh(params, cfg, x, attention_mask,
+                                        positions, cache, ci)[0]
+    return None
+
+
+def _check_mesh(params, cache) -> bool:
+    """True when the call runs under a mesh (the params cut for the current
+    one, with a cache); raises on a mismatch."""
+    mesh = current_mesh()
+    sharded = isinstance(params, ShardedLLM)
+    if mesh is None and not sharded:
+        return False
+    if not sharded or params.mesh is not mesh:
+        raise ValueError("under a mesh llm_apply takes the LLM cut for it by "
+                         "parallel/sharding.apply_llm_sharding, and that LLM "
+                         "only under its mesh")
+    if not isinstance(cache, ShardedCache):
+        raise NotImplementedError(
+            "under a mesh llm_apply takes a ShardedCache (init_kv_cache under "
+            "use_mesh); the cache-less forward under a mesh is training "
+            "(ROADMAP.md Queue 1)")
+    return True
 
 
 def llm_apply(params: Params, cfg: LLMConfig, *,
@@ -211,8 +356,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     B, T, _ = x.shape
     dev = x.device
     ci = None
+    sharded = _check_mesh(params, cache)
     if cache is not None:
-        S = cache.k.shape[2]
+        S = (cache.shape if sharded else cache.k.shape)[2]
         if attention_mask is None:
             attention_mask = torch.ones(B, S, dtype=torch.int32, device=dev)
         ci = torch.as_tensor(cache_index, device=dev).long()
@@ -224,6 +370,21 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
                 & (attention_mask[:, None, :S] > 0))[:, None]   # [B,1,T,S]
         if positions is None:
             positions = q_pos
+        if sharded:
+            hidden = None
+            if T == 1:
+                hidden = _mesh_decode_step(params, cfg, x, attention_mask,
+                                           positions, cache, ci,
+                                           extra_layer_fn, fused_injection)
+            if hidden is None:
+                cos, sin = llm_rope_cos_sin(cfg, positions)
+                x = _mesh_layers(params, cfg, x, cos, sin, mask, cache, ci,
+                                 attention_mask, extra_layer_fn)
+                hidden = x
+            hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
+            logits = None if skip_head else head_logits(params, hidden)
+            return (logits, cache, hidden) if return_hidden else (logits,
+                                                                  cache)
         if T == 1 and (fused_injection is not None
                        or extra_layer_fn is None):
             hidden, cache = fused_decode_layers(

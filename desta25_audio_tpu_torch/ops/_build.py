@@ -33,7 +33,8 @@ BUILD_DIR = _PKG.parent / "build" / "desta25_audio_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES: Dict[str, Tuple] = {
@@ -80,6 +81,14 @@ SIGNATURES: Dict[str, Tuple] = {
                           + (_F, _F, _P),
     # x, w, scale, out, M, N, K, accumulate, stream
     "desta_tp_gemm": (_P,) * 4 + (_I,) * 4 + (_P,),
+    # x, w, scale, w_int8, M, N, K, dst_table, flag_table, counter, offset,
+    # p, flag, epoch, stream
+    "desta_gemm_peer": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _L, _I, _I,
+                        _L, _P),
+    # rbuf, flags, h, h_f32, p, slot, epoch, rows, D, err, stream
+    "desta_tp_allreduce": (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P),
+    # dev, peer
+    "desta_enable_peer_access": (_I, _I),
 }
 
 _launches: Dict[str, int] = {}

@@ -41,7 +41,9 @@ for a verify step on either tower) and, with ``inject``, those of
 ``fused_decode_inject``); on CPU tensors it runs
 :func:`fused_decode_layers_plain`, the same function at the same rounding
 points in the activation dtype.  The cache is updated IN PLACE on both paths
-and also returned, so callers keep the JAX API shape.
+and also returned, so callers keep the JAX API shape.  :class:`FusedStep`
+holds one step's launches; the tensor-parallel step
+(``ops/fused_decode_mesh.py``, K10) runs one per rank.
 """
 
 from __future__ import annotations
@@ -400,130 +402,179 @@ def _inject_operands(inject, cfg, name: str, L: int, B: int, Kd: int):
     return op
 
 
-def _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
-               cache: KVCache, cache_index, name: str, inject=None):
-    """The kernels of one decode (Kd = 1) or verify (Kd > 1) step, with the
-    injection kernels after each layer when ``inject`` is given."""
-    B, Kd, D = inputs_embeds.shape
-    R = B * Kd
-    L, Bc, S, KVD = cache.k.shape
-    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
-    G, HD, I = H // Hkv, H * Dh, cfg.intermediate_size
-    int8 = tower_is_int8(params)
-    if Bc != B or KVD != Hkv * Dh or cache.v.shape != cache.k.shape:
-        raise ValueError(f"{name}: x {tuple(inputs_embeds.shape)} vs cache "
-                         f"{tuple(cache.k.shape)}")
-    bad = kernel_limits(cfg, B, Kd, S, int8)
-    if bad:
-        raise ValueError(f"{name}: " + "; ".join(bad))
-    lay = params["layers"]
-    norms = [lay["ln1"]["scale"], lay["ln2"]["scale"]]
-    if cfg.qk_norm:
-        norms += [lay["q_norm"]["scale"], lay["k_norm"]["scale"]]
-    shapes = [(L, HD + 2 * KVD, D), (L, D, HD), (L, 2 * I, D), (L, D, I)]
-    ws, ss = [], []
-    for key, shp in zip(LLM_QUANT_KEYS, shapes):
-        w = lay[key]
-        wt, st = (w["q"], w["s"]) if int8 else (w, None)
-        if tuple(wt.shape) != shp or (st is not None
-                                      and tuple(st.shape) != shp[:2]):
-            raise ValueError(f"{name}: {key} {tuple(wt.shape)}, expected "
-                             f"{shp}")
-        ws.append(wt)
-        if st is not None:
-            ss.append(st)
-    dev = inputs_embeds.device
-    mask = attention_mask.to(torch.int32).contiguous()
-    if mask.shape[0] != B or mask.shape[1] < S:
-        raise ValueError(f"{name}: mask {tuple(mask.shape)} must cover "
-                         f"[{B}, {S}]")
-    ci = _row_indices(cache_index, B, dev)
-    cos, sin = (t.float().contiguous()
-                for t in llm_rope_cos_sin(cfg, positions.reshape(R)))
-    h = inputs_embeds.reshape(R, D).contiguous().clone()
-    _build.require_cuda(name, h, cache.k, cache.v, *norms,
-                        dtype=torch.bfloat16)
-    _build.require_cuda(name, *ws, dtype=torch.int8 if int8 else
-                        torch.bfloat16)
-    if ss:
-        _build.require_cuda(name, *ss, dtype=torch.float32)
-    _build.require_cuda(name, mask, ci)
-    _build.require_cuda(name, cos, sin)
-    if inject is not None:
-        if not int8:
-            raise ValueError(f"{name}: in-kernel injection needs the int8 "
-                             "tower (the TPU kernel's int8 weight ring)")
-        inj = _inject_operands(inject, cfg, name, L, B, Kd)
+class FusedStep:
+    """The checked operands and scratch of one decode (Kd = 1) or verify
+    (Kd > 1) step on one device, and the kernel launches of its layers, on
+    the device's current stream at construction.  :meth:`run` is the step:
+    per layer :meth:`attention`, :meth:`mlp` and, with ``inject``,
+    :meth:`inject`.  Each of the two halves ends in the wo / down GEMM,
+    which adds into the bf16 residual ``h`` (EPI_RESID) or, given a
+    ``store(x, w, scale, name, stream)``, hands it the product's operands:
+    the tensor-parallel driver (``ops/fused_decode_mesh.py``) stores the
+    rank's partial sum for its all-reduce there."""
 
-    lib = _build.library()
-    stream = _build.stream_ptr(dev)
-    bf = dict(dtype=torch.bfloat16, device=dev)
-    xn = torch.empty(R, D, **bf)
-    qkv = torch.empty(R, HD + 2 * KVD, **bf)
-    attn = torch.empty(R, HD, **bf)
-    mid = torch.empty(R, I, **bf)
-    eps = float(cfg.rms_norm_eps)
+    def __init__(self, params, cfg, inputs_embeds, attention_mask, positions,
+                 cache: KVCache, cache_index, name: str, inject=None):
+        B, Kd, D = inputs_embeds.shape
+        R = B * Kd
+        L, Bc, S, KVD = cache.k.shape
+        H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        HD, I = H * Dh, cfg.intermediate_size
+        int8 = tower_is_int8(params)
+        if Bc != B or KVD != Hkv * Dh or cache.v.shape != cache.k.shape:
+            raise ValueError(f"{name}: x {tuple(inputs_embeds.shape)} vs "
+                             f"cache {tuple(cache.k.shape)}")
+        bad = kernel_limits(cfg, B, Kd, S, int8)
+        if bad:
+            raise ValueError(f"{name}: " + "; ".join(bad))
+        lay = params["layers"]
+        norms = [lay["ln1"]["scale"], lay["ln2"]["scale"]]
+        if cfg.qk_norm:
+            norms += [lay["q_norm"]["scale"], lay["k_norm"]["scale"]]
+        shapes = [(L, HD + 2 * KVD, D), (L, D, HD), (L, 2 * I, D), (L, D, I)]
+        ws, ss = [], []
+        for key, shp in zip(LLM_QUANT_KEYS, shapes):
+            w = lay[key]
+            wt, st = (w["q"], w["s"]) if int8 else (w, None)
+            if tuple(wt.shape) != shp or (st is not None
+                                          and tuple(st.shape) != shp[:2]):
+                raise ValueError(f"{name}: {key} {tuple(wt.shape)}, expected "
+                                 f"{shp}")
+            ws.append(wt)
+            if st is not None:
+                ss.append(st)
+        dev = inputs_embeds.device
+        mask = attention_mask.to(torch.int32).contiguous()
+        if mask.shape[0] != B or mask.shape[1] < S:
+            raise ValueError(f"{name}: mask {tuple(mask.shape)} must cover "
+                             f"[{B}, {S}]")
+        ci = _row_indices(cache_index, B, dev)
+        cos, sin = (t.float().contiguous()
+                    for t in llm_rope_cos_sin(cfg, positions.reshape(R)))
+        h = inputs_embeds.reshape(R, D).contiguous().clone()
+        _build.require_cuda(name, h, cache.k, cache.v, *norms,
+                            dtype=torch.bfloat16)
+        _build.require_cuda(name, *ws, dtype=torch.int8 if int8 else
+                            torch.bfloat16)
+        if ss:
+            _build.require_cuda(name, *ss, dtype=torch.float32)
+        _build.require_cuda(name, mask, ci)
+        _build.require_cuda(name, cos, sin)
+        if inject is not None:
+            if not int8:
+                raise ValueError(f"{name}: in-kernel injection needs the int8 "
+                                 "tower (the TPU kernel's int8 weight ring)")
+            self.inj = _inject_operands(inject, cfg, name, L, B, Kd)
+        self.cfg, self.lay, self.cache, self.name = cfg, lay, cache, name
+        self.B, self.Kd, self.R, self.D, self.L = B, Kd, R, D, L
+        self.int8, self.norms, self.mask, self.ci = int8, norms, mask, ci
+        self.cos, self.sin, self.h = cos, sin, h
+        self.lib = _build.library()
+        self.stream = _build.stream_ptr(dev)
+        bf = dict(dtype=torch.bfloat16, device=dev)
+        self.xn = torch.empty(R, D, **bf)
+        self.qkv = torch.empty(R, HD + 2 * KVD, **bf)
+        self.attn = torch.empty(R, HD, **bf)
+        self.mid = torch.empty(R, I, **bf)
+        if inject is not None:
+            self.iq, self.iat, self.iao = (torch.empty(R, D, **bf)
+                                           for _ in range(3))
+            self.ig = torch.empty(R, self.inj["Dg"], **bf)
 
-    def launch(status, what=name):
+    def _launch(self, status, what=None):
+        what = what or self.name
         _build.check(status, what)
         _build.count_launch(what)
 
-    def gemm(x, key, l, out, N, K, epi):
-        w, s = _weight(lay[key], l)
-        launch(lib.desta_skinny_gemm(x.data_ptr(), w.data_ptr(),
-                                     None if s is None else s.data_ptr(),
-                                     None, out.data_ptr(), R, N, K, epi,
-                                     int(int8), stream))
+    def _gemm(self, x, key, l, out, N, K, epi):
+        w, s = _weight(self.lay[key], l)
+        self._launch(self.lib.desta_skinny_gemm(
+            x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
+            None, out.data_ptr(), self.R, N, K, epi, int(self.int8),
+            self.stream))
 
-    def inject_layer(l):
+    def _out_gemm(self, x, key, l, K, store):
+        """wo / down: into h, or through ``store``."""
+        if store is None:
+            self._gemm(x, key, l, self.h, self.D, K, EPI_RESID)
+        else:
+            w, s = _weight(self.lay[key], l)
+            store(x, w, s, self.name, self.stream)
+
+    def _norm(self, l, which):
+        self._launch(self.lib.desta_rms_norm(
+            self.h.data_ptr(), self.norms[which][l].data_ptr(),
+            self.xn.data_ptr(), self.R, self.D, float(self.cfg.rms_norm_eps),
+            self.stream))
+
+    def attention(self, l, store=None):
+        """Layer l's norm, q/k/v, attention with the cache write, wo."""
+        cfg, c = self.cfg, self.cache
+        H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                      cfg.head_dim)
+        self._norm(l, 0)
+        self._gemm(self.xn, "wqkv", l, self.qkv, (H + 2 * Hkv) * Dh, self.D,
+                   EPI_STORE)
+        self._launch(self.lib.desta_decode_attention(
+            self.qkv.data_ptr(), c.k[l].data_ptr(), c.v[l].data_ptr(),
+            self.cos.data_ptr(), self.sin.data_ptr(), self.mask.data_ptr(),
+            self.mask.shape[1], self.ci.data_ptr(),
+            self.norms[2][l].data_ptr() if cfg.qk_norm else None,
+            self.norms[3][l].data_ptr() if cfg.qk_norm else None,
+            self.attn.data_ptr(), self.B, self.Kd, c.k.shape[2], H, Hkv, Dh,
+            float(cfg.rms_norm_eps), Dh ** -0.5, self.stream))
+        self._out_gemm(self.attn, "wo", l, H * Dh, store)
+
+    def mlp(self, l, store=None):
+        """Layer l's norm, gate/up with SwiGLU, down."""
+        I = self.cfg.intermediate_size
+        self._norm(l, 1)
+        self._gemm(self.xn, "w_gu", l, self.mid, I, self.D, EPI_SWIGLU)
+        self._out_gemm(self.mid, "w_down", l, I, store)
+
+    def inject(self, l):
         """The 5 injection launches of layer l (q, gate1, attention, o,
         gate), counted as fused_decode_inject."""
-        what = "fused_decode_inject"
+        what, inj, R, D = "fused_decode_inject", self.inj, self.R, self.D
         (wq, wo, wg), (sq, so, sg), (bq, bo, bg) = inj["w"], inj["s"], inj["b"]
 
         def proj(x, w, s, b, out, epi):
             N, K = w.shape[1:]
-            launch(lib.desta_skinny_gemm(x.data_ptr(), w[l].data_ptr(),
-                                         s[l].data_ptr(), b[l].data_ptr(),
-                                         out.data_ptr(), R, N, K, epi, 1,
-                                         stream), what)
-        proj(h, wq, sq, bq, iq, EPI_BIAS)
-        proj(h, wg, sg, bg, ig, EPI_BIAS_GELU)
-        launch(lib.desta_inject_attention(
-            iq.data_ptr(), inj["k"][l].data_ptr(), inj["v"][l].data_ptr(),
-            iat.data_ptr(), B, Kd, inj["k"].shape[2], inj["ta"], D,
-            inj["heads"], (D // inj["heads"]) ** -0.5, stream), what)
-        proj(iat, wo, so, bo, iao, EPI_BIAS)
-        launch(lib.desta_inject_gate(
-            h.data_ptr(), ig.data_ptr(), iao.data_ptr(),
+            self._launch(self.lib.desta_skinny_gemm(
+                x.data_ptr(), w[l].data_ptr(), s[l].data_ptr(),
+                b[l].data_ptr(), out.data_ptr(), R, N, K, epi, 1,
+                self.stream), what)
+        proj(self.h, wq, sq, bq, self.iq, EPI_BIAS)
+        proj(self.h, wg, sg, bg, self.ig, EPI_BIAS_GELU)
+        self._launch(self.lib.desta_inject_attention(
+            self.iq.data_ptr(), inj["k"][l].data_ptr(),
+            inj["v"][l].data_ptr(), self.iat.data_ptr(), self.B, self.Kd,
+            inj["k"].shape[2], inj["ta"], D, inj["heads"],
+            (D // inj["heads"]) ** -0.5, self.stream), what)
+        proj(self.iat, wo, so, bo, self.iao, EPI_BIAS)
+        self._launch(self.lib.desta_inject_gate(
+            self.h.data_ptr(), self.ig.data_ptr(), self.iao.data_ptr(),
             inj["wg2"][l].data_ptr(), inj["bg2"][l].data_ptr(),
             inj["lns"][l].data_ptr(), inj["lnb"][l].data_ptr(),
-            inj["on"].data_ptr(), R, Kd, D, inj["Dg"], stream), what)
+            inj["on"].data_ptr(), R, self.Kd, D, inj["Dg"], self.stream),
+            what)
 
-    if inject is not None:
-        iq, iat, iao = (torch.empty(R, D, **bf) for _ in range(3))
-        ig = torch.empty(R, inj["Dg"], **bf)
+    def run(self, inject: bool):
+        for l in range(self.L):
+            self.attention(l)
+            self.mlp(l)
+            if inject:
+                self.inject(l)
+        return self.h.reshape(self.B, self.Kd, self.D), self.cache
 
-    for l in range(L):
-        launch(lib.desta_rms_norm(h.data_ptr(), norms[0][l].data_ptr(),
-                                  xn.data_ptr(), R, D, eps, stream))
-        gemm(xn, "wqkv", l, qkv, HD + 2 * KVD, D, EPI_STORE)
-        launch(lib.desta_decode_attention(
-            qkv.data_ptr(), cache.k[l].data_ptr(), cache.v[l].data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), mask.data_ptr(), mask.shape[1],
-            ci.data_ptr(),
-            norms[2][l].data_ptr() if cfg.qk_norm else None,
-            norms[3][l].data_ptr() if cfg.qk_norm else None,
-            attn.data_ptr(), B, Kd, S, H, Hkv, Dh, eps, Dh ** -0.5, stream))
-        gemm(attn, "wo", l, h, D, HD, EPI_RESID)
-        launch(lib.desta_rms_norm(h.data_ptr(), norms[1][l].data_ptr(),
-                                  xn.data_ptr(), R, D, eps, stream))
-        gemm(xn, "w_gu", l, mid, I, D, EPI_SWIGLU)
-        gemm(mid, "w_down", l, h, D, I, EPI_RESID)
-        if inject is not None:
-            inject_layer(l)
-    return h.reshape(B, Kd, D), cache
+
+def _run_fused(params, cfg, inputs_embeds, attention_mask, positions,
+               cache: KVCache, cache_index, name: str, inject=None):
+    """The kernels of one decode (Kd = 1) or verify (Kd > 1) step, with the
+    injection kernels after each layer when ``inject`` is given."""
+    return FusedStep(params, cfg, inputs_embeds, attention_mask, positions,
+                     cache, cache_index, name, inject).run(inject is not None)
 
 
 def fused_decode_layers(params, cfg, inputs_embeds, attention_mask,

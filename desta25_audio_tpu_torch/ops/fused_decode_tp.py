@@ -33,6 +33,15 @@ gate/up GEMV with SwiGLU, down), counted as ``fused_decode_tp_mlp``.  At
 p = 1 the layer loop adds the partials into h inside the wo / down epilogue
 (the same f32 add).  On CPU tensors the plain versions run.
 
+Under a mesh (``parallel/mesh.py``), :func:`fused_decode_layers_tp` runs the
+pair on every "model" rank of the LLM cut by
+``parallel/sharding.apply_llm_sharding``, the wo / down partials all-reduced
+into each rank's f32 residual by ``csrc/tp_allreduce.cu``
+(``fused_decode_tp.py:557-722`` of the JAX package).  ``models/llm.py``
+does not dispatch it: the JAX package takes it where K10 exceeds the TPU's
+VMEM budgets, and the port's K10 (``ops/fused_decode_mesh.py``) has none,
+so every step :func:`fused_tp_supported` takes, K10 takes too.
+
 The per-layer path is opt-in, as in the JAX package: ``FUSED_PERLAYER`` is
 read once from ``DESTA_FUSED_PERLAYER`` ("1" turns it on); tests and
 ``chip_smoke.py`` set the attribute.  ``models/llm.py`` routes a cached
@@ -42,13 +51,21 @@ when :func:`fused_perlayer_supported` holds.
 
 from __future__ import annotations
 
-import dataclasses
+import functools
 import logging
 import os
 from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..parallel.mesh import current_mesh, on_device
+from ..parallel.sharding import (  # noqa: F401 (shard_*: this module's API)
+    ShardedCache,
+    ShardedLLM,
+    local_config,
+    shard_cache,
+    shard_layers,
+)
 from . import _build
 from .fused_decode import (
     _SMEM_LIMIT,
@@ -62,6 +79,7 @@ from .fused_decode import (
     tower_is_int8,
 )
 from .rope import llm_rope_cos_sin
+from .tp_allreduce import ATTN_SLOT, MLP_SLOT, allreduce_plain, group_buffers
 
 logger = logging.getLogger(__name__)
 
@@ -91,58 +109,6 @@ def decode_step_inputs(cfg, attention_mask, positions, cache_index,
     return DecodeStep(cos.float().contiguous(), sin.float().contiguous(),
                       attention_mask.to(torch.int32).contiguous(),
                       _row_indices(cache_index, B, dev))
-
-
-# -- sharding ------------------------------------------------------------------
-
-def shard_layers(params, cfg, p: int, rank: int):
-    """Rank ``rank`` of p's shard of the int8 layer stack -> (params with
-    the shard's ``layers``, the shard's config).  ``wqkv``: the q rows of
-    the rank's heads, then its k rows, then its v rows (with their scales);
-    ``wo`` / ``w_down``: the input columns of its heads / its I/p slice,
-    made contiguous, with their scales whole (the partial sums scale
-    alike); ``w_gu``: the interleaved gate/up rows of its I/p slice; the
-    norms whole.  Its cache is the rank's slice of the packed Hkv*Dh axis
-    (:func:`shard_cache`)."""
-    H, Hkv, Dh, I = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                     cfg.head_dim, cfg.intermediate_size)
-    if H % p or Hkv % p or I % p:
-        raise ValueError(f"H={H}, Hkv={Hkv}, I={I} do not split {p} ways")
-    if not 0 <= rank < p:
-        raise ValueError(f"rank {rank} of {p}")
-    sc = dataclasses.replace(cfg, num_attention_heads=H // p,
-                             num_key_value_heads=Hkv // p,
-                             intermediate_size=I // p)
-    HD, KVD = H * Dh, Hkv * Dh
-    hd, kvd, il = sc.num_attention_heads * Dh, sc.num_key_value_heads * Dh, \
-        sc.intermediate_size
-    lay = params["layers"]
-    rows = torch.cat([torch.arange(rank * hd, (rank + 1) * hd),
-                      HD + torch.arange(rank * kvd, (rank + 1) * kvd),
-                      HD + KVD + torch.arange(rank * kvd, (rank + 1) * kvd)])
-
-    def out_rows(leaf, idx):
-        idx = idx.to(leaf["q"].device)
-        return {"q": leaf["q"][:, idx].contiguous(),
-                "s": leaf["s"][:, idx].contiguous()}
-
-    def in_cols(leaf, lo, hi):
-        return {"q": leaf["q"][:, :, lo:hi].contiguous(), "s": leaf["s"]}
-
-    layers = dict(lay)
-    layers["wqkv"] = out_rows(lay["wqkv"], rows)
-    layers["wo"] = in_cols(lay["wo"], rank * hd, (rank + 1) * hd)
-    layers["w_gu"] = out_rows(lay["w_gu"],
-                              torch.arange(2 * rank * il, 2 * (rank + 1) * il))
-    layers["w_down"] = in_cols(lay["w_down"], rank * il, (rank + 1) * il)
-    return {**params, "layers": layers}, sc
-
-
-def shard_cache(cache: KVCache, cfg, p: int, rank: int) -> KVCache:
-    """Rank ``rank``'s slice of a packed cache [L, B, S, Hkv*Dh] (a copy)."""
-    kvd = cfg.num_key_value_heads // p * cfg.head_dim
-    sl = slice(rank * kvd, (rank + 1) * kvd)
-    return KVCache(cache.k[..., sl].contiguous(), cache.v[..., sl].contiguous())
 
 
 # -- dispatch predicate ----------------------------------------------------------
@@ -290,8 +256,11 @@ def _launch(status: int, name: str) -> None:
 
 
 def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
-                   l: int, out: torch.Tensor, accumulate: bool) -> None:
-    """The attention half's 3 launches on checked operands."""
+                   l: int, out: torch.Tensor, accumulate: bool,
+                   store=None) -> None:
+    """The attention half's 3 launches on checked operands; with ``store``
+    (``x, w, scale, name, stream``) the wo product goes there instead of
+    into ``out`` (the mesh's all-reduce, ``ops/tp_allreduce.py``)."""
     name = "fused_decode_tp_attn"
     lib, lay = _build.library(), op.lay
     B, D = h.shape
@@ -310,14 +279,18 @@ def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
         step.cos.data_ptr(), step.sin.data_ptr(), step.mask.data_ptr(),
         step.mask.shape[1], step.ci.data_ptr(), qn, kn, op.attn.data_ptr(),
         B, cache.k.shape[2], H, Hkv, Dh, eps, Dh ** -0.5, op.stream), name)
+    if store is not None:
+        store(op.attn, wo["q"][l], wo["s"][l], name, op.stream)
+        return
     _launch(lib.desta_tp_gemm(
         op.attn.data_ptr(), wo["q"][l].data_ptr(), wo["s"][l].data_ptr(),
         out.data_ptr(), B, D, H * Dh, int(accumulate), op.stream), name)
 
 
 def _mlp_launches(op: _Operands, cfg, h, l: int, out: torch.Tensor,
-                  accumulate: bool) -> None:
-    """The MLP half's 2 launches on checked operands."""
+                  accumulate: bool, store=None) -> None:
+    """The MLP half's 2 launches on checked operands (``store``: as
+    :func:`_attn_launches`'s, for the down product)."""
     name = "fused_decode_tp_mlp"
     lib, lay = _build.library(), op.lay
     B, D = h.shape
@@ -328,6 +301,9 @@ def _mlp_launches(op: _Operands, cfg, h, l: int, out: torch.Tensor,
         float(cfg.rms_norm_eps), wgu["q"][l].data_ptr(),
         wgu["s"][l].data_ptr(), op.mid.data_ptr(), B, I, D, 1, op.stream),
         name)
+    if store is not None:
+        store(op.mid, wd["q"][l], wd["s"][l], name, op.stream)
+        return
     _launch(lib.desta_tp_gemm(
         op.mid.data_ptr(), wd["q"][l].data_ptr(), wd["s"][l].data_ptr(),
         out.data_ptr(), B, D, I, int(accumulate), op.stream), name)
@@ -404,3 +380,127 @@ def fused_decode_layers_perlayer_plain(params, cfg, inputs_embeds,
             hb = extra_layer_fn(l, h.to(torch.bfloat16).reshape(B, 1, D))
             h = hb.reshape(B, D).float()
     return h.to(torch.bfloat16).reshape(B, 1, D), cache
+
+
+# -- under a mesh ------------------------------------------------------------------
+
+def tp_limits(params, cfg, cache) -> List[str]:
+    """Why the per-layer pair cannot run a decode step of ``cache`` under
+    the current mesh (empty: it can): the JAX predicate's conditions
+    (``fused_decode_tp.py:557-594``: a "model" axis > 1 and no "data" axis
+    > 1, H, Hkv and I splitting p ways, an int8 tower, a bf16 cache) and the
+    kernels' limits at the shard's shape (:func:`perlayer_limits`)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.n_model <= 1:
+        return ["no mesh with a model axis > 1 is active"]
+    if mesh.n_data > 1:
+        return ["a data axis > 1 (the JAX package's validated path has none)"]
+    try:
+        lcfg = local_config(cfg, mesh.n_model)
+    except ValueError as e:
+        return [str(e)]
+    kvd = lcfg.num_key_value_heads * lcfg.head_dim
+    local = (cache.shards[0][0] if isinstance(cache, ShardedCache)
+             else KVCache(cache.k[..., :kvd], cache.v[..., :kvd]))
+    return perlayer_limits(params, lcfg, local, local.k.shape[1])
+
+
+def fused_tp_supported(params, cfg, cache) -> bool:
+    """Does a decode step take the per-layer pair under the current mesh?"""
+    return not tp_limits(params, cfg, cache)
+
+
+def fused_decode_layers_tp_plain(params: ShardedLLM, cfg, inputs_embeds,
+                                 attention_mask, positions,
+                                 cache: ShardedCache, cache_index):
+    """:func:`fused_decode_layers_tp` in plain PyTorch: each rank's plain
+    halves on its device, the f32 partials reduced in rank order into each
+    rank's f32 residual."""
+    B, _, D = inputs_embeds.shape
+    lcfg, row = params.local_cfg, params.mesh.devices[0]
+    ranks, caches = params.ranks[0], cache.shards[0]
+    steps = [decode_step_inputs(lcfg, attention_mask.to(dev),
+                                positions.to(dev),
+                                torch.as_tensor(cache_index).to(dev), B)
+             for dev in row]
+    hs = [inputs_embeds.reshape(B, D).to(torch.bfloat16).float().to(dev)
+          for dev in row]
+    for l in range(caches[0].k.shape[0]):
+        hs = allreduce_plain([attn_half_plain(rp, lcfg, h, st, c, l)
+                              for rp, h, st, c in zip(ranks, hs, steps,
+                                                      caches)], hs)
+        hs = allreduce_plain([mlp_half_plain(rp, lcfg, h, l)
+                              for rp, h in zip(ranks, hs)], hs)
+    dev0 = inputs_embeds.device
+    return hs[0].to(torch.bfloat16).reshape(B, 1, D).to(dev0), cache
+
+
+def fused_decode_layers_tp(params: ShardedLLM, cfg, inputs_embeds,
+                           attention_mask, positions, cache: ShardedCache,
+                           cache_index):
+    """One decode step as the per-layer pair on every rank of the current
+    mesh's model group, the partials all-reduced into each rank's f32
+    residual by ``csrc/tp_allreduce.cu`` (``fused_decode_tp.py:662-722``
+    of the JAX package).  The contract of
+    ``ops/fused_decode.fused_decode_layers`` with the LLM cut by
+    ``parallel/sharding.apply_llm_sharding`` and its ShardedCache; ranks on
+    their own streams, interleaved per half as the K10 driver
+    (``ops/fused_decode_mesh.py``) runs them.  Returns (hidden [B, 1, D]
+    bf16 on the first rank's device, cache)."""
+    name = "fused_decode_layers_tp"
+    if not isinstance(params, ShardedLLM) or not isinstance(cache,
+                                                            ShardedCache):
+        raise ValueError(f"{name}: takes the LLM cut by apply_llm_sharding "
+                         "and its ShardedCache")
+    if inputs_embeds.device.type == "cpu":
+        return fused_decode_layers_tp_plain(params, cfg, inputs_embeds,
+                                            attention_mask, positions, cache,
+                                            cache_index)
+    bad = tp_limits(params, cfg, cache)
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
+    B, _, D = inputs_embeds.shape
+    mesh, lcfg = params.mesh, params.local_cfg
+    row = mesh.devices[0]
+    callers = [torch.cuda.current_stream(dev) for dev in row]
+    streams = mesh.streams()[0]
+    for s, c in zip(streams, callers):
+        s.wait_stream(c)
+    ci = _row_indices(cache_index, B, inputs_embeds.device)
+    hs, steps, ops = [], [], []
+    for m, dev in enumerate(row):
+        with on_device(dev), torch.cuda.stream(streams[m]):
+            step = decode_step_inputs(lcfg, attention_mask.to(dev),
+                                      positions.to(dev), ci.to(dev), B)
+            h = inputs_embeds.reshape(B, D).to(dev).to(torch.bfloat16)
+            h = h.float().contiguous()
+            ops.append(_operands(params.ranks[0][m], lcfg, h, name, step,
+                                 cache.shards[0][m]))
+            hs.append(h)
+            steps.append(step)
+    bufs = group_buffers(mesh, 0, B, D)
+    caches = cache.shards[0]
+    for l in range(caches[0].k.shape[0]):
+        epoch = bufs.next_round()
+        for m, dev in enumerate(row):
+            with on_device(dev):
+                _attn_launches(ops[m], lcfg, hs[m], steps[m], caches[m], l,
+                               None, False, functools.partial(
+                                   bufs.store, m, ATTN_SLOT, epoch))
+        for m, dev in enumerate(row):
+            with on_device(dev):
+                bufs.reduce(m, ATTN_SLOT, epoch, hs[m], ops[m].stream)
+        epoch = bufs.next_round()
+        for m, dev in enumerate(row):
+            with on_device(dev):
+                _mlp_launches(ops[m], lcfg, hs[m], l, None, False,
+                              functools.partial(bufs.store, m, MLP_SLOT,
+                                                epoch))
+        for m, dev in enumerate(row):
+            with on_device(dev):
+                bufs.reduce(m, MLP_SLOT, epoch, hs[m], ops[m].stream)
+    for s, c in zip(streams, callers):
+        c.wait_stream(s)
+    bufs.check_timeouts(name)
+    hs[0].record_stream(callers[0])
+    return hs[0].to(torch.bfloat16).reshape(B, 1, D), cache

@@ -52,10 +52,11 @@ def qmm_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 
 def w8a8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                      out_dtype) -> torch.Tensor:
+                      out_dtype, row_amax=None) -> torch.Tensor:
     """The LLM's W8A8 formula (quant.py:123-130): per-row int8 x, exact
-    integer product, ``(f32(acc) * a) * s``."""
-    xq, a = quant_rows_llm(x2.float())
+    integer product, ``(f32(acc) * a) * s``; ``row_amax`` as
+    ``quant_rows_llm``'s ``amax``."""
+    xq, a = quant_rows_llm(x2.float(), row_amax)
     return ((int_dot(xq, q) * a) * s.float()).to(out_dtype)
 
 
@@ -115,30 +116,40 @@ def qmm(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 
 def w8a8_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                out_dtype) -> torch.Tensor:
-    """The W8A8 prefill: x2 [M, K] -> [M, N] in out_dtype."""
+                out_dtype, row_amax=None) -> torch.Tensor:
+    """The W8A8 prefill: x2 [M, K] -> [M, N] in out_dtype.  ``row_amax``
+    [M, 1]: the rows' max|x| over an unsharded row (a tensor-parallel
+    shard's product; ``quant_rows_llm``), the rows then quantized by the
+    plain formula, which the row quantiser kernel matches bit for bit."""
     name = "w8a8_matmul"
     _check_leaf(name, x2, q, s, out_dtype)
     if x2.device.type == "cpu":
-        return w8a8_matmul_plain(x2, q, s, out_dtype)
+        return w8a8_matmul_plain(x2, q, s, out_dtype, row_amax)
     M, K = x2.shape
     N = q.shape[0]
     require_int8_leaf(name, q, s, None, N, K)
     _build.require_cuda(name, x2, dtype=torch.bfloat16)
     lib = _build.library()
-    xq, a = launch_quant_rows(lib, x2, K, name, div127=True)
+    if row_amax is None:
+        xq, a = launch_quant_rows(lib, x2, K, name, div127=True)
+    else:
+        xq, a = (t.contiguous() for t in quant_rows_llm(x2.float(), row_amax))
     out = torch.empty(M, N, dtype=out_dtype, device=x2.device)
     epi = EPI_LLM_F32 if out_dtype == torch.float32 else EPI_LLM_BF16
     launch_gemm_s8(lib, epi, xq, a, [(q, s, None, out)], N, K, name)
     return out
 
 
-def quant_matmul(x: torch.Tensor, leaf: QuantLeaf,
-                 out_dtype=None) -> torch.Tensor:
-    """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's)."""
+def quant_matmul(x: torch.Tensor, leaf: QuantLeaf, out_dtype=None,
+                 row_amax=None) -> torch.Tensor:
+    """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's).
+    ``row_amax`` [..., 1]: :func:`w8a8_matmul`'s, for W8A8 rows."""
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     out_dtype = out_dtype or x.dtype
-    fn = qmm if x2.shape[0] < W8A8_MIN_ROWS else w8a8_matmul
-    y = fn(x2, leaf["q"], leaf["s"], out_dtype)
+    if x2.shape[0] < W8A8_MIN_ROWS:
+        y = qmm(x2, leaf["q"], leaf["s"], out_dtype)
+    else:
+        y = w8a8_matmul(x2, leaf["q"], leaf["s"], out_dtype,
+                        None if row_amax is None else row_amax.reshape(-1, 1))
     return y.reshape(*x.shape[:-1], y.shape[-1])

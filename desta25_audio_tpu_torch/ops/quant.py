@@ -159,14 +159,18 @@ def quant_rows(x: torch.Tensor):
     return q, s
 
 
-def quant_rows_llm(x: torch.Tensor):
+def quant_rows_llm(x: torch.Tensor, amax=None):
     """The LLM's W8A8 row quantiser (desta25_audio_tpu/ops/quant.py:123-126):
     f32 [m, k] -> (int8, f32 [m, 1]); ``s = max(max|x|, 1e-8) / 127`` (a
     division, unlike :func:`quant_rows`), ``q = round_half_even(x / s)``
     (|x / s| <= 127, so no clip is needed).  The divisor is a tensor: a
     Python-number divisor makes PyTorch's CUDA kernel multiply by its
-    reciprocal, which rounds differently."""
-    amax = torch.clamp(x.abs().amax(-1, keepdim=True), min=1e-8)
+    reciprocal, which rounds differently.  ``amax`` [m, 1]: each row's
+    max|x| taken over more columns than x holds (a tensor-parallel shard of
+    the row; it bounds x's own)."""
+    if amax is None:
+        amax = x.abs().amax(-1, keepdim=True)
+    amax = torch.clamp(amax, min=1e-8)
     s = amax / torch.full_like(amax, 127.0)
     return torch.round(x / s).to(torch.int8), s
 

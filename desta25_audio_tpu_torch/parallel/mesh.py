@@ -1,0 +1,116 @@
+"""Device meshes for the port (counterpart of
+``desta25_audio_tpu/parallel/mesh.py:28-69``).
+
+A mesh is a ``(n_data, n_model)`` grid of torch devices with the JAX
+package's axis names: ``data`` splits the batch rows, ``model`` is tensor
+parallelism over attention heads and the MLP's hidden dim.  One process
+drives every rank, as ``shard_map`` does in the JAX package.  A device may
+repeat: ``make_mesh(n_model=2, devices=["cuda:0"] * 2)`` gives two virtual
+ranks on one card (each with its own shard, cache slice, receive buffer and
+CUDA stream), ``["cpu"] * 2`` two ranks on the CPU.  On distinct CUDA
+devices the ranks' kernels write each other's memory through plain device
+pointers; :meth:`Mesh.enable_peer_access` turns that on between every pair
+of distinct cards (never from a card to itself: the runtime refuses that).
+
+No "pipe" axis: pipeline parallelism belongs to training and is not ported.
+:func:`use_mesh` installs a mesh for the code below it, as in the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import List, Optional, Sequence
+
+import torch
+
+_state = threading.local()
+
+
+class Mesh:
+    """``devices[d][m]``: the device of data row d, model rank m."""
+
+    def __init__(self, devices: Sequence[Sequence[torch.device]]):
+        self.devices: List[List[torch.device]] = [
+            [torch.device(x) for x in row] for row in devices]
+        self.n_data, self.n_model = len(self.devices), len(self.devices[0])
+        self._streams: Optional[List[List[torch.cuda.Stream]]] = None
+        self._peer_done = False
+        # device buffers of the mesh's collectives, made at first use and
+        # kept for the mesh's life (ops/tp_allreduce.group_buffers)
+        self.buffers: dict = {}
+
+    def device(self, d: int, m: int) -> torch.device:
+        return self.devices[d][m]
+
+    def streams(self) -> List[List[torch.cuda.Stream]]:
+        """One CUDA stream per rank, made at first use (CUDA meshes only)."""
+        if self._streams is None:
+            self._streams = [[torch.cuda.Stream(dev) for dev in row]
+                             for row in self.devices]
+        return self._streams
+
+    def enable_peer_access(self) -> None:
+        """Let every pair of distinct CUDA devices of the mesh read and
+        write each other's memory (``cudaDeviceEnablePeerAccess``), once."""
+        if self._peer_done:
+            return
+        cards: List[torch.device] = []
+        for row in self.devices:
+            for dev in row:
+                if dev.type == "cuda" and dev not in cards:
+                    cards.append(dev)
+        if len(cards) > 1:
+            from ..ops import _build
+            lib = _build.library()
+            for a in cards:
+                for b in cards:
+                    if a != b:
+                        _build.check(lib.desta_enable_peer_access(
+                            a.index or 0, b.index or 0),
+                            f"peer access {a} -> {b}")
+        self._peer_done = True
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.n_data}x{self.n_model}: {self.devices})"
+
+
+def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A ``("data", "model")`` mesh over ``devices`` (default: every CUDA
+    device), ``n_data`` defaulting to ``len(devices) // n_model``."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if n_data is None:
+        n_data = len(devices) // n_model
+    if n_data < 1 or n_model < 1 or n_data * n_model != len(devices):
+        raise ValueError(f"mesh {n_data}x{n_model} != {len(devices)} devices")
+    return Mesh([devices[d * n_model:(d + 1) * n_model]
+                 for d in range(n_data)])
+
+
+def on_device(device):
+    """Make ``device`` the current CUDA device for the launches below (a
+    kernel launches on a stream of the current device); a no-op for the
+    CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def current_mesh() -> Optional[Mesh]:
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev

@@ -12,7 +12,8 @@ that is not a multiple of its tile, bidirectional, with left and right
 padding; the log-mel frontend K1 at 3000, a ragged 300, 37 and 2 frames;
 the per-layer decode pair K9's halves at 1, 3 and 17 rows, at a p = 2
 shard's shapes, its layer loop with a hook between layers, and the requests it
-refuses).
+refuses; K10 at 2 and 4 virtual ranks, decode and verify, K9's pair under a
+mesh, and an all-reduce whose producers never run timing out).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -614,3 +615,133 @@ def test_fused_tp_raises_on_what_it_does_not_take(gen):
                for r in ttp.perlayer_limits(params, cfg, big, 2))
     with pytest.raises(RuntimeError, match="CUDA error"):
         ttp.attn_half(params, cfg, h, bstep, big, 0)
+    # the refusal leaves no error behind for the next, good, launch
+    ttp.attn_half(params, cfg, h, step, cache0, 0)
+    torch.cuda.synchronize()
+
+
+# -- K10 and its all-reduce on virtual ranks of the card -------------------------
+
+@pytest.mark.parametrize("p,B,kd", [(2, 3, 1), (4, 2, 1), (2, 2, 3)])
+def test_mesh_step_kernel(gen, p, B, kd):
+    """K10 against its plain version at p virtual ranks: every rank's
+    residual equal bit for bit, a stream per rank equal to one stream, the
+    ranks' cache slices as the plain version writes them."""
+    from desta25_audio_tpu_torch.ops import fused_decode_mesh as fdm
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import (
+        apply_llm_sharding, gather_cache, shard_kv_cache)
+    cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
+                              num_key_value_heads=4)
+    params = _tower(gen, cfg, int8=True)
+    S = 256
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.randint(1, S - kd, (B,), generator=gen, device="cuda")
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    pos = ci[:, None] + torch.arange(kd, device="cuda")[None, :]
+    x = tllm.embed_tokens(params, torch.randint(0, 512, (B, kd),
+                                                generator=gen, device="cuda"))
+    mesh = make_mesh(n_model=p, devices=["cuda:0"] * p)
+    with use_mesh(mesh):
+        sp = apply_llm_sharding(params, cfg, mesh)
+        ck, cs, cp = (shard_kv_cache(cache0, cfg, mesh) for _ in range(3))
+        _build.reset_launch_counts()
+        hs = fdm.mesh_step_ranks(sp, cfg, x, mask, pos, ck, ci)[0]
+        L = cfg.num_hidden_layers
+        name = ("fused_decode_layers_mesh" if kd == 1
+                else "fused_verify_layers_mesh")
+        assert _build.launch_counts() == {name: 7 * L * p,
+                                          "tp_allreduce": 2 * L * p}
+        step = (fdm.fused_decode_layers_mesh if kd == 1
+                else fdm.fused_verify_layers_mesh)
+        hser, _ = step(sp, cfg, x, mask, pos, cs, ci, serial=True)
+        hp, _ = fdm.fused_decode_layers_mesh_plain(sp, cfg, x, mask, pos, cp,
+                                                   ci)
+    assert all(torch.equal(h, hs[0]) for h in hs[1:])
+    assert torch.equal(hser, hs[0])
+    assert _rel(hs[0], hp) < 3e-2
+    got, want = gather_cache(ck), gather_cache(cp)
+    assert torch.equal((got.k != cache0.k).any(-1),
+                       (want.k != cache0.k).any(-1))
+    assert _rel(got.k, want.k) < 3e-2
+
+
+def test_mesh_step_kernel_data_axis(gen):
+    """K10 on a (2, 2) mesh of virtual ranks, one batch row a model group
+    (the second group's operands start past row 0): every group's ranks
+    equal bit for bit, the rows as the plain version gives them."""
+    from desta25_audio_tpu_torch.ops import fused_decode_mesh as fdm
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import (
+        apply_llm_sharding, gather_cache, shard_kv_cache)
+    cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
+                              num_key_value_heads=4)
+    params = _tower(gen, cfg, int8=True)
+    B, S = 2, 256
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.tensor([100, 200], device="cuda")
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    x = tllm.embed_tokens(params, torch.randint(0, 512, (B, 1),
+                                                generator=gen, device="cuda"))
+    mesh = make_mesh(n_data=2, n_model=2, devices=["cuda:0"] * 4)
+    with use_mesh(mesh):
+        sp = apply_llm_sharding(params, cfg, mesh)
+        ck, cp = (shard_kv_cache(cache0, cfg, mesh) for _ in range(2))
+        groups = fdm.mesh_step_ranks(sp, cfg, x, mask, ci[:, None], ck, ci)
+        hp, _ = fdm.fused_decode_layers_mesh_plain(sp, cfg, x, mask,
+                                                   ci[:, None], cp, ci)
+    assert all(torch.equal(h, hs[0]) for hs in groups for h in hs[1:])
+    assert _rel(torch.cat([hs[0] for hs in groups]), hp) < 3e-2
+    assert _rel(gather_cache(ck).k, gather_cache(cp).k) < 3e-2
+
+
+def test_tp_pair_under_mesh_kernel(gen):
+    """K9's pair under a (1, 2) mesh of virtual ranks against its plain
+    version: the halves' partials all-reduced into the f32 residual."""
+    from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import (
+        apply_llm_sharding, shard_kv_cache)
+    cfg = llm_config_for("test/llama-nano128")
+    params = _tower(gen, cfg, int8=True)
+    B, S = 3, 256
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    ci = torch.randint(1, S, (B,), generator=gen, device="cuda")
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    x = tllm.embed_tokens(params, torch.randint(0, 512, (B, 1),
+                                                generator=gen, device="cuda"))
+    mesh = make_mesh(n_model=2, devices=["cuda:0"] * 2)
+    with use_mesh(mesh):
+        sp = apply_llm_sharding(params, cfg, mesh)
+        ck, cp = (shard_kv_cache(cache0, cfg, mesh) for _ in range(2))
+        assert ttp.fused_tp_supported(sp, cfg, ck)
+        _build.reset_launch_counts()
+        hk, _ = ttp.fused_decode_layers_tp(sp, cfg, x, mask, ci[:, None], ck,
+                                           ci)
+        L = cfg.num_hidden_layers
+        assert _build.launch_counts() == {
+            "fused_decode_tp_attn": 3 * L * 2, "fused_decode_tp_mlp": 2 * L * 2,
+            "tp_allreduce": 2 * L * 2}
+        hp, _ = ttp.fused_decode_layers_tp_plain(sp, cfg, x, mask,
+                                                 ci[:, None], cp, ci)
+    assert _rel(hk, hp) < 3e-2
+
+
+def test_tp_allreduce_times_out(gen):
+    """A round whose producers never run: the bounded spin gives up, the
+    residual is left as it was, and the wrapper raises."""
+    from desta25_audio_tpu_torch.ops.tp_allreduce import MeshBuffers
+    bufs = MeshBuffers([torch.device("cuda", 0)] * 2, 2, 256)
+    h = torch.randn(2, 256, generator=gen, device="cuda").bfloat16()
+    h0 = h.clone()
+    stream = torch.cuda.current_stream().cuda_stream
+    bufs.reduce(0, 0, bufs.next_round(), h, stream)
+    with pytest.raises(RuntimeError, match="timed out"):
+        bufs.check_timeouts("tp_allreduce")
+    assert torch.equal(h, h0)
+    assert int(bufs.err[0].item()) == 0           # cleared for the next step
