@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    WAVs of phase 6, written first, zero-padded to 30 s within TOL_MEL_WAV;
    both versions' times at B=1, 2, 4 for mel's share of perception after
    phase 11), K2 packed_encoder_attention (self: B=2, T=1500, H=20, Dh=64; cross:
-   4 taps x B=2, Tq=64, Tkv=1500), K3 encoder_ffn (M=3000, D=1280,
+   4 taps x B=2, Tq=64, Tkv=1500, its keys split across blocks; each with
+   its achieved TFLOP/s and share of the bound beside
+   ``scaled_dot_product_attention``'s time; K2's and K11's times also
+   printed, as information, taken behind a sleep kernel (``queued``), so
+   that they are the card's and not the Python launch path's; the kernels
+   line keeps the back-to-back event times of every kernel), K3
+   encoder_ffn (M=3000, D=1280,
    F=5120), K8 fused_decode_layers (Llama-3.1-8B, B=2, S=256 cache with
    random contents and a different cache index per row), and the W8A8
    kernels K5 qkv_w8a8, K6 proj_w8a8 and K4 encoder_ffn_w8a8 at M=1500 and
@@ -124,7 +130,12 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     TOL_FLASH) at B=4, T=512, H=32, Hkv=8, Dh=128, causal, one row
     right-padded from 400, and at T=520; CUDA-event times of the forward,
     the backward, the plain version's and ``scaled_dot_product_attention``'s
-    (unpadded, ``enable_gqa``), and the bound;
+    (unpadded, ``enable_gqa``), the bound, each kernel's achieved TFLOP/s
+    and share of the bound, and the same times queued behind a sleep
+    kernel (information, as in 4); the backward must give the same bits on two
+    runs; then, as information, K11 forward and forward+backward against
+    the masked path (``ops/core.mha``) at the flagship train shape B=12,
+    T=300 (where the dispatch takes the masked path);
 22. free the serving models; build the flagship training model fresh in
     bf16 (random weights, seed 3) and write a synthetic corpus (12 WAVs and
     a jsonl manifest of the reference schema);
@@ -363,10 +374,19 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, iters: int = 10) -> float:
-    """Mean device time of fn() over iters runs (after one warm-up)."""
+def cuda_time_ms(fn, iters: int = 10, queued: bool = False) -> float:
+    """Mean device time of fn() over iters runs (after one warm-up).  With
+    ``queued`` the runs wait on the card behind a 20 ms sleep kernel while
+    the host enqueues them, so a kernel that runs faster than its Python
+    launch path (K2, K11) is timed on the card, not at the host's pace:
+    printed beside the default reading as information; the kernels line
+    keeps the default.  Not for work on other streams (the mesh's ranks), which the sleep on
+    the current stream would not hold back."""
     import torch
     fn()
+    if queued:
+        torch.cuda.synchronize()
+        torch.cuda._sleep(40_000_000)  # ~20 ms at the H100's 1.98 GHz
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -398,22 +418,32 @@ def check_enc_attention(gen):
         got = packed_encoder_attention(q, k, v, 20)
         want = packed_encoder_attention_plain(q, k, v, 20)
         err, rel = rel_err(got, want)
-        ms = cuda_time_ms(lambda: packed_encoder_attention(q, k, v, 20))
-        plain_ms = cuda_time_ms(
-            lambda: packed_encoder_attention_plain(q, k, v, 20))
+        # back-to-back event times (the kernels line) and, as information,
+        # the same runs queued behind a sleep kernel
+        kern = lambda: packed_encoder_attention(q, k, v, 20)  # noqa: E731
+        plain = lambda: packed_encoder_attention_plain(q, k, v, 20)  # noqa
         # the library yardstick: one scaled_dot_product_attention call on
         # the same tensors viewed [n, H, T, Dh]
         heads = lambda t: t.view(n, t.shape[1], 20, 64).transpose(1, 2)  # noqa
-        lib_ms = cuda_time_ms(lambda: torch.nn.functional
-                              .scaled_dot_product_attention(
-                                  heads(q), heads(k), heads(v)))
+        lib = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
+            heads(q), heads(k), heads(v))
+        ms, plain_ms, lib_ms = (cuda_time_ms(f) for f in (kern, plain, lib))
+        q_ms, q_plain, q_lib = (cuda_time_ms(f, queued=True)
+                                for f in (kern, plain, lib))
         nbytes = 2 * n * 1280 * (2 * tq + 2 * tkv)
-        b_ms, b_by = bound(nbytes, 4 * n * tq * tkv * 1280, "bf16")
+        ops = 4 * n * tq * tkv * 1280
+        b_ms, b_by = bound(nbytes, ops, "bf16")
         print(f"K2 packed_encoder_attention[{label}] B={n} Tq={tq} "
               f"Tkv={tkv} H=20 Dh=64: max_abs_err={err:.3e} "
-              f"rel={rel:.3e} (tol {TOL_ENC}) kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"rel={rel:.3e} (tol {TOL_ENC}) kernel {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+              f"bound), plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention {lib_ms:.4f} ms "
+              f"({ops / lib_ms / 1e9:.1f} TFLOP/s), bound {b_ms:.4f} ms "
+              f"({b_by}); queued: kernel {q_ms:.4f} ms "
+              f"({ops / q_ms / 1e9:.1f} TFLOP/s, {b_ms / q_ms:.3f} of the "
+              f"bound), plain {q_plain:.4f} ms, scaled_dot_product_attention "
+              f"{q_lib:.4f} ms", flush=True)
         if rel > TOL_ENC:
             raise AssertionError(f"K2 {label} disagrees: rel {rel}")
         rows.append((err, ms, plain_ms, b_ms, b_by, lib_ms))
@@ -446,11 +476,11 @@ def check_enc_ffn(gen):
     return err, ms, plain_ms, b_ms, b_by
 
 
-def _backward_ms(out, inputs, grad, iters: int = 10) -> float:
+def _backward_ms(out, inputs, grad, queued: bool = False) -> float:
     """Device time of the backward of ``out`` alone (its graph kept)."""
     import torch
     return cuda_time_ms(lambda: torch.autograd.grad(
-        out, inputs, grad, retain_graph=True), iters)
+        out, inputs, grad, retain_graph=True), queued=queued)
 
 
 def check_flash(gen):
@@ -479,6 +509,10 @@ def check_flash(gen):
             return (o.detach(), *grads), o, leaves
 
         got, o_k, in_k = run(flash_attention)
+        # no atomics in the backward: a second run gives the same bits
+        again = torch.autograd.grad(o_k, in_k, do, retain_graph=True)
+        if not all(torch.equal(a, b) for a, b in zip(got[1:], again)):
+            raise AssertionError(f"K11 T={T}: two backward runs differ")
         want, o_p, in_p = run(flash_attention_plain)
         errs = [rel_err(g, w) for g, w in zip(got, want)]
         names = ("o", "dq", "dk", "dv")
@@ -486,27 +520,36 @@ def check_flash(gen):
               f"causal, row 1 padded from 400: " + ", ".join(
                   f"{n} max_abs_err={e:.3e} rel={r:.3e}"
                   for n, (e, r) in zip(names, errs))
-              + f" (tol {TOL_FLASH})", flush=True)
+              + f" (tol {TOL_FLASH}); backward bit-identical on two runs",
+              flush=True)
         for n, (_, r) in zip(names, errs):
             if r > TOL_FLASH:
                 raise AssertionError(f"K11 T={T} {n} disagrees: rel {r}")
         if T != 512:
             continue
-        with torch.no_grad():
-            fwd_ms = cuda_time_ms(
-                lambda: flash_attention(q, k, v, seg, True, scale))
-            plain_fwd_ms = cuda_time_ms(
-                lambda: flash_attention_plain(q, k, v, seg, True, scale))
-        bwd_ms = _backward_ms(o_k, in_k, do)
-        plain_bwd_ms = _backward_ms(o_p, in_p, do)
         # the library yardstick on the unpadded case: SDPA [B, H, T, Dh]
         heads = lambda t: t.transpose(1, 2).detach()  # noqa: E731
         lq, lk, lv = (heads(t).requires_grad_() for t in (q, k, v))
         sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa
             lq, lk, lv, is_causal=True, enable_gqa=True)
-        with torch.no_grad():
-            lib_fwd = cuda_time_ms(sdpa)
-        lib_bwd = _backward_ms(sdpa(), (lq, lk, lv), heads(do))
+        o_l = sdpa()
+        fwds = (lambda: flash_attention(q, k, v, seg, True, scale),
+                lambda: flash_attention_plain(q, k, v, seg, True, scale),
+                sdpa)
+        bwds = ((o_k, in_k, do), (o_p, in_p, do), (o_l, (lq, lk, lv),
+                                                   heads(do)))
+        # back-to-back event times (the kernels line) and, as information,
+        # the same runs queued behind a sleep kernel: (kernel, plain, SDPA)
+        times = {}
+        for queued in (False, True):
+            with torch.no_grad():
+                f = [cuda_time_ms(fn, queued=queued) for fn in fwds]
+            b = [_backward_ms(*a, queued=queued) for a in bwds]
+            times[queued] = (f, b)
+        (fwd_ms, plain_fwd_ms, lib_fwd), (bwd_ms, plain_bwd_ms, lib_bwd) = \
+            times[False]
+        (q_fwd, q_plain_fwd, q_lib_fwd), (q_bwd, q_plain_bwd, q_lib_bwd) = \
+            times[True]
         # work this run's data needs: the (query, key) pairs the causal and
         # segment rules allow, 4*Dh operations a pair a head forward
         # (q.k and p.v), 10*Dh backward (s, dp, dv, dk, dq)
@@ -520,20 +563,70 @@ def check_flash(gen):
         bwd_bound = bound(3 * bq + 2 * bkv + blse + 4 * B * T  # q,o,dO,lse
                           + bq + 2 * bkv,                     # dq, dk, dv
                           10 * Dh * H * pairs, "bf16")
-        print(f"K11 times ({gpu_line()}): forward {fwd_ms:.4f} ms, backward "
-              f"{bwd_ms:.4f} ms (forward+backward {fwd_ms + bwd_ms:.4f}); "
-              f"plain {plain_fwd_ms:.4f} + {plain_bwd_ms:.4f} ms; "
-              f"scaled_dot_product_attention {lib_fwd:.4f} + {lib_bwd:.4f} "
-              f"ms; bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}) + "
-              f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); {pairs} allowed "
-              f"(query, key) pairs per head", flush=True)
+        fwd_ops, bwd_ops = 4 * Dh * H * pairs, 10 * Dh * H * pairs
+        print(f"K11 times ({gpu_line()}): forward {fwd_ms:.4f} ms "
+              f"({fwd_ops / fwd_ms / 1e9:.1f} TFLOP/s, "
+              f"{fwd_bound[0] / fwd_ms:.3f} of the bound), backward "
+              f"{bwd_ms:.4f} ms ({bwd_ops / bwd_ms / 1e9:.1f} TFLOP/s, "
+              f"{bwd_bound[0] / bwd_ms:.3f} of the bound) (forward+backward "
+              f"{fwd_ms + bwd_ms:.4f}); plain {plain_fwd_ms:.4f} + "
+              f"{plain_bwd_ms:.4f} ms; scaled_dot_product_attention "
+              f"{lib_fwd:.4f} + {lib_bwd:.4f} ms ({fwd_ops / lib_fwd / 1e9:.1f}"
+              f" + {bwd_ops / lib_bwd / 1e9:.1f} TFLOP/s); bound "
+              f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]}) + {bwd_bound[0]:.4f} "
+              f"ms ({bwd_bound[1]}); {pairs} allowed (query, key) pairs per "
+              f"head; queued: forward {q_fwd:.4f} ms "
+              f"({fwd_ops / q_fwd / 1e9:.1f} TFLOP/s, "
+              f"{fwd_bound[0] / q_fwd:.3f} of the bound), backward "
+              f"{q_bwd:.4f} ms ({bwd_ops / q_bwd / 1e9:.1f} TFLOP/s, "
+              f"{bwd_bound[0] / q_bwd:.3f} of the bound); plain "
+              f"{q_plain_fwd:.4f} + {q_plain_bwd:.4f} ms; "
+              f"scaled_dot_product_attention {q_lib_fwd:.4f} + "
+              f"{q_lib_bwd:.4f} ms", flush=True)
         out = {
             "flash_attention": (errs[0][0], fwd_ms,
                                 plain_fwd_ms, *fwd_bound, lib_fwd),
             "flash_attention_bwd": (max(e[0] for e in errs[1:]), bwd_ms,
                                     plain_bwd_ms, *bwd_bound, lib_bwd),
         }
+    flash_vs_masked(gen)
     return out
+
+
+def flash_vs_masked(gen) -> None:
+    """Information: K11 forward and forward+backward against the masked
+    path (``ops/attention.mha`` below FLASH_MIN_T: ``ops/core.mha``) at the
+    flagship train shape B=12, T=300, H=32, Hkv=8, Dh=128, causal, where
+    the dispatch takes the masked path; one row padded from 250."""
+    import torch
+    from desta25_audio_tpu_torch.ops.attention import (FLASH_MIN_T, mha,
+                                                       flash_attention)
+    B, T, H, Hkv, Dh = 12, 300, 32, 8, 128
+    mk = lambda h: torch.randn(B, T, h, Dh, generator=gen,  # noqa: E731
+                               device="cuda").to(torch.bfloat16)
+    q, k, v, do = mk(H), mk(Hkv), mk(Hkv), mk(H)
+    seg = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    seg[1, 250:] = 0
+    paths = {"K11": lambda *a: flash_attention(*a, seg, True),
+             "masked": lambda *a: mha(*a, attention_mask=seg, causal=True)}
+    times, outs = {}, {}
+    for name, fn in paths.items():
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.no_grad():
+            fwd = cuda_time_ms(lambda: fn(q, k, v), queued=True)
+
+        def step():
+            o = fn(*leaves)
+            torch.autograd.grad(o, leaves, do)
+        times[name] = (fwd, cuda_time_ms(step, queued=True))
+        outs[name] = fn(q, k, v)
+    err, rel = rel_err(outs["K11"][:, :250], outs["masked"][:, :250])
+    print(f"K11 vs the masked path at B={B} T={T} H={H} Hkv={Hkv} Dh={Dh} "
+          f"causal (information; the dispatch takes K11 from T={FLASH_MIN_T}"
+          f", {gpu_line()}): forward {times['K11'][0]:.4f} vs "
+          f"{times['masked'][0]:.4f} ms, forward+backward "
+          f"{times['K11'][1]:.4f} vs {times['masked'][1]:.4f} ms; outputs "
+          f"agree to rel {rel:.3e} on the unpadded rows", flush=True)
 
 
 def mel_work(B: int, frames: int, n_mels: int):

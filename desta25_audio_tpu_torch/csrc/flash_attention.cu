@@ -18,6 +18,7 @@
 //   forward rounds the unnormalised weights exp(s - m) to bf16 and divides
 //   by the f32 sum at the end (FlashAttention-2); the library kernel's
 //   single-block path normalises first, a difference of one bf16 rounding.
+//   Exponentials are exp2 with log2 e folded into the scale.
 // What bounds it on the H100: the bytes, just.  At the training shape
 //   (B=4, T=512, H=32, Hkv=8, Dh=128, causal, one row padded from 400) the
 //   forward moves ~42 MB (q and o 16.8 MB each, k and v 4.2 MB) and does
@@ -25,233 +26,250 @@
 //   segment rules allow: 0.0126 ms at 3.35 TB/s against 0.008 ms at 989
 //   TFLOP/s.  The backward moves ~84 MB (q, o, dO, dq; k, v, dk, dv) for
 //   2.5x the operations: 0.0251 ms against 0.020 ms.  chip_smoke.py
-//   computes both bounds from its inputs and reports bound_by "bytes".  The
-//   [T, T] score matrix never leaves registers.
-// Design (mma.sync m16n8k16, bf16 in, f32 accumulate, 4 warps a block):
-//   forward  one block per (q tile of 64 rows, head, batch); each warp keeps
-//            its 16 rows' q fragments, running max and sum and the [16, Dh]
-//            accumulator in registers and walks the key tiles of 64 staged
-//            in shared memory with an online softmax; tiles above the
-//            diagonal are skipped, the segment and bounds tests run per
-//            element (T need not be a multiple of 64).
-//   delta    one warp per (batch, row, head): D = rowsum(dO * O).
-//   dK/dV    one block per (k tile of 64 keys, kv head, batch); each warp
-//            owns 16 keys and keeps their [16, Dh] dK and dV sums in
-//            registers while the block loops over the G query heads of its
-//            kv head and over the q tiles at or below the diagonal; S^T,
-//            P^T and dP^T are formed with the keys as rows, so the GQA sum
-//            needs no atomics and is deterministic.
-//   dQ       one block per (q tile of 64 rows, head, batch), looping over
-//            the key tiles at or below the diagonal.
-//   Shared-memory rows are padded by 8 bf16 (a 16-byte shift) so the
-//   fragment loads of the 256-byte Dh=128 rows hit 32 distinct banks.
-// Left for later PRs: wgmma/TMA pipelines, warp specialisation, a split of
-//   the long early k tiles of dK/dV across blocks.
+//   computes both bounds from its inputs.  The [T, T] score matrix never
+//   leaves registers.
+// Design (Hopper: TMA, an mbarrier ring, wgmma; attention_sm90.cuh).  Every
+//   tile load is a TMA copy through 4-D tensor maps over [B, T, heads, Dh]
+//   (dims (Dh, heads, T, B), boxes (64, 1, 64, 1): a 256-byte Dh=128 row is
+//   two 128-byte swizzle spans, so a tile is two column halves) or 1-D maps
+//   over the segment ids, lse and D.  Blocks have 384 threads: two consumer
+//   warpgroups and a producer warpgroup, one thread of which keeps the ring
+//   full; setmaxnreg moves the producer's registers to the consumers (24
+//   against 240: it moves them only within the block's own allocation, so
+//   the producer is a whole warpgroup).  The grid's slowest dimension walks
+//   the causal blocks from the longest down, so the long ones start first.
+//   The mask costs more than the products when it is tested per element:
+//   a warp reads a tile's segment ids once (a min and a max over the warp),
+//   and only a tile of mixed segments, one that crosses T or one that
+//   crosses the diagonal tests its elements.  No atomics anywhere: each
+//   output element is summed by one thread, or by two in a fixed order, so
+//   two runs give the same bits.
+//   forward  one block per (128 query rows, head, batch); each warpgroup
+//            owns 64 rows; k/v tiles of 128 keys and their segment ids
+//            stream through a ring (2 stages at Dh=128, 3 at 64) up to the
+//            block's diagonal tile; S = Q K^T by wgmma m64n128k16 (SS),
+//            mask and online softmax in registers, O += bf16(P) V by wgmma
+//            m64nDhk16 (RS, V MN-major).
+//   delta    D = rowsum(dO * O), Dh / 8 lanes a (batch, row, head).
+//   dK/dV    one block per (64 keys, kv head, batch); K and V stay in
+//            shared memory; the q, dO, lse, D and segment-id tiles of 64
+//            rows, over the G query heads of the kv head and the q tiles at
+//            or below the diagonal, go to the two warpgroups in turn, each
+//            through its own two stages of the ring.  S^T = K Q^T and
+//            dP^T = V dO^T by wgmma m64n64k16 (SS), then dV += bf16(P^T) dO
+//            and dK += bf16(dS^T) Q by wgmma RS (dO and Q read MN-major),
+//            with P^T's exponentials under dP^T's product and dS^T under
+//            dV's.  dK and dV stay in registers; at the end the second
+//            warpgroup hands its sums to the first through shared memory,
+//            which adds them to its own: the GQA sum needs no atomics.
+//   dQ       one block per (128 query rows, head, batch), a warpgroup per
+//            64 rows; Q, dO, lse, D stay; k/v tiles of 64 keys stream up to
+//            the diagonal; S and dP by wgmma SS (P's exponentials under
+//            dP's product), dQ += bf16(dS) K by wgmma RS (K read MN-major).
 
-#include "common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block (4 warps x 16)
-constexpr int BK = 64;  // keys per tile
+using namespace desta;
+using namespace desta::sm90;
 
-// [64, DH] rows r0.. of a strided [T, stride] bf16 matrix into shared
-// memory (row stride DH + 8); rows at or past T are zero.
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int r0,
-                                          int T, size_t stride) {
-  constexpr int LD = DH + 8, CH = DH / 8;
-  for (int i = threadIdx.x; i < 64 * CH; i += blockDim.x) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < T)
-      val = *reinterpret_cast<const uint4*>(g + (size_t)(r0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(s + r * LD + c) = val;
+constexpr int THREADS = 384;   // 2 consumer warpgroups + 1 producer
+constexpr int PRODUCER = 256;  // the thread that starts the TMA loads
+constexpr float LOG2E = 1.4426950408889634f;
+
+// A [ROWS, DH] tile of a (DH, heads, T, B) map at (head, t0, b), in boxes of
+// 64 rows x 64 columns: column half c at c * ROWS * 64 elements.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int head, int t0,
+                                          int b) {
+#pragma unroll
+  for (int c = 0; c < DH / 64; ++c)
+#pragma unroll
+    for (int r = 0; r < ROWS / 64; ++r)
+      tma_load_4d(dst + c * ROWS * 64 + r * 64 * 64, map, bar, c * 64, head,
+                  t0 + 64 * r, b);
+}
+
+// Segment ids, lse and D are read through flat maps, up to 128 values of a
+// row at a time, in one box of VEC from the 16-byte-aligned start at or
+// below the first value wanted (a 1-D box starts on a 16-byte boundary):
+// value j of a row read from c0 lands at (c0 & 3) + j.  A slot holds a box
+// in shared memory at a 128-byte boundary, as every TMA destination must.
+constexpr int VEC = 132;
+constexpr int VEC_BYTES = VEC * 4;  // the bytes a load brings
+constexpr int VSLOT = 160;          // 32-bit values between slots
+constexpr int VSLOT_BYTES = VSLOT * 4;
+
+__device__ __forceinline__ void load_vec(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0) {
+  tma_load_1d(dst, map, bar, c0 & ~3);
+}
+
+// The smallest and largest of n segment ids in shared memory, over the
+// warp (every lane of the warp calls it).
+__device__ __forceinline__ void seg_range(const int* seg, int n, int& lo,
+                                          int& hi) {
+  int a = seg[threadIdx.x & 31], b = a;
+  for (int j = (threadIdx.x & 31) + 32; j < n; j += 32) {
+    a = min(a, seg[j]);
+    b = max(b, seg[j]);
   }
+  lo = __reduce_min_sync(0xffffffffu, a);
+  hi = __reduce_max_sync(0xffffffffu, b);
 }
 
-__device__ __forceinline__ void load_seg(int* s, const int* g, int r0, int T) {
-  for (int i = threadIdx.x; i < 64; i += blockDim.x)
-    s[i] = r0 + i < T ? g[r0 + i] : 0;
-}
+// The mask of a tile whose rows are this thread's two queries and whose
+// columns are n keys from k0 (the forward and dQ): query i keeps key j iff
+// j < T, seg[i] == seg[j] and, when causal, j <= i.  `any` is false when
+// it keeps every key for both rows; a tile of one segment compares the
+// rows' segments once.
+struct RowMask {
+  bool any, mixed;
+  bool same[2];  // one-segment tile: the row's segment is the tile's
+  const int* sk;
+  int k0, T, causal;
+  int sq[2], rows[2];
 
-// A fragment (16 rows from `row0`, 16 columns from `col0`) of a shared
-// [.., LD] bf16 matrix stored row-major.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int row0,
-                                       int col0, int g, int t) {
-  a[0] = *reinterpret_cast<const uint32_t*>(s + (row0 + g) * LD + col0 + 2 * t);
-  a[1] = *reinterpret_cast<const uint32_t*>(s + (row0 + g + 8) * LD + col0 + 2 * t);
-  a[2] = *reinterpret_cast<const uint32_t*>(s + (row0 + g) * LD + col0 + 2 * t + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(s + (row0 + g + 8) * LD + col0 + 2 * t + 8);
-}
-
-// B fragment (k = 16 columns from `col0`, n = 8 rows from `row0`) of a
-// shared matrix whose rows are the n index: B = M^T.
-template <int LD>
-__device__ __forceinline__ void load_bt(uint32_t b[2], const bf16* s, int row0,
-                                        int col0, int g, int t) {
-  b[0] = *reinterpret_cast<const uint32_t*>(s + (row0 + g) * LD + col0 + 2 * t);
-  b[1] = *reinterpret_cast<const uint32_t*>(s + (row0 + g) * LD + col0 + 2 * t + 8);
-}
-
-// B fragment (k = 16 rows from `row0`, n = 8 columns from `col0`) of a
-// shared matrix whose rows are the k index: B = M.
-template <int LD>
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* s, int row0,
-                                       int col0, int g, int t) {
-  const int r = row0 + 2 * t, c = col0 + g;
-  b[0] = desta::pack_raw(s[r * LD + c], s[(r + 1) * LD + c]);
-  b[1] = desta::pack_raw(s[(r + 8) * LD + c], s[(r + 9) * LD + c]);
-}
-
-// The accumulators of n-tiles 2j and 2j+1 (16 columns) as one A fragment.
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float lo[4],
-                                         const float hi[4]) {
-  a[0] = desta::pack_bf16(lo[0], lo[1]);
-  a[1] = desta::pack_bf16(lo[2], lo[3]);
-  a[2] = desta::pack_bf16(hi[0], hi[1]);
-  a[3] = desta::pack_bf16(hi[2], hi[3]);
-}
+  __device__ RowMask(const int* sk_, int n, int k0_, int T_, int causal_,
+                     const int (&sq_)[2], const int (&rows_)[2])
+      : sk(sk_), k0(k0_), T(T_), causal(causal_) {
+    int lo, hi;
+    seg_range(sk, n, lo, hi);
+    mixed = lo != hi;
+    for (int r = 0; r < 2; ++r) {
+      sq[r] = sq_[r];
+      rows[r] = rows_[r];
+      same[r] = !mixed && sq[r] == lo;
+    }
+    any = mixed || !same[0] || !same[1] || k0 + n > T
+          || (causal && k0 + n - 1 > rows[0]);
+  }
+  __device__ bool keep(int r, int col) const {
+    const int key = k0 + col;
+    return key < T && (!causal || key <= rows[r])
+           && (mixed ? sk[col] == sq[r] : same[r]);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
 template <int DH>
-__global__ void __launch_bounds__(128)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ seg,
-                 bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
-                 int Hkv, int causal, float scale) {
-  using namespace desta;
-  constexpr int LD = DH + 8;
-  __shared__ __align__(16) bf16 Ks[BK * LD];
-  __shared__ __align__(16) bf16 Vs[BK * LD];
-  __shared__ int segk[BK];
+struct FwdSmem {
+  static constexpr int STAGES = DH == 128 ? 2 : 3;
+  static constexpr int TILE = 128 * DH * 2;  // a [128, DH] tile
+  static constexpr int SEGK = TILE * (1 + 2 * STAGES);
+  static constexpr int SEGQ = SEGK + STAGES * VSLOT_BYTES;
+  static constexpr int BARS = SEGQ + VSLOT_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
 
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt0 = blockIdx.x * BQ, q0 = qt0 + warp * 16;
-  const size_t qstride = (size_t)H * DH, kstride = (size_t)Hkv * DH;
-  const bf16* qb = q + ((size_t)b * T * H + h) * DH;
-  const bf16* kb = k + ((size_t)b * T * Hkv + hk) * DH;
-  const bf16* vb = v + ((size_t)b * T * Hkv + hk) * DH;
-  const int* sb = seg + (size_t)b * T;
+// A forward block's key tiles, as fwd_loop reads them: tile i holds keys
+// 128 i.. of the ring's stage i % S with their segment ids.
+template <int DH, int S>
+struct FlashTiles {
+  const bf16* ring;
+  const int* segk;
+  uint64_t* full;
+  uint64_t* empty;
+  int seg0, T, causal;  // seg0: the batch's first flat segment index
+  int sq[2], rows[2];   // this thread's rows and their segments
 
-  uint32_t qf[DH / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < DH / 16; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + g + (r & 1) * 8;
-      const int col = ks * 16 + 2 * t + (r >> 1) * 8;
-      qf[ks][r] = row < T ? *reinterpret_cast<const uint32_t*>(
-                                qb + (size_t)row * qstride + col)
-                          : 0u;
-    }
-  const int rows[2] = {q0 + g, q0 + g + 8};
-  const int segq[2] = {rows[0] < T ? sb[rows[0]] : 0,
-                       rows[1] < T ? sb[rows[1]] : 0};
-
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-  float acc[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  const int kend = causal ? min(T, qt0 + BQ) : T;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile<DH>(Ks, kb, k0, T, kstride);
-    load_tile<DH>(Vs, vb, k0, T, kstride);
-    load_seg(segk, sb, k0, T);
-    __syncthreads();
-    if (causal && k0 > q0 + 15) continue;  // the whole tile is above the diagonal
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < DH / 16; ++ks) {
-        uint32_t bb[2];
-        load_bt<LD>(bb, Ks, nt * 8, ks * 16, g, t);
-        mma_bf16_16816(s[nt], qf[ks], bb);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = nt * 8 + 2 * t + (j & 1), key = k0 + kj;
-        const int i = j >> 1;
-        const bool ok = key < T && segk[kj] == segq[i]
-                        && (!causal || key <= rows[i]);
-        s[nt][j] = ok ? s[nt][j] * scale : -INFINITY;
-      }
-    }
-
-    // online softmax; a row whose keys in this tile are all masked keeps
-    // its state (base 0 avoids inf - inf)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = m_run[i];
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float base = mx == -INFINITY ? 0.f : mx;
-      const float corr = expf(m_run[i] - base);
-      m_run[i] = mx;
-      l_run[i] *= corr;
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        acc[dt][2 * i] *= corr;
-        acc[dt][2 * i + 1] *= corr;
-      }
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const float e0 = expf(s[nt][2 * i] - base);
-        const float e1 = expf(s[nt][2 * i + 1] - base);
-        l_run[i] += e0 + e1;
-        s[nt][2 * i] = e0;
-        s[nt][2 * i + 1] = e1;
-      }
-    }
-
-    // O += bf16(P) V
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        uint32_t bb[2];
-        load_b<LD>(bb, Vs, 16 * j, dt * 8, g, t);
-        mma_bf16_16816(acc[dt], a, bb);
-      }
-    }
+  __device__ const bf16* k(int i) const {
+    return ring + (i % S) * 2 * 128 * DH;
   }
+  __device__ const bf16* v(int i) const { return k(i) + 128 * DH; }
+  __device__ void wait(int i) const {
+    mbar_wait(&full[i % S], (uint32_t)(i / S) & 1u);
+  }
+  __device__ void release(int i) const { mbar_arrive(&empty[i % S]); }
+  __device__ RowMask mask(int i) const {
+    return RowMask(segk + VSLOT * (i % S) + ((seg0 + 128 * i) & 3), 128,
+                   128 * i, T, causal, sq, rows);
+  }
+};
 
-  bf16* ob = o + ((size_t)b * T * H + h) * DH;
-  float* lb = lse + ((size_t)b * H + h) * T;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_run[i];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int row = rows[i];
-    if (row < T) {
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        const int col = dt * 8 + 2 * t;
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * qstride + col) =
-            __floats2bfloat162_rn(acc[dt][2 * i] / l, acc[dt][2 * i + 1] / l);
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap mq,
+                 const __grid_constant__ CUtensorMap mk,
+                 const __grid_constant__ CUtensorMap mv,
+                 const __grid_constant__ CUtensorMap mseg,
+                 bf16* __restrict__ o, float* __restrict__ lse, int T, int H,
+                 int Hkv, int causal, float scale_log2) {
+  using L = FwdSmem<DH>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);
+  bf16* ring = Qs + 128 * DH;  // stage s: k at ring + 2 s 128 DH, v after
+  int* segk = reinterpret_cast<int*>(sm + L::SEGK);  // VSLOT a stage
+  int* segq = reinterpret_cast<int*>(sm + L::SEGQ);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 128;
+  const int nt = ((causal ? min(T, q0 + 128) : T) + 127) / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x == PRODUCER) {
+      mbar_expect_tx(q_full, L::TILE + VEC_BYTES);
+      load_tile<DH, 128>(Qs, &mq, q_full, h, q0, b);
+      load_vec(segq, &mseg, q_full, b * T + q0);
+      for (int i = 0; i < nt; ++i) {
+        const RingSlot<S> slot(i);
+        bf16* Ks = ring + slot.stage * 2 * 128 * DH;
+        uint64_t* bar = &full[slot.stage];
+        mbar_wait(&empty[slot.stage], slot.parity ^ 1);
+        mbar_expect_tx(bar, 2 * L::TILE + VEC_BYTES);
+        load_tile<DH, 128>(Ks, &mk, bar, hk, 128 * i, b);
+        load_tile<DH, 128>(Ks + 128 * DH, &mv, bar, hk, 128 * i, b);
+        load_vec(segk + VSLOT * slot.stage, &mseg, bar, b * T + 128 * i);
       }
-      if (t == 0) lb[row] = m_run[i] + logf(l);
+    }
+  } else {
+    reg_alloc<240>();
+    const int t = threadIdx.x & 127, g = (t & 31) >> 2, q = t & 3;
+    const int qrow0 = 64 * wg, lr = qrow0 + (t >> 5) * 16 + g;
+    const int rows[2] = {q0 + lr, q0 + lr + 8};
+    mbar_wait(q_full, 0);
+    const int* sqv = segq + ((b * T + q0) & 3);
+    const FlashTiles<DH, S> tiles{ring,   segk,   full,
+                                  empty,  b * T,  T,
+                                  causal, {sqv[lr], sqv[lr + 8]},
+                                  {rows[0], rows[1]}};
+    FwdState<DH> st;
+    st.init();
+    fwd_loop<DH, 128>(st, Qs, qrow0, nt, scale_log2, tiles);
+    for (int r = 0; r < 2; ++r) {
+      const float l = st.row_sum(r);
+      if (rows[r] >= T) continue;
+      bf16* orow = o + (((size_t)b * T + rows[r]) * H + h) * DH;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * q) =
+            __floats2bfloat162_rn(st.o[4 * j + 2 * r] / l,
+                                  st.o[4 * j + 2 * r + 1] / l);
+      if (q == 0)
+        lse[((size_t)b * H + h) * T + rows[r]] =
+            (st.m[r] * scale_log2 + log2f(l)) * 0.6931471805599453f;
     }
   }
 }
@@ -260,315 +278,515 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // backward
 // ---------------------------------------------------------------------------
 
-// D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp per row.
+// D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d]: DH / 8 lanes a row,
+// 16 bytes a lane, a shuffle sum within the row's lanes.
+template <int DH>
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                       float* __restrict__ delta, int rows, int T, int H,
-                       int DH) {
-  const int r = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (r >= rows) return;
-  const bf16* ob = o + (size_t)r * DH;
-  const bf16* db = dout + (size_t)r * DH;
+                       float* __restrict__ delta, int rows, int T, int H) {
+  constexpr int LANES = DH / 8;
+  const int r = (blockIdx.x * 256 + threadIdx.x) / LANES;
+  const int c = (threadIdx.x % LANES) * 8;
   float acc = 0.f;
-  for (int d = 2 * lane; d < DH; d += 64) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(ob + d));
-    const float2 c = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(db + d));
-    acc += a.x * c.x + a.y * c.y;
+  if (r < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + (size_t)r * DH + c);
+    const uint4 d = *reinterpret_cast<const uint4*>(dout + (size_t)r * DH + c);
+    const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(ap[i]), y = __bfloat1622float2(dp[i]);
+      acc += x.x * y.x + x.y * y.y;
+    }
   }
-  acc = desta::warp_sum(acc);
-  if (lane == 0) {
+#pragma unroll
+  for (int m = LANES / 2; m > 0; m >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, m);
+  if (r < rows && threadIdx.x % LANES == 0) {
     const int h = r % H, i = (r / H) % T, b = r / (H * T);
     delta[((size_t)b * H + h) * T + i] = acc;
   }
 }
 
+// P = exp(s scale - lse) where mk.keep(r, col) (everywhere when !mk.any),
+// else 0, in place of the scores s.  lse2(r, col): the log-sum-exp of the
+// column's (the dK/dV kernel's queries) or the row's (the dQ kernel's)
+// query, in log2 units.
+template <class Mask, class Lse>
+__device__ __forceinline__ void bwd_p(float (&s)[32], float scale_log2,
+                                      const Mask& mk, const Lse& lse2) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, col = 8 * j + 2 * q + (e & 1);
+      const float p = fast_exp2(fmaf(s[4 * j + e], scale_log2, -lse2(r, col)));
+      s[4 * j + e] = !mk.any || mk.keep(r, col) ? p : 0.f;
+    }
+}
+
+// dS = P (dP - D) scale in place of dP; del(r, col) as lse2 above.
+template <class Del>
+__device__ __forceinline__ void bwd_ds(float (&dp)[32], const float (&p)[32],
+                                       float scale, const Del& del) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, col = 8 * j + 2 * q + (e & 1);
+      dp[4 * j + e] = p[4 * j + e] * (dp[4 * j + e] - del(r, col)) * scale;
+    }
+}
+
+// The mask of a dK/dV tile, whose rows are this thread's two keys and
+// whose columns are 64 queries from qt0 (RowMask transposed).
+struct ColMask {
+  bool any, mixed;
+  bool same[2];
+  const int* segq;
+  int qt0, T, causal;
+  int sk[2], keys[2];
+
+  __device__ ColMask(const int* segq_, int qt0_, int T_, int causal_,
+                     const int (&sk_)[2], const int (&keys_)[2])
+      : segq(segq_), qt0(qt0_), T(T_), causal(causal_) {
+    int lo, hi;
+    seg_range(segq, 64, lo, hi);
+    mixed = lo != hi;
+    for (int r = 0; r < 2; ++r) {
+      sk[r] = sk_[r];
+      keys[r] = keys_[r];
+      same[r] = !mixed && sk[r] == lo;
+    }
+    any = mixed || !same[0] || !same[1] || qt0 + 64 > T || keys[1] >= T
+          || (causal && keys[1] > qt0);
+  }
+  __device__ bool keep(int r, int col) const {
+    const int qrow = qt0 + col;
+    return keys[r] < T && qrow < T && (!causal || keys[r] <= qrow)
+           && (mixed ? segq[col] == sk[r] : same[r]);
+  }
+};
+
 template <int DH>
-constexpr int bwd_smem_bytes() {
-  return 4 * 64 * (DH + 8) * 2 + 4 * 64 * 4;
+struct DkdvSmem {
+  static constexpr int STAGES = 4;         // two for each warpgroup
+  static constexpr int TILE = 64 * DH * 2;  // a [64, DH] tile
+  static constexpr int RING = 2 * TILE;     // after the block's k and v
+  static constexpr int SEGK = RING + STAGES * 2 * TILE;
+  static constexpr int VECS = SEGK + VSLOT_BYTES;  // a stage: lse, D, segq
+  static constexpr int BARS = VECS + STAGES * 3 * VSLOT_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
+
+// Warpgroup w's m-th q tile is load 2 m + w of the block's sequence (the
+// loads alternate), in stage 2 w + m % 2 of the ring: each warpgroup has
+// stages of its own, so neither waits on a stage a whole phase early.
+__device__ __forceinline__ void dkdv_slot(int w, int m, int& stage,
+                                          uint32_t& parity) {
+  stage = 2 * w + (m & 1);
+  parity = (uint32_t)(m >> 1) & 1u;
 }
 
 template <int DH>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const int* __restrict__ seg,
-                      const bf16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, int T, int H, int Hkv, int causal,
-                      float scale) {
-  using namespace desta;
-  constexpr int LD = DH + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + 64 * LD;
-  bf16* Qs = Vs + 64 * LD;
-  bf16* Ds = Qs + 64 * LD;  // dO tile
-  float* lse_s = reinterpret_cast<float*>(Ds + 64 * LD);
-  float* del_s = lse_s + 64;
-  int* segq = reinterpret_cast<int*>(del_s + 64);
-  int* segk = segq + 64;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mdo,
+                      const __grid_constant__ CUtensorMap mseg,
+                      const __grid_constant__ CUtensorMap mlse,
+                      const __grid_constant__ CUtensorMap mdelta,
+                      bf16* __restrict__ dk, bf16* __restrict__ dv, int T,
+                      int H, int Hkv, int causal, float scale) {
+  using L = DkdvSmem<DH>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(sm);
+  bf16* Vs = Ks + 64 * DH;
+  bf16* ring = reinterpret_cast<bf16*>(sm + L::RING);  // q, then dO
+  int* segk = reinterpret_cast<int*>(sm + L::SEGK);
+  float* vecs = reinterpret_cast<float*>(sm + L::VECS);  // 3 VSLOT a stage
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
 
-  const int hk = blockIdx.y, b = blockIdx.z, G = H / Hkv;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BK, kw = warp * 16;
-  const size_t qstride = (size_t)H * DH, kstride = (size_t)Hkv * DH;
-  const int* sb = seg + (size_t)b * T;
+  const int hk = blockIdx.x, b = blockIdx.y, G = H / Hkv;
+  const int k0 = blockIdx.z * 64;  // the longest causal blocks first
+  const int qstart = causal ? k0 : 0;
+  const int nq = (T - qstart + 63) / 64, loads = G * nq;
 
-  load_tile<DH>(Ks, k + ((size_t)b * T * Hkv + hk) * DH, k0, T, kstride);
-  load_tile<DH>(Vs, v + ((size_t)b * T * Hkv + hk) * DH, k0, T, kstride);
-  load_seg(segk, sb, k0, T);
-  const int keys[2] = {k0 + kw + g, k0 + kw + g + 8};
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);  // the owning warpgroup
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  float dka[DH / 8][4], dva[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = hk * G + hh;
-    const bf16* qb = q + ((size_t)b * T * H + h) * DH;
-    const bf16* db = dout + ((size_t)b * T * H + h) * DH;
-    const float* lb = lse + ((size_t)b * H + h) * T;
-    const float* eb = delta + ((size_t)b * H + h) * T;
-    for (int qt0 = causal ? k0 : 0; qt0 < T; qt0 += BQ) {
-      __syncthreads();  // the previous q tile is consumed
-      load_tile<DH>(Qs, qb, qt0, T, qstride);
-      load_tile<DH>(Ds, db, qt0, T, qstride);
-      for (int i = threadIdx.x; i < 64; i += blockDim.x) {
-        const bool in = qt0 + i < T;
-        lse_s[i] = in ? lb[qt0 + i] : 0.f;
-        del_s[i] = in ? eb[qt0 + i] : 0.f;
-        segq[i] = in ? sb[qt0 + i] : 0;
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x == PRODUCER) {
+      mbar_expect_tx(kv_full, 2 * L::TILE + VEC_BYTES);
+      load_tile<DH, 64>(Ks, &mk, kv_full, hk, k0, b);
+      load_tile<DH, 64>(Vs, &mv, kv_full, hk, k0, b);
+      load_vec(segk, &mseg, kv_full, b * T + k0);
+      for (int i = 0; i < loads; ++i) {
+        int stage;
+        uint32_t parity;
+        dkdv_slot(i & 1, i >> 1, stage, parity);
+        const int h = hk * G + i / nq, qt0 = qstart + 64 * (i % nq);
+        bf16* Qs = ring + stage * 2 * 64 * DH;
+        float* v = vecs + 3 * VSLOT * stage;
+        uint64_t* bar = &full[stage];
+        mbar_wait(&empty[stage], parity ^ 1);
+        mbar_expect_tx(bar, 2 * L::TILE + 3 * VEC_BYTES);
+        load_tile<DH, 64>(Qs, &mq, bar, h, qt0, b);
+        load_tile<DH, 64>(Qs + 64 * DH, &mdo, bar, h, qt0, b);
+        load_vec(v, &mlse, bar, (b * H + h) * T + qt0);
+        load_vec(v + VSLOT, &mdelta, bar, (b * H + h) * T + qt0);
+        load_vec(v + 2 * VSLOT, &mseg, bar, b * T + qt0);
       }
-      __syncthreads();
-
+    }
+  } else {
+    reg_alloc<240>();
+    const int t = threadIdx.x & 127, g = (t & 31) >> 2, q = t & 3;
+    const int lk = (t >> 5) * 16 + g;
+    const int keys[2] = {k0 + lk, k0 + lk + 8};
+    const float scale_log2 = scale * LOG2E;
+    mbar_wait(kv_full, 0);
+    const int* skv = segk + ((b * T + k0) & 3);
+    const int sk[2] = {skv[lk], skv[lk + 8]};
+    float dka[DH / 2], dva[DH / 2];
+    zero(dka);
+    zero(dva);
+    for (int m = 0; 2 * m + wg < loads; ++m) {
+      const int i = 2 * m + wg;
+      int stage;
+      uint32_t parity;
+      dkdv_slot(wg, m, stage, parity);
+      const int h = hk * G + i / nq, qt0 = qstart + 64 * (i % nq);
+      const bf16* Qs = ring + stage * 2 * 64 * DH;
+      const bf16* Ds = Qs + 64 * DH;
+      const float* v = vecs + 3 * VSLOT * stage;
+      const float* lse_s = v + (((b * H + h) * T + qt0) & 3);
+      const float* del_s = lse_s + VSLOT;
+      const int* segq =
+          reinterpret_cast<const int*>(v + 2 * VSLOT) + ((b * T + qt0) & 3);
+      mbar_wait(&full[stage], parity);
+      // S^T [64 keys, 64 queries] = K Q^T, dP^T = V dO^T as two groups
+      float st[32], dpt[32];
+      uint32_t ap[4][4], ad[4][4];
+      zero(st);
+      zero(dpt);
+      fence_regs(st);
+      fence_regs(dpt);
+      wgmma_fence();
 #pragma unroll
-      for (int qc = 0; qc < BQ; qc += 32) {
-        // S^T [16 keys, 32 queries] = K Q^T and dP^T = V dO^T
-        float st[4][4], dpt[4][4];
+      for (int ks = 0; ks < DH / 16; ++ks)
+        Wgmma<64>::ss(st, desc_k<64>(Ks, 0, ks), desc_k<64>(Qs, 0, ks));
+      wgmma_commit();
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+      for (int ks = 0; ks < DH / 16; ++ks)
+        Wgmma<64>::ss(dpt, desc_k<64>(Vs, 0, ks), desc_k<64>(Ds, 0, ks));
+      wgmma_commit();
+      const ColMask mk(segq, qt0, T, causal, sk, keys);
+      wgmma_wait<1>();
+      fence_regs(st);
+      // P^T = exp(S^T scale - lse); dV += bf16(P^T) dO
+      bwd_p(st, scale_log2, mk, [&](int, int c) { return lse_s[c] * LOG2E; });
 #pragma unroll
-          for (int j = 0; j < 4; ++j) st[nt][j] = dpt[nt][j] = 0.f;
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(ap[kk], st + 8 * kk);
+      fence_regs(dva);
+      fence_regs(ap);
+      wgmma_fence();
 #pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks) {
-          uint32_t ak[4], av[4];
-          load_a<LD>(ak, Ks, kw, ks * 16, g, t);
-          load_a<LD>(av, Vs, kw, ks * 16, g, t);
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<DH>::rs(dva, ap[kk], desc_mn<64>(Ds, kk));
+      wgmma_commit();
+      wgmma_wait<1>();  // dP^T is in; dV may still run
+      fence_regs(dpt);
+      // dS^T = P^T (dP^T - D) scale; dK += bf16(dS^T) Q
+      bwd_ds(dpt, st, scale, [&](int, int c) { return del_s[c]; });
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            uint32_t bq[2], bd[2];
-            load_bt<LD>(bq, Qs, qc + nt * 8, ks * 16, g, t);
-            load_bt<LD>(bd, Ds, qc + nt * 8, ks * 16, g, t);
-            mma_bf16_16816(st[nt], ak, bq);
-            mma_bf16_16816(dpt[nt], av, bd);
-          }
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(ad[kk], dpt + 8 * kk);
+      fence_regs(dka);
+      fence_regs(ad);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<DH>::rs(dka, ad[kk], desc_mn<64>(Qs, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(ap);
+      fence_regs(ad);
+      mbar_arrive(&empty[stage]);
+    }
+    // the second warpgroup's sums, through its own (spent) stages, to the
+    // first, which adds them to its own: dK = first + second, in that order
+    float* hand = reinterpret_cast<float*>(ring + 2 * 2 * 64 * DH);
+    if (wg == 1) {
+#pragma unroll
+      for (int j = 0; j < DH / 2; ++j) {
+        hand[j * 128 + t] = dka[j];
+        hand[(DH / 2 + j) * 128 + t] = dva[j];
+      }
+    }
+    named_barrier(1, 256);
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < DH / 2; ++j) {
+        dka[j] += hand[j * 128 + t];
+        dva[j] += hand[(DH / 2 + j) * 128 + t];
+      }
+      for (int r = 0; r < 2; ++r) {
+        if (keys[r] >= T) continue;
+        const size_t off = (((size_t)b * T + keys[r]) * Hkv + hk) * DH;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j) {
+          const int col = 8 * j + 2 * q;
+          *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+              __floats2bfloat162_rn(dka[4 * j + 2 * r],
+                                    dka[4 * j + 2 * r + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+              __floats2bfloat162_rn(dva[4 * j + 2 * r],
+                                    dva[4 * j + 2 * r + 1]);
         }
-        // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - D) scale
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int qi = qc + nt * 8 + 2 * t + (j & 1), qrow = qt0 + qi;
-            const int key = keys[j >> 1];
-            const bool ok = key < T && qrow < T
-                            && segk[key - k0] == segq[qi]
-                            && (!causal || key <= qrow);
-            const float p = ok ? expf(st[nt][j] * scale - lse_s[qi]) : 0.f;
-            st[nt][j] = p;
-            dpt[nt][j] = p * (dpt[nt][j] - del_s[qi]) * scale;
-          }
-        // dV += bf16(P^T) dO, dK += bf16(dS^T) Q over these 32 queries
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          uint32_t ap[4], ads[4];
-          acc_to_a(ap, st[2 * kk], st[2 * kk + 1]);
-          acc_to_a(ads, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-          for (int dt = 0; dt < DH / 8; ++dt) {
-            uint32_t bd[2], bq[2];
-            load_b<LD>(bd, Ds, qc + 16 * kk, dt * 8, g, t);
-            load_b<LD>(bq, Qs, qc + 16 * kk, dt * 8, g, t);
-            mma_bf16_16816(dva[dt], ap, bd);
-            mma_bf16_16816(dka[dt], ads, bq);
-          }
-        }
       }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int key = keys[i];
-    if (key >= T) continue;
-    const size_t off = ((size_t)b * T * Hkv + hk) * DH + (size_t)key * kstride;
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
-          __floats2bfloat162_rn(dka[dt][2 * i], dka[dt][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
-          __floats2bfloat162_rn(dva[dt][2 * i], dva[dt][2 * i + 1]);
     }
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const int* __restrict__ seg,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int T, int H, int Hkv, int causal, float scale) {
-  using namespace desta;
-  constexpr int LD = DH + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ds = Qs + 64 * LD;  // dO tile
-  bf16* Ks = Ds + 64 * LD;
-  bf16* Vs = Ks + 64 * LD;
-  int* segk = reinterpret_cast<int*>(Vs + 64 * LD);
+struct DqSmem {
+  static constexpr int STAGES = 3;
+  static constexpr int QT = 128 * DH * 2;  // the block's q or dO tile
+  static constexpr int KT = 64 * DH * 2;   // a streamed k or v tile
+  static constexpr int RING = 2 * QT;
+  static constexpr int VECS = RING + STAGES * 2 * KT;  // lse, D, segq
+  static constexpr int SEGK = VECS + 3 * VSLOT_BYTES;  // VSLOT a stage
+  static constexpr int BARS = SEGK + STAGES * VSLOT_BYTES;
+  static constexpr int BYTES = BARS + 8 * (1 + 2 * STAGES) + 1024;
+};
 
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int qt0 = blockIdx.x * BQ, qw = warp * 16, q0 = qt0 + qw;
-  const size_t qstride = (size_t)H * DH, kstride = (size_t)Hkv * DH;
-  const bf16* kb = k + ((size_t)b * T * Hkv + hk) * DH;
-  const bf16* vb = v + ((size_t)b * T * Hkv + hk) * DH;
-  const int* sb = seg + (size_t)b * T;
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap mq,
+                    const __grid_constant__ CUtensorMap mk,
+                    const __grid_constant__ CUtensorMap mv,
+                    const __grid_constant__ CUtensorMap mdo,
+                    const __grid_constant__ CUtensorMap mseg,
+                    const __grid_constant__ CUtensorMap mlse,
+                    const __grid_constant__ CUtensorMap mdelta,
+                    bf16* __restrict__ dq, int T, int H, int Hkv, int causal,
+                    float scale) {
+  using L = DqSmem<DH>;
+  constexpr int S = L::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = aligned_smem(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(sm);
+  bf16* Ds = Qs + 128 * DH;  // dO
+  bf16* ring = reinterpret_cast<bf16*>(sm + L::RING);  // k, then v
+  float* lse_s = reinterpret_cast<float*>(sm + L::VECS);
+  float* del_s = lse_s + VSLOT;
+  int* segq = reinterpret_cast<int*>(del_s + VSLOT);
+  int* segk = reinterpret_cast<int*>(sm + L::SEGK);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
 
-  load_tile<DH>(Qs, q + ((size_t)b * T * H + h) * DH, qt0, T, qstride);
-  load_tile<DH>(Ds, dout + ((size_t)b * T * H + h) * DH, qt0, T, qstride);
-  const int rows[2] = {q0 + g, q0 + g + 8};
-  float lse_r[2], del_r[2];
-  int segq[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = rows[i] < T;
-    lse_r[i] = in ? lse[((size_t)b * H + h) * T + rows[i]] : 0.f;
-    del_r[i] = in ? delta[((size_t)b * H + h) * T + rows[i]] : 0.f;
-    segq[i] = in ? sb[rows[i]] : 0;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (H / Hkv);
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * 128;
+  const int nk = ((causal ? min(T, q0 + 128) : T) + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float dqa[DH / 8][4];
-#pragma unroll
-  for (int i = 0; i < DH / 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dqa[i][j] = 0.f;
-
-  const int kend = causal ? min(T, qt0 + BQ) : T;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous k tile is consumed
-    load_tile<DH>(Ks, kb, k0, T, kstride);
-    load_tile<DH>(Vs, vb, k0, T, kstride);
-    load_seg(segk, sb, k0, T);
-    __syncthreads();
-    if (causal && k0 > q0 + 15) continue;
-
-    // S [16 queries, 64 keys] = Q K^T and dP = dO V^T
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[nt][j] = dp[nt][j] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < DH / 16; ++ks) {
-      uint32_t aq[4], ad[4];
-      load_a<LD>(aq, Qs, qw, ks * 16, g, t);
-      load_a<LD>(ad, Ds, qw, ks * 16, g, t);
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        uint32_t bk[2], bv[2];
-        load_bt<LD>(bk, Ks, nt * 8, ks * 16, g, t);
-        load_bt<LD>(bv, Vs, nt * 8, ks * 16, g, t);
-        mma_bf16_16816(s[nt], aq, bk);
-        mma_bf16_16816(dp[nt], ad, bv);
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {
+    reg_dealloc<24>();
+    if (threadIdx.x == PRODUCER) {
+      mbar_expect_tx(q_full, 2 * L::QT + 3 * VEC_BYTES);
+      load_tile<DH, 128>(Qs, &mq, q_full, h, q0, b);
+      load_tile<DH, 128>(Ds, &mdo, q_full, h, q0, b);
+      load_vec(lse_s, &mlse, q_full, (b * H + h) * T + q0);
+      load_vec(del_s, &mdelta, q_full, (b * H + h) * T + q0);
+      load_vec(segq, &mseg, q_full, b * T + q0);
+      for (int i = 0; i < nk; ++i) {
+        const RingSlot<S> slot(i);
+        bf16* Kt = ring + slot.stage * 2 * 64 * DH;
+        uint64_t* bar = &full[slot.stage];
+        mbar_wait(&empty[slot.stage], slot.parity ^ 1);
+        mbar_expect_tx(bar, 2 * L::KT + VEC_BYTES);
+        load_tile<DH, 64>(Kt, &mk, bar, hk, 64 * i, b);
+        load_tile<DH, 64>(Kt + 64 * DH, &mv, bar, hk, 64 * i, b);
+        load_vec(segk + VSLOT * slot.stage, &mseg, bar, b * T + 64 * i);
       }
     }
+  } else {
+    reg_alloc<240>();
+    const int t = threadIdx.x & 127, g = (t & 31) >> 2, q = t & 3;
+    const int qw = 64 * wg, lr = qw + (t >> 5) * 16 + g;
+    const int rows[2] = {q0 + lr, q0 + lr + 8};
+    const float scale_log2 = scale * LOG2E;
+    mbar_wait(q_full, 0);
+    const int lo = ((b * H + h) * T + q0) & 3, so = (b * T + q0) & 3;
+    const int sq[2] = {segq[so + lr], segq[so + lr + 8]};
+    const float lse2[2] = {lse_s[lo + lr] * LOG2E, lse_s[lo + lr + 8] * LOG2E};
+    const float del[2] = {del_s[lo + lr], del_s[lo + lr + 8]};
+    float dqa[DH / 2];
+    zero(dqa);
+    for (int i = 0; i < nk; ++i) {
+      const RingSlot<S> slot(i);
+      const int k0 = 64 * i;
+      const bf16* Kt = ring + slot.stage * 2 * 64 * DH;
+      const bf16* Vt = Kt + 64 * DH;
+      const int* sk = segk + VSLOT * slot.stage + ((b * T + k0) & 3);
+      mbar_wait(&full[slot.stage], slot.parity);
+      if (!(causal && k0 > q0 + qw + 63)) {  // else wholly above the rows
+        // S [64 rows, 64 keys] = Q K^T, dP = dO V^T as two groups
+        float s[32], dp[32];
+        uint32_t a[4][4];
+        zero(s);
+        zero(dp);
+        fence_regs(s);
+        fence_regs(dp);
+        wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+        for (int ks = 0; ks < DH / 16; ++ks)
+          Wgmma<64>::ss(s, desc_k<128>(Qs, qw, ks), desc_k<64>(Kt, 0, ks));
+        wgmma_commit();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = nt * 8 + 2 * t + (j & 1), key = k0 + kj;
-        const int i = j >> 1;
-        const bool ok = key < T && rows[i] < T && segk[kj] == segq[i]
-                        && (!causal || key <= rows[i]);
-        const float p = ok ? expf(s[nt][j] * scale - lse_r[i]) : 0.f;
-        dp[nt][j] = p * (dp[nt][j] - del_r[i]) * scale;  // dS
+        for (int ks = 0; ks < DH / 16; ++ks)
+          Wgmma<64>::ss(dp, desc_k<128>(Ds, qw, ks), desc_k<64>(Vt, 0, ks));
+        wgmma_commit();
+        const RowMask mk(sk, 64, k0, T, causal, sq, rows);
+        wgmma_wait<1>();
+        fence_regs(s);
+        bwd_p(s, scale_log2, mk, [&](int r, int) { return lse2[r]; });
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - D) scale; dQ += bf16(dS) K
+        bwd_ds(dp, s, scale, [&](int r, int) { return del[r]; });
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a(a[kk], dp + 8 * kk);
+        fence_regs(dqa);
+        fence_regs(a);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<DH>::rs(dqa, a[kk], desc_mn<64>(Kt, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        fence_regs(a);
       }
-    // dQ += bf16(dS) K
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[4];
-      acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int dt = 0; dt < DH / 8; ++dt) {
-        uint32_t bb[2];
-        load_b<LD>(bb, Ks, 16 * kk, dt * 8, g, t);
-        mma_bf16_16816(dqa[dt], a, bb);
-      }
+      mbar_arrive(&empty[slot.stage]);
     }
-  }
-
-  bf16* qo = dq + ((size_t)b * T * H + h) * DH;
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= T) continue;
+      bf16* qrow = dq + (((size_t)b * T + rows[r]) * H + h) * DH;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= T) continue;
-#pragma unroll
-    for (int dt = 0; dt < DH / 8; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      *reinterpret_cast<__nv_bfloat162*>(qo + (size_t)rows[i] * qstride + col) =
-          __floats2bfloat162_rn(dqa[dt][2 * i], dqa[dt][2 * i + 1]);
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(qrow + 8 * j + 2 * q) =
+            __floats2bfloat162_rn(dqa[4 * j + 2 * r], dqa[4 * j + 2 * r + 1]);
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// host
+// ---------------------------------------------------------------------------
+
+// A (Dh, heads, T, B) map over a contiguous [B, T, heads, Dh] bf16 tensor.
+cudaError_t map_bthd(CUtensorMap* m, const void* p, int B, int T, int heads,
+                     int DH) {
+  const cuuint64_t e = 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)DH, (cuuint64_t)heads,
+                              (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {DH * e, heads * DH * e,
+                                 (cuuint64_t)T * heads * DH * e};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return make_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, p, dims, strides,
+                  box);
+}
+
+// The maps every K11 kernel reads: q, k, v, dO, segment ids, lse, D (the
+// forward leaves dO, lse and D unset).
+struct Maps {
+  CUtensorMap q, k, v, dout, seg, lse, delta;
+  cudaError_t make(const void* q_, const void* k_, const void* v_,
+                   const void* seg_, const void* dout_, const void* lse_,
+                   const void* delta_, int B, int T, int H, int Hkv, int DH) {
+    const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    cudaError_t e = cudaSuccess;
+    if (e == cudaSuccess) e = map_bthd(&q, q_, B, T, H, DH);
+    if (e == cudaSuccess) e = map_bthd(&k, k_, B, T, Hkv, DH);
+    if (e == cudaSuccess) e = map_bthd(&v, v_, B, T, Hkv, DH);
+    if (e == cudaSuccess)
+      e = make_map_1d(&seg, CU_TENSOR_MAP_DATA_TYPE_INT32, seg_,
+                      (size_t)B * T, VEC);
+    if (dout_ == nullptr) return e;
+    if (e == cudaSuccess) e = map_bthd(&dout, dout_, B, T, H, DH);
+    if (e == cudaSuccess)
+      e = make_map_1d(&lse, f32, lse_, (size_t)B * H * T, VEC);
+    if (e == cudaSuccess)
+      e = make_map_1d(&delta, f32, delta_, (size_t)B * H * T, VEC);
+    return e;
+  }
+};
+
 template <int DH>
-int launch_fwd(const void* q, const void* k, const void* v, const void* seg,
-               void* o, void* lse, int B, int T, int H, int Hkv, int causal,
-               float scale, cudaStream_t stream) {
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<DH><<<grid, 128, 0, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-      (bf16*)o, (float*)lse, T, H, Hkv, causal, scale);
+int launch_fwd(const Maps& m, void* o, void* lse, int B, int T, int H,
+               int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = FwdSmem<DH>::BYTES;
+  const cudaError_t e = allow_smem(flash_fwd_kernel<DH>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (T + 127) / 128);
+  flash_fwd_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.seg, (bf16*)o, (float*)lse, T, H, Hkv, causal,
+      scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_dkdv(const void* q, const void* k, const void* v, const void* seg,
-                const void* dout, const void* lse, const void* delta, void* dk,
-                void* dv, int B, int T, int H, int Hkv, int causal, float scale,
-                cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes<DH>();
-  cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DH>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((T + BK - 1) / BK, Hkv, B);
-  flash_bwd_dkdv_kernel<DH><<<grid, 128, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
-      (bf16*)dv, T, H, Hkv, causal, scale);
+int launch_dkdv(const Maps& m, void* dk, void* dv, int B, int T, int H,
+                int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = DkdvSmem<DH>::BYTES;
+  const cudaError_t e = allow_smem(flash_bwd_dkdv_kernel<DH>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(Hkv, B, (T + 63) / 64);
+  flash_bwd_dkdv_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, m.seg, m.lse, m.delta, (bf16*)dk, (bf16*)dv, T,
+      H, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DH>
-int launch_dq(const void* q, const void* k, const void* v, const void* seg,
-              const void* dout, const void* lse, const void* delta, void* dq,
-              int B, int T, int H, int Hkv, int causal, float scale,
-              cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes<DH>();
-  cudaFuncSetAttribute(flash_bwd_dq_kernel<DH>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<DH><<<grid, 128, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dq,
-      T, H, Hkv, causal, scale);
+int launch_dq(const Maps& m, void* dq, int B, int T, int H, int Hkv,
+              int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = DqSmem<DH>::BYTES;
+  const cudaError_t e = allow_smem(flash_bwd_dq_kernel<DH>, smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(H, B, (T + 127) / 128);
+  flash_bwd_dq_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      m.q, m.k, m.v, m.dout, m.seg, m.lse, m.delta, (bf16*)dq, T, H, Hkv,
+      causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -578,20 +796,29 @@ extern "C" int desta_flash_fwd(const void* q, const void* k, const void* v,
                                const void* seg, void* o, void* lse, int B,
                                int T, int H, int Hkv, int Dh, int causal,
                                float scale, void* stream) {
+  if (Dh != 64 && Dh != 128) return (int)cudaErrorInvalidValue;
+  Maps m;
+  if (m.make(q, k, v, seg, nullptr, nullptr, nullptr, B, T, H, Hkv, Dh)
+      != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Dh == 128)
-    return launch_fwd<128>(q, k, v, seg, o, lse, B, T, H, Hkv, causal, scale, s);
-  if (Dh == 64)
-    return launch_fwd<64>(q, k, v, seg, o, lse, B, T, H, Hkv, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return Dh == 128
+             ? launch_fwd<128>(m, o, lse, B, T, H, Hkv, causal, scale, s)
+             : launch_fwd<64>(m, o, lse, B, T, H, Hkv, causal, scale, s);
 }
 
 extern "C" int desta_flash_bwd_delta(const void* o, const void* dout,
                                      void* delta, int B, int T, int H, int Dh,
                                      void* stream) {
   const int rows = B * T * H;
-  flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)o, (const bf16*)dout, (float*)delta, rows, T, H, Dh);
+  if (Dh != 64 && Dh != 128) return (int)cudaErrorInvalidValue;
+  const int blocks = (rows * (Dh / 8) + 255) / 256;
+  if (Dh == 128)
+    flash_bwd_delta_kernel<128><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const bf16*)o, (const bf16*)dout, (float*)delta, rows, T, H);
+  else
+    flash_bwd_delta_kernel<64><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+        (const bf16*)o, (const bf16*)dout, (float*)delta, rows, T, H);
   return (int)cudaGetLastError();
 }
 
@@ -601,14 +828,14 @@ extern "C" int desta_flash_bwd_dkdv(const void* q, const void* k,
                                     const void* delta, void* dk, void* dv,
                                     int B, int T, int H, int Hkv, int Dh,
                                     int causal, float scale, void* stream) {
+  if (Dh != 64 && Dh != 128) return (int)cudaErrorInvalidValue;
+  Maps m;
+  if (m.make(q, k, v, seg, dout, lse, delta, B, T, H, Hkv, Dh) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Dh == 128)
-    return launch_dkdv<128>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H,
-                            Hkv, causal, scale, s);
-  if (Dh == 64)
-    return launch_dkdv<64>(q, k, v, seg, dout, lse, delta, dk, dv, B, T, H,
-                           Hkv, causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return Dh == 128
+             ? launch_dkdv<128>(m, dk, dv, B, T, H, Hkv, causal, scale, s)
+             : launch_dkdv<64>(m, dk, dv, B, T, H, Hkv, causal, scale, s);
 }
 
 extern "C" int desta_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -616,12 +843,11 @@ extern "C" int desta_flash_bwd_dq(const void* q, const void* k, const void* v,
                                   const void* lse, const void* delta, void* dq,
                                   int B, int T, int H, int Hkv, int Dh,
                                   int causal, float scale, void* stream) {
+  if (Dh != 64 && Dh != 128) return (int)cudaErrorInvalidValue;
+  Maps m;
+  if (m.make(q, k, v, seg, dout, lse, delta, B, T, H, Hkv, Dh) != cudaSuccess)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (Dh == 128)
-    return launch_dq<128>(q, k, v, seg, dout, lse, delta, dq, B, T, H, Hkv,
-                          causal, scale, s);
-  if (Dh == 64)
-    return launch_dq<64>(q, k, v, seg, dout, lse, delta, dq, B, T, H, Hkv,
-                         causal, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return Dh == 128 ? launch_dq<128>(m, dq, B, T, H, Hkv, causal, scale, s)
+                   : launch_dq<64>(m, dq, B, T, H, Hkv, causal, scale, s);
 }

@@ -8,7 +8,11 @@ unchanged one loads at once.  The library is bound with ``ctypes``: tensors
 go in as ``data_ptr()`` pointers and the stream as
 ``torch.cuda.current_stream().cuda_stream``, all ``c_void_p``.  Each C entry
 point launches its kernel and returns ``cudaGetLastError()``; :func:`check`
-raises on anything but 0.
+raises on anything but 0.  The headers (``csrc/*.cuh``, among them
+``attention_sm90.cuh``, the TMA / mbarrier / wgmma pieces of K2 and K11)
+are part of the hash.  The link needs no ``-lcuda``: the one libcuda
+function used, ``cuTensorMapEncodeTiled``, is looked up at run time
+(``cudaGetDriverEntryPoint``).
 
 Launch counts: each kernel wrapper calls :func:`count_launch` once per kernel
 it launches (never on the plain CPU path), so a caller can show that a run
@@ -38,8 +42,11 @@ _P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
 
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES: Dict[str, Tuple] = {
-    # q, k, v, out, B, Tq, Tkv, H, scale, fold_scale, stream
-    "desta_enc_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, out, part, part_ml, B, Tq, Tkv, H, scale, splits,
+    # tiles per split, stream
+    "desta_enc_attention": (_P,) * 6 + (_I,) * 4 + (_F, _I, _I, _P),
+    # part, part_ml, out, B, Tq, H, splits, stream
+    "desta_enc_attention_combine": (_P,) * 3 + (_I,) * 4 + (_P,),
     # a, w, bias, out, M, N, K, gelu, stream
     "desta_gemm_bias": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, w, out, rows, D, eps, stream

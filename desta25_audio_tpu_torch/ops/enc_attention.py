@@ -8,6 +8,11 @@ head size of every Whisper and Q-Former configuration); on a CPU tensor it
 runs :func:`packed_encoder_attention_plain`, the same function in plain
 torch at the same rounding points.  It never falls back from the card.
 
+Queries of at most 64 rows (the Q-Former's cross-attention) fill a quarter
+of a kernel block's rows, so :func:`plan_key_splits` cuts the keys into
+ranges of whole tiles when that covers the card better: the kernel writes
+each range's f32 partial sums to scratch and a second launch combines them.
+
 On the card the kernel runs inside an autograd function (the Q-Former's
 cross-attention trains through it): its backward recomputes through the
 plain version under autograd, as the JAX package's custom VJP recomputes
@@ -16,13 +21,17 @@ through XLA (``enc_attention.py:165-182``).
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
 import torch
 
 from . import _build
 
 KERNEL_DH = 64
+KEY_TILE = 128        # keys per kernel tile
+SPLIT_MAX_TQ = 64     # queries of one consumer warpgroup: the cross shape
 
 
 def _scale(dh: int):
@@ -30,6 +39,31 @@ def _scale(dh: int):
     # fold the scale into q when it is a power of two (exact in bf16)
     folded = math.log2(scale) == round(math.log2(scale))
     return scale, folded
+
+
+def plan_key_splits(B: int, H: int, Tq: int, Tkv: int, n_sm: int = 132
+                    ) -> Tuple[int, ...]:
+    """Key boundaries (0, ..., Tkv) of the ranges the kernel attends
+    separately; one range unless Tq <= SPLIT_MAX_TQ.  Each range but the
+    last is a whole number of KEY_TILE tiles, none is empty.  A block takes
+    two ranges (one per consumer warpgroup) and one block runs on an SM at
+    a time, so the planner takes the count of ranges that minimises
+    waves x (tiles per range + 1), the 1 standing for a block's fixed cost
+    (its q load and epilogue); ties go to fewer ranges."""
+    if Tq > SPLIT_MAX_TQ:
+        return (0, Tkv)
+    nt = -(-Tkv // KEY_TILE)
+    best = None
+    for p in range(1, nt + 1):
+        tps = -(-nt // p)
+        if -(-nt // tps) != p:   # a range would be empty
+            continue
+        waves = -(-(B * H * -(-p // 2)) // n_sm)
+        cost = waves * (tps + 1)
+        if best is None or cost < best[0]:
+            best = (cost, p, tps)
+    _, p, tps = best
+    return tuple(i * tps * KEY_TILE for i in range(p)) + (Tkv,)
 
 
 def packed_encoder_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -95,10 +129,31 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     _build.require_cuda(name, q, k, v, dtype=torch.bfloat16)
     out = torch.empty_like(q)
-    scale, folded = _scale(KERNEL_DH)
+    bounds = plan_key_splits(B, n_heads, Tq, Tkv, _n_sm(q.device))
+    splits = len(bounds) - 1
+    part = part_ml = None
+    if splits > 1:   # f32 (acc, m, l) of each key range
+        part = torch.empty(splits, B, n_heads, Tq, KERNEL_DH,
+                           dtype=torch.float32, device=q.device)
+        part_ml = torch.empty(splits, B, n_heads, Tq, 2, dtype=torch.float32,
+                              device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    scale, _ = _scale(KERNEL_DH)
     lib = _build.library()
+    stream = _build.stream_ptr(q.device)
     _build.check(lib.desta_enc_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Tq, Tkv,
-        n_heads, scale, int(folded), _build.stream_ptr(q.device)), name)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr(part),
+        ptr(part_ml), B, Tq, Tkv, n_heads, scale, splits,
+        bounds[1] // KEY_TILE, stream), name)
     _build.count_launch(name)
+    if splits > 1:
+        _build.check(lib.desta_enc_attention_combine(
+            part.data_ptr(), part_ml.data_ptr(), out.data_ptr(), B, Tq,
+            n_heads, splits, stream), name)
+        _build.count_launch(name)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -33,6 +33,7 @@ from desta25_audio_tpu_torch.ops import _build
 from desta25_audio_tpu_torch.ops.enc_attention import (
     packed_encoder_attention,
     packed_encoder_attention_plain,
+    plan_key_splits,
 )
 from desta25_audio_tpu_torch.ops.enc_ffn import (
     encoder_ffn,
@@ -81,15 +82,28 @@ def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("B,Tq,Tkv,H", [(1, 70, 70, 2), (3, 5, 130, 4),
-                                        (2, 64, 1, 1)])
-def test_enc_attention_kernel(gen, B, Tq, Tkv, H):
+@pytest.mark.parametrize("B,Tq,Tkv,H,peak", [
+    (1, 70, 70, 2, False), (3, 5, 130, 4, False), (2, 64, 1, 1, False),
+    # the 128-key tile's edges, self-attention
+    *((1, t, t, 2, False) for t in (1, 63, 64, 65, 127, 128, 129, 1500)),
+    (8, 64, 1500, 20, False),   # the cross shape: keys split across blocks
+    (2, 64, 1500, 2, True),     # split, the last range's maxima far above
+])
+def test_enc_attention_kernel(gen, B, Tq, Tkv, H, peak):
     mk = lambda t: torch.randn(B, t, H * 64, generator=gen,  # noqa: E731
                                device="cuda").bfloat16()
     q, k, v = mk(Tq), mk(Tkv), mk(Tkv)
+    if peak:
+        q = (6 * q.float()).bfloat16()
+        k[:, 1152:] = (3 * k[:, 1152:].float()).bfloat16()
+    splits = len(plan_key_splits(B, H, Tq, Tkv, torch.cuda
+                                 .get_device_properties(0)
+                                 .multi_processor_count)) - 1
     _build.reset_launch_counts()
     got = packed_encoder_attention(q, k, v, H)
-    assert _build.launch_counts() == {"packed_encoder_attention": 1}
+    # a split adds the launch that combines the key ranges
+    assert _build.launch_counts() == {
+        "packed_encoder_attention": 1 if splits == 1 else 2}
     assert _rel(got, packed_encoder_attention_plain(q, k, v, H)) < 2e-2
 
 
@@ -443,6 +457,11 @@ def test_fused_inject_raises_on_what_it_does_not_take(gen):
     (4, 520, 32, 8, 128, True, "left"),     # T not a multiple of the tile
     (2, 77, 4, 4, 64, False, "left"),       # MHA, bidirectional, one tile
     (1, 200, 6, 2, 128, True, "none"),
+    # the tiles' edges (64 and 128 rows), GQA groups of 1 and 4, both head
+    # dims, both masks; row 0 all padding, row 1 left-padded
+    *((2, T, 2 * G, 2, Dh, causal, "full")
+      for T in (64, 127, 128, 300, 520) for G in (1, 4) for Dh in (64, 128)
+      for causal in (True, False)),
 ])
 def test_flash_attention_kernel(gen, B, T, H, Hkv, Dh, causal, pad):
     from desta25_audio_tpu_torch.ops.attention import (
@@ -455,6 +474,9 @@ def test_flash_attention_kernel(gen, B, T, H, Hkv, Dh, causal, pad):
         seg[-1, T - 112:] = 0
     elif pad == "left":
         seg[0, :37] = 0
+    elif pad == "full":
+        seg[0] = 0
+        seg[1, :T // 3] = 0
 
     def run(fn):
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -467,6 +489,23 @@ def test_flash_attention_kernel(gen, B, T, H, Hkv, Dh, causal, pad):
                                       "flash_attention_bwd": 3}
     for g, w in zip(got, run(flash_attention_plain)):
         assert _rel(g, w) < 2e-2
+
+
+def test_flash_attention_backward_is_deterministic(gen):
+    """No atomics: two backward runs on the same inputs give the same bits."""
+    from desta25_audio_tpu_torch.ops.attention import flash_attention
+    B, T, H, Hkv, Dh = 2, 520, 8, 2, 128
+    mk = lambda h: torch.randn(B, T, h, Dh, generator=gen,  # noqa: E731
+                               device="cuda").bfloat16()
+    q, k, v, do = mk(H), mk(Hkv), mk(Hkv), mk(H)
+    seg = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    seg[1, 400:] = 0
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = flash_attention(*leaves, seg, True, Dh ** -0.5)
+    one = torch.autograd.grad(o, leaves, do, retain_graph=True)
+    two = torch.autograd.grad(o, leaves, do)
+    for a, b in zip(one, two):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_raises_on_what_it_does_not_take(gen):

@@ -5,7 +5,9 @@ K2 ``packed_encoder_attention``, K3 ``encoder_ffn`` and K8
 ``fused_decode_layers`` (bf16 weight stream, one token per row).  The
 plain version is what the port's wrapper runs for CPU tensors; the CUDA
 kernels are held against the same plain versions on the card by
-``chip_smoke.py``.
+``chip_smoke.py``.  Also K2's key-split planner, and the split it plans
+(key ranges attended apart, then combined in f32, as the kernel's second
+launch does) against the unsplit plain version.
 """
 
 import jax
@@ -24,7 +26,12 @@ from desta25_audio_tpu.ops.enc_ffn import encoder_ffn as jax_ffn
 from desta25_audio_tpu_torch.ckpt.bridge import llm_from_jax
 from desta25_audio_tpu_torch.models import llm as tllm
 from desta25_audio_tpu_torch.ops import _build
-from desta25_audio_tpu_torch.ops.enc_attention import packed_encoder_attention
+from desta25_audio_tpu_torch.ops.enc_attention import (
+    KEY_TILE,
+    packed_encoder_attention,
+    packed_encoder_attention_plain,
+    plan_key_splits,
+)
 from desta25_audio_tpu_torch.ops.enc_ffn import encoder_ffn
 from desta25_audio_tpu_torch.ops.fused_decode import (
     KVCache,
@@ -65,6 +72,66 @@ def test_enc_attention_plain_matches_pallas(B, Tq, Tkv, H, Dh):
     # bf16 outputs: both round P to bf16 and accumulate in f32; 2e-2 covers
     # one-ulp bf16 flips from the different summation order
     np.testing.assert_allclose(_np(got), _np(want), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tkv,want", [
+    (8, 20, 64, 1500, (0, 384, 768, 1152, 1500)),  # chip_smoke.py's cross
+    (2, 20, 1500, 1500, (0, 1500)),                 # its self shape
+    (16, 20, 64, 1500, (0, 384, 768, 1152, 1500)),  # the B=4 train step's
+    (3, 4, 5, 130, (0, 128, 130)),                  # a 2-key last range
+    (2, 1, 64, 1, (0, 1)),                          # one key
+    (1, 2, 70, 70, (0, 70)),                        # Tq > 64: never split
+    (2, 2, 64, 1500, tuple(range(0, 1500, 128)) + (1500,)),  # a small grid
+])
+def test_plan_key_splits(B, H, Tq, Tkv, want):
+    bounds = plan_key_splits(B, H, Tq, Tkv)
+    assert bounds == want
+    assert bounds[0] == 0 and bounds[-1] == Tkv
+    assert all(b % KEY_TILE == 0 for b in bounds[1:-1])
+    assert all(lo < hi for lo, hi in zip(bounds, bounds[1:]))
+
+
+def _split_combined(q, k, v, n_heads, bounds):
+    """The plain version on each key range, combined in f32 as the kernel's
+    second launch combines its ranges: each range's output weighted by its
+    row sum of exponentials, rescaled to the largest range maximum."""
+    B, Tq, DM = q.shape
+    dh = DM // n_heads
+    qh = q.reshape(B, Tq, n_heads, dh).transpose(1, 2) * dh ** -0.5
+    outs, lses = [], []
+    for lo, hi in zip(bounds, bounds[1:]):
+        outs.append(packed_encoder_attention_plain(
+            q, k[:, lo:hi], v[:, lo:hi], n_heads)
+            .reshape(B, Tq, n_heads, dh).transpose(1, 2))
+        kh = k[:, lo:hi].reshape(B, hi - lo, n_heads, dh).transpose(1, 2)
+        lses.append(torch.logsumexp(qh @ kh.transpose(-1, -2), -1,
+                                    keepdim=True))
+    top = torch.stack(lses).amax(0)
+    w = [torch.exp(lse - top) for lse in lses]
+    o = sum(wi * oi for wi, oi in zip(w, outs)) / sum(w)
+    return o.transpose(1, 2).reshape(B, Tq, DM)
+
+
+@pytest.mark.parametrize("B,H,Tq,Tkv,plan_shape", [
+    (3, 4, 5, 130, None),
+    (2, 2, 64, 1500, None),
+    (2, 2, 64, 1500, (8, 20, 64, 1500)),   # the cross shape's boundaries
+])
+def test_key_split_combine_matches_unsplit(B, H, Tq, Tkv, plan_shape):
+    bounds = plan_key_splits(*(plan_shape or (B, H, Tq, Tkv)))
+    assert len(bounds) > 2
+    rng = np.random.default_rng(1)
+    DM = H * 64
+    # a peaked q and one range's keys scaled up: the ranges' maxima differ
+    # by tens, so a wrong rescaling shows
+    q = torch.from_numpy(6 * rng.standard_normal((B, Tq, DM),
+                                                 dtype=np.float32))
+    k = torch.from_numpy(rng.standard_normal((B, Tkv, DM), dtype=np.float32))
+    k[:, bounds[-2]:] *= 3
+    v = torch.from_numpy(rng.standard_normal((B, Tkv, DM), dtype=np.float32))
+    want = packed_encoder_attention_plain(q, k, v, H)
+    got = _split_combined(q, k, v, H, bounds)
+    assert float((got - want).abs().max() / want.abs().max()) < 1e-6
 
 
 # -- K3 ----------------------------------------------------------------------
