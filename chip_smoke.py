@@ -63,13 +63,23 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     (100, 200)): each layer's attention and MLP half against plain, 2- and
     32-layer logits through its layer loop, gated as K8, and layer 0 at the
     p=2 and p=4 shard shapes (each rank against plain, the ranks' partials
-    summed against p=1);
+    summed against p=1); the K8 family's attention launch alone
+    (``decode_attention``, csrc/decode_attention.cuh: keys split across a
+    thread-block cluster, TMA tiles) against ``decode_attention_plain`` at
+    Llama-3.1-8B's heads: B=2, S=256, ci=(100, 200) at Kd=1 and 4, B=2,
+    S=4096, ci=(3000, 4095), B=8, S=1024, G=8 and qk-norm, gated at
+    TOL_DECODE beside a control (the first key range dropped) that must
+    read above it, two launches bit-identical, the C side's plan equal to
+    ``plan_decode_splits``; its times back-to-back and queued behind a
+    sleep kernel, the bound and SDPA over the cached keys alone
+    (information);
 14. quantize the model's own LLM in place (``apply_llm_quant``);
 15. ``generate()`` with the int8 LLM (and the int8 encoder) at b2 and b1
     (the 121-token conversation), greedy, 32 new tokens: W8A8 (b2
     prefill, M = 296), K7 (b1 prefill at M = 121, every decode step's
-    head) and K8-int8 must launch, the bf16 K8 must not; the b2 path step
-    by step as in 8;
+    head) and K8-int8 must launch, the bf16 K8 must not, the decode
+    attention once for each 7 K8-int8 launches (its kernel count, the
+    JSON line's launches); the b2 path step by step as in 8;
 16. ``generate(speculative_k=4)`` at b2 on the int8 tower: K8v must
     launch; the first verify step's position-0 logits against one K8-int8
     step on the same cache, within TOL_DECODE; verify steps, tokens per
@@ -157,7 +167,8 @@ int8 or 67 TFLOP/s f32 outside the tensor cores (K1, whose operations are
 a real FFT's and the nonzero filterbank entries', not its dense products),
 counted from this run's inputs) and, where one PyTorch call
 computes the same function, that call's time (``library_ms``; K2 and K11
-against ``scaled_dot_product_attention``), else null.
+against ``scaled_dot_product_attention``; the decode attention against SDPA
+over its cached keys alone, as information), else null.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -303,6 +314,11 @@ SOURCES = {
     "tp_allreduce": (
         "desta25_audio_tpu_torch/csrc/tp_allreduce.cu",
         "desta25_audio_tpu/ops/fused_decode.py:673"),
+    # the attention launch of K8, K8-int8, K8v, K8i and K9 (launches: the
+    # kernel count of the int8 generate() runs of phase 15)
+    "decode_attention": (
+        "desta25_audio_tpu_torch/csrc/decode_attention.cuh",
+        "desta25_audio_tpu/ops/fused_decode.py:504"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("log_mel", "packed_encoder_attention", "encoder_ffn",
@@ -1006,6 +1022,173 @@ def _inject_slice(inject, lo: int, hi: int):
         "k": inject["k"][lo:hi], "v": inject["v"][lo:hi]}
 
 
+def _attention_case(gen, B, S, H, Hkv, kd, ci, qk_norm=False):
+    """Inputs of the standalone decode attention: random bf16 qkv rows
+    [B*kd, (H+2*Hkv)*128] and cache [B, S, Hkv*128], RoPE tables of random
+    angles, row 0 left-padded by 10, ci [B], the qk-norm weights or None."""
+    import torch
+    Dh, R = 128, B * kd
+    rnd = lambda *s: torch.randn(*s, generator=gen,  # noqa: E731
+                                 device="cuda")
+    qkv = rnd(R, (H + 2 * Hkv) * Dh).to(torch.bfloat16)
+    kc = rnd(B, S, Hkv * Dh).to(torch.bfloat16)
+    vc = rnd(B, S, Hkv * Dh).to(torch.bfloat16)
+    ang = 6.2832 * torch.rand(R, Dh // 2, generator=gen, device="cuda")
+    cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    mask[0, :10] = 0
+    norms = ((1 + 0.1 * rnd(Dh)).to(torch.bfloat16),
+             (1 + 0.1 * rnd(Dh)).to(torch.bfloat16)) if qk_norm else (None,
+                                                                      None)
+    ci = torch.as_tensor(ci, dtype=torch.int32, device="cuda")
+    return qkv, kc, vc, cos, sin, mask, ci, *norms
+
+
+def check_decode_attention(gen):
+    """13 (the K8 family's attention launch). The standalone
+    ``decode_attention`` (csrc/decode_attention.cuh: keys split across a
+    thread-block cluster, TMA tiles) against ``decode_attention_plain`` at
+    Llama-3.1-8B's heads (H=32, Hkv=8, Dh=128): B=2, S=256, ci=(100, 200)
+    at Kd=1 and (100, 252) at Kd=4; B=2, S=4096, ci=(3000, 4095); B=8,
+    S=1024, per-row ci from the seed; G=8 (Hkv=4) and a qk-norm case.  The
+    output and the written k / v rows within TOL_DECODE, no other cache row
+    changed, two launches' bits equal; a control, the plain version with the
+    first key range dropped, must read above the gate.  The C side's plan
+    must be the planner's.  Times at the b2 decode, b2 verify and long-cache
+    shapes: kernel, plain, bound, and ``scaled_dot_product_attention`` over
+    the cached keys alone (information), back-to-back CUDA events (the
+    kernels line) and, as information, queued behind a sleep kernel (the
+    card's time, not the Python launch path's).  Returns the JSON row of
+    the b2 decode shape, (err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        decode_attention, decode_attention_plain, decode_attention_smem,
+        plan_decode_splits)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    H, Dh = 32, 128
+    gen_ci = torch.randint(64, 1024, (8,), generator=gen, device="cuda")
+    cases = [  # label, B, S, Hkv, kd, ci, qk_norm
+        ("b2 decode", 2, 256, 8, 1, (100, 200), False),
+        ("b2 verify", 2, 256, 8, 4, (100, 252), False),
+        ("long cache", 2, 4096, 8, 1, (3000, 4095), False),
+        ("b8", 8, 1024, 8, 1, tuple(gen_ci.tolist()), False),
+        ("G=8", 2, 256, 4, 1, (100, 200), False),
+        ("qk-norm", 2, 256, 8, 1, (37, 256), True),
+    ]
+    lib = _build.library()
+    row = None
+    for label, B, S, Hkv, kd, ci, qk_norm in cases:
+        G = H // Hkv
+        bounds = plan_decode_splits(B, Hkv, S, n_sm)
+        plan = (ctypes.c_int * 3)()
+        _build.check(lib.desta_decode_attention_plan(B, Hkv, kd, S, H,
+                                                     ctypes.addressof(plan)),
+                     "desta_decode_attention_plan")
+        want_plan = (len(bounds) - 1, -(-(bounds[1] - bounds[0]) // 32) * 32,
+                     decode_attention_smem(G, kd, bounds[1] - bounds[0]))
+        if tuple(plan) != want_plan:
+            raise AssertionError(f"decode attention plan {tuple(plan)} vs "
+                                 f"the planner's {want_plan} at {label}")
+        qkv, kc, vc, cos, sin, mask, ci_t, qn, kn = _attention_case(
+            gen, B, S, H, Hkv, kd, ci, qk_norm)
+        eps, scale = 1e-5, Dh ** -0.5
+        args = (cos, sin, mask, ci_t, qn, kn, H, Hkv, eps, scale)
+        ck, cp = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+        _build.reset_launch_counts()
+        got = decode_attention(qkv, *ck, *args)
+        again = decode_attention(qkv, kc.clone(), vc.clone(), *args)
+        torch.cuda.synchronize()
+        if _build.launch_counts() != {"decode_attention": 2}:
+            raise AssertionError(f"decode_attention launches "
+                                 f"{_build.launch_counts()}")
+        want = decode_attention_plain(qkv, *cp, *args)
+        err, rel = rel_err(got, want)
+        rows_rel = 0.0
+        expect = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+        for b in range(B):
+            w = slice(ci[b], min(ci[b] + kd, S))
+            expect[b, w] = True
+            if w.stop > w.start:
+                rows_rel = max(rows_rel, rel_err(ck[0][b, w], cp[0][b, w])[1],
+                               rel_err(ck[1][b, w], cp[1][b, w])[1])
+        changed = (ck[0] != kc).any(-1) | (ck[1] != vc).any(-1)
+        # control: the plain version without the first key range
+        holed = mask.clone()
+        holed[:, :bounds[1]] = 0
+        _, ctrl = rel_err(decode_attention_plain(
+            qkv, kc.clone(), vc.clone(), cos, sin, holed, ci_t, qn, kn, H,
+            Hkv, eps, scale), want)
+        bits = torch.equal(got, again)
+        print(f"decode_attention [{label}] B={B} S={S} H={H} Hkv={Hkv} "
+              f"Kd={kd} ci={list(ci)}{' qk-norm' if qk_norm else ''}: "
+              f"{len(bounds) - 1} key ranges of {bounds[1] - bounds[0]}, "
+              f"{B * Hkv * kd * (len(bounds) - 1)} CTAs; max_abs_err="
+              f"{err:.3e} rel={rel:.3e}, written k / v rows rel="
+              f"{rows_rel:.3e} (tol {TOL_DECODE}); control, first range "
+              f"dropped: rel={ctrl:.3e} (must exceed {TOL_DECODE}); two "
+              f"launches bit-identical: {bits}", flush=True)
+        if max(rel, rows_rel) > TOL_DECODE:
+            raise AssertionError(f"decode_attention [{label}] disagrees: "
+                                 f"{rel}, rows {rows_rel}")
+        if not torch.equal(changed, expect):
+            raise AssertionError(f"decode_attention [{label}] wrote cache "
+                                 "rows other than ci..ci+kd-1")
+        if not ctrl > TOL_DECODE:
+            raise AssertionError(f"decode_attention [{label}]: the control "
+                                 f"reads {ctrl}, within the gate")
+        if not bits:
+            raise AssertionError(f"decode_attention [{label}]: two launches "
+                                 "differ")
+        if label not in ("b2 decode", "long cache", "b2 verify"):
+            continue
+        # times: the kernel on its cache (rewriting the same rows), the
+        # plain version, SDPA over the cached keys alone (no RoPE, no draft
+        # block, no cache write), q [B, H, kd, Dh] against [B, Hkv, S, Dh]
+        # with the keys below ci that the mask allows
+        kern = lambda: decode_attention(qkv, *ck, *args)  # noqa: E731
+        plain = lambda: decode_attention_plain(qkv, *cp, *args)  # noqa: E731
+        nk = torch.clamp(ci_t.long(), max=S)
+        allow = ((mask[:, :S] > 0)
+                 & (torch.arange(S, device="cuda")[None] < nk[:, None]))
+        q4 = qkv[:, :H * Dh].reshape(B, kd, H, Dh).transpose(1, 2)
+        k4 = kc.view(B, S, Hkv, Dh).transpose(1, 2)
+        v4 = vc.view(B, S, Hkv, Dh).transpose(1, 2)
+        am = allow[:, None, None, :]
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4, attn_mask=am, enable_gqa=True)
+        # back-to-back event times (the kernels line, as for every kernel)
+        # and, as information, the same runs queued behind a sleep kernel:
+        # the card's time, where the back-to-back reading is the Python
+        # launch path's
+        ms, plain_ms, lib_ms = (cuda_time_ms(f) for f in (kern, plain, sdpa))
+        q_ms, q_plain, q_lib = (cuda_time_ms(f, iters=n, queued=True)
+                                for f, n in ((kern, 50), (plain, 10),
+                                             (sdpa, 50)))
+        KVD = Hkv * Dh
+        keys = int(nk.sum())
+        written = int(expect.sum())
+        nbytes = (keys * KVD * 2 * 2 + keys * 4            # K, V, mask rows
+                  + qkv.numel() * 2 + 2 * cos.numel() * 4  # qkv, cos, sin
+                  + B * kd * H * Dh * 2 + written * KVD * 2 * 2)
+        pairs = int(allow.sum()) * kd + B * kd * (kd + 1) // 2
+        b_ms, b_by = bound(nbytes, 4 * Dh * H * pairs, "f32")
+        print(f"decode_attention [{label}] times ({gpu_line()}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"scaled_dot_product_attention over the cached keys alone "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} "
+              f"bytes); queued: kernel {q_ms:.4f} ms ({nbytes / q_ms / 1e6:.1f}"
+              f" GB/s, {b_ms / q_ms:.3f} of the bound), plain {q_plain:.4f} "
+              f"ms, scaled_dot_product_attention {q_lib:.4f} ms", flush=True)
+        if label == "b2 decode":
+            row = (err, ms, plain_ms, b_ms, b_by, lib_ms)
+    return row
+
+
 def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
                        inject=None):
     """A decode step (kd = 1: K8, or K8-int8 on an int8 tree) or a verify
@@ -1447,7 +1630,8 @@ def check_verify_position0(model, convs, drafts) -> float:
 def run_int8_llm(model, convs, gpu):
     """Phases 14-16 on the flagship model (int8 encoder already applied).
     Returns (launch counts summed over the int8 generate() runs, launch
-    counts of the speculative run, the position-0 error)."""
+    counts of the speculative run, the position-0 error, the decode
+    attention's launches inside the int8 generate() runs' decode steps)."""
     import torch
     from desta25_audio_tpu_torch.ops import _build
     from desta25_audio_tpu_torch.ops.quant import is_quantized
@@ -1468,15 +1652,24 @@ def run_int8_llm(model, convs, gpu):
     L = model.llm_cfg.num_hidden_layers
     runs = {2: convs[:2], 1: convs[2]}
     model.generate(runs[2], do_sample=False, max_new_tokens=2)   # warm-up
-    outs, times, total = {}, {}, {}
+    outs, times, total, attn = {}, {}, {}, {}
     for b, msgs in runs.items():
         _build.reset_launch_counts()
         outs[b] = model.generate(msgs, do_sample=False, max_new_tokens=32)
         torch.cuda.synchronize()
         counts = _build.launch_counts()
+        kcounts = _build.kernel_counts()
         times[b] = dict(model.last_timings)
         print(f"int8 LLM: launches during generate() b{b}: "
-              f"{json.dumps(counts)}", flush=True)
+              f"{json.dumps(counts)}; kernels launched inside them: "
+              f"{json.dumps(kcounts)}", flush=True)
+        # one attention launch of the 7 a decode step's layer takes
+        if kcounts.get("decode_attention", 0) * 7 != counts.get(
+                "fused_decode_layers_int8", 0) or not kcounts:
+            raise AssertionError(f"int8 LLM b{b}: decode_attention launches "
+                                 f"{kcounts} for the step's {counts}")
+        attn["decode_attention"] = (attn.get("decode_attention", 0)
+                                    + kcounts["decode_attention"])
         must = ("log_mel", "quant_matmul", "fused_decode_layers_int8") + (
             ("w8a8_matmul",) if b == 2 else ())
         for name in must:
@@ -1526,7 +1719,7 @@ def run_int8_llm(model, convs, gpu):
           f"(plain greedy: {plain['decode_ms'] / max(plain_tokens, 1):.3f});"
           f" leading ids equal to the plain greedy run (information): "
           f"{agree} of 32", flush=True)
-    return total, spec_counts, err0
+    return total, spec_counts, err0, attn
 
 
 def inject_spec(cfg, gen, B: int, ta: int):
@@ -2684,9 +2877,12 @@ def main() -> int:
         llm8["fused_verify_layers"] = (max(k8v[0], k8v_bf16[0]),) + k8v[1:]
         k9, _ = check_fused_tp(qllm, model.llm_cfg, gen8)
         del qllm
+        k8_attn = check_decode_attention(
+            torch.Generator("cuda").manual_seed(7))
 
         # -- 14-16. the int8 LLM in generate(), plain and speculative -------
-        llm_launches, spec_launches, _ = run_int8_llm(model, convs, gpu)
+        llm_launches, spec_launches, _, attn_launches = run_int8_llm(
+            model, convs, gpu)
 
         # -- 17. K8i vs plain; 18-20. ORCA generate() ------------------------
         k8i = check_fused_inject(model, torch.Generator("cuda").manual_seed(4))
@@ -2730,7 +2926,7 @@ def main() -> int:
                 (max(k2[0][0], k2[1][0]),) + k2[0][1:],
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
                 "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9,
-                **mesh_rows}
+                **mesh_rows, "decode_attention": k8_attn}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         row = measured[name]
@@ -2742,6 +2938,7 @@ def main() -> int:
                   else train_launches if name in train_launches
                   else k9_launches if name in K9_HALVES
                   else mesh_launches if name in mesh_rows
+                  else attn_launches if name == "decode_attention"
                   else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels K2
-// (enc_attention.cu) and K11 (flash_attention.cu), and reusable by any later
-// wgmma/TMA kernel of the package:
+// (enc_attention.cu), K11 (flash_attention.cu) and the decode attention
+// (decode_attention.cuh: the TMA maps, mbarriers and loads), and reusable by
+// any later wgmma/TMA kernel of the package:
 //
 //   - TMA tensor maps, encoded on the host with cuTensorMapEncodeTiled (found
 //     through cudaGetDriverEntryPoint, so the library links no -lcuda) and
@@ -8,7 +9,8 @@
 //     bf16 tiles use the 128-byte swizzle, out-of-bounds elements read as 0;
 //   - mbarrier helpers (init, arrive, arrive.expect_tx, try_wait.parity) for
 //     a ring of STAGES tiles with one "full" and one "empty" barrier a stage;
-//   - TMA loads (cp.async.bulk.tensor) that complete on an mbarrier;
+//   - TMA loads (cp.async.bulk.tensor, 1-D to 4-D) that complete on an
+//     mbarrier;
 //   - wgmma.mma_async wrappers, bf16 in and f32 accumulate, m64n64k16 and
 //     m64n128k16: SS (A and B from shared memory, both K-major) and RS (A
 //     from registers, B from shared memory stored MN-major: tnspB = 1), with
@@ -182,6 +184,16 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       "cp.async.bulk.tensor.1d.shared::cluster.global.tile.mbarrier::"
       "complete_tx::bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 

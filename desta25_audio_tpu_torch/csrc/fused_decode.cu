@@ -21,10 +21,16 @@
 //     int8 scale applied to the f32 sum, epilogues store / residual /
 //     SwiGLU at the TPU kernel's rounding points.  R = B*Kd rows go 16 per
 //     pass; above 16 rows each pass re-streams the weights.
-//   * decode_attention (csrc/decode_attention.cuh, shared with K9): one
-//     block per (batch row b, kv head, draft token j); qk-norm and RoPE in
-//     f32, the k/v rows written into the cache at ci + j, an f32 softmax
-//     over the cached keys < ci the mask allows plus the draft block 0..j.
+//   * decode_attention (csrc/decode_attention.cuh, shared with K9): the
+//     step's attention with its cache write, one launch a layer.  The keys
+//     of each (batch row b, kv head, draft token j) are split across a
+//     thread-block cluster of up to 8 CTAs (ops/fused_decode.
+//     plan_decode_splits: 128 CTAs at the b2 decode instead of 16 blocks),
+//     each CTA streams its range's K and V tiles through a 4-stage TMA ring,
+//     and the softmax's maximum and denominator and the partial outputs are
+//     combined through distributed shared memory in rank order, P normalised
+//     before its bf16 rounding as on the TPU.  It is bound by bytes (the
+//     cached K/V rows below ci), not by operations.
 //   * rms_norm: one block per row, f32 statistics, bf16 output.
 //   A step costs 7 launches per layer (norm, qkv, attention, o+residual,
 //   norm, gate/up+SwiGLU, down+residual).  One persistent kernel or a CUDA
@@ -98,6 +104,14 @@ extern "C" int desta_skinny_gemm(const void* x, const void* w,
   }
 #undef DESTA_SKINNY
   return (int)e;
+}
+
+// out[3] = the decode attention's plan on the current device: key ranges,
+// keys per range, dynamic shared bytes (ops/fused_decode.plan_decode_splits
+// and decode_attention_smem are the same rules)
+extern "C" int desta_decode_attention_plan(int B, int Hkv, int kd, int S,
+                                           int H, void* out) {
+  return (int)decode_attention_plan(B, Hkv, kd, S, H, (int*)out);
 }
 
 // the layouts of decode_attention (csrc/decode_attention.cuh)

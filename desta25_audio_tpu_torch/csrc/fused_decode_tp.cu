@@ -26,7 +26,8 @@
 //     at 4 blocks an SM with a grid-stride loop over columns, so the
 //     redundant prologue (B*D*4 bytes a block, from L2) stays small
 //     against the weight stream.
-//   * attention: csrc/decode_attention.cuh at Kd = 1, on the shard's heads
+//   * attention: csrc/decode_attention.cuh at Kd = 1 (keys split across a
+//     thread-block cluster, TMA tile loads), on the shard's heads
 //     (the q rows of its H/p heads, then its k and v rows) and its slice of
 //     the packed cache [B, S, Hkv/p*Dh].
 //   * wo and down: skinny_gemm with the STORE_F32 epilogue (the partial

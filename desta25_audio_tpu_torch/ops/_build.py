@@ -16,7 +16,11 @@ function used, ``cuTensorMapEncodeTiled``, is looked up at run time
 
 Launch counts: each kernel wrapper calls :func:`count_launch` once per kernel
 it launches (never on the plain CPU path), so a caller can show that a run
-went through the kernels (``reset_launch_counts`` / ``launch_counts``).
+went through the kernels (``reset_launch_counts`` / ``launch_counts``).  A
+kernel that a wrapper launches among others under the wrapper's name (the
+decode attention inside the decode step) is also counted by its own name
+with :func:`count_kernel` (``kernel_counts``), apart from the wrappers'
+counts, which keep their meaning.
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ SIGNATURES: Dict[str, Tuple] = {
     # k_norm, out, B, kd, S, H, Hkv, Dh, eps, scale, stream
     "desta_decode_attention": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _F, _F, _P),
+    # B, Hkv, kd, S, H, out [3]: ranges, keys per range, shared bytes
+    "desta_decode_attention_plan": (_I,) * 5 + (_P,),
     # x, x_is_f32, q, scale, M, K, seg, div127, stream
     "desta_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     # x, q, s, out, part, M, N, K, splits, out_f32, stream
@@ -99,18 +105,28 @@ SIGNATURES: Dict[str, Tuple] = {
 }
 
 _launches: Dict[str, int] = {}
+_kernels: Dict[str, int] = {}
 
 
 def count_launch(name: str) -> None:
     _launches[name] = _launches.get(name, 0) + 1
 
 
+def count_kernel(name: str) -> None:
+    _kernels[name] = _kernels.get(name, 0) + 1
+
+
 def reset_launch_counts() -> None:
     _launches.clear()
+    _kernels.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(_launches)
+
+
+def kernel_counts() -> Dict[str, int]:
+    return dict(_kernels)
 
 
 def nvcc_path() -> str:

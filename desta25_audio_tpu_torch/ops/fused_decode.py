@@ -44,11 +44,19 @@ points in the activation dtype.  The cache is updated IN PLACE on both paths
 and also returned, so callers keep the JAX API shape.  :class:`FusedStep`
 holds one step's launches; the tensor-parallel step
 (``ops/fused_decode_mesh.py``, K10) runs one per rank.
+
+The step's attention launch (``csrc/decode_attention.cuh``, shared with
+K9) splits each (row, kv head, draft token)'s cached keys across a
+thread-block cluster by :func:`plan_decode_splits`; it is also launched
+alone by :func:`decode_attention`, whose plain version
+:func:`decode_attention_plain` is the middle of :func:`attention_plain`.
+Each step launch of it is counted in ``_build.kernel_counts()`` as
+``decode_attention``, beside the step's own launch counts.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +75,11 @@ INJECT_THREADS = 512                # csrc/fused_inject.cu IA_THREADS
 INJECT_DH_MAX = 256                 # injection head dims the kernel takes
 INJECT_LN_EPS = 1e-5
 _SMEM_LIMIT = 227 * 1024
+# csrc/decode_attention.cuh: keys per TMA tile, ring stages, the most CTAs
+# of a cluster (the portable cluster size)
+DECODE_KEY_TILE = 32
+DECODE_STAGES = 4
+DECODE_SPLITS_MAX = 8
 
 
 class KVCache(NamedTuple):
@@ -91,6 +104,42 @@ def tower_is_int8(params) -> bool:
     return kinds.pop()
 
 
+def plan_decode_splits(B: int, Hkv: int, S: int, n_sm: int = 132
+                       ) -> Tuple[int, ...]:
+    """Key boundaries (0, ..., S) of the ranges that the CTAs of one
+    cluster of the decode attention (``csrc/decode_attention.cuh``, which
+    applies the same rule with the card's SM count) attend apart.  A draft
+    token has B*Hkv clusters; the planner gives each as many ranges as fill
+    the card (at most DECODE_SPLITS_MAX, at least 1, one when the clusters
+    alone fill it), then evens them out: every range but the last is a whole
+    number of DECODE_KEY_TILE tiles, and none is empty.  It reads the cache
+    capacity S, never the cache index, which lives on the device.  The
+    verify step (Kd > 1 draft tokens) takes the decode step's plan, so that
+    its token 0 is summed as the decode step sums it, bit for bit."""
+    if S < 1:
+        raise ValueError(f"cache length {S}")
+    nt = -(-S // DECODE_KEY_TILE)
+    ns = max(1, min(DECODE_SPLITS_MAX, n_sm // (B * Hkv), nt))
+    tps = -(-nt // ns)
+    ns = -(-nt // tps)
+    return tuple(i * tps * DECODE_KEY_TILE for i in range(ns)) + (S,)
+
+
+def decode_attention_smem(G: int, kd: int, range_len: int) -> int:
+    """Dynamic shared memory of one CTA of the decode attention
+    (``csrc/decode_attention.cuh`` decode_smem): 1024 bytes of alignment,
+    the ring of DECODE_STAGES tiles of 32 keys x 128 dims in bf16 and its
+    barriers, then in f32: q and the CTA's partial output [G, 128] each, the
+    draft keys [Kdm, 128], the draft scores [G, Kdm], 64 floats of
+    reductions and the range's scores [G, keys] (whole tiles).  Kdm is 1 at
+    kd = 1, else KD_MAX."""
+    kdm = 1 if kd == 1 else KD_MAX
+    keys = -(-range_len // DECODE_KEY_TILE) * DECODE_KEY_TILE
+    return (1024 + DECODE_STAGES * (DECODE_KEY_TILE * KERNEL_DH * 2 + 8)
+            + 4 * (2 * G * KERNEL_DH + kdm * KERNEL_DH + G * kdm + 64
+                   + G * keys))
+
+
 def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
                   int8: bool) -> List[str]:
     """What the kernels of ``csrc/fused_decode.cu`` cannot take at this
@@ -110,10 +159,14 @@ def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
     if D % vec or I % vec or (H * Dh) % vec:
         bad.append(f"D={D}, I={I}, H*Dh={H * Dh} must be multiples of {vec}")
     G = H // Hkv
-    smem = 4 * (G * Dh + Dh + 32 + G * cache_len)
+    if cache_len < 1:
+        return bad + [f"cache length {cache_len}"]
+    bounds = plan_decode_splits(batch, Hkv, cache_len)
+    smem = decode_attention_smem(G, kd, bounds[1] - bounds[0])
     if smem > _SMEM_LIMIT:
         bad.append(f"cache length {cache_len} needs {smem} bytes of shared "
-                   f"memory for the scores (limit {_SMEM_LIMIT})")
+                   f"memory for the scores of one key range of "
+                   f"{bounds[1] - bounds[0]} keys (limit {_SMEM_LIMIT})")
     if kd > 1 and batch * kd * H * cache_len * 4 > VERIFY_SCORES_BUDGET:
         bad.append(f"B*Kd*H*S*4 = {batch * kd * H * cache_len * 4} bytes "
                    f"(limit {VERIFY_SCORES_BUDGET}, as the JAX verify step)")
@@ -229,8 +282,9 @@ def _inject_plain(h: torch.Tensor, inject, l: int, B: int, Kd: int):
 class PlainStep(NamedTuple):
     """What every layer of one plain decode / verify step shares: the RoPE
     tables [R, Dh], the keys each row attends ([B, S]: below its ci and
-    allowed by the mask), the draft block's causal rule [Kd, Kd] and the
-    cache rows the step writes (row, position), positions past S dropped."""
+    allowed by the mask), the draft block's causal rule [Kd, Kd], the
+    cache rows the step writes (row, position), positions past S dropped,
+    and the step's own mask [B, >=S] and cache indices ci [B]."""
     B: int
     Kd: int
     cos: torch.Tensor
@@ -240,6 +294,8 @@ class PlainStep(NamedTuple):
     wok: torch.Tensor
     wrow: torch.Tensor
     wpos: torch.Tensor
+    mask: torch.Tensor
+    ci: torch.Tensor
 
 
 def plain_step(cos, sin, attention_mask, cache_index, B: int, Kd: int,
@@ -253,7 +309,8 @@ def plain_step(cos, sin, attention_mask, cache_index, B: int, Kd: int,
     wpos = ci[:, None] + jj[None, :]             # [B, Kd] cache write rows
     wok = wpos < S
     wrow = torch.arange(B, device=dev)[:, None].expand(B, Kd)[wok]
-    return PlainStep(B, Kd, cos, sin, valid, causal, wok, wrow, wpos[wok])
+    return PlainStep(B, Kd, cos, sin, valid, causal, wok, wrow, wpos[wok],
+                     attention_mask, ci)
 
 
 def rms_plain(x: torch.Tensor, w: torch.Tensor, eps: float, dt):
@@ -263,22 +320,32 @@ def rms_plain(x: torch.Tensor, w: torch.Tensor, eps: float, dt):
             * w.float()).to(dt)
 
 
-def attention_plain(lay, cfg, st: PlainStep, cache: KVCache, l: int,
-                    xn: torch.Tensor) -> torch.Tensor:
-    """Layer l's attention on the normalised rows xn [R, D] (dtype dt):
-    q/k/v, qk-norm and RoPE in f32, the new k/v rows written into the cache,
-    scores over the cache and the draft block, P rounded to dt for the
-    cached keys, P.V; returns the wo product's f32 sum [R, D] (scaled,
-    unrounded)."""
-    dt = xn.dtype
-    B, Kd = st.B, st.Kd
-    R = B * Kd
-    _, _, S, KVD = cache.k.shape
-    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
-    G, HD, eps = H // Hkv, H * Dh, cfg.rms_norm_eps
-    scale = Dh ** -0.5
-    ninf = torch.full((), float("-inf"), device=xn.device)
+def decode_attention_plain(qkv, k_cache, v_cache, cos, sin, mask, ci,
+                           q_norm, k_norm, H: int, Hkv: int, eps: float,
+                           scale: float, step: PlainStep = None
+                           ) -> torch.Tensor:
+    """Reference math of the decode / verify attention launch
+    (``csrc/decode_attention.cuh``, the TPU kernel's attention,
+    ``fused_decode.py:504-665`` of the JAX package), in its layouts: qkv
+    [B*Kd, (H+2*Hkv)*Dh] in the activation dtype dt (rows r = b*Kd + j),
+    one layer's cache k/v [B, S, Hkv*Dh], cos/sin [B*Kd, Dh], mask [B, >=S]
+    (1 = attend), ci [B], the qk-norm weights [Dh] or None.  qk-norm and
+    RoPE in f32, q and k rounded to dt, token j's k/v rows written into the
+    cache at ci + j in place (positions past S dropped), f32 scores over the
+    cached keys < ci that the mask allows and the draft tokens 0..j, one f32
+    softmax over both, P rounded to dt for the cached keys and kept in f32
+    for the draft block, P.V in f32.  Returns [B*Kd, H*Dh] in dt.  ``step``
+    (:func:`plain_step` of these inputs) may be passed in when the caller
+    holds it."""
+    dt = qkv.dtype
+    B, S, KVD = k_cache.shape
+    R = qkv.shape[0]
+    Kd = R // B
+    Dh = KVD // Hkv
+    G, HD = H // Hkv, H * Dh
+    st = step if step is not None else plain_step(cos, sin, mask, ci, B, Kd,
+                                                  S)
+    ninf = torch.full((), float("-inf"), device=qkv.device)
 
     def rope(t):                                               # [R, n, Dh]
         c, s = st.cos[:, None, :], st.sin[:, None, :]
@@ -289,19 +356,18 @@ def attention_plain(lay, cfg, st: PlainStep, cache: KVCache, l: int,
         return (t * torch.rsqrt(t.square().mean(-1, keepdim=True) + eps)
                 * w.float())
 
-    qkv = _proj(xn, lay["wqkv"], l).to(dt)
     q = qkv[:, :HD].float().reshape(R, H, Dh)
     k = qkv[:, HD:HD + KVD].float().reshape(R, Hkv, Dh)
     v = qkv[:, HD + KVD:]
-    if cfg.qk_norm:
-        q = head_norm(q, lay["q_norm"]["scale"][l])
-        k = head_norm(k, lay["k_norm"]["scale"][l])
+    if q_norm is not None:
+        q = head_norm(q, q_norm)
+        k = head_norm(k, k_norm)
     qb = rope(q).to(dt).float().reshape(B, Kd, Hkv, G, Dh)
     kb = rope(k).to(dt)
-    cache.k[l, st.wrow, st.wpos] = kb.reshape(B, Kd, KVD)[st.wok]
-    cache.v[l, st.wrow, st.wpos] = v.reshape(B, Kd, KVD)[st.wok]
-    kc = cache.k[l].float().reshape(B, S, Hkv, Dh)
-    vc = cache.v[l].float().reshape(B, S, Hkv, Dh)
+    k_cache[st.wrow, st.wpos] = kb.reshape(B, Kd, KVD)[st.wok]
+    v_cache[st.wrow, st.wpos] = v.reshape(B, Kd, KVD)[st.wok]
+    kc = k_cache.float().reshape(B, S, Hkv, Dh)
+    vc = v_cache.float().reshape(B, S, Hkv, Dh)
     s = torch.einsum("bjkgd,bskd->bjkgs", qb, kc) * scale
     s = torch.where(st.valid[:, None, None, None, :], s, ninf)
     kd_ = kb.float().reshape(B, Kd, Hkv, Dh)
@@ -315,7 +381,64 @@ def attention_plain(lay, cfg, st: PlainStep, cache: KVCache, l: int,
     vd = v.float().reshape(B, Kd, Hkv, Dh)
     o = (torch.einsum("bjkgs,bskd->bjkgd", p, vc)
          + torch.einsum("bjkgi,bikd->bjkgd", ed * inv[..., None], vd))
-    return _proj(o.reshape(R, HD).to(dt), lay["wo"], l)
+    return o.reshape(R, HD).to(dt)
+
+
+def decode_attention(qkv, k_cache, v_cache, cos, sin, mask, ci, q_norm,
+                     k_norm, H: int, Hkv: int, eps: float, scale: float
+                     ) -> torch.Tensor:
+    """:func:`decode_attention_plain`'s function, one launch of the kernel
+    of ``csrc/decode_attention.cuh`` on CUDA tensors (bf16 qkv and cache,
+    f32 cos/sin, int32 mask and ci, bf16 norms; counted as
+    ``decode_attention``), the plain version on CPU tensors.  The decode and
+    verify steps launch the same kernel from :class:`FusedStep`."""
+    if qkv.device.type == "cpu":
+        return decode_attention_plain(qkv, k_cache, v_cache, cos, sin, mask,
+                                      ci, q_norm, k_norm, H, Hkv, eps, scale)
+    name = "decode_attention"
+    B, S, KVD = k_cache.shape
+    R = qkv.shape[0]
+    Dh = KVD // max(Hkv, 1)
+    if (R % B or Hkv * Dh != KVD or v_cache.shape != k_cache.shape
+            or tuple(qkv.shape) != (R, (H + 2 * Hkv) * Dh)
+            or tuple(cos.shape) != (R, Dh) or sin.shape != cos.shape
+            or mask.dim() != 2 or mask.shape[0] != B or mask.shape[1] < S
+            or tuple(ci.shape) != (B,) or (q_norm is None) != (k_norm is None)):
+        raise ValueError(f"{name}: qkv {tuple(qkv.shape)}, cache "
+                         f"{tuple(k_cache.shape)}, cos {tuple(cos.shape)}, "
+                         f"mask {tuple(mask.shape)}, ci {tuple(ci.shape)} "
+                         f"for H={H}, Hkv={Hkv}")
+    norms = () if q_norm is None else (q_norm, k_norm)
+    _build.require_cuda(name, qkv, k_cache, v_cache, *norms,
+                        dtype=torch.bfloat16)
+    _build.require_cuda(name, cos, sin, dtype=torch.float32)
+    _build.require_cuda(name, mask, ci, dtype=torch.int32)
+    out = torch.empty(R, H * Dh, dtype=torch.bfloat16, device=qkv.device)
+    _build.check(_build.library().desta_decode_attention(
+        qkv.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), mask.data_ptr(), mask.shape[1],
+        ci.data_ptr(), None if q_norm is None else q_norm.data_ptr(),
+        None if k_norm is None else k_norm.data_ptr(), out.data_ptr(), B,
+        R // B, S, H, Hkv, Dh, float(eps), float(scale),
+        _build.stream_ptr(qkv.device)), name)
+    _build.count_launch(name)
+    return out
+
+
+def attention_plain(lay, cfg, st: PlainStep, cache: KVCache, l: int,
+                    xn: torch.Tensor) -> torch.Tensor:
+    """Layer l's attention on the normalised rows xn [R, D] (dtype dt): the
+    q/k/v projection rounded to dt, :func:`decode_attention_plain` (which
+    writes the new k/v rows into the cache), then wo; returns the wo
+    product's f32 sum [R, D] (scaled, unrounded)."""
+    qkv = _proj(xn, lay["wqkv"], l).to(xn.dtype)
+    norms = ((lay["q_norm"]["scale"][l], lay["k_norm"]["scale"][l])
+             if cfg.qk_norm else (None, None))
+    o = decode_attention_plain(
+        qkv, cache.k[l], cache.v[l], st.cos, st.sin, st.mask, st.ci, *norms,
+        cfg.num_attention_heads, cfg.num_key_value_heads, cfg.rms_norm_eps,
+        cfg.head_dim ** -0.5, step=st)
+    return _proj(o, lay["wo"], l)
 
 
 def mlp_plain(lay, l: int, xn: torch.Tensor) -> torch.Tensor:
@@ -524,6 +647,7 @@ class FusedStep:
             self.norms[3][l].data_ptr() if cfg.qk_norm else None,
             self.attn.data_ptr(), self.B, self.Kd, c.k.shape[2], H, Hkv, Dh,
             float(cfg.rms_norm_eps), Dh ** -0.5, self.stream))
+        _build.count_kernel("decode_attention")
         self._out_gemm(self.attn, "wo", l, H * Dh, store)
 
     def mlp(self, l, store=None):

@@ -279,6 +279,7 @@ def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
         step.cos.data_ptr(), step.sin.data_ptr(), step.mask.data_ptr(),
         step.mask.shape[1], step.ci.data_ptr(), qn, kn, op.attn.data_ptr(),
         B, cache.k.shape[2], H, Hkv, Dh, eps, Dh ** -0.5, op.stream), name)
+    _build.count_kernel("decode_attention")
     if store is not None:
         store(op.attn, wo["q"][l], wo["s"][l], name, op.stream)
         return

@@ -27,7 +27,10 @@ injection between layers.  For each phase it prints the wall
 time (host clock, device synchronised), the device busy time (sum of kernel
 times), the idle share, and the kernels by total device time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
-limit are printed first).
+limit are printed first).  The decode phases add the device time by
+kernel group (``DECODE_GROUPS``: the decode attention, the skinny GEMMs
+(K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 2,
+3>``), RMSNorm, K7's mma path, K8i's injection, the W8A8 prefill, other).
 """
 
 from __future__ import annotations
@@ -51,6 +54,15 @@ from .models.desta import DeSTA25AudioModel
 from .ops import fused_decode_tp
 
 NEW_TOKENS = 32
+# the decode phases' device time by group (kernel-name substrings)
+DECODE_GROUPS = {
+    "decode attention": ("decode_attention",),
+    "skinny GEMMs": ("skinny_gemm",),
+    "RMSNorm": ("rms_norm",),
+    "K7 mma path": ("qmm_",),   # at M <= 16 (the b2 head) K7 is a skinny GEMM
+    "K8i injection": ("inject_",),
+    "W8A8 prefill": ("gemm_s8", "quant_rows"),
+}
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
 CONFIG = os.path.join(_CONFIGS, "desta25_llama31-8B_Qformer6L.yaml")
@@ -190,12 +202,12 @@ def main() -> None:
                        max_new_tokens=NEW_TOKENS,
                        speculative_k=args.speculative_k, prompt_ids=aligned,
                        prompt_lens=torch.as_tensor(lens, device="cuda"),
-                       timings=stats, **common))
+                       timings=stats, **common), groups=DECODE_GROUPS)
             print(f"   {stats['decode_steps']} verify steps, "
                   f"{stats['spec_tokens']} tokens after the first")
         else:
             report(f"prefill + {NEW_TOKENS - 1} decode steps b{args.batch}",
-                   gen(NEW_TOKENS))
+                   gen(NEW_TOKENS), groups=DECODE_GROUPS)
 
 
 if __name__ == "__main__":

@@ -368,11 +368,102 @@ def test_llm_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="tokens per row"):
         fused_verify_layers(params, cfg, x, torch.ones(1, 128, device="cuda"),
                             torch.zeros(1, 9, device="cuda").long(), cache, 0)
-    big = tllm.init_kv_cache(cfg, 1, 32768, torch.bfloat16, "cuda")
+    # the attention's shared memory holds one key range's scores (of 8
+    # ranges here): 262144 keys need more than 227 KB a range
+    big = tllm.init_kv_cache(cfg, 1, 262144, torch.bfloat16, "cuda")
     with pytest.raises(ValueError, match="shared memory"):
         fused_decode_layers(params, cfg, x[:, :1],
-                            torch.ones(1, 32768, device="cuda"),
+                            torch.ones(1, 262144, device="cuda"),
                             torch.zeros(1, 1, device="cuda").long(), big, 0)
+
+
+def _attn_inputs(gen, B, S, H, Hkv, kd, ci, qk_norm=False, Dh=128):
+    """The standalone decode attention's inputs: random bf16 qkv rows and
+    cache, RoPE tables of random angles, a mask with holes, ci [B]."""
+    R = B * kd
+    qkv = torch.randn(R, (H + 2 * Hkv) * Dh, generator=gen,
+                      device="cuda").bfloat16()
+    kc, vc = torch.randn(2, B, S, Hkv * Dh, generator=gen,
+                         device="cuda").bfloat16()
+    ang = 6.2832 * torch.rand(R, Dh // 2, generator=gen, device="cuda")
+    cos = torch.cat([ang.cos(), ang.cos()], -1).contiguous()
+    sin = torch.cat([ang.sin(), ang.sin()], -1).contiguous()
+    mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.2).int()
+    norms = ((1 + 0.1 * torch.randn(2, Dh, generator=gen, device="cuda"))
+             .bfloat16().unbind(0) if qk_norm else (None, None))
+    ci = torch.tensor(ci, dtype=torch.int32, device="cuda")
+    return qkv, kc, vc, cos, sin, mask, ci, *norms
+
+
+# the decode attention alone (csrc/decode_attention.cuh: keys split across a
+# cluster, TMA tiles) against its plain version within the decode steps'
+# 3e-2: a row with ci = 0 (its draft block alone), the draft block ending at
+# S, ci at S (nothing written), ranges wholly past ci (a long cache), one
+# range (B = 33: the clusters fill the card), G = 1 and 8, qk-norm, Kd = 8,
+# a range ragged at S; the written rows within 3e-2, no other row changed,
+# and two launches bit for bit
+@pytest.mark.parametrize("B,S,H,Hkv,kd,ci,qk_norm", [
+    (2, 256, 32, 8, 1, (0, 200), False),
+    (2, 256, 32, 8, 4, (0, 252), False),
+    (2, 256, 8, 8, 1, (256, 17), True),
+    (2, 4096, 32, 8, 1, (40, 300), False),
+    (33, 96, 16, 4, 1, tuple(range(1, 100, 3)), False),
+    (1, 300, 64, 8, 8, (292,), True),
+    (3, 1000, 16, 2, 2, (999 - 1, 500, 31), False),
+])
+def test_decode_attention_kernel(gen, B, S, H, Hkv, kd, ci, qk_norm):
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        decode_attention, decode_attention_plain)
+    qkv, kc, vc, cos, sin, mask, ci_t, qn, kn = _attn_inputs(
+        gen, B, S, H, Hkv, kd, ci, qk_norm)
+    args = (cos, sin, mask, ci_t, qn, kn, H, Hkv, 1e-6, 128 ** -0.5)
+    ck, cp = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+    _build.reset_launch_counts()
+    got = decode_attention(qkv, *ck, *args)
+    again = decode_attention(qkv, kc.clone(), vc.clone(), *args)
+    assert _build.launch_counts() == {"decode_attention": 2}
+    want = decode_attention_plain(qkv, *cp, *args)
+    assert got.shape == (B * kd, H * 128) and got.dtype == torch.bfloat16
+    assert _rel(got, want) < 3e-2
+    assert torch.equal(got, again)
+    expect = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        expect[b, ci[b]:min(ci[b] + kd, S)] = True
+    for k, p, c0 in zip(ck, cp, (kc, vc)):
+        assert torch.equal((k != c0).any(-1), expect)
+        if bool(expect.any()):
+            assert _rel(k[expect], p[expect]) < 3e-2
+
+
+def test_decode_attention_raises_on_what_it_does_not_take(gen):
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        decode_attention, decode_attention_plain)
+    qkv, kc, vc, cos, sin, mask, ci, qn, kn = _attn_inputs(
+        gen, 2, 64, 4, 2, 1, (10, 20))
+    args = (cos, sin, mask, ci, qn, kn, 4, 2, 1e-6, 128 ** -0.5)
+    with pytest.raises(ValueError, match="int32"):
+        decode_attention(qkv, kc, vc, cos, sin, mask.float(), ci, qn, kn, 4,
+                         2, 1e-6, 128 ** -0.5)
+    with pytest.raises(ValueError, match="qkv"):
+        decode_attention(qkv[:, :-8], kc, vc, *args)
+    # head dim 64: the entry point refuses it with an error status
+    q64, k64, v64, c64, s64, m64, ci64, _, _ = _attn_inputs(
+        gen, 2, 64, 4, 2, 1, (10, 20), Dh=64)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        decode_attention(q64, k64, v64, c64, s64, m64, ci64, None, None, 4, 2,
+                         1e-6, 0.125)
+    # a cache whose key range overflows shared memory: refused too
+    big = torch.zeros(2, 1, 262144, 256, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        decode_attention(qkv[:1], big[0], big[1], cos[:1], sin[:1],
+                         torch.ones(1, 262144, dtype=torch.int32,
+                                    device="cuda"), ci[:1], qn, kn, 4, 2,
+                         1e-6, 128 ** -0.5)
+    # the refusals leave no error behind for the next, good, launch
+    got = decode_attention(qkv, kc.clone(), vc.clone(), *args)
+    torch.cuda.synchronize()
+    assert _rel(got, decode_attention_plain(qkv, kc.clone(), vc.clone(),
+                                            *args)) < 3e-2
 
 
 def _inject_spec(gen, cfg, B, ta, on, int8=True):
@@ -644,9 +735,9 @@ def test_fused_tp_raises_on_what_it_does_not_take(gen):
         ttp.attn_half(params, cfg, h.bfloat16(), step, cache0, 0)
     with pytest.raises(ValueError, match="not int8"):
         ttp.mlp_half(_tower(gen, cfg, int8=False), cfg, h, 0)
-    big = tllm.init_kv_cache(cfg, 2, 32768, torch.bfloat16, "cuda")
+    big = tllm.init_kv_cache(cfg, 2, 262144, torch.bfloat16, "cuda")
     bstep = ttp.decode_step_inputs(
-        cfg, torch.ones(2, 32768, dtype=torch.int32, device="cuda"),
+        cfg, torch.ones(2, 262144, dtype=torch.int32, device="cuda"),
         ci[:, None], ci, 2)
     # the dispatch predicate refuses it; called anyway, the kernel's entry
     # point refuses it with an error status
