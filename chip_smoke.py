@@ -159,7 +159,28 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 24. two train steps at the flagship config's own shape, B=12, T=300: K11
     must not launch (the JAX dispatch takes it at T >= 512 only).  23 and
     24 print ms/step, tokens/s and the peak device memory beside the card's
-    name and power limit.
+    name and power limit;
+25. the shipped configs/desta25_debug.yaml (whisper-nano Dh 32, llama-nano
+    Dh 16, float32, random weights from a seed): greedy ``generate()`` at b2
+    and one train step; no decode, encoder or Q-Former kernel takes these
+    shapes, so the counted torch paths (``_build.fallback_counts``) must
+    show the encoder's attention and FFN and the decode step, and those
+    kernels must not launch; 25b. a decode step at Llama-3.1-8B's heads, a
+    2-layer nano width, B=9 and a 12416-position cache (B*Hkv = 72 clusters
+    of one key range each, past what one range holds in shared memory): the
+    predicate refuses it, the layer loop runs and agrees with the plain
+    decode step within TOL_DECODE.
+
+Phase 13 also holds the skinny weight-streaming GEMM
+(``csrc/skinny_gemm.cuh``, the GEMM of K7 at M <= 16, K8, K8-int8, K8v,
+K8i, K9 and K10) alone against ``skinny_gemm_plain`` (13b): Llama-3.1-8B's
+qkv, wo, gate/up (SWIGLU), down and head shapes, int8 and bf16, R = 1, 2, 8
+and 16, every epilogue, PEER_F32 at p = 2, within TOL_DECODE (bf16 outputs)
+or TOL_QMM (f32); two launches bit-identical; its plan equal to
+``plan_skinny_gemm``; queued times and TB/s at R = 2 and 8.  The K8 family's
+steps (phases 4 and 13: K8, K8-int8, K8v, K8i, K9), K7 and K10 on one
+card's stream are also timed queued behind the sleep kernel, printed beside
+the default reading.
 
 Every kernel's entry in the JSON line carries its bound (the larger of its
 bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16, 1,979 TOP/s
@@ -319,6 +340,12 @@ SOURCES = {
     "decode_attention": (
         "desta25_audio_tpu_torch/csrc/decode_attention.cuh",
         "desta25_audio_tpu/ops/fused_decode.py:504"),
+    # the weight-streaming GEMM of K7 (M <= 16), K8, K8-int8, K8v, K8i, K9
+    # and K10 (launches: its kernel count in phase 15's int8 generate()
+    # runs); it stands for the TPU kernel's weight ring
+    "skinny_gemm": (
+        "desta25_audio_tpu_torch/csrc/skinny_gemm.cuh",
+        "desta25_audio_tpu/ops/fused_decode.py:405"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("log_mel", "packed_encoder_attention", "encoder_ffn",
@@ -838,6 +865,8 @@ def check_fused_tp(params, cfg, gen, ci=(100, 200)):
                                                 inputs)
     step_ms = cuda_time_ms(lambda: kern(params, cfg, x, mask, positions, ck,
                                         ci), iters=5)
+    q_step_ms = cuda_time_ms(lambda: kern(params, cfg, x, mask, positions,
+                                          ck, ci), iters=3, queued=True)
     plain_step_ms = cuda_time_ms(lambda: plain(params, cfg, x, mask,
                                                positions, cp, ci), iters=3)
     step_bound = bound(*llm_step_work(params, cfg, B, 1, ci.tolist()), "bf16")
@@ -847,7 +876,8 @@ def check_fused_tp(params, cfg, gen, ci=(100, 200)):
           f" / {worst['v row']:.3e}; 2-layer logits max_abs_err={err2:.3e} "
           f"rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at ci only; "
           f"{L}-layer logits rel={rel_all:.3e} (plain vs plain with one input "
-          f"ulp moved: {rel_ulp:.3e}); kernels {step_ms:.4f} ms/step, plain "
+          f"ulp moved: {rel_ulp:.3e}); kernels {step_ms:.4f} ms/step "
+          f"({q_step_ms:.4f} queued), plain "
           f"{plain_step_ms:.4f} ms/step, bound {step_bound[0]:.4f} ms "
           f"({step_bound[1]})", flush=True)
     if max(*worst.values(), rel2) > TOL_DECODE:
@@ -1236,6 +1266,11 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
         lambda lo, hi: {"inject": _inject_slice(inject, lo, hi)})
     ms = cuda_time_ms(lambda: kernel(
         params, cfg, x, mask, positions, ck, ci, inject=inject), iters=5)
+    # the same steps queued behind the sleep kernel (3 steps: their ~224
+    # launches each are issued well inside the sleep)
+    q_ms = cuda_time_ms(lambda: kernel(
+        params, cfg, x, mask, positions, ck, ci, inject=inject), iters=3,
+        queued=True)
     plain_ms = cuda_time_ms(lambda: fused_decode_layers_plain(
         params, cfg, x, mask, positions, cp, ci, inject=inject), iters=5)
     b_ms, b_by = bound(*llm_step_work(params, cfg, B, kd, ci.tolist(),
@@ -1253,12 +1288,290 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
           f"{err2:.3e} rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at "
           f"ci..ci+{kd - 1} only; {L}-layer logits rel={rel_all:.3e} (plain "
           f"vs plain with one input ulp moved: {rel_ulp:.3e}); kernel "
-          f"{ms:.4f} ms/step, plain {plain_ms:.4f} ms/step, bound "
-          f"{b_ms:.4f} ms ({b_by}){extra}", flush=True)
+          f"{ms:.4f} ms/step ({q_ms:.4f} queued), plain {plain_ms:.4f} "
+          f"ms/step, bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
     if max(worst, worst_row, rel2) > TOL_DECODE:
         raise AssertionError(f"{tag} disagrees: layer {worst} k-row "
                              f"{worst_row} logits {rel2}")
     return err2, ms, plain_ms, b_ms, b_by
+
+
+# the skinny GEMM's check shapes: Llama-3.1-8B's four layer GEMMs and the
+# head (output columns, K, epilogue), as bench_skinny_gemm.py times them
+SKINNY_SHAPES = (("qkv", 6144, 4096, 0), ("wo", 4096, 4096, 1),
+                 ("gate/up", 14336, 4096, 2), ("down", 4096, 14336, 1),
+                 ("head", 130560, 4096, 0))
+
+
+def check_skinny_gemm(gen):
+    """Phase 13b: the skinny weight-streaming GEMM (csrc/skinny_gemm.cuh:
+    tensor cores, a TMA / bulk-copy ring, K split across a cluster) through
+    ops/skinny_gemm.skinny_gemm against skinny_gemm_plain, at Llama-3.1-8B's
+    shapes with their epilogues (qkv STORE, wo and down RESID, gate/up
+    SWIGLU, the head STORE), int8 and bf16 weights, R = 1, 2, 8 and 16 rows;
+    every other epilogue (STORE_F32, ADD_F32, BIAS, BIAS_GELU) at the wo
+    shape, and PEER_F32 at p = 2 virtual ranks.  bf16 outputs within
+    TOL_DECODE, f32 outputs within TOL_QMM; two launches bit-identical; the
+    C side's plan equal to plan_skinny_gemm.  The kernels line's entry: the
+    worst error, bf16 down at R = 2 (back-to-back events; queued printed
+    beside), its plain version and F.linear, the bound."""
+    import torch
+    import torch.nn.functional as F
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    from desta25_audio_tpu_torch.ops.quant import quantize_weight
+    from desta25_audio_tpu_torch.ops.tp_allreduce import MeshBuffers
+    n_sm = _build.sm_count(torch.device("cuda"))
+    worst, row = 0.0, None
+
+    def weight(N, K, int8):
+        wf = torch.randn(N, K, generator=gen, device="cuda") / K ** 0.5
+        if not int8:
+            return wf.bfloat16(), None
+        leaf = quantize_weight(wf)
+        return leaf["q"], leaf["s"]
+
+    def check(tag, x, w, s, epi, out=None, bias=None):
+        nonlocal worst
+        want = sg.skinny_gemm_plain(x, w, s, epi, out, bias)
+        got = sg.skinny_gemm(x, w, s, epi,
+                             None if out is None else out.clone(), bias)
+        tol = TOL_QMM if epi in sg.F32_OUT else TOL_DECODE
+        err, rel = rel_err(got, want)
+        if rel > tol:
+            raise AssertionError(f"skinny GEMM {tag}: rel {rel} > {tol}")
+        worst = max(worst, err)
+        return err, rel
+
+    for int8 in (True, False):
+        kind = "int8" if int8 else "bf16"
+        for label, N, K, epi in SKINNY_SHAPES:
+            nw = 2 if epi == sg.EPI_SWIGLU else 1
+            w, s = weight(N * nw, K, int8)
+            plan = sg.kernel_plan(N * nw, K, int8)
+            if plan != sg.plan_skinny_gemm(N * nw, K, int8, n_sm):
+                raise AssertionError(f"skinny GEMM plan {plan} vs Python's")
+            rels = []
+            for R in (1, 2, 8, 16):
+                x = torch.randn(R, K, generator=gen,
+                                device="cuda").bfloat16()
+                out = (torch.randn(R, N, generator=gen,
+                                   device="cuda").bfloat16()
+                       if epi == sg.EPI_RESID else None)
+                rels.append(check(f"{label} {kind} R={R}", x, w, s, epi,
+                                  out)[1])
+                if R == 16:
+                    a = sg.skinny_gemm(x, w, s, sg.EPI_STORE_F32
+                                       if nw == 1 else epi)
+                    b = sg.skinny_gemm(x, w, s, sg.EPI_STORE_F32
+                                       if nw == 1 else epi)
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"skinny GEMM {label} {kind}: "
+                                             "two launches differ")
+            x2 = torch.randn(2, K, generator=gen, device="cuda").bfloat16()
+            x8 = torch.randn(8, K, generator=gen, device="cuda").bfloat16()
+            q2 = cuda_time_ms(lambda: sg.skinny_gemm(x2, w, s, sg.EPI_STORE
+                                                     if nw == 1 else epi),
+                              iters=20, queued=True)
+            q8 = cuda_time_ms(lambda: sg.skinny_gemm(x8, w, s, sg.EPI_STORE
+                                                     if nw == 1 else epi),
+                              iters=20, queued=True)
+            wbytes = w.numel() * w.element_size()
+            print(f"skinny GEMM {label} {kind} {N}x{K} (plan {tuple(plan)}): "
+                  f"rel at R=1/2/8/16 "
+                  f"{'/'.join(f'{r:.2e}' for r in rels)}; queued "
+                  f"{q2:.4f} ms at R=2 ({wbytes / q2 / 1e9:.3f} TB/s), "
+                  f"{q8:.4f} ms at R=8, bound "
+                  f"{wbytes / HBM_BYTES_PER_S * 1e3:.4f} ms", flush=True)
+            if label == "down" and not int8:
+                ms = cuda_time_ms(lambda: sg.skinny_gemm(x2, w))
+                plain_ms = cuda_time_ms(lambda: sg.skinny_gemm_plain(x2, w),
+                                        iters=3)
+                lib_ms = cuda_time_ms(lambda: F.linear(x2, w))
+                nbytes = wbytes + x2.numel() * 2 + 2 * N * 2
+                row = (ms, plain_ms) + bound(nbytes, 2 * 2 * N * K, "bf16") \
+                    + (lib_ms,)
+                print(f"skinny GEMM down bf16 R=2 (the kernels line): "
+                      f"{ms:.4f} ms back-to-back, {q2:.4f} ms queued, plain "
+                      f"{plain_ms:.4f} ms, F.linear {lib_ms:.4f} ms, bound "
+                      f"{row[2]:.4f} ms", flush=True)
+            del w, s
+        # every other epilogue at the wo shape, R = 3 and 17 (two passes)
+        w, s = weight(4096, 4096, int8)
+        bias = torch.randn(4096, generator=gen, device="cuda")
+        for R in (3, 17):
+            x = torch.randn(R, 4096, generator=gen, device="cuda").bfloat16()
+            acc = torch.randn(R, 4096, generator=gen, device="cuda")
+            for epi, out, b in ((sg.EPI_STORE_F32, None, None),
+                                (sg.EPI_ADD_F32, acc, None),
+                                (sg.EPI_BIAS, None, bias),
+                                (sg.EPI_BIAS_GELU, None, bias)):
+                check(f"wo {kind} epilogue {epi} R={R}", x, w, s, epi, out, b)
+        # PEER_F32: two virtual ranks store into both receive buffers
+        bufs = MeshBuffers([torch.device("cuda", 0)] * 2, 2, 4096)
+        stream = torch.cuda.current_stream().cuda_stream
+        epoch = bufs.next_round()
+        xs = [torch.randn(2, 4096, generator=gen, device="cuda").bfloat16()
+              for _ in range(2)]
+        for rank in range(2):
+            bufs.store(rank, 0, epoch, xs[rank], w, s, "peer", stream)
+        torch.cuda.synchronize()
+        for rank in range(2):
+            want = sg.skinny_gemm_plain(xs[rank], w, s, sg.EPI_STORE_F32)
+            for d in range(2):
+                rel = rel_err(bufs.rbuf[d][0, rank], want)[1]
+                if rel > TOL_QMM:
+                    raise AssertionError(f"PEER_F32 rank {rank} buffer {d}: "
+                                         f"{rel}")
+        if (bufs.flags[0][0].tolist() != [epoch, epoch]
+                or bufs.counter[0].tolist() != [0, 0]):
+            raise AssertionError("PEER_F32: flags or arrival counter wrong")
+        del w, s, bufs
+        torch.cuda.empty_cache()
+    print(f"skinny GEMM: every shape and epilogue within TOL_DECODE / TOL_QMM,"
+          f" worst max_abs_err {worst:.3e}", flush=True)
+    return (worst,) + row
+
+
+DEBUG_CONFIG = "configs/desta25_debug.yaml"
+
+
+def check_long_cache(gen):
+    """Phase 25b: a decode step that no kernel takes at flagship geometry:
+    Llama-3.1-8B's heads (H=32, Hkv=8, Dh=128) at a nano width (2 layers,
+    D=512) and B=9, so B*Hkv = 72 clusters get one key range each on this
+    card, and a cache of 12416 positions, past what one range's scores fit
+    in shared memory.  The predicate must refuse it, llm_apply must take its
+    layer loop (counted, no decode kernel launched), and the logits must
+    agree with the plain decode step (fused_decode_layers_plain, final norm,
+    head) within TOL_DECODE."""
+    import torch
+    from desta25_audio_tpu_torch.config import llm_config_for
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.ops.core import rms_norm
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        KVCache, fused_decode_layers_plain, kernel_limits)
+    cfg = dataclasses.replace(
+        llm_config_for("meta-llama/Llama-3.1-8B-Instruct"),
+        num_hidden_layers=2, hidden_size=512, intermediate_size=1024)
+    B, S = 9, 12416
+    why = kernel_limits(cfg, B, 1, S, False,
+                        _build.sm_count(torch.device("cuda")))
+    if not why:
+        raise AssertionError("the long-cache step fits this card's kernels")
+    params = tllm.init_llm(cfg, torch.bfloat16, "cuda", gen)
+    cache = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache.k.normal_(generator=gen)
+    cache.v.normal_(generator=gen)
+    ci = torch.tensor([S - 1 - 1000 * i for i in range(B)], device="cuda")
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    mask[0, :40] = 0
+    positions = ci[:, None].clone()
+    ids = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                        device="cuda")
+    plain_cache = KVCache(cache.k.clone(), cache.v.clone())
+    _build.reset_launch_counts()
+    logits, cache = tllm.llm_apply(params, cfg, input_ids=ids,
+                                   attention_mask=mask, positions=positions,
+                                   cache=cache, cache_index=ci)
+    torch.cuda.synchronize()
+    taken, counts = _build.fallback_counts(), _build.launch_counts()
+    h, _ = fused_decode_layers_plain(params, cfg,
+                                     tllm.embed_tokens(params, ids), mask,
+                                     positions, plain_cache, ci)
+    want = tllm.head_logits(params, rms_norm(params["norm"], h,
+                                             cfg.rms_norm_eps))
+    err, rel = rel_err(logits, want)
+    krel = rel_err(cache.k, plain_cache.k)[1]
+    print(f"long cache B={B} S={S} (Llama-3.1-8B heads, D=512, 2 layers): "
+          f"kernel limits refuse it ({why[0]}); torch paths taken "
+          f"{json.dumps(taken)}, launches {json.dumps(counts)}; logits vs "
+          f"the plain decode step max_abs_err={err:.3e} rel={rel:.3e}, "
+          f"written cache rel={krel:.3e} (tol {TOL_DECODE})", flush=True)
+    if taken.get("fused_decode_layers") != 1 or counts.get(
+            "fused_decode_layers"):
+        raise AssertionError("the long-cache step did not take the layer "
+                             "loop")
+    if max(rel, krel) > TOL_DECODE:
+        raise AssertionError(f"long-cache layer loop disagrees: {rel} {krel}")
+
+
+def run_debug_config(gpu: str, tmpdir: str):
+    """Phase 25: the shipped configs/desta25_debug.yaml (whisper-nano Dh 32,
+    llama-nano Dh 16, a 2-layer Q-Former, float32) on the card, random
+    weights from a seed: greedy generate() at b2 and one train step.  No
+    decode, encoder or Q-Former kernel takes its shapes, so the models take
+    their torch paths: the counted fallbacks must show the encoder's
+    attention and FFN and the decode step, and no kernel of those may
+    launch (K1, which takes any shape, does).  Then 25b."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+    cfg = config_from_yaml_file(DEBUG_CONFIG)
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=0)
+    wavs, _ = write_wavs(tmpdir)
+    msgs = [[{"role": "user", "content": "What do you hear? <|AUDIO|>",
+              "audios": [{"audio": w, "text": "a tone"}]}] for w in wavs]
+    model.generate(msgs, do_sample=False, max_new_tokens=2)   # warm-up
+    _build.reset_launch_counts()
+    out = model.generate(msgs, do_sample=False, max_new_tokens=8)
+    torch.cuda.synchronize()
+    counts, taken = _build.launch_counts(), _build.fallback_counts()
+    ids = np.asarray(out.generated_ids)
+    print(f"debug config generate() b2 ({cfg.dtype}, {gpu}): ids "
+          f"{ids.tolist()}; kernels launched {json.dumps(counts)}; torch "
+          f"paths taken {json.dumps(taken)}", flush=True)
+    if ids.shape != (2, 8) or not ((ids >= 0)
+                                   & (ids < model.llm_cfg.vocab_size)).all():
+        raise AssertionError(f"debug config generate(): ids {ids}")
+    for name in ("packed_encoder_attention", "encoder_ffn",
+                 "fused_decode_layers"):
+        if taken.get(name, 0) <= 0 or counts.get(name, 0):
+            raise AssertionError(f"debug config: {name} did not take its "
+                                 "torch path")
+    if counts.get("log_mel", 0) <= 0:
+        raise AssertionError("debug config: log_mel was not launched")
+
+    manifest = write_corpus(os.path.join(tmpdir, "debug"), n=4)
+    dcfg = DataConfig(manifest_filepaths=[manifest],
+                      data_root=os.path.join(tmpdir, "debug"), batch_size=4,
+                      max_seq_length=96)
+    ds = AudioTextDataset(cfg, dcfg, model.tokenizer)
+    tcfg = TrainerConfig(exp_dir=os.path.join(tmpdir, "debug", "exp"),
+                         max_steps=1, log_every_n_steps=1,
+                         eval_before_train=False, val_check_interval=1e9,
+                         eval_max_batches=1, eval_max_new_tokens=4,
+                         keep_checkpoints=1)
+    ocfg = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    trainer = DeSTA25Trainer(model, ds, ds, CollateFn(cfg, dcfg,
+                                                      model.tokenizer),
+                             ocfg, tcfg)
+    trainable, _ = model.split_params()
+    probe = StepProbe(trainer, {k: v.detach().clone() for k, v in
+                                flatten_tree(trainable).items()})
+    _build.reset_launch_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    print_steps("debug-config train", probe.rows, gpu)
+    print(f"debug config train step: torch paths taken "
+          f"{json.dumps(_build.fallback_counts())}", flush=True)
+    if len(probe.rows) != 1 or not (
+            np.isfinite(probe.rows[0]["metrics"]["loss"])
+            and np.isfinite(probe.rows[0]["metrics"]["grad_norm"])):
+        raise AssertionError(f"debug config train step: {probe.rows}")
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        check_long_cache(torch.Generator("cuda").manual_seed(9))
 
 
 def write_wavs(d: str):
@@ -1553,10 +1866,11 @@ def check_int8_matmuls(qllm, gen):
             return fn(x, leaf["q"], leaf["s"], torch.float32)
         err, rel = rel_err(call(kern), call(plain))
         ms = cuda_time_ms(lambda: call(kern))
+        q_ms = cuda_time_ms(lambda: call(kern), queued=True)
         plain_ms = cuda_time_ms(lambda: call(plain), iters=3)
         print(f"{tag} {kern.__name__} {name} M={M} N={N} K={K}: max_abs_err="
-              f"{err:.3e} rel={rel:.3e} (tol {TOL_QMM}) kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms", flush=True)
+              f"{err:.3e} rel={rel:.3e} (tol {TOL_QMM}) kernel {ms:.4f} ms "
+              f"({q_ms:.4f} queued), plain {plain_ms:.4f} ms", flush=True)
         if rel > TOL_QMM:
             raise AssertionError(f"{tag} disagrees on {name} M={M}: {rel}")
         # bf16 x, int8 weight and f32 scales read, f32 out written
@@ -1668,8 +1982,11 @@ def run_int8_llm(model, convs, gpu):
                 "fused_decode_layers_int8", 0) or not kcounts:
             raise AssertionError(f"int8 LLM b{b}: decode_attention launches "
                                  f"{kcounts} for the step's {counts}")
-        attn["decode_attention"] = (attn.get("decode_attention", 0)
-                                    + kcounts["decode_attention"])
+        if kcounts.get("skinny_gemm", 0) < 4 * kcounts["decode_attention"]:
+            raise AssertionError(f"int8 LLM b{b}: skinny_gemm launches "
+                                 f"{kcounts} for the step's {counts}")
+        for name in ("decode_attention", "skinny_gemm"):
+            attn[name] = attn.get(name, 0) + kcounts[name]
         must = ("log_mel", "quant_matmul", "fused_decode_layers_int8") + (
             ("w8a8_matmul",) if b == 2 else ())
         for name in must:
@@ -2401,6 +2718,11 @@ def check_fused_mesh(qllm, cfg, gen, cards: bool):
                                            ci), iters=5)
             ser_ms = cuda_time_ms(lambda: step(sp, cfg, x, mask, positions,
                                                ck, ci, serial=True), iters=5)
+            # queued: the ranks on the current stream only (serial), and
+            # only where that stream is the one card's
+            q_ser = (None if cards else cuda_time_ms(lambda: step(
+                sp, cfg, x, mask, positions, ck, ci, serial=True), iters=2,
+                queued=True))
             plain_ms = cuda_time_ms(lambda: fdm.fused_decode_layers_mesh_plain(
                 sp, cfg, x, mask, positions, cp, ci), iters=2)
         b_ms, b_by = bound(*llm_step_work(qllm, cfg, B, 1, ci.tolist()),
@@ -2411,7 +2733,9 @@ def check_fused_mesh(qllm, cfg, gen, cards: bool):
         print(f"K10 fused_decode_layers_mesh on {where}, L={L} B={B} S=256 "
               f"({gpu_line()}): {L}-layer logits vs plain rel={rel:.3e} "
               f"(information); {ms:.4f} ms/step with a stream per rank, "
-              f"{ser_ms:.4f} ms/step on each card's current stream, plain "
+              f"{ser_ms:.4f} ms/step on each card's current stream"
+              + ("" if q_ser is None else f" ({q_ser:.4f} queued)")
+              + f", plain "
               f"{plain_ms:.4f} ms/step, bound {b_ms:.4f} ms ({b_by})",
               flush=True)
         if p == 2:
@@ -2879,6 +3203,7 @@ def main() -> int:
         del qllm
         k8_attn = check_decode_attention(
             torch.Generator("cuda").manual_seed(7))
+        k_gemm = check_skinny_gemm(torch.Generator("cuda").manual_seed(8))
 
         # -- 14-16. the int8 LLM in generate(), plain and speculative -------
         llm_launches, spec_launches, _, attn_launches = run_int8_llm(
@@ -2899,6 +3224,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_launches = run_training(gpu, tmp.name)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 25. the debug config and a long cache: the torch paths -------------
+    run_debug_config(gpu, tmp.name)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2926,7 +3256,8 @@ def main() -> int:
                 (max(k2[0][0], k2[1][0]),) + k2[0][1:],
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
                 "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9,
-                **mesh_rows, "decode_attention": k8_attn}
+                **mesh_rows, "decode_attention": k8_attn,
+                "skinny_gemm": k_gemm}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         row = measured[name]
@@ -2938,7 +3269,8 @@ def main() -> int:
                   else train_launches if name in train_launches
                   else k9_launches if name in K9_HALVES
                   else mesh_launches if name in mesh_rows
-                  else attn_launches if name == "decode_attention"
+                  else attn_launches if name in ("decode_attention",
+                                                 "skinny_gemm")
                   else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],

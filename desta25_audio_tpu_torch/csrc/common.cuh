@@ -25,6 +25,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The current device, or 0 if the runtime cannot say.
+inline int current_device() {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return dev;
+}
+
+// The current device's SM count, read once per device (132 where the
+// runtime cannot say): the planners' card size.
+inline int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static int counts[kMaxDevices] = {};
+  const int dev = current_device();
+  if (dev < 0 || dev >= kMaxDevices) return 132;
+  if (counts[dev] == 0) {
+    int n = 0;
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
+        != cudaSuccess) {
+      cudaGetLastError();
+      return 132;
+    }
+    counts[dev] = n;
+  }
+  return counts[dev];
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }

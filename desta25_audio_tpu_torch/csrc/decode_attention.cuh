@@ -113,17 +113,6 @@ inline size_t decode_smem(int G, int kdm, int keys) {
                             + (size_t)G * kdm + 64 + (size_t)G * keys);
 }
 
-inline int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess
-      || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev)
-             != cudaSuccess) {
-    cudaGetLastError();
-    return 132;
-  }
-  return n;
-}
-
 // Four bf16 (8 bytes) -> four floats.
 __device__ __forceinline__ void unpack4(uint2 u, float* f) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);

@@ -16,11 +16,17 @@
 //   B*S*Hkv*Dh*4 bytes per layer (Kd times for the verify step, whose
 //   draft tokens each read it).
 // Design:
-//   * skinny_gemm (csrc/skinny_gemm.cuh): one warp per output column, the
-//     weight row streamed with 16-byte loads (8 bf16 or 16 int8 values), the
-//     int8 scale applied to the f32 sum, epilogues store / residual /
-//     SwiGLU at the TPU kernel's rounding points.  R = B*Kd rows go 16 per
-//     pass; above 16 rows each pass re-streams the weights.
+//   * skinny_gemm (csrc/skinny_gemm.cuh, entry point desta_skinny_gemm in
+//     csrc/skinny_gemm.cu): the weight-streaming GEMM on the tensor cores
+//     with weights and activations swapped (64 weight rows a CTA, the R <=
+//     16 token rows as mma's N side), weight tiles and the rows' k-ranges
+//     streamed through a 4-stage TMA / bulk-copy ring, K split across a
+//     thread-block cluster and the partials summed through distributed
+//     shared memory in rank order; the int8 scale applied to the f32 sum,
+//     epilogues store / residual / SwiGLU at the TPU kernel's rounding
+//     points.  R = B*Kd rows go 16 per pass; above 16 rows each pass
+//     re-streams the weights.  Its plan reads N, K and the SM count, not R,
+//     so the verify step's token 0 is summed as the decode step's.
 //   * decode_attention (csrc/decode_attention.cuh, shared with K9): the
 //     step's attention with its cache write, one launch a layer.  The keys
 //     of each (batch row b, kv head, draft token j) are split across a
@@ -37,7 +43,6 @@
 //   graph over them is a later PR.
 
 #include "decode_attention.cuh"
-#include "skinny_gemm.cuh"
 
 namespace {
 
@@ -72,38 +77,6 @@ extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
   rms_norm_kernel<<<rows, 256, 0, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)w, (bf16*)out, D, eps);
   return (int)cudaGetLastError();
-}
-
-// w is bf16 (scale null) or int8 (w_int8 = 1, one f32 scale per row of w);
-// bias (N floats) is read by the BIAS epilogues, which take int8 weights
-// only (the ORCA injection stack of K8i)
-extern "C" int desta_skinny_gemm(const void* x, const void* w,
-                                 const void* scale, const void* bias,
-                                 void* out, int M, int N, int K, int epilogue,
-                                 int w_int8, void* stream) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const bf16* xb = (const bf16*)x;
-  const float* sc = (const float*)scale;
-  const float* bs = (const float*)bias;
-#define DESTA_SKINNY(WT, EPI) \
-  launch_skinny<WT, EPI>(xb, (const WT*)w, sc, out, M, N, K, st, bs)
-  cudaError_t e;
-  if (w_int8) {
-    if (epilogue == EPI_STORE) e = DESTA_SKINNY(int8_t, EPI_STORE);
-    else if (epilogue == EPI_RESID) e = DESTA_SKINNY(int8_t, EPI_RESID);
-    else if (epilogue == EPI_SWIGLU) e = DESTA_SKINNY(int8_t, EPI_SWIGLU);
-    else if (epilogue == EPI_BIAS && bs) e = DESTA_SKINNY(int8_t, EPI_BIAS);
-    else if (epilogue == EPI_BIAS_GELU && bs)
-      e = DESTA_SKINNY(int8_t, EPI_BIAS_GELU);
-    else e = cudaErrorInvalidValue;
-  } else {
-    if (epilogue == EPI_STORE) e = DESTA_SKINNY(bf16, EPI_STORE);
-    else if (epilogue == EPI_RESID) e = DESTA_SKINNY(bf16, EPI_RESID);
-    else if (epilogue == EPI_SWIGLU) e = DESTA_SKINNY(bf16, EPI_SWIGLU);
-    else e = cudaErrorInvalidValue;
-  }
-#undef DESTA_SKINNY
-  return (int)e;
 }
 
 // out[3] = the decode attention's plan on the current device: key ranges,

@@ -19,13 +19,13 @@
 //     streaming GEMV.  Every block reads the f32 rows of h, rounds them to
 //     bf16 (the TPU kernel's input cast), computes each row's mean square
 //     and writes the normalised bf16 rows to shared memory; its warps then
-//     stream one int8 weight row (or a gate/up row pair) each, as
-//     csrc/skinny_gemm.cuh does, with the x operand from shared memory.  The
-//     epilogues are skinny_gemm's: STORE for q/k/v (bf16 of the scaled f32
-//     sum) and SWIGLU for the interleaved gate/up rows.  The grid is capped
-//     at 4 blocks an SM with a grid-stride loop over columns, so the
-//     redundant prologue (B*D*4 bytes a block, from L2) stays small
-//     against the weight stream.
+//     stream one int8 weight row (or a gate/up row pair) each with 16-byte
+//     loads (WeightVec of csrc/skinny_gemm.cuh), the x operand from shared
+//     memory.  The epilogues are skinny_gemm's: STORE for q/k/v (bf16 of
+//     the scaled f32 sum) and SWIGLU for the interleaved gate/up rows.  The
+//     grid is capped at 4 blocks an SM with a grid-stride loop over
+//     columns, so the redundant prologue (B*D*4 bytes a block, from L2)
+//     stays small against the weight stream.
 //   * attention: csrc/decode_attention.cuh at Kd = 1 (keys split across a
 //     thread-block cluster, TMA tile loads), on the shard's heads
 //     (the q rows of its H/p heads, then its k and v rows) and its slice of

@@ -24,7 +24,7 @@
 //   Ta = 375) once, against 2 FLOP per weight per token row and 4*Ta*D FLOP
 //   per token row for the attention: far below the ridge.
 // Design:
-//   * the three projections reuse the int8 weight streamer of
+//   * the three projections reuse the weight-streaming GEMM of
 //     csrc/skinny_gemm.cuh (16 token rows a pass) with bias epilogues;
 //   * inject_attention_kernel: one block of 512 threads per (batch row b,
 //     injection head), which reads row b's K/V slice of the head once for

@@ -12,9 +12,10 @@
 //   M = 127 the bf16 tensor cores as well (254 FLOP/byte against the
 //   295 FLOP/byte bf16 ridge).
 // Design (M picks the path, the caller never sees the difference):
-//   * M <= 16: the skinny weight-streaming GEMM of csrc/skinny_gemm.cuh,
-//     one warp per output column, 16 int8 weights per 16-byte lane load,
-//     all rows in one pass.
+//   * M <= 16: the skinny weight-streaming GEMM of csrc/skinny_gemm.cuh
+//     (tensor cores with the weight as the M side, a TMA / bulk-copy ring,
+//     K split across a cluster where the columns leave SMs idle), all rows
+//     in one pass.
 //   * 16 < M < 128: a tensor-core tile.  A block owns 128 output columns
 //     and all M rows (BM = 32, 64 or 128, rows past M zero-filled), walks K
 //     in 64-wide steps through a three-stage cp.async ring (x rows padded

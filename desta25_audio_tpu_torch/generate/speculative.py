@@ -40,10 +40,11 @@ import torch
 
 from ..config import LLMConfig
 from ..models import llm as tllm
+from ..ops import _build
 from ..ops.core import rms_norm
 from ..ops.fused_decode import (
+    fused_decode_limits,
     fused_inject_limits,
-    kernel_limits,
     tower_is_int8,
 )
 from ..ops.fused_decode_mesh import fused_mesh_limits, pick_verify_fn
@@ -89,9 +90,11 @@ def spec_limits(params, cfg: LLMConfig, batch: int, cache_len: int,
                 speculative_k: int, dtype, inject_params=None,
                 inject_heads: int = 0, inject_len: int = 0) -> List[str]:
     """Why the verify kernel cannot run this request (empty: it can):
-    a bf16 tower or cache, and the shape limits of ``csrc/fused_decode.cu``
-    (``ops/fused_decode.kernel_limits``) at ``speculative_k`` tokens per
-    row and a cache of ``cache_len`` positions.  With ORCA injection
+    the decode step's predicate (``ops/fused_decode.fused_decode_limits``:
+    bf16 activations and cache, a bf16 or int8 tower, the shape limits of
+    ``csrc/fused_decode.cu`` planned at the card's SM count) at
+    ``speculative_k`` tokens per row and a cache of ``cache_len``
+    positions, the cache in ``dtype``.  With ORCA injection
     (``inject_params``, ``inject_len`` audio tokens) the verify step runs
     it inside, which needs the int8 tower and a stack the injection kernels
     take (``fused_inject_limits``; ``desta.py:619-628`` of the JAX
@@ -100,10 +103,10 @@ def spec_limits(params, cfg: LLMConfig, batch: int, cache_len: int,
     bad = []
     if speculative_k < 2:
         bad.append(f"speculative_k={speculative_k} (needs >= 2)")
-    if dtype != torch.bfloat16:
-        bad.append(f"dtype {dtype} (the kernels take bfloat16)")
     if isinstance(params, ShardedLLM):
         # under a mesh: the tensor-parallel verify step's conditions
+        if dtype != torch.bfloat16:
+            bad.append(f"dtype {dtype} (the kernels take bfloat16)")
         return bad + fused_mesh_limits(
             params, cfg, batch, cache_len, speculative_k, inject_params,
             inject_len, inject_heads, dtype)
@@ -114,7 +117,10 @@ def spec_limits(params, cfg: LLMConfig, batch: int, cache_len: int,
                        "LLM (apply_llm_quant)")
         bad += fused_inject_limits(inject_params, cfg, inject_heads,
                                    inject_len, speculative_k)
-    return bad + kernel_limits(cfg, batch, speculative_k, cache_len, int8)
+    # the decode step's predicate at Kd tokens a row, on the tower's card
+    return bad + fused_decode_limits(
+        params, cfg, dtype, batch, speculative_k, cache_len, dtype,
+        _build.sm_count(params["embed"].device))
 
 
 def spec_generate_supported(params, cfg: LLMConfig, batch: int,

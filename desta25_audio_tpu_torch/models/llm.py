@@ -53,9 +53,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import LLMConfig
+from ..ops import _build
 from ..ops import attention as attn
 from ..ops.core import Params, index_tree, matmul_f32, rms_norm
-from ..ops.fused_decode import KVCache, fused_decode_layers
+from ..ops.fused_decode import (
+    KVCache,
+    fused_decode_layers,
+    fused_decode_supported,
+)
 from ..ops.fused_decode_mesh import (
     fused_decode_layers_mesh,
     fused_mesh_supported,
@@ -336,7 +341,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     cache under a causal-by-position mask.
 
     extra_layer_fn(l, h) -> h runs after every layer (ORCA's injection in
-    PyTorch).  A cached T == 1 call takes the fused decode step: with
+    PyTorch).  A cached T == 1 call takes the fused decode step where
+    ``ops/fused_decode.fused_decode_supported`` holds (else the layer loop,
+    counted by ``_build.count_fallback``): with
     ``fused_injection`` (the ``inject`` spec of ``ops/fused_decode.py``) the
     injection runs inside it; with only ``extra_layer_fn`` the step runs
     layer by layer here so the hook can run between layers, or, when
@@ -387,11 +394,18 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
                                                                   cache)
         if T == 1 and (fused_injection is not None
                        or extra_layer_fn is None):
-            hidden, cache = fused_decode_layers(
-                params, cfg, x, attention_mask, positions, cache, ci,
-                inject=fused_injection)
-            hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
-            return head_logits(params, hidden), cache
+            if fused_decode_supported(params, cfg, x, cache):
+                hidden, cache = fused_decode_layers(
+                    params, cfg, x, attention_mask, positions, cache, ci,
+                    inject=fused_injection)
+                hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
+                return head_logits(params, hidden), cache
+            if extra_layer_fn is None and fused_injection is not None:
+                raise ValueError("the decode step's kernels cannot take this "
+                                 "step and no injection hook was given")
+            # the kernels cannot take this step: the layer loop below (the
+            # JAX package's XLA path), with the injection hook if any
+            _build.count_fallback("fused_decode_layers")
         if T == 1 and fused_perlayer_supported(params, cfg, cache):
             # opt-in: the per-layer kernel pair with the hook between
             # layers (llm.py:436-454 of the JAX package)

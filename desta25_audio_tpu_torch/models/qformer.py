@@ -7,8 +7,12 @@ queries, cross-attention to one tapped encoder layer, GELU FFN with BERT's
 ``prompt_size`` queries per tap, a per-(query, tap) softmax fusion, then
 LayerNorm + Linear to the LLM width.  The cross-attention runs through
 ``ops/enc_attention.packed_encoder_attention`` (the hand-written kernel on
-the card); the 64-query self-attention is plain torch, as the JAX package
-leaves it to XLA.  All taps go through the layers as one batch
+the card) where the JAX package's ``_use_packed`` would take its kernel:
+at least ``CROSS_KERNEL_MIN_T`` encoder frames and a shape and dtype the
+kernel takes (``enc_attention_supported``); elsewhere (the nano towers,
+float32 models) through ``ops/core.mha``, counted by
+``_build.count_fallback``.  The 64-query self-attention is plain torch, as
+the JAX package leaves it to XLA.  All taps go through the layers as one batch
 [n_taps * B, ...] (the JAX package vmaps over the tap axis).
 
 The connector params are f32 while the taps are bf16: every linear then
@@ -28,8 +32,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..config import DeSTA25Config, QFormerConfig
+from ..ops import _build
 from ..ops.core import Params, gelu, index_tree, layer_norm, linear, mha
-from ..ops.enc_attention import packed_encoder_attention
+from ..ops.enc_attention import (
+    enc_attention_supported,
+    packed_encoder_attention,
+)
 from .whisper import init_layer_norm_stack, init_linear_stack
 
 _BERT_EPS = 1e-12
@@ -86,12 +94,27 @@ def _self_attn(p: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
     return layer_norm(p["ln"], out + h, _BERT_EPS)
 
 
+# the JAX package's _use_packed threshold (qformer.py:149)
+CROSS_KERNEL_MIN_T = 512
+
+
 def _cross_attn(p: Params, h: torch.Tensor, enc: torch.Tensor,
                 n_heads: int) -> torch.Tensor:
+    B, T, D = h.shape
+    t_kv = enc.shape[1]
     q = linear(p["q"], h)
     k = linear(p["k"], enc)
     v = linear(p["v"], enc)
-    out = linear(p["o"], packed_encoder_attention(q, k, v, n_heads))
+    if t_kv >= CROSS_KERNEL_MIN_T and enc_attention_supported(n_heads, D,
+                                                              q.dtype):
+        out = packed_encoder_attention(q, k, v, n_heads)
+    else:
+        _build.count_fallback("packed_encoder_attention")
+        dh = D // n_heads
+        out = mha(q.reshape(B, T, n_heads, dh),
+                  k.reshape(B, t_kv, n_heads, dh),
+                  v.reshape(B, t_kv, n_heads, dh)).reshape(B, T, D)
+    out = linear(p["o"], out)
     return layer_norm(p["ln"], out + h, _BERT_EPS)
 
 

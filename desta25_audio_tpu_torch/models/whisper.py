@@ -18,8 +18,17 @@ Kernels, with the JAX package's dispatch (``whisper.py:167-273``):
 - FFN: K3 ``encoder_ffn`` when ``fc1`` has a bf16 ``w``, K4
   ``encoder_ffn_w8a8`` when it has int8 ``q``.
 
-The JAX package's TPU-only gates (tiling, ``T >= 512``, block sizes) are not
-mirrored: the kernels raise on shapes they do not take.
+Each kernel runs only where its predicate holds, as in the JAX package:
+``T >= ENC_KERNEL_MIN_T`` and the kernel's own limits
+(``enc_attention_supported``, ``w8a8_proj_supported``,
+``enc_ffn_supported``, ``enc_ffn_w8a8_supported``: Dh = 64, widths that
+are whole tiles, bf16).  Elsewhere (the nano towers, float32 models) the
+JAX package's XLA path runs in torch: ``linear`` (an int8 leaf by
+``int8_act_matmul``'s formula) around ``ops/attention.mha``, and
+``linear(fc2, gelu(linear(fc1, h)))`` (int8 weights dequantized first),
+each such call counted by ``_build.count_fallback`` under the kernel's
+name.  The decision reads shapes and dtypes only; a kernel that is chosen
+and fails still raises.
 
 Parameters: stacked layers (leading layer axis), linear weights
 ``[out, in]``, conv weights ``[out, in, 3]``.
@@ -35,11 +44,21 @@ import numpy as np
 import torch
 
 from ..config import WhisperConfig
+from ..ops import _build
+from ..ops.attention import mha
 from ..ops.core import Params, conv1d, gelu, index_tree, layer_norm, linear
-from ..ops.enc_attention import packed_encoder_attention
-from ..ops.enc_ffn import encoder_ffn, encoder_ffn_w8a8
-from ..ops.quant import is_quantized
-from ..ops.w8a8_proj import proj_w8a8, qkv_w8a8
+from ..ops.enc_attention import (
+    enc_attention_supported,
+    packed_encoder_attention,
+)
+from ..ops.enc_ffn import (
+    enc_ffn_supported,
+    enc_ffn_w8a8_supported,
+    encoder_ffn,
+    encoder_ffn_w8a8,
+)
+from ..ops.quant import dequantize_weight, int8_act_linear, is_quantized
+from ..ops.w8a8_proj import proj_w8a8, qkv_w8a8, w8a8_proj_supported
 
 
 def sinusoidal_positions(length: int, dim: int) -> np.ndarray:
@@ -123,8 +142,36 @@ def int8_attention(a: Params, batch: int) -> bool:
                                      or batch <= INT8_ATTN_MAXB)
 
 
+# The encoder's kernels run from this many frames (the JAX dispatch's
+# ``x.shape[1] >= 512``, whisper.py:177 and :253)
+ENC_KERNEL_MIN_T = 512
+
+
+def _linear(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``core.linear``: a float leaf, or an int8 leaf
+    without ``w`` by ``int8_act_matmul``'s formula."""
+    return linear(p, x) if "w" in p else int8_act_linear(p, x)
+
+
+def _attn(a: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """The JAX package's torch-side attention (``whisper.py:148-157``):
+    projections, then ``ops/attention.mha`` on [B, T, H, Dh]."""
+    B, T, D = h.shape
+    q, k, v = (_linear(a[n], h).reshape(B, T, n_heads, D // n_heads)
+               for n in ("q", "k", "v"))
+    return _linear(a["o"], mha(q, k, v).reshape(B, T, D))
+
+
 def _enc_self_attn(a: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
-    if int8_attention(a, h.shape[0]):
+    B, T, D = h.shape
+    if not (T >= ENC_KERNEL_MIN_T
+            and enc_attention_supported(n_heads, D, h.dtype)):
+        _build.count_fallback("packed_encoder_attention")
+        return _attn(a, h, n_heads)
+    if int8_attention(a, B):
+        if not w8a8_proj_supported(D, a["q"]["q"].shape[0], h.dtype):
+            _build.count_fallback("qkv_w8a8")
+            return _attn(a, h, n_heads)
         q, k, v = qkv_w8a8(h, a["q"], a["k"], a["v"])
         return proj_w8a8(packed_encoder_attention(q, k, v, n_heads), a["o"])
     q, k, v = linear(a["q"], h), linear(a["k"], h), linear(a["v"], h)
@@ -133,10 +180,22 @@ def _enc_self_attn(a: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 def _enc_ffn(p: Params, h: torch.Tensor) -> torch.Tensor:
     fc1, fc2 = p["fc1"], p["fc2"]
+    D, T = h.shape[-1], h.shape[1]
     if "w" in fc1:
-        return encoder_ffn(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
-    return encoder_ffn_w8a8(h, fc1["q"], fc1["s"], fc1["b"], fc2["q"],
-                            fc2["s"], fc2["b"])
+        if T >= ENC_KERNEL_MIN_T and enc_ffn_supported(D, fc1["w"].shape[0],
+                                                       h.dtype):
+            return encoder_ffn(h, fc1["w"], fc1["b"], fc2["w"], fc2["b"])
+        _build.count_fallback("encoder_ffn")
+    else:
+        if T >= ENC_KERNEL_MIN_T and enc_ffn_w8a8_supported(
+                D, fc1["q"].shape[0], h.dtype):
+            return encoder_ffn_w8a8(h, fc1["q"], fc1["s"], fc1["b"],
+                                    fc2["q"], fc2["s"], fc2["b"])
+        # the JAX package's _xla_ffn_w8a8: dequantized weights, XLA's FFN
+        _build.count_fallback("encoder_ffn_w8a8")
+        fc1 = {"w": dequantize_weight(fc1, h.dtype), "b": fc1["b"]}
+        fc2 = {"w": dequantize_weight(fc2, h.dtype), "b": fc2["b"]}
+    return linear(fc2, gelu(linear(fc1, h)))
 
 
 def _enc_layer_apply(p: Params, x: torch.Tensor, n_heads: int

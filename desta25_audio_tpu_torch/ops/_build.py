@@ -20,7 +20,9 @@ went through the kernels (``reset_launch_counts`` / ``launch_counts``).  A
 kernel that a wrapper launches among others under the wrapper's name (the
 decode attention inside the decode step) is also counted by its own name
 with :func:`count_kernel` (``kernel_counts``), apart from the wrappers'
-counts, which keep their meaning.
+counts, which keep their meaning.  A model that takes its torch path
+because a kernel's predicate refuses the shape counts that with
+:func:`count_fallback` (``fallback_counts``).
 """
 
 from __future__ import annotations
@@ -57,6 +59,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
     # x, w, scale, bias, out, M, N, K, epilogue, w_int8, stream
     "desta_skinny_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # rows, K, w_int8, out [4]: ranks, k-tiles a rank, k-tiles, row tiles
+    "desta_skinny_gemm_plan": (_I, _I, _I, _P),
     # iq, ka, va, out, B, kd, Ta, ta_real, D, heads, scale, stream
     "desta_inject_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                _P),
@@ -106,19 +110,27 @@ SIGNATURES: Dict[str, Tuple] = {
 
 _launches: Dict[str, int] = {}
 _kernels: Dict[str, int] = {}
+_fallbacks: Dict[str, int] = {}
 
 
-def count_launch(name: str) -> None:
-    _launches[name] = _launches.get(name, 0) + 1
+def count_launch(name: str, n: int = 1) -> None:
+    _launches[name] = _launches.get(name, 0) + n
 
 
-def count_kernel(name: str) -> None:
-    _kernels[name] = _kernels.get(name, 0) + 1
+def count_kernel(name: str, n: int = 1) -> None:
+    _kernels[name] = _kernels.get(name, 0) + n
+
+
+def count_fallback(name: str) -> None:
+    """A call that took the torch path because kernel ``name`` cannot take
+    its shape or dtype (decided from them before any launch)."""
+    _fallbacks[name] = _fallbacks.get(name, 0) + 1
 
 
 def reset_launch_counts() -> None:
     _launches.clear()
     _kernels.clear()
+    _fallbacks.clear()
 
 
 def launch_counts() -> Dict[str, int]:
@@ -127,6 +139,10 @@ def launch_counts() -> Dict[str, int]:
 
 def kernel_counts() -> Dict[str, int]:
     return dict(_kernels)
+
+
+def fallback_counts() -> Dict[str, int]:
+    return dict(_fallbacks)
 
 
 def nvcc_path() -> str:
@@ -213,6 +229,27 @@ def check(status: int, what: str) -> None:
 def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device=None) -> int:
+    """The SM count of a CUDA device, read once per device; 132 (the H100
+    SXM's) for a CPU device or None, where the kernels' planners only
+    describe what the card would take."""
+    import torch
+    if device is None:
+        return 132
+    device = torch.device(device)
+    if device.type != "cuda":
+        return 132
+    index = device.index
+    return _device_sm_count(torch.cuda.current_device() if index is None
+                            else index)
 
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:

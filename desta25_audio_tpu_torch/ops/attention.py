@@ -68,12 +68,23 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.to(q.dtype).transpose(1, 2)
 
 
+def flash_limits(H: int, Hkv: int, D: int, dtype) -> list:
+    """What K11 cannot take (empty: it takes it), the wrapper's refusals."""
+    bad = []
+    if D not in KERNEL_DH or Hkv < 1 or H % Hkv:
+        bad.append(f"kernel takes Dh in {KERNEL_DH} and H a multiple of "
+                   f"Hkv, got Dh={D} H={H} Hkv={Hkv}")
+    if dtype != torch.bfloat16:
+        bad.append(f"dtype {dtype}, kernel takes torch.bfloat16")
+    return bad
+
+
 def _check(name: str, q, k, v, seg) -> None:
     B, T, H, D = q.shape
     Hkv = k.shape[2]
-    if D not in KERNEL_DH or H % Hkv:
-        raise ValueError(f"{name}: kernel takes Dh in {KERNEL_DH} and H a "
-                         f"multiple of Hkv, got Dh={D} H={H} Hkv={Hkv}")
+    bad = flash_limits(H, Hkv, D, torch.bfloat16)
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
     if k.shape != (B, T, Hkv, D) or v.shape != k.shape \
             or seg.shape != (B, T):
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
@@ -171,15 +182,22 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The JAX package's ``ops/attention.mha`` dispatch.  q [B, T, H, D],
     k/v [B, S, Hkv, D]; ``mask`` broadcastable to [B, H, T, S] (True
     attends); ``attention_mask`` [B, T] 1/0 per token.  Flash path when
-    there is no ``mask``, S == T and T >= 512; otherwise the masked path
-    with ``mask``, or with the causal and per-token masks combined."""
+    there is no ``mask``, S == T and T >= 512 (the JAX rule: its TPU
+    library kernel takes any head size and dtype, and so does the plain
+    version on the CPU); on the card also only where K11 takes the heads
+    and the dtype (:func:`flash_limits`; else counted by
+    ``_build.count_fallback``).  Otherwise the masked path with ``mask``,
+    or with the causal and per-token masks combined."""
     B, T, H, D = q.shape
     if scale is None:
         scale = D ** -0.5
     if mask is None and k.shape[1] == T and T >= FLASH_MIN_T:
-        seg = (attention_mask if attention_mask is not None
-               else torch.ones(B, T, dtype=torch.int32, device=q.device))
-        return flash_attention(q, k, v, seg.to(torch.int32), causal, scale)
+        if not (q.is_cuda and flash_limits(H, k.shape[2], D, q.dtype)):
+            seg = (attention_mask if attention_mask is not None
+                   else torch.ones(B, T, dtype=torch.int32, device=q.device))
+            return flash_attention(q, k, v, seg.to(torch.int32), causal,
+                                   scale)
+        _build.count_fallback("flash_attention")
     full = mask
     if full is None and (causal or attention_mask is not None):
         full = torch.ones(1, 1, T, k.shape[1], dtype=torch.bool,

@@ -6,7 +6,9 @@ as the projections emit them.  On a CUDA tensor this launches the
 hand-written Hopper kernel in ``csrc/enc_attention.cu`` (bf16, Dh = 64, the
 head size of every Whisper and Q-Former configuration); on a CPU tensor it
 runs :func:`packed_encoder_attention_plain`, the same function in plain
-torch at the same rounding points.  It never falls back from the card.
+torch at the same rounding points.  It never falls back from the card: the
+models ask :func:`enc_attention_supported` (the wrapper's own refusal
+rules) first and take their torch path where it is false.
 
 Queries of at most 64 rows (the Q-Former's cross-attention) fill a quarter
 of a kernel block's rows, so :func:`plan_key_splits` cuts the keys into
@@ -21,9 +23,8 @@ through XLA (``enc_attention.py:165-182``).
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -39,6 +40,23 @@ def _scale(dh: int):
     # fold the scale into q when it is a power of two (exact in bf16)
     folded = math.log2(scale) == round(math.log2(scale))
     return scale, folded
+
+
+def enc_attention_limits(n_heads: int, d_model: int, dtype) -> List[str]:
+    """What the kernel cannot take (empty: it takes it): Dh = KERNEL_DH and
+    bf16, the wrapper's refusals."""
+    bad = []
+    if n_heads < 1 or d_model % n_heads or d_model // n_heads != KERNEL_DH:
+        bad.append(f"kernel takes Dh={KERNEL_DH}, got {d_model}/{n_heads}")
+    if dtype != torch.bfloat16:
+        bad.append(f"dtype {dtype}, kernel takes torch.bfloat16")
+    return bad
+
+
+def enc_attention_supported(n_heads: int, d_model: int, dtype) -> bool:
+    """The models' predicate for K2 (``packed_supported`` of the JAX
+    package, at this kernel's limits)."""
+    return not enc_attention_limits(n_heads, d_model, dtype)
 
 
 def plan_key_splits(B: int, H: int, Tq: int, Tkv: int, n_sm: int = 132
@@ -121,15 +139,15 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     name = "packed_encoder_attention"
     B, Tq, DM = q.shape
     Tkv = k.shape[1]
-    if DM % n_heads or DM // n_heads != KERNEL_DH:
-        raise ValueError(f"{name}: kernel takes Dh={KERNEL_DH}, got "
-                         f"{DM}/{n_heads}")
+    bad = enc_attention_limits(n_heads, DM, q.dtype)
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
     if k.shape != (B, Tkv, DM) or v.shape != k.shape or Tkv < 1 or Tq < 1:
         raise ValueError(f"{name}: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     _build.require_cuda(name, q, k, v, dtype=torch.bfloat16)
     out = torch.empty_like(q)
-    bounds = plan_key_splits(B, n_heads, Tq, Tkv, _n_sm(q.device))
+    bounds = plan_key_splits(B, n_heads, Tq, Tkv, _build.sm_count(q.device))
     splits = len(bounds) - 1
     part = part_ml = None
     if splits > 1:   # f32 (acc, m, l) of each key range
@@ -153,7 +171,3 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _build.count_launch(name)
     return out
 
-
-@functools.lru_cache(maxsize=None)
-def _n_sm(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count

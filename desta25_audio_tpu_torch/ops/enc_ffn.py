@@ -15,11 +15,14 @@ output channel, ``ops/quant.py``).
   quantisation of the GELU output, and the segmented int8 fc2 GEMM.
 
 On a CPU tensor each runs its ``*_plain`` version; neither falls back from
-the card.  The row quantiser and the launches of ``csrc/w8a8.cu`` live in
+the card: the encoder asks :func:`enc_ffn_supported` /
+:func:`enc_ffn_w8a8_supported` (the wrappers' refusal rules) first.  The row quantiser and the launches of ``csrc/w8a8.cu`` live in
 ``ops/quant.py``, shared with ``ops/w8a8_proj.py``.
 """
 
 from __future__ import annotations
+
+from typing import List
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +36,42 @@ from .quant import (
     launch_quant_rows,
     quant_rows,
     require_int8_leaf,
+    w8a8_shape_limits,
 )
 
 # K4 quantizes the GELU output per row and per chunk of this many columns
 # (desta25_audio_tpu/ops/enc_ffn.py:174-185), not over the whole row
 CHUNK_F = 1280
+
+
+def enc_ffn_limits(D: int, F: int, dtype) -> List[str]:
+    """What K3 cannot take (empty: it takes it), the wrapper's refusals."""
+    bad = []
+    if D % 128 or F % 128:
+        bad.append(f"kernel needs D and F multiples of 128, got D={D} F={F}")
+    if dtype != torch.bfloat16:
+        bad.append(f"dtype {dtype}, kernel takes torch.bfloat16")
+    return bad
+
+
+def enc_ffn_supported(D: int, F: int, dtype) -> bool:
+    """The encoder's predicate for K3 (``ffn_supported`` of the JAX
+    package, at this kernel's limits)."""
+    return not enc_ffn_limits(D, F, dtype)
+
+
+def enc_ffn_w8a8_limits(D: int, F: int, dtype) -> List[str]:
+    """What K4 cannot take (empty: it takes it), the wrapper's refusals:
+    both int8 GEMMs' shape rules (fc1 [F, D], fc2 [D, F]) and bf16."""
+    bad = w8a8_shape_limits(F, D) + w8a8_shape_limits(D, F)
+    if dtype != torch.bfloat16:
+        bad.append(f"dtype {dtype}, kernel takes torch.bfloat16")
+    return bad
+
+
+def enc_ffn_w8a8_supported(D: int, F: int, dtype) -> bool:
+    """The encoder's predicate for K4."""
+    return not enc_ffn_w8a8_limits(D, F, dtype)
 
 
 def encoder_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
@@ -72,9 +106,9 @@ def encoder_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         raise ValueError(f"{name}: weight shapes {tuple(w1.shape)} "
                          f"{tuple(b1.shape)} {tuple(w2.shape)} "
                          f"{tuple(b2.shape)} for D={D}")
-    if D % 128 or Fd % 128:
-        raise ValueError(f"{name}: kernel needs D and F multiples of 128, "
-                         f"got D={D} F={Fd}")
+    bad = enc_ffn_limits(D, Fd, x.dtype)
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
     x2 = x.reshape(B * T, D)
     _build.require_cuda(name, x2, w1, b1, w2, b2, dtype=torch.bfloat16)
     lib = _build.library()
@@ -112,6 +146,9 @@ def encoder_ffn_w8a8(x: torch.Tensor, q1, s1, b1, q2, s2, b2
     B, T, D = x.shape
     Fd = q1.shape[0]
     M = B * T
+    bad = enc_ffn_w8a8_limits(D, Fd, x.dtype)
+    if bad:
+        raise ValueError(f"{name}: " + "; ".join(bad))
     require_int8_leaf(name, q1, s1, b1, Fd, D)
     require_int8_leaf(name, q2, s2, b2, D, Fd)
     x2 = x.reshape(M, D)

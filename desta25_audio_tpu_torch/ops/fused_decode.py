@@ -51,7 +51,10 @@ thread-block cluster by :func:`plan_decode_splits`; it is also launched
 alone by :func:`decode_attention`, whose plain version
 :func:`decode_attention_plain` is the middle of :func:`attention_plain`.
 Each step launch of it is counted in ``_build.kernel_counts()`` as
-``decode_attention``, beside the step's own launch counts.
+``decode_attention``, and each launch of the step's weight-streaming GEMM
+(``csrc/skinny_gemm.cuh``, ``ops/skinny_gemm.py``) as ``skinny_gemm``,
+beside the step's own launch counts.  :func:`fused_decode_supported` is the
+models' predicate: where it is false they run their layer loop instead.
 """
 
 from __future__ import annotations
@@ -65,8 +68,14 @@ from . import _build
 from .core import matmul_f32
 from .quant import LLM_QUANT_KEYS, is_quantized
 from .rope import llm_rope_cos_sin
-
-EPI_STORE, EPI_RESID, EPI_SWIGLU, EPI_BIAS, EPI_BIAS_GELU = 0, 1, 2, 4, 5
+from .skinny_gemm import (
+    EPI_BIAS,
+    EPI_BIAS_GELU,
+    EPI_RESID,
+    EPI_STORE,
+    EPI_SWIGLU,
+    passes,
+)
 KERNEL_DH = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
 KD_MAX = 8                          # draft tokens per row (the JAX kd <= 8)
@@ -141,9 +150,11 @@ def decode_attention_smem(G: int, kd: int, range_len: int) -> int:
 
 
 def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
-                  int8: bool) -> List[str]:
+                  int8: bool, n_sm: int = 132) -> List[str]:
     """What the kernels of ``csrc/fused_decode.cu`` cannot take at this
-    shape, one message per broken limit (empty: the kernels take it)."""
+    shape, one message per broken limit (empty: the kernels take it).  The
+    decode attention's key ranges are planned for a card of ``n_sm`` SMs
+    (``_build.sm_count`` of the step's device), as the C side plans them."""
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     D, I = cfg.hidden_size, cfg.intermediate_size
@@ -161,7 +172,7 @@ def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
     G = H // Hkv
     if cache_len < 1:
         return bad + [f"cache length {cache_len}"]
-    bounds = plan_decode_splits(batch, Hkv, cache_len)
+    bounds = plan_decode_splits(batch, Hkv, cache_len, n_sm)
     smem = decode_attention_smem(G, kd, bounds[1] - bounds[0])
     if smem > _SMEM_LIMIT:
         bad.append(f"cache length {cache_len} needs {smem} bytes of shared "
@@ -171,6 +182,43 @@ def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
         bad.append(f"B*Kd*H*S*4 = {batch * kd * H * cache_len * 4} bytes "
                    f"(limit {VERIFY_SCORES_BUDGET}, as the JAX verify step)")
     return bad
+
+
+def fused_decode_limits(params, cfg, dtype, batch: int, kd: int,
+                        cache_len: int, cache_dtype=torch.bfloat16,
+                        n_sm: int = 132) -> List[str]:
+    """What the decode (kd = 1) or verify step's kernels cannot take (empty:
+    they take it): activations, cache and norms in bf16, a tower of bf16 or
+    int8 weights, and :func:`kernel_limits` for a card of ``n_sm`` SMs.
+    The wrapper's refusals, asked before any launch."""
+    bad = []
+    lay = params["layers"]
+    if dtype != torch.bfloat16:
+        bad.append(f"activations in {dtype} (the kernels take bfloat16)")
+    if cache_dtype != torch.bfloat16:
+        bad.append(f"a {cache_dtype} cache (the kernels take bfloat16)")
+    if lay["ln1"]["scale"].dtype != torch.bfloat16:
+        bad.append(f"{lay['ln1']['scale'].dtype} norms (the kernels take "
+                   "bfloat16)")
+    try:
+        int8 = tower_is_int8(params)
+    except ValueError as e:
+        return bad + [str(e)]
+    if not int8 and any(lay[k].dtype != torch.bfloat16
+                        for k in LLM_QUANT_KEYS):
+        bad.append("layer weights neither int8 leaves nor bfloat16")
+    return bad + kernel_limits(cfg, batch, kd, cache_len, int8, n_sm)
+
+
+def fused_decode_supported(params, cfg, inputs_embeds: torch.Tensor,
+                           cache: KVCache) -> bool:
+    """The models' predicate for the decode step's kernels (the JAX
+    package's ``fused_supported``, at these kernels' limits and the SM
+    count of the step's card)."""
+    B, kd, _ = inputs_embeds.shape
+    return not fused_decode_limits(
+        params, cfg, inputs_embeds.dtype, B, kd, cache.k.shape[2],
+        cache.k.dtype, _build.sm_count(inputs_embeds.device))
 
 
 def _inject_groups(dh: int) -> int:
@@ -548,7 +596,8 @@ class FusedStep:
         if Bc != B or KVD != Hkv * Dh or cache.v.shape != cache.k.shape:
             raise ValueError(f"{name}: x {tuple(inputs_embeds.shape)} vs "
                              f"cache {tuple(cache.k.shape)}")
-        bad = kernel_limits(cfg, B, Kd, S, int8)
+        bad = kernel_limits(cfg, B, Kd, S, int8,
+                            _build.sm_count(inputs_embeds.device))
         if bad:
             raise ValueError(f"{name}: " + "; ".join(bad))
         lay = params["layers"]
@@ -591,6 +640,7 @@ class FusedStep:
             self.inj = _inject_operands(inject, cfg, name, L, B, Kd)
         self.cfg, self.lay, self.cache, self.name = cfg, lay, cache, name
         self.B, self.Kd, self.R, self.D, self.L = B, Kd, R, D, L
+        self.gemm_passes = passes(R)
         self.int8, self.norms, self.mask, self.ci = int8, norms, mask, ci
         self.cos, self.sin, self.h = cos, sin, h
         self.lib = _build.library()
@@ -616,6 +666,7 @@ class FusedStep:
             x.data_ptr(), w.data_ptr(), None if s is None else s.data_ptr(),
             None, out.data_ptr(), self.R, N, K, epi, int(self.int8),
             self.stream))
+        _build.count_kernel("skinny_gemm", self.gemm_passes)
 
     def _out_gemm(self, x, key, l, K, store):
         """wo / down: into h, or through ``store``."""
@@ -669,6 +720,7 @@ class FusedStep:
                 x.data_ptr(), w[l].data_ptr(), s[l].data_ptr(),
                 b[l].data_ptr(), out.data_ptr(), R, N, K, epi, 1,
                 self.stream), what)
+            _build.count_kernel("skinny_gemm", self.gemm_passes)
         proj(self.h, wq, sq, bq, self.iq, EPI_BIAS)
         proj(self.h, wg, sg, bg, self.ig, EPI_BIAS_GELU)
         self._launch(self.lib.desta_inject_attention(

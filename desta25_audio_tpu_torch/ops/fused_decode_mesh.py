@@ -49,6 +49,7 @@ from ..parallel.sharding import (
     local_config,
     to_device,
 )
+from . import _build
 from .fused_decode import (
     FusedStep,
     _inject_plain,
@@ -104,7 +105,8 @@ def fused_mesh_limits(params, cfg, batch: int, cache_len: int, kd: int = 1,
         return bad + [f"batch {batch} does not split over {mesh.n_data} data "
                       "rows"]
     lcfg = local_config(cfg, p)
-    bad += kernel_limits(lcfg, batch // mesh.n_data, kd, cache_len, int8)
+    bad += kernel_limits(lcfg, batch // mesh.n_data, kd, cache_len, int8,
+                         _build.sm_count(mesh.devices[0][0]))
     if inject_params is not None:
         bad += fused_inject_limits(inject_params, cfg, heads or H, ta, kd)
     return bad

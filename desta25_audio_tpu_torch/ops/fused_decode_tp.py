@@ -79,6 +79,7 @@ from .fused_decode import (
     tower_is_int8,
 )
 from .rope import llm_rope_cos_sin
+from .skinny_gemm import passes
 from .tp_allreduce import ATTN_SLOT, MLP_SLOT, allreduce_plain, group_buffers
 
 logger = logging.getLogger(__name__)
@@ -130,7 +131,8 @@ def perlayer_limits(params, cfg, cache: KVCache, batch: int) -> List[str]:
     if cache.k.shape[3] != Hkv * Dh or cache.k.shape[1] != batch:
         bad.append(f"cache {tuple(cache.k.shape)} for B={batch}, "
                    f"Hkv*Dh={Hkv * Dh}")
-    bad += kernel_limits(cfg, batch, 1, cache.k.shape[2], True)
+    bad += kernel_limits(cfg, batch, 1, cache.k.shape[2], True,
+                         _build.sm_count(cache.k.device))
     smem = min(batch, NORM_ROWS) * D * 2
     if smem > _SMEM_LIMIT:
         bad.append(f"D={D} at {batch} rows needs {smem} bytes of shared "
@@ -286,6 +288,7 @@ def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
     _launch(lib.desta_tp_gemm(
         op.attn.data_ptr(), wo["q"][l].data_ptr(), wo["s"][l].data_ptr(),
         out.data_ptr(), B, D, H * Dh, int(accumulate), op.stream), name)
+    _build.count_kernel("skinny_gemm", passes(B))
 
 
 def _mlp_launches(op: _Operands, cfg, h, l: int, out: torch.Tensor,
@@ -308,6 +311,7 @@ def _mlp_launches(op: _Operands, cfg, h, l: int, out: torch.Tensor,
     _launch(lib.desta_tp_gemm(
         op.mid.data_ptr(), wd["q"][l].data_ptr(), wd["s"][l].data_ptr(),
         out.data_ptr(), B, D, I, int(accumulate), op.stream), name)
+    _build.count_kernel("skinny_gemm", passes(B))
 
 
 def attn_half(params, cfg, h: torch.Tensor, step: DecodeStep,

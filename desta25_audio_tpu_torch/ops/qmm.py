@@ -16,12 +16,11 @@ The rows M = prod(x.shape[:-1]) pick the path, as they do on the TPU:
 
 On a CPU tensor each runs its ``*_plain`` version; on a CUDA tensor it
 launches its kernel or raises.  Counts: ``quant_matmul`` one per K7 call,
-``w8a8_matmul`` two per call (row quantiser, GEMM).
+``w8a8_matmul`` two per call (row quantiser, GEMM); a K7 call at M <= 16
+is also counted as ``skinny_gemm`` in ``_build.kernel_counts()``.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -58,11 +57,6 @@ def w8a8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     ``quant_rows_llm``'s ``amax``."""
     xq, a = quant_rows_llm(x2.float(), row_amax)
     return ((int_dot(xq, q) * a) * s.float()).to(out_dtype)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def qmm_splits(M: int, N: int, K: int, sms: int) -> int:
@@ -104,7 +98,7 @@ def qmm(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     _build.require_cuda(name, s, dtype=torch.float32)
     dev = x2.device
     out = torch.empty(M, N, dtype=out_dtype, device=dev)
-    splits = qmm_splits(M, N, K, _sm_count(dev.index or 0))
+    splits = qmm_splits(M, N, K, _build.sm_count(dev))
     part = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
             if splits > 1 else None)
     _build.check(_build.library().desta_qmm(
@@ -112,6 +106,8 @@ def qmm(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         None if part is None else part.data_ptr(), M, N, K, splits,
         int(out_dtype == torch.float32), _build.stream_ptr(dev)), name)
     _build.count_launch(name)
+    if M <= _QMM_SKINNY_ROWS:
+        _build.count_kernel("skinny_gemm")
     return out
 
 

@@ -18,7 +18,7 @@ W8A8 prefill (``ops/qmm.py``) share.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import torch
 
@@ -182,6 +182,21 @@ def int_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (a.double() @ w.double().t()).float()
 
 
+def int8_act_linear(leaf: QuantLeaf, x: torch.Tensor) -> torch.Tensor:
+    """An int8 linear leaf [N, K] on x [..., K] by the JAX package's
+    ``int8_act_matmul`` (``quant.py:239-259``, what its ``core.linear``
+    does with an int8 leaf): x quantized per row by the LLM's rule, an
+    exact integer product, ``f32(acc) * a * s + b``, rounded to x's dtype.
+    The torch path of the encoder's int8 leaves where no kernel takes the
+    shape."""
+    K = x.shape[-1]
+    xq, a = quant_rows_llm(x.reshape(-1, K).float())
+    y = int_dot(xq, leaf["q"]) * a * leaf["s"].float()
+    if "b" in leaf:
+        y = y + leaf["b"].float()
+    return y.to(x.dtype).reshape(*x.shape[:-1], -1)
+
+
 # -- csrc/w8a8.cu launches ---------------------------------------------------
 
 def launch_quant_rows(lib, x: torch.Tensor, seg: int, name: str,
@@ -217,6 +232,14 @@ def launch_gemm_s8(lib, epi: int, a, sa, operands, N: int, seg: int,
     _build.count_launch(name)
 
 
+def w8a8_shape_limits(n: int, k: int) -> List[str]:
+    """What the W8A8 GEMM of csrc/w8a8.cu cannot take of an [n, k] weight
+    (empty: it takes it)."""
+    if n % 128 or k % 64:
+        return [f"kernel needs N % 128 == 0 and K % 64 == 0, got N={n} K={k}"]
+    return []
+
+
 def require_int8_leaf(name: str, q, s, b, n: int, k: int) -> None:
     """Shapes, types and placement of one int8 linear (bias optional) as
     the W8A8 kernels take it: q [n, k] int8, s [n] f32, b [n] bf16."""
@@ -224,9 +247,9 @@ def require_int8_leaf(name: str, q, s, b, n: int, k: int) -> None:
             b is not None and b.shape != (n,)):
         raise ValueError(f"{name}: int8 leaf shapes {tuple(q.shape)} "
                          f"{tuple(s.shape)} for [{n}, {k}]")
-    if n % 128 or k % 64:
-        raise ValueError(f"{name}: kernel needs N % 128 == 0 and K % 64 == 0"
-                         f", got N={n} K={k}")
+    bad = w8a8_shape_limits(n, k)
+    if bad:
+        raise ValueError(f"{name}: " + bad[0])
     _build.require_cuda(name, q, dtype=torch.int8)
     _build.require_cuda(name, s, dtype=torch.float32)
     if b is not None:

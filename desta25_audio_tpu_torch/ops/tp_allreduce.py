@@ -26,6 +26,7 @@ from typing import List, Sequence
 import torch
 
 from . import _build
+from .skinny_gemm import passes
 
 ATTN_SLOT, MLP_SLOT = 0, 1
 
@@ -94,6 +95,7 @@ class MeshBuffers:
             (slot * self.p + rank) * R * self.D, self.p, slot * self.p + rank,
             epoch, stream), name)
         _build.count_launch(name)
+        _build.count_kernel("skinny_gemm", passes(R))
 
     def reduce(self, rank: int, slot: int, epoch: int, h: torch.Tensor,
                stream: int) -> None:

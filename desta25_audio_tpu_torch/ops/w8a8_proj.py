@@ -28,6 +28,7 @@ from .quant import (
     launch_quant_rows,
     quant_rows,
     require_int8_leaf,
+    w8a8_shape_limits,
 )
 
 Leaf = Dict[str, torch.Tensor]
@@ -56,6 +57,12 @@ def qkv_w8a8_plain(x, lq: Leaf, lk: Leaf, lv: Leaf):
 def proj_w8a8_plain(x, leaf: Leaf) -> torch.Tensor:
     """Reference math of the TPU kernel K6."""
     return _plain(x, (leaf,))[0]
+
+
+def w8a8_proj_supported(D: int, N: int, dtype) -> bool:
+    """The encoder's predicate for K5 / K6: the W8A8 GEMM's shape rules of
+    an [N, D] leaf and bf16 activations (the wrappers' refusals)."""
+    return dtype == torch.bfloat16 and not w8a8_shape_limits(N, D)
 
 
 def _launch(name: str, x: torch.Tensor, leaves):

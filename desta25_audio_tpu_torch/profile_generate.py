@@ -29,7 +29,7 @@ times), the idle share, and the kernels by total device time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
 limit are printed first).  The decode phases add the device time by
 kernel group (``DECODE_GROUPS``: the decode attention, the skinny GEMMs
-(K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 2,
+(K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 1,
 3>``), RMSNorm, K7's mma path, K8i's injection, the W8A8 prefill, other).
 """
 

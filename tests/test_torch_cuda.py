@@ -875,3 +875,118 @@ def test_tp_allreduce_times_out(gen):
         bufs.check_timeouts("tp_allreduce")
     assert torch.equal(h, h0)
     assert int(bufs.err[0].item()) == 0           # cleared for the next step
+
+
+# The skinny weight-streaming GEMM (csrc/skinny_gemm.cuh) alone, against
+# skinny_gemm_plain: f32 outputs within TOL_QMM (the sums differ in order
+# only), bf16 outputs within 3e-2, the decode step's gate (one rounding of
+# an f32 sum that differs in order)
+SKINNY_RS = (1, 2, 3, 8, 16, 17)
+
+
+def _skinny_operands(gen, R, N, K, epi, int8):
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    nw = 2 if epi == sg.EPI_SWIGLU else 1
+    x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+    wf = torch.randn(N * nw, K, generator=gen, device="cuda") / K ** 0.5
+    if int8:
+        leaf = quantize_weight(wf)
+        w, scale = leaf["q"], leaf["s"]
+    else:
+        w, scale = wf.bfloat16(), None
+    bias = (torch.randn(N, generator=gen, device="cuda")
+            if epi in (sg.EPI_BIAS, sg.EPI_BIAS_GELU) else None)
+    out = None
+    if epi == sg.EPI_RESID:
+        out = torch.randn(R, N, generator=gen, device="cuda").bfloat16()
+    elif epi == sg.EPI_ADD_F32:
+        out = torch.randn(R, N, generator=gen, device="cuda")
+    return x, w, scale, bias, out
+
+
+def _skinny_check(x, w, scale, epi, out, bias):
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    want = sg.skinny_gemm_plain(x, w, scale, epi, out, bias)
+    got = sg.skinny_gemm(x, w, scale, epi,
+                         None if out is None else out.clone(), bias)
+    tol = TOL_QMM if epi in sg.F32_OUT else 3e-2
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("R", SKINNY_RS)
+@pytest.mark.parametrize("int8", [True, False])
+@pytest.mark.parametrize("epi", range(7))
+def test_skinny_gemm_kernel(gen, epi, int8, R):
+    """Every epilogue and both weight types at a ragged N (200 outputs: a
+    partial last tile of 64 rows) and a K that is not a whole number of
+    128-byte k-tiles, at 1..17 rows (17: two passes)."""
+    K = 1072 if int8 else 1064
+    x, w, scale, bias, out = _skinny_operands(gen, R, 200, K, epi, int8)
+    _skinny_check(x, w, scale, epi, out, bias)
+
+
+@pytest.mark.parametrize("N,K", [
+    (1024, 4096), (4096, 1024), (4096, 3584),  # K9's p = 4 shards
+    (6144, 2560), (2560, 9728), (9728, 2560),  # Qwen3-4B qkv, down, gate/up
+    (4096, 14336), (130560, 4096),             # Llama-3.1-8B down, K7 head
+    (8, 16)])                                  # one partial tile, one k-tile
+@pytest.mark.parametrize("R", [2, 8])
+@pytest.mark.parametrize("int8", [True, False])
+def test_skinny_gemm_shapes(gen, N, K, R, int8):
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    if not int8 and K % 8:
+        pytest.skip("bf16 rows need K % 8 == 0")
+    for epi in (sg.EPI_STORE, sg.EPI_RESID) + (
+            (sg.EPI_SWIGLU,) if N == 9728 else ()):
+        x, w, scale, bias, out = _skinny_operands(gen, R, N, K, epi, int8)
+        _skinny_check(x, w, scale, epi, out, bias)
+
+
+def test_skinny_gemm_plan_and_bits(gen):
+    """The C side's plan is plan_skinny_gemm's at the card's SM count; two
+    launches give the same bits; the decode step's rows (R = 2) and the
+    verify step's (R = 8, token 0 of each batch row) sum alike."""
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    n_sm = _build.sm_count(torch.device("cuda"))
+    for rows, K, int8 in ((6144, 4096, True), (4096, 14336, True),
+                          (28672, 4096, False), (130560, 4096, True),
+                          (200, 1072, True)):
+        assert sg.kernel_plan(rows, K, int8) == sg.plan_skinny_gemm(
+            rows, K, int8, n_sm)
+    x, w, scale, _, _ = _skinny_operands(gen, 16, 4096, 14336, 0, True)
+    a = sg.skinny_gemm(x, w, scale, sg.EPI_STORE_F32)
+    b = sg.skinny_gemm(x, w, scale, sg.EPI_STORE_F32)
+    assert torch.equal(a, b)
+    for step in (4, 8):   # 8 rows (one n8 tile) and 2 rows vs 16 (two)
+        sub = sg.skinny_gemm(x[0::step].contiguous(), w, scale,
+                             sg.EPI_STORE_F32)
+        assert torch.equal(sub, a[0::step])
+
+
+@pytest.mark.parametrize("R", [2, 17])
+@pytest.mark.parametrize("int8", [True, False])
+def test_skinny_gemm_peer_store(gen, R, int8):
+    """PEER_F32 at p = 2 virtual ranks: each rank's product lands in its
+    slot of both ranks' receive buffers, the flags hold the round's epoch
+    after every CTA of every pass arrived, and the arrival counter is back
+    at 0 for the next round (two rounds)."""
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    from desta25_audio_tpu_torch.ops.tp_allreduce import MeshBuffers
+    D, K = 4096, 1024
+    bufs = MeshBuffers([torch.device("cuda", 0)] * 2, R, D)
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(2):
+        epoch = bufs.next_round()
+        want = []
+        for rank in range(2):
+            x, w, scale, _, _ = _skinny_operands(gen, R, D, K, 0, int8)
+            bufs.store(rank, 1, epoch, x, w, scale, "peer", stream)
+            want.append(sg.skinny_gemm_plain(x, w, scale, sg.EPI_STORE_F32))
+        torch.cuda.synchronize()
+        for d in range(2):
+            for rank in range(2):
+                assert _rel(bufs.rbuf[d][1, rank], want[rank]) < TOL_QMM
+            assert bufs.flags[d][1].tolist() == [epoch, epoch]
+            assert bufs.flags[d][0].tolist() == [0, 0]
+            assert bufs.counter[d].tolist() == [0, 0]

@@ -328,6 +328,13 @@ def wav(tmp_path_factory):
 def test_nano_generate_takes_the_int8_encoder(wav, n_conv, int8_arm,
                                               monkeypatch):
     monkeypatch.setattr(tw, "INT8_ATTN_MAXB", 2)
+    # no encoder kernel takes the nano shapes (150 frames, Dh 32, F 128), so
+    # the kernels' predicates are forced true here, as the JAX tests force
+    # _packed_attn_enabled: the dispatch below them is what is under test
+    monkeypatch.setattr(tw, "ENC_KERNEL_MIN_T", 0)
+    for pred in ("enc_attention_supported", "w8a8_proj_supported",
+                 "enc_ffn_supported", "enc_ffn_w8a8_supported"):
+        monkeypatch.setattr(tw, pred, lambda *a: True)
     model = DeSTA25AudioModel(DeSTA25Config(**NANO, encoder_quant="int8"),
                               device="cpu", seed=0)
     fc1 = model.params["whisper"]["encoder"]["layers"]["fc1"]
