@@ -9,7 +9,8 @@ go in as ``data_ptr()`` pointers and the stream as
 ``torch.cuda.current_stream().cuda_stream``, all ``c_void_p``.  Each C entry
 point launches its kernel and returns ``cudaGetLastError()``; :func:`check`
 raises on anything but 0.  The headers (``csrc/*.cuh``, among them
-``attention_sm90.cuh``, the TMA / mbarrier / wgmma pieces of K2 and K11)
+``attention_sm90.cuh``, the TMA / mbarrier / wgmma pieces of K2 and K11,
+and ``gemm_sm90.cuh``, the GEMM of K3-K6)
 are part of the hash.  The link needs no ``-lcuda``: the one libcuda
 function used, ``cuTensorMapEncodeTiled``, is looked up at run time
 (``cudaGetDriverEntryPoint``).
@@ -53,8 +54,8 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_enc_attention": (_P,) * 6 + (_I,) * 4 + (_F, _I, _I, _P),
     # part, part_ml, out, B, Tq, H, splits, stream
     "desta_enc_attention_combine": (_P,) * 3 + (_I,) * 4 + (_P,),
-    # a, w, bias, out, M, N, K, gelu, stream
-    "desta_gemm_bias": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # a, w, bias, out, M, N, K, gelu, bm, bn, cluster, stream
+    "desta_gemm_bias": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
     # x, w, out, rows, D, eps, stream
     "desta_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
     # x, w, scale, bias, out, M, N, K, epilogue, w_int8, stream
@@ -72,12 +73,15 @@ SIGNATURES: Dict[str, Tuple] = {
                                _I, _I, _I, _I, _I, _I, _F, _F, _P),
     # B, Hkv, kd, S, H, out [3]: ranges, keys per range, shared bytes
     "desta_decode_attention_plan": (_I,) * 5 + (_P,),
-    # x, x_is_f32, q, scale, M, K, seg, div127, stream
-    "desta_quant_rows": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # x, q, scale, M, K, seg, div127, stream
+    "desta_quant_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
     # x, q, s, out, part, M, N, K, splits, out_f32, stream
     "desta_qmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # epi, a, sa, nproj, (w, s, bias, out) x 3, M, N, K, seg, stream
-    "desta_gemm_s8": (_I, _P, _P, _I) + (_P,) * 12 + (_I, _I, _I, _I, _P),
+    # epi, a, sa, nproj, (w, s, bias, out) x 3, out scales, M, N, K, seg,
+    # bm, bn, splits, cluster, stream
+    "desta_gemm_s8": (_I, _P, _P, _I) + (_P,) * 13 + (_I,) * 8 + (_P,),
+    # bm, bn, splits, out [1]: clusters the card runs at once
+    "desta_gemm_max_clusters": (_I, _I, _I, _P),
     # q, k, v, seg, o, lse, B, T, H, Hkv, Dh, causal, scale, stream
     "desta_flash_fwd": (_P,) * 6 + (_I,) * 6 + (_F, _P),
     # o, dO, delta, B, T, H, Dh, stream

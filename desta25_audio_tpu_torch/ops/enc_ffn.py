@@ -6,17 +6,21 @@ Weights in the port's ``[out, in]`` layout: w1 [F, D], b1 [F], w2 [D, F],
 b2 [D]; the int8 ones likewise (q1 [F, D], q2 [D, F], one f32 scale per
 output channel, ``ops/quant.py``).
 
-- :func:`encoder_ffn` (bf16): on a CUDA tensor the tiled bf16 GEMM of
-  ``csrc/enc_ffn.cu`` twice (fc1 with the bias + erf-GELU epilogue, fc2 with
-  the bias epilogue).
-- :func:`encoder_ffn_w8a8` (int8 weights): on a CUDA tensor four launches
+- :func:`encoder_ffn` (bf16): on a CUDA tensor the Hopper GEMM of
+  ``csrc/gemm_sm90.cuh`` twice through ``csrc/enc_ffn.cu`` (fc1 with the
+  bias + erf-GELU epilogue, fc2 with the bias epilogue), each launch as
+  ``ops/gemm.plan_gemm`` plans it.
+- :func:`encoder_ffn_w8a8` (int8 weights): on a CUDA tensor three launches
   of ``csrc/w8a8.cu``: per-row int8 quantisation of x, the int8 fc1 GEMM
-  with an f32 bias + GELU epilogue, the per-row per-1280-column
-  quantisation of the GELU output, and the segmented int8 fc2 GEMM.
+  (the same Hopper GEMM) whose epilogue adds the f32 bias, applies GELU and
+  quantizes the result per row and 1280-column chunk across the cluster of
+  CTAs that spans the chunk (the hidden reaches device memory as int8
+  only), and the segmented int8 fc2 GEMM.
 
 On a CPU tensor each runs its ``*_plain`` version; neither falls back from
 the card: the encoder asks :func:`enc_ffn_supported` /
-:func:`enc_ffn_w8a8_supported` (the wrappers' refusal rules) first.  The row quantiser and the launches of ``csrc/w8a8.cu`` live in
+:func:`enc_ffn_w8a8_supported` (the wrappers' refusal rules) first.  The
+row quantiser and the launches of ``csrc/w8a8.cu`` live in
 ``ops/quant.py``, shared with ``ops/w8a8_proj.py``.
 """
 
@@ -28,9 +32,15 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .quant import (
-    EPI_GELU,
+from .gemm import (
+    EPI_BIAS,
+    EPI_BIAS_GELU,
+    EPI_GELU_Q8,
     EPI_SEG,
+    Q8_CHUNK,
+    plan_gemm,
+)
+from .quant import (
     int_dot,
     launch_gemm_s8,
     launch_quant_rows,
@@ -41,7 +51,7 @@ from .quant import (
 
 # K4 quantizes the GELU output per row and per chunk of this many columns
 # (desta25_audio_tpu/ops/enc_ffn.py:174-185), not over the whole row
-CHUNK_F = 1280
+CHUNK_F = Q8_CHUNK
 
 
 def enc_ffn_limits(D: int, F: int, dtype) -> List[str]:
@@ -62,8 +72,12 @@ def enc_ffn_supported(D: int, F: int, dtype) -> bool:
 
 def enc_ffn_w8a8_limits(D: int, F: int, dtype) -> List[str]:
     """What K4 cannot take (empty: it takes it), the wrapper's refusals:
-    both int8 GEMMs' shape rules (fc1 [F, D], fc2 [D, F]) and bf16."""
+    both int8 GEMMs' shape rules (fc1 [F, D], fc2 [D, F]), whole 1280-column
+    chunks (fc1's clusters quantize a chunk together; the JAX predicate
+    ``ffn_w8a8_supported``'s own rule) and bf16."""
     bad = w8a8_shape_limits(F, D) + w8a8_shape_limits(D, F)
+    if F % CHUNK_F:
+        bad.append(f"kernel needs F % {CHUNK_F} == 0, got F={F}")
     if dtype != torch.bfloat16:
         bad.append(f"dtype {dtype}, kernel takes torch.bfloat16")
     return bad
@@ -87,9 +101,12 @@ def encoder_ffn_plain(x, w1, b1, w2, b2) -> torch.Tensor:
 def _gemm(lib, a, w, bias, out, gelu: bool) -> None:
     M, K = a.shape
     N = w.shape[0]
+    p = plan_gemm(M, N, K, EPI_BIAS_GELU if gelu else EPI_BIAS,
+                  n_sm=_build.sm_count(a.device))
     _build.check(lib.desta_gemm_bias(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
-        int(gelu), _build.stream_ptr(a.device)), "encoder_ffn")
+        int(gelu), p.bm, p.bn, p.cluster, _build.stream_ptr(a.device)),
+        "encoder_ffn")
     _build.count_launch("encoder_ffn")
 
 
@@ -155,9 +172,10 @@ def encoder_ffn_w8a8(x: torch.Tensor, q1, s1, b1, q2, s2, b2
     _build.require_cuda(name, x2, dtype=torch.bfloat16)
     lib = _build.library()
     xq, sx = launch_quant_rows(lib, x2, D, name)
-    h = torch.empty(M, Fd, dtype=torch.float32, device=x.device)
-    launch_gemm_s8(lib, EPI_GELU, xq, sx, [(q1, s1, b1, h)], Fd, D, name)
-    gq, sg = launch_quant_rows(lib, h, CHUNK_F, name)
+    gq = torch.empty(M, Fd, dtype=torch.int8, device=x.device)
+    sg = torch.empty(M, Fd // CHUNK_F, dtype=torch.float32, device=x.device)
+    launch_gemm_s8(lib, EPI_GELU_Q8, xq, sx, [(q1, s1, b1, gq)], Fd, D, name,
+                   out_scale=sg)
     out = torch.empty(M, D, dtype=x.dtype, device=x.device)
     launch_gemm_s8(lib, EPI_SEG, gq, sg, [(q2, s2, b2, out)], D, CHUNK_F,
                    name)

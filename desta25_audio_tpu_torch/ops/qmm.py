@@ -25,9 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .gemm import EPI_LLM_BF16, EPI_LLM_F32
 from .quant import (
-    EPI_LLM_BF16,
-    EPI_LLM_F32,
     QuantLeaf,
     int_dot,
     launch_gemm_s8,

@@ -11,9 +11,10 @@ package's ``jax.vmap(quantize_weight)`` over layers computes.
 
 Activations are quantized per row at run time (:func:`quant_rows`).  This
 module also owns the launch interface of ``csrc/w8a8.cu`` (the row
-quantiser and the int8 GEMM), which the W8A8 kernels K4
-(``ops/enc_ffn.py``) and K5/K6 (``ops/w8a8_proj.py``) and the int8 LLM's
-W8A8 prefill (``ops/qmm.py``) share.
+quantiser and the int8 GEMM of ``csrc/gemm_sm90.cuh``, planned by
+``ops/gemm.plan_gemm``), which the W8A8 kernels K4 (``ops/enc_ffn.py``) and
+K5/K6 (``ops/w8a8_proj.py``) and the int8 LLM's W8A8 prefill
+(``ops/qmm.py``) share.
 """
 
 from __future__ import annotations
@@ -23,11 +24,9 @@ from typing import Any, Dict, List
 import torch
 
 from . import _build
+from .gemm import plan_gemm
 
 QuantLeaf = Dict[str, torch.Tensor]
-
-# gemm_s8 epilogues (csrc/w8a8.cu)
-EPI_PROJ, EPI_GELU, EPI_SEG, EPI_LLM_BF16, EPI_LLM_F32 = 0, 1, 2, 3, 4
 
 # the LLM's quantized head is zero-padded to a multiple of this many output
 # rows, padded scales 1.0 (desta25_audio_tpu/ops/quant.py:352-355)
@@ -201,40 +200,44 @@ def int8_act_linear(leaf: QuantLeaf, x: torch.Tensor) -> torch.Tensor:
 
 def launch_quant_rows(lib, x: torch.Tensor, seg: int, name: str,
                       div127: bool = False):
-    """quant_rows_kernel: x [M, K] bf16 or f32 -> (int8 [M, K], f32 scales
+    """quant_rows_kernel: x [M, K] bf16 -> (int8 [M, K], f32 scales
     [M, ceil(K / seg)]); counts one launch of ``name``.  ``div127`` takes
     the LLM's scale ``max(max|x|, 1e-8) / 127`` (``quant_rows_llm``)."""
     M, K = x.shape
     q = torch.empty(M, K, dtype=torch.int8, device=x.device)
     s = torch.empty(M, -(-K // seg), dtype=torch.float32, device=x.device)
     _build.check(lib.desta_quant_rows(
-        x.data_ptr(), int(x.dtype == torch.float32), q.data_ptr(),
-        s.data_ptr(), M, K, seg, int(div127), _build.stream_ptr(x.device)),
-        name)
+        x.data_ptr(), q.data_ptr(), s.data_ptr(), M, K, seg, int(div127),
+        _build.stream_ptr(x.device)), name)
     _build.count_launch(name)
     return q, s
 
 
 def launch_gemm_s8(lib, epi: int, a, sa, operands, N: int, seg: int,
-                   name: str) -> None:
-    """gemm_s8_kernel: a int8 [M, K] with row scales sa, against up to
-    three (w int8 [N, K], s f32 [N], bias bf16 [N] or None, out [M, N])
-    sets in one launch; counts one launch of ``name``."""
+                   name: str, out_scale=None) -> None:
+    """The int8 GEMM: a int8 [M, K] with row scales sa, against up to three
+    (w int8 [N, K], s f32 [N], bias bf16 [N] or None, out [M, N]) sets in
+    one launch, as ``plan_gemm`` plans it at the device's SM count; counts
+    one launch of ``name``.  ``out_scale``: GELU_Q8's f32 [M, N / 1280]
+    row scales of its int8 out."""
     M, K = a.shape
     ptrs = []
     for w, s, b, out in operands:
         ptrs += [w.data_ptr(), s.data_ptr(),
                  None if b is None else b.data_ptr(), out.data_ptr()]
     ptrs += [None] * (12 - len(ptrs))
+    p = plan_gemm(M, N, K, epi, len(operands), _build.sm_count(a.device))
     _build.check(lib.desta_gemm_s8(
-        epi, a.data_ptr(), sa.data_ptr(), len(operands), *ptrs, M, N, K, seg,
-        _build.stream_ptr(a.device)), name)
+        epi, a.data_ptr(), sa.data_ptr(), len(operands), *ptrs,
+        None if out_scale is None else out_scale.data_ptr(), M, N, K, seg,
+        p.bm, p.bn, p.splits, p.cluster, _build.stream_ptr(a.device)), name)
     _build.count_launch(name)
 
 
 def w8a8_shape_limits(n: int, k: int) -> List[str]:
     """What the W8A8 GEMM of csrc/w8a8.cu cannot take of an [n, k] weight
-    (empty: it takes it)."""
+    (empty: it takes it): its tiles are 128 columns wide at the least, and
+    the predicates keep the 64-byte K rule of the kernel it replaced."""
     if n % 128 or k % 64:
         return [f"kernel needs N % 128 == 0 and K % 64 == 0, got N={n} K={k}"]
     return []

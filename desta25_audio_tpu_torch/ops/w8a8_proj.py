@@ -21,8 +21,8 @@ from typing import Dict, Tuple
 import torch
 
 from . import _build
+from .gemm import EPI_PROJ
 from .quant import (
-    EPI_PROJ,
     int_dot,
     launch_gemm_s8,
     launch_quant_rows,

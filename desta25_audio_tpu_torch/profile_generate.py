@@ -31,6 +31,9 @@ limit are printed first).  The decode phases add the device time by
 kernel group (``DECODE_GROUPS``: the decode attention, the skinny GEMMs
 (K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 1,
 3>``), RMSNorm, K7's mma path, K8i's injection, the W8A8 prefill, other).
+Last, the launch counts over the profiled phases and the torch paths taken
+there (``_build.fallback_counts()``: a model shape a kernel's predicate
+refused).
 """
 
 from __future__ import annotations
@@ -51,7 +54,7 @@ from .data.tokenizer import CharTokenizer
 from .generate.decode import build_injection, llm_generate
 from .generate.speculative import left_aligned, llm_generate_spec
 from .models.desta import DeSTA25AudioModel
-from .ops import fused_decode_tp
+from .ops import _build, fused_decode_tp
 
 NEW_TOKENS = 32
 # the decode phases' device time by group (kernel-name substrings)
@@ -61,7 +64,8 @@ DECODE_GROUPS = {
     "RMSNorm": ("rms_norm",),
     "K7 mma path": ("qmm_",),   # at M <= 16 (the b2 head) K7 is a skinny GEMM
     "K8i injection": ("inject_",),
-    "W8A8 prefill": ("gemm_s8", "quant_rows"),
+    # the int8 GEMM of csrc/gemm_sm90.cuh (earlier checkouts: gemm_s8_kernel)
+    "W8A8 prefill": ("gemm_kernel<signed char", "gemm_s8", "quant_rows"),
 }
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
@@ -166,6 +170,7 @@ def main() -> None:
                                        "text": "a synthetic tone"}]}])
         model.generate(convs, do_sample=False, max_new_tokens=2,
                        speculative_k=args.speculative_k)  # warm-up
+        _build.reset_launch_counts()
         embeds, mask, aux, _, _, prompt_ids = report(
             f"perception b{args.batch}",
             lambda: model._run_generation_phases(convs, {},
@@ -208,6 +213,9 @@ def main() -> None:
         else:
             report(f"prefill + {NEW_TOKENS - 1} decode steps b{args.batch}",
                    gen(NEW_TOKENS), groups=DECODE_GROUPS)
+        print(f"launches over the profiled phases: "
+              f"{_build.launch_counts()}; torch paths taken: "
+              f"{_build.fallback_counts()}")
 
 
 if __name__ == "__main__":

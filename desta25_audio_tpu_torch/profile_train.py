@@ -44,7 +44,8 @@ from .train.step import make_train_step
 GROUPS = {
     "K11": ("flash_fwd", "flash_bwd"),
     "K2": ("enc_attention",),
-    "K3": ("gemm_bias",),
+    # csrc/gemm_sm90.cuh in bf16 (earlier checkouts: gemm_bias_kernel)
+    "K3": ("gemm_kernel<__nv_bfloat16", "gemm_bias"),
     "f32 GEMM (Q-Former, mel, conv)": ("f32f32", "sgemm", "cudnn",
                                        "implicit_gemm", "conv"),
     "bf16 GEMM (LLM, head)": ("nvjet", "sm90_xmma", "cutlass", "gemm"),

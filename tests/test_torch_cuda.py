@@ -1,13 +1,16 @@
 """The port's CUDA kernels against their plain versions on the card, at odd
 shapes the flagship run does not reach (ragged tiles, one row, 3/5/9 decode
-rows, grouped-query ratios, qk-norm, a K4 hidden narrower than one
-1280-wide chunk, of two chunks and of two and a half, and one whose chunks
-differ 64x in scale; K7 on both of its paths with a ragged last column
-tile, the LLM's W8A8 GEMM at ragged M, the int8 decode step, the verify
-step at 2/4/8 draft tokens with the block ending at the cache's end, the
-ORCA injection K8i at injection head dims 128 and 80 and 1 or 4 tokens per
-row, with a row that does not inject, and the requests it refuses; the
-flash attention K11, forward and backward, at the training shape, at a T
+rows, grouped-query ratios, qk-norm, a K4 hidden of one, two and three
+1280-wide chunks, and one whose chunks differ 64x in scale, and a width
+K4 refuses; the Hopper GEMM of K3-K6 at the encoder's widths and
+1-3000 rows, K4-K6 bit for bit, K3 beside a dropped-k-tile control; K7 on
+both of its paths with a ragged last column tile, the LLM's W8A8 GEMM at
+ragged M and, bit for bit, at Llama-3.1-8B's split-K shapes, the int8
+decode step, the verify step at 2/4/8 draft tokens with the block ending
+at the cache's end, the ORCA injection K8i at injection head dims 128 and
+80 and 1 or 4 tokens per row, with a row that does not inject, and the
+requests it refuses; the flash attention K11, forward and backward, at
+the training shape, at a T
 that is not a multiple of its tile, bidirectional, with left and right
 padding; the log-mel frontend K1 at 3000, a ragged 300, 37 and 2 frames;
 the per-layer decode pair K9's halves at 1, 3 and 17 rows, at a p = 2
@@ -152,8 +155,8 @@ def test_w8a8_proj_kernels(gen, B, T, D, N):
 
 
 @pytest.mark.parametrize("M,D,F,skew", [
-    (1, 128, 256, False), (130, 128, 384, False), (257, 256, 2560, False),
-    (257, 256, 3200, False),   # a last chunk of 640 columns
+    (1, 128, 1280, False), (130, 128, 1280, False), (257, 256, 2560, False),
+    (257, 256, 3840, False),   # three chunks: clusters in three groups
     (130, 128, 2560, True),    # chunk 1 64x below chunk 0, fc2 64x above
 ])
 def test_encoder_ffn_w8a8_kernel(gen, M, D, F, skew):
@@ -166,10 +169,75 @@ def test_encoder_ffn_w8a8_kernel(gen, M, D, F, skew):
     args = (x, l1["q"], l1["s"], l1["b"], l2["q"], l2["s"], l2["b"])
     _build.reset_launch_counts()
     got = encoder_ffn_w8a8(*args)
-    # quantise x, fc1 + GELU, quantise the hidden per 1280 columns, fc2
-    assert _build.launch_counts() == {"encoder_ffn_w8a8": 4}
+    # quantise x, fc1 + GELU + the hidden's quantisation per 1280 columns
+    # (across a cluster), fc2
+    assert _build.launch_counts() == {"encoder_ffn_w8a8": 3}
     assert got.shape == (1, M, D)
     assert _rel(got, encoder_ffn_w8a8_plain(*args)) < TOL_W8A8
+
+
+# the Hopper GEMM (csrc/gemm_sm90.cuh) at the whisper encoder's widths and
+# the planner's ragged row counts: one row tile, 256 x 128 tiles with a
+# ragged last tile, and the encoder's b1 / b2 rows
+GEMM_ROWS = (1, 127, 129, 250, 1500, 3000)
+
+
+@pytest.mark.parametrize("M", GEMM_ROWS)
+def test_enc_ffn_gemm_rows(gen, M):
+    """K3 within 2e-2 (TOL_ENC) of its plain version; the control, the
+    plain version with fc2's last k-tile (64 columns of F) dropped, as a
+    ring that lost a stage would compute, reads above it."""
+    D, F = 1280, 5120
+    bf = torch.bfloat16
+    x = torch.randn(1, M, D, generator=gen, device="cuda").to(bf)
+    w1 = (torch.randn(F, D, generator=gen, device="cuda") / D ** .5).to(bf)
+    b1 = (0.1 * torch.randn(F, generator=gen, device="cuda")).to(bf)
+    w2 = (torch.randn(D, F, generator=gen, device="cuda") / F ** .5).to(bf)
+    b2 = (0.1 * torch.randn(D, generator=gen, device="cuda")).to(bf)
+    want = encoder_ffn_plain(x, w1, b1, w2, b2)
+    assert _rel(encoder_ffn(x, w1, b1, w2, b2), want) < 2e-2
+    w2c = w2.clone()
+    w2c[:, -64:] = 0
+    assert _rel(encoder_ffn_plain(x, w1, b1, w2c, b2), want) > 2e-2
+
+
+@pytest.mark.parametrize("M", GEMM_ROWS)
+@pytest.mark.parametrize("skew", [False, True])
+def test_w8a8_gemm_rows_bit_identical(gen, M, skew):
+    """K5, K6 and K4 equal their plain versions bit for bit (exact int32
+    sums, the plain version's rounding points), K4 also on weights whose
+    GELU chunks differ 64x in scale."""
+    D, F = 1280, 5120
+    x = torch.randn(1, M, D, generator=gen, device="cuda").bfloat16()
+    lq, lk, lv, lo = (_int8_leaf(gen, D, D, bias=b)
+                      for b in (True, False, True, True))
+    mult = torch.ones(F, device="cuda")
+    if skew:
+        mult[1280:] = 1 / 64
+    l1 = _int8_leaf(gen, F, D, mult=mult[:, None])
+    l2 = _int8_leaf(gen, D, F, mult=1 / mult[None, :])
+    ffn = (l1["q"], l1["s"], l1["b"], l2["q"], l2["s"], l2["b"])
+    assert torch.equal(encoder_ffn_w8a8(x, *ffn),
+                       encoder_ffn_w8a8_plain(x, *ffn))
+    if not skew:
+        for g, w in zip(qkv_w8a8(x, lq, lk, lv),
+                        qkv_w8a8_plain(x, lq, lk, lv)):
+            assert torch.equal(g, w)
+        assert torch.equal(proj_w8a8(x, lo), proj_w8a8_plain(x, lo))
+
+
+@pytest.mark.parametrize("M", [128, 129, 250, 257])
+@pytest.mark.parametrize("N,K", [(4096, 4096), (6144, 4096), (4096, 14336)])
+def test_w8a8_llm_gemm_bit_identical(gen, M, N, K):
+    """The LLM's W8A8 prefill at Llama-3.1-8B's wqkv / wo / down, whose
+    plans at M <= 256 split K across a cluster (int32 partials summed
+    through distributed shared memory), bit for bit its plain version."""
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    leaf = quantize_weight(torch.randn(N, K, generator=gen, device="cuda")
+                           / K ** .5)
+    for dt in (torch.float32, torch.bfloat16):
+        assert torch.equal(w8a8_matmul(x, leaf["q"], leaf["s"], dt),
+                           w8a8_matmul_plain(x, leaf["q"], leaf["s"], dt))
 
 
 @pytest.mark.parametrize("B,qk_norm,heads", [
@@ -223,6 +291,11 @@ def test_wrappers_raise_on_what_they_do_not_take(gen):
     with pytest.raises(ValueError, match="N % 128"):
         proj_w8a8(torch.zeros(1, 8, 256, device="cuda").bfloat16(),
                   quantize_linear({"w": w.t()[:96].contiguous()}))
+    l1 = quantize_linear({"w": w, "b": b})                # F = 256
+    l2 = quantize_linear({"w": w.t().contiguous(), "b": b[:128]})
+    with pytest.raises(ValueError, match="F % 1280"):
+        encoder_ffn_w8a8(qb, l1["q"], l1["s"], l1["b"], l2["q"], l2["s"],
+                         l2["b"])
 
 
 # K7 and the LLM's W8A8 GEMM against their plain versions, within 1e-3 of the
