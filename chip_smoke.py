@@ -47,6 +47,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    the batch-2 input, computed step by step, are finite and give
    ``generate()``'s first two tokens;
 9. print per-phase times (host clock, device synchronised);
+9b. ``generate()`` at b2 once more both ways: eagerly
+    (``llm_generate(decode_graph=False)``) and through the decode step's
+    CUDA graph (the default, ``generate/graph.py``, which every
+    ``generate()`` of 7, 11, 15 and 19 takes: each must count one
+    ``decode_graph`` replay for each decode step after the first): the ids
+    identical, every sampled step's logits bit-identical, the other launch
+    counts equal; ms a step both ways, the capture time, and the device
+    time of a step (the graph's replays and the eager step, queued);
 10. switch the same model to the JAX package's inference encoder
     (``apply_inference_encoder_quant()``: int8 FFN, "dual" attention
     leaves); hold encoder layers 0 and 31 through the kernels against the
@@ -86,7 +94,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     prefill, M = 296), K7 (b1 prefill at M = 121, every decode step's
     head) and K8-int8 must launch, the bf16 K8 must not, the decode
     attention once for each 7 K8-int8 launches (its kernel count, the
-    JSON line's launches); the b2 path step by step as in 8;
+    JSON line's launches); the b2 path step by step as in 8; 15b. the
+    b2 call both ways, as in 9b;
 16. ``generate(speculative_k=4)`` at b2 on the int8 tower: K8v must
     launch; the first verify step's position-0 logits against one K8-int8
     step on the same cache, within TOL_DECODE; verify steps, tokens per
@@ -111,7 +120,7 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 19. ``generate()`` at b2 and b1, greedy, 32 new tokens: K8i, K8-int8, K7,
     W8A8, K2 and K4 must launch; the b2 path step by step as in 8 (the
     prefill through the PyTorch injection hook, the decode step through
-    K8i);
+    K8i); the b2 call both ways, as in 9b, K8i inside the graph;
 20. ``generate(speculative_k=4)`` at b2: the verify step with injection
     must launch; its first step's position-0 logits against one K8i decode
     step on the same cache, within TOL_DECODE;
@@ -188,10 +197,15 @@ K8i, K9 and K10) alone against ``skinny_gemm_plain`` (13b): Llama-3.1-8B's
 qkv, wo, gate/up (SWIGLU), down and head shapes, int8 and bf16, R = 1, 2, 8
 and 16, every epilogue, PEER_F32 at p = 2, within TOL_DECODE (bf16 outputs)
 or TOL_QMM (f32); two launches bit-identical; its plan equal to
-``plan_skinny_gemm``; queued times and TB/s at R = 2 and 8.  The K8 family's
+``plan_skinny_gemm``; queued times and TB/s at R = 2 and 8; and the
+decode step's RMSNorm alone (``decode_rms_norm``, csrc/fused_decode.cu)
+against ``rms_plain`` at R = 2 and 8 rows of D = 4096 and 2 of 2560 within
+TOL_DECODE, two launches bit-identical, its times beside the plain
+version's and ``torch.nn.functional.rms_norm``'s.  The K8 family's
 steps (phases 4 and 13: K8, K8-int8, K8v, K8i, K9), K7 and K10 on one
 card's stream are also timed queued behind the sleep kernel, printed beside
-the default reading.
+the default reading, and the decode steps (K8, K8-int8, K8v, K8i) also as
+the replays of one CUDA graph of the step.
 
 Every kernel's entry in the JSON line carries its bound (the larger of its
 bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16, 1,979 TOP/s
@@ -357,6 +371,11 @@ SOURCES = {
     "skinny_gemm": (
         "desta25_audio_tpu_torch/csrc/skinny_gemm.cuh",
         "desta25_audio_tpu/ops/fused_decode.py:405"),
+    # the norm launch of K8, K8-int8, K8v and K8i (launches: its kernel
+    # count in phase 15's int8 generate() runs): the kernel's rmsn
+    "rms_norm": (
+        "desta25_audio_tpu_torch/csrc/fused_decode.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:385"),
 }
 # the kernels of the bf16 generate() path and of the int8 encoder's
 BF16_PATH = ("log_mel", "packed_encoder_attention", "encoder_ffn",
@@ -1308,6 +1327,7 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
     element moves by one bf16 ulp: with random weights small rounding
     differences grow through the stack, so (3) is informative.  The cache
     must change at the rows ci..ci+kd-1 and nowhere else."""
+    import torch
     from desta25_audio_tpu_torch.ops.fused_decode import (
         KVCache, fused_decode_layers, fused_decode_layers_plain,
         fused_verify_layers)
@@ -1345,6 +1365,13 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
     q_ms = cuda_time_ms(lambda: kernel(
         params, cfg, x, mask, positions, ck, ci, inject=inject), iters=3,
         queued=True)
+    # the step captured as one CUDA graph (what generate() replays), its
+    # replays queued: the device's time a step
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernel(params, cfg, x, mask, positions, ck, ci, inject=inject)
+    g_ms = cuda_time_ms(graph.replay, iters=10, queued=True)
+    del graph
     plain_ms = cuda_time_ms(lambda: fused_decode_layers_plain(
         params, cfg, x, mask, positions, cp, ci, inject=inject), iters=5)
     b_ms, b_by = bound(*llm_step_work(params, cfg, B, kd, ci.tolist(),
@@ -1362,12 +1389,150 @@ def check_fused_decode(params, cfg, gen, kd=1, ci=(100, 200), tag="K8",
           f"{err2:.3e} rel={rel2:.3e} (tol {TOL_DECODE} each); cache rows at "
           f"ci..ci+{kd - 1} only; {L}-layer logits rel={rel_all:.3e} (plain "
           f"vs plain with one input ulp moved: {rel_ulp:.3e}); kernel "
-          f"{ms:.4f} ms/step ({q_ms:.4f} queued), plain {plain_ms:.4f} "
-          f"ms/step, bound {b_ms:.4f} ms ({b_by}){extra}", flush=True)
+          f"{ms:.4f} ms/step ({q_ms:.4f} queued, {g_ms:.4f} as a CUDA "
+          f"graph's replay), plain {plain_ms:.4f} ms/step, bound "
+          f"{b_ms:.4f} ms ({b_by}){extra}", flush=True)
     if max(worst, worst_row, rel2) > TOL_DECODE:
         raise AssertionError(f"{tag} disagrees: layer {worst} k-row "
                              f"{worst_row} logits {rel2}")
     return err2, ms, plain_ms, b_ms, b_by
+
+
+# the step norm's check shapes: the b2 decode and b2 x Kd=4 verify rows at
+# Llama-3.1-8B's width, the b2 decode at Qwen3-4B's
+RMS_SHAPES = (("b2 decode", 2, 4096), ("b2 verify", 8, 4096),
+              ("qwen3-4b b2", 2, 2560))
+
+
+def check_rms_norm(gen):
+    """The decode step's RMSNorm (``decode_rms_norm``, csrc/fused_decode.cu)
+    against ``rms_plain`` at RMS_SHAPES on rows of scale 1 and 100, within
+    TOL_DECODE, two launches bit-identical; times at the b2 decode shape
+    back-to-back (the kernels line) and queued, beside the plain version,
+    ``torch.nn.functional.rms_norm`` and the bound (x and w read once, the
+    output written once; 4 operations an element)."""
+    import torch
+    import torch.nn.functional as F
+    from desta25_audio_tpu_torch.ops.fused_decode import (decode_rms_norm,
+                                                          rms_plain)
+    worst, row = 0.0, None
+    for label, R, D in RMS_SHAPES:
+        scales = torch.logspace(0, 2, R, device="cuda")[:, None]
+        x = (torch.randn(R, D, generator=gen, device="cuda")
+             * scales).bfloat16()
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+             ).bfloat16()
+        got = decode_rms_norm(x, w, 1e-5)
+        err, rel = rel_err(got, rms_plain(x, w, 1e-5, torch.bfloat16))
+        bits = torch.equal(decode_rms_norm(x, w, 1e-5), got)
+        worst = max(worst, err)
+        print(f"rms_norm [{label}] R={R} D={D}: max_abs_err={err:.3e} "
+              f"rel={rel:.3e} (tol {TOL_DECODE}); two launches "
+              f"bit-identical: {bits}", flush=True)
+        if rel > TOL_DECODE or not bits:
+            raise AssertionError(f"rms_norm [{label}]: rel {rel}, bits {bits}")
+        if label != "b2 decode":
+            continue
+        kern = lambda: decode_rms_norm(x, w, 1e-5)  # noqa: E731
+        plain = lambda: rms_plain(x, w, 1e-5, torch.bfloat16)  # noqa: E731
+        lib = lambda: F.rms_norm(x, (D,), w, 1e-5)  # noqa: E731
+        ms, plain_ms, lib_ms = (cuda_time_ms(f, iters=50)
+                                for f in (kern, plain, lib))
+        q_ms, q_plain, q_lib = (cuda_time_ms(f, iters=50, queued=True)
+                                for f in (kern, plain, lib))
+        b_ms, b_by = bound(2 * R * D * 2 + D * 2, 4 * R * D, "f32")
+        print(f"rms_norm [{label}] times ({gpu_line()}): kernel {ms:.5f} "
+              f"ms, plain {plain_ms:.5f} ms, F.rms_norm {lib_ms:.5f} ms, "
+              f"bound {b_ms:.6f} ms ({b_by}); queued: kernel {q_ms:.5f} ms, "
+              f"plain {q_plain:.5f} ms, F.rms_norm {q_lib:.5f} ms",
+              flush=True)
+        row = [0.0, ms, plain_ms, b_ms, b_by, lib_ms]
+    row[0] = worst
+    return tuple(row)
+
+
+def check_decode_graph(model, msgs, tag: str, gpu: str,
+                       orca: bool = False) -> None:
+    """generate() of ``msgs`` (greedy, 32 new tokens) eagerly
+    (``llm_generate(decode_graph=False)``) and through the decode step's
+    CUDA graph (the default): the ids identical, every sampled step's
+    logits bit-identical, one ``decode_graph`` replay for each decode step
+    after the first and the other launch counts equal; prints both ms a
+    step (host clock, the capture inside the graph's), the capture time, and
+    the device time of a step: the graph's replays and the eager step's
+    launches, both queued behind a sleep kernel on a fresh cache (``orca``:
+    with the call's in-kernel injection spec)."""
+    import torch
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    from desta25_audio_tpu_torch.generate.graph import DecodeGraph
+    from desta25_audio_tpu_torch.models import desta as tdesta
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops import _build
+    real_gen, real_sample = tdesta.llm_generate, tdecode.sample_token
+    runs = {}
+    for graph in (False, True):
+        seen = []
+        tdecode.sample_token = (
+            lambda lg, *a: seen.append(lg.clone()) or real_sample(lg, *a))
+        tdesta.llm_generate = functools.partial(real_gen, decode_graph=graph)
+        try:
+            _build.reset_launch_counts()
+            out = model.generate(msgs, do_sample=False, max_new_tokens=32)
+            torch.cuda.synchronize()
+        finally:
+            tdecode.sample_token, tdesta.llm_generate = real_sample, real_gen
+        runs[graph] = (out.generated_ids, seen, _build.launch_counts(),
+                       _build.kernel_counts(), dict(model.last_timings))
+    (e_ids, e_lg, e_n, e_k, e_t), (g_ids, g_lg, g_n, g_k, g_t) = (
+        runs[False], runs[True])
+    steps = int(g_t["decode_steps"])
+    replays = g_n.pop("decode_graph", 0)
+    same = len(g_lg) == len(e_lg) and all(
+        torch.equal(a, b) for a, b in zip(g_lg, e_lg))
+    # the step's device time on a fresh cache of the b2 calls' length (256),
+    # every row writing at 150, with the call's injection spec if any
+    llm, cfg = model.params["llm"], model.llm_cfg
+    B, S, ci = len(g_ids), 256, 150
+    cache = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    cur = torch.zeros(B, dtype=torch.long, device="cuda")
+    spec = None
+    if orca:
+        spec = orca_injection(model,
+                              model._run_generation_phases(msgs, {})[2])[1]
+    dev_ms = {}
+    for capture, iters in ((False, 3), (True, 10)):
+        dg = DecodeGraph(llm, cfg, mask, cache, spec, capture=capture)
+        for _ in range(2):   # the eager first step, then the capture
+            dg.step(cur, cur + ci, ci)
+        dev_ms[capture] = cuda_time_ms(lambda: dg.step(cur, cur + ci, ci),
+                                       iters=iters, queued=True)
+        dg.close()
+    del cache
+    print(f"{tag} decode graph b{B}: ids identical {g_ids == e_ids}, "
+          f"{len(g_lg)} sampled steps' logits bit-identical {same}, "
+          f"decode_graph replays {replays} for {steps} decode steps; decode "
+          f"{g_t['decode_ms'] / max(steps, 1):.3f} ms/step through the graph "
+          f"(capture {g_t.get('graph_capture_ms', 0.0):.1f} ms inside), "
+          f"{e_t['decode_ms'] / max(steps, 1):.3f} ms/step eager; device "
+          f"time a "
+          f"step (queued, S={S}): graph {dev_ms[True]:.4f} ms, eager "
+          f"{dev_ms[False]:.4f} ms ({gpu})", flush=True)
+    if g_ids != e_ids or not same:
+        raise AssertionError(f"{tag}: the graph's ids or logits differ from "
+                             "the eager step's")
+    if replays != max(steps - 1, 0) or g_n != e_n or g_k != e_k:
+        raise AssertionError(f"{tag}: graph counts {g_n} {g_k} (replays "
+                             f"{replays}) vs eager {e_n} {e_k}")
+
+
+def require_graph_replays(tag: str, counts, timings) -> None:
+    """generate()'s decode ran through the graph: one replay for each
+    decode step after the first."""
+    steps = int(timings["decode_steps"])
+    if counts.get("decode_graph", 0) != max(steps - 1, 0):
+        raise AssertionError(f"{tag}: {counts.get('decode_graph', 0)} "
+                             f"decode_graph replays for {steps} steps")
 
 
 # the skinny GEMM's check shapes: Llama-3.1-8B's four layer GEMMs and the
@@ -1893,6 +2058,7 @@ def check_int8_encoder(model, signals, convs, gpu):
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         times[b] = dict(model.last_timings)
+        require_graph_replays(f"int8 encoder b{b}", counts, times[b])
         print(f"int8 encoder: launches during generate() b{b}: "
               f"{json.dumps(counts)}", flush=True)
         require_kernel_paths(f"int8 encoder b{b}")
@@ -2058,6 +2224,7 @@ def run_int8_llm(model, convs, gpu):
         counts = _build.launch_counts()
         kcounts = _build.kernel_counts()
         times[b] = dict(model.last_timings)
+        require_graph_replays(f"int8 LLM b{b}", counts, times[b])
         print(f"int8 LLM: launches during generate() b{b}: "
               f"{json.dumps(counts)}; kernels launched inside them: "
               f"{json.dumps(kcounts)}", flush=True)
@@ -2070,7 +2237,7 @@ def run_int8_llm(model, convs, gpu):
         if kcounts.get("skinny_gemm", 0) < 4 * kcounts["decode_attention"]:
             raise AssertionError(f"int8 LLM b{b}: skinny_gemm launches "
                                  f"{kcounts} for the step's {counts}")
-        for name in ("decode_attention", "skinny_gemm"):
+        for name in ("decode_attention", "skinny_gemm", "rms_norm"):
             attn[name] = attn.get(name, 0) + kcounts[name]
         must = ("log_mel", "quant_matmul", "fused_decode_layers_int8") + (
             ("w8a8_matmul",) if b == 2 else ())
@@ -2089,6 +2256,8 @@ def run_int8_llm(model, convs, gpu):
     print(f"int8 LLM generated ids b2 row0[:8]={outs[2].generated_ids[0][:8]}"
           f" b1[:8]={outs[1].generated_ids[0][:8]}", flush=True)
     print_times("int8 LLM + int8 encoder", sorted(times.items()), gpu)
+    # -- 15b. the b2 decode through the graph against the eager step --------
+    check_decode_graph(model, runs[2], "int8 LLM", gpu)
 
     # -- 16. speculative generate() at b2 ------------------------------------
     model.generate(runs[2], do_sample=False, max_new_tokens=4,
@@ -2290,6 +2459,7 @@ def run_orca(model, convs, gpu):
         torch.cuda.synchronize()
         counts = _build.launch_counts()
         times[b] = dict(orca.last_timings)
+        require_graph_replays(f"ORCA b{b}", counts, times[b])
         print(f"ORCA int8 stack: launches during generate() b{b}: "
               f"{json.dumps(counts)}", flush=True)
         for name in ORCA_PATH:
@@ -2304,6 +2474,8 @@ def run_orca(model, convs, gpu):
           f"b1[:8]={outs[1].generated_ids[0][:8]}; float-stack b2 row0[:8]="
           f"{fout.generated_ids[0][:8]} (information)", flush=True)
     print_times("ORCA int8 stack (K8i)", sorted(times.items()), gpu)
+    check_decode_graph(orca, runs[2], "ORCA int8 stack (K8i)", gpu,
+                       orca=True)
 
     # -- 20. speculative generate() at b2 ------------------------------------
     orca.generate(runs[2], do_sample=False, max_new_tokens=4,
@@ -3248,6 +3420,7 @@ def main() -> int:
         print(f"launches during generate() b{b}: {json.dumps(counts)}",
               flush=True)
         require_kernel_paths(f"bf16 b{b}")
+        require_graph_replays(f"bf16 b{b}", counts, model.last_timings)
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
         if b == 2:
@@ -3262,6 +3435,9 @@ def main() -> int:
     print(f"generated ids b2 row0[:8]={out2.generated_ids[0][:8]} "
           f"b1[:8]={out1.generated_ids[0][:8]}", flush=True)
     print_times("bf16 encoder", ((2, t2), (1, t1)), gpu)
+    # -- 9b. the b2 decode through the graph against the eager step ---------
+    with torch.no_grad():
+        check_decode_graph(model, convs[:2], "bf16 LLM", gpu)
 
     # -- 10-12. the int8 (W8A8) inference encoder ----------------------------
     with torch.no_grad():
@@ -3292,6 +3468,7 @@ def main() -> int:
         k8_attn = check_decode_attention(
             torch.Generator("cuda").manual_seed(7))
         k_gemm = check_skinny_gemm(torch.Generator("cuda").manual_seed(8))
+        k_rms = check_rms_norm(torch.Generator("cuda").manual_seed(10))
 
         # -- 14-16. the int8 LLM in generate(), plain and speculative -------
         llm_launches, spec_launches, _, attn_launches = run_int8_llm(
@@ -3345,7 +3522,7 @@ def main() -> int:
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
                 "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9,
                 **mesh_rows, "decode_attention": k8_attn,
-                "skinny_gemm": k_gemm}
+                "skinny_gemm": k_gemm, "rms_norm": k_rms}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         row = measured[name]
@@ -3358,7 +3535,7 @@ def main() -> int:
                   else k9_launches if name in K9_HALVES
                   else mesh_launches if name in mesh_rows
                   else attn_launches if name in ("decode_attention",
-                                                 "skinny_gemm")
+                                                 "skinny_gemm", "rms_norm")
                   else launches)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": counts[name],

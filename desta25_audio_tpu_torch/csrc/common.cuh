@@ -54,6 +54,33 @@ inline int sm_count() {
   return counts[dev];
 }
 
+// Programmatic dependent launch (sm_90).  A kernel launched with
+// pdl_attribute() may start while the kernel before it in the stream (or
+// the graph) drains.  Before pdl_wait() it may only do what depends on no
+// predecessor: set up shared memory and barriers, prefetch tensor maps,
+// read inputs no kernel writes (weights); it reads nothing a predecessor
+// writes and writes no global memory.  pdl_wait() returns once every
+// predecessor has completed and its writes are visible, so a chain of such
+// kernels keeps stream order for what comes after the wait.  Every thread
+// of such a kernel calls pdl_wait() before its first dependent access.
+// pdl_launch_dependents() lets the next kernel's CTAs start (its own
+// pdl_wait() still waits for this kernel to complete); without it they
+// start as this kernel's CTAs exit.  Both are no-ops in a kernel launched
+// without the attribute.
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+inline cudaLaunchAttribute pdl_attribute() {
+  cudaLaunchAttribute a = {};
+  a.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  a.val.programmaticStreamSerializationAllowed = 1;
+  return a;
+}
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }

@@ -63,6 +63,9 @@
 //     CTAs read only cache rows < ci and write only ci..ci+Kd-1, so no CTA
 //     reads what another writes (a tile's tail past ci may hold such rows;
 //     they are never used).
+//   * Programmatic dependent launch (common.cuh): the barriers and the
+//     tensor-map prefetch come before the wait on the kernel before (the
+//     qkv GEMM); every read of qkv, ci, the mask or the cache after it.
 //   The scores of one range live in shared memory (G * keys f32), which
 //   bounds S (ops/fused_decode.kernel_limits states the limit).
 #pragma once
@@ -163,6 +166,18 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
   const int H = Hkv * G, HD = H * DHD, KVD = Hkv * DHD;
   const int QKVW = HD + 2 * KVD;
   const int row_j = b * kd + j;
+
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&kmap) : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(&vmap) : "memory");
+#pragma unroll
+    for (int s = 0; s < DA_STAGES; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  // qkv, ci, the mask and the cache are the step's: read after the wait
+  pdl_wait();
+  pdl_launch_dependents();
   const int ci = ci_arr[b];
   const int nk = ci < S ? ci : S;          // cached keys below ci
   const int lo = rank * keys;
@@ -170,13 +185,6 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
   if (n_my < 0) n_my = 0;
   const int T = (n_my + DA_TILE - 1) / DA_TILE;   // tiles of K (and of V)
   const int n_load = 2 * T;
-
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < DA_STAGES; ++s) mbar_init(&full[s], 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
   // tile i of the ring sequence: K tiles 0..T-1, then V tiles
   auto issue = [&](int i) {
     const int s = i % DA_STAGES;
@@ -437,13 +445,14 @@ cudaError_t launch_attention_kdm(const bf16* qkv, bf16* kc, bf16* vc,
   cfg.blockDim = dim3(DA_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = p.ns;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1] = pdl_attribute();
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = 2;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, decode_attention_kernel<G, KDM>, km, vm, qkv, kc, vc, cosb, sinb,
       mask, mask_stride, ci, qn, kn, out, S, Hkv, kd, p.keys, eps, scale);

@@ -37,10 +37,17 @@
 //     combined through distributed shared memory in rank order, P normalised
 //     before its bf16 rounding as on the TPU.  It is bound by bytes (the
 //     cached K/V rows below ci), not by operations.
-//   * rms_norm: one block per row, f32 statistics, bf16 output.
+//   * rms_norm: one block per row, each thread 16-byte loads of 8 bf16
+//     (D = 4096: 512 threads x 8), the row kept in registers between the
+//     f32 sum of squares and the scaling, so the residual is read once; the
+//     weight loads before the programmatic-launch wait.
 //   A step costs 7 launches per layer (norm, qkv, attention, o+residual,
-//   norm, gate/up+SwiGLU, down+residual).  One persistent kernel or a CUDA
-//   graph over them is a later PR.
+//   norm, gate/up+SwiGLU, down+residual).  The decode step is captured as
+//   one CUDA graph (desta25_audio_tpu_torch/generate/graph.py), and the
+//   norm, the GEMMs and the attention are launched with programmatic
+//   dependent launch (common.cuh pdl_*): each may start while the kernel
+//   before it drains, doing only what depends on no predecessor until its
+//   wait.
 
 #include "decode_attention.cuh"
 
@@ -52,31 +59,108 @@ using namespace desta;
 // RMSNorm: out[r, :] = bf16(x * rsqrt(mean(x^2) + eps) * w), f32 math
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(256)
+constexpr int RMS_VEC = 8;            // bf16 a 16-byte load
+constexpr int RMS_THREADS_MAX = 512;  // D = 4096: 512 threads x 8
+constexpr int RMS_NV_MAX = 8;         // 16-byte loads a thread: D <= 32768
+
+__device__ __forceinline__ void rms_unpack(const uint4& u, float f[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(p[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// One block a row; thread t holds vectors t, t + blockDim.x, ... (NV of
+// them, the last ones predicated off past D / 8) in registers.
+template <int NV>
+__global__ void __launch_bounds__(RMS_THREADS_MAX)
 rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 bf16* __restrict__ out, int D, float eps) {
-  __shared__ float red[32];
-  const bf16* xr = x + (size_t)blockIdx.x * D;
-  bf16* orow = out + (size_t)blockIdx.x * D;
+  __shared__ float red[RMS_THREADS_MAX / 32];
+  const int nvec = D / RMS_VEC;
+  const size_t row = (size_t)blockIdx.x * nvec;
+  const uint4* xr = reinterpret_cast<const uint4*>(x) + row;
+  const uint4* wv = reinterpret_cast<const uint4*>(w);
+  uint4 wr[NV], xv[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {  // the weight: no kernel writes it
+    const int v = threadIdx.x + i * blockDim.x;
+    if (v < nvec) wr[i] = __ldg(wv + v);
+  }
+  pdl_wait();
+  pdl_launch_dependents();
   float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += blockDim.x) {
-    const float v = __bfloat162float(xr[i]);
-    ss += v * v;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = threadIdx.x + i * blockDim.x;
+    if (v < nvec) {
+      xv[i] = xr[v];
+      float f[8];
+      rms_unpack(xv[i], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ss += f[e] * f[e];
+    }
   }
   ss = block_sum(ss, red);
   const float inv = rsqrtf(ss / (float)D + eps);
-  for (int i = threadIdx.x; i < D; i += blockDim.x)
-    orow[i] = __float2bfloat16(__bfloat162float(xr[i]) * inv
-                               * __bfloat162float(w[i]));
+  uint4* orow = reinterpret_cast<uint4*>(out) + row;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int v = threadIdx.x + i * blockDim.x;
+    if (v < nvec) {
+      float f[8], g[8];
+      rms_unpack(xv[i], f);
+      rms_unpack(wr[i], g);
+      uint4 o;
+      o.x = pack_bf16(f[0] * inv * g[0], f[1] * inv * g[1]);
+      o.y = pack_bf16(f[2] * inv * g[2], f[3] * inv * g[3]);
+      o.z = pack_bf16(f[4] * inv * g[4], f[5] * inv * g[5]);
+      o.w = pack_bf16(f[6] * inv * g[6], f[7] * inv * g[7]);
+      orow[v] = o;
+    }
+  }
+}
+
+template <int NV>
+cudaError_t launch_rms_norm(const bf16* x, const bf16* w, bf16* out,
+                            int rows, int D, int threads, float eps,
+                            cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)rows);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1] = {pdl_attribute()};
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, rms_norm_kernel<NV>, x, w, out, D, eps);
+  return e == cudaSuccess ? cudaGetLastError() : refuse(e);
 }
 
 }  // namespace
 
+// rows x D bf16, D a multiple of 8 up to 32768, 16-byte aligned rows
 extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
                               int rows, int D, float eps, void* stream) {
-  rms_norm_kernel<<<rows, 256, 0, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)w, (bf16*)out, D, eps);
-  return (int)cudaGetLastError();
+  const int nvec = D / RMS_VEC;
+  if (rows < 1 || D < RMS_VEC || D % RMS_VEC
+      || nvec > RMS_THREADS_MAX * RMS_NV_MAX
+      || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)
+          | reinterpret_cast<uintptr_t>(out)) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int threads = nvec < RMS_THREADS_MAX ? (nvec + 31) / 32 * 32
+                                             : RMS_THREADS_MAX;
+  const int nv = (nvec + threads - 1) / threads;
+  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
+  bf16* ob = (bf16*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  return (int)(nv == 1 ? launch_rms_norm<1>(xb, wb, ob, rows, D, threads, eps, st)
+               : nv == 2 ? launch_rms_norm<2>(xb, wb, ob, rows, D, threads, eps, st)
+               : nv <= 4 ? launch_rms_norm<4>(xb, wb, ob, rows, D, threads, eps, st)
+                         : launch_rms_norm<8>(xb, wb, ob, rows, D, threads, eps, st));
 }
 
 // out[3] = the decode attention's plan on the current device: key ranges,

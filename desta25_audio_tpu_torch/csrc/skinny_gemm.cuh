@@ -46,6 +46,13 @@
 //     SWIGLU gate/up pair (rows 2n, 2n+1) always lies in one tile.  The
 //     plan reads only N, K and the card's SM count, never the rows, so the
 //     verify step's rows are summed as the decode step's.
+//   * Programmatic dependent launch (common.cuh): the weight tiles of the
+//     first SG_STAGES stages are requested before the wait on the kernel
+//     before (the weights are no kernel's output); the rows' k-ranges after
+//     it, and the epilogue's reads and writes of out after it too; the
+//     next kernel is let start once this one's mainloop is done.  A
+//     launch's fixed cost and its first weight bytes thus overlap the
+//     previous kernel's tail, in a graph and on a stream alike.
 // The scale multiplies the f32 sum (the TPU kernels' scale point,
 // desta25_audio_tpu/ops/quant.py:74-77 and ops/fused_decode.py:428-443),
 // then the epilogue rounds:
@@ -370,17 +377,35 @@ skinny_gemm_kernel(const __grid_constant__ CUtensorMap wmap,
 
   if (warp == SG_WARPS) {
     if (lane == 0) {  // the producer
-      for (int i = 0; i < mine; ++i) {
+      // stage i: one expect_tx for the weight tile and the rows' k-range
+      auto xbytes = [&](int i) {
+        return (uint32_t)min(T::BK, K - (kt0 + i) * T::BK) * 2u;
+      };
+      auto load_w = [&](int i) {
         const sm90::RingSlot<SG_STAGES> sl(i);
-        if (i >= SG_STAGES) sm90::mbar_wait(&empty[sl.stage], sl.parity ^ 1u);
-        const int k0 = (kt0 + i) * T::BK;
-        const uint32_t xbytes = (uint32_t)min(T::BK, K - k0) * 2u;
         uint64_t* bar = &full[sl.stage];
-        sm90::mbar_expect_tx(bar, WSTAGE + (uint32_t)M * xbytes);
-        sm90::tma_load_2d(wring + sl.stage * WSTAGE, &wmap, bar, k0, row0);
+        sm90::mbar_expect_tx(bar, WSTAGE + (uint32_t)M * xbytes(i));
+        sm90::tma_load_2d(wring + sl.stage * WSTAGE, &wmap, bar,
+                          (kt0 + i) * T::BK, row0);
+      };
+      auto load_x = [&](int i) {
+        const sm90::RingSlot<SG_STAGES> sl(i);
         uint8_t* xs = xring + sl.stage * XSTAGE;
+        const size_t k0 = (size_t)(kt0 + i) * T::BK;
         for (int m = 0; m < M; ++m)
-          bulk_load(xs + m * T::XLD, x + (size_t)m * K + k0, xbytes, bar);
+          bulk_load(xs + m * T::XLD, x + (size_t)m * K + k0, xbytes(i),
+                    &full[sl.stage]);
+      };
+      // the first stages' weights before the wait: no kernel writes them
+      const int early = min(mine, SG_STAGES);
+      for (int i = 0; i < early; ++i) load_w(i);
+      pdl_wait();
+      for (int i = 0; i < early; ++i) load_x(i);
+      for (int i = early; i < mine; ++i) {
+        const sm90::RingSlot<SG_STAGES> sl(i);
+        sm90::mbar_wait(&empty[sl.stage], sl.parity ^ 1u);
+        load_w(i);
+        load_x(i);
       }
     }
     __syncwarp();
@@ -413,8 +438,13 @@ skinny_gemm_kernel(const __grid_constant__ CUtensorMap wmap,
         red[(warp * 16 + g + (e >> 1) * 8) * SG_RED_LD + j * 8 + 2 * t
             + (e & 1)] = acc[0][j][e] + acc[1][j][e];
   }
+  // the next kernel may start now: its CTAs find the SMs this grid leaves
+  // as its CTAs finish (a trigger at the mainloop's start let them take
+  // free slots early and ran the step 0.06-0.08 ms slower on the H100)
+  pdl_launch_dependents();
   if (ns > 1) cluster.sync();
   else __syncthreads();
+  pdl_wait();  // out (RESID / ADD_F32 read it) is a predecessor's
 
   // the tile's outputs: SG_BN / NW columns x M rows, the ranks taking
   // consecutive column ranges; each sums the ranks' partials in rank order
@@ -524,13 +554,14 @@ cudaError_t launch_skinny_pass(const CUtensorMap& map, const SkinnyPlan& p,
   cfg.blockDim = dim3(SG_THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = p.ns;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
+  attr[1] = pdl_attribute();
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = 2;
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, map, x, scale, out, M,
                                            N, K, p.tps, bias, ps);
   if (e != cudaSuccess) return refuse(e);

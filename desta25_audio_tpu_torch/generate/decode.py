@@ -2,7 +2,8 @@
 ``desta25_audio_tpu/generate/decode.py:54-248``).
 
 Prefill over the spliced context, then one token per step through the fused
-decode step, with greedy / temperature / nucleus (top-p) sampling and stop
+decode step (on the card one CUDA graph replay a step, ``generate/graph.py``,
+as the JAX package jits the body of its ``while_loop``), with greedy / temperature / nucleus (top-p) sampling and stop
 tokens.  With ORCA deep injection (``inject_*`` arguments) the audio tokens
 are RoPE'd and every layer's audio K/V projected once per request; the
 prefill injects layer by layer in PyTorch, and the decode steps inject inside
@@ -29,8 +30,11 @@ from ..config import LLMConfig
 from ..models import llm as tllm
 from ..models.orca import gated_cross_attention_apply, precompute_cross_kv
 from ..ops.core import index_tree
-from ..ops.fused_decode import fused_inject_supported
+from ..ops.fused_decode import fused_decode_supported, fused_inject_supported
 from ..ops.rope import fractional_rope_apply
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import ShardedLLM
+from .graph import DecodeGraph
 
 # top-p runs on the 256 most likely candidates, normalised by the FULL-vocab
 # logsumexp, so the nucleus cut is exact whenever it fits in 256 tokens
@@ -103,7 +107,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                  eos_ids: Sequence[int] = (), pad_id: int = 0,
                  timings: Optional[Dict[str, float]] = None,
                  inject_params=None, inject_tokens=None,
-                 inject_scale: float = 2.5, inject_heads: int = 0
+                 inject_scale: float = 2.5, inject_heads: int = 0,
+                 decode_graph: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + decode.  inputs_embeds [B, T, D] (left-padded context),
     attention_mask [B, T] 1/0.  Returns (tokens [B, max_new_tokens] int64,
@@ -114,7 +119,15 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
 
     timings: if given, filled with host-clock ``prefill_ms``, ``decode_ms``
     and ``decode_steps`` (synchronising the device at phase boundaries),
-    and with injection ``inject_kv_ms`` (RoPE + audio K/V projection).
+    with injection ``inject_kv_ms`` (RoPE + audio K/V projection), and
+    with a captured decode step ``graph_capture_ms`` (inside ``decode_ms``).
+
+    Where the fused decode step takes the request (``models/llm.
+    decode_step``; not under a mesh, no per-layer hook without the
+    in-kernel injection) the steps run through a ``generate/graph.
+    DecodeGraph``: on a CUDA device the first step eagerly, the rest as
+    replays of one CUDA graph; ``decode_graph=False`` keeps every step
+    eager (the comparison of the card tests and ``chip_smoke.py``).
     """
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
@@ -158,26 +171,44 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     done = is_eos(cur)
     pos = positions[:, -1] + 1
     steps = 0
-    for t in range(max_new_tokens - 1):
-        if bool(done.all()):
-            break
-        write_idx = T + t
-        mask[:, write_idx] = 1
-        logits, cache = tllm.llm_apply(
-            params, cfg, input_ids=cur[:, None], attention_mask=mask,
-            positions=pos[:, None], cache=cache, cache_index=write_idx,
-            extra_layer_fn=extra_layer_fn, fused_injection=fused_spec)
-        nxt = sample_token(logits[:, -1], generator, temperature, top_p,
-                           do_sample)
-        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-        out[:, t + 1] = nxt
-        done = done | is_eos(nxt)
-        pos = pos + 1
-        cur = nxt
-        steps += 1
-    if timings is not None:
-        _sync(dev)
-        timings["decode_ms"] = (time.perf_counter() - t1) * 1e3
-        timings["decode_steps"] = steps
+    graph = None
+    if ((extra_layer_fn is None or fused_spec is not None)
+            and current_mesh() is None and not isinstance(params, ShardedLLM)
+            and fused_decode_supported(params, cfg, inputs_embeds[:, :1],
+                                       cache)):
+        graph = DecodeGraph(params, cfg, mask, cache, fused_spec,
+                            capture=decode_graph)
+    try:
+        for t in range(max_new_tokens - 1):
+            if bool(done.all()):
+                break
+            write_idx = T + t
+            mask[:, write_idx] = 1
+            if graph is not None:
+                logits = graph.step(cur, pos, write_idx)
+            else:
+                logits, cache = tllm.llm_apply(
+                    params, cfg, input_ids=cur[:, None], attention_mask=mask,
+                    positions=pos[:, None], cache=cache,
+                    cache_index=write_idx, extra_layer_fn=extra_layer_fn,
+                    fused_injection=fused_spec)
+                logits = logits[:, -1]
+            nxt = sample_token(logits, generator, temperature, top_p,
+                               do_sample)
+            nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
+            out[:, t + 1] = nxt
+            done = done | is_eos(nxt)
+            pos = pos + 1
+            cur = nxt
+            steps += 1
+        if timings is not None:
+            _sync(dev)
+            timings["decode_ms"] = (time.perf_counter() - t1) * 1e3
+            timings["decode_steps"] = steps
+            if graph is not None and graph.graph is not None:
+                timings["graph_capture_ms"] = graph.capture_ms
+    finally:
+        if graph is not None:
+            graph.close()
     n_gen = (out != pad_id).sum(-1)
     return out, n_gen

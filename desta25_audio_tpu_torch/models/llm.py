@@ -81,7 +81,7 @@ from ..parallel.sharding import (
 )
 
 __all__ = ["KVCache", "init_kv_cache", "init_llm", "llm_apply",
-           "embed_tokens"]
+           "embed_tokens", "decode_step"]
 
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, dtype,
@@ -301,6 +301,39 @@ def _mesh_decode_step(params: ShardedLLM, cfg: LLMConfig, x, attention_mask,
     return None
 
 
+def fused_step_logits(params: Params, cfg: LLMConfig, x: torch.Tensor,
+                      attention_mask: torch.Tensor, positions: torch.Tensor,
+                      cache: KVCache, ci: torch.Tensor,
+                      fused_injection=None) -> torch.Tensor:
+    """The fused decode step from its embeddings x [B, 1, D]:
+    ``fused_decode_layers`` (the cache written in place at ci [B] on x's
+    device), the final norm, the head -> f32 logits [B, 1, V].  The body of
+    :func:`decode_step` and of :func:`llm_apply`'s fused branch."""
+    hidden, _ = fused_decode_layers(params, cfg, x, attention_mask,
+                                    positions, cache, ci,
+                                    inject=fused_injection)
+    hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
+    return head_logits(params, hidden)
+
+
+def decode_step(params: Params, cfg: LLMConfig, ids: torch.Tensor,
+                positions: torch.Tensor, ci: torch.Tensor,
+                attention_mask: torch.Tensor, cache: KVCache,
+                fused_injection=None) -> torch.Tensor:
+    """One cached decode step through the fused kernels, on device tensors
+    only (no host value reaches the device, so a CUDA graph can capture
+    it): ids [B] int64, positions [B] int64, ci [B] int32 (each row's cache
+    write position), attention_mask [B, >=S], the cache (written in place)
+    and the fused injection spec or None -> f32 logits [B, V].  The caller
+    checks ``fused_decode_supported``; :func:`llm_apply`'s fused T == 1
+    branch runs the same body (:func:`fused_step_logits`), and on CPU
+    tensors both run the plain versions."""
+    x = embed_tokens(params, ids[:, None])
+    return fused_step_logits(params, cfg, x, attention_mask,
+                             positions[:, None], cache, ci,
+                             fused_injection)[:, 0]
+
+
 def _check_mesh(params, cache) -> bool:
     """True when the call runs under a mesh (the params cut for the current
     one, with a cache); raises on a mismatch."""
@@ -395,11 +428,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
         if T == 1 and (fused_injection is not None
                        or extra_layer_fn is None):
             if fused_decode_supported(params, cfg, x, cache):
-                hidden, cache = fused_decode_layers(
-                    params, cfg, x, attention_mask, positions, cache, ci,
-                    inject=fused_injection)
-                hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
-                return head_logits(params, hidden), cache
+                return fused_step_logits(params, cfg, x, attention_mask,
+                                         positions, cache, ci,
+                                         fused_injection), cache
             if extra_layer_fn is None and fused_injection is not None:
                 raise ValueError("the decode step's kernels cannot take this "
                                  "step and no injection hook was given")

@@ -23,7 +23,11 @@ decode attention inside the decode step) is also counted by its own name
 with :func:`count_kernel` (``kernel_counts``), apart from the wrappers'
 counts, which keep their meaning.  A model that takes its torch path
 because a kernel's predicate refuses the shape counts that with
-:func:`count_fallback` (``fallback_counts``).
+:func:`count_fallback` (``fallback_counts``).  A CUDA graph capture
+(``generate/graph.py``) records launches without running them: it takes
+what it counted back out of the counters with :func:`take_counts` and adds
+it again on every replay with :func:`add_counts`, so that the counts read
+as the eager path's.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -135,6 +139,38 @@ def reset_launch_counts() -> None:
     _launches.clear()
     _kernels.clear()
     _fallbacks.clear()
+
+
+class Counts(NamedTuple):
+    """Launch and kernel counts (:func:`launch_counts`,
+    :func:`kernel_counts`): a snapshot, or what was counted between two."""
+    launches: Dict[str, int]
+    kernels: Dict[str, int]
+
+
+def count_snapshot() -> Counts:
+    return Counts(dict(_launches), dict(_kernels))
+
+
+def take_counts(since: Counts) -> Counts:
+    """What was counted since the snapshot ``since``, taken back out of the
+    counters: they read as they did at the snapshot."""
+    taken = Counts(*({k: n - old.get(k, 0) for k, n in now.items()
+                      if n != old.get(k, 0)}
+                     for now, old in ((_launches, since.launches),
+                                      (_kernels, since.kernels))))
+    for now, old in ((_launches, since.launches), (_kernels, since.kernels)):
+        now.clear()
+        now.update(old)
+    return taken
+
+
+def add_counts(counts: Counts) -> None:
+    """Count again what :func:`take_counts` took (a graph's replay)."""
+    for name, n in counts.launches.items():
+        count_launch(name, n)
+    for name, n in counts.kernels.items():
+        count_kernel(name, n)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -45,6 +45,14 @@ and also returned, so callers keep the JAX API shape.  :class:`FusedStep`
 holds one step's launches; the tensor-parallel step
 (``ops/fused_decode_mesh.py``, K10) runs one per rank.
 
+The step's norm is one launch a row block of ``csrc/fused_decode.cu``
+(16-byte loads, the row kept in registers), also launched alone by
+:func:`decode_rms_norm` (counted as ``rms_norm``; each step launch in
+``_build.kernel_counts()``), plain version :func:`rms_plain`.  The norm,
+the GEMMs and the attention are launched with programmatic dependent launch
+(``csrc/common.cuh``), so each may start while the one before drains; the
+step as a whole is captured as one CUDA graph by ``generate/graph.py``.
+
 The step's attention launch (``csrc/decode_attention.cuh``, shared with
 K9) splits each (row, kv head, draft token)'s cached keys across a
 thread-block cluster by :func:`plan_decode_splits`; it is also launched
@@ -89,6 +97,7 @@ _SMEM_LIMIT = 227 * 1024
 DECODE_KEY_TILE = 32
 DECODE_STAGES = 4
 DECODE_SPLITS_MAX = 8
+RMS_D_MAX = 32768    # csrc/fused_decode.cu: 512 threads x 8 loads of 8
 
 
 class KVCache(NamedTuple):
@@ -99,6 +108,15 @@ class KVCache(NamedTuple):
 
 
 def _row_indices(cache_index, B: int, device) -> torch.Tensor:
+    """Each row's cache write position, int32 [B] on ``device``, from an
+    int or a [B] tensor.  An int reaches the card by a host-to-device copy,
+    which a CUDA graph capture cannot hold: a captured step passes its
+    static int32 device tensor (``generate/graph.py``)."""
+    if (not torch.is_tensor(cache_index)
+            and torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise ValueError("a Python cache index inside a CUDA graph capture: "
+                         "pass the rows' int32 cache indices on the device")
     ci = torch.as_tensor(cache_index, device=device)
     if ci.dim() == 0:
         ci = ci.expand(B)
@@ -169,6 +187,8 @@ def kernel_limits(cfg, batch: int, kd: int, cache_len: int,
     vec = 16 if int8 else 8          # weight values per 16-byte load
     if D % vec or I % vec or (H * Dh) % vec:
         bad.append(f"D={D}, I={I}, H*Dh={H * Dh} must be multiples of {vec}")
+    if D > RMS_D_MAX:
+        bad.append(f"D={D} (the norm kernel: up to {RMS_D_MAX})")
     G = H // Hkv
     if cache_len < 1:
         return bad + [f"cache length {cache_len}"]
@@ -366,6 +386,29 @@ def rms_plain(x: torch.Tensor, w: torch.Tensor, eps: float, dt):
     xf = x.float()
     return (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
             * w.float()).to(dt)
+
+
+def decode_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float
+                    ) -> torch.Tensor:
+    """:func:`rms_plain`'s function on rows x [R, D] with weight w [D], in
+    bf16: one launch of the step's norm kernel (``csrc/fused_decode.cu``,
+    counted as ``rms_norm``) on CUDA tensors (D a multiple of 8 up to
+    RMS_D_MAX), the plain version on CPU tensors.  The decode and verify
+    steps launch the same kernel from :class:`FusedStep`."""
+    if x.device.type == "cpu":
+        return rms_plain(x, w, eps, x.dtype)
+    name = "rms_norm"
+    R, D = x.shape
+    if tuple(w.shape) != (D,) or D % 8 or D > RMS_D_MAX:
+        raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)} "
+                         f"(D a multiple of 8 up to {RMS_D_MAX})")
+    _build.require_cuda(name, x, w, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    _build.check(_build.library().desta_rms_norm(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), R, D, float(eps),
+        _build.stream_ptr(x.device)), name)
+    _build.count_launch(name)
+    return out
 
 
 def decode_attention_plain(qkv, k_cache, v_cache, cos, sin, mask, ci,
@@ -576,7 +619,11 @@ def _inject_operands(inject, cfg, name: str, L: int, B: int, Kd: int):
 class FusedStep:
     """The checked operands and scratch of one decode (Kd = 1) or verify
     (Kd > 1) step on one device, and the kernel launches of its layers, on
-    the device's current stream at construction.  :meth:`run` is the step:
+    the device's current stream at construction.  Built from device tensors
+    alone (``cache_index`` the rows' int32 [B] on the device) it does no
+    host-to-device copy, so it can be built and run inside a CUDA graph
+    capture (``generate/graph.py``): its scratch is then the graph's, and
+    its launches go to the capture stream.  :meth:`run` is the step:
     per layer :meth:`attention`, :meth:`mlp` and, with ``inject``,
     :meth:`inject`.  Each of the two halves ends in the wo / down GEMM,
     which adds into the bf16 residual ``h`` (EPI_RESID) or, given a
@@ -681,6 +728,7 @@ class FusedStep:
             self.h.data_ptr(), self.norms[which][l].data_ptr(),
             self.xn.data_ptr(), self.R, self.D, float(self.cfg.rms_norm_eps),
             self.stream))
+        _build.count_kernel("rms_norm")
 
     def attention(self, l, store=None):
         """Layer l's norm, q/k/v, attention with the cache write, wo."""

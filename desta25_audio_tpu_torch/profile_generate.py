@@ -27,7 +27,16 @@ injection between layers.  For each phase it prints the wall
 time (host clock, device synchronised), the device busy time (sum of kernel
 times), the idle share, and the kernels by total device time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
-limit are printed first).  The decode phases add the device time by
+limit are printed first).  Device time is the union of the kernels'
+spans (``_device_ms``: a kernel launched with programmatic dependent launch
+overlaps its predecessor), each kernel credited with what it adds.  The
+plain decode runs twice, through the decode step's CUDA graph
+(``generate/graph.py``) and eagerly (``decode_graph=False``); each prints
+the decode phase's wall and device time a step and its idle share (the full
+run's less the prefill's, over the 31 steps), then three unprofiled runs'
+host time a step with the graph's capture time, and the idle share of
+their mean against the profiled device time (the profiler's own host cost
+stretches the profiled walls).  The decode phases add the device time by
 kernel group (``DECODE_GROUPS``: the decode attention, the skinny GEMMs
 (K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 1,
 3>``), RMSNorm, K7's mma path, K8i's injection, the W8A8 prefill, other).
@@ -39,6 +48,7 @@ refused).
 from __future__ import annotations
 
 import argparse
+import inspect
 import os
 import subprocess
 import tempfile
@@ -57,6 +67,7 @@ from .models.desta import DeSTA25AudioModel
 from .ops import _build, fused_decode_tp
 
 NEW_TOKENS = 32
+UNPROFILED_RUNS = 3   # the decode's host-clock time, without the profiler
 # the decode phases' device time by group (kernel-name substrings)
 DECODE_GROUPS = {
     "decode attention": ("decode_attention",),
@@ -73,17 +84,32 @@ CONFIG = os.path.join(_CONFIGS, "desta25_llama31-8B_Qformer6L.yaml")
 ORCA_CONFIG = os.path.join(_CONFIGS, "desta25_llama31-8B_ORCAHybrid.yaml")
 
 
-def _device_us(evt) -> float:
-    return float(getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0)))
+def _device_ms(prof):
+    """{kernel name: (device ms, launches)} over the trace, each kernel
+    taking the time it alone adds to the device's busy time: kernels in
+    order of their start, each credited with the part of its span past
+    every earlier kernel's end.  With programmatic dependent launch a
+    kernel starts while the one before it drains and waits for it, so raw
+    kernel durations overlap and their sum can exceed the wall; these
+    times sum to the union of the spans, the time the device had a kernel
+    running."""
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    out, covered = {}, float("-inf")
+    for start, end, name in spans:
+        ms, n = out.get(name, (0.0, 0))
+        out[name] = (ms + max(0.0, end - max(start, covered)) / 1e3, n + 1)
+        covered = max(covered, end)
+    return out
 
 
 def report(name: str, fn, top: int = 12, groups=None, stats=None):
     """Run fn() under the profiler and print its wall time, device busy
-    time, idle share and top kernels; ``groups`` ({label: name substrings})
-    adds the device time per group, the first matching group taking a
-    kernel, the rest counted as "other".  A ``stats`` list gets (wall ms,
-    busy ms) appended."""
+    time (:func:`_device_ms`), idle share and top kernels; ``groups``
+    ({label: name substrings}) adds the device time per group, the first
+    matching group taking a kernel, the rest counted as "other".  A
+    ``stats`` list gets (wall ms, busy ms) appended."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -91,22 +117,21 @@ def report(name: str, fn, top: int = 12, groups=None, stats=None):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
+    kernels = _device_ms(prof)
+    busy_ms = sum(ms for ms, _ in kernels.values())
     print(f"== {name}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}")
     if stats is not None:
         stats.append((wall_ms, busy_ms))
-    for e in sorted(kernels, key=_device_us, reverse=True)[:top]:
-        print(f"   {_device_us(e) / 1e3:9.3f} ms  x{e.count:<6d} "
-              f"{e.key[:100]}")
+    for key, (ms, n) in sorted(kernels.items(), key=lambda kv: kv[1][0],
+                               reverse=True)[:top]:
+        print(f"   {ms:9.3f} ms  x{n:<6d} {key[:100]}")
     if groups:
         sums = dict.fromkeys([*groups, "other"], 0.0)
-        for e in kernels:
+        for key, (ms, _) in kernels.items():
             label = next((g for g, subs in groups.items()
-                          if any(s in e.key for s in subs)), "other")
-            sums[label] += _device_us(e) / 1e3
+                          if any(s in key for s in subs)), "other")
+            sums[label] += ms
         print("   by group: " + "; ".join(f"{g} {ms:.2f} ms"
                                           for g, ms in sums.items()))
     return out
@@ -190,11 +215,13 @@ def main() -> None:
                        cfg, common["inject_params"], tokens,
                        common["inject_scale"], common["inject_heads"]))
 
-        def gen(n):
+        def gen(n, **kw):
             return lambda: llm_generate(llm, cfg, embeds, mask,
                                         model.generator, max_new_tokens=n,
-                                        **common)
-        report(f"prefill b{args.batch} (T={embeds.shape[1]})", gen(1))
+                                        **common, **kw)
+        pre = []
+        report(f"prefill b{args.batch} (T={embeds.shape[1]})", gen(1),
+               stats=pre)
         if args.speculative_k >= 2:
             lens = mask.sum(1).cpu().numpy()
             aligned = torch.as_tensor(left_aligned(prompt_ids, lens),
@@ -211,8 +238,37 @@ def main() -> None:
             print(f"   {stats['decode_steps']} verify steps, "
                   f"{stats['spec_tokens']} tokens after the first")
         else:
-            report(f"prefill + {NEW_TOKENS - 1} decode steps b{args.batch}",
-                   gen(NEW_TOKENS), groups=DECODE_GROUPS)
+            # the graph and the eager step (a checkout without the graph
+            # has its one path)
+            modes = ((("graph", {}), ("eager", {"decode_graph": False}))
+                     if "decode_graph" in inspect.signature(
+                         llm_generate).parameters else (("eager", {}),))
+            for mode, kw in modes:
+                full = []
+                report(f"prefill + {NEW_TOKENS - 1} decode steps "
+                       f"b{args.batch} ({mode})", gen(NEW_TOKENS, **kw),
+                       groups=DECODE_GROUPS, stats=full)
+                steps = NEW_TOKENS - 1
+                wall = (full[0][0] - pre[0][0]) / steps
+                busy = (full[0][1] - pre[0][1]) / steps
+                print(f"   decode ({mode}): {wall:.3f} ms wall a step, "
+                      f"{busy:.3f} ms device a step, idle share "
+                      f"{1 - busy / wall:.3f} (the profiled runs' "
+                      "difference)")
+                walls = []
+                for _ in range(UNPROFILED_RUNS):
+                    timed = {}
+                    gen(NEW_TOKENS, timings=timed, **kw)()
+                    walls.append(timed["decode_ms"] / timed["decode_steps"])
+                    print(f"   decode ({mode}), unprofiled: {walls[-1]:.3f}"
+                          f" ms a step over {timed['decode_steps']} steps, "
+                          f"graph capture "
+                          f"{timed.get('graph_capture_ms', 0.0):.1f} ms "
+                          "inside them")
+                mean = sum(walls) / len(walls)
+                print(f"   decode ({mode}): idle share {1 - busy / mean:.3f}"
+                      f" of the unprofiled {mean:.3f} ms a step (mean) "
+                      f"against the profiled device time")
         print(f"launches over the profiled phases: "
               f"{_build.launch_counts()}; torch paths taken: "
               f"{_build.fallback_counts()}")

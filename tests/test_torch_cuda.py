@@ -1063,3 +1063,157 @@ def test_skinny_gemm_peer_store(gen, R, int8):
             assert bufs.flags[d][1].tolist() == [epoch, epoch]
             assert bufs.flags[d][0].tolist() == [0, 0]
             assert bufs.counter[d].tolist() == [0, 0]
+
+
+# -- the decode step as one CUDA graph, its RMSNorm, programmatic dependent
+# launch (generate/graph.py, csrc/fused_decode.cu, csrc/common.cuh) ---------
+
+def _llama_2layers():
+    return dataclasses.replace(
+        llm_config_for("meta-llama/Llama-3.1-8B-Instruct"),
+        num_hidden_layers=2)
+
+
+def _generate_both_ways(monkeypatch, params, cfg, emb, amask, new, **kw):
+    """llm_generate eagerly and through its graph, greedy: for each, the
+    ids, every sampled step's logits (copied as sample_token sees them),
+    the launch and kernel counts and the timings."""
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    real, runs = tdecode.sample_token, {}
+    for graph in (False, True):
+        seen = []
+        monkeypatch.setattr(
+            tdecode, "sample_token",
+            lambda lg, *a: seen.append(lg.clone()) or real(lg, *a))
+        _build.reset_launch_counts()
+        timings = {}
+        ids, _ = tdecode.llm_generate(
+            params, cfg, emb, amask, torch.Generator("cuda").manual_seed(0),
+            max_new_tokens=new, timings=timings, decode_graph=graph, **kw)
+        torch.cuda.synchronize()
+        runs[graph] = (ids, seen, _build.launch_counts(),
+                       _build.kernel_counts(), timings)
+    return runs
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "k8i"])
+def test_decode_graph_matches_eager(gen, monkeypatch, kind):
+    """Two layers at Llama-3.1-8B's width, B = 2 (a row left-padded), 8 new
+    tokens: the graph's ids and every step's logits bit-identical to the
+    eager step's, the launch and kernel counts equal, one decode_graph
+    replay for each decode step after the first; bf16 K8, K8-int8, and K8i
+    with an int8 ORCA stack."""
+    cfg = _llama_2layers()
+    params = _tower(gen, cfg, int8=kind != "bf16")
+    B, T, NEW = 2, 24, 8
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                        device="cuda")
+    amask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    amask[0, :5] = 0
+    kw = {}
+    if kind == "k8i":
+        stack = init_orca_cross_attns(
+            types.SimpleNamespace(llm_config=cfg, orca_gate_init=0.1),
+            torch.bfloat16, "cuda", gen)
+        stack["layers"]["gate2"]["w"].normal_(0.0, 0.2, generator=gen)
+        kw = dict(inject_params=quantize_orca_cross_attns(stack),
+                  inject_tokens=torch.randn(B, 40, cfg.hidden_size,
+                                            generator=gen,
+                                            device="cuda").bfloat16(),
+                  inject_heads=cfg.num_attention_heads)
+    runs = _generate_both_ways(monkeypatch, params, cfg,
+                               tllm.embed_tokens(params, ids), amask, NEW,
+                               **kw)
+    (e_ids, e_lg, e_n, e_k, e_t), (g_ids, g_lg, g_n, g_k, g_t) = (
+        runs[False], runs[True])
+    assert torch.equal(g_ids, e_ids)
+    assert len(g_lg) == len(e_lg) == NEW
+    for a, b in zip(g_lg, e_lg):
+        assert torch.equal(a, b)
+    steps = g_t["decode_steps"]
+    assert steps == NEW - 1 and g_t["graph_capture_ms"] > 0
+    assert g_n.pop("decode_graph") == steps - 1
+    assert g_n == e_n and g_k == e_k
+    tower = ("fused_decode_layers" if kind == "bf16"
+             else "fused_decode_layers_int8")
+    assert e_n[tower] == 7 * cfg.num_hidden_layers * steps
+    assert e_k["rms_norm"] == 2 * cfg.num_hidden_layers * steps
+    if kind == "k8i":
+        assert e_n["fused_decode_inject"] == 5 * cfg.num_hidden_layers * steps
+    assert _build.fallback_counts() == {}
+
+
+@pytest.mark.parametrize("R,D", [
+    (2, 4096), (1, 2560), (9, 4096), (3, 5120), (2, 520), (4, 8),
+    (1, 32768)])
+def test_rms_norm_kernel(gen, R, D):
+    """The step's norm alone against rms_plain (512 threads x 8 at 4096,
+    320 at Qwen3-4B's 2560, a second vector a thread at 5120, a ragged
+    warp at 520), rows of scales 1 to 100, within the decode step's gate;
+    two launches bit-identical."""
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        decode_rms_norm, rms_plain)
+    scales = torch.logspace(0, 2, R, device="cuda")[:, None]
+    x = (torch.randn(R, D, generator=gen, device="cuda") * scales).bfloat16()
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
+    _build.reset_launch_counts()
+    got = decode_rms_norm(x, w, 1e-5)
+    assert _build.launch_counts() == {"rms_norm": 1}
+    want = rms_plain(x, w, 1e-5, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and _rel(got, want) < 3e-2
+    assert torch.equal(decode_rms_norm(x, w, 1e-5), got)
+
+
+def test_rms_norm_raises_on_what_it_does_not_take(gen):
+    from desta25_audio_tpu_torch.ops.fused_decode import decode_rms_norm
+    x = torch.randn(2, 12, generator=gen, device="cuda").bfloat16()
+    _build.reset_launch_counts()
+    with pytest.raises(ValueError, match="multiple of 8"):
+        decode_rms_norm(x, x[0], 1e-5)
+    with pytest.raises(ValueError, match="bfloat16"):
+        decode_rms_norm(torch.ones(2, 16, device="cuda"),
+                        torch.ones(16, device="cuda"), 1e-5)
+    assert _build.launch_counts().get("rms_norm", 0) == 0
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_pdl_chain_keeps_stream_order(gen, int8):
+    """Norm, then the skinny GEMM adding into the residual, eight times
+    back to back, each launch reading the one before's output (both take
+    programmatic dependent launch): against the same chain in plain
+    PyTorch within the decode step's gate, and captured in a CUDA graph and
+    replayed, bit-identical to the eager chain."""
+    from desta25_audio_tpu_torch.ops import skinny_gemm as sg
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        decode_rms_norm, rms_plain)
+    R, D = 2, 4096
+    h0 = torch.randn(R, D, generator=gen, device="cuda").bfloat16()
+    nw = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
+    wf = torch.randn(D, D, generator=gen, device="cuda") / D ** 0.5
+    if int8:
+        leaf = quantize_weight(wf)
+        w, scale = leaf["q"], leaf["s"]
+    else:
+        w, scale = wf.bfloat16(), None
+
+    def chain(h, norm, gemm):
+        for _ in range(8):   # the kernel adds into h in place
+            h = gemm(norm(h, nw, 1e-5), w, scale, sg.EPI_RESID, h)
+        return h
+
+    want = chain(h0.clone(), lambda h, nw, eps: rms_plain(
+        h, nw, eps, torch.bfloat16), sg.skinny_gemm_plain)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = chain(h0.clone(), decode_rms_norm, sg.skinny_gemm)
+    torch.cuda.current_stream().wait_stream(side)
+    assert _rel(eager, want) < 3e-2
+    hg = h0.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        chain(hg, decode_rms_norm, sg.skinny_gemm)
+    assert torch.equal(hg, h0)      # captured, not run
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(hg, eager)
