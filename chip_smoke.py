@@ -107,6 +107,17 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     tokens, on=[1, 1], at Kd=1 and Kd=4 (injection head dim 128), and a
     2-layer Qwen3-4B tower (D=2560, H=32, qk-norm: head dim 80) at Kd=1 and
     Kd=4, gated as K8; the K8-int8 step time without injection beside;
+    then K8i's two kernels alone (csrc/fused_inject.cu): the attention
+    (keys split across a thread-block cluster) against
+    ``inject_attention_plain`` at Ta=375, Llama-3.1-8B's heads at b2, b1
+    and the b2 verify (Kd=4), Qwen3-4B's at b2 and its verify, its C-side
+    plan the planner's, a control (one tile of 8 keys dropped, the last of
+    the first range) above the gate, two launches and the verify rows'
+    token 0 bit-identical to the decode launch; the gate's added term
+    (out - h) against ``inject_gate_plain``'s at R=2 and 8 of D=4096 and 2
+    of 2560, a row with on=0 keeping h's bits; both within TOL_INJECT,
+    their times back to back and queued, the plain versions', the bound,
+    and SDPA beside the attention;
 18. the ORCA model (configs/desta25_llama31-8B_ORCAHybrid.yaml: 2-layer
     global Q-Former, 64 global tokens, local branch, injection in all 32
     layers), sharing the model's int8 encoder and int8 LLM, connector and
@@ -117,13 +128,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     beside the layer loop's; then ``speculative_k=4`` on the float stack
     must fall back to that loop (no verify launch, the same ids); then
     ``apply_orca_xattn_quant()``;
-19. ``generate()`` at b2 and b1, greedy, 32 new tokens: K8i, K8-int8, K7,
-    W8A8, K2 and K4 must launch; the b2 path step by step as in 8 (the
+19. ``generate()`` at b2 and b1, greedy, 32 new tokens: K8i (its
+    attention and gate counted by their own names), K8-int8, K7, W8A8, K2
+    and K4 must launch, no shape may take a torch path (as in 11 and 15,
+    K8i included); the b2 path step by step as in 8 (the
     prefill through the PyTorch injection hook, the decode step through
     K8i); the b2 call both ways, as in 9b, K8i inside the graph;
 20. ``generate(speculative_k=4)`` at b2: the verify step with injection
     must launch; its first step's position-0 logits against one K8i decode
-    step on the same cache, within TOL_DECODE;
+    step on the same cache, within TOL_DECODE, the hidden states bit for
+    bit;
 20a. the all-reduce of tensor-parallel partial sums (``tp_allreduce``,
     ``csrc/tp_allreduce.cu``) alone, at p = 2 and 4 virtual ranks of the
     card and R = 2 and 8 rows of D = 4096: every rank's int8 peer-store GEMM
@@ -214,7 +228,8 @@ a real FFT's and the nonzero filterbank entries', not its dense products),
 counted from this run's inputs) and, where one PyTorch call
 computes the same function, that call's time (``library_ms``; K2 and K11
 against ``scaled_dot_product_attention``; the decode attention against SDPA
-over its cached keys alone, as information), else null.
+over its cached keys alone, K8i's attention against SDPA over the same q
+and audio K/V, both as information), else null.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -254,6 +269,13 @@ TOL_W8A8 = 1e-3      # K4-K6 alone: the int32 sums are exact and the f32
                      # lands at ~1.5e-2 (~2e-1 on the skewed case)
 TOL_DECODE = 3e-2    # K8, K8-int8, K8v: the bound of
                      # tests/test_fused_decode.py:77
+TOL_INJECT = 1e-2    # K8i's attention and gate alone: bf16 outputs of f32
+                     # sums in another order than torch's (the attention
+                     # folds its key ranges' (max, sum) pairs), so a bf16
+                     # rounding of P or of the gated term may flip; the
+                     # attention read <= 8.7e-4, the gate's term 0, and
+                     # the attention without one tile of 8 keys reads
+                     # above it
 TOL_QMM = 1e-3       # K7 and the LLM's W8A8 GEMM, both in f32: W8A8's int32
                      # sums are exact and its epilogue runs in the plain
                      # version's order; K7's f32 sums differ only in order
@@ -338,6 +360,14 @@ SOURCES = {
     "fused_decode_inject": (
         "desta25_audio_tpu_torch/csrc/fused_inject.cu",
         "desta25_audio_tpu/ops/fused_decode.py:731"),
+    # K8i's two kernels of csrc/fused_inject.cu (launches: their kernel
+    # counts in the ORCA runs of phases 19-20)
+    "inject_attention": (
+        "desta25_audio_tpu_torch/csrc/fused_inject.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:755"),
+    "inject_gate": (
+        "desta25_audio_tpu_torch/csrc/fused_inject.cu",
+        "desta25_audio_tpu/ops/fused_decode.py:805"),
     "flash_attention": (
         "desta25_audio_tpu_torch/csrc/flash_attention.cu",
         "desta25_audio_tpu/ops/attention.py:60"),
@@ -386,6 +416,8 @@ INT8_LLM_KERNELS = ("quant_matmul", "w8a8_matmul", "fused_decode_layers_int8")
 ORCA_PATH = ("fused_decode_inject", "fused_decode_layers_int8",
              "quant_matmul", "w8a8_matmul", "packed_encoder_attention",
              "encoder_ffn_w8a8", "log_mel")
+# K8i's attention and gate, counted by their own names (phases 19-20)
+INJECT_KERNELS = ("inject_attention", "inject_gate")
 # the per-layer pair K9 (phase 18, opt-in float-stack ORCA decode)
 K9_HALVES = ("fused_decode_tp_attn", "fused_decode_tp_mlp")
 # what generate() under a (1, 2) mesh must launch (phase 20c)
@@ -2181,13 +2213,18 @@ def check_verify_position0(model, convs, drafts) -> float:
         return tllm.head_logits(llm, rms_norm(llm["norm"], h,
                                               cfg.rms_norm_eps))
     err, rel = rel_err(head(hv[:, :1]), head(hd))
+    bits = torch.equal(hv[:, :1], hd)
     what = "K8v" if spec is None else "K8v with K8i"
     print(f"{what} position 0 vs one {'K8-int8' if spec is None else 'K8i'} "
           f"step on the same cache (b2, T={T}, Kd={kd}): max_abs_err="
-          f"{err:.3e} rel={rel:.3e} (tol {TOL_DECODE})", flush=True)
+          f"{err:.3e} rel={rel:.3e} (tol {TOL_DECODE}); hidden states "
+          f"bit-identical: {bits}", flush=True)
     if rel > TOL_DECODE:
         raise AssertionError(f"{what} position 0 disagrees with the decode "
                              f"step: {rel}")
+    if spec is not None and not bits:
+        raise AssertionError(f"{what} position 0 is not the decode step's "
+                             "bits (the attention plans must not read Kd)")
     return err
 
 
@@ -2313,12 +2350,173 @@ def inject_spec(cfg, gen, B: int, ta: int):
                 on=torch.ones(B, dtype=torch.float32, device="cuda"))
 
 
+def check_inject_kernels(gen):
+    """17 (K8i's two kernels alone).  The injection attention
+    (``inject_attention``, csrc/fused_inject.cu: keys split across a
+    thread-block cluster, the range's K and V loaded before the PDL wait)
+    against ``inject_attention_plain`` at Ta=375: Llama-3.1-8B's 32 heads of
+    128 at b2 and b1 decode and the b2 verify (Kd=4), Qwen3-4B's 32 heads
+    of 80 at b2 decode and verify; the gate (``inject_gate``) against
+    ``inject_gate_plain`` at R = 2 and 8 rows of D = 4096 and 2 of 2560, on
+    the term it adds to h (out - h).  Each within TOL_INJECT, two
+    launches' bits equal; the attention beside a control (the plain
+    version without one tile of 8 keys, the last of the first range) that
+    must read above the gate, its verify rows' token 0 the decode launch's
+    bits, its C-side plan the planner's.  Times at the b2 decode shape (R = 2):
+    back-to-back CUDA events (the kernels line) and queued behind a sleep
+    kernel, the plain versions', the bound and, for the attention,
+    ``scaled_dot_product_attention`` over the same q and audio K/V (no
+    bf16 product rounding: a yardstick only).  Returns the JSON rows (err, ms, plain_ms, bound_ms, bound_by,
+    library_ms) of the attention and the gate."""
+    import ctypes
+    import torch
+    import torch.nn.functional as F
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.ops.fused_decode import (
+        inject_attention, inject_attention_plain, inject_attention_smem,
+        inject_gate, inject_gate_plain, plan_inject_splits)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = _build.library()
+    rows, errs = {}, {"inject_attention": [], "inject_gate": []}
+    Ta = 375
+    for label, B, kd, D, H in (("b2 decode", 2, 1, 4096, 32),
+                               ("b1 decode", 1, 1, 4096, 32),
+                               ("b2 verify", 2, 4, 4096, 32),
+                               ("Qwen3-4B b2 decode", 2, 1, 2560, 32),
+                               ("Qwen3-4B b2 verify", 2, 4, 2560, 32)):
+        dh = D // H
+        bounds = plan_inject_splits(B, H, Ta, dh, n_sm)
+        plan = (ctypes.c_int * 4)()
+        _build.check(lib.desta_inject_attention_plan(
+            B, kd, Ta, D, H, ctypes.addressof(plan)),
+            "desta_inject_attention_plan")
+        keys = -(-(bounds[1] - bounds[0]) // 8) * 8     # whole tiles
+        want_plan = (len(bounds) - 1, keys)
+        if (tuple(plan)[:2] != want_plan or plan[2] != inject_attention_smem(
+                kd, dh, keys, bool(plan[3]))):
+            raise AssertionError(f"injection attention plan {tuple(plan)} "
+                                 f"vs the planner's {want_plan} at {label}")
+        iq = (torch.randn(B * kd, D, generator=gen, device="cuda") * 2
+              ).to(torch.bfloat16)
+        kv = torch.randn(2, B, Ta, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        ka, va = kv[0], kv[1]
+        _build.reset_launch_counts()
+        got = inject_attention(iq, ka, va, Ta, H)
+        again = inject_attention(iq, ka, va, Ta, H)
+        torch.cuda.synchronize()
+        if _build.launch_counts() != {"inject_attention": 2}:
+            raise AssertionError(f"inject_attention launches "
+                                 f"{_build.launch_counts()}")
+        want = inject_attention_plain(iq, ka, va, H, kd)
+        err, rel = rel_err(got, want)
+        keep = torch.cat([torch.arange(bounds[1] - 8, device="cuda"),
+                          torch.arange(bounds[1], Ta, device="cuda")])
+        _, ctrl = rel_err(inject_attention_plain(
+            iq, ka[:, keep], va[:, keep], H, kd), want)
+        bits = torch.equal(got, again)
+        tok0 = True
+        if kd > 1:
+            one = inject_attention(iq.view(B, kd, D)[:, 0].contiguous(), ka,
+                                   va, Ta, H)
+            tok0 = torch.equal(got.view(B, kd, D)[:, 0], one)
+        print(f"inject_attention [{label}] B={B} Kd={kd} Ta={Ta} heads={H} "
+              f"dh={dh}: {len(bounds) - 1} key ranges of {keys} "
+              f"({'in shared memory' if plan[3] else 'from global memory'}),"
+              f" {B * H * (len(bounds) - 1)} CTAs, {plan[2]} bytes of shared"
+              f" memory; max_abs_err={err:.3e} rel={rel:.3e} (tol "
+              f"{TOL_INJECT}); control, keys {bounds[1] - 8}-"
+              f"{bounds[1] - 1} dropped: rel={ctrl:.3e} "
+              f"(must exceed {TOL_INJECT}); two launches bit-identical: "
+              f"{bits}; token 0 the decode launch's bits: {tok0}",
+              flush=True)
+        if rel > TOL_INJECT or not ctrl > TOL_INJECT or not bits or not tok0:
+            raise AssertionError(f"inject_attention [{label}] failed its "
+                                 "gates")
+        errs["inject_attention"].append(err)
+        if label != "b2 decode":
+            continue
+        q4 = iq.view(B, kd, H, dh).transpose(1, 2)
+        k4 = ka.view(B, Ta, H, dh).transpose(1, 2)
+        v4 = va.view(B, Ta, H, dh).transpose(1, 2)
+        kern = lambda: inject_attention(iq, ka, va, Ta, H)  # noqa: E731
+        plain = lambda: inject_attention_plain(  # noqa: E731
+            iq, ka, va, H, kd)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, k4, v4)
+        ms, plain_ms, lib_ms = (cuda_time_ms(f) for f in (kern, plain, sdpa))
+        q_ms, q_plain, q_lib = (cuda_time_ms(f, iters=n, queued=True)
+                                for f, n in ((kern, 50), (plain, 10),
+                                             (sdpa, 50)))
+        nbytes = 2 * B * Ta * D * 2 + 2 * B * kd * D * 2
+        b_ms, b_by = bound(nbytes, 4 * Ta * D * B * kd, "f32")
+        print(f"inject_attention [{label}] times ({gpu_line()}): kernel "
+              f"{ms:.4f} ms back to back, {q_ms:.4f} queued "
+              f"({nbytes / q_ms / 1e6:.1f} GB/s, {b_ms / q_ms:.3f} of the "
+              f"bound); plain {plain_ms:.4f} ({q_plain:.4f} queued); "
+              f"scaled_dot_product_attention {lib_ms:.4f} ({q_lib:.4f} "
+              f"queued); bound {b_ms:.5f} ms ({b_by}: {nbytes} bytes)",
+              flush=True)
+        rows["inject_attention"] = (err, ms, plain_ms, b_ms, b_by, lib_ms)
+
+    for label, R, kd, D in (("b2 decode", 2, 1, 4096),
+                            ("b2 verify", 8, 4, 4096),
+                            ("Qwen3-4B b2 decode", 2, 1, 2560)):
+        Dg = D // 4
+        f = lambda *sh: torch.randn(*sh, generator=gen,  # noqa: E731
+                                    device="cuda")
+        h, ig = f(R, D).to(torch.bfloat16), (f(R, Dg) * 0.5).to(
+            torch.bfloat16)
+        iao = (f(R, D) * 3 + 1).to(torch.bfloat16)
+        wg2, bg2, lns, lnb = f(Dg) * 0.2, f(1) * 0.1, 1 + 0.1 * f(D), \
+            0.1 * f(D)
+        on = torch.ones(R // kd, device="cuda")
+        on[-1] = 0.0
+        args = (ig, iao, wg2, bg2, lns, lnb, on, kd)
+        _build.reset_launch_counts()
+        got, again = (inject_gate(h, *args) for _ in range(2))
+        torch.cuda.synchronize()
+        if _build.launch_counts() != {"inject_gate": 2}:
+            raise AssertionError(f"inject_gate launches "
+                                 f"{_build.launch_counts()}")
+        want = inject_gate_plain(h, *args)
+        err, rel = rel_err(got.float() - h.float(), want.float() - h.float())
+        bits = torch.equal(got, again)
+        off = torch.equal(got[-kd:], h[-kd:])
+        print(f"inject_gate [{label}] R={R} Kd={kd} D={D} Dg={Dg}: "
+              f"the added term's max_abs_err={err:.3e} rel={rel:.3e} (tol "
+              f"{TOL_INJECT}); two "
+              f"launches bit-identical: {bits}; the on = 0 row keeps h's "
+              f"bits: {off}", flush=True)
+        if rel > TOL_INJECT or not bits or not off:
+            raise AssertionError(f"inject_gate [{label}] failed its gates")
+        errs["inject_gate"].append(err)
+        if label != "b2 decode":
+            continue
+        kern = lambda: inject_gate(h, *args)  # noqa: E731
+        plain = lambda: inject_gate_plain(h, *args)  # noqa: E731
+        ms, plain_ms = cuda_time_ms(kern), cuda_time_ms(plain)
+        q_ms = cuda_time_ms(kern, iters=50, queued=True)
+        q_plain = cuda_time_ms(plain, iters=10, queued=True)
+        nbytes = (R * Dg * 2 + R * D * 2 + 2 * R * D * 2 + Dg * 4 + 4
+                  + 2 * D * 4 + (R // kd) * 4)
+        b_ms, b_by = bound(nbytes, R * (2 * Dg + 10 * D), "f32")
+        print(f"inject_gate [{label}] times ({gpu_line()}): kernel "
+              f"{ms:.4f} ms back to back, {q_ms:.4f} queued; "
+              f"plain {plain_ms:.4f} ({q_plain:.4f} queued); bound "
+              f"{b_ms:.6f} ms ({b_by}: {nbytes} bytes)", flush=True)
+        rows["inject_gate"] = (err, ms, plain_ms, b_ms, b_by, None)
+    return tuple((max(errs[k]),) + rows[k][1:] for k in errs)
+
+
 def check_fused_inject(model, gen):
     """Phase 17: K8i against its plain version, gated as K8, on the model's
     int8 Llama-3.1-8B tower (32 layers, injection head dim 128) and on a
     2-layer int8 Qwen3-4B tower (D=2560, H=32: head dim 80), each at Kd=1
-    and Kd=4 with Ta=375 audio tokens.  Returns (worst error of the four,
-    then the Llama Kd=1 step's ms, plain_ms, bound_ms, bound_by)."""
+    and Kd=4 with Ta=375 audio tokens; then its two kernels alone
+    (:func:`check_inject_kernels`).  Returns the JSON rows of K8i (worst
+    error of the four, then the Llama Kd=1 step's ms, plain_ms, bound_ms,
+    bound_by), of its attention and of its gate."""
     import torch
     from desta25_audio_tpu_torch.config import llm_config_for
     from desta25_audio_tpu_torch.models import llm as tllm
@@ -2341,13 +2539,15 @@ def check_fused_inject(model, gen):
                                tag="K8i Qwen3-4B", inject=spec4)]
     del q4, spec4
     torch.cuda.empty_cache()
-    return (max(r[0] for r in llama + qwen),) + llama[0][1:]
+    return ((max(r[0] for r in llama + qwen),) + llama[0][1:],
+            *check_inject_kernels(gen))
 
 
 def run_orca(model, convs, gpu):
     """Phases 18-20: the ORCA model on the card, sharing the model's int8
-    encoder and int8 LLM.  Returns (K8i's launches over phases 19-20, the
-    launch counts of phase 18's opt-in K9 run)."""
+    encoder and int8 LLM.  Returns (K8i's launches over phases 19-20, its
+    two kernels' counts there, the launch counts of phase 18's opt-in K9
+    run)."""
     import torch
     from desta25_audio_tpu_torch import DeSTA25AudioModel
     from desta25_audio_tpu_torch.ops import fused_decode_tp
@@ -2377,6 +2577,13 @@ def run_orca(model, convs, gpu):
           f"LLM ({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
           flush=True)
     runs = {2: convs[:2], 1: convs[2]}
+    inj_kernels = dict.fromkeys(INJECT_KERNELS, 0)
+
+    def add_kernels(counts):
+        for name in INJECT_KERNELS:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"ORCA: {name} was not launched")
+            inj_kernels[name] += counts[name]
     _, _, aux, _, _ = orca._run_generation_phases(runs[2], {})
     D = orca.llm_cfg.hidden_size
     if (tuple(aux[0].shape) != (2, ocfg.orca_global_num_tokens, D)
@@ -2467,7 +2674,9 @@ def run_orca(model, convs, gpu):
                 raise AssertionError(f"ORCA b{b}: {name} was not launched")
         if counts.get("fused_decode_layers", 0):
             raise AssertionError("ORCA: the bf16 K8 was launched")
+        require_kernel_paths(f"ORCA b{b}")
         launched += counts["fused_decode_inject"]
+        add_kernels(_build.kernel_counts())
     check_outputs(orca, [(outs[b], b) for b in runs])
     check_step_by_step(orca, runs[2], outs[2])
     print(f"ORCA generated ids b2 row0[:8]={outs[2].generated_ids[0][:8]} "
@@ -2491,7 +2700,9 @@ def run_orca(model, convs, gpu):
     for name in ("fused_verify_layers", "fused_decode_inject", "log_mel"):
         if counts.get(name, 0) <= 0:
             raise AssertionError(f"ORCA speculative b2: {name} not launched")
+    require_kernel_paths("ORCA speculative b2")
     launched += counts["fused_decode_inject"]
+    add_kernels(_build.kernel_counts())
     check_outputs(orca, [(spec, 2)])
     check_verify_position0(
         orca, runs[2],
@@ -2508,7 +2719,7 @@ def run_orca(model, convs, gpu):
           f"(plain greedy: {times[2]['decode_ms'] / max(plain_tokens, 1):.3f}"
           f"); leading ids equal to the plain greedy run (information): "
           f"{agree} of 32", flush=True)
-    return launched, k9_counts
+    return launched, inj_kernels, k9_counts
 
 
 def phase_mesh(p: int, cards: bool, n_data: int = 1):
@@ -3475,8 +3686,10 @@ def main() -> int:
             model, convs, gpu)
 
         # -- 17. K8i vs plain; 18-20. ORCA generate() ------------------------
-        k8i = check_fused_inject(model, torch.Generator("cuda").manual_seed(4))
-        inject_launches, k9_launches = run_orca(model, convs, gpu)
+        k8i, k8i_attn, k8i_gate = check_fused_inject(
+            model, torch.Generator("cuda").manual_seed(4))
+        inject_launches, inject_kernels, k9_launches = run_orca(model, convs,
+                                                               gpu)
 
         # -- 20a-20c. tensor-parallel decode on virtual ranks of the card ----
         mesh_rows, mesh_launches = run_mesh(model, convs, gpu)
@@ -3503,7 +3716,10 @@ def main() -> int:
     # error of M=1500/3000, the M=3000 times; K7: the worst error, the M=2
     # head times; W8A8 (LLM): the worst error, one layer's four shapes at
     # M=250; K8-int8 and K8v (int8 tower; error the worse of both towers):
-    # as K8; K8i: the worst of its four checks, the Llama Kd=1 step times.
+    # as K8; K8i: the worst of its four checks, the Llama Kd=1 step times;
+    # its attention and gate: the worst error of their shapes, the b2
+    # decode times (the attention's library_ms: SDPA over the same q and
+    # audio K/V), their kernel counts in the ORCA runs of phases 19-20.
     # Launches: K2, K3, K8 from the bf16 generate() run, K4-K6 from the
     # int8-encoder runs, K7, W8A8 and K8-int8 from the int8-LLM runs, K8v
     # from the speculative run, K8i from the ORCA runs of phases 19-20; K11
@@ -3520,7 +3736,8 @@ def main() -> int:
     measured = {"packed_encoder_attention":
                 (max(k2[0][0], k2[1][0]),) + k2[0][1:],
                 "encoder_ffn": k3, "fused_decode_layers": k8, **w8, **llm8,
-                "fused_decode_inject": k8i, **k11, "log_mel": k1, **k9,
+                "fused_decode_inject": k8i, "inject_attention": k8i_attn,
+                "inject_gate": k8i_gate, **k11, "log_mel": k1, **k9,
                 **mesh_rows, "decode_attention": k8_attn,
                 "skinny_gemm": k_gemm, "rms_norm": k_rms}
     kernels = []
@@ -3531,6 +3748,7 @@ def main() -> int:
                   else spec_launches if name == "fused_verify_layers"
                   else {name: inject_launches}
                   if name == "fused_decode_inject"
+                  else inject_kernels if name in INJECT_KERNELS
                   else train_launches if name in train_launches
                   else k9_launches if name in K9_HALVES
                   else mesh_launches if name in mesh_rows

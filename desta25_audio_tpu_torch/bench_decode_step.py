@@ -1,8 +1,8 @@
-"""Device time of one LLM decode step (K8 and K8-int8) on one GPU, launched
-eagerly and as the replay of one CUDA graph.
+"""Device time of one LLM decode step (K8 and K8-int8, and with ``--orca``
+K8i) on one GPU, launched eagerly and as the replay of one CUDA graph.
 
     python -m desta25_audio_tpu_torch.bench_decode_step [--root DIR] \
-        [--json PATH]
+        [--orca] [--json PATH]
 
 Builds Llama-3.1-8B's LLM at full width and depth (32 layers) with random
 weights from a seed, in bf16 and quantized to int8 (``quantize_llm_params``),
@@ -18,7 +18,12 @@ tensor, as ``generate/graph.py`` holds it).  Prints the card's name and
 power limit first, each time beside the step's bound (every layer weight,
 scale and norm read once, the cached keys and values below each row's
 index read once, over 3.35 TB/s); ``--json`` writes the readings.  Needs
-CUDA.
+CUDA.  ``--orca`` times the int8 step alone, then with the in-kernel ORCA
+injection (a random int8 cross-attention stack for all 32 layers, random
+audio K/V of Ta = 375 tokens, every row injecting) at Kd = 1 (the decode
+step) and Kd = 4 (the verify step, the rows writing at 100 and 252), each
+eager and as a graph's replay; the bound adds the stack's leaves and the
+audio K/V read once.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import importlib
 import json
 import subprocess
 import sys
+import types
 
 import torch
 
@@ -60,6 +66,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None,
                     help="checkout whose desta25_audio_tpu_torch to time")
+    ap.add_argument("--orca", action="store_true",
+                    help="the int8 step with and without the injection")
     ap.add_argument("--json", default=None, help="write the readings here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -93,7 +101,10 @@ def main() -> None:
             0, 512, (B, 1), generator=gen, device="cuda"))
         kvd = cfg.num_key_value_heads * cfg.head_dim
         kv_bytes = cfg.num_hidden_layers * sum(CI) * kvd * 2 * 2
-        for tower in ("bf16", "int8"):
+        if args.orca:
+            readings = _orca(cfg, params, cache, mask, x, gen, kv_bytes, gpu,
+                             tllm, fd, quant, pkg)
+        for tower in () if args.orca else ("bf16", "int8"):
             if tower == "int8":
                 params = quant.quantize_llm_params(params)
                 torch.cuda.empty_cache()
@@ -118,6 +129,56 @@ def main() -> None:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(readings, f, indent=1)
+
+
+def _orca(cfg, params, cache, mask, x, gen, kv_bytes, gpu, tllm, fd, quant,
+          pkg):
+    """The int8 step alone, then with the injection at Kd = 1 and 4."""
+    orca = importlib.import_module(f"{pkg}.models.orca")
+    ta, L, D = 375, cfg.num_hidden_layers, cfg.hidden_size
+    params = quant.quantize_llm_params(params)
+    stack = orca.init_orca_cross_attns(
+        types.SimpleNamespace(llm_config=cfg, orca_gate_init=0.1),
+        torch.bfloat16, "cuda", gen)
+    stack["layers"]["gate2"]["w"].normal_(0.0, 0.2, generator=gen)
+    stack = quant.quantize_orca_cross_attns(stack)
+    torch.cuda.empty_cache()
+    kv = torch.randn(2, L, B, ta, D, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    spec = dict(params=stack, k=kv[0], v=kv[1], ta_real=ta,
+                heads=cfg.num_attention_heads,
+                on=torch.ones(B, dtype=torch.float32, device="cuda"))
+    il = stack["layers"]
+    inj_bytes = (sum(_tree_bytes(il[k]) for k in ("q", "o", "gate1",
+                                                  "gate2", "ln"))
+                 + kv[0].numel() * 2 * 2)
+    readings = []
+    for label, kd, ci_rows, inject in (("int8", 1, CI, None),
+                                       ("K8i Kd=1", 1, CI, spec),
+                                       ("K8i Kd=4", 4, (100, 252), spec)):
+        ci = torch.tensor(ci_rows, device="cuda")
+        xs = x.expand(B, kd, D).contiguous()
+        pos = ci[:, None] + torch.arange(kd, device="cuda")[None, :]
+        fn = fd.fused_decode_layers if kd == 1 else fd.fused_verify_layers
+
+        def step():
+            fn(params, cfg, xs, mask, pos, cache, ci, inject=inject)
+        eager = _queued_ms(step, iters=3)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        replay = _queued_ms(graph.replay)
+        del graph
+        bound = (_tree_bytes(params["layers"]) + kv_bytes
+                 + (inj_bytes if inject else 0)) / HBM * 1e3
+        readings.append(dict(tower=label, eager_ms=eager, graph_ms=replay,
+                             bound_ms=bound, gpu=gpu))
+        print(f"decode step [{label}] L={L} B={B} S={S} ci={list(ci_rows)}"
+              f"{f' Ta={ta}' if inject else ''}: eager {eager:.4f} ms "
+              f"queued, graph replay {replay:.4f} ms queued, bound "
+              f"{bound:.4f} ms ({bound / replay:.3f} of it as a graph)",
+              flush=True)
+    return readings
 
 
 if __name__ == "__main__":

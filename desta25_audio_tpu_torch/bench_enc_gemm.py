@@ -2,8 +2,8 @@
 the int8 LLM's W8A8 prefill at the model shapes, on one GPU.
 
     python -m desta25_audio_tpu_torch.bench_enc_gemm [--root DIR]
-        [--rows 1500,3000,6000] [--prefill-rows 250,296] [--json PATH]
-        [--sweep]
+        [--rows 1500,3000,6000] [--prefill-rows 250,296] [--k7-rows 121]
+        [--json PATH] [--sweep]
 
 Calls the Python wrappers (``ops/enc_ffn``, ``ops/w8a8_proj``, ``ops/qmm``)
 of the package found under ``--root`` (default: this checkout), so that the
@@ -13,7 +13,9 @@ arguments, beside this one's (unpack it with ``git archive`` under
 (K3) and W8A8 (K4), its int8 q/k/v (K5) and o (K6) projections at M = B *
 1500 rows, and Llama-3.1-8B's four layer GEMMs (wqkv 6144 x 4096, wo 4096
 x 4096, gate/up 28672 x 4096, down 4096 x 14336) through the W8A8 prefill
-at the b2 prompt's rows.  Inputs are random from a seed.  Each time is the
+at the b2 prompt's rows and, with ``--k7-rows``, through K7 (``qmm``,
+``csrc/qmm.cu``'s mma path between 17 and 127 rows; the b1 prompt's 121)
+with bf16 outputs, bound as bf16 operations.  Inputs are random from a seed.  Each time is the
 mean of ITERS calls queued behind a sleep kernel (the card's time, not the
 Python launch path's), printed with its rate and the bound (the larger of
 the bytes, each input read and each output written once, over 3.35 TB/s
@@ -89,7 +91,7 @@ def _leaf(gen, n, k, quant, bias=True):
     return quant.quantize_linear(p)
 
 
-def cases(pkg, gen, rows, prefill_rows):
+def cases(pkg, gen, rows, prefill_rows, k7_rows=()):
     """(label, fn, bytes, operations, kind) per reading."""
     ffn = importlib.import_module(pkg + ".ops.enc_ffn")
     proj = importlib.import_module(pkg + ".ops.w8a8_proj")
@@ -131,6 +133,16 @@ def cases(pkg, gen, rows, prefill_rows):
                 lambda x=x, leaf=leaf: qmm.w8a8_matmul(
                     x, leaf["q"], leaf["s"], torch.bfloat16),
                 M * K * 2 + N * K + N * 4 + M * N * 2, 2 * M * N * K, "int8"))
+    for M in k7_rows:
+        for name, N, K in LLAMA:
+            leaf = quant.quantize_weight(
+                torch.randn(N, K, generator=gen, device="cuda") / K ** 0.5)
+            x = torch.randn(M, K, generator=gen, device="cuda").to(bf)
+            out.append((
+                f"K7 qmm {name} M={M}",
+                lambda x=x, leaf=leaf: qmm.qmm(
+                    x, leaf["q"], leaf["s"], torch.bfloat16),
+                M * K * 2 + N * K + N * 4 + M * N * 2, 2 * M * N * K, "bf16"))
     return out
 
 
@@ -226,6 +238,7 @@ def main() -> None:
                     help="checkout whose desta25_audio_tpu_torch to time")
     ap.add_argument("--rows", default="1500,3000,6000")
     ap.add_argument("--prefill-rows", default="250,296")
+    ap.add_argument("--k7-rows", default="")
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--json", default=None, help="write the readings here")
     args = ap.parse_args()
@@ -247,10 +260,11 @@ def main() -> None:
     gen = torch.Generator("cuda").manual_seed(0)
     rows = [int(r) for r in args.rows.split(",") if r]
     prefill_rows = [int(r) for r in args.prefill_rows.split(",") if r]
+    k7_rows = [int(r) for r in args.k7_rows.split(",") if r]
     readings = []
     with torch.no_grad():
         for label, fn, nbytes, ops, kind in cases(pkg, gen, rows,
-                                                  prefill_rows):
+                                                  prefill_rows, k7_rows):
             ms = _queued_ms(fn)
             b2b = _queued_ms(fn, queued=False)
             bound = max(nbytes / HBM, ops / PEAK[kind]) * 1e3

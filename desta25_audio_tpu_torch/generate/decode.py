@@ -29,8 +29,11 @@ import torch
 from ..config import LLMConfig
 from ..models import llm as tllm
 from ..models.orca import gated_cross_attention_apply, precompute_cross_kv
+from ..ops import _build
 from ..ops.core import index_tree
-from ..ops.fused_decode import fused_decode_supported, fused_inject_supported
+from ..ops.fused_decode import (fused_decode_supported, fused_inject_supported,
+                                tower_is_int8)
+from ..ops.quant import is_quantized
 from ..ops.rope import fractional_rope_apply
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import ShardedLLM
@@ -139,6 +142,10 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         if fused_inject_supported(params, cfg, inject_params, inject_heads,
                                   spec["ta_real"]):
             fused_spec = spec
+        elif (tower_is_int8(params)
+              and is_quantized(inject_params["layers"].get("q"))):
+            # the int8 stack K8i takes, at a shape its limits refuse
+            _build.count_fallback("fused_decode_inject")
         if timings is not None:
             _sync(dev)
             timings["inject_kv_ms"] = (time.perf_counter() - t0) * 1e3

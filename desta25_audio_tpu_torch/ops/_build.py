@@ -69,6 +69,9 @@ SIGNATURES: Dict[str, Tuple] = {
     # iq, ka, va, out, B, kd, Ta, ta_real, D, heads, scale, stream
     "desta_inject_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                                _P),
+    # B, kd, ta_real, D, heads, out [4]: ranges, keys per range, shared
+    # bytes, resident
+    "desta_inject_attention_plan": (_I,) * 5 + (_P,),
     # h, ig, iao, wg2, bg2, ln scale, ln bias, on, R, kd, D, Dg, stream
     "desta_inject_gate": (_P,) * 8 + (_I, _I, _I, _I, _P),
     # qkv, k_cache, v_cache, cos, sin, mask, mask_stride, ci, q_norm,

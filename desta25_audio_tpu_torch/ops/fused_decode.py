@@ -63,6 +63,14 @@ Each step launch of it is counted in ``_build.kernel_counts()`` as
 (``csrc/skinny_gemm.cuh``, ``ops/skinny_gemm.py``) as ``skinny_gemm``,
 beside the step's own launch counts.  :func:`fused_decode_supported` is the
 models' predicate: where it is false they run their layer loop instead.
+
+The injection's attention (its keys split across a thread-block cluster
+by :func:`plan_inject_splits`) and its gate are launched alone by
+:func:`inject_attention` and :func:`inject_gate`, whose plain versions
+:func:`inject_attention_plain` and :func:`inject_gate_plain` are the
+middle and the end of :func:`_inject_plain`; each step launch of them is
+counted in ``_build.kernel_counts()`` as ``inject_attention`` and
+``inject_gate``.
 """
 
 from __future__ import annotations
@@ -88,9 +96,17 @@ KERNEL_DH = 128
 KERNEL_GROUPS = (1, 2, 4, 8)
 KD_MAX = 8                          # draft tokens per row (the JAX kd <= 8)
 VERIFY_SCORES_BUDGET = 6 * 1024 * 1024   # B*Kd*H*S*4 (JAX _SCORES_BUDGET)
-INJECT_THREADS = 512                # csrc/fused_inject.cu IA_THREADS
 INJECT_DH_MAX = 256                 # injection head dims the kernel takes
 INJECT_LN_EPS = 1e-5
+# csrc/fused_inject.cu: keys per tile of a range, the most CTAs of a
+# cluster, the bytes of K and V a range keeps in shared memory, TMA's most
+# box rows, slots of partial outputs, floats of softmax statistics
+INJECT_KEY_TILE = 8
+INJECT_SPLITS_MAX = 8
+INJECT_KV_BUDGET = 160 * 1024
+INJECT_BOX_MAX = 256
+INJECT_SLOTS = 4
+INJECT_STATS = 280
 _SMEM_LIMIT = 227 * 1024
 # csrc/decode_attention.cuh: keys per TMA tile, ring stages, the most CTAs
 # of a cluster (the portable cluster size)
@@ -241,9 +257,59 @@ def fused_decode_supported(params, cfg, inputs_embeds: torch.Tensor,
         cache.k.dtype, _build.sm_count(inputs_embeds.device))
 
 
-def _inject_groups(dh: int) -> int:
-    """Key groups of the P.V loop of csrc/fused_inject.cu (ia_groups)."""
-    return INJECT_THREADS // (dh // 4)
+def _inject_cap_keys(dh: int) -> int:
+    """The most keys a range of the injection attention keeps in shared
+    memory (``csrc/fused_inject.cu`` ia_cap_keys): its K and V within
+    INJECT_KV_BUDGET, one TMA box of rows, whole tiles."""
+    c = INJECT_KV_BUDGET // (4 * dh) // INJECT_KEY_TILE * INJECT_KEY_TILE
+    return max(INJECT_KEY_TILE, min(c, INJECT_BOX_MAX))
+
+
+def plan_inject_splits(B: int, heads: int, Ta: int, dh: int,
+                       n_sm: int = 132) -> Tuple[int, ...]:
+    """Key boundaries (0, ..., Ta) of the ranges that the CTAs of one
+    cluster of the injection attention (``csrc/fused_inject.cu``, which
+    applies the same rule with the card's SM count) attend apart, for each
+    of the B*heads (batch row, injection head) pairs.  The planner asks for
+    as many ranges as bring the grid to ``n_sm`` CTAs, and at least as many
+    as keep each range's K and V within INJECT_KV_BUDGET; it takes at most
+    INJECT_SPLITS_MAX (and at most one a tile), then evens them out: every
+    range but the last is a whole number of INJECT_KEY_TILE keys, and none
+    is empty.  It reads shapes only, never the number of draft tokens Kd:
+    the verify step sums its token 0 as the decode step does, bit for
+    bit."""
+    if Ta < 1 or B < 1 or heads < 1 or dh < 4:
+        raise ValueError(f"B={B}, heads={heads}, Ta={Ta}, dh={dh}")
+    nt = -(-Ta // INJECT_KEY_TILE)
+    cap = _inject_cap_keys(dh) // INJECT_KEY_TILE
+    want = max(-(-n_sm // (B * heads)), -(-nt // cap))
+    top = min(INJECT_SPLITS_MAX, nt)
+    ns = max(1, min(want, top))
+    while True:
+        tps = -(-nt // ns)
+        eff = -(-nt // tps)
+        if eff >= want or ns >= top:
+            break
+        ns += 1
+    return tuple(i * tps * INJECT_KEY_TILE for i in range(eff)) + (Ta,)
+
+
+def inject_attention_smem(kd: int, dh: int, keys: int,
+                          resident: bool) -> int:
+    """Dynamic shared memory of one CTA of the injection attention
+    (``csrc/fused_inject.cu`` ia_smem) for ranges of ``keys`` keys: 128
+    bytes of alignment; resident (the range's K and V in shared memory): K,
+    which then holds the partial outputs [4 slots, kd, dh] in f32, V and
+    two barriers, each region rounded up to 128 bytes; else the partials
+    alone; then q [kd, dh] in bf16 (rounded up to 16 bytes) and in f32 the
+    scores [kd, keys], the inbox of the ranks' partial outputs (at most
+    kd * (dh + 8)) and INJECT_STATS floats."""
+    up = lambda n, a: -(-n // a) * a  # noqa: E731
+    kv, red = keys * dh * 2, 4 * INJECT_SLOTS * kd * dh
+    b = 128 + (up(max(kv, red), 128) + up(kv, 128) + 16 if resident
+               else red)
+    return (b + up(kd * dh * 2, 16)
+            + 4 * (kd * keys + kd * (dh + 8) + INJECT_STATS))
 
 
 def fused_inject_limits(inject_params, cfg, heads: int, ta: int,
@@ -253,7 +319,9 @@ def fused_inject_limits(inject_params, cfg, heads: int, ta: int,
     the JAX package), one message per broken limit (empty: they take it).
     The stack must hold int8 q/o/gate1 leaves with biases and the
     full-precision gate2 and LayerNorm leaves; ``ta`` audio tokens at ``kd``
-    tokens per row must fit the attention kernel's shared memory."""
+    tokens per row must fit the attention's shared memory at any batch and
+    SM count: its scores, the longest range being all ``ta`` keys read from
+    global memory (one range: a grid that fills the card alone)."""
     layers = (inject_params or {}).get("layers", {})
     bad = [f"{k} is not an int8 leaf with a bias (apply_orca_xattn_quant)"
            for k in ("q", "o", "gate1")
@@ -274,9 +342,11 @@ def fused_inject_limits(inject_params, cfg, heads: int, ta: int,
         bad.append(f"D={D} must be a multiple of 16 (int8 weight loads)")
     if not 1 <= kd <= KD_MAX:
         bad.append(f"{kd} tokens per row (kernel: 1..{KD_MAX})")
+        return bad
     if ta < 1:
-        bad.append(f"{ta} audio tokens")
-    smem = 4 * (kd * dh + kd * ta + _inject_groups(dh) * kd * dh)
+        return bad + [f"{ta} audio tokens"]
+    keys = -(-ta // INJECT_KEY_TILE) * INJECT_KEY_TILE
+    smem = inject_attention_smem(kd, dh, keys, False)
     if smem > _SMEM_LIMIT:
         bad.append(f"{ta} audio tokens at {kd} tokens per row need {smem} "
                    f"bytes of shared memory (limit {_SMEM_LIMIT})")
@@ -307,44 +377,132 @@ def _proj(x: torch.Tensor, w, l: int) -> torch.Tensor:
     return y if s is None else y * s.float()
 
 
+def inject_attention_plain(iq: torch.Tensor, ka: torch.Tensor,
+                           va: torch.Tensor, heads: int, Kd: int
+                           ) -> torch.Tensor:
+    """The injection's cross-attention at the TPU kernel's rounding points
+    (``fused_decode.py:755-788`` of the JAX package), in iq's dtype: iq
+    [B*Kd, D] (row b*Kd + j) against its batch row's keys and values ka,
+    va [B, ta, D] (the attended ones); the k (.) q products rounded before
+    the per-head f32 sum, an f32 softmax, P rounded after normalising, the
+    f32 sum of P v rounded."""
+    dt = iq.dtype
+    R, D = iq.shape
+    B, ta, _ = ka.shape
+    dh = D // heads
+    prod = (ka.float()[:, None] * iq.float().reshape(B, Kd, 1, D)
+            ).to(dt).float()
+    sc = prod.reshape(B, Kd, ta, heads, dh).sum(-1) * dh ** -0.5
+    e = torch.exp(sc - sc.amax(2, keepdim=True))             # [B,Kd,ta,H]
+    p = (e / e.sum(2, keepdim=True)).to(dt).float()
+    return torch.einsum("bjth,bthd->bjhd", p,
+                        va.float().reshape(B, ta, heads, dh)
+                        ).reshape(R, D).to(dt)
+
+
+def inject_gate_plain(h, ig, iao, wg2, bg2, lns, lnb, on, Kd: int
+                      ) -> torch.Tensor:
+    """The injection's gated residual at the TPU kernel's rounding points
+    (``fused_decode.py:805-823``), in h's dtype: gate = sigmoid(ig . wg2 +
+    bg2) and LN(iao) (eps 1e-5, two-pass variance) in f32, h + bf16(on) *
+    bf16(gate * LN) with ``on`` [B] shared by a row's Kd tokens.  h, iao
+    [R, D]; ig [R, Dg]; wg2 [Dg]; bg2 [1]; lns, lnb [D]."""
+    dt = h.dtype
+    gate = torch.sigmoid((ig.float() * wg2.float().reshape(1, -1)
+                          ).sum(-1, keepdim=True)
+                         + bg2.float().reshape(1, 1))          # [R, 1]
+    xo = iao.float()
+    mu = xo.mean(-1, keepdim=True)
+    var = (xo - mu).square().mean(-1, keepdim=True)
+    lno = ((xo - mu) * torch.rsqrt(var + INJECT_LN_EPS) * lns.float()
+           + lnb.float())
+    contrib = (gate * lno).to(dt)
+    on = torch.as_tensor(on, device=h.device).float()
+    on = on.repeat_interleave(Kd).to(dt)[:, None]
+    return h + on * contrib
+
+
 def _inject_plain(h: torch.Tensor, inject, l: int, B: int, Kd: int):
     """Layer l's gated cross-attention on the residual h [R, D] at the TPU
     kernel's rounding points (``fused_decode.py:747-823`` of the JAX
-    package), in h's dtype: the k (.) q products are rounded before the
-    per-head sum, P after the f32 softmax; GELU is the exact erf."""
-    dt, dev = h.dtype, h.device
-    R, D = h.shape
+    package), in h's dtype: the q and gate1 projections, then
+    :func:`inject_attention_plain`, the o projection and
+    :func:`inject_gate_plain`; GELU is the exact erf."""
+    dt = h.dtype
     il = inject["params"]["layers"]
     Hi, ta = int(inject["heads"]), int(inject["ta_real"])
-    dh = D // Hi
 
     def lin(x, key):
         return _proj(x, il[key], l) + il[key]["b"][l].float()
 
     iq = lin(h, "q").to(dt)
-    ka = inject["k"][l, :, :ta].float()                       # [B, ta, D]
-    va = inject["v"][l, :, :ta].float()
-    prod = (ka[:, None] * iq.float().reshape(B, Kd, 1, D)).to(dt).float()
-    sc = prod.reshape(B, Kd, ta, Hi, dh).sum(-1) * dh ** -0.5  # [B,Kd,ta,Hi]
-    e = torch.exp(sc - sc.amax(2, keepdim=True))
-    p = (e / e.sum(2, keepdim=True)).to(dt).float()
-    iat = torch.einsum("bjth,bthd->bjhd", p,
-                       va.reshape(B, ta, Hi, dh)).reshape(R, D).to(dt)
+    iat = inject_attention_plain(iq, inject["k"][l, :, :ta],
+                                 inject["v"][l, :, :ta], Hi, Kd)
     iao = lin(iat, "o").to(dt)
     ig = F.gelu(lin(h, "gate1").to(dt).float()).to(dt)
     g2 = il["gate2"]
-    gate = torch.sigmoid((ig.float() * g2["w"][l].float().reshape(1, -1)
-                          ).sum(-1, keepdim=True)
-                         + g2["b"][l].float().reshape(1, 1))   # [R, 1]
-    xo = iao.float()
-    mu = xo.mean(-1, keepdim=True)
-    var = (xo - mu).square().mean(-1, keepdim=True)
-    lno = ((xo - mu) * torch.rsqrt(var + INJECT_LN_EPS)
-           * il["ln"]["scale"][l].float() + il["ln"]["bias"][l].float())
-    contrib = (gate * lno).to(dt)
-    on = torch.as_tensor(inject["on"], device=dev).float()
-    on = on.repeat_interleave(Kd).to(dt)[:, None]
-    return h + on * contrib
+    return inject_gate_plain(h, ig, iao, g2["w"][l], g2["b"][l],
+                             il["ln"]["scale"][l], il["ln"]["bias"][l],
+                             inject["on"], Kd)
+
+
+def inject_attention(iq: torch.Tensor, ka: torch.Tensor, va: torch.Tensor,
+                     ta_real: int, heads: int) -> torch.Tensor:
+    """:func:`inject_attention_plain`'s function over the first ``ta_real``
+    keys of one layer's audio K/V ka, va [B, Ta, D], for iq [B*Kd, D]: one
+    launch of the attention kernel of ``csrc/fused_inject.cu`` on CUDA
+    tensors (bf16; counted as ``inject_attention``), the plain version on
+    CPU tensors.  The decode and verify steps launch the same kernel from
+    :class:`FusedStep`."""
+    B, Ta, D = ka.shape
+    R = iq.shape[0]
+    if iq.device.type == "cpu":
+        return inject_attention_plain(iq, ka[:, :ta_real], va[:, :ta_real],
+                                      heads, R // B)
+    name = "inject_attention"
+    if (R % B or not 1 <= R // B <= KD_MAX or tuple(iq.shape) != (R, D)
+            or va.shape != ka.shape or not 1 <= ta_real <= Ta
+            or heads <= 0 or D % heads or (D // heads) % 4
+            or D // heads > INJECT_DH_MAX or D % 8):
+        raise ValueError(f"{name}: iq {tuple(iq.shape)}, audio K/V "
+                         f"{tuple(ka.shape)} / {tuple(va.shape)}, ta_real "
+                         f"{ta_real}, {heads} heads")
+    _build.require_cuda(name, iq, ka, va, dtype=torch.bfloat16)
+    out = torch.empty_like(iq)
+    _build.check(_build.library().desta_inject_attention(
+        iq.data_ptr(), ka.data_ptr(), va.data_ptr(), out.data_ptr(), B,
+        R // B, Ta, ta_real, D, heads, (D // heads) ** -0.5,
+        _build.stream_ptr(iq.device)), name)
+    _build.count_launch(name)
+    return out
+
+
+def inject_gate(h, ig, iao, wg2, bg2, lns, lnb, on,
+                Kd: int) -> torch.Tensor:
+    """:func:`inject_gate_plain`'s function: one launch of the gate kernel
+    of ``csrc/fused_inject.cu`` on CUDA tensors (bf16 h, ig, iao; f32 wg2,
+    bg2, lns, lnb, on; counted as ``inject_gate``) into a copy of h, the
+    plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return inject_gate_plain(h, ig, iao, wg2, bg2, lns, lnb, on, Kd)
+    name = "inject_gate"
+    R, D = h.shape
+    Dg = ig.shape[-1]
+    if (iao.shape != h.shape or tuple(ig.shape) != (R, Dg) or R % Kd
+            or tuple(wg2.shape) != (Dg,) or bg2.numel() != 1
+            or tuple(lns.shape) != (D,) or lnb.shape != lns.shape
+            or tuple(on.shape) != (R // Kd,)):
+        raise ValueError(f"{name}: h {tuple(h.shape)}, ig {tuple(ig.shape)},"
+                         f" iao {tuple(iao.shape)}, on {tuple(on.shape)}")
+    _build.require_cuda(name, h, ig, iao, dtype=torch.bfloat16)
+    _build.require_cuda(name, wg2, bg2, lns, lnb, on, dtype=torch.float32)
+    out = h.clone()
+    _build.check(_build.library().desta_inject_gate(
+        out.data_ptr(), ig.data_ptr(), iao.data_ptr(), wg2.data_ptr(),
+        bg2.data_ptr(), lns.data_ptr(), lnb.data_ptr(), on.data_ptr(), R,
+        Kd, D, Dg, _build.stream_ptr(h.device)), name)
+    _build.count_launch(name)
+    return out
 
 
 class PlainStep(NamedTuple):
@@ -647,6 +805,11 @@ class FusedStep:
                             _build.sm_count(inputs_embeds.device))
         if bad:
             raise ValueError(f"{name}: " + "; ".join(bad))
+        if inject is not None:
+            if not int8:
+                raise ValueError(f"{name}: in-kernel injection needs the int8 "
+                                 "tower (the TPU kernel's int8 weight ring)")
+            self.inj = _inject_operands(inject, cfg, name, L, B, Kd)
         lay = params["layers"]
         norms = [lay["ln1"]["scale"], lay["ln2"]["scale"]]
         if cfg.qk_norm:
@@ -680,11 +843,6 @@ class FusedStep:
             _build.require_cuda(name, *ss, dtype=torch.float32)
         _build.require_cuda(name, mask, ci)
         _build.require_cuda(name, cos, sin)
-        if inject is not None:
-            if not int8:
-                raise ValueError(f"{name}: in-kernel injection needs the int8 "
-                                 "tower (the TPU kernel's int8 weight ring)")
-            self.inj = _inject_operands(inject, cfg, name, L, B, Kd)
         self.cfg, self.lay, self.cache, self.name = cfg, lay, cache, name
         self.B, self.Kd, self.R, self.D, self.L = B, Kd, R, D, L
         self.gemm_passes = passes(R)
@@ -776,6 +934,7 @@ class FusedStep:
             inj["v"][l].data_ptr(), self.iat.data_ptr(), self.B, self.Kd,
             inj["k"].shape[2], inj["ta"], D, inj["heads"],
             (D // inj["heads"]) ** -0.5, self.stream), what)
+        _build.count_kernel("inject_attention")
         proj(self.iat, wo, so, bo, self.iao, EPI_BIAS)
         self._launch(self.lib.desta_inject_gate(
             self.h.data_ptr(), self.ig.data_ptr(), self.iao.data_ptr(),
@@ -783,6 +942,7 @@ class FusedStep:
             inj["lns"][l].data_ptr(), inj["lnb"][l].data_ptr(),
             inj["on"].data_ptr(), R, self.Kd, D, inj["Dg"], self.stream),
             what)
+        _build.count_kernel("inject_gate")
 
     def run(self, inject: bool):
         for l in range(self.L):

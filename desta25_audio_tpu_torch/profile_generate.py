@@ -39,7 +39,8 @@ their mean against the profiled device time (the profiler's own host cost
 stretches the profiled walls).  The decode phases add the device time by
 kernel group (``DECODE_GROUPS``: the decode attention, the skinny GEMMs
 (K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 1,
-3>``), RMSNorm, K7's mma path, K8i's injection, the W8A8 prefill, other).
+3>``), RMSNorm, K7's mma path, K8i's attention and gate, the W8A8
+prefill, other).
 Last, the launch counts over the profiled phases and the torch paths taken
 there (``_build.fallback_counts()``: a model shape a kernel's predicate
 refused).
@@ -74,7 +75,8 @@ DECODE_GROUPS = {
     "skinny GEMMs": ("skinny_gemm",),
     "RMSNorm": ("rms_norm",),
     "K7 mma path": ("qmm_",),   # at M <= 16 (the b2 head) K7 is a skinny GEMM
-    "K8i injection": ("inject_",),
+    "K8i attention": ("inject_attention",),
+    "K8i gate": ("inject_gate",),
     # the int8 GEMM of csrc/gemm_sm90.cuh (earlier checkouts: gemm_s8_kernel)
     "W8A8 prefill": ("gemm_kernel<signed char", "gemm_s8", "quant_rows"),
 }

@@ -8,8 +8,10 @@ both of its paths with a ragged last column tile, the LLM's W8A8 GEMM at
 ragged M and, bit for bit, at Llama-3.1-8B's split-K shapes, the int8
 decode step, the verify step at 2/4/8 draft tokens with the block ending
 at the cache's end, the ORCA injection K8i at injection head dims 128 and
-80 and 1 or 4 tokens per row, with a row that does not inject, and the
-requests it refuses; the flash attention K11, forward and backward, at
+80, 1, 4 or 8 tokens per row, 1, 2 or 4 batch rows and 37 or 375 audio
+tokens, with a row that does not inject, the verify step's token 0 against
+the decode step, its attention alone at head dims 20-256 and a range read
+from global memory, its gate alone, and the requests it refuses; the flash attention K11, forward and backward, at
 the training shape, at a T
 that is not a multiple of its tile, bidirectional, with left and right
 padding; the log-mel frontend K1 at 3000, a ragged 300, 37 and 2 frames;
@@ -48,7 +50,14 @@ from desta25_audio_tpu_torch.ops.fused_decode import (
     KVCache,
     fused_decode_layers,
     fused_decode_layers_plain,
+    fused_inject_limits,
     fused_verify_layers,
+    inject_attention,
+    inject_attention_plain,
+    inject_attention_smem,
+    inject_gate,
+    inject_gate_plain,
+    plan_inject_splits,
 )
 from desta25_audio_tpu_torch.ops.qmm import (
     qmm,
@@ -557,20 +566,25 @@ def _inject_spec(gen, cfg, B, ta, on, int8=True):
 
 # K8i against its plain version at the TPU kernel's rounding points, within
 # the decode steps' 3e-2: head dim 128 (Llama-shaped) and 80 (Qwen3-4B's
-# D / H), Ta = 37 (not a multiple of 8), one row that does not inject
-@pytest.mark.parametrize("kd", [1, 4])
+# D / H), Ta = 37 (not a multiple of 8) and 375 (ORCA's), 1, 2 or 4 batch
+# rows (1, 3 or 5 key ranges a head), 1, 4 or 8 tokens a row, one row that
+# does not inject
+@pytest.mark.parametrize("B", [1, 2, 4])
+@pytest.mark.parametrize("ta", [37, 375])
+@pytest.mark.parametrize("kd", [1, 4, 8])
 @pytest.mark.parametrize("D,H", [(512, 4), (640, 8)])
-def test_fused_inject_kernel(gen, kd, D, H):
+def test_fused_inject_kernel(gen, kd, D, H, ta, B):
     cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
                               hidden_size=D, num_attention_heads=H,
                               num_key_value_heads=2, qk_norm=True)
     params = _tower(gen, cfg, int8=True)
-    B, S, ta = 2, 128, 37
-    spec = _inject_spec(gen, cfg, B, ta, [1.0, 0.0])
+    S = 128
+    on = [1.0, 0.0, 1.0, 1.0][:B]
+    spec = _inject_spec(gen, cfg, B, ta, on)
     cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
     cache0.k.normal_(generator=gen)
     cache0.v.normal_(generator=gen)
-    ci = torch.tensor([40, S - kd], device="cuda")
+    ci = torch.tensor([40, S - kd, 7, 100][:B], device="cuda")
     mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.2).int()
     x = tllm.embed_tokens(params, torch.randint(
         0, 512, (B, kd), generator=gen, device="cuda"))
@@ -583,14 +597,146 @@ def test_fused_inject_kernel(gen, kd, D, H):
     L = cfg.num_hidden_layers
     assert _build.launch_counts() == {tower: 7 * L,
                                       "fused_decode_inject": 5 * L}
+    kc = _build.kernel_counts()
+    assert kc["inject_attention"] == kc["inject_gate"] == L
     hp, cp = fused_decode_layers_plain(params, cfg, x, mask, pos, fresh(),
                                        ci, inject=spec)
     assert _rel(hk, hp) < 3e-2
-    assert torch.equal(ck.k != cache0.k, cp.k != cache0.k)
-    # the row with on = 0 is the injection-free step, bit for bit
-    h0, _ = fn(params, cfg, x, mask, pos, fresh(), ci)
-    assert torch.equal(hk[1], h0[1])
-    assert not torch.equal(hk[0], h0[0])
+    # every cache element outside positions ci .. ci + kd - 1 of each row
+    # keeps its old bits in both versions; the written ones agree with the
+    # plain version's within the step's tolerance
+    w = torch.zeros(B, S, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        w[b, int(ci[b]):int(ci[b]) + kd] = True
+    for c in (ck, cp):
+        assert torch.equal(c.k[:, ~w], cache0.k[:, ~w])
+        assert torch.equal(c.v[:, ~w], cache0.v[:, ~w])
+    assert _rel(ck.k[:, w], cp.k[:, w]) < 3e-2
+    assert _rel(ck.v[:, w], cp.v[:, w]) < 3e-2
+    # two launches give the same bits
+    assert torch.equal(fn(params, cfg, x, mask, pos, fresh(), ci,
+                          inject=spec)[0], hk)
+    if B > 1:
+        # the row with on = 0 is the injection-free step, bit for bit
+        h0, _ = fn(params, cfg, x, mask, pos, fresh(), ci)
+        assert torch.equal(hk[1], h0[1])
+        assert not torch.equal(hk[0], h0[0])
+
+
+@pytest.mark.parametrize("kd", [4, 8])
+@pytest.mark.parametrize("B", [1, 2])
+def test_fused_verify_inject_token0_is_the_decode_step(gen, kd, B):
+    """The verify step's token 0 with injection is the K8i decode step's
+    bit for bit: both attentions take a plan that does not read Kd, and
+    the GEMMs and norms work row by row."""
+    cfg = dataclasses.replace(llm_config_for("test/llama-nano128"),
+                              hidden_size=512, num_attention_heads=4,
+                              num_key_value_heads=2, qk_norm=True)
+    params = _tower(gen, cfg, int8=True)
+    S = 128
+    spec = _inject_spec(gen, cfg, B, 375, [1.0] * B)
+    cache0 = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    cache0.k.normal_(generator=gen)
+    cache0.v.normal_(generator=gen)
+    ci = torch.tensor([40, 100][:B], device="cuda")
+    mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
+    x = tllm.embed_tokens(params, torch.randint(
+        0, 512, (B, kd), generator=gen, device="cuda"))
+    pos = ci[:, None] + torch.arange(kd, device="cuda")[None, :]
+    hv, _ = fused_verify_layers(params, cfg, x, mask, pos,
+                                KVCache(cache0.k.clone(), cache0.v.clone()),
+                                ci, inject=spec)
+    hd, _ = fused_decode_layers(params, cfg, x[:, :1], mask, pos[:, :1],
+                                KVCache(cache0.k.clone(), cache0.v.clone()),
+                                ci, inject=spec)
+    assert torch.equal(hv[:, :1], hd)
+
+
+def _inject_attention_inputs(gen, B, kd, Ta, D):
+    iq = (torch.randn(B * kd, D, generator=gen, device="cuda")
+          * 2).bfloat16()
+    kv = torch.randn(2, B, Ta, D, generator=gen, device="cuda").bfloat16()
+    return iq, kv[0], kv[1]
+
+
+# The attention alone against inject_attention_plain.  Its bf16 outputs are
+# f32 sums over at most 375 keys of P rounded to bf16; the kernel folds the
+# ranges' (max, sum) pairs, so a P may round one bf16 ulp apart: within
+# 1e-2 of the output scale.  Head dims 128, 80 (TMA), 20 (8-byte cp.async),
+# 256 (two 4-dim chunks a lane); a range past the shared-memory budget
+# (B=4, Ta=3000: keys read from global memory); ta_real below Ta.
+@pytest.mark.parametrize("B,kd,Ta,ta_real,D,H", [
+    (2, 1, 375, 375, 4096, 32), (1, 1, 375, 375, 4096, 32),
+    (2, 4, 375, 375, 4096, 32), (4, 8, 375, 375, 4096, 32),
+    (2, 1, 375, 375, 2560, 32), (1, 8, 37, 37, 2560, 32),
+    (2, 1, 40, 37, 640, 32), (3, 4, 100, 61, 640, 32),
+    (2, 1, 375, 375, 4096, 16), (1, 8, 200, 199, 4096, 16),
+    (4, 1, 3000, 3000, 4096, 32), (2, 4, 5, 5, 512, 4),
+])
+def test_inject_attention_kernel(gen, B, kd, Ta, ta_real, D, H):
+    iq, ka, va = _inject_attention_inputs(gen, B, kd, Ta, D)
+    _build.reset_launch_counts()
+    got = inject_attention(iq, ka, va, ta_real, H)
+    assert _build.launch_counts() == {"inject_attention": 1}
+    want = inject_attention_plain(iq, ka[:, :ta_real], va[:, :ta_real], H,
+                                  kd)
+    assert _rel(got, want) < 1e-2
+    assert torch.equal(inject_attention(iq, ka, va, ta_real, H), got)
+    if kd > 1:   # token 0 of each row: the decode step's bits
+        one = inject_attention(iq.reshape(B, kd, D)[:, 0].contiguous(), ka,
+                               va, ta_real, H)
+        assert torch.equal(got.reshape(B, kd, D)[:, 0], one)
+
+
+@pytest.mark.parametrize("B,kd,ta,D,H", [
+    (2, 1, 375, 4096, 32), (1, 4, 375, 4096, 32), (4, 8, 375, 2560, 32),
+    (2, 1, 37, 640, 32), (4, 1, 3000, 4096, 32), (1, 1, 5, 512, 4),
+    (16, 1, 375, 4096, 32)])
+def test_inject_attention_plan(gen, B, kd, ta, D, H):
+    """The C side's plan is plan_inject_splits at the card's SM count, its
+    shared memory inject_attention_smem."""
+    out = torch.zeros(4, dtype=torch.int32)
+    _build.check(_build.library().desta_inject_attention_plan(
+        B, kd, ta, D, H, out.data_ptr()), "plan")
+    bounds = plan_inject_splits(B, H, ta, D // H,
+                                _build.sm_count(torch.device("cuda")))
+    ns, keys, smem, resident = out.tolist()
+    tile = 8   # a range's keys in whole tiles (one range: Ta rounded up)
+    assert (ns, keys) == (len(bounds) - 1,
+                          -(-(bounds[1] - bounds[0]) // tile) * tile)
+    assert smem == inject_attention_smem(kd, D // H, keys, bool(resident))
+
+
+def _gate_inputs(gen, R, D):
+    Dg = D // 4
+    f = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa
+    return (f(R, D).bfloat16(), (f(R, Dg) * 0.5).bfloat16(),
+            (f(R, D) * 3 + 1).bfloat16(), f(Dg) * 0.2, f(1) * 0.1,
+            1 + 0.1 * f(D), 0.1 * f(D))
+
+
+# The gate alone against inject_gate_plain, on the term it adds to h: its
+# LayerNorm statistics are f32 sums in another order than torch's, so a
+# bf16 rounding of the gated term may flip: within 1e-2 of that term's
+# scale.  The row with on = 0 keeps h's bits.
+@pytest.mark.parametrize("R,kd,D", [(2, 1, 4096), (8, 4, 4096), (1, 1, 2560),
+                                    (16, 8, 2560), (3, 1, 640),
+                                    (2, 1, 32768)])
+def test_inject_gate_kernel(gen, R, kd, D):
+    h, ig, iao, wg2, bg2, lns, lnb = _gate_inputs(gen, R, D)
+    on = torch.ones(R // kd, device="cuda")
+    off = R // kd > 1    # a batch row that does not inject, where one is left
+    if off:
+        on[0] = 0.0
+    _build.reset_launch_counts()
+    got = inject_gate(h, ig, iao, wg2, bg2, lns, lnb, on, kd)
+    assert _build.launch_counts() == {"inject_gate": 1}
+    want = inject_gate_plain(h, ig, iao, wg2, bg2, lns, lnb, on, kd)
+    assert _rel(got.float() - h.float(), want.float() - h.float()) < 1e-2
+    if off:
+        assert torch.equal(got[:kd], h[:kd])
+    assert torch.equal(inject_gate(h, ig, iao, wg2, bg2, lns, lnb, on, kd),
+                       got)
 
 
 def test_fused_inject_raises_on_what_it_does_not_take(gen):
@@ -612,6 +758,21 @@ def test_fused_inject_raises_on_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="shared memory"):
         big = _inject_spec(gen, cfg, 1, 60000, [1.0])
         fused_decode_layers(params, *args, inject=big)
+    # the longest audio the limits take runs (its key ranges read from
+    # global memory) and matches the plain step
+    ta = 60000
+    while fused_inject_limits(spec["params"], cfg, cfg.num_attention_heads,
+                              ta):
+        ta -= 8
+    edge = _inject_spec(gen, cfg, 1, ta, [1.0])
+    x = tllm.embed_tokens(params, torch.tensor([[3]], device="cuda"))
+    args = (cfg, x, torch.ones(1, 128, device="cuda"),
+            torch.zeros(1, 1, device="cuda").long())
+    hk, _ = fused_decode_layers(params, *args, tllm.init_kv_cache(
+        cfg, 1, 128, torch.bfloat16, "cuda"), 0, inject=edge)
+    hp, _ = fused_decode_layers_plain(params, *args, tllm.init_kv_cache(
+        cfg, 1, 128, torch.bfloat16, "cuda"), 0, inject=edge)
+    assert _rel(hk, hp) < 3e-2
 
 
 # -- K11: flash attention forward and backward ---------------------------------
@@ -1140,6 +1301,8 @@ def test_decode_graph_matches_eager(gen, monkeypatch, kind):
     assert e_k["rms_norm"] == 2 * cfg.num_hidden_layers * steps
     if kind == "k8i":
         assert e_n["fused_decode_inject"] == 5 * cfg.num_hidden_layers * steps
+        assert (e_k["inject_attention"] == e_k["inject_gate"]
+                == cfg.num_hidden_layers * steps)
     assert _build.fallback_counts() == {}
 
 

@@ -14,6 +14,9 @@ runs only under its predicate, XLA otherwise).
   its logits.
 - ``kernel_limits`` plans the decode attention's key ranges at the SM count
   it is given; the skinny GEMM's planner reads the weight's shape only.
+- ``fused_inject_limits`` says "no" exactly where the decode / verify step
+  refuses the in-kernel ORCA injection, and the injection attention's
+  wrapper refuses no shape the limits take.
 """
 
 import dataclasses
@@ -50,6 +53,8 @@ from desta25_audio_tpu_torch.ops.fused_decode import (
     FusedStep,
     KVCache,
     fused_decode_limits,
+    fused_inject_limits,
+    inject_attention,
     kernel_limits,
 )
 from desta25_audio_tpu_torch.ops.w8a8_proj import proj_w8a8, w8a8_proj_supported
@@ -152,6 +157,59 @@ def test_decode_predicate(model_id, B, kd, S, int8):
     bad = fused_decode_limits(params, cfg, torch.bfloat16, B, kd, S)
     assert (not bad) == (why == "")
     assert fused_decode_limits(params, cfg, torch.float32, B, kd, S)
+
+
+def _meta_inject(cfg, B: int, ta: int, heads: int):
+    """An int8 cross-attention stack and audio K/V [L, B, ta, D] on meta
+    tensors: the in-kernel injection spec of ops/fused_decode.py."""
+    L, D = cfg.num_hidden_layers, cfg.hidden_size
+
+    def leaf(n):
+        return {"q": torch.empty(L, n, D, dtype=torch.int8, **META),
+                "s": torch.empty(L, n, **META), "b": torch.empty(L, n, **META)}
+    stack = {"q": leaf(D), "o": leaf(D), "gate1": leaf(D // 4),
+             "gate2": {"w": torch.empty(L, 1, D // 4, **META),
+                       "b": torch.empty(L, 1, **META)},
+             "ln": {"scale": torch.empty(L, D, **META),
+                    "bias": torch.empty(L, D, **META)}}
+    kv = torch.empty(L, B, ta, D, dtype=torch.bfloat16, **META)
+    return dict(params={"layers": stack}, k=kv, v=kv, ta_real=ta,
+                heads=heads, on=torch.empty(B, **META))
+
+
+@pytest.mark.parametrize("model_id,B,kd,ta,heads", [
+    (LLAMA8B, 2, 1, 375, 32), (LLAMA8B, 1, 4, 375, 32),
+    (LLAMA8B, 4, 8, 375, 32), (LLAMA8B, 2, 1, 37, 32),
+    ("Qwen/Qwen3-4B", 2, 1, 375, 32), (LLAMA8B, 2, 1, 375, 12),
+    (LLAMA8B, 2, 1, 375, 8), (LLAMA8B, 1, 1, 60000, 32),
+    (LLAMA8B, 1, 8, 6000, 32), ("test/llama-nano128", 2, 1, 56000, 4),
+    ("test/llama-nano128", 2, 4, 8, 32)])
+def test_inject_predicate(model_id, B, kd, ta, heads):
+    """fused_inject_limits is empty exactly where FusedStep takes the
+    injection (its refusals before the device check), on an int8 tower the
+    step takes; where the limits take the shape, the injection attention's
+    wrapper refuses nothing but the device."""
+    cfg = dataclasses.replace(t_llm_cfg(model_id), num_hidden_layers=1)
+    params = _meta_tower(cfg, True)
+    S = 128
+    KVD = cfg.num_key_value_heads * cfg.head_dim
+    cache = KVCache(*(torch.empty(1, B, S, KVD, dtype=torch.bfloat16, **META)
+                      for _ in range(2)))
+    x = torch.empty(B, kd, cfg.hidden_size, dtype=torch.bfloat16, **META)
+    pos = torch.zeros(B, kd, dtype=torch.long)
+    mask = torch.ones(B, S, dtype=torch.int32)
+    spec = _meta_inject(cfg, B, ta, heads)
+    assert not fused_decode_limits(params, cfg, torch.bfloat16, B, kd, S)
+    why = _refusal(lambda: FusedStep(params, cfg, x, mask, pos, cache, 0,
+                                     "step", inject=spec))
+    bad = fused_inject_limits(spec["params"], cfg, heads, ta, kd)
+    assert (not bad) == (why == "")
+    if not bad:
+        iq = torch.empty(B * kd, cfg.hidden_size, dtype=torch.bfloat16,
+                         **META)
+        assert _refusal(lambda: inject_attention(iq, spec["k"][0],
+                                                 spec["v"][0], ta,
+                                                 heads)) == ""
 
 
 def test_kernel_limits_at_an_sm_count():
