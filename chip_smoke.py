@@ -68,8 +68,15 @@ Phases, in order; any failure exits non-zero and nothing is caught:
 12. print the int8 encoder's per-phase times;
 13. the int8 LLM's kernels against their plain versions, on the model's LLM
     quantized into a second tree (``quantize_llm_params``): K7
-    quant_matmul at M=2 on the head (N=130560) and at M=125 on each layer
-    shape, the W8A8 prefill GEMM at M=250 on each layer shape and the head
+    quant_matmul at M=2 on the head (N=130560, the skinny GEMM) and its
+    wgmma path (``quant_matmul_prefill``) at M=125, 17, 33, 64, 65, 100,
+    121 and 127 on each layer shape (f32 within TOL_QMM, bf16 the f32 sum
+    rounded once, two launches bit-identical, the plain version with one
+    rank's k-range dropped above the gate; its plan equal to the C twin's
+    and its cluster waves to the card's occupancy; the M=121 times over
+    the 32 layers' weights, so each call finds its weight out of the L2,
+    beside ``torch._weight_int8pack_mm``'s), the W8A8 prefill GEMM at
+    M=250 on each layer shape and the head
     and at M=129 and 1500 on each layer shape (both in f32, gated at
     TOL_QMM; W8A8 bit-identical), K8 with the int8 stream (32 layers,
     B=2, S=256, per-row ci) and the verify step K8v (Kd=4, B=2, one row's
@@ -347,6 +354,11 @@ SOURCES = {
     "quant_matmul": (
         "desta25_audio_tpu_torch/csrc/qmm.cu",
         "desta25_audio_tpu/ops/quant.py:63"),
+    # K7's wgmma path (16 < M < 128: the b1 prefill's four layer GEMMs;
+    # launches: its kernel count in phase 15's int8 generate() runs)
+    "quant_matmul_prefill": (
+        "desta25_audio_tpu_torch/csrc/qmm.cu",
+        "desta25_audio_tpu/ops/quant.py:63"),
     # the int8 LLM's prefill at M >= 128: XLA on the TPU, not Pallas
     "w8a8_matmul": (
         "desta25_audio_tpu_torch/csrc/w8a8.cu",
@@ -411,7 +423,8 @@ SOURCES = {
 BF16_PATH = ("log_mel", "packed_encoder_attention", "encoder_ffn",
              "fused_decode_layers")
 W8A8_KERNELS = ("encoder_ffn_w8a8", "qkv_w8a8", "proj_w8a8")
-INT8_LLM_KERNELS = ("quant_matmul", "w8a8_matmul", "fused_decode_layers_int8")
+INT8_LLM_KERNELS = ("quant_matmul", "quant_matmul_prefill", "w8a8_matmul",
+                    "fused_decode_layers_int8")
 # what ORCA generate() with the int8 stack must launch (phase 19)
 ORCA_PATH = ("fused_decode_inject", "fused_decode_layers_int8",
              "quant_matmul", "w8a8_matmul", "packed_encoder_attention",
@@ -2115,23 +2128,72 @@ def check_int8_encoder(model, signals, convs, gpu):
     return total, times
 
 
+def check_qmm_plan() -> None:
+    """K7's wgmma plan: ``plan_qmm`` equal to the C twin's
+    (``desta_qmm_plan``) on this card and at 132 SMs, and its cluster
+    waves (``gemm.cluster_ctas``) to the clusters of 1..8 CTAs of the
+    kernel the card runs at once, on a 132-SM card."""
+    import ctypes
+    from desta25_audio_tpu_torch.ops import _build, gemm
+    from desta25_audio_tpu_torch.ops.qmm import QMM_SPLITS_MAX, plan_qmm
+    lib = _build.library()
+    n_sm = _build.sm_count("cuda")
+    out = (ctypes.c_int * 5)()
+    for M in (17, 64, 65, 121, 128):
+        for N, K in ((6144, 4096), (4096, 4096), (28672, 4096),
+                     (4096, 14336), (130560, 4096), (1000, 512)):
+            for sms in (0, 132):
+                _build.check(lib.desta_qmm_plan(M, N, K, sms, out),
+                             "desta_qmm_plan")
+                p = plan_qmm(M, N, K, sms or n_sm)
+                if tuple(out) != (p.nx, p.splits, p.tps, p.nkt, p.tiles):
+                    raise AssertionError(f"plan_qmm {M, N, K} at {sms} SMs: "
+                                         f"{p}, the card's {tuple(out)}")
+    got = {}
+    for nx in (64, 128):
+        for s in range(1, QMM_SPLITS_MAX + 1):
+            c = ctypes.c_int(-1)
+            _build.check(lib.desta_qmm_max_clusters(nx, s,
+                                                    ctypes.addressof(c)),
+                         "desta_qmm_max_clusters")
+            got[nx, s] = c.value * s
+    want = {k: gemm.cluster_ctas(k[1], n_sm) for k in got}
+    print(f"K7 wgmma plan equal to the C twin's; CTAs in flight by (x "
+          f"width, cluster) ({n_sm} SMs): {got}", flush=True)
+    if n_sm == 132 and got != want:
+        raise AssertionError(f"K7's waves {want}, the card's {got}")
+
+
 def check_int8_matmuls(qllm, gen):
-    """Phase 13a: K7 (quant_matmul) at M=2 on the int8 head and at M=125 on
-    layer 0's four weight shapes, and the W8A8 prefill GEMM at M=250 on the
-    same shapes and the head, and at a ragged M=129 (one 256-row tile, K
-    split across a cluster) and M=1500 (a long prompt's 128-row tiles) on
-    the four layer shapes, each against its plain version in f32 within
-    TOL_QMM, W8A8 bit-identical.  Returns {name: (worst err, ms,
-    plain_ms)}: K7's times are the M=2 head's (every decode step runs it),
-    W8A8's the sum over one layer's four shapes at M=250 (one layer of the
-    b2 prefill)."""
+    """Phase 13a: K7 (quant_matmul) at M=2 on the int8 head (the skinny
+    GEMM) and on its wgmma path at M=125, and at M=17, 33, 64, 65, 100,
+    121 and 127 (inputs from a generator of their own), on layer 0's four
+    weight shapes, and the W8A8 prefill GEMM at M=250 on
+    the same shapes and the head, and at a ragged M=129 (one 256-row tile,
+    K split across a cluster) and M=1500 (a long prompt's 128-row tiles)
+    on the four layer shapes, each against its plain version in f32 within
+    TOL_QMM, W8A8 bit-identical; K7's wgmma path also in bf16 (the f32 sum
+    rounded once), two launches bit-identical, beside the control (the
+    plain version with rank 0's k-range dropped, which must read above
+    TOL_QMM).  Returns {name: (worst err, ms, plain_ms, bound_ms, bound_by,
+    library_ms)}: K7's times are the M=2 head's (every decode step runs
+    it), its wgmma path's the sum over the four shapes at M=121 (one layer
+    of the b1 prefill), each over the 32 layers' weights in turn, W8A8's
+    the sum over one layer's four shapes at M=250 (one layer of the b2
+    prefill)."""
     import torch
-    from desta25_audio_tpu_torch.ops.qmm import (qmm, qmm_plain, w8a8_matmul,
+    from desta25_audio_tpu_torch.ops.qmm import (QMM_K_BYTES, plan_qmm, qmm,
+                                                 qmm_plain, w8a8_matmul,
                                                  w8a8_matmul_plain)
+    from desta25_audio_tpu_torch.bench_enc_gemm import library_k7
+    check_qmm_plan()
+    lib_k7, note = library_k7()
+    print(f"torch._weight_int8pack_mm: {note}", flush=True)
     lay = qllm["layers"]
-    leaves = {k: {"q": lay[k]["q"][0], "s": lay[k]["s"][0]}
-              for k in ("wqkv", "wo", "w_gu", "w_down")}
+    names = ("wqkv", "wo", "w_gu", "w_down")
+    leaves = {k: {"q": lay[k]["q"][0], "s": lay[k]["s"][0]} for k in names}
     leaves["head"] = qllm["lm_head"]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
     def run(tag, kern, plain, M, name):
         leaf = leaves[name]
@@ -2146,26 +2208,117 @@ def check_int8_matmuls(qllm, gen):
         ms = cuda_time_ms(lambda: call(kern))
         q_ms = cuda_time_ms(lambda: call(kern), queued=True)
         plain_ms = cuda_time_ms(lambda: call(plain), iters=3)
+        lib_ms = None
+        if tag == "K7" and lib_k7 is not None:
+            lib_ms = cuda_time_ms(lambda: lib_k7(x, leaf["q"], leaf["s"]),
+                                  iters=3)
         print(f"{tag} {kern.__name__} {name} M={M} N={N} K={K}: max_abs_err="
               f"{err:.3e} rel={rel:.3e} (tol {TOL_QMM})"
               + (f", bit-identical {same}" if tag == "W8A8" else "")
               + f"; kernel {ms:.4f} ms ({q_ms:.4f} queued), plain "
-              f"{plain_ms:.4f} ms", flush=True)
+              f"{plain_ms:.4f} ms"
+              + (f", torch._weight_int8pack_mm {lib_ms:.4f} ms"
+                 if lib_ms is not None else ""), flush=True)
         if rel > TOL_QMM or (tag == "W8A8" and not same):
             raise AssertionError(f"{tag} disagrees on {name} M={M}: {rel}")
         # bf16 x, int8 weight and f32 scales read, f32 out written
         return err, ms, plain_ms, M * K * 2 + N * K + N * 4 + M * N * 4, \
-            2 * M * N * K
+            2 * M * N * K, lib_ms
+
+    # the wgmma path's own inputs: gen's draws stay those of the checks
+    # before this path existed, so the K8 family's inputs after them do too
+    gen_w = torch.Generator("cuda").manual_seed(11)
+
+    def run_wgmma(M, name):
+        """The wgmma path at M rows: correctness on layer 0's weight."""
+        leaf = leaves[name]
+        N, K = leaf["q"].shape
+        x = torch.randn(M, K, generator=gen_w, device="cuda").to(
+            torch.bfloat16)
+        got = qmm(x, leaf["q"], leaf["s"], torch.float32)
+        again = qmm(x, leaf["q"], leaf["s"], torch.float32)
+        got_bf = qmm(x, leaf["q"], leaf["s"], torch.bfloat16)
+        want = qmm_plain(x, leaf["q"], leaf["s"], torch.float32)
+        err, rel = rel_err(got, want)
+        bits = torch.equal(got, again)
+        rounded = torch.equal(got_bf, got.to(torch.bfloat16))
+        p = plan_qmm(M, N, K, n_sm)
+        dropped = x.clone()
+        dropped[:, :p.tps * QMM_K_BYTES] = 0
+        ctl = rel_err(qmm_plain(dropped, leaf["q"], leaf["s"], torch.float32),
+                      want)[1]
+        if M in (17, 121):
+            print(f"K7 wgmma {name} M={M} N={N} K={K} (nx {p.nx}, splits "
+                  f"{p.splits} of {p.tps} k-tiles): max_abs_err={err:.3e} "
+                  f"rel={rel:.3e} (tol {TOL_QMM}); two launches "
+                  f"bit-identical {bits}; bf16 = the f32 sum rounded "
+                  f"{rounded}; control, rank 0's k-range dropped: {ctl:.3e}",
+                  flush=True)
+        if rel > TOL_QMM or not bits or not rounded:
+            raise AssertionError(f"K7 wgmma disagrees on {name} M={M}: rel "
+                                 f"{rel}, bits {bits}, bf16 {rounded}")
+        if ctl <= TOL_QMM:
+            raise AssertionError(f"K7 wgmma {name} M={M}: the gate cannot "
+                                 f"see a dropped k-range: {ctl}")
+        return err
+
+    def time_wgmma(M, name):
+        """(ms, plain ms, library ms or None, bytes, operations) at M rows
+        over the 32 layers' weights in turn (each call's weight out of the
+        L2, as in the prefill)."""
+        L = lay[name]["q"].shape[0]
+        N, K = lay[name]["q"].shape[1:]
+        x = torch.randn(M, K, generator=gen_w, device="cuda").to(
+            torch.bfloat16)
+        state = [0]
+
+        def cycled(fn):
+            def call():
+                i = state[0] % L
+                state[0] += 1
+                return fn(x, lay[name]["q"][i], lay[name]["s"][i])
+            return call
+        ms = cuda_time_ms(cycled(lambda x, q, s: qmm(x, q, s,
+                                                     torch.bfloat16)),
+                          iters=L)
+        q_ms = cuda_time_ms(cycled(lambda x, q, s: qmm(x, q, s,
+                                                       torch.bfloat16)),
+                            iters=L, queued=True)
+        plain_ms = cuda_time_ms(cycled(lambda x, q, s: qmm_plain(
+            x, q, s, torch.bfloat16)), iters=3)
+        lib_ms = (cuda_time_ms(cycled(lib_k7), iters=3)
+                  if lib_k7 is not None else None)
+        print(f"K7 wgmma {name} M={M} N={N} K={K} over {L} layers' weights: "
+              f"kernel {ms:.4f} ms ({q_ms:.4f} queued), plain {plain_ms:.4f}"
+              f" ms, torch._weight_int8pack_mm "
+              + (f"{lib_ms:.4f} ms" if lib_ms is not None else "none"),
+              flush=True)
+        # bf16 x, int8 weight and f32 scales read, bf16 out written
+        return (ms, plain_ms, lib_ms, M * K * 2 + N * K + N * 4 + M * N * 2,
+                2 * M * N * K)
 
     k7 = [run("K7", qmm, qmm_plain, 2, "head")]
-    k7 += [run("K7", qmm, qmm_plain, 125, n) for n in list(leaves)[:4]]
+    k7 += [run("K7", qmm, qmm_plain, 125, n) for n in names]
+    errs = [run_wgmma(M, n) for M in (17, 33, 64, 65, 100, 121, 127)
+            for n in names]
+    pre = [time_wgmma(121, n) for n in names]
     w8 = [run("W8A8", w8a8_matmul, w8a8_matmul_plain, 250, n) for n in leaves]
     w8 += [run("W8A8", w8a8_matmul, w8a8_matmul_plain, M, n)
-           for M in (129, 1500) for n in list(leaves)[:4]]
-    # K7's bound at the M=2 head (its operations are bf16 x int8 products in
-    # f32: the bf16 rate); W8A8's over one layer's four shapes (int8)
+           for M in (129, 1500) for n in names]
+    pre_lib = (None if lib_k7 is None else sum(r[2] for r in pre))
+    print(f"K7 wgmma: every layer shape at M=17..127 within TOL_QMM, bits "
+          f"stable; one b1 prefill layer (M=121) {sum(r[0] for r in pre):.4f}"
+          f" ms", flush=True)
+    # K7's bounds: its operations are bf16 x int8 products in f32, the
+    # bf16 rate; the head's at M=2, the wgmma path's over one layer's four
+    # shapes at M=121; W8A8's over one layer's four shapes (int8)
     return {"quant_matmul": (max(r[0] for r in k7), k7[0][1], k7[0][2])
-            + bound(k7[0][3], k7[0][4], "bf16"),
+            + bound(k7[0][3], k7[0][4], "bf16") + (k7[0][5],),
+            "quant_matmul_prefill": (max(errs + [r[0] for r in k7[1:]]),
+                                     sum(r[0] for r in pre),
+                                     sum(r[1] for r in pre))
+            + bound(sum(r[3] for r in pre), sum(r[4] for r in pre), "bf16")
+            + (pre_lib,),
             "w8a8_matmul": (max(r[0] for r in w8),
                             sum(r[1] for r in w8[:4]),
                             sum(r[2] for r in w8[:4]))
@@ -2276,6 +2429,12 @@ def run_int8_llm(model, convs, gpu):
                                  f"{kcounts} for the step's {counts}")
         for name in ("decode_attention", "skinny_gemm", "rms_norm"):
             attn[name] = attn.get(name, 0) + kcounts[name]
+        if b == 1 and kcounts.get("quant_matmul_prefill", 0) < 4 * L:
+            raise AssertionError(f"int8 LLM b1: the prefill's layer GEMMs "
+                                 f"did not take K7's wgmma path: {kcounts}")
+        total["quant_matmul_prefill"] = (total.get("quant_matmul_prefill", 0)
+                                         + kcounts.get("quant_matmul_prefill",
+                                                       0))
         must = ("log_mel", "quant_matmul", "fused_decode_layers_int8") + (
             ("w8a8_matmul",) if b == 2 else ())
         for name in must:
@@ -3713,8 +3872,13 @@ def main() -> int:
     # K2's entry: the worse error of its two shapes, the times, bound and
     # scaled_dot_product_attention time of the self-attention shape; K8's:
     # the 2-layer logits error, the 32-layer step times; K4-K6: the worse
-    # error of M=1500/3000, the M=3000 times; K7: the worst error, the M=2
-    # head times; W8A8 (LLM): the worst error, one layer's four shapes at
+    # error of M=1500/3000, the M=3000 times; K7: the worst error of the
+    # M=2 head and the M=125 layer shapes, the head's times (library_ms:
+    # torch._weight_int8pack_mm on the same operands); its wgmma path
+    # (quant_matmul_prefill): the worst error of its 32 checks, one layer's
+    # four shapes at M=121 over the 32 layers' weights
+    # (library_ms alike, its launches the kernel count of phase 15's int8
+    # generate() runs); W8A8 (LLM): the worst error, one layer's four shapes at
     # M=250; K8-int8 and K8v (int8 tower; error the worse of both towers):
     # as K8; K8i: the worst of its four checks, the Llama Kd=1 step times;
     # its attention and gate: the worst error of their shapes, the b2

@@ -13,7 +13,8 @@
 //     mbarrier;
 //   - wgmma.mma_async wrappers, bf16 in and f32 accumulate, m64n64k16 and
 //     m64n128k16: SS (A and B from shared memory, both K-major) and RS (A
-//     from registers, B from shared memory stored MN-major: tnspB = 1), with
+//     from registers, B from shared memory stored MN-major, tnspB = 1, or
+//     K-major, tnspB = 0: K7's int8 weights as A, csrc/qmm.cu), with
 //     the shared-memory descriptors of a 128B-swizzled tile;
 //   - setmaxnreg, to hand registers from the producer warpgroup to the
 //     consumer warpgroups.
@@ -315,7 +316,9 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float* d) {
 }
 
 // D (64 x N, f32) += A (64 x 16) * B (16 x N), bf16.  SS: A and B K-major in
-// shared memory.  RS: A from registers, B MN-major (tnspB).  scale-d = 1.
+// shared memory.  RS: A from registers, B MN-major (TNSP_B = 1, the
+// default: Wgmma<N>::rs) or K-major (TNSP_B = 0: Wgmma<N>::rs_k, B's
+// descriptor as the SS form's, desc_k).  scale-d = 1.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
                                                uint64_t db) {
   asm volatile(
@@ -370,6 +373,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(1));
 }
 
+template <int TNSP_B = 1>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
                                                uint64_t db) {
   asm volatile(
@@ -379,7 +383,7 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -388,9 +392,11 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TNSP_B));
 }
 
+template <int TNSP_B = 1>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
                                                uint64_t db) {
   asm volatile(
@@ -404,7 +410,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -421,7 +427,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TNSP_B));
 }
 
 
@@ -438,6 +445,11 @@ struct Wgmma<64> {
                                             uint64_t b) {
     wgmma_rs_n64(d, a, b);
   }
+  __device__ __forceinline__ static void rs_k(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+    wgmma_rs_n64<0>(d, a, b);
+  }
 };
 template <>
 struct Wgmma<128> {
@@ -449,6 +461,11 @@ struct Wgmma<128> {
                                             const uint32_t (&a)[4],
                                             uint64_t b) {
     wgmma_rs_n128(d, a, b);
+  }
+  __device__ __forceinline__ static void rs_k(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+    wgmma_rs_n128<0>(d, a, b);
   }
 };
 

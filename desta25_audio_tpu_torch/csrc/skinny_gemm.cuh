@@ -478,30 +478,35 @@ skinny_gemm_kernel(const __grid_constant__ CUtensorMap wmap,
   if constexpr (EPI == EPI_PEER_F32) peer_arrive(ps);
 }
 
-// The weight's tensor map: [rows, K] in boxes of SG_BN rows x 128 bytes,
-// 128B swizzle, zeros out of bounds.  A map holds nothing but the address,
-// the shape and the box, so the cache, keyed by all of them, can never hand
-// out a stale one; it is cleared when it passes 4096 maps.
+// The weight's tensor map: [rows, K] in boxes of box_rows rows (SG_BN here,
+// K7's 128 in csrc/qmm.cu) x 128 bytes, 128B swizzle, zeros out of bounds.
+// A map holds nothing but the address, the shape and the box, so the cache,
+// keyed by all of them, can never hand out a stale one; it is cleared when
+// it passes 4096 maps.
 inline cudaError_t skinny_weight_map(const void* w, long long rows, int K,
-                                     bool int8, CUtensorMap* map) {
+                                     bool int8, CUtensorMap* map,
+                                     int box_rows = SG_BN) {
   struct Key {
     const void* w;
     long long rows;
     int K;
     bool int8;
+    int box_rows;
     bool operator==(const Key& o) const {
-      return w == o.w && rows == o.rows && K == o.K && int8 == o.int8;
+      return w == o.w && rows == o.rows && K == o.K && int8 == o.int8
+             && box_rows == o.box_rows;
     }
   };
   struct Hash {
     size_t operator()(const Key& k) const {
       return std::hash<const void*>()(k.w) ^ ((size_t)k.rows << 20)
-             ^ ((size_t)k.K << 1) ^ (size_t)k.int8;
+             ^ ((size_t)k.K << 1) ^ (size_t)k.int8
+             ^ ((size_t)k.box_rows << 40);
     }
   };
   static std::mutex mu;
   static std::unordered_map<Key, CUtensorMap, Hash> cache;
-  const Key key{w, rows, K, int8};
+  const Key key{w, rows, K, int8, box_rows};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
@@ -513,7 +518,8 @@ inline cudaError_t skinny_weight_map(const void* w, long long rows, int K,
   const cuuint64_t esize = int8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(SG_ROW_BYTES / esize), SG_BN};
+  const cuuint32_t box[2] = {(cuuint32_t)(SG_ROW_BYTES / esize),
+                             (cuuint32_t)box_rows};
   const cuuint32_t ones[2] = {1, 1};
   const CUresult r = fn(
       map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,

@@ -82,8 +82,13 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_decode_attention_plan": (_I,) * 5 + (_P,),
     # x, q, scale, M, K, seg, div127, stream
     "desta_quant_rows": (_P, _P, _P, _I, _I, _I, _I, _P),
-    # x, q, s, out, part, M, N, K, splits, out_f32, stream
-    "desta_qmm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, q, s, out, M, N, K, splits (0: the plan's), out_f32, stream
+    "desta_qmm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # M, N, K, n_sm (0: the device's), out [5]: nx, splits, k-tiles a rank,
+    # k-tiles, weight tiles
+    "desta_qmm_plan": (_I, _I, _I, _I, _P),
+    # nx, splits, out [1]: clusters the card runs at once
+    "desta_qmm_max_clusters": (_I, _I, _P),
     # epi, a, sa, nproj, (w, s, bias, out) x 3, out scales, M, N, K, seg,
     # bm, bn, splits, cluster, stream
     "desta_gemm_s8": (_I, _P, _P, _I) + (_P,) * 13 + (_I,) * 8 + (_P,),

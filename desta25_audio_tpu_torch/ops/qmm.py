@@ -7,7 +7,10 @@ The rows M = prod(x.shape[:-1]) pick the path, as they do on the TPU:
 - M < 128 (``W8A8_MIN_ROWS``): :func:`qmm`, kernel K7 (``_qmm_kernel``,
   ``quant.py:63-77``): weight-only, the f32 sum of bf16 x times the int8
   weight, times ``s`` after the sum, one rounding to the output dtype.  On
-  the card ``csrc/qmm.cu``.
+  the card ``csrc/qmm.cu``: the skinny GEMM at M <= 16, above it a wgmma
+  kernel with the weight as the M side, K split across a thread-block
+  cluster by :func:`plan_qmm` (its C twin ``plan_qmm``, entry point
+  ``desta_qmm_plan``).
 - M >= 128: :func:`w8a8_matmul`, the W8A8 prefill (``quant.py:116-130``,
   XLA on the TPU): x quantized per row with ``a = max(max|x|, 1e-8) / 127``,
   an exact int32 product, ``(f32(acc) * a) * s``.  On the card the row
@@ -16,16 +19,19 @@ The rows M = prod(x.shape[:-1]) pick the path, as they do on the TPU:
 
 On a CPU tensor each runs its ``*_plain`` version; on a CUDA tensor it
 launches its kernel or raises.  Counts: ``quant_matmul`` one per K7 call,
-``w8a8_matmul`` two per call (row quantiser, GEMM); a K7 call at M <= 16
-is also counted as ``skinny_gemm`` in ``_build.kernel_counts()``.
+``w8a8_matmul`` two per call (row quantiser, GEMM); a K7 call is also
+counted in ``_build.kernel_counts()`` by its path, as ``skinny_gemm`` at
+M <= 16 and as ``quant_matmul_prefill`` above.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
-from .gemm import EPI_LLM_BF16, EPI_LLM_F32
+from .gemm import EPI_LLM_BF16, EPI_LLM_F32, cluster_ctas
 from .quant import (
     QuantLeaf,
     int_dot,
@@ -36,9 +42,65 @@ from .quant import (
 )
 
 W8A8_MIN_ROWS = 128   # the TPU dispatch's crossover (quant.py:107)
-QMM_K_MULTIPLE = 64   # csrc/qmm.cu walks K in steps of 64
-_QMM_TILE_N = 128     # output columns per tensor-core block
-_QMM_SKINNY_ROWS = 16  # csrc/skinny_gemm.cuh rows per pass
+QMM_K_MULTIPLE = 64   # csrc/qmm.cu takes K % 64 == 0, on both paths
+QMM_SKINNY_ROWS = 16  # csrc/skinny_gemm.cuh rows per pass: the skinny path
+# csrc/qmm.cu's wgmma path (16 < M <= 128)
+QMM_MAX_ROWS = 128    # the widest x side, m64n128
+QMM_BW = 128          # weight rows (output columns) a CTA
+QMM_K_BYTES = 128     # a k-tile's weight bytes a row (one TMA box)
+QMM_SPLITS_MAX = 8    # CTAs of a cluster
+QMM_RING = 229376     # the ring's shared memory
+QMM_FIXED_KT = 2      # a CTA's fixed cost (ring fill, epilogue) in k-tiles
+QMM_SPLIT_KT = 2      # a split rank's more: the cluster's partial-tile sum
+SMEM_LIMIT = 232448   # the H100's dynamic shared memory a CTA, at most
+
+
+class QmmPlan(NamedTuple):
+    """A launch of the wgmma path: x side ``nx`` wide (m64n``nx``k16),
+    K split into ``splits`` ranks (a cluster) of ``tps`` k-tiles each over
+    ``nkt`` k-tiles of QMM_K_BYTES, ``tiles`` weight tiles of QMM_BW rows;
+    ``grid`` CTAs; ``stages`` ring stages of ``stage_bytes`` (a QMM_BW x
+    QMM_K_BYTES weight box and ``nx`` x QMM_K_BYTES bf16 of x); ``smem``
+    the dynamic shared memory a CTA asks for."""
+    nx: int
+    splits: int
+    tps: int
+    nkt: int
+    tiles: int
+    grid: int
+    stages: int
+    stage_bytes: int
+    smem: int
+
+
+def plan_qmm(M: int, N: int, K: int, n_sm: int = 132) -> QmmPlan:
+    """K7's wgmma launch for x [M, K] against q [N, K] on a card of
+    ``n_sm`` SMs (the rule of ``plan_qmm`` in ``csrc/qmm.cu``): nx = 64 up
+    to 64 rows, else 128; the split minimising waves x (tps + QMM_FIXED_KT
+    [+ QMM_SPLIT_KT when split]), a wave being ``gemm.cluster_ctas``
+    CTAs (one CTA an SM), among 1..QMM_SPLITS_MAX ranks that leave none
+    empty, ties to fewer ranks.  The split reads N, K and n_sm, never M:
+    every M of the path sums a column alike."""
+    if not QMM_SKINNY_ROWS < M <= QMM_MAX_ROWS or N < 1 or K < 1:
+        raise ValueError(f"K7 wgmma path: M={M} N={N} K={K} (takes "
+                         f"{QMM_SKINNY_ROWS} < M <= {QMM_MAX_ROWS})")
+    nx = 64 if M <= 64 else 128
+    tiles = -(-N // QMM_BW)
+    nkt = -(-K // QMM_K_BYTES)
+    best = None
+    for s in range(1, min(QMM_SPLITS_MAX, nkt) + 1):
+        tps = -(-nkt // s)
+        if -(-nkt // tps) != s:   # an empty rank
+            continue
+        waves = -(-tiles * s // cluster_ctas(s, n_sm))
+        cost = waves * (tps + QMM_FIXED_KT + (QMM_SPLIT_KT if s > 1 else 0))
+        if best is None or cost < best[0]:
+            best = (cost, s, tps)
+    _, s, tps = best
+    stage = QMM_BW * QMM_K_BYTES + nx * 2 * QMM_K_BYTES
+    stages = QMM_RING // stage
+    return QmmPlan(nx, s, tps, nkt, tiles, s * tiles, stages, stage,
+                   1024 + stages * stage + 16 * stages)
 
 
 def qmm_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -56,18 +118,6 @@ def w8a8_matmul_plain(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     ``quant_rows_llm``'s ``amax``."""
     xq, a = quant_rows_llm(x2.float(), row_amax)
     return ((int_dot(xq, q) * a) * s.float()).to(out_dtype)
-
-
-def qmm_splits(M: int, N: int, K: int, sms: int) -> int:
-    """K-splits of K7's tensor-core path: enough blocks for two per SM
-    when the column tiles alone give fewer, each split at least four
-    64-wide K steps; 1 for the skinny path (M <= 16)."""
-    tiles = -(-N // _QMM_TILE_N)
-    kt = K // QMM_K_MULTIPLE
-    if M <= _QMM_SKINNY_ROWS or tiles >= 2 * sms:
-        return 1
-    splits = max(1, min(kt // 4, -(-2 * sms // tiles)))
-    return -(-kt // -(-kt // splits))   # no empty split
 
 
 def _check_leaf(name: str, x2, q, s, out_dtype) -> None:
@@ -97,16 +147,12 @@ def qmm(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     _build.require_cuda(name, s, dtype=torch.float32)
     dev = x2.device
     out = torch.empty(M, N, dtype=out_dtype, device=dev)
-    splits = qmm_splits(M, N, K, _build.sm_count(dev))
-    part = (torch.empty(splits, M, N, dtype=torch.float32, device=dev)
-            if splits > 1 else None)
     _build.check(_build.library().desta_qmm(
-        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(),
-        None if part is None else part.data_ptr(), M, N, K, splits,
-        int(out_dtype == torch.float32), _build.stream_ptr(dev)), name)
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), out.data_ptr(), M, N, K,
+        0, int(out_dtype == torch.float32), _build.stream_ptr(dev)), name)
     _build.count_launch(name)
-    if M <= _QMM_SKINNY_ROWS:
-        _build.count_kernel("skinny_gemm")
+    _build.count_kernel("skinny_gemm" if M <= QMM_SKINNY_ROWS
+                        else "quant_matmul_prefill")
     return out
 
 

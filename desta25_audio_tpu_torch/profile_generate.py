@@ -36,11 +36,12 @@ the decode phase's wall and device time a step and its idle share (the full
 run's less the prefill's, over the 31 steps), then three unprofiled runs'
 host time a step with the graph's capture time, and the idle share of
 their mean against the profiled device time (the profiler's own host cost
-stretches the profiled walls).  The decode phases add the device time by
-kernel group (``DECODE_GROUPS``: the decode attention, the skinny GEMMs
-(K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed char, 1,
-3>``), RMSNorm, K7's mma path, K8i's attention and gate, the W8A8
-prefill, other).
+stretches the profiled walls).  The prefill and decode phases add the
+device time by kernel group (``DECODE_GROUPS``: the decode attention, the
+skinny GEMMs (K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed
+char, 1, 3>``), RMSNorm, K7's mma path (its wgmma kernel at 16 < M < 128:
+the b1 int8 prefill's layer products and its head over the prompt's
+rows), K8i's attention and gate, the W8A8 prefill, other).
 Last, the launch counts over the profiled phases and the torch paths taken
 there (``_build.fallback_counts()``: a model shape a kernel's predicate
 refused).
@@ -69,12 +70,15 @@ from .ops import _build, fused_decode_tp
 
 NEW_TOKENS = 32
 UNPROFILED_RUNS = 3   # the decode's host-clock time, without the profiler
-# the decode phases' device time by group (kernel-name substrings)
+# the prefill's and the decode phases' device time by group (kernel-name
+# substrings)
 DECODE_GROUPS = {
     "decode attention": ("decode_attention",),
     "skinny GEMMs": ("skinny_gemm",),
     "RMSNorm": ("rms_norm",),
-    "K7 mma path": ("qmm_",),   # at M <= 16 (the b2 head) K7 is a skinny GEMM
+    # K7 at 16 < M < 128: qmm_wgmma_kernel (earlier checkouts: qmm_mma_kernel
+    # and qmm_reduce_kernel); at M <= 16 (the decode heads) a skinny GEMM
+    "K7 mma path": ("qmm_",),
     "K8i attention": ("inject_attention",),
     "K8i gate": ("inject_gate",),
     # the int8 GEMM of csrc/gemm_sm90.cuh (earlier checkouts: gemm_s8_kernel)
@@ -223,7 +227,7 @@ def main() -> None:
                                         **common, **kw)
         pre = []
         report(f"prefill b{args.batch} (T={embeds.shape[1]})", gen(1),
-               stats=pre)
+               groups=DECODE_GROUPS, stats=pre)
         if args.speculative_k >= 2:
             lens = mask.sum(1).cpu().numpy()
             aligned = torch.as_tensor(left_aligned(prompt_ids, lens),

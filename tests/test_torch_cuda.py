@@ -4,7 +4,9 @@ rows, grouped-query ratios, qk-norm, a K4 hidden of one, two and three
 1280-wide chunks, and one whose chunks differ 64x in scale, and a width
 K4 refuses; the Hopper GEMM of K3-K6 at the encoder's widths and
 1-3000 rows, K4-K6 bit for bit, K3 beside a dropped-k-tile control; K7 on
-both of its paths with a ragged last column tile, the LLM's W8A8 GEMM at
+both of its paths with a ragged last column tile, its wgmma path at
+Llama-3.1-8B's four layer shapes and 17-127 rows (two launches' bits, a
+dropped-k-range control) and its plan against the C twin, the LLM's W8A8 GEMM at
 ragged M and, bit for bit, at Llama-3.1-8B's split-K shapes, the int8
 decode step, the verify step at 2/4/8 draft tokens with the block ending
 at the cache's end, the ORCA injection K8i at injection head dims 128 and
@@ -25,6 +27,7 @@ where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import ctypes
 import dataclasses
 import types
 
@@ -59,7 +62,10 @@ from desta25_audio_tpu_torch.ops.fused_decode import (
     inject_gate_plain,
     plan_inject_splits,
 )
+from desta25_audio_tpu_torch.ops.gemm import cluster_ctas
 from desta25_audio_tpu_torch.ops.qmm import (
+    QMM_K_BYTES,
+    plan_qmm,
     qmm,
     qmm_plain,
     w8a8_matmul,
@@ -315,7 +321,7 @@ def test_wrappers_raise_on_what_they_do_not_take(gen):
 TOL_QMM = 1e-3
 
 
-@pytest.mark.parametrize("M", [1, 3, 9, 100, 127])
+@pytest.mark.parametrize("M", [1, 3, 9, 17, 64, 100, 127])
 def test_qmm_kernel(gen, M):
     N, K = 1000, 512                      # N: a ragged last 128-column tile
     x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
@@ -325,10 +331,74 @@ def test_qmm_kernel(gen, M):
     got = qmm(x, leaf["q"], leaf["s"], torch.float32)
     got_bf = qmm(x, leaf["q"], leaf["s"], torch.bfloat16)
     assert _build.launch_counts() == {"quant_matmul": 2}
+    path = "skinny_gemm" if M <= 16 else "quant_matmul_prefill"
+    assert _build.kernel_counts() == {path: 2}
     assert got.shape == (M, N) and got_bf.dtype == torch.bfloat16
     want = qmm_plain(x, leaf["q"], leaf["s"], torch.float32)
     assert _rel(got, want) < TOL_QMM
     assert _rel(got_bf, want) < 1e-2      # one bf16 rounding
+
+
+LLAMA_K7 = (("wqkv", 6144, 4096), ("wo", 4096, 4096),
+            ("gate/up", 28672, 4096), ("down", 4096, 14336))
+
+
+@pytest.fixture(scope="module")
+def llama_leaves():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written Hopper kernels)")
+    g = torch.Generator("cuda").manual_seed(3)
+    return {name: quantize_weight(torch.randn(N, K, generator=g,
+                                              device="cuda") / K ** .5)
+            for name, N, K in LLAMA_K7}
+
+
+@pytest.mark.parametrize("M", [17, 33, 64, 65, 100, 121, 127])
+@pytest.mark.parametrize("name", [n for n, _, _ in LLAMA_K7])
+def test_qmm_wgmma_llama(gen, llama_leaves, name, M):
+    """K7's wgmma path at Llama-3.1-8B's layer shapes: f32 within TOL_QMM
+    of the plain version, bf16 the same sum rounded once, two launches
+    bit-identical (the ranks meet in a fixed order), and the control, the
+    plain version with rank 0's k-range dropped, above the gate."""
+    leaf = llama_leaves[name]
+    N, K = leaf["q"].shape
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    got = qmm(x, leaf["q"], leaf["s"], torch.float32)
+    again = qmm(x, leaf["q"], leaf["s"], torch.float32)
+    got_bf = qmm(x, leaf["q"], leaf["s"], torch.bfloat16)
+    want = qmm_plain(x, leaf["q"], leaf["s"], torch.float32)
+    assert _rel(got, want) < TOL_QMM
+    assert torch.equal(got, again)
+    assert torch.equal(got_bf, got.bfloat16())
+    plan = plan_qmm(M, N, K, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
+    dropped = x.clone()
+    dropped[:, :plan.tps * QMM_K_BYTES] = 0
+    assert _rel(qmm_plain(dropped, leaf["q"], leaf["s"], torch.float32),
+                want) > TOL_QMM
+
+
+def test_qmm_plan_matches_the_kernel(gen):
+    """plan_qmm against its C twin (desta_qmm_plan) on this card and at
+    the H100's 132 SMs, and the cluster table against the occupancy the
+    runtime reports for the kernel."""
+    lib = _build.library()
+    out = (ctypes.c_int * 5)()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M in (17, 64, 65, 121, 128):
+        for N, K in ((1000, 512), (200, 4160), (64, 64), (130560, 4096),
+                     *((N, K) for _, N, K in LLAMA_K7)):
+            for n_sm in (0, 132):
+                _build.check(lib.desta_qmm_plan(M, N, K, n_sm, out), "plan")
+                want = plan_qmm(M, N, K, n_sm or sms)
+                assert tuple(out) == (want.nx, want.splits, want.tps,
+                                      want.nkt, want.tiles)
+    if sms == 132:
+        one = (ctypes.c_int * 1)()
+        for nx in (64, 128):
+            for s in range(1, 9):
+                _build.check(lib.desta_qmm_max_clusters(nx, s, one), "occ")
+                assert one[0] * s == cluster_ctas(s, sms)
 
 
 @pytest.mark.parametrize("M", [128, 130, 257])

@@ -167,7 +167,7 @@ def _leaf(rng, k, n):
     return jl, bridge._linear(jax.tree.map(np.asarray, jl), "cpu")
 
 
-@pytest.mark.parametrize("M", [1, 3, 16, 100])
+@pytest.mark.parametrize("M", [1, 3, 16, 17, 64, 100, 127])
 def test_qmm_plain_matches_pallas(M):
     rng = np.random.default_rng(M)
     K, N = 1024, 1024
