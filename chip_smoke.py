@@ -12,11 +12,14 @@ Phases, in order; any failure exits non-zero and nothing is caught:
    nvcc for sm_90a;
 4. hold each kernel against its plain PyTorch version on the card at the
    shapes of the flagship path, with CUDA-event times of both:
-   K1 log_mel (after the clip-wide clamp: B=2 x 3000 frames x 128 mels and
-   B=1 x 300 x 80 of noise plus a tone within TOL_MEL, the two synthetic
-   WAVs of phase 6, written first, zero-padded to 30 s within TOL_MEL_WAV;
-   both versions' times at B=1, 2, 4 for mel's share of perception after
-   phase 11), K2 packed_encoder_attention (self: B=2, T=1500, H=20, Dh=64; cross:
+   K1 log_mel (a real FFT and a sparse filterbank; after the clip-wide
+   clamp: B=2 x 3000 frames x 128 mels and B=1 x 300 x 80 of noise plus a
+   tone within TOL_MEL, the two synthetic WAVs of phase 6, written first,
+   zero-padded to 30 s within TOL_MEL_WAV; two launches bit-identical; its
+   times queued at B=1, 2, 4 x 3000 x 128 beside ``torch.stft`` + the
+   filterbank + log10 (information); both versions' times at B=1, 2, 4 for
+   mel's share of perception after phase 11), K2 packed_encoder_attention
+   (self: B=2, T=1500, H=20, Dh=64; cross:
    4 taps x B=2, Tq=64, Tkv=1500, its keys split across blocks; each with
    its achieved TFLOP/s and share of the bound beside
    ``scaled_dot_product_attention``'s time; K2's and K11's times also
@@ -206,7 +209,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     2-layer nano width, B=9 and a 12416-position cache (B*Hkv = 72 clusters
     of one key range each, past what one range holds in shared memory): the
     predicate refuses it, the layer loop runs and agrees with the plain
-    decode step within TOL_DECODE.
+    decode step within TOL_DECODE; 25c. the debug config's towers with the
+    LLM quantized (``apply_llm_quant``), in bf16 and in float32: greedy
+    ``generate()`` at b2 with B * T >= 128 prompt rows, ids equal to the
+    same model's on the CPU, the products the W8A8 GEMM refuses (llama-
+    nano's N = 64, f32 x) counted in ``fallback_counts()`` as
+    ``w8a8_matmul``, K7 launched for every decode step's products and its
+    head at M = B (f32 x cast to bf16).
 
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
@@ -230,13 +239,20 @@ the replays of one CUDA graph of the step.
 
 Every kernel's entry in the JSON line carries its bound (the larger of its
 bytes over 3.35 TB/s and its operations over 989 TFLOP/s bf16, 1,979 TOP/s
-int8 or 67 TFLOP/s f32 outside the tensor cores (K1, whose operations are
-a real FFT's and the nonzero filterbank entries', not its dense products),
-counted from this run's inputs) and, where one PyTorch call
+int8 or 67 TFLOP/s f32 outside the tensor cores (K1, whose bytes are the
+audio, the log-mels and its kernel's ~8 KB of tables and whose operations
+are a real FFT's and the nonzero filterbank entries', as its kernel
+computes: ``bench_mel.mel_work``), counted from this run's inputs) and, where one PyTorch call
 computes the same function, that call's time (``library_ms``; K2 and K11
 against ``scaled_dot_product_attention``; the decode attention against SDPA
 over its cached keys alone, K8i's attention against SDPA over the same q
 and audio K/V, both as information), else null.
+
+Each printed row of greedy ids carries, per id, the margin of its top
+logit over the runner-up (``add_margins``: an untimed rerun of the same
+generate() after the timed run's numbers were read): an id that differs
+between two builds of the kernels at a small margin is a near-tie that a
+last-bit change upstream flipped.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -328,7 +344,7 @@ CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet: dense tensor-core
 # bf16 and int8; "f32" is FP32 outside the tensor cores, the rate of the
-# f32 FMA kernel K1; K9's int8-weight x bf16 products are held to bf16, as
+# f32 FFT kernel K1; K9's int8-weight x bf16 products are held to bf16, as
 # K8-int8's are)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -482,6 +498,45 @@ def llm_step_work(params, cfg, B: int, kd: int, ci, inject=None):
         ops += 2 * R * sum(il[k]["q"].numel() for k in ("q", "o", "gate1"))
         ops += L * R * 4 * ta * D
     return nb, ops
+
+
+def add_margins(model, msgs, out) -> None:
+    """Information: generate() of ``msgs`` once more, untimed and after its
+    run's counts and times were read (greedy, 32 new tokens, as every
+    printed run), recording at each step sampled through
+    ``generate/decode.sample_token`` each row's top logit less its
+    runner-up.  Stores them on ``out`` as ``margins`` [B, steps] (numpy),
+    with ``margins_same`` (whether the rerun's ids equal ``out``'s), so
+    that a greedy id that flips between two builds shows whether it was a
+    near-tie."""
+    import torch
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    real_sample, steps = tdecode.sample_token, []
+
+    def sample(logits, *args):
+        steps.append(logits.topk(2, dim=-1).values)
+        return real_sample(logits, *args)
+
+    tdecode.sample_token = sample
+    try:
+        again = model.generate(msgs, do_sample=False, max_new_tokens=32)
+    finally:
+        tdecode.sample_token = real_sample
+    top = torch.stack(steps).float()
+    out.margins = (top[..., 0] - top[..., 1]).T.cpu().numpy()
+    out.margins_same = again.generated_ids == out.generated_ids
+
+
+def shown(out, row: int) -> str:
+    """A row's first 8 greedy ids and, where recorded, their margins."""
+    ids = out.generated_ids[row][:8]
+    m = getattr(out, "margins", None)
+    if m is None:
+        return str(ids)
+    rerun = ("an untimed rerun's" if out.margins_same else
+             "an untimed rerun's, whose ids differ")
+    return (f"{ids} ({rerun} margins "
+            f"{[round(float(v), 3) for v in m[row][:8]]})")
 
 
 def gpu_line() -> str:
@@ -804,32 +859,24 @@ def flash_vs_masked(gen) -> None:
           f"agree to rel {rel:.3e} on the unpadded rows", flush=True)
 
 
-def mel_work(B: int, frames: int, n_mels: int):
-    """(bytes, operations) of K1 on [B, frames * 160] audio.  Bytes: the
-    audio, the two DFT matrices [400, 201] and the filterbank [201, n_mels]
-    read once, the output written once.  Operations: what the function
-    needs, not the kernel's dense products: per frame the window (400
-    multiplies), a real 400-point FFT (2.5 N log2 N, half a complex FFT's
-    5 N log2 N), the power (3 a bin), 2 per nonzero filterbank entry (the
-    slaney filters overlap at most two a bin) and one log a mel."""
-    from desta25_audio_tpu_torch.audio.mel import mel_filter_bank
-    nb = 4 * (B * frames * 160 + 2 * 400 * 201 + 201 * n_mels
-              + B * frames * n_mels)
-    nnz = int(np.count_nonzero(mel_filter_bank(n_mels)))
-    per_frame = 400 + 2.5 * 400 * np.log2(400) + 3 * 201 + 2 * nnz + n_mels
-    return nb, B * frames * per_frame
-
-
 def check_mel(gen, signals):
     """4 (K1). The log-mel frontend against its plain version, after the
     clip-wide clamp (what the model reads): B=2 x 3000 frames x 128 mels of
     noise plus a tone and B=1 x 300 frames x 80 mels (a ragged tile), within
-    TOL_MEL; the two synthetic WAVs zero-padded to 30 s, within TOL_MEL_WAV.
-    CUDA-event times of both versions and the bound at B=2 x 3000 x 128,
-    and both versions' times at B=1, 2 and 4 on the WAVs (the perception
-    share after phase 11).  Returns (JSON row, {B: (kernel ms, plain ms)})."""
+    TOL_MEL; the two synthetic WAVs zero-padded to 30 s, within TOL_MEL_WAV;
+    two launches bit-identical on each.  CUDA-event times of both versions
+    and the bound at B=2 x 3000 x 128 (back to back: the kernels line); the
+    kernel queued behind a sleep kernel (the card's time) at B=1, 2 and 4
+    x 3000 x 128 beside its bound and, as information, ``torch.stft``
+    (cuFFT) + the dense filterbank + log10 on the same audio
+    (``bench_mel.queued_ms``, the sweep ``bench_mel`` records: three calls,
+    so ``library_ms`` stays null); both versions' times at B=1, 2 and 4 on the WAVs (the perception
+    share after phase 11).  Returns (JSON row, {B: (kernel ms, plain
+    ms)})."""
     import torch
-    from desta25_audio_tpu_torch.audio.mel import normalize_log_spec
+    from desta25_audio_tpu_torch.audio.mel import (mel_filter_bank,
+                                                   normalize_log_spec)
+    from desta25_audio_tpu_torch.bench_mel import mel_work, queued_ms, signal
     from desta25_audio_tpu_torch.ops.mel import (log_mel_spec,
                                                  log_mel_spec_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -842,37 +889,46 @@ def check_mel(gen, signals):
             ("noise + tone", 2, 3000, 128, TOL_MEL),
             ("noise + tone", 1, 300, 80, TOL_MEL),
             ("synthetic WAVs, zero-padded", 2, 3000, 128, TOL_MEL_WAV)):
-        if label.startswith("noise"):
-            n = frames * 160
-            t = torch.arange(n, device="cuda") / 16000.0
-            audio = 0.3 * torch.randn(B, n, generator=gen, device="cuda")
-            audio[0] += 0.5 * torch.sin(2 * torch.pi * 523.0 * t)
-        else:
-            audio = wav
+        audio = signal(B, frames, gen) if label.startswith("noise") else wav
         pre_k = log_mel_spec(audio, n_mels)
         pre_p = log_mel_spec_plain(audio, n_mels)
         err = float((normalize_log_spec(pre_k)
                      - normalize_log_spec(pre_p)).abs().max())
         live = pre_p > pre_p.amax(dim=(1, 2), keepdim=True) - 8.0
         pre_err = float((pre_k - pre_p).abs()[live].max())
+        same = torch.equal(log_mel_spec(audio, n_mels), pre_k)
         print(f"K1 log_mel B={B} frames={frames} mels={n_mels} ({label}): "
               f"max_abs_err={err:.3e} after the clamp (tol {tol}); before "
-              f"it {pre_err:.3e} over the bins above the clamp", flush=True)
+              f"it {pre_err:.3e} over the bins above the clamp; two "
+              f"launches bit-identical: {same}", flush=True)
         if not err <= tol:
             raise AssertionError(f"K1 disagrees ({label}, B={B}): {err}")
+        if not same:
+            raise AssertionError(f"K1's two launches differ ({label})")
         worst = max(worst, err)
         if B == 2 and label.startswith("noise"):
             ms = cuda_time_ms(lambda: log_mel_spec(audio, n_mels))
             plain_ms = cuda_time_ms(lambda: log_mel_spec_plain(audio,
                                                                n_mels))
             b_ms, b_by = bound(*mel_work(B, frames, n_mels), "f32")
+    fb = torch.as_tensor(mel_filter_bank(128), device="cuda")
+    window = torch.hann_window(400, periodic=True, device="cuda")
+    queued = []
+    for B in (1, 2, 4):
+        audio = signal(B, 3000, gen)
+        k_ms, s_ms = queued_ms(log_mel_spec, audio, fb, window)
+        bq = bound(*mel_work(B, 3000, 128), "f32")[0]
+        queued.append(f"B={B} {k_ms:.4f} ms (bound {bq:.4f}, "
+                      f"{bq / k_ms:.3f} of it; torch.stft + filterbank + "
+                      f"log10 {s_ms:.4f})")
     by_batch = {}
     for B in (1, 2, 4):
         a = wav[:1] if B == 1 else wav if B == 2 else torch.cat([wav, wav])
         by_batch[B] = (cuda_time_ms(lambda: log_mel_spec(a, 128)),
                        cuda_time_ms(lambda: log_mel_spec_plain(a, 128)))
     print(f"K1 times ({gpu_line()}): B=2 x 3000 x 128 kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); at B=1, "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); queued "
+          f"x 3000 x 128: " + "; ".join(queued) + "; on the WAVs at B=1, "
           f"2, 4 kernel / plain: " + ", ".join(
               f"{k:.4f} / {p:.4f} ms" for k, p in by_batch.values()),
           flush=True)
@@ -1781,6 +1837,76 @@ def check_long_cache(gen):
         raise AssertionError(f"long-cache layer loop disagrees: {rel} {krel}")
 
 
+def _to_device(tree, device):
+    """A param tree's tensors copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    return tree.to(device) if hasattr(tree, "to") else tree
+
+
+def check_int8_fallbacks(gpu: str, wavs) -> None:
+    """Phase 25c (the int8 LLM's products on shapes its kernels refuse):
+    the debug config's towers with the LLM quantized
+    (``apply_llm_quant``), greedy ``generate()`` at b2 with prompts of
+    B * T >= 128 rows, in bf16 (llama-nano's wo and down have N = 64, which
+    the W8A8 GEMM refuses) and in the config's own float32 (the W8A8 GEMM
+    takes bf16 x only; K7 takes f32 x cast to bf16, the Pallas kernel's
+    rounding).  Each run's ids must equal the same model's on the CPU (the
+    params copied there: every product on its plain version), the refused
+    products must show in ``fallback_counts()`` (``w8a8_matmul``), and K7
+    must launch for each decode step's 4 products a layer and its head at
+    M = B (``quant_matmul``; the f32 head cast to bf16)."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.ops import _build
+    cfg0 = config_from_yaml_file(DEBUG_CONFIG)
+    msgs = [[{"role": "user", "content": "Describe the sound in detail. "
+              "<|AUDIO|>", "audios": [{"audio": w, "text": "a tone"}]}]
+            for w in wavs]
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(cfg0, dtype=dtype)
+        model = DeSTA25AudioModel(cfg, device="cuda", seed=0)
+        model.apply_llm_quant()
+        rows = model._run_generation_phases(msgs, {})[0].shape[:2]
+        _build.reset_launch_counts()
+        out = model.generate(msgs, do_sample=False, max_new_tokens=8)
+        torch.cuda.synchronize()
+        counts, taken = _build.launch_counts(), _build.fallback_counts()
+        steps = model.last_timings["decode_steps"]
+        ids = np.asarray(out.generated_ids)
+        cpu = DeSTA25AudioModel(cfg, device="cpu",
+                                params=_to_device(model.params, "cpu"),
+                                tokenizer=model.tokenizer)
+        want = np.asarray(cpu.generate(msgs, do_sample=False,
+                                       max_new_tokens=8).generated_ids)
+        k7 = (4 * model.llm_cfg.num_hidden_layers + 1) * steps
+        print(f"int8 debug-config LLM in {dtype}, b2, prompt rows "
+              f"{rows[0]} x {rows[1]} ({gpu}): ids {ids.tolist()}, the CPU "
+              f"run's {want.tolist()}; torch paths taken {json.dumps(taken)}"
+              f"; quant_matmul launches {counts.get('quant_matmul', 0)} "
+              f"(expected {k7}: {steps} decode steps), w8a8_matmul "
+              f"{counts.get('w8a8_matmul', 0)}", flush=True)
+        if rows[0] * rows[1] < 128:
+            raise AssertionError(f"int8 {dtype}: {rows} prompt rows, under "
+                                 "the W8A8 crossover")
+        if not np.array_equal(ids, want):
+            raise AssertionError(f"int8 {dtype}: ids differ from the CPU "
+                                 f"run's: {ids.tolist()} {want.tolist()}")
+        if taken.get("w8a8_matmul", 0) <= 0:
+            raise AssertionError(f"int8 {dtype}: no W8A8 product took its "
+                                 "plain version")
+        if counts.get("quant_matmul", 0) != k7:
+            raise AssertionError(f"int8 {dtype}: K7 launched "
+                                 f"{counts.get('quant_matmul', 0)} times, "
+                                 f"expected {k7}")
+        del model, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def run_debug_config(gpu: str, tmpdir: str):
     """Phase 25: the shipped configs/desta25_debug.yaml (whisper-nano Dh 32,
     llama-nano Dh 16, a 2-layer Q-Former, float32) on the card, random
@@ -1788,7 +1914,7 @@ def run_debug_config(gpu: str, tmpdir: str):
     decode, encoder or Q-Former kernel takes its shapes, so the models take
     their torch paths: the counted fallbacks must show the encoder's
     attention and FFN and the decode step, and no kernel of those may
-    launch (K1, which takes any shape, does).  Then 25b."""
+    launch (K1, which takes any shape, does).  Then 25b and 25c."""
     import torch
     from desta25_audio_tpu_torch import DeSTA25AudioModel
     from desta25_audio_tpu_torch.config import config_from_yaml_file
@@ -1856,6 +1982,7 @@ def run_debug_config(gpu: str, tmpdir: str):
     torch.cuda.empty_cache()
     with torch.no_grad():
         check_long_cache(torch.Generator("cuda").manual_seed(9))
+    check_int8_fallbacks(gpu, wavs)
 
 
 def write_wavs(d: str):
@@ -2121,9 +2248,10 @@ def check_int8_encoder(model, signals, convs, gpu):
             total[name] = total.get(name, 0) + n
     check_outputs(model, [(outs[b], b) for b in runs])
     check_step_by_step(model, runs[2], outs[2])
-    print(f"int8 encoder generated ids b2 row0[:8]="
-          f"{outs[2].generated_ids[0][:8]} b4 row3[:8]="
-          f"{outs[4].generated_ids[3][:8]}", flush=True)
+    add_margins(model, runs[2], outs[2])
+    add_margins(model, runs[4], outs[4])
+    print(f"int8 encoder generated ids b2 row0[:8]={shown(outs[2], 0)} b4 "
+          f"row3[:8]={shown(outs[4], 3)}", flush=True)
     print_times("int8 encoder", sorted(times.items()), gpu)
     return total, times
 
@@ -2449,8 +2577,10 @@ def run_int8_llm(model, convs, gpu):
             total[name] = total.get(name, 0) + n
     check_outputs(model, [(outs[b], b) for b in runs])
     check_step_by_step(model, runs[2], outs[2])
-    print(f"int8 LLM generated ids b2 row0[:8]={outs[2].generated_ids[0][:8]}"
-          f" b1[:8]={outs[1].generated_ids[0][:8]}", flush=True)
+    add_margins(model, runs[2], outs[2])
+    add_margins(model, runs[1], outs[1])
+    print(f"int8 LLM generated ids b2 row0[:8]={shown(outs[2], 0)} "
+          f"b1[:8]={shown(outs[1], 0)}", flush=True)
     print_times("int8 LLM + int8 encoder", sorted(times.items()), gpu)
     # -- 15b. the b2 decode through the graph against the eager step --------
     check_decode_graph(model, runs[2], "int8 LLM", gpu)
@@ -2765,6 +2895,7 @@ def run_orca(model, convs, gpu):
     check_outputs(orca, [(fout, 2)])
     check_step_by_step(orca, runs[2], fout)
     loop_t = dict(orca.last_timings)
+    add_margins(orca, runs[2], fout)
     print_times("ORCA float stack (injection in PyTorch)", [(2, loop_t)],
                 gpu)
 
@@ -2838,9 +2969,11 @@ def run_orca(model, convs, gpu):
         add_kernels(_build.kernel_counts())
     check_outputs(orca, [(outs[b], b) for b in runs])
     check_step_by_step(orca, runs[2], outs[2])
-    print(f"ORCA generated ids b2 row0[:8]={outs[2].generated_ids[0][:8]} "
-          f"b1[:8]={outs[1].generated_ids[0][:8]}; float-stack b2 row0[:8]="
-          f"{fout.generated_ids[0][:8]} (information)", flush=True)
+    add_margins(orca, runs[2], outs[2])
+    add_margins(orca, runs[1], outs[1])
+    print(f"ORCA generated ids b2 row0[:8]={shown(outs[2], 0)} "
+          f"b1[:8]={shown(outs[1], 0)}; float-stack b2 row0[:8]="
+          f"{shown(fout, 0)} (information)", flush=True)
     print_times("ORCA int8 stack (K8i)", sorted(times.items()), gpu)
     check_decode_graph(orca, runs[2], "ORCA int8 stack (K8i)", gpu,
                        orca=True)
@@ -3456,6 +3589,7 @@ def run_mesh_generate(model, convs, gpu, cards: bool):
         torch.cuda.synchronize()
         spec_counts = _build.launch_counts()
         t_spec = dict(model.last_timings)
+        add_margins(model, runs, out)
     print(f"mesh (1, 2) speculative_k=4: launches {json.dumps(spec_counts)}",
           flush=True)
     if spec_counts.get("fused_verify_layers_mesh", 0) <= 0 or spec_counts.get(
@@ -3468,6 +3602,7 @@ def run_mesh_generate(model, convs, gpu, cards: bool):
     model.generate(runs, do_sample=False, max_new_tokens=2)        # warm-up
     ref = model.generate(runs, do_sample=False, max_new_tokens=32)
     t_ref = dict(model.last_timings)
+    add_margins(model, runs, ref)
     per_step = [rel_err(a, b)[1] for a, b in zip(tf_mesh, tf_ref)]
     ctl = {f: max(rel_err(a, b)[1] for a, b in zip(t, tf_ref))
            for f, t in tf_ctl.items()}
@@ -3477,7 +3612,7 @@ def run_mesh_generate(model, convs, gpu, cards: bool):
           f"{max(per_step[1:]):.3e} (tol {TOL_MESH_GEN}; controls, the "
           f"prefill with one rank's partial dropped: {ctl['drop']:.3e}, with "
           f"a rank-local amax: {ctl['local_amax']:.3e}); ids row0[:8]="
-          f"{out.generated_ids[0][:8]}, unsharded {ref.generated_ids[0][:8]}, "
+          f"{shown(out, 0)}, unsharded {shown(ref, 0)}, "
           f"equal {out.generated_ids == ref.generated_ids} (information); "
           f"decode {t_mesh['decode_ms'] / steps(t_mesh):.2f} ms/step on "
           + ("2 cards" if cards else "2 virtual ranks of one card (they "
@@ -3802,8 +3937,10 @@ def main() -> int:
             raise AssertionError(f"{name} was not launched by generate()")
     check_outputs(model, ((out2, 2), (out1, 1)))
     check_step_by_step(model, convs[:2], out2)
-    print(f"generated ids b2 row0[:8]={out2.generated_ids[0][:8]} "
-          f"b1[:8]={out1.generated_ids[0][:8]}", flush=True)
+    add_margins(model, convs[:2], out2)
+    add_margins(model, convs[1], out1)
+    print(f"generated ids b2 row0[:8]={shown(out2, 0)} "
+          f"b1[:8]={shown(out1, 0)}", flush=True)
     print_times("bf16 encoder", ((2, t2), (1, t1)), gpu)
     # -- 9b. the b2 decode through the graph against the eager step ---------
     with torch.no_grad():

@@ -90,11 +90,16 @@ def mel_filter_bank(num_mel_bins: int, num_freq_bins: int = N_FFT // 2 + 1,
     return fb.astype(np.float32)
 
 
+def hann_window(n_fft: int = N_FFT) -> np.ndarray:
+    """The periodic Hann window [n_fft] in float64."""
+    return 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
+
+
 @functools.lru_cache(maxsize=4)
 def _dft_window_matrices(n_fft: int = N_FFT) -> Tuple[np.ndarray, np.ndarray]:
     """Windowed real-DFT matrices (cos, -sin) of shape [n_fft, n_fft//2+1]."""
     n_bins = n_fft // 2 + 1
-    window = 0.5 * (1.0 - np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft))
+    window = hann_window(n_fft)
     n = np.arange(n_fft)[:, None]
     k = np.arange(n_bins)[None, :]
     ang = 2.0 * np.pi * n * k / n_fft

@@ -104,8 +104,9 @@ SIGNATURES: Dict[str, Tuple] = {
     # q, k, v, seg, dO, lse, delta, dq, B, T, H, Hkv, Dh, causal, scale,
     # stream
     "desta_flash_bwd_dq": (_P,) * 8 + (_I,) * 6 + (_F, _P),
-    # audio, wc, ws, fb, out, B, n, frames, n_mels, stream
-    "desta_log_mel": (_P,) * 5 + (_I,) * 4 + (_P,),
+    # audio, window, twiddles, fb_index, fb_weights, out, B, n, frames,
+    # n_mels, stream
+    "desta_log_mel": (_P,) * 6 + (_I,) * 4 + (_P,),
     # h, ln_w, eps, w, scale, out, M, N, K, swiglu, stream
     "desta_tp_norm_gemv": (_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P),
     # qkv, k_cache, v_cache, cos, sin, mask, mask_stride, ci, q_norm,

@@ -18,7 +18,14 @@ The rows M = prod(x.shape[:-1]) pick the path, as they do on the TPU:
   for bit the plain version.
 
 On a CPU tensor each runs its ``*_plain`` version; on a CUDA tensor it
-launches its kernel or raises.  Counts: ``quant_matmul`` one per K7 call,
+launches its kernel or raises.  :func:`quant_matmul` asks
+:func:`quant_matmul_limits` first, on every device: x of another dtype than
+bf16 below 128 rows goes to K7 cast to bf16 (the Pallas kernel's own
+rounding, ``quant.py:71``); a call neither kernel takes (K % 64 below 128
+rows; N % 128, K % 64 or a non-bf16 x from 128 rows up: the nano towers'
+N = 64, f32 towers, a K = 32 mesh shard) runs the plain version of its
+row regime, counted off the CPU in ``_build.fallback_counts()`` as
+``quant_matmul`` or ``w8a8_matmul``.  Counts: ``quant_matmul`` one per K7 call,
 ``w8a8_matmul`` two per call (row quantiser, GEMM); a K7 call is also
 counted in ``_build.kernel_counts()`` by its path, as ``skinny_gemm`` at
 M <= 16 and as ``quant_matmul_prefill`` above.
@@ -26,7 +33,7 @@ M <= 16 and as ``quant_matmul_prefill`` above.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import torch
 
@@ -39,6 +46,7 @@ from .quant import (
     launch_quant_rows,
     quant_rows_llm,
     require_int8_leaf,
+    w8a8_shape_limits,
 )
 
 W8A8_MIN_ROWS = 128   # the TPU dispatch's crossover (quant.py:107)
@@ -168,6 +176,8 @@ def w8a8_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
         return w8a8_matmul_plain(x2, q, s, out_dtype, row_amax)
     M, K = x2.shape
     N = q.shape[0]
+    if x2.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: kernel takes bfloat16 x, got {x2.dtype}")
     require_int8_leaf(name, q, s, None, N, K)
     _build.require_cuda(name, x2, dtype=torch.bfloat16)
     lib = _build.library()
@@ -181,16 +191,43 @@ def w8a8_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
     return out
 
 
+def quant_matmul_limits(M: int, N: int, K: int, x_dtype) -> List[str]:
+    """What the kernels of :func:`quant_matmul` cannot take of x [M, K] in
+    ``x_dtype`` against an [N, K] leaf (empty: a kernel takes it), the
+    refusals of the wrapper its rows pick: below W8A8_MIN_ROWS :func:`qmm`
+    (x cast to bf16 first, so any x dtype), from there :func:`w8a8_matmul`
+    (``w8a8_shape_limits`` and bf16 x)."""
+    if M < W8A8_MIN_ROWS:
+        if M < 1 or K % QMM_K_MULTIPLE:
+            return [f"K7 takes 1 <= M and K % {QMM_K_MULTIPLE} == 0, got "
+                    f"M={M} K={K}"]
+        return []
+    bad = w8a8_shape_limits(N, K)
+    if x_dtype != torch.bfloat16:
+        bad.append(f"W8A8 GEMM takes bfloat16 x, got {x_dtype}")
+    return bad
+
+
 def quant_matmul(x: torch.Tensor, leaf: QuantLeaf, out_dtype=None,
                  row_amax=None) -> torch.Tensor:
     """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's).
-    ``row_amax`` [..., 1]: :func:`w8a8_matmul`'s, for W8A8 rows."""
+    ``row_amax`` [..., 1]: :func:`w8a8_matmul`'s, for W8A8 rows.  Where
+    :func:`quant_matmul_limits` refuses the call, the plain version of its
+    row regime runs (counted as a fallback off the CPU)."""
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     out_dtype = out_dtype or x.dtype
-    if x2.shape[0] < W8A8_MIN_ROWS:
-        y = qmm(x2, leaf["q"], leaf["s"], out_dtype)
+    q, s = leaf["q"], leaf["s"]
+    M = x2.shape[0]
+    amax = None if row_amax is None else row_amax.reshape(-1, 1)
+    if quant_matmul_limits(M, q.shape[0], K, x2.dtype):
+        if x2.device.type != "cpu":
+            _build.count_fallback("quant_matmul" if M < W8A8_MIN_ROWS
+                                  else "w8a8_matmul")
+        y = (qmm_plain(x2, q, s, out_dtype) if M < W8A8_MIN_ROWS
+             else w8a8_matmul_plain(x2, q, s, out_dtype, amax))
+    elif M < W8A8_MIN_ROWS:
+        y = qmm(x2.to(torch.bfloat16), q, s, out_dtype)
     else:
-        y = w8a8_matmul(x2, leaf["q"], leaf["s"], out_dtype,
-                        None if row_amax is None else row_amax.reshape(-1, 1))
+        y = w8a8_matmul(x2, q, s, out_dtype, amax)
     return y.reshape(*x.shape[:-1], y.shape[-1])

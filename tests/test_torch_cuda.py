@@ -7,7 +7,10 @@ K4 refuses; the Hopper GEMM of K3-K6 at the encoder's widths and
 both of its paths with a ragged last column tile, its wgmma path at
 Llama-3.1-8B's four layer shapes and 17-127 rows (two launches' bits, a
 dropped-k-range control) and its plan against the C twin, the LLM's W8A8 GEMM at
-ragged M and, bit for bit, at Llama-3.1-8B's split-K shapes, the int8
+ragged M and, bit for bit, at Llama-3.1-8B's split-K shapes,
+``quant_matmul``'s dispatch (f32 x through K7, the shapes neither kernel
+takes on their counted plain versions) and the debug config's int8 LLM in
+bf16 and f32 against the same model on the CPU, the int8
 decode step, the verify step at 2/4/8 draft tokens with the block ending
 at the cache's end, the ORCA injection K8i at injection head dims 128 and
 80, 1, 4 or 8 tokens per row, 1, 2 or 4 batch rows and 37 or 375 audio
@@ -16,7 +19,8 @@ the decode step, its attention alone at head dims 20-256 and a range read
 from global memory, its gate alone, and the requests it refuses; the flash attention K11, forward and backward, at
 the training shape, at a T
 that is not a multiple of its tile, bidirectional, with left and right
-padding; the log-mel frontend K1 at 3000, a ragged 300, 37 and 2 frames;
+padding; the log-mel frontend K1 at 3000, a ragged 300, 37 and 2 frames and clips
+not a multiple of 4 samples long, two launches' bits;
 the per-layer decode pair K9's halves at 1, 3 and 17 rows, at a p = 2
 shard's shapes, its layer loop with a hook between layers, and the requests it
 refuses; K10 at 2 and 4 virtual ranks, decode and verify, K9's pair under a
@@ -68,6 +72,7 @@ from desta25_audio_tpu_torch.ops.qmm import (
     plan_qmm,
     qmm,
     qmm_plain,
+    quant_matmul,
     w8a8_matmul,
     w8a8_matmul_plain,
 )
@@ -337,6 +342,81 @@ def test_qmm_kernel(gen, M):
     want = qmm_plain(x, leaf["q"], leaf["s"], torch.float32)
     assert _rel(got, want) < TOL_QMM
     assert _rel(got_bf, want) < 1e-2      # one bf16 rounding
+
+
+# quant_matmul's dispatch (x rows, leaf [N, K], x dtype): K7 for f32 x cast
+# to bf16 below 128 rows; the plain version of the row regime, counted,
+# where neither kernel takes the call (a nano tower's N = 64 at W8A8 rows,
+# a K = 32 shard at K7 rows, f32 x at W8A8 rows)
+@pytest.mark.parametrize("M,N,K,dtype,path", [
+    (2, 512, 64, torch.float32, "quant_matmul"),
+    (100, 1000, 512, torch.float32, "quant_matmul"),
+    (128, 64, 64, torch.bfloat16, "fallback w8a8_matmul"),
+    (296, 64, 128, torch.bfloat16, "fallback w8a8_matmul"),
+    (2, 64, 32, torch.bfloat16, "fallback quant_matmul"),
+    (128, 512, 64, torch.float32, "fallback w8a8_matmul")])
+def test_quant_matmul_dispatch(gen, M, N, K, dtype, path):
+    x = torch.randn(M, K, generator=gen, device="cuda").to(dtype)
+    leaf = quantize_weight(torch.randn(N, K, generator=gen, device="cuda")
+                           / K ** .5)
+    _build.reset_launch_counts()
+    got = quant_matmul(x, leaf, torch.float32)
+    assert got.shape == (M, N)
+    if path.startswith("fallback"):
+        name = path.split()[1]
+        assert _build.fallback_counts() == {name: 1}
+        assert _build.launch_counts() == {}
+        plain = qmm_plain if name == "quant_matmul" else w8a8_matmul_plain
+        assert torch.equal(got, plain(x, leaf["q"], leaf["s"],
+                                      torch.float32))
+    else:
+        assert _build.launch_counts() == {"quant_matmul": 1}
+        assert _build.fallback_counts() == {}
+        want = qmm_plain(x, leaf["q"], leaf["s"], torch.float32)
+        assert _rel(got, want) < TOL_QMM
+        assert torch.equal(got, qmm(x.bfloat16(), leaf["q"], leaf["s"],
+                                    torch.float32))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_int8_debug_config_generate_matches_cpu(gen, tmp_path, dtype):
+    """The debug config's towers with the LLM quantized, in bf16 and in
+    float32, greedy generate() at b2 with B * T >= 128 prompt rows: the
+    ids of the same model on the CPU; the refused W8A8 products counted;
+    K7 launched for each decode step's products and head at M = B."""
+    import numpy as np
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.audio.io import write_wav
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    paths = []
+    for i, secs in enumerate((3.0, 5.5)):
+        t = np.arange(int(secs * 16000)) / 16000.0
+        paths.append(str(tmp_path / f"tone{i}.wav"))
+        write_wav(paths[-1], (0.5 * np.sin(2 * np.pi * (300 + 140 * i) * t)
+                              ).astype(np.float32))
+    msgs = [[{"role": "user", "content": "Describe the sound in detail. "
+              "<|AUDIO|>", "audios": [{"audio": p, "text": "a tone"}]}]
+            for p in paths]
+    cfg = dataclasses.replace(
+        config_from_yaml_file("configs/desta25_debug.yaml"), dtype=dtype)
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=0)
+    model.apply_llm_quant()
+    _build.reset_launch_counts()
+    got = model.generate(msgs, do_sample=False, max_new_tokens=8)
+    counts, taken = _build.launch_counts(), _build.fallback_counts()
+    steps = model.last_timings["decode_steps"]
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+    cpu = DeSTA25AudioModel(cfg, device="cpu", params=to_cpu(model.params),
+                            tokenizer=model.tokenizer)
+    want = cpu.generate(msgs, do_sample=False, max_new_tokens=8)
+    assert got.generated_ids == want.generated_ids
+    assert taken.get("w8a8_matmul", 0) > 0
+    L = model.llm_cfg.num_hidden_layers
+    assert counts["quant_matmul"] == (4 * L + 1) * steps
 
 
 LLAMA_K7 = (("wqkv", 6144, 4096), ("wo", 4096, 4096),
@@ -918,15 +998,18 @@ def test_flash_attention_raises_on_what_it_does_not_take(gen):
 
 # within 1e-4 after the clamp (tests/test_mel_pallas.py's bound), on noise
 # plus a tone: one clip of 3000 frames, a ragged 300 (not a multiple of the
-# 32-frame tile), 37 frames over three clips, and the 2-frame minimum
-@pytest.mark.parametrize("B,frames,n_mels", [(2, 3000, 128), (1, 300, 80),
-                                             (3, 37, 128), (1, 2, 80)])
-def test_log_mel_kernel(gen, B, frames, n_mels):
+# 8-frame tile), 37 frames over three clips, the 2-frame minimum, and 37
+# frames of clips 3 samples longer (rows not 16-byte aligned: no vector
+# staging), each pair of launches bit-identical
+@pytest.mark.parametrize("B,frames,n_mels,extra", [
+    (2, 3000, 128, 0), (1, 300, 80, 0), (3, 37, 128, 0), (1, 2, 80, 0),
+    (3, 37, 80, 3)])
+def test_log_mel_kernel(gen, B, frames, n_mels, extra):
     from desta25_audio_tpu_torch.audio.mel import log_mel, normalize_log_spec
     from desta25_audio_tpu_torch.ops.mel import (log_mel_spec,
                                                  log_mel_spec_plain)
     torch.backends.cuda.matmul.allow_tf32 = False
-    n = frames * 160
+    n = frames * 160 + extra
     t = torch.arange(n, device="cuda") / 16000.0
     audio = 0.3 * torch.randn(B, n, generator=gen, device="cuda")
     audio[0] += 0.5 * torch.sin(2 * torch.pi * 523.0 * t)
@@ -938,6 +1021,27 @@ def test_log_mel_kernel(gen, B, frames, n_mels):
     assert float((got - want).abs().max()) < 1e-4
     pre = log_mel_spec(audio, n_mels)
     assert _rel(pre, log_mel_spec_plain(audio, n_mels)) < 1e-4
+    assert torch.equal(log_mel_spec(audio, n_mels), pre)
+
+
+# a contiguous view one float into its storage (not 16-byte aligned, which
+# the kernels' argument check refuses): the wrapper copies it, one launch,
+# the bits of an aligned copy
+@pytest.mark.parametrize("B,frames,n_mels", [(2, 300, 128), (1, 37, 80)])
+def test_log_mel_kernel_misaligned_rows(gen, B, frames, n_mels):
+    from desta25_audio_tpu_torch.ops.mel import (log_mel_spec,
+                                                 log_mel_spec_plain)
+    n = frames * 160
+    flat = 0.3 * torch.randn(B * n + 1, generator=gen, device="cuda")
+    audio = flat[1:].view(B, n)
+    assert audio.is_contiguous() and audio.data_ptr() % 16 == 4
+    _build.reset_launch_counts()
+    got = log_mel_spec(audio, n_mels)
+    torch.cuda.synchronize()
+    assert _build.launch_counts() == {"log_mel": 1}
+    want = log_mel_spec_plain(audio, n_mels)
+    assert _rel(got, want) < 1e-4
+    assert torch.equal(got, log_mel_spec(audio.clone(), n_mels))
 
 
 def test_log_mel_raises_on_what_it_does_not_take(gen):

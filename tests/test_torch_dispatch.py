@@ -17,6 +17,10 @@ runs only under its predicate, XLA otherwise).
 - ``fused_inject_limits`` says "no" exactly where the decode / verify step
   refuses the in-kernel ORCA injection, and the injection attention's
   wrapper refuses no shape the limits take.
+- ``quant_matmul_limits`` says "no" exactly where the wrapper its rows pick
+  (K7 below 128 rows, x cast to bf16; the W8A8 GEMM from there) refuses,
+  and ``quant_matmul`` then runs that regime's plain version, counted as a
+  fallback, and otherwise reaches the wrapper.
 """
 
 import dataclasses
@@ -56,6 +60,13 @@ from desta25_audio_tpu_torch.ops.fused_decode import (
     fused_inject_limits,
     inject_attention,
     kernel_limits,
+)
+from desta25_audio_tpu_torch.ops.qmm import (
+    W8A8_MIN_ROWS,
+    qmm,
+    quant_matmul,
+    quant_matmul_limits,
+    w8a8_matmul,
 )
 from desta25_audio_tpu_torch.ops.w8a8_proj import proj_w8a8, w8a8_proj_supported
 
@@ -224,6 +235,46 @@ def test_kernel_limits_at_an_sm_count():
     assert not kernel_limits(cfg, 8, 1, 12416, True, n_sm=132)  # 64: 2 ranges
     assert kernel_limits(cfg, 2, 1, 256, True) == kernel_limits(
         cfg, 2, 1, 256, True, n_sm=132)
+
+
+# x rows, leaf [N, K], x dtype: the nano towers' N = 64 wo / down at W8A8
+# rows, a K = 32 mesh shard at K7 rows, f32 x on both sides of the
+# crossover, and Llama-3.1-8B's layer and head shapes (all taken)
+QMM_CASES = [
+    (128, 64, 64, torch.bfloat16), (296, 64, 128, torch.bfloat16),
+    (2, 64, 32, torch.bfloat16), (100, 64, 32, torch.bfloat16),
+    (2, 4096, 4096, torch.float32), (100, 4096, 4096, torch.float32),
+    (128, 4096, 4096, torch.float32),
+    *[(M, N, K, torch.bfloat16) for M in (2, 121, 296)
+      for N, K in ((6144, 4096), (4096, 4096), (28672, 4096),
+                   (4096, 14336), (130560, 4096))],
+]
+
+
+@pytest.mark.parametrize("M,N,K,dtype", QMM_CASES)
+def test_quant_matmul_predicate(M, N, K, dtype):
+    x = torch.empty(M, K, dtype=dtype, **META)
+    leaf = {"q": torch.empty(N, K, dtype=torch.int8, **META),
+            "s": torch.empty(N, **META)}
+    if M < W8A8_MIN_ROWS:
+        why = _refusal(lambda: qmm(x.to(torch.bfloat16), leaf["q"],
+                                   leaf["s"], torch.float32))
+    else:
+        why = _refusal(lambda: w8a8_matmul(x, leaf["q"], leaf["s"],
+                                           torch.float32))
+    bad = quant_matmul_limits(M, N, K, dtype)
+    assert (bad == []) == (why == "")
+    _build.reset_launch_counts()
+    if bad:
+        y = quant_matmul(x, leaf)
+        assert y.shape == (M, N) and y.dtype == dtype
+        assert _build.fallback_counts() == {
+            "quant_matmul" if M < W8A8_MIN_ROWS else "w8a8_matmul": 1}
+    else:
+        with pytest.raises(ValueError, match="expected the CUDA device"):
+            quant_matmul(x, leaf)
+        assert _build.fallback_counts() == {}
+    assert _build.launch_counts() == {}
 
 
 def test_skinny_gemm_plan_reads_the_weight_only():

@@ -167,22 +167,36 @@ def _leaf(rng, k, n):
     return jl, bridge._linear(jax.tree.map(np.asarray, jl), "cpu")
 
 
-@pytest.mark.parametrize("M", [1, 3, 16, 17, 64, 100, 127])
-def test_qmm_plain_matches_pallas(M):
+@pytest.mark.parametrize("M,x_dtype", [
+    *[pytest.param(M, "bf16", id=str(M)) for M in (1, 3, 16, 17, 64, 100,
+                                                   127)],
+    pytest.param(100, "f32", id="f32-100")])
+def test_qmm_plain_matches_pallas(M, x_dtype):
     rng = np.random.default_rng(M)
     K, N = 1024, 1024
     jl, tl = _leaf(rng, K, N)
-    jx, tx = _bf16(rng.standard_normal((M, K)))
+    if x_dtype == "bf16":
+        jx, tx = _bf16(rng.standard_normal((M, K)))
+
+        def run(out_dtype):
+            return tqmm.qmm(tx, tl["q"], tl["s"], out_dtype)
+    else:
+        # f32 x: the Pallas kernel casts it to bf16 inside (quant.py:71),
+        # quant_matmul before K7
+        a = rng.standard_normal((M, K)).astype(np.float32)
+        jx, tx = jnp.asarray(a), torch.from_numpy(a)
+
+        def run(out_dtype):
+            return tqmm.quant_matmul(tx, tl, out_dtype)
     # 2 x 2 blocks: the k-axis accumulator and the n-axis tiling both run
     want = _pallas_qmm(jx, jl["q"], jl["s"], bn=512, bk=512)
-    got = tqmm.qmm(tx, tl["q"], tl["s"], torch.float32)
+    got = run(torch.float32)
     assert got.dtype == torch.float32
     # f32 sums in another order: within 1e-5 of the output scale
     assert _rel(got, want) < 1e-5
     # the bf16 output is the f32 value rounded once
-    np.testing.assert_array_equal(
-        _np(tqmm.qmm(tx, tl["q"], tl["s"], torch.bfloat16)),
-        _np(got.to(torch.bfloat16)))
+    np.testing.assert_array_equal(_np(run(torch.bfloat16)),
+                                  _np(got.to(torch.bfloat16)))
 
 
 def _jax_w8a8(x2, q, s):
