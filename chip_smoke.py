@@ -149,12 +149,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     step on the same cache, within TOL_DECODE, the hidden states bit for
     bit;
 20a. the all-reduce of tensor-parallel partial sums (``tp_allreduce``,
-    ``csrc/tp_allreduce.cu``) alone, at p = 2 and 4 virtual ranks of the
-    card and R = 2 and 8 rows of D = 4096: every rank's int8 peer-store GEMM
-    (the wo shape at p) into every rank's buffer, then every rank's
-    all-reduce; every rank's residual bit-identical to the plain reduce,
-    10 rounds on one stream and 200 with a stream per rank; the reduce's
-    time, the plain version's, the bound;
+    ``csrc/tp_allreduce.cu``: the consumer adds the ranks' sum into the
+    residual and writes the next half's RMSNorm) alone, at p = 2 and 4
+    virtual ranks of the card, R = 2 and 8 rows of D = 4096, bf16 and f32
+    residuals: every rank's int8 peer-store GEMM (the wo shape at p) into
+    every rank's buffer, then every rank's consumer; every rank's residual
+    bit-identical to ``allreduce_rmsnorm_plain``'s and its norm to the step's
+    norm kernel's on that residual (bf16; within TOL_DECODE of
+    ``rms_plain``), 10 rounds on one stream and 200 with a stream per rank;
+    then 60 rounds replayed from one CUDA graph per card (the epochs on the
+    device advance: the flags at each replay's new epochs, the results bit
+    for bit), and a control, a replay whose producer is skipped, which sets
+    the error words and raises at the end instead of hanging; the
+    consumer's time (queued beside the consumer without the norm plus the
+    norm kernel), the plain version's, the bound, NCCL's all-reduce of the
+    same partials on cards;
 20b. the prefill under a (1, 2) mesh against the unsharded one: layer 0's
     wo / down products at M = 296 (W8A8) and M = 100 (K7) within
     TOL_MESH_QMM, each beside a control (a rank-local amax, a dropped
@@ -165,15 +174,21 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     TOL_MESH (the control, a dropped partial, above it), the written cache
     rows, every rank's residual equal bit for bit, one stream and a stream
     per rank equal, and at p = 2 against the unsharded K8-int8 step; 32
-    layers as information (error, ms/step both ways, plain, bound); Kd = 4
+    layers as information (error, ms/step eagerly both ways and as the
+    replay of one CUDA graph per card of ``MeshStep``, the replay's hidden
+    bit-identical to the eager step's, plain, bound); Kd = 4
     verify, K8i with a random int8 ORCA stack, a random 2-layer bf16 tower
     at p = 2, and a (2, 2) mesh (a "data" axis), gated alike;
 20c. the model's int8 LLM cut for a (1, 2) mesh of virtual ranks
     (``apply_llm_sharding``): ``generate()`` b2 under ``use_mesh``, greedy,
-    32 new tokens: K10 and ``tp_allreduce`` launch, K8-int8 does not; the
-    teacher-forced per-step logits against the unsharded LLM's within
-    TOL_MESH_GEN (the control, a dropped partial, above it); ms/step beside an unsharded run's (virtual ranks share
-    one card: no tensor-parallel speed); ``speculative_k=4`` under the mesh
+    32 new tokens: K10, ``tp_allreduce`` and ``decode_graph`` (one graph a
+    card a step after the first) launch, K8-int8 does not; the same call
+    with every step eager: ids and every step's logits bit-identical to the
+    graph's, the same launch counts, ms/step both ways and the step's
+    device time; the teacher-forced per-step logits against the unsharded
+    LLM's within TOL_MESH_GEN (the control, a dropped partial, above it);
+    ms/step beside an unsharded run's (virtual ranks share one card: no
+    tensor-parallel speed); ``speculative_k=4`` under the mesh
     launches the tensor-parallel verify step; the cut copy is freed;
 21. K11, the flash attention of the training forward, forward and backward
     against ``flash_attention_plain`` (output and dq/dk/dv, all rows, tol
@@ -450,8 +465,8 @@ INJECT_KERNELS = ("inject_attention", "inject_gate")
 # the per-layer pair K9 (phase 18, opt-in float-stack ORCA decode)
 K9_HALVES = ("fused_decode_tp_attn", "fused_decode_tp_mlp")
 # what generate() under a (1, 2) mesh must launch (phase 20c)
-MESH_PATH = ("fused_decode_layers_mesh", "tp_allreduce", "quant_matmul",
-             "w8a8_matmul", "log_mel")
+MESH_PATH = ("fused_decode_layers_mesh", "tp_allreduce", "decode_graph",
+             "quant_matmul", "w8a8_matmul", "log_mel")
 
 
 def bound(nbytes: float, ops: float, kind: str):
@@ -1553,7 +1568,7 @@ def check_rms_norm(gen):
 
 
 def check_decode_graph(model, msgs, tag: str, gpu: str,
-                       orca: bool = False) -> None:
+                       orca: bool = False, graphs: int = 1) -> None:
     """generate() of ``msgs`` (greedy, 32 new tokens) eagerly
     (``llm_generate(decode_graph=False)``) and through the decode step's
     CUDA graph (the default): the ids identical, every sampled step's
@@ -1562,7 +1577,8 @@ def check_decode_graph(model, msgs, tag: str, gpu: str,
     step (host clock, the capture inside the graph's), the capture time, and
     the device time of a step: the graph's replays and the eager step's
     launches, both queued behind a sleep kernel on a fresh cache (``orca``:
-    with the call's in-kernel injection spec)."""
+    with the call's in-kernel injection spec).  ``graphs``: the graphs a
+    step replays (under a mesh, one a card)."""
     import torch
     from desta25_audio_tpu_torch.generate import decode as tdecode
     from desta25_audio_tpu_torch.generate.graph import DecodeGraph
@@ -1622,16 +1638,17 @@ def check_decode_graph(model, msgs, tag: str, gpu: str,
     if g_ids != e_ids or not same:
         raise AssertionError(f"{tag}: the graph's ids or logits differ from "
                              "the eager step's")
-    if replays != max(steps - 1, 0) or g_n != e_n or g_k != e_k:
+    if replays != graphs * max(steps - 1, 0) or g_n != e_n or g_k != e_k:
         raise AssertionError(f"{tag}: graph counts {g_n} {g_k} (replays "
                              f"{replays}) vs eager {e_n} {e_k}")
 
 
-def require_graph_replays(tag: str, counts, timings) -> None:
-    """generate()'s decode ran through the graph: one replay for each
-    decode step after the first."""
+def require_graph_replays(tag: str, counts, timings, graphs: int = 1
+                          ) -> None:
+    """generate()'s decode ran through the graph: ``graphs`` replays (one a
+    card) for each decode step after the first."""
     steps = int(timings["decode_steps"])
-    if counts.get("decode_graph", 0) != max(steps - 1, 0):
+    if counts.get("decode_graph", 0) != graphs * max(steps - 1, 0):
         raise AssertionError(f"{tag}: {counts.get('decode_graph', 0)} "
                              f"decode_graph replays for {steps} steps")
 
@@ -1750,11 +1767,11 @@ def check_skinny_gemm(gen):
         # PEER_F32: two virtual ranks store into both receive buffers
         bufs = MeshBuffers([torch.device("cuda", 0)] * 2, 2, 4096)
         stream = torch.cuda.current_stream().cuda_stream
-        epoch = bufs.next_round()
+        epoch = bufs.begin(1) + 1
         xs = [torch.randn(2, 4096, generator=gen, device="cuda").bfloat16()
               for _ in range(2)]
         for rank in range(2):
-            bufs.store(rank, 0, epoch, xs[rank], w, s, "peer", stream)
+            bufs.store(rank, 0, 1, xs[rank], w, s, "peer", stream)
         torch.cuda.synchronize()
         for rank in range(2):
             want = sg.skinny_gemm_plain(xs[rank], w, s, sg.EPI_STORE_F32)
@@ -3024,26 +3041,124 @@ def phase_mesh(p: int, cards: bool, n_data: int = 1):
                      if cards else ["cuda:0"] * n)
 
 
-def check_tp_allreduce(gen, cards: bool, rounds: int = 200):
-    """Phase 20a: the all-reduce alone, at p = 2 and 4 virtual ranks, R = 2
-    and 8 rows, D = 4096, bf16 residuals.  Each round: every rank's producer
+def _nccl_allreduce_ms(devs, R: int, D: int, iters: int = 20):
+    """Information: one PyTorch call that sums the same [R, D] f32
+    partials over the p cards ``devs`` (``torch.cuda.nccl.all_reduce``, the
+    library's collective; never on the port's path), host clock around
+    ``iters`` calls with every card synchronised; None where the ranks do
+    not sit on distinct cards (NCCL takes one rank a card)."""
+    import torch
+    if len(set(devs)) < len(devs):
+        return None
+    import torch.cuda.nccl as nccl
+    xs = [torch.randn(R, D, device=d) for d in devs]
+    nccl.all_reduce(xs)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        nccl.all_reduce(xs)
+    for d in devs:
+        torch.cuda.synchronize(d)
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def check_tp_allreduce(gen, cards: bool, rounds: int = 200,
+                       replays: int = 30):
+    """Phase 20a: the all-reduce alone (``MeshBuffers.store`` /
+    ``reduce``: the peer-store GEMM, then the fused consumer, which adds the
+    ranks' sum into the residual and writes the next half's RMSNorm), at
+    p = 2 and 4 ranks (virtual ranks of the card, or with ``cards`` one a
+    card), R = 2 and 8 rows, D = 4096, bf16 and f32 residuals.  Each round:
+    ``begin(1)`` fills the ranks' epoch base words, every rank's producer
     (the int8 peer-store GEMM of x [R, 4096/p] with its own weight shard,
     the wo shape of Llama-3.1-8B) stores its partial into every rank's
-    buffer, then every rank's all-reduce adds the sum into its residual.
-    Checked: every rank's buffer holds the same partials, each partial
-    within TOL_QMM of the plain product, and every rank's residual
-    bit-identical to ``allreduce_plain`` on those partials.  10 rounds on
-    the caller's stream (serial), then ``rounds`` rounds with each rank on
-    its own stream (concurrent), inputs fresh every round, the slot
-    alternating.  Returns the JSON row of the p=2, R=2 all-reduce (the
-    generate() shape): error, the reduce's time, the plain version's, the
-    bound (p partials read, h read and written)."""
+    buffer, then every rank's consumer.  Checked: every rank's buffer holds
+    the same partials, each partial within TOL_QMM of the plain product;
+    every rank's residual bit-identical to ``allreduce_rmsnorm_plain``'s;
+    its norm bit-identical to the step's own norm kernel on that residual
+    (``decode_rms_norm``, bf16 residual) and within TOL_DECODE of
+    ``rms_plain`` (both residuals; torch sums the squares in another
+    order).  10 rounds on the caller's stream (serial), then ``rounds``
+    rounds with each rank on its own stream, inputs fresh every round, the
+    slot alternating.  Then ``replays`` replays of one CUDA graph per card
+    of two rounds (slot 0, then slot 1, at p = 2 and 4, R = 2, bf16): fresh
+    inputs and a new base before each, the flags at the new epochs after
+    it, the residual and norm bit for bit as above (a frozen epoch would
+    let a consumer read last replay's partials).  The control: a graph
+    whose second round skips the last rank's producer must set the error
+    words, finish within a few spins' timeouts and raise at
+    ``check_timeouts``.  Returns the JSON row of the p=2, R=2 bf16 consumer
+    (the generate() shape): error, its time, the plain version's, the bound
+    (p partials read, h read and written, the weight read, the norm
+    written), NCCL's all-reduce of the same partials across cards."""
     import torch
+    from desta25_audio_tpu_torch.generate.graph import CardGraphs
+    from desta25_audio_tpu_torch.ops.fused_decode import decode_rms_norm
     from desta25_audio_tpu_torch.ops.qmm import qmm_plain
-    from desta25_audio_tpu_torch.ops.tp_allreduce import (MeshBuffers,
-                                                          allreduce_plain)
+    from desta25_audio_tpu_torch.ops.tp_allreduce import (
+        MeshBuffers, allreduce_plain, allreduce_rmsnorm_plain)
     from desta25_audio_tpu_torch.parallel.mesh import on_device
-    D, row = 4096, None
+    D, row, eps = 4096, None, 1e-5
+
+    def launch(bufs, devs, streams, xs, ws, hs, wn, xns, slot, rnd,
+               skip=None, only=None):
+        """One round: every producer, then every consumer (not rank
+        ``skip``'s producer; with ``only``, the ranks on that device
+        alone)."""
+        ranks = [m for m, d in enumerate(devs)
+                 if only is None or torch.device(d) == torch.device(only)]
+        for m in ranks:
+            if m != skip:
+                with on_device(devs[m]):
+                    bufs.store(m, slot, rnd, xs[m], ws[m]["q"], ws[m]["s"],
+                               "tp_allreduce_store", streams[m].cuda_stream)
+        for m in ranks:
+            with on_device(devs[m]):
+                bufs.reduce(m, slot, rnd, hs[m], streams[m].cuda_stream,
+                            wn[m], xns[m], eps)
+
+    def fork(streams, curs):
+        for st, c in zip(streams, curs):
+            if st != c:
+                st.wait_stream(c)
+
+    def join(streams, curs):
+        for st, c in zip(streams, curs):
+            if st != c:
+                c.wait_stream(st)
+
+    def check_round(tag, bufs, devs, slot, h_in, hs, wn, xns):
+        """The residuals and norms after a round of slot ``slot`` on
+        residual h_in; returns (worst h err, worst norm rel vs rms_plain)."""
+        dev0 = devs[0]
+        parts = list(bufs.rbuf[0][slot])
+        for r in range(1, len(devs)):
+            if not torch.equal(bufs.rbuf[r][slot].to(dev0),
+                               bufs.rbuf[0][slot]):
+                raise AssertionError(f"{tag}: rank {r} received other "
+                                     "partials than rank 0")
+        (want,), (want_xn,) = allreduce_rmsnorm_plain(parts, [h_in], wn[0],
+                                                      eps)
+        kern_xn = (decode_rms_norm(want, wn[0], eps)
+                   if want.dtype == torch.bfloat16 else None)
+        w_h, w_n = 0.0, 0.0
+        for m in range(len(devs)):
+            got, got_xn = hs[m].to(dev0), xns[m].to(dev0)
+            w_h = max(w_h, rel_err(got, want)[0])
+            w_n = max(w_n, rel_err(got_xn, want_xn)[1])
+            if not torch.equal(got, want):
+                raise AssertionError(f"{tag}: rank {m}'s residual is not "
+                                     "bit-identical to the plain reduce")
+            if not torch.equal(got_xn, xns[0].to(dev0)) or (
+                    kern_xn is not None and not torch.equal(got_xn,
+                                                            kern_xn)):
+                raise AssertionError(f"{tag}: rank {m}'s norm is not the "
+                                     "norm kernel's bits on the residual")
+        if w_n > TOL_DECODE:
+            raise AssertionError(f"{tag}: norm vs rms_plain rel {w_n}")
+        return w_h, w_n
+
     for p in (2, 4):
         mesh = phase_mesh(p, cards)
         mesh.enable_peer_access()
@@ -3054,80 +3169,167 @@ def check_tp_allreduce(gen, cards: bool, rounds: int = 200):
         ws = [{k: v.to(d) for k, v in _int8_leaf(gen, D, K,
                                                   bias=False).items()}
               for d in devs]
+        w0 = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+              ).bfloat16()
+        wn = [w0.to(d) for d in devs]
         for R in (2, 8):
-            bufs = MeshBuffers(devs, R, D)
-            worst_part, worst_h, n_checked = 0.0, 0.0, 0
-            for mode, n in (("serial", 10), ("concurrent", rounds)):
-                streams = curs if mode == "serial" else mesh.streams()[0]
-                for i in range(n):
-                    slot = i % 2
-                    xs = [torch.randn(R, K, generator=gen, device="cuda").to(
-                        d, torch.bfloat16) for d in devs]
-                    h0 = torch.randn(R, D, generator=gen, device="cuda").to(
-                        dev0, torch.bfloat16)
-                    hs = [h0.to(d, copy=True) for d in devs]
-                    for st, c in zip(streams, curs):
-                        if st != c:
-                            st.wait_stream(c)
-                    epoch = bufs.next_round()
-                    for m, d in enumerate(devs):
-                        with on_device(d):
-                            bufs.store(m, slot, epoch, xs[m], ws[m]["q"],
-                                       ws[m]["s"], "tp_allreduce_store",
-                                       streams[m].cuda_stream)
-                    for m, d in enumerate(devs):
-                        with on_device(d):
-                            bufs.reduce(m, slot, epoch, hs[m],
-                                        streams[m].cuda_stream)
-                    for st, c in zip(streams, curs):
-                        if st != c:
-                            c.wait_stream(st)
-                    bufs.check_timeouts("tp_allreduce")
+            for dtype in (torch.bfloat16, torch.float32):
+                kind = "bf16" if dtype == torch.bfloat16 else "f32"
+                bufs = MeshBuffers(devs, R, D)
+                xns = [torch.empty(R, D, dtype=torch.bfloat16, device=d)
+                       for d in devs]
+                worst_part, worst_h, worst_n, n_checked = 0.0, 0.0, 0.0, 0
+                for mode, n in (("serial", 10), ("concurrent", rounds)):
+                    streams = curs if mode == "serial" else mesh.streams()[0]
+                    for i in range(n):
+                        slot = i % 2
+                        xs = [torch.randn(R, K, generator=gen,
+                                          device="cuda").to(d, torch.bfloat16)
+                              for d in devs]
+                        h0 = (torch.randn(R, D, generator=gen, device="cuda")
+                              * 4).to(dev0, dtype)
+                        hs = [h0.to(d, copy=True) for d in devs]
+                        bufs.begin(1)
+                        fork(streams, curs)
+                        launch(bufs, devs, streams, xs, ws, hs, wn, xns,
+                               slot, 1)
+                        join(streams, curs)
+                        bufs.check_timeouts("tp_allreduce")
+                        e_h, e_n = check_round(
+                            f"tp_allreduce p={p} R={R} {kind} {mode} round "
+                            f"{i}", bufs, devs, slot, h0, hs, wn, xns)
+                        worst_h, worst_n = max(worst_h, e_h), max(worst_n,
+                                                                  e_n)
+                        if i == 0:
+                            for m in range(p):
+                                worst_part = max(worst_part, rel_err(
+                                    bufs.rbuf[0][slot][m], qmm_plain(
+                                        xs[m], ws[m]["q"], ws[m]["s"],
+                                        torch.float32).to(dev0))[1])
+                        n_checked += 1
+                if worst_part > TOL_QMM:
+                    raise AssertionError(f"tp_allreduce p={p} R={R}: a "
+                                         f"partial disagrees with plain: "
+                                         f"{worst_part}")
+                line = (f"tp_allreduce p={p} R={R} D={D} {kind} residual on "
+                        f"{mesh} ({gpu_line()}): {n_checked} rounds (10 "
+                        f"serial, {rounds} concurrent on {p} streams), every "
+                        f"rank's residual bit-identical to the plain reduce "
+                        f"(max_abs_err {worst_h:.3e}), its norm "
+                        + ("bit-identical to decode_rms_norm's, "
+                           if dtype == torch.bfloat16 else "")
+                        + f"vs rms_plain rel <= {worst_n:.3e} (tol "
+                        f"{TOL_DECODE}), partials vs plain rel <= "
+                        f"{worst_part:.3e} (tol {TOL_QMM})")
+                if R == 2 and dtype == torch.bfloat16:
+                    # one rank's consumer on published flags (no wait),
+                    # beside the plain version's, the same consumer without
+                    # the norm followed by the step's norm kernel, and
+                    # NCCL's sum of the same partials across cards
+                    h, xn = hs[0].clone(), xns[0]
                     parts = list(bufs.rbuf[0][slot])
-                    for r in range(1, p):
-                        if not torch.equal(bufs.rbuf[r][slot].to(dev0),
-                                           bufs.rbuf[0][slot]):
-                            raise AssertionError(
-                                f"tp_allreduce p={p} R={R} {mode}: rank {r} "
-                                "received other partials than rank 0")
-                    want = allreduce_plain(parts, [h0])[0]
-                    for m in range(p):
-                        got = hs[m].to(dev0)
-                        worst_h = max(worst_h, rel_err(got, want)[0])
-                        if not torch.equal(got, want):
-                            raise AssertionError(
-                                f"tp_allreduce p={p} R={R} {mode} round {i}: "
-                                f"rank {m}'s residual is not bit-identical to "
-                                "the plain reduce")
-                    if i == 0:
-                        for m in range(p):
-                            worst_part = max(worst_part, rel_err(
-                                parts[m], qmm_plain(
-                                    xs[m], ws[m]["q"], ws[m]["s"],
-                                    torch.float32).to(dev0))[1])
-                    n_checked += 1
-            if worst_part > TOL_QMM:
-                raise AssertionError(f"tp_allreduce p={p} R={R}: a partial "
-                                     f"disagrees with plain: {worst_part}")
-            # time one rank's reduce on published flags (no wait), beside
-            # the plain version's, on the last round's partials
-            h = hs[0].clone()
-            ms = cuda_time_ms(lambda: bufs.reduce(0, slot, epoch, h,
-                                                  cur.cuda_stream), iters=20)
-            plain_ms = cuda_time_ms(lambda: allreduce_plain(parts, [h]),
-                                    iters=20)
-            b_ms, b_by = bound(p * R * D * 4 + 2 * R * D * 2, p * R * D,
-                               "f32")
-            print(f"tp_allreduce p={p} R={R} D={D} on {mesh} "
-                  f"({gpu_line()}): {n_checked} rounds (10 serial, {rounds} "
-                  f"concurrent on {p} streams), every rank's residual bit-identical to the "
-                  f"plain reduce (max_abs_err {worst_h:.3e}), partials vs "
-                  f"plain rel <= {worst_part:.3e} (tol {TOL_QMM}); reduce "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
-                  f"({b_by})", flush=True)
-            if (p, R) == (2, 2):
-                row = (worst_h, ms, plain_ms, b_ms, b_by, None)
-            del bufs
+                    cons = lambda: bufs.reduce(  # noqa: E731
+                        0, slot, 1, h, cur.cuda_stream, wn[0], xn, eps)
+                    pair = lambda: (  # noqa: E731
+                        bufs.reduce(0, slot, 1, h, cur.cuda_stream),
+                        decode_rms_norm(h, wn[0], eps))
+                    plain = lambda: allreduce_rmsnorm_plain(  # noqa: E731
+                        parts, [h], wn[0], eps)
+                    ms = cuda_time_ms(cons, iters=20)
+                    plain_ms = cuda_time_ms(plain, iters=20)
+                    q_ms = cuda_time_ms(cons, iters=50, queued=True)
+                    q_pair = cuda_time_ms(pair, iters=50, queued=True)
+                    nccl_ms = _nccl_allreduce_ms(devs, R, D)
+                    b_ms, b_by = bound(p * R * D * 4 + 3 * R * D * 2 + D * 2,
+                                       (p + 4) * R * D, "f32")
+                    line += (f"; consumer {ms:.4f} ms back to back, "
+                             f"{q_ms:.5f} ms queued (the consumer without "
+                             f"the norm + decode_rms_norm {q_pair:.5f} ms "
+                             f"queued), plain {plain_ms:.4f} ms, bound "
+                             f"{b_ms:.6f} ms ({b_by}), NCCL all_reduce "
+                             + ("n/a (virtual ranks)" if nccl_ms is None
+                                else f"{nccl_ms:.4f} ms") + " (information)")
+                    if p == 2:
+                        row = (worst_h, ms, plain_ms, b_ms, b_by, nccl_ms)
+                print(line, flush=True)
+                del bufs
+        # rounds replayed from one captured graph per card: the epochs
+        # advance on the device
+        bufs = MeshBuffers(devs, 2, D)
+        streams = mesh.streams()[0]
+        xs = [torch.zeros(2, K, dtype=torch.bfloat16, device=d) for d in devs]
+        hs = [torch.zeros(2, D, dtype=torch.bfloat16, device=d)
+              for d in devs]
+        xns = [torch.empty(2, D, dtype=torch.bfloat16, device=d)
+               for d in devs]
+
+        def two_rounds(skip=None, only=None):
+            mine = [m for m, d in enumerate(devs)
+                    if only is None or torch.device(d) == torch.device(only)]
+            sts = [streams[m] for m in mine]
+            curs_ = [torch.cuda.current_stream(devs[m]) for m in mine]
+            fork(sts, curs_)
+            launch(bufs, devs, streams, xs, ws, hs, wn, xns, 0, 1, None, only)
+            launch(bufs, devs, streams, xs, ws, hs, wn, xns, 1, 2, skip, only)
+            join(sts, curs_)
+
+        cg = CardGraphs(devs)
+        bufs.begin(2)
+        cg.run(two_rounds)                 # first use, eagerly
+        torch.cuda.synchronize()
+        cg.capture(two_rounds)
+        worst = 0.0
+        for i in range(replays):
+            h0 = torch.randn(2, D, generator=gen, device="cuda").bfloat16()
+            x0 = torch.randn(2, K, generator=gen, device="cuda").bfloat16()
+            for m, d in enumerate(devs):
+                hs[m].copy_(h0.to(d))
+                xs[m].copy_((x0 * (m + 1)).to(d))
+            base = bufs.begin(2)
+            cg.replay()
+            for d in set(devs):
+                torch.cuda.synchronize(d)
+            bufs.check_timeouts("tp_allreduce graph")
+            flags = [f.tolist() for f in bufs.flags]
+            if any(fl != [[base + 1] * p, [base + 2] * p] for fl in flags):
+                raise AssertionError(f"tp_allreduce graph p={p} replay {i}: "
+                                     f"flags {flags}, base {base}")
+            parts0 = list(bufs.rbuf[0][0])
+            h1 = allreduce_plain(parts0, [h0])[0]
+            worst = max(worst, check_round(
+                f"tp_allreduce graph p={p} replay {i}", bufs, devs, 1, h1,
+                hs, wn, xns)[0])
+        cg.reset()
+        # the control: the second round's last producer skipped
+        ctl = MeshBuffers(devs, 2, D)
+        bufs = ctl
+        cg = CardGraphs(devs)
+        ctl.begin(2)
+        cg.capture(lambda only=None: two_rounds(skip=p - 1, only=only))
+        ctl.begin(2)
+        t0 = time.perf_counter()
+        cg.replay()
+        for d in set(devs):
+            torch.cuda.synchronize(d)
+        waited = time.perf_counter() - t0
+        try:
+            ctl.check_timeouts("tp_allreduce control")
+        except RuntimeError as e:
+            raised = str(e)
+        else:
+            raise AssertionError(f"tp_allreduce p={p}: a skipped producer "
+                                 "did not set the error words")
+        cg.reset()
+        print(f"tp_allreduce p={p} on {mesh}: {2 * replays} rounds replayed "
+              f"from one graph per card, flags at base + 1, base + 2 after "
+              f"every replay, residuals and norms bit-identical (max_abs_err "
+              f"{worst:.3e}); control, a replay whose second round skips "
+              f"rank {p - 1}'s producer: finished in {waited:.2f} s and "
+              f"raised ({raised})", flush=True)
+        if waited > 20:
+            raise AssertionError(f"tp_allreduce p={p}: the control took "
+                                 f"{waited:.1f} s")
+        del bufs, ctl
     return row
 
 
@@ -3485,6 +3687,7 @@ def check_fused_mesh(qllm, cfg, gen, cards: bool):
                 queued=True))
             plain_ms = cuda_time_ms(lambda: fdm.fused_decode_layers_mesh_plain(
                 sp, cfg, x, mask, positions, cp, ci), iters=2)
+            replay = mesh_step_replay_ms(sp, cfg, mask, ck, cards)
         b_ms, b_by = bound(*llm_step_work(qllm, cfg, B, 1, ci.tolist()),
                            "bf16")
         where = (f"{p} cards" if cards else
@@ -3492,17 +3695,62 @@ def check_fused_mesh(qllm, cfg, gen, cards: bool):
                  "tensor-parallel speed)")
         print(f"K10 fused_decode_layers_mesh on {where}, L={L} B={B} S=256 "
               f"({gpu_line()}): {L}-layer logits vs plain rel={rel:.3e} "
-              f"(information); {ms:.4f} ms/step with a stream per rank, "
-              f"{ser_ms:.4f} ms/step on each card's current stream"
+              f"(information); eager {ms:.4f} ms/step with a stream per "
+              f"rank, {ser_ms:.4f} ms/step on each card's current stream"
               + ("" if q_ser is None else f" ({q_ser:.4f} queued)")
-              + f", plain "
-              f"{plain_ms:.4f} ms/step, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              + "; the step (MeshStep: fill, layers) as one graph per "
+              f"card's replay {replay[0]:.4f} ms/step"
+              + ("" if replay[1] is None else f" ({replay[1]:.4f} queued)")
+              + f", replays bit-identical to the eager MeshStep; plain "
+              f"{plain_ms:.4f} ms/step, bound {b_ms:.4f} ms ({b_by}; per "
+              f"card at {p} cards {b_ms / p:.4f} ms)", flush=True)
         if p == 2:
             row = (max(e[0] for e in errs), ms, plain_ms, b_ms, b_by, None)
         del sp, ck, cp, cache0
         torch.cuda.empty_cache()
     return row
+
+
+def mesh_step_replay_ms(sp, cfg, mask, cache, cards: bool):
+    """K10's decode step of ``generate()`` (``MeshStep``: the per-call
+    state and the layers, no head; its embeddings gathered and filled as
+    ``DecodeGraph.step`` does) on ``sp`` and its ShardedCache, every row
+    writing at 150: once eagerly, then captured as one CUDA graph per card
+    and replayed; the replay's hidden must equal the eager step's bit for
+    bit.  Returns (ms/step back to back, ms/step queued behind a sleep
+    kernel or None on cards, whose other cards the sleep would not
+    hold)."""
+    import torch
+    from desta25_audio_tpu_torch.generate.graph import CardGraphs
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops.fused_decode_mesh import MeshStep
+    B = mask.shape[0]
+    cur = torch.zeros(B, 1, dtype=torch.long, device=mask.device)
+    mask = mask.clone()
+    mask[:, 150] = 1
+    step = MeshStep(sp, cfg, mask, cache)
+    cg = CardGraphs(step.cards)
+
+    def fill():
+        step.fill(tllm.embed_tokens(sp, cur), cur + 150, 150)
+    fill()
+    eager = [h.clone() for h in cg.run(step.run)]
+    outs = cg.capture(step.run)
+
+    def once():
+        fill()
+        cg.replay()
+    once()
+    torch.cuda.synchronize()
+    step.check()
+    if not all(torch.equal(a, b) for a, b in zip(eager, outs)):
+        raise AssertionError("K10 graph: the replay's hidden differs from "
+                             "the eager step's")
+    ms = cuda_time_ms(once, iters=10)
+    q_ms = None if cards else cuda_time_ms(once, iters=10, queued=True)
+    step.check()
+    cg.reset()
+    return ms, q_ms
 
 
 def teacher_forced_logits(model, convs, ids):
@@ -3573,6 +3821,11 @@ def run_mesh_generate(model, convs, gpu, cards: bool):
                 raise AssertionError(f"mesh generate(): {name} not launched")
         if counts.get("fused_decode_layers_int8", 0):
             raise AssertionError("mesh generate(): K8-int8 was launched")
+        n_cards = len({d for row in mesh.devices for d in row})
+        require_graph_replays("mesh generate()", counts, t_mesh, n_cards)
+        # the decode graph against the eager step: ids, every step's
+        # logits bit for bit, the counts; ms/step both ways
+        check_decode_graph(model, runs, "mesh (1, 2)", gpu, graphs=n_cards)
         check_outputs(model, [(out, 2)])
         ids = torch.tensor(out.generated_ids, device=model.device)
         tf_mesh = teacher_forced_logits(model, runs, ids)

@@ -85,6 +85,49 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
+// RMSNorm's arithmetic on one thread's 8-value vectors, shared by the decode
+// step's norm (csrc/fused_decode.cu) and the all-reduce that writes the next
+// half's norm (csrc/tp_allreduce.cu), so that both give the same bits for
+// the same row and thread layout: the squares summed into ss by fused
+// multiply-adds in vector order, the block's sum (block_sum), then
+// out = bf16(x * inv * w) with inv = rsqrtf(ss / D + eps).
+__device__ __forceinline__ void rms_unpack8(const uint4& u, float f[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(p[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+__device__ __forceinline__ float rms_sumsq8(const float f[8], float ss) {
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ss = __fmaf_rn(f[e], f[e], ss);
+  return ss;
+}
+__device__ __forceinline__ float rms_inv(float ss, int D, float eps) {
+  return rsqrtf(ss / (float)D + eps);
+}
+__device__ __forceinline__ uint4 rms_scale8(const float f[8], const uint4& w,
+                                            float inv) {
+  float g[8];
+  rms_unpack8(w, g);
+  uint4 o;
+  o.x = pack_bf16(f[0] * inv * g[0], f[1] * inv * g[1]);
+  o.y = pack_bf16(f[2] * inv * g[2], f[3] * inv * g[3]);
+  o.z = pack_bf16(f[4] * inv * g[4], f[5] * inv * g[5]);
+  o.w = pack_bf16(f[6] * inv * g[6], f[7] * inv * g[7]);
+  return o;
+}
+// The norm's block: min(RMS_THREADS_MAX, D / 8 rounded up to a warp)
+// threads, each holding its vectors t, t + threads, ... (up to RMS_NV_MAX).
+constexpr int RMS_THREADS_MAX = 512;  // D = 4096: 512 threads x 8
+constexpr int RMS_NV_MAX = 8;         // 16-byte vectors a thread: D <= 32768
+inline int rms_threads(int D) {
+  const int nvec = D / 8;
+  return nvec < RMS_THREADS_MAX ? (nvec + 31) / 32 * 32 : RMS_THREADS_MAX;
+}
+
 // D = A(16x16, row) * B(16x8, col) + D, bf16 inputs, f32 accumulation.
 // Fragment layout (g = lane / 4, t = lane % 4):
 //   a0 (g, 2t..2t+1)  a1 (g+8, 2t..)  a2 (g, 2t+8..)  a3 (g+8, 2t+8..)

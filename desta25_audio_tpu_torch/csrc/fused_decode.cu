@@ -60,18 +60,6 @@ using namespace desta;
 // ---------------------------------------------------------------------------
 
 constexpr int RMS_VEC = 8;            // bf16 a 16-byte load
-constexpr int RMS_THREADS_MAX = 512;  // D = 4096: 512 threads x 8
-constexpr int RMS_NV_MAX = 8;         // 16-byte loads a thread: D <= 32768
-
-__device__ __forceinline__ void rms_unpack(const uint4& u, float f[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(p[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
 
 // One block a row; thread t holds vectors t, t + blockDim.x, ... (NV of
 // them, the last ones predicated off past D / 8) in registers.
@@ -99,27 +87,20 @@ rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     if (v < nvec) {
       xv[i] = xr[v];
       float f[8];
-      rms_unpack(xv[i], f);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ss += f[e] * f[e];
+      rms_unpack8(xv[i], f);
+      ss = rms_sumsq8(f, ss);
     }
   }
   ss = block_sum(ss, red);
-  const float inv = rsqrtf(ss / (float)D + eps);
+  const float inv = rms_inv(ss, D, eps);
   uint4* orow = reinterpret_cast<uint4*>(out) + row;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
     if (v < nvec) {
-      float f[8], g[8];
-      rms_unpack(xv[i], f);
-      rms_unpack(wr[i], g);
-      uint4 o;
-      o.x = pack_bf16(f[0] * inv * g[0], f[1] * inv * g[1]);
-      o.y = pack_bf16(f[2] * inv * g[2], f[3] * inv * g[3]);
-      o.z = pack_bf16(f[4] * inv * g[4], f[5] * inv * g[5]);
-      o.w = pack_bf16(f[6] * inv * g[6], f[7] * inv * g[7]);
-      orow[v] = o;
+      float f[8];
+      rms_unpack8(xv[i], f);
+      orow[v] = rms_scale8(f, wr[i], inv);
     }
   }
 }
@@ -151,8 +132,7 @@ extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
       || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)
           | reinterpret_cast<uintptr_t>(out)) % 16)
     return (int)cudaErrorInvalidValue;
-  const int threads = nvec < RMS_THREADS_MAX ? (nvec + 31) / 32 * 32
-                                             : RMS_THREADS_MAX;
+  const int threads = rms_threads(D);
   const int nv = (nvec + threads - 1) / threads;
   const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
   bf16* ob = (bf16*)out;

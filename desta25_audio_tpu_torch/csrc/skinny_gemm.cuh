@@ -65,9 +65,10 @@
 //   BIAS       bf16(v + b[n])                 (f32 bias, no fused multiply-add)
 //   BIAS_GELU  bf16(gelu(bf16(v + b[n])))     erf GELU in f32
 //   PEER_F32   v into slot [slot][my] of every mesh rank's receive buffer,
-//              then, once every CTA of every pass has stored, the rank's
-//              epoch into each rank's flag word [slot][my] (PeerStore below;
-//              read by the all-reduce of csrc/tp_allreduce.cu)
+//              then, once every CTA of every pass has stored, the round's
+//              epoch (the step's base word on the device + the launch's
+//              round) into each rank's flag word [slot][my] (PeerStore
+//              below; read by the all-reduce of csrc/tp_allreduce.cu)
 // Rows go 16 at a time; a pass over more rows re-streams the weights.
 #pragma once
 
@@ -93,15 +94,20 @@ constexpr int SKINNY_ROWS = 16;  // activation rows per pass
 // Arrival: every CTA stores its outputs, fences them at system scope and
 // counts itself in *counter; the CTA that makes the count reach `blocks`
 // (all CTAs of all passes) resets the counter for the next use and, after
-// another system-scope fence, release-stores `epoch` into every rank's flag
-// word.  Epochs only grow (one per all-reduce round of the mesh's buffers),
-// so no flag is ever reset.
+// another system-scope fence, release-stores the round's epoch, *base +
+// round, into every rank's flag word.  base: the rank's step word on the
+// device, filled by the host before each step (ops/tp_allreduce.py
+// MeshBuffers.begin), read here after the epilogue's programmatic-launch
+// wait; round: fixed per launch, so a CUDA graph's replays publish new
+// epochs.  Epochs only grow (base advances by every step's rounds), so no
+// flag is ever reset.
 struct PeerStore {
   const unsigned long long* dst = nullptr;
   const unsigned long long* flags = nullptr;
   unsigned int* counter = nullptr;
   long long offset = 0;
-  long long epoch = 0;
+  const long long* base = nullptr;
+  long long round = 0;
   unsigned int blocks = 0;
   int p = 0;
   int flag = 0;
@@ -120,9 +126,10 @@ __device__ __forceinline__ void peer_arrive(const PeerStore& ps) {
     if (atomicAdd(ps.counter, 1u) + 1u == ps.blocks) {
       __threadfence_system();
       atomicExch(ps.counter, 0u);
+      const long long epoch = __ldcg(ps.base) + ps.round;
       for (int d = 0; d < ps.p; ++d)
         st_release_sys(reinterpret_cast<long long*>(ps.flags[d]) + ps.flag,
-                       ps.epoch);
+                       epoch);
     }
   }
 }

@@ -15,8 +15,9 @@ at 0 (left padding), every step writes its k/v at the same ``T + t`` for all
 rows, rows that stopped emit ``pad_id``, and the loop ends early once every
 row has stopped.  Under a mesh (``parallel/mesh.use_mesh`` with the LLM cut
 for it) the cache is the ranks' slices and the steps run on every rank
-(``models/llm.py``); the embeddings, the logits and sampling stay on the
-first rank's device.  Whisper ASR decoding is not ported yet.
+(K10, also as one CUDA graph per card; else ``models/llm.py``'s layer
+loop); the logits and sampling stay on the first rank's device.  Whisper
+ASR decoding is not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from ..ops import _build
 from ..ops.core import index_tree
 from ..ops.fused_decode import (fused_decode_supported, fused_inject_supported,
                                 tower_is_int8)
+from ..ops.fused_decode_mesh import fused_mesh_takes
 from ..ops.quant import is_quantized
 from ..ops.rope import fractional_rope_apply
 from ..parallel.mesh import current_mesh
@@ -126,11 +128,14 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     with a captured decode step ``graph_capture_ms`` (inside ``decode_ms``).
 
     Where the fused decode step takes the request (``models/llm.
-    decode_step``; not under a mesh, no per-layer hook without the
-    in-kernel injection) the steps run through a ``generate/graph.
-    DecodeGraph``: on a CUDA device the first step eagerly, the rest as
-    replays of one CUDA graph; ``decode_graph=False`` keeps every step
-    eager (the comparison of the card tests and ``chip_smoke.py``).
+    decode_step``, or under a mesh K10 where ``fused_mesh_takes``
+    holds; no per-layer hook without the in-kernel injection) the steps run
+    through a ``generate/graph.DecodeGraph``: on CUDA devices the first step
+    eagerly, the rest as replays of one CUDA graph per card;
+    ``decode_graph=False`` keeps every step eager (the comparison of the
+    card tests and ``chip_smoke.py``).  Under a mesh the all-reduce's error
+    words are read once, after the last step: a timed-out round raises
+    RuntimeError there.
     """
     B, T, _ = inputs_embeds.shape
     dev = inputs_embeds.device
@@ -179,12 +184,15 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     pos = positions[:, -1] + 1
     steps = 0
     graph = None
-    if ((extra_layer_fn is None or fused_spec is not None)
-            and current_mesh() is None and not isinstance(params, ShardedLLM)
-            and fused_decode_supported(params, cfg, inputs_embeds[:, :1],
-                                       cache)):
-        graph = DecodeGraph(params, cfg, mask, cache, fused_spec,
-                            capture=decode_graph)
+    if extra_layer_fn is None or fused_spec is not None:
+        if isinstance(params, ShardedLLM):      # under its mesh: K10
+            fused = fused_mesh_takes(params, cfg, cache, fused_spec)
+        else:
+            fused = current_mesh() is None and fused_decode_supported(
+                params, cfg, inputs_embeds[:, :1], cache)
+        if fused:
+            graph = DecodeGraph(params, cfg, mask, cache, fused_spec,
+                                capture=decode_graph)
     try:
         for t in range(max_new_tokens - 1):
             if bool(done.all()):
@@ -208,11 +216,13 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
             pos = pos + 1
             cur = nxt
             steps += 1
+        if graph is not None:
+            graph.check()
         if timings is not None:
             _sync(dev)
             timings["decode_ms"] = (time.perf_counter() - t1) * 1e3
             timings["decode_steps"] = steps
-            if graph is not None and graph.graph is not None:
+            if graph is not None and graph.counts is not None:
                 timings["graph_capture_ms"] = graph.capture_ms
     finally:
         if graph is not None:

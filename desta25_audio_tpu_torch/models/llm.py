@@ -63,7 +63,7 @@ from ..ops.fused_decode import (
 )
 from ..ops.fused_decode_mesh import (
     fused_decode_layers_mesh,
-    fused_mesh_supported,
+    fused_mesh_takes,
 )
 from ..ops.fused_decode_tp import (
     fused_decode_layers_perlayer,
@@ -286,18 +286,11 @@ def _mesh_decode_step(params: ShardedLLM, cfg: LLMConfig, x, attention_mask,
     package's next choice, K9's pair under the mesh, takes no step that K10
     refuses here (``fused_decode_tp.tp_limits`` is K10's limits and
     more), so it is not dispatched."""
-    if fused_injection is not None:
-        if fused_mesh_supported(params, cfg, cache,
-                                inject_params=fused_injection["params"],
-                                ta=int(fused_injection["ta_real"]),
-                                heads=int(fused_injection["heads"])):
-            return fused_decode_layers_mesh(
-                params, cfg, x, attention_mask, positions, cache, ci,
-                inject=fused_injection)[0]
-        return None
-    if extra_layer_fn is None and fused_mesh_supported(params, cfg, cache):
+    if ((extra_layer_fn is None or fused_injection is not None)
+            and fused_mesh_takes(params, cfg, cache, fused_injection)):
         return fused_decode_layers_mesh(params, cfg, x, attention_mask,
-                                        positions, cache, ci)[0]
+                                        positions, cache, ci,
+                                        inject=fused_injection)[0]
     return None
 
 

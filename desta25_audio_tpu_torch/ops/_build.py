@@ -116,11 +116,13 @@ SIGNATURES: Dict[str, Tuple] = {
     # x, w, scale, out, M, N, K, accumulate, stream
     "desta_tp_gemm": (_P,) * 4 + (_I,) * 4 + (_P,),
     # x, w, scale, w_int8, M, N, K, dst_table, flag_table, counter, offset,
-    # p, flag, epoch, stream
+    # p, flag, base, round, stream
     "desta_gemm_peer": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _L, _I, _I,
-                        _L, _P),
-    # rbuf, flags, h, h_f32, p, slot, epoch, rows, D, err, stream
-    "desta_tp_allreduce": (_P, _P, _P, _I, _I, _I, _L, _I, _I, _P, _P),
+                        _P, _L, _P),
+    # rbuf, flags, h, h_f32, p, slot, base, round, rows, D, norm_w, xn, eps,
+    # err, stream
+    "desta_tp_allreduce": (_P, _P, _P, _I, _I, _I, _P, _L, _I, _I, _P, _P, _F,
+                           _P, _P),
     # dev, peer
     "desta_enable_peer_access": (_I, _I),
 }

@@ -787,7 +787,12 @@ class FusedStep:
     which adds into the bf16 residual ``h`` (EPI_RESID) or, given a
     ``store(x, w, scale, name, stream)``, hands it the product's operands:
     the tensor-parallel driver (``ops/fused_decode_mesh.py``) stores the
-    rank's partial sum for its all-reduce there."""
+    rank's partial sum for its all-reduce there, and that all-reduce writes
+    the next half's norm into ``xn``, so the half after it runs with
+    ``normed=True`` (no norm launch of its own).  :meth:`load` takes a new
+    step's embeddings and positions into the same buffers, so one FusedStep
+    serves every step of a call (the mesh's per-call state, which also sets
+    ``stream``, the stream the launches go to, to each run's)."""
 
     def __init__(self, params, cfg, inputs_embeds, attention_mask, positions,
                  cache: KVCache, cache_index, name: str, inject=None):
@@ -860,6 +865,16 @@ class FusedStep:
                                            for _ in range(3))
             self.ig = torch.empty(R, self.inj["Dg"], **bf)
 
+    def load(self, inputs_embeds, positions) -> None:
+        """A new step's rows into this step's buffers, on the current
+        stream: the residual h from inputs_embeds [B, Kd, D] and the RoPE
+        tables from positions [B, Kd] (device tensors: a CUDA graph can
+        capture it)."""
+        cos, sin = llm_rope_cos_sin(self.cfg, positions.reshape(self.R))
+        self.cos.copy_(cos)
+        self.sin.copy_(sin)
+        self.h.copy_(inputs_embeds.reshape(self.R, self.D))
+
     def _launch(self, status, what=None):
         what = what or self.name
         _build.check(status, what)
@@ -888,12 +903,14 @@ class FusedStep:
             self.stream))
         _build.count_kernel("rms_norm")
 
-    def attention(self, l, store=None):
-        """Layer l's norm, q/k/v, attention with the cache write, wo."""
+    def attention(self, l, store=None, normed=False):
+        """Layer l's norm (unless ``normed``: ``xn`` holds it), q/k/v,
+        attention with the cache write, wo."""
         cfg, c = self.cfg, self.cache
         H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                       cfg.head_dim)
-        self._norm(l, 0)
+        if not normed:
+            self._norm(l, 0)
         self._gemm(self.xn, "wqkv", l, self.qkv, (H + 2 * Hkv) * Dh, self.D,
                    EPI_STORE)
         self._launch(self.lib.desta_decode_attention(
@@ -907,10 +924,11 @@ class FusedStep:
         _build.count_kernel("decode_attention")
         self._out_gemm(self.attn, "wo", l, H * Dh, store)
 
-    def mlp(self, l, store=None):
-        """Layer l's norm, gate/up with SwiGLU, down."""
+    def mlp(self, l, store=None, normed=False):
+        """Layer l's norm (unless ``normed``), gate/up with SwiGLU, down."""
         I = self.cfg.intermediate_size
-        self._norm(l, 1)
+        if not normed:
+            self._norm(l, 1)
         self._gemm(self.xn, "w_gu", l, self.mid, I, self.D, EPI_SWIGLU)
         self._out_gemm(self.mid, "w_down", l, I, store)
 

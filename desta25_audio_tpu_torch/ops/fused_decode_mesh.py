@@ -10,7 +10,9 @@ product, instead of adding into the residual, is stored as an f32 partial
 sum into every rank's receive buffer, and the all-reduce of
 ``csrc/tp_allreduce.cu`` then adds the ranks' sum into each rank's bf16
 residual, ``h = bf16(h + bf16(sum))`` (``fused_decode.py:660-729`` of the
-JAX package); the same for w_down.  The residual stays replicated bit for
+JAX package), and writes the next half's RMSNorm of it (ln2 of the layer;
+after w_down, ln1 of the next layer unless an injection comes between):
+7 launches a layer a rank, as K8's step.  The residual stays replicated bit for
 bit on every rank (``ops/tp_allreduce.py``), so the ORCA injection (K8i,
 ``inject=``) runs after the w_down all-reduce on every rank from replicated
 injection weights and audio K/V, as the JAX package does
@@ -20,11 +22,17 @@ block of batch rows (``:209-229``).
 Launch order: the ranks' kernels go layer by layer, interleaved: every
 rank's half up to its producer GEMM, then every rank's all-reduce.  Each rank
 launches on its own CUDA stream (``Mesh.streams``), so ranks on one card run
-concurrently and ranks on several cards in parallel; ``serial=True`` puts
-every rank on its card's current stream, where every producer precedes
-every consumer and no all-reduce waits (``chip_smoke.py`` holds the two
-orders equal).  A spin that times out raises RuntimeError after
-the step.
+concurrently and ranks on several cards in parallel; the step functions'
+``serial=True`` puts every rank on its card's current stream, where every
+producer precedes every consumer and no all-reduce waits (``chip_smoke.py``
+holds the two orders equal).  The epochs of the all-reduce's rounds live on
+the device (``MeshBuffers.begin`` fills each rank's base word before a
+step; a launch carries its round within the step).  :class:`MeshStep`
+launches every step: its per-call work done once and no host sync in one, so
+that ``generate/graph.py`` captures a ``generate()`` call's decode step as
+one CUDA graph per card and reads the error words once, at the end of the
+call; the step functions make one a call and read them at once (a spin that
+timed out raises RuntimeError there).
 
 Counts: the step's launches as ``fused_decode_layers_mesh`` (Kd = 1) or
 ``fused_verify_layers_mesh`` (Kd > 1), the all-reduce as ``tp_allreduce``,
@@ -65,7 +73,13 @@ from .fused_decode import (
 )
 from .quant import LLM_QUANT_KEYS
 from .rope import llm_rope_cos_sin
-from .tp_allreduce import ATTN_SLOT, MLP_SLOT, allreduce_plain, group_buffers
+from .tp_allreduce import (
+    ATTN_SLOT,
+    MLP_SLOT,
+    allreduce_plain,
+    group_buffers,
+    layer_round,
+)
 
 def _cache_shape(cache):
     """The unsharded [L, B, S, Hkv*Dh] of a KVCache or a ShardedCache."""
@@ -121,6 +135,20 @@ def fused_mesh_supported(params, cfg, cache, kd: int = 1, inject_params=None,
     dtype = cache.dtype if isinstance(cache, ShardedCache) else cache.k.dtype
     return not fused_mesh_limits(params, cfg, B, S, kd, inject_params, ta,
                                  heads, dtype)
+
+
+def _inject_args(inject):
+    """(inject_params, ta, heads) of a fused injection spec, or of None."""
+    if inject is None:
+        return None, 0, 0
+    return inject["params"], int(inject["ta_real"]), int(inject["heads"])
+
+
+def fused_mesh_takes(params, cfg, cache, inject=None) -> bool:
+    """Does the tensor-parallel decode step take this cache with the fused
+    injection spec ``inject`` (or none)?  The dispatch of
+    ``models/llm.py`` and of ``generate/decode.py``."""
+    return fused_mesh_supported(params, cfg, cache, 1, *_inject_args(inject))
 
 
 def pick_verify_fn(params, cfg, cache, kd: int, inject_params=None,
@@ -200,96 +228,230 @@ def fused_decode_layers_mesh_plain(params: ShardedLLM, cfg, inputs_embeds,
     return torch.cat(outs), cache
 
 
-def _launch_group(params: ShardedLLM, g: int, x, mask, positions, ci, cache,
-                  name: str, inject, serial: bool):
-    """Launch the kernels of data row g's model group, without waiting on
-    them; returns (steps, streams, callers, buffers) for
-    :func:`_finish_groups`."""
-    mesh, lcfg = params.mesh, params.local_cfg
+def _streams(mesh, g: int, serial: bool):
+    """(callers, streams) of data row g's ranks: each device's current
+    stream, and the rank's own stream (``Mesh.streams``) or, with
+    ``serial``, the caller's."""
     row = mesh.devices[g]
     callers = [torch.cuda.current_stream(dev) for dev in row]
-    streams = callers if serial else mesh.streams()[g]
+    return callers, (callers if serial else mesh.streams()[g])
+
+
+def _fork(streams, callers) -> None:
     for s, c in zip(streams, callers):
         if s is not c:
             s.wait_stream(c)     # the inputs and the cache are the caller's
-    steps = []
-    for m, dev in enumerate(row):
-        with on_device(dev), torch.cuda.stream(streams[m]):
-            steps.append(FusedStep(
-                params.ranks[g][m], lcfg, x.to(dev), mask.to(dev),
-                positions.to(dev), cache.shards[g][m], ci.to(dev), name,
-                _inject_rows(inject, slice(None), dev)))
-    bufs = group_buffers(mesh, g, steps[0].R, steps[0].D)
 
-    def round_(half: str, l: int, slot: int) -> None:
-        epoch = bufs.next_round()
-        for m, st in enumerate(steps):        # every producer ...
-            with on_device(row[m]):
-                getattr(st, half)(l, functools.partial(bufs.store, m, slot,
-                                                       epoch))
-        for m, st in enumerate(steps):        # ... before any consumer
-            with on_device(row[m]):
-                bufs.reduce(m, slot, epoch, st.h, st.stream)
 
-    for l in range(steps[0].L):
-        round_("attention", l, ATTN_SLOT)
-        round_("mlp", l, MLP_SLOT)
-        if inject is not None:
-            for m, st in enumerate(steps):
+def _join(streams, callers) -> None:
+    for s, c in zip(streams, callers):
+        if s is not c:
+            c.wait_stream(s)
+
+
+def _launch_layers(steps, bufs, row, inject: bool, ranks) -> None:
+    """Every layer of one step on a model group's ranks (``steps[m]``, the
+    FusedStep of rank m on ``row[m]``), half by half: every rank's half up
+    to its producer GEMM, then every rank's consumer (so that ranks on one
+    stream never wait on a later launch), which adds the ranks' sum into
+    the residual and writes the next half's norm into the rank's ``xn``:
+    ln2 of the layer after the attention, ln1 of the next layer after the
+    MLP, none after the last layer, nor before an injection, whose kernels
+    change the residual (the next attention then launches its own norm).
+    The round of each half is :func:`layer_round`, its epoch the step's
+    base (``MeshBuffers.begin``, the caller's) plus that round.  ``ranks``:
+    the ranks to launch (all, or one card's for that card's graph)."""
+    L, eps = steps[0].L, float(steps[0].cfg.rms_norm_eps)
+    for l in range(L):
+        for slot, half in ((ATTN_SLOT, "attention"), (MLP_SLOT, "mlp")):
+            rnd = layer_round(l, slot)
+            normed = slot == MLP_SLOT or (l > 0 and not inject)
+            for m in ranks:                           # every producer ...
                 with on_device(row[m]):
-                    st.inject(l)
-    return steps, streams, callers, bufs
+                    getattr(steps[m], half)(l, functools.partial(
+                        bufs.store, m, slot, rnd), normed=normed)
+            nxt = ((1, l) if slot == ATTN_SLOT
+                   else (0, l + 1) if l + 1 < L and not inject else None)
+            for m in ranks:                           # ... before any consumer
+                st = steps[m]
+                with on_device(row[m]):
+                    if nxt is None:
+                        bufs.reduce(m, slot, rnd, st.h, st.stream)
+                    else:
+                        bufs.reduce(m, slot, rnd, st.h, st.stream,
+                                    st.norms[nxt[0]][nxt[1]], st.xn, eps)
+        if inject:
+            for m in ranks:
+                with on_device(row[m]):
+                    steps[m].inject(l)
 
 
-def _finish_groups(launched, name: str):
-    """Join every group's streams to their callers, then read the error
-    words once (one host sync a step, after every group is launched, so
-    the groups of a "data" axis run side by side); returns every rank's
-    hidden [b, Kd, D], ``[group][rank]``."""
-    for steps, streams, callers, _ in launched:
-        for st, s, c in zip(steps, streams, callers):
-            if s is not c:
-                c.wait_stream(s)
-                st.h.record_stream(c)
-    for *_, bufs in launched:
-        bufs.check_timeouts(name)
-    return [[st.h.reshape(st.B, st.Kd, st.D) for st in steps]
-            for steps, *_ in launched]
+def _card(device) -> torch.device:
+    """A device with its index (a bare "cuda" is card 0, as
+    ``Mesh.enable_peer_access`` reads it)."""
+    device = torch.device(device)
+    return torch.device(device.type, device.index or 0)
 
 
-def _mesh_step(params, cfg, inputs_embeds, attention_mask, positions, cache,
-               cache_index, name: str, inject, serial, all_ranks=False):
-    _check_operands(params, cache, name)
-    if inputs_embeds.device.type == "cpu":
-        return fused_decode_layers_mesh_plain(
-            params, cfg, inputs_embeds, attention_mask, positions, cache,
-            cache_index, inject)
-    mesh = params.mesh
-    bad = fused_mesh_limits(params, cfg, inputs_embeds.shape[0],
-                            _cache_shape(cache)[2], inputs_embeds.shape[1],
-                            None if inject is None else inject["params"],
-                            0 if inject is None else int(inject["ta_real"]),
-                            0 if inject is None else int(inject["heads"]))
-    if bad:
-        raise ValueError(f"{name}: " + "; ".join(bad))
-    B = inputs_embeds.shape[0]
-    dev0 = inputs_embeds.device
-    ci = _row_indices(cache_index, B, dev0)
-    launched = []
-    for g in range(mesh.n_data):
-        rows = data_rows(mesh, B, g)
-        # a block's own copy: the kernels take 16-byte aligned operands,
-        # which a slice past row 0 need not be
-        own = ((lambda t: t) if mesh.n_data == 1
-               else (lambda t: t[rows].clone()))
-        launched.append(_launch_group(
-            params, g, own(inputs_embeds), own(attention_mask),
-            own(positions), own(ci), cache, name,
-            _inject_rows(inject, rows, mesh.devices[g][0]), serial))
-    outs = _finish_groups(launched, name)
-    if all_ranks:
-        return outs
-    return torch.cat([hs[0].to(dev0) for hs in outs]), cache
+
+
+def _inputs(b: int, kd: int, D: int, dev, mask):
+    """A card's static step inputs for b batch rows."""
+    return {"x": torch.zeros(b, kd, D, dtype=torch.bfloat16, device=dev),
+            "pos": torch.zeros(b, kd, dtype=torch.long, device=dev),
+            "ci": torch.zeros(b, dtype=torch.int32, device=dev),
+            "mask": mask}
+
+
+class MeshStep:
+    """K10's decode (``kd`` = 1) or verify (``kd`` > 1) step under the
+    current mesh, its per-call work done once: per data row of the mesh and
+    card, static inputs (the rows' embeddings, RoPE positions, cache
+    indices and, off the call's own card or with a "data" axis, a copy of
+    the call's mask), every rank's FusedStep (operands, scratch, the
+    injection rows copied to its card) and the group's all-reduce buffers.
+    A step is :meth:`fill` (on each card's current stream: the inputs and
+    every group's epoch base, ``MeshBuffers.begin``), then :meth:`run`,
+    which reads only those static device buffers, so that one CUDA graph
+    per card can capture it (``generate/graph.py``): per rank the layers
+    (:func:`_launch_layers`, each rank on its own stream), and per data row
+    ``head`` on its first rank.  No host sync: :meth:`check` reads the
+    error words.  ``generate()`` keeps one MeshStep for all its decode
+    steps and checks it once, at the end of the call;
+    :func:`fused_decode_layers_mesh` and :func:`fused_verify_layers_mesh`
+    make one a call and check it at once.  On the CPU :meth:`run` is the
+    plain step (:func:`fused_decode_layers_mesh_plain`) on the filled
+    tensors."""
+
+    def __init__(self, params: ShardedLLM, cfg, mask: torch.Tensor,
+                 cache: ShardedCache, inject=None, kd: int = 1):
+        self.name = ("fused_decode_layers_mesh" if kd == 1
+                     else "fused_verify_layers_mesh")
+        _check_operands(params, cache, self.name)
+        mesh = self.mesh = params.mesh
+        self.params, self.cfg, self.cache = params, cfg, cache
+        self.mask, self.inject = mask, inject
+        B, D = mask.shape[0], cfg.hidden_size
+        self.dev0 = mask.device
+        self.cpu = self.dev0.type == "cpu"
+        self.cards = list(dict.fromkeys(_card(d) for d in [self.dev0] + [
+            d for row in mesh.devices for d in row]))
+        self.groups, self.ins = [], None
+        if self.cpu:
+            return
+        bad = fused_mesh_limits(params, cfg, B, _cache_shape(cache)[2], kd,
+                                *_inject_args(inject))
+        if bad:
+            raise ValueError(f"{self.name}: " + "; ".join(bad))
+        for g, row in enumerate(mesh.devices):
+            rows = data_rows(mesh, B, g)
+            b = rows.stop - rows.start
+            # a block's own copies: the kernels take 16-byte aligned
+            # operands, which a slice past row 0 need not be
+            ins = {dev: _inputs(b, kd, D, dev, mask[rows].to(
+                       dev, torch.int32, copy=True)
+                       if mesh.n_data > 1 or dev != self.dev0 else mask)
+                   for dev in dict.fromkeys(row)}
+            steps = []
+            for m, dev in enumerate(row):
+                inp = ins[dev]
+                with on_device(dev):
+                    steps.append(FusedStep(
+                        params.ranks[g][m], params.local_cfg, inp["x"],
+                        inp["mask"], inp["pos"], cache.shards[g][m],
+                        inp["ci"], self.name, _inject_rows(inject, rows,
+                                                           dev)))
+            self.groups.append((g, rows, ins, steps,
+                                group_buffers(mesh, g, b * kd, D)))
+        self.outs = [None] * len(self.groups)
+
+    def fill(self, x: torch.Tensor, pos: torch.Tensor, ci) -> None:
+        """The step's inputs: embeddings ``x`` [B, Kd, D] bf16 and RoPE
+        positions ``pos`` [B, Kd] on the caller's device, and every row's
+        cache write position ``ci``, a [B] tensor or an int (which the
+        caller's mask already attends; fill marks it on the mask's copies);
+        then every group's epoch base."""
+        if self.cpu:
+            self.ins = (x, pos, ci)
+            return
+        if x.dtype != torch.bfloat16:
+            raise ValueError(f"{self.name}: x is {x.dtype}, the kernels take "
+                             "bfloat16")
+        if torch.is_tensor(ci):
+            ci = _row_indices(ci, x.shape[0], ci.device)
+        for g, rows, ins, steps, bufs in self.groups:
+            for inp in ins.values():
+                inp["x"].copy_(x[rows])
+                inp["pos"].copy_(pos[rows])
+                if torch.is_tensor(ci):
+                    inp["ci"].copy_(ci[rows])
+                else:
+                    inp["ci"].fill_(int(ci))
+                    if inp["mask"] is not self.mask:
+                        inp["mask"][:, int(ci)] = 1
+            bufs.begin(2 * steps[0].L)
+
+    def run(self, head=None, only=None, serial: bool = False
+            ) -> List[torch.Tensor]:
+        """Launch one step (with ``only``, the ranks on that card alone: its
+        card's graph); per data row, ``head(tree, hidden)`` of its first
+        rank's tree and hidden [b, Kd, D] on that rank's device (with no
+        ``head``, the hidden itself), kept in the list this returns, where a
+        run of another card's ranks finds it.  ``serial`` puts every rank
+        on its card's current stream: the reference launch order of
+        ``fused_decode_layers_mesh(serial=True)``."""
+        head = head or (lambda tree, h: h)
+        if self.cpu:
+            x, pos, ci = self.ins
+            h, _ = fused_decode_layers_mesh_plain(
+                self.params, self.cfg, x, self.mask, pos, self.cache, ci,
+                self.inject)
+            return [head(self.params, h)]
+        for g, rows, ins, steps, bufs in self.groups:
+            row = self.mesh.devices[g]
+            ranks = [m for m, dev in enumerate(row)
+                     if only is None or _card(dev) == _card(only)]
+            if not ranks:
+                continue
+            callers, streams = _streams(self.mesh, g, serial)
+            callers, streams = ([c[m] for m in ranks]
+                                for c in (callers, streams))
+            _fork(streams, callers)
+            for m, s in zip(ranks, streams):
+                dev, st, inp = row[m], steps[m], ins[row[m]]
+                with on_device(dev), torch.cuda.stream(s):
+                    st.stream = _build.stream_ptr(dev)   # this run's stream
+                    st.load(inp["x"], inp["pos"])
+            _launch_layers(steps, bufs, row, self.inject is not None, ranks)
+            _join(streams, callers)
+            if ranks[0] == 0:
+                st = steps[0]
+                with on_device(row[0]):
+                    self.outs[g] = head(self.params.ranks[g][0],
+                                        st.h.reshape(st.B, st.Kd, st.D))
+        return self.outs
+
+    def hidden_ranks(self) -> List[List[torch.Tensor]]:
+        """Every rank's hidden after :meth:`run`, ``[data row][rank]`` ->
+        [b, Kd, D] on the rank's device."""
+        return [[st.h.reshape(st.B, st.Kd, st.D) for st in steps]
+                for *_, steps, _ in self.groups]
+
+    def check(self) -> None:
+        """Raise RuntimeError if an all-reduce of the steps run so far timed
+        out (one host sync; clears the error words)."""
+        for *_, bufs in self.groups:
+            bufs.check_timeouts(self.name)
+
+
+def _one_step(params, cfg, x, mask, positions, cache, ci, inject, serial):
+    """One step through a MeshStep of its own: fill, run, check.  Returns
+    (the step, its per-data-row hidden)."""
+    step = MeshStep(params, cfg, mask, cache, inject, x.shape[1])
+    step.fill(x, positions, ci)
+    outs = step.run(serial=serial)
+    step.check()
+    return step, outs
 
 
 def fused_decode_layers_mesh(params: ShardedLLM, cfg, inputs_embeds,
@@ -298,13 +460,13 @@ def fused_decode_layers_mesh(params: ShardedLLM, cfg, inputs_embeds,
     """One decode step through all layers under the current mesh; the
     contract of ``ops/fused_decode.fused_decode_layers`` with the LLM cut
     by ``parallel/sharding.apply_llm_sharding`` and its ShardedCache
-    (written in place).  Returns (hidden [B, 1, D] on the first rank's
+    (written in place).  Returns (hidden [B, 1, D] on inputs_embeds'
     device, cache).  serial: every rank on one stream (module docstring)."""
     if inputs_embeds.shape[1] != 1:
         raise ValueError("fused_decode_layers_mesh takes one token per row")
-    return _mesh_step(params, cfg, inputs_embeds, attention_mask, positions,
-                      cache, cache_index, "fused_decode_layers_mesh", inject,
-                      serial)
+    _, outs = _one_step(params, cfg, inputs_embeds, attention_mask,
+                        positions, cache, cache_index, inject, serial)
+    return torch.cat([h.to(inputs_embeds.device) for h in outs]), cache
 
 
 def fused_verify_layers_mesh(params: ShardedLLM, cfg, inputs_embeds,
@@ -316,22 +478,20 @@ def fused_verify_layers_mesh(params: ShardedLLM, cfg, inputs_embeds,
     if inputs_embeds.shape[1] < 2:
         raise ValueError("fused_verify_layers_mesh takes 2 or more tokens "
                          "per row")
-    return _mesh_step(params, cfg, inputs_embeds, attention_mask, positions,
-                      cache, cache_index, "fused_verify_layers_mesh", inject,
-                      serial)
+    _, outs = _one_step(params, cfg, inputs_embeds, attention_mask,
+                        positions, cache, cache_index, inject, serial)
+    return torch.cat([h.to(inputs_embeds.device) for h in outs]), cache
 
 
 def mesh_step_ranks(params: ShardedLLM, cfg, inputs_embeds, attention_mask,
-                    positions, cache: ShardedCache, cache_index, inject=None,
-                    serial=False):
+                    positions, cache: ShardedCache, cache_index, inject=None):
     """Every rank's hidden after one decode (Kd = 1) or verify step through
     the kernels, ``[data row][rank]`` -> [b, Kd, D] on the rank's device:
     the residuals the all-reduce keeps replicated (``chip_smoke.py`` holds
     them equal bit for bit)."""
-    name = ("fused_decode_layers_mesh" if inputs_embeds.shape[1] == 1
-            else "fused_verify_layers_mesh")
     if inputs_embeds.device.type == "cpu":
-        raise ValueError(f"{name}: the ranks' residuals are the kernels'")
-    return _mesh_step(params, cfg, inputs_embeds, attention_mask, positions,
-                      cache, cache_index, name, inject, serial,
-                      all_ranks=True)
+        raise ValueError("mesh_step_ranks: the ranks' residuals are the "
+                         "kernels'")
+    step, _ = _one_step(params, cfg, inputs_embeds, attention_mask,
+                        positions, cache, cache_index, inject, False)
+    return step.hidden_ranks()

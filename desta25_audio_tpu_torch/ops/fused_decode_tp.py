@@ -80,7 +80,13 @@ from .fused_decode import (
 )
 from .rope import llm_rope_cos_sin
 from .skinny_gemm import passes
-from .tp_allreduce import ATTN_SLOT, MLP_SLOT, allreduce_plain, group_buffers
+from .tp_allreduce import (
+    ATTN_SLOT,
+    MLP_SLOT,
+    allreduce_plain,
+    group_buffers,
+    layer_round,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -469,6 +475,8 @@ def fused_decode_layers_tp(params: ShardedLLM, cfg, inputs_embeds,
     row = mesh.devices[0]
     callers = [torch.cuda.current_stream(dev) for dev in row]
     streams = mesh.streams()[0]
+    bufs = group_buffers(mesh, 0, B, D)
+    bufs.begin(2 * cache.shards[0][0].k.shape[0])
     for s, c in zip(streams, callers):
         s.wait_stream(c)
     ci = _row_indices(cache_index, B, inputs_embeds.device)
@@ -483,27 +491,26 @@ def fused_decode_layers_tp(params: ShardedLLM, cfg, inputs_embeds,
                                  cache.shards[0][m]))
             hs.append(h)
             steps.append(step)
-    bufs = group_buffers(mesh, 0, B, D)
     caches = cache.shards[0]
     for l in range(caches[0].k.shape[0]):
-        epoch = bufs.next_round()
+        rnd = layer_round(l, ATTN_SLOT)
         for m, dev in enumerate(row):
             with on_device(dev):
                 _attn_launches(ops[m], lcfg, hs[m], steps[m], caches[m], l,
                                None, False, functools.partial(
-                                   bufs.store, m, ATTN_SLOT, epoch))
+                                   bufs.store, m, ATTN_SLOT, rnd))
         for m, dev in enumerate(row):
             with on_device(dev):
-                bufs.reduce(m, ATTN_SLOT, epoch, hs[m], ops[m].stream)
-        epoch = bufs.next_round()
+                bufs.reduce(m, ATTN_SLOT, rnd, hs[m], ops[m].stream)
+        rnd = layer_round(l, MLP_SLOT)
         for m, dev in enumerate(row):
             with on_device(dev):
                 _mlp_launches(ops[m], lcfg, hs[m], l, None, False,
                               functools.partial(bufs.store, m, MLP_SLOT,
-                                                epoch))
+                                                rnd))
         for m, dev in enumerate(row):
             with on_device(dev):
-                bufs.reduce(m, MLP_SLOT, epoch, hs[m], ops[m].stream)
+                bufs.reduce(m, MLP_SLOT, rnd, hs[m], ops[m].stream)
     for s, c in zip(streams, callers):
         c.wait_stream(s)
     bufs.check_timeouts(name)

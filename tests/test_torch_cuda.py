@@ -1190,7 +1190,10 @@ def test_mesh_step_kernel(gen, p, B, kd):
         L = cfg.num_hidden_layers
         name = ("fused_decode_layers_mesh" if kd == 1
                 else "fused_verify_layers_mesh")
-        assert _build.launch_counts() == {name: 7 * L * p,
+        # a rank's layer: qkv, attention, wo, gate/up, down, the two
+        # all-reduces (each writing the next half's norm), and layer 0's
+        # own first norm
+        assert _build.launch_counts() == {name: (5 * L + 1) * p,
                                           "tp_allreduce": 2 * L * p}
         step = (fdm.fused_decode_layers_mesh if kd == 1
                 else fdm.fused_verify_layers_mesh)
@@ -1278,11 +1281,65 @@ def test_tp_allreduce_times_out(gen):
     h = torch.randn(2, 256, generator=gen, device="cuda").bfloat16()
     h0 = h.clone()
     stream = torch.cuda.current_stream().cuda_stream
-    bufs.reduce(0, 0, bufs.next_round(), h, stream)
+    bufs.begin(1)
+    bufs.reduce(0, 0, 1, h, stream)
     with pytest.raises(RuntimeError, match="timed out"):
         bufs.check_timeouts("tp_allreduce")
     assert torch.equal(h, h0)
     assert int(bufs.err[0].item()) == 0           # cleared for the next step
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("R", [2, 8, 19])
+@pytest.mark.parametrize("f32", [False, True])
+def test_tp_allreduce_fused_norm(gen, p, R, f32):
+    """The consumer at p virtual ranks: every rank's residual bit-identical
+    to allreduce_plain's, its norm of the new residual bit-identical to
+    the step's norm kernel (bf16) and within 3e-2 of rms_plain; R = 19 takes
+    two rows a block past the grid's 16; a set error word skips the wait
+    (a second round whose producers never run returns at once)."""
+    import time
+    from desta25_audio_tpu_torch.ops.fused_decode import (decode_rms_norm,
+                                                          rms_plain)
+    from desta25_audio_tpu_torch.ops.tp_allreduce import (
+        MeshBuffers, allreduce_rmsnorm_plain)
+    from desta25_audio_tpu_torch.ops.quant import quantize_weight
+    D, K = 4096, 4096 // p
+    bufs = MeshBuffers([torch.device("cuda", 0)] * p, R, D)
+    stream = torch.cuda.current_stream().cuda_stream
+    dt = torch.float32 if f32 else torch.bfloat16
+    h0 = (torch.randn(R, D, generator=gen, device="cuda") * 3).to(dt)
+    hs = [h0.clone() for _ in range(p)]
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
+    xns = [torch.empty(R, D, dtype=torch.bfloat16, device="cuda")
+           for _ in range(p)]
+    base = bufs.begin(1)
+    for m in range(p):
+        leaf = quantize_weight(torch.randn(D, K, generator=gen,
+                                           device="cuda") / K ** 0.5)
+        x = torch.randn(R, K, generator=gen, device="cuda").bfloat16()
+        bufs.store(m, 1, 1, x, leaf["q"], leaf["s"], "peer", stream)
+    for m in range(p):
+        bufs.reduce(m, 1, 1, hs[m], stream, w, xns[m], 1e-5)
+    bufs.check_timeouts("tp_allreduce")
+    assert bufs.flags[0][1].tolist() == [base + 1] * p
+    (want,), (want_xn,) = allreduce_rmsnorm_plain(list(bufs.rbuf[0][1]),
+                                                  [h0], w, 1e-5)
+    for m in range(p):
+        assert torch.equal(hs[m], want)
+        assert torch.equal(xns[m], xns[0])
+        assert _rel(xns[m], want_xn) < 3e-2
+    if not f32:
+        assert torch.equal(xns[0], decode_rms_norm(want, w, 1e-5))
+    assert torch.equal(want_xn, rms_plain(want, w, 1e-5, torch.bfloat16))
+    bufs.err[0].fill_(1)                       # a round already lost
+    bufs.begin(1)
+    t0 = time.perf_counter()
+    bufs.reduce(0, 0, 1, hs[0], stream, w, xns[0], 1e-5)
+    with pytest.raises(RuntimeError, match="timed out"):
+        bufs.check_timeouts("tp_allreduce")
+    assert time.perf_counter() - t0 < 1.0
+    assert torch.equal(hs[0], want)
 
 
 # The skinny weight-streaming GEMM (csrc/skinny_gemm.cuh) alone, against
@@ -1385,11 +1442,11 @@ def test_skinny_gemm_peer_store(gen, R, int8):
     bufs = MeshBuffers([torch.device("cuda", 0)] * 2, R, D)
     stream = torch.cuda.current_stream().cuda_stream
     for _ in range(2):
-        epoch = bufs.next_round()
+        epoch = bufs.begin(1) + 1
         want = []
         for rank in range(2):
             x, w, scale, _, _ = _skinny_operands(gen, R, D, K, 0, int8)
-            bufs.store(rank, 1, epoch, x, w, scale, "peer", stream)
+            bufs.store(rank, 1, 1, x, w, scale, "peer", stream)
             want.append(sg.skinny_gemm_plain(x, w, scale, sg.EPI_STORE_F32))
         torch.cuda.synchronize()
         for d in range(2):
@@ -1478,6 +1535,108 @@ def test_decode_graph_matches_eager(gen, monkeypatch, kind):
         assert (e_k["inject_attention"] == e_k["inject_gate"]
                 == cfg.num_hidden_layers * steps)
     assert _build.fallback_counts() == {}
+
+
+def _teacher_forced(params, cfg, emb, amask, ids, **kw):
+    """llm_generate's sampled logits with its ids fed back through
+    ``llm_apply``, step by step (its cache length and positions): the
+    prefill's last position, then one decode step for each id but the
+    last.  ``kw``: llm_generate's injection arguments."""
+    from desta25_audio_tpu_torch.generate.decode import build_injection
+    B, T, _ = emb.shape
+    new = ids.shape[1]
+    S = -(-(T + new) // 128) * 128
+    extra = spec = None
+    if kw:
+        extra, spec = build_injection(cfg, kw["inject_params"],
+                                      kw["inject_tokens"], 2.5,
+                                      kw["inject_heads"])
+    cache = tllm.init_kv_cache(cfg, B, S, emb.dtype, emb.device)
+    mask = torch.zeros(B, S, dtype=torch.int32, device=emb.device)
+    mask[:, :T] = amask
+    pos = torch.clamp(torch.cumsum(mask[:, :T], 1) - 1, min=0)
+    lg, cache = tllm.llm_apply(params, cfg, inputs_embeds=emb,
+                               attention_mask=mask, positions=pos,
+                               cache=cache, cache_index=0,
+                               extra_layer_fn=extra)
+    out, nxt = [lg[:, -1]], pos[:, -1:] + 1
+    for t in range(new - 1):
+        mask[:, T + t] = 1
+        lg, cache = tllm.llm_apply(params, cfg, input_ids=ids[:, t:t + 1],
+                                   attention_mask=mask, positions=nxt + t,
+                                   cache=cache, cache_index=T + t,
+                                   extra_layer_fn=extra,
+                                   fused_injection=spec)
+        out.append(lg[:, -1])
+    return out
+
+
+# generate() under a mesh, teacher-forced logits vs the unsharded LLM's
+# (chip_smoke.py's TOL_MESH_GEN): the ranks' partial sums reassociate
+# every wo / down product of the prefill
+TOL_MESH_GEN = 2.5e-1
+
+
+@pytest.mark.parametrize("shape", [(1, 2), (1, 4), (2, 2)])
+@pytest.mark.parametrize("inject", [False, True])
+def test_mesh_decode_graph_matches_eager(gen, monkeypatch, shape, inject):
+    """K10 under an (n_data, p) mesh of virtual ranks in generate(): the
+    decode steps as replays of one CUDA graph (MeshStep, the ranks'
+    streams forked and joined inside the capture; on the (2, 2) mesh two
+    model groups of one batch row each in the one card's graph, their
+    logits gathered after it) give the eager steps' ids and logits bit for
+    bit and the same launch counts, one decode_graph launch a step after
+    the first; every step's logits, teacher-forced through the unsharded
+    LLM, within TOL_MESH_GEN; with an int8 ORCA stack, K8i inside every
+    rank's step."""
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import apply_llm_sharding
+    n_data, p = shape
+    cfg = _llama_2layers()
+    params = _tower(gen, cfg, int8=True)
+    B, T, NEW = 2, 24, 8
+    ids = torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                        device="cuda")
+    amask = torch.ones(B, T, dtype=torch.int32, device="cuda")
+    amask[0, :5] = 0
+    kw = {}
+    if inject:
+        stack = init_orca_cross_attns(
+            types.SimpleNamespace(llm_config=cfg, orca_gate_init=0.1),
+            torch.bfloat16, "cuda", gen)
+        stack["layers"]["gate2"]["w"].normal_(0.0, 0.2, generator=gen)
+        kw = dict(inject_params=quantize_orca_cross_attns(stack),
+                  inject_tokens=torch.randn(B, 40, cfg.hidden_size,
+                                            generator=gen,
+                                            device="cuda").bfloat16(),
+                  inject_heads=cfg.num_attention_heads)
+    emb = tllm.embed_tokens(params, ids)
+    mesh = make_mesh(n_data=n_data, n_model=p,
+                     devices=["cuda:0"] * (n_data * p))
+    with use_mesh(mesh):
+        sp = apply_llm_sharding(params, cfg, mesh)
+        runs = _generate_both_ways(monkeypatch, sp, cfg, emb, amask, NEW,
+                                   **kw)
+    (e_ids, e_lg, e_n, e_k, e_t), (g_ids, g_lg, g_n, g_k, g_t) = (
+        runs[False], runs[True])
+    assert torch.equal(g_ids, e_ids)
+    assert len(g_lg) == len(e_lg) == NEW
+    for a, b in zip(g_lg, e_lg):
+        assert torch.equal(a, b)
+    ref = _teacher_forced(params, cfg, emb, amask, g_ids, **kw)
+    assert max(_rel(a, b) for a, b in zip(g_lg, ref)) < TOL_MESH_GEN
+    steps = g_t["decode_steps"]
+    assert steps == NEW - 1 and g_t["graph_capture_ms"] > 0
+    assert g_n.pop("decode_graph") == steps - 1
+    assert g_n == e_n and g_k == e_k
+    L, ranks = cfg.num_hidden_layers, n_data * p
+    # an injection changes the residual after the MLP's all-reduce: every
+    # attention then launches its own norm
+    per_rank = 5 * L + 1 if not inject else 6 * L
+    assert e_n["fused_decode_layers_mesh"] == per_rank * ranks * steps
+    assert e_n.get("fused_decode_inject", 0) == 5 * L * ranks * steps * inject
+    assert e_n["tp_allreduce"] == 2 * L * ranks * steps
+    assert "fused_decode_layers_int8" not in e_n
 
 
 @pytest.mark.parametrize("R,D", [

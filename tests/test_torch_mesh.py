@@ -40,6 +40,7 @@ from desta25_audio_tpu.parallel.sharding import (
 from desta25_audio_tpu_torch.ckpt import bridge
 from desta25_audio_tpu_torch.config import LLMConfig as TLLMConfig
 from desta25_audio_tpu_torch.config import llm_config_for
+from desta25_audio_tpu_torch.generate import graph as tgraph
 from desta25_audio_tpu_torch.generate.decode import llm_generate
 from desta25_audio_tpu_torch.generate.speculative import llm_generate_spec
 from desta25_audio_tpu_torch.models import llm as tllm
@@ -382,29 +383,45 @@ def test_tp_pair_under_mesh_matches_jax(towers, monkeypatch):
                                    rtol=ROW_TOL, atol=ROW_TOL)
 
 
-def test_int8_generate_matches_jax_k10(towers, monkeypatch):
-    """llm_generate under a (1, 2) mesh, greedy: the JAX package on its
-    TPU dispatch (K7 below 128 rows, K10 at every decode step, in interpret
-    mode) and the port (its plain versions) give the same ids, equal to the
-    port's unsharded run; both sides' decode steps took K10."""
+def _generate_k10(towers, monkeypatch, inject: bool):
+    """llm_generate under a (1, 2) mesh, greedy, on the JAX package's TPU
+    dispatch (K7 below 128 rows, K10 at every decode step, in interpret
+    mode) and on the port (its plain versions, every decode step through
+    the graph object with capture off, ``generate/graph.DecodeGraph`` over
+    ``ops/fused_decode_mesh.MeshStep``), and the port's unsharded run; with
+    ``inject`` ORCA's int8 stack inside every step on both sides.  Returns
+    (JAX ids, mesh ids, unsharded ids, JAX K10 calls, the port's graph
+    steps)."""
     jcfg, tcfg, qp, tp = towers
     jax_tpu_dispatch(monkeypatch)
     B, T, NEW = 2, 12, 6
-    ids = np.random.default_rng(21).integers(2, 500, size=(B, T))
+    rng = np.random.default_rng(21)
+    ids = rng.integers(2, 500, size=(B, T))
     amask = np.ones((B, T), np.int32)
-    counts = {"jax": 0, "port": 0}
+    jkw, tkw = {}, {}
+    if inject:
+        jx8 = jq.quantize_orca_cross_attns(_jax_stack(jax.random.PRNGKey(6),
+                                                      jcfg))
+        tx8 = bridge.orca_cross_attns_from_jax(jax.tree.map(np.asarray, jx8),
+                                               "cpu")
+        jtok, ttok = _bf16(rng.standard_normal((B, 24, 512)))
+        jkw = dict(inject_params=jx8, inject_tokens=jtok, inject_heads=4)
+        tkw = dict(inject_params=tx8, inject_tokens=ttok, inject_heads=4)
+    counts = {"jax": 0, "graph": 0}
     jreal = jmesh.fused_decode_layers_mesh
-    treal = tllm.fused_decode_layers_mesh
 
-    def counted(side, fn):
-        def wrapped(*a, **k):
-            counts[side] += 1
-            return fn(*a, **k)
-        return wrapped
-    monkeypatch.setattr(jmesh, "fused_decode_layers_mesh",
-                        counted("jax", jreal))
-    monkeypatch.setattr(tllm, "fused_decode_layers_mesh",
-                        counted("port", treal))
+    def jcounted(*a, **k):
+        counts["jax"] += 1
+        return jreal(*a, **k)
+    monkeypatch.setattr(jmesh, "fused_decode_layers_mesh", jcounted)
+    greal = tgraph.DecodeGraph.step
+
+    def gcounted(self, *a, **k):
+        if isinstance(self.stepper, tmesh.MeshStep):
+            counts["graph"] += 1
+            assert not self.capture
+        return greal(self, *a, **k)
+    monkeypatch.setattr(tgraph.DecodeGraph, "step", gcounted)
     from desta25_audio_tpu.generate.decode import llm_generate as j_generate
     jm, tm = _meshes(1, 2)
     try:
@@ -413,21 +430,128 @@ def test_int8_generate_matches_jax_k10(towers, monkeypatch):
             want, _ = j_generate(sh, jcfg, sh["embed"][jnp.asarray(ids)],
                                  jnp.asarray(amask), jax.random.PRNGKey(0),
                                  max_new_tokens=NEW, do_sample=False,
-                                 eos_ids=(), pad_id=0)
+                                 eos_ids=(), pad_id=0, **jkw)
         want = np.asarray(want)
     finally:
         jax.clear_caches()
     emb = tllm.embed_tokens(tp, torch.from_numpy(ids))
     gen = torch.Generator().manual_seed(0)
     ref, _ = llm_generate(tp, tcfg, emb, torch.from_numpy(amask), gen,
-                          max_new_tokens=NEW)
+                          max_new_tokens=NEW, **tkw)
+    steps_unsharded = counts["graph"]
     with tpm.use_mesh(tm):
         got, _ = llm_generate(apply_llm_sharding(tp, tcfg, tm), tcfg, emb,
                               torch.from_numpy(amask), gen,
-                              max_new_tokens=NEW)
-    assert counts["jax"] >= 1 and counts["port"] == NEW - 1
+                              max_new_tokens=NEW, **tkw)
+    assert steps_unsharded == 0
+    return want, got, ref, counts["jax"], counts["graph"]
+
+
+def test_int8_generate_matches_jax_k10(towers, monkeypatch):
+    """llm_generate under a (1, 2) mesh, greedy: the JAX package on its
+    TPU dispatch (K7 below 128 rows, K10 at every decode step, in interpret
+    mode) and the port (its plain versions) give the same ids, equal to the
+    port's unsharded run; both sides' decode steps took K10, the port's
+    through the decode graph object (capture off on the CPU)."""
+    want, got, ref, n_jax, n_graph = _generate_k10(towers, monkeypatch,
+                                                   inject=False)
+    assert n_jax >= 1 and n_graph == 5
     assert got.tolist() == want.tolist()
     assert got.tolist() == ref.tolist()
+
+
+def test_int8_generate_with_injection_matches_jax_k10(towers, monkeypatch):
+    """The same with ORCA's int8 cross-attention stack injected in every
+    layer, inside K10's step on both sides: the same ids as JAX's and as
+    the port's unsharded run."""
+    want, got, ref, n_jax, n_graph = _generate_k10(towers, monkeypatch,
+                                                   inject=True)
+    assert n_jax >= 1 and n_graph == 5
+    assert got.tolist() == want.tolist()
+    assert got.tolist() == ref.tolist()
+
+
+def test_epoch_schedule_never_repeats():
+    """The all-reduce's epochs as the steps reserve them
+    (``MeshBuffers.begin`` + ``layer_round``) over two generate() calls of
+    4 decode steps each, a speculative call's verify step (Kd = 3) after
+    each decode step: the verify step's rounds go to the group's buffers
+    at its own row count (``group_buffers``), and on each buffer no epoch
+    repeats, each slot's epochs strictly grow in launch order, and every
+    rank's base word holds the step's base."""
+    from desta25_audio_tpu_torch.ops.tp_allreduce import (
+        ATTN_SLOT, MLP_SLOT, group_buffers, layer_round)
+    L, B, Kd, D = 3, 2, 3, 8
+    tm = tpm.make_mesh(1, 2, ["cpu"] * 2)
+    decode = group_buffers(tm, 0, B, D)
+    verify = group_buffers(tm, 0, B * Kd, D)
+    assert decode is not verify and group_buffers(tm, 0, B, D) is decode
+    seen = {id(decode): set(), id(verify): set()}
+    last = {(id(b), s): 0 for b in (decode, verify)
+            for s in (ATTN_SLOT, MLP_SLOT)}
+    for call in range(2):
+        for step in range(4):
+            for bufs in (decode, verify):
+                base = bufs.begin(2 * L)
+                assert [int(b) for b in bufs.base] == [base, base]
+                for l in range(L):
+                    for slot in (ATTN_SLOT, MLP_SLOT):
+                        epoch = base + layer_round(l, slot)
+                        key = (id(bufs), slot)
+                        assert epoch not in seen[id(bufs)]
+                        assert epoch > last[key] >= 0
+                        assert base < epoch <= base + 2 * L
+                        seen[id(bufs)].add(epoch)
+                        last[key] = epoch
+    for bufs in (decode, verify):
+        assert sorted(seen[id(bufs)]) == list(range(1, 2 * 4 * 2 * L + 1))
+        assert bufs.rounds == 2 * 4 * 2 * L
+
+
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_fused_consumer_plain_is_reduce_then_norm(p, dtype):
+    """The fused consumer's plain version against the JAX package's
+    reduce-then-norm in jnp, bit for bit: the partial sums in rank order
+    added into K10's bf16 residual at the TPU kernel's rounding point
+    (``h += tot.astype(bfloat16)``, ``ops/fused_decode.py``'s
+    ``allreduce_into_h``) or into K9's f32 residual, then the next half's
+    RMSNorm (``ops/fused_decode_tp._rmsn``); every rank's residual and
+    norm equal.  A bf16 residual rounded once, ``bf16(h + tot)``, differs
+    on these inputs, so the case sees the rounding point.  Without a weight
+    it writes no norm."""
+    from desta25_audio_tpu_torch.ops.tp_allreduce import (
+        allreduce_rmsnorm_plain)
+    rng = np.random.default_rng(10 + p)
+    parts = [(rng.standard_normal((3, 256))
+              * 10.0 ** rng.integers(-2, 2)).astype(np.float32)
+             for _ in range(p)]
+    h = torch.from_numpy(rng.standard_normal((3, 256)).astype(
+        np.float32)).to(dtype)
+    w = torch.from_numpy(1 + 0.1 * rng.standard_normal(256).astype(
+        np.float32)).bfloat16()
+    hs, xns = allreduce_rmsnorm_plain([torch.from_numpy(x) for x in parts],
+                                      [h.clone() for _ in range(p)], w, 1e-5)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    tot = jnp.asarray(parts[0])
+    for x in parts[1:]:
+        tot = tot + jnp.asarray(x)
+    jh = jnp.asarray(h.float().numpy()).astype(jdt) + tot.astype(jdt)
+    jxn = jtp._rmsn(jh, jnp.asarray(w.float().numpy()).astype(
+        jnp.bfloat16)[None], 1e-5)
+    want_h = np.asarray(jh.astype(jnp.float32))
+    for r in range(p):
+        assert hs[r].dtype == dtype and xns[r].dtype == torch.bfloat16
+        np.testing.assert_array_equal(hs[r].float().numpy(), want_h)
+        np.testing.assert_array_equal(xns[r].float().numpy(),
+                                      np.asarray(jxn.astype(jnp.float32)))
+        assert torch.equal(hs[r], hs[0]) and torch.equal(xns[r], xns[0])
+    once = (h.float() + torch.from_numpy(np.array(tot))).to(dtype)
+    assert torch.equal(once, hs[0]) == (dtype == torch.float32)
+    bare, none = allreduce_rmsnorm_plain([torch.from_numpy(x) for x in parts],
+                                         [h] * p)
+    assert none is None and torch.equal(bare[0], hs[0])
 
 
 def test_mesh_spec_trajectory_matches_jax(towers, monkeypatch):
