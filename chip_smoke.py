@@ -88,7 +88,10 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     (100, 200)): each layer's attention and MLP half against plain, 2- and
     32-layer logits through its layer loop, gated as K8, and layer 0 at the
     p=2 and p=4 shard shapes (each rank against plain, the ranks' partials
-    summed against p=1); the K8 family's attention launch alone
+    summed against p=1), the halves' and the step's queued times; its q/k/v
+    and gate/up products (the norm kernel on f32 rows, then the skinny
+    GEMM) at B=1, 2, 3, 8, 16 and 32 against plain, the norm bit-identical
+    to that of the rows cast to bf16; the K8 family's attention launch alone
     (``decode_attention``, csrc/decode_attention.cuh: keys split across a
     thread-block cluster, TMA tiles) against ``decode_attention_plain`` at
     Llama-3.1-8B's heads: B=2, S=256, ci=(100, 200) at Kd=1 and 4, B=2,
@@ -134,10 +137,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     f32 stack random from a seed: ``generate()`` at b2 with the float stack
     (injection in PyTorch: K8i must not launch); again with the per-layer
     opt-in (``ops/fused_decode_tp.FUSED_PERLAYER``): K9's halves must launch
-    and K8i / K8-int8 must not, the path step by step as in 8, ms/step
-    beside the layer loop's; then ``speculative_k=4`` on the float stack
-    must fall back to that loop (no verify launch, the same ids); then
-    ``apply_orca_xattn_quant()``;
+    and K8i / K8-int8 must not, one ``decode_graph`` replay for each decode
+    step after the first (``generate/graph.PerLayerStep``), the path step
+    by step as in 8, ms/step beside the layer loop's, and the call both
+    ways as in 9b (ids and every step's logits bit-identical to
+    ``decode_graph=False``'s, decode wall and device ms a step); then
+    ``speculative_k=4`` on the float stack must fall back to that loop (no
+    verify launch, the same ids); then ``apply_orca_xattn_quant()``;
 19. ``generate()`` at b2 and b1, greedy, 32 new tokens: K8i (its
     attention and gate counted by their own names), K8-int8, K7, W8A8, K2
     and K4 must launch, no shape may take a torch path (as in 11 and 15,
@@ -1024,8 +1030,14 @@ def check_fused_tp(params, cfg, gen, ci=(100, 200)):
     layers, beside the plain loop's own change for a one-ulp input move
     (information).  Then layer 0 at the p=2 and p=4 shard shapes: each
     rank's halves, kernel against plain, and the ranks' kernel partials
-    summed against the unsharded plain half.  Returns the JSON rows of the
-    two halves (worst error; layer 0's times and bound)."""
+    summed against the unsharded plain half.  Then K9's q/k/v and gate/up
+    products alone (the step's norm kernel on the f32 residual, then the
+    skinny GEMM) on layer 0's weights at B = 1, 2, 3, 8, 16 and 32 rows of
+    a random f32 residual: the norm bit-identical to the norm of the rows
+    cast to bf16, the products against their plain versions within
+    TOL_DECODE, two runs bit-identical.  Returns the JSON rows of the two
+    halves (worst error; layer 0's times and bound), and the step's
+    time."""
     import torch
     from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
     from desta25_audio_tpu_torch.ops.fused_decode import KVCache
@@ -1111,12 +1123,13 @@ def check_fused_tp(params, cfg, gen, ci=(100, 200)):
             ("fused_decode_tp_mlp", lambda: ttp.mlp_half(p0, cfg, h0, 0),
              lambda: ttp.mlp_half_plain(p0, cfg, h0, 0), (mlp_nb, mlp_ops))):
         ms, plain_ms = cuda_time_ms(kfn), cuda_time_ms(pfn)
+        q_ms = cuda_time_ms(kfn, queued=True)
         b_ms, b_by = bound(*work, "bf16")    # as K8-int8's same stream
         half = "attn" if name.endswith("attn") else "mlp"
         rows[name] = (errs[half], ms, plain_ms, b_ms, b_by)
         print(f"K9 {name} (layer 0, B={B}, {gpu_line()}): kernels {ms:.4f} "
-              f"ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
-              flush=True)
+              f"ms ({q_ms:.4f} queued), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
 
     # layer 0 at the shard shapes of p = 2 and 4
     want_a = ttp.attn_half_plain(p0, cfg, h0, step, fresh(0, 1), 0)
@@ -1146,7 +1159,46 @@ def check_fused_tp(params, cfg, gen, ci=(100, 200)):
               f"{TOL_DECODE})", flush=True)
         if max(rank_worst, sum_a, sum_m) > TOL_DECODE:
             raise AssertionError(f"K9 at p={p} disagrees")
+    check_k9_products(p0, cfg)
     return rows, step_ms
+
+
+def check_k9_products(p0, cfg) -> None:
+    """13 (K9's q/k/v and gate/up products): check_fused_tp's last part."""
+    import torch
+    from desta25_audio_tpu_torch.ops import skinny_gemm as tsg
+    from desta25_audio_tpu_torch.ops.fused_decode import decode_rms_norm
+    gen = torch.Generator("cuda").manual_seed(11)
+    lay, D, eps = p0["layers"], cfg.hidden_size, float(cfg.rms_norm_eps)
+    products = (("q/k/v", lay["wqkv"], lay["ln1"], tsg.EPI_STORE),
+                ("gate/up", lay["w_gu"], lay["ln2"], tsg.EPI_SWIGLU))
+    worst = 0.0
+    for label, leaf, ln, epi in products:
+        w, s, lw = leaf["q"][0], leaf["s"][0], ln["scale"][0]
+
+        def product(h):
+            return tsg.skinny_gemm(decode_rms_norm(h, lw, eps), w, s, epi)
+        errs = []
+        for B in (1, 2, 3, 8, 16, 32):
+            h = torch.randn(B, D, generator=gen, device="cuda") * 3
+            xn = decode_rms_norm(h, lw, eps)
+            if not torch.equal(xn, decode_rms_norm(h.bfloat16(), lw, eps)):
+                raise AssertionError(f"K9 {label} B={B}: the norm of the "
+                                     "f32 rows is not that of their bf16")
+            got = product(h)
+            want = tsg.skinny_gemm_plain(
+                decode_rms_norm(h.cpu(), lw.cpu(), eps).cuda(), w, s, epi)
+            errs.append(rel_err(got, want)[1])
+            if not torch.equal(got, product(h)):
+                raise AssertionError(f"K9 {label} B={B}: two runs differ")
+        worst = max(worst, *errs)
+        print(f"K9 {label} (the norm kernel on f32 rows, then the skinny "
+              f"GEMM; {leaf['q'].shape[1]} x {D}): rel vs plain at "
+              f"B=1/2/3/8/16/32 {' / '.join(f'{e:.3e}' for e in errs)} (tol "
+              f"{TOL_DECODE}); the norm bit-identical to the bf16 rows'; two "
+              f"runs bit-identical", flush=True)
+    if worst > TOL_DECODE:
+        raise AssertionError(f"K9's products disagree: {worst}")
 
 
 def _int8_leaf(gen, n: int, k: int, bias: bool = True, mult=1.0):
@@ -1568,7 +1620,8 @@ def check_rms_norm(gen):
 
 
 def check_decode_graph(model, msgs, tag: str, gpu: str,
-                       orca: bool = False, graphs: int = 1) -> None:
+                       orca: bool = False, graphs: int = 1,
+                       hook: bool = False) -> None:
     """generate() of ``msgs`` (greedy, 32 new tokens) eagerly
     (``llm_generate(decode_graph=False)``) and through the decode step's
     CUDA graph (the default): the ids identical, every sampled step's
@@ -1577,8 +1630,9 @@ def check_decode_graph(model, msgs, tag: str, gpu: str,
     step (host clock, the capture inside the graph's), the capture time, and
     the device time of a step: the graph's replays and the eager step's
     launches, both queued behind a sleep kernel on a fresh cache (``orca``:
-    with the call's in-kernel injection spec).  ``graphs``: the graphs a
-    step replays (under a mesh, one a card)."""
+    with the call's in-kernel injection spec; ``hook``: K9's step with the
+    call's PyTorch injection between layers, the float stack's opt-in).
+    ``graphs``: the graphs a step replays (under a mesh, one a card)."""
     import torch
     from desta25_audio_tpu_torch.generate import decode as tdecode
     from desta25_audio_tpu_torch.generate.graph import DecodeGraph
@@ -1613,13 +1667,18 @@ def check_decode_graph(model, msgs, tag: str, gpu: str,
     cache = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
     mask = torch.ones(B, S, dtype=torch.int32, device="cuda")
     cur = torch.zeros(B, dtype=torch.long, device="cuda")
-    spec = None
-    if orca:
-        spec = orca_injection(model,
-                              model._run_generation_phases(msgs, {})[2])[1]
+    spec = extra = None
+    if orca or hook:
+        extra, spec = orca_injection(
+            model, model._run_generation_phases(msgs, {})[2])
+        if hook:
+            spec = None
+        else:
+            extra = None
     dev_ms = {}
     for capture, iters in ((False, 3), (True, 10)):
-        dg = DecodeGraph(llm, cfg, mask, cache, spec, capture=capture)
+        dg = DecodeGraph(llm, cfg, mask, cache, spec, capture=capture,
+                         extra_layer_fn=extra)
         for _ in range(2):   # the eager first step, then the capture
             dg.step(cur, cur + ci, ci)
         dev_ms[capture] = cuda_time_ms(lambda: dg.step(cur, cur + ci, ci),
@@ -2852,8 +2911,8 @@ def check_fused_inject(model, gen):
 def run_orca(model, convs, gpu):
     """Phases 18-20: the ORCA model on the card, sharing the model's int8
     encoder and int8 LLM.  Returns (K8i's launches over phases 19-20, its
-    two kernels' counts there, the launch counts of phase 18's opt-in K9
-    run)."""
+    two kernels' counts there, the launch and kernel counts of phase 18's
+    opt-in K9 run)."""
     import torch
     from desta25_audio_tpu_torch import DeSTA25AudioModel
     from desta25_audio_tpu_torch.ops import fused_decode_tp
@@ -2922,11 +2981,12 @@ def run_orca(model, convs, gpu):
     _build.reset_launch_counts()
     k9out = orca.generate(runs[2], do_sample=False, max_new_tokens=32)
     torch.cuda.synchronize()
-    k9_counts = _build.launch_counts()
+    k9_counts = {**_build.launch_counts(), **_build.kernel_counts()}
     k9_t = dict(orca.last_timings)
     print(f"ORCA float stack, DESTA_FUSED_PERLAYER on: launches during "
           f"generate() b2: {json.dumps(k9_counts)}", flush=True)
-    for name in K9_HALVES + ("log_mel",):
+    require_graph_replays("ORCA float stack, K9", k9_counts, k9_t)
+    for name in K9_HALVES + ("rms_norm", "skinny_gemm", "log_mel"):
         if k9_counts.get(name, 0) <= 0:
             raise AssertionError(f"ORCA opt-in: {name} was not launched")
     for name in ("fused_decode_inject", "fused_decode_layers_int8"):
@@ -2936,10 +2996,12 @@ def run_orca(model, convs, gpu):
     check_step_by_step(orca, runs[2], k9out)
     steps = lambda t: max(int(t["decode_steps"]), 1)  # noqa: E731
     print(f"ORCA float stack b2 decode ({gpu}): per-layer pair K9 "
-          f"{k9_t['decode_ms'] / steps(k9_t):.2f} ms/step, layer loop "
-          f"{loop_t['decode_ms'] / steps(loop_t):.2f} ms/step; ids equal to "
-          f"the layer loop's (information): "
+          f"{k9_t['decode_ms'] / steps(k9_t):.2f} ms/step through its graph, "
+          f"layer loop {loop_t['decode_ms'] / steps(loop_t):.2f} ms/step; "
+          f"ids equal to the layer loop's (information): "
           f"{k9out.generated_ids == fout.generated_ids}", flush=True)
+    check_decode_graph(orca, runs[2], "ORCA float stack (K9)", gpu,
+                       hook=True)
     # a float stack falls back from speculation to the plain loop (K9 here)
     _build.reset_launch_counts()
     sout = orca.generate(runs[2], do_sample=False, max_new_tokens=32,

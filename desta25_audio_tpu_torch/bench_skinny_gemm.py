@@ -2,7 +2,7 @@
 at Llama-3.1-8B's decode shapes, on one GPU.
 
     python -m desta25_audio_tpu_torch.bench_skinny_gemm [--root DIR]
-        [--rows 1,2,8,16] [--json PATH]
+        [--rows 1,2,8,16] [--norm] [--json PATH]
 
 Calls the C entry point ``desta_skinny_gemm`` of the package found under
 ``--root`` (default: this checkout), so that the same script times an
@@ -23,6 +23,15 @@ launch (the ctypes call, taken while the card sleeps).  For bf16 STORE,
 ``torch.nn.functional.linear`` on the same operands is timed alike as the
 yardstick (``library_ms``); the port never calls it.  Needs CUDA; prints
 the card's name and power limit first; ``--json`` writes the readings.
+
+``--norm`` times K9's q/k/v and gate/up products of the f32 residual h
+instead, at qkv 6144 x 4096 (STORE) and gate/up 14336 x 4096 (SWIGLU),
+int8, at R rows: the two launches of this checkout (the step's norm
+kernel on the f32 rows, ``desta_rms_norm_f32``, then the skinny GEMM on
+the bf16 rows it wrote), or in a checkout of PRs 6-17 its one-launch
+fused-norm GEMV (``desta_tp_norm_gemv``), beside the skinny GEMM alone on
+the normalised rows; the bound: the weight, its scales, h (f32), the norm
+weight and the output, once each, over 3.35 TB/s.
 """
 
 from __future__ import annotations
@@ -75,6 +84,8 @@ def main() -> None:
     ap.add_argument("--root", default=None,
                     help="checkout whose desta25_audio_tpu_torch to time")
     ap.add_argument("--rows", default="1,2,8,16")
+    ap.add_argument("--norm", action="store_true",
+                    help="K9's norm and product on the f32 residual")
     ap.add_argument("--json", default=None, help="write the readings here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -95,7 +106,9 @@ def main() -> None:
     stream = torch.cuda.current_stream().cuda_stream
     rows = [int(r) for r in args.rows.split(",")]
     readings = []
-    for int8 in (True, False):
+    if args.norm:
+        readings = _norm(build, lib, gen, stream, rows, gpu)
+    for int8 in () if args.norm else (True, False):
         for label, N, K, epi in SHAPES:
             nw = 2 if epi == EPI_SWIGLU else 1
             wbytes = N * nw * K * (1 if int8 else 2)
@@ -146,6 +159,70 @@ def main() -> None:
     if args.json:
         with open(args.json, "w") as f:
             json.dump(readings, f, indent=1)
+
+
+NORM_SHAPES = (("qkv", 6144, 4096, False), ("gate/up", 14336, 4096, True))
+EPS = 1e-5
+
+
+def _norm(build, lib, gen, stream, rows, gpu):
+    """K9's products (``--norm``): module docstring."""
+    two = hasattr(lib, "desta_rms_norm_f32")
+    readings = []
+    for label, N, K, swiglu in NORM_SHAPES:
+        nw = 2 if swiglu else 1
+        epi = EPI_SWIGLU if swiglu else EPI_STORE
+        copies = min(ITERS, max(2, -(-int(COLD_BYTES) // (N * nw * K))))
+        ws = [torch.randint(-127, 128, (N * nw, K), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(copies)]
+        ss = [torch.rand(N * nw, generator=gen, device="cuda") * 1e-3
+              for _ in range(copies)]
+        lw = (1 + 0.2 * torch.randn(K, generator=gen, device="cuda")
+              ).bfloat16()
+        for R in rows:
+            h = torch.randn(R, K, generator=gen, device="cuda") * 3
+            xn = (h.bfloat16().float() * torch.rsqrt(
+                h.bfloat16().float().square().mean(-1, keepdim=True) + EPS)
+                  * lw.float()).bfloat16()
+            out = torch.empty(R, N, dtype=torch.bfloat16, device="cuda")
+
+            def gemm(i):
+                j = i % copies
+                build.check(lib.desta_skinny_gemm(
+                    xn.data_ptr(), ws[j].data_ptr(), ss[j].data_ptr(), None,
+                    out.data_ptr(), R, N, K, epi, 1, stream), "skinny GEMM")
+
+            def norm_and_gemm(i):
+                build.check(lib.desta_rms_norm_f32(
+                    h.data_ptr(), lw.data_ptr(), xn.data_ptr(), R, K, EPS,
+                    stream), "rms_norm_f32")
+                gemm(i)
+
+            def fused_norm_gemv(i):
+                j = i % copies
+                build.check(lib.desta_tp_norm_gemv(
+                    h.data_ptr(), lw.data_ptr(), EPS, ws[j].data_ptr(),
+                    ss[j].data_ptr(), out.data_ptr(), R, N, K, int(swiglu),
+                    stream), "fused-norm GEMV")
+            ms, host_us = _time_queued(norm_and_gemm if two
+                                       else fused_norm_gemv)
+            gemm_ms = _time_queued(gemm)[0]
+            nbytes = (N * nw * K + N * nw * 4 + R * K * 4 + K * 2
+                      + R * N * 2)
+            bound = nbytes / HBM * 1e3
+            form = "norm + skinny GEMM" if two else "fused-norm GEMV"
+            readings.append(dict(label=label, form=form, R=R, N=N, K=K,
+                                 swiglu=swiglu, ms=ms, gemm_ms=gemm_ms,
+                                 bound_ms=bound, host_us=host_us, gpu=gpu))
+            print(f"K9 {label} [{form}, int8 R={R}] {N}x{K}: {ms:.5f} ms "
+                  f"queued ({nbytes / ms / 1e9:.3f} TB/s), bound "
+                  f"{bound:.5f} ms ({bound / ms:.3f} of it); the skinny GEMM "
+                  f"alone {gemm_ms:.5f} ms; host {host_us:.1f} us a call",
+                  flush=True)
+        del ws, ss
+        torch.cuda.empty_cache()
+    return readings
 
 
 if __name__ == "__main__":

@@ -40,7 +40,8 @@
 //   * rms_norm: one block per row, each thread 16-byte loads of 8 bf16
 //     (D = 4096: 512 threads x 8), the row kept in registers between the
 //     f32 sum of squares and the scaling, so the residual is read once; the
-//     weight loads before the programmatic-launch wait.
+//     weight loads before the programmatic-launch wait.  Its f32-input form
+//     (each value rounded to bf16 as it is read) is K9's ln1 / ln2.
 //   A step costs 7 launches per layer (norm, qkv, attention, o+residual,
 //   norm, gate/up+SwiGLU, down+residual).  The decode step is captured as
 //   one CUDA graph (desta25_audio_tpu_torch/generate/graph.py), and the
@@ -61,16 +62,28 @@ using namespace desta;
 
 constexpr int RMS_VEC = 8;            // bf16 a 16-byte load
 
+// Vector v (8 values) of a row as 8 bf16: a 16-byte load, or two of f32
+// rounded to bf16 (the f32 residual of the per-layer pair K9).
+__device__ __forceinline__ uint4 rms_load8(const bf16* row, int v) {
+  return reinterpret_cast<const uint4*>(row)[v];
+}
+__device__ __forceinline__ uint4 rms_load8(const float* row, int v) {
+  const float4* p = reinterpret_cast<const float4*>(row) + 2 * v;
+  const float4 a = p[0], b = p[1];
+  return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w),
+                    pack_bf16(b.x, b.y), pack_bf16(b.z, b.w));
+}
+
 // One block a row; thread t holds vectors t, t + blockDim.x, ... (NV of
-// them, the last ones predicated off past D / 8) in registers.
-template <int NV>
+// them, the last ones predicated off past D / 8) in registers.  XT: the
+// input's type (bf16; f32, rounded to bf16 as it is read).
+template <int NV, typename XT>
 __global__ void __launch_bounds__(RMS_THREADS_MAX)
-rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+rms_norm_kernel(const XT* __restrict__ x, const bf16* __restrict__ w,
                 bf16* __restrict__ out, int D, float eps) {
   __shared__ float red[RMS_THREADS_MAX / 32];
   const int nvec = D / RMS_VEC;
-  const size_t row = (size_t)blockIdx.x * nvec;
-  const uint4* xr = reinterpret_cast<const uint4*>(x) + row;
+  const XT* xr = x + (size_t)blockIdx.x * D;
   const uint4* wv = reinterpret_cast<const uint4*>(w);
   uint4 wr[NV], xv[NV];
 #pragma unroll
@@ -85,7 +98,7 @@ rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int i = 0; i < NV; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
     if (v < nvec) {
-      xv[i] = xr[v];
+      xv[i] = rms_load8(xr, v);
       float f[8];
       rms_unpack8(xv[i], f);
       ss = rms_sumsq8(f, ss);
@@ -93,7 +106,7 @@ rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
   ss = block_sum(ss, red);
   const float inv = rms_inv(ss, D, eps);
-  uint4* orow = reinterpret_cast<uint4*>(out) + row;
+  uint4* orow = reinterpret_cast<uint4*>(out) + (size_t)blockIdx.x * nvec;
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int v = threadIdx.x + i * blockDim.x;
@@ -105,8 +118,8 @@ rms_norm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   }
 }
 
-template <int NV>
-cudaError_t launch_rms_norm(const bf16* x, const bf16* w, bf16* out,
+template <int NV, typename XT>
+cudaError_t launch_rms_norm(const XT* x, const bf16* w, bf16* out,
                             int rows, int D, int threads, float eps,
                             cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
@@ -117,15 +130,13 @@ cudaError_t launch_rms_norm(const bf16* x, const bf16* w, bf16* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e =
-      cudaLaunchKernelEx(&cfg, rms_norm_kernel<NV>, x, w, out, D, eps);
+      cudaLaunchKernelEx(&cfg, rms_norm_kernel<NV, XT>, x, w, out, D, eps);
   return e == cudaSuccess ? cudaGetLastError() : refuse(e);
 }
 
-}  // namespace
-
-// rows x D bf16, D a multiple of 8 up to 32768, 16-byte aligned rows
-extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
-                              int rows, int D, float eps, void* stream) {
+template <typename XT>
+int rms_norm(const void* x, const void* w, void* out, int rows, int D,
+             float eps, void* stream) {
   const int nvec = D / RMS_VEC;
   if (rows < 1 || D < RMS_VEC || D % RMS_VEC
       || nvec > RMS_THREADS_MAX * RMS_NV_MAX
@@ -134,13 +145,30 @@ extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
     return (int)cudaErrorInvalidValue;
   const int threads = rms_threads(D);
   const int nv = (nvec + threads - 1) / threads;
-  const bf16 *xb = (const bf16*)x, *wb = (const bf16*)w;
+  const XT* xt = (const XT*)x;
+  const bf16* wb = (const bf16*)w;
   bf16* ob = (bf16*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  return (int)(nv == 1 ? launch_rms_norm<1>(xb, wb, ob, rows, D, threads, eps, st)
-               : nv == 2 ? launch_rms_norm<2>(xb, wb, ob, rows, D, threads, eps, st)
-               : nv <= 4 ? launch_rms_norm<4>(xb, wb, ob, rows, D, threads, eps, st)
-                         : launch_rms_norm<8>(xb, wb, ob, rows, D, threads, eps, st));
+  return (int)(nv == 1 ? launch_rms_norm<1>(xt, wb, ob, rows, D, threads, eps, st)
+               : nv == 2 ? launch_rms_norm<2>(xt, wb, ob, rows, D, threads, eps, st)
+               : nv <= 4 ? launch_rms_norm<4>(xt, wb, ob, rows, D, threads, eps, st)
+                         : launch_rms_norm<8>(xt, wb, ob, rows, D, threads, eps, st));
+}
+
+}  // namespace
+
+// rows x D bf16, D a multiple of 8 up to 32768, 16-byte aligned rows
+extern "C" int desta_rms_norm(const void* x, const void* w, void* out,
+                              int rows, int D, float eps, void* stream) {
+  return rms_norm<bf16>(x, w, out, rows, D, eps, stream);
+}
+
+// the same norm of f32 rows, each value rounded to bf16 as it is read (the
+// bits of desta_rms_norm on the rows cast to bf16): ln1 / ln2 of the
+// per-layer pair K9 (csrc/fused_decode_tp.cu)
+extern "C" int desta_rms_norm_f32(const void* x, const void* w, void* out,
+                                  int rows, int D, float eps, void* stream) {
+  return rms_norm<float>(x, w, out, rows, D, eps, stream);
 }
 
 // out[3] = the decode attention's plan on the current device: key ranges,

@@ -10,8 +10,9 @@
 // Used by the decode step (csrc/fused_decode.cu: K8, its int8 stream, the
 // verify step K8v, the ORCA injection's q / o / gate1 projections of K8i),
 // by the int8 matmul at small M (csrc/qmm.cu: K7), by the per-layer decode
-// pair (csrc/fused_decode_tp.cu: K9's wo / down partial sums) and by the
-// tensor-parallel step's peer stores (csrc/tp_allreduce.cu: K10).
+// pair (K9: its q/k/v and gate/up products, and csrc/fused_decode_tp.cu's
+// wo / down partial sums) and by the tensor-parallel step's peer stores
+// (csrc/tp_allreduce.cu: K10).
 // What bounds it on the H100: device-memory bandwidth.  Every weight byte
 //   is read once for up to 16 activation rows (2*M FLOP per byte, far below
 //   the 295 FLOP/byte ridge); Llama-3.1-8B's four layer GEMMs are 218 MB of
@@ -133,38 +134,6 @@ __device__ __forceinline__ void peer_arrive(const PeerStore& ps) {
     }
   }
 }
-
-__device__ __forceinline__ void bf16x8_to_f32(const uint4& u, float f[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(p[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-// 16 bytes of weights -> VEC floats (exact for both types); the fused-norm
-// GEMV of csrc/fused_decode_tp.cu streams its weights with these
-template <typename WT> struct WeightVec;
-template <> struct WeightVec<bf16> {
-  static constexpr int VEC = 8;
-  static __device__ __forceinline__ void load(const bf16* p, float f[8]) {
-    bf16x8_to_f32(__ldg(reinterpret_cast<const uint4*>(p)), f);
-  }
-};
-template <> struct WeightVec<int8_t> {
-  static constexpr int VEC = 16;
-  static __device__ __forceinline__ void load(const int8_t* p, float f[16]) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        f[4 * i + b] = (float)(int8_t)((w[i] >> (8 * b)) & 0xff);
-  }
-};
 
 // The epilogue of output element o = (row m, column n), from its scaled f32
 // sums v (v[0]; SWIGLU: v[0] gate, v[1] up).  bias: the BIAS epilogues'.

@@ -9,8 +9,10 @@ are RoPE'd and every layer's audio K/V projected once per request; the
 prefill injects layer by layer in PyTorch, and the decode steps inject inside
 the fused step when the LLM and the cross-attention stack hold int8 leaves
 the kernels take, else layer by layer in PyTorch (``decode.py:151-198`` of
-the JAX package).  The loop keeps the JAX semantics: the cache is rounded up to a
-multiple of 128 positions, RoPE positions are ``cumsum(mask) - 1`` clamped
+the JAX package): through the per-layer pair K9 with the opt-in (also one
+CUDA graph a step on the card), else ``models/llm.py``'s layer loop.  The
+loop keeps the JAX semantics: the cache is rounded up to a multiple of 128
+positions, RoPE positions are ``cumsum(mask) - 1`` clamped
 at 0 (left padding), every step writes its k/v at the same ``T + t`` for all
 rows, rows that stopped emit ``pad_id``, and the loop ends early once every
 row has stopped.  Under a mesh (``parallel/mesh.use_mesh`` with the LLM cut
@@ -35,6 +37,7 @@ from ..ops.core import index_tree
 from ..ops.fused_decode import (fused_decode_supported, fused_inject_supported,
                                 tower_is_int8)
 from ..ops.fused_decode_mesh import fused_mesh_takes
+from ..ops.fused_decode_tp import fused_perlayer_supported
 from ..ops.quant import is_quantized
 from ..ops.rope import fractional_rope_apply
 from ..parallel.mesh import current_mesh
@@ -129,7 +132,9 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
 
     Where the fused decode step takes the request (``models/llm.
     decode_step``, or under a mesh K10 where ``fused_mesh_takes``
-    holds; no per-layer hook without the in-kernel injection) the steps run
+    holds; no per-layer hook without the in-kernel injection), and where
+    the per-layer pair K9 takes a hooked step (the opt-in, ``ops/
+    fused_decode_tp.fused_perlayer_supported``, one card), the steps run
     through a ``generate/graph.DecodeGraph``: on CUDA devices the first step
     eagerly, the rest as replays of one CUDA graph per card;
     ``decode_graph=False`` keeps every step eager (the comparison of the
@@ -193,6 +198,12 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         if fused:
             graph = DecodeGraph(params, cfg, mask, cache, fused_spec,
                                 capture=decode_graph)
+    elif (not isinstance(params, ShardedLLM) and current_mesh() is None
+          and fused_perlayer_supported(params, cfg, cache)):
+        # K9 (the opt-in) with the injection hook between its layers
+        graph = DecodeGraph(params, cfg, mask, cache, None,
+                            capture=decode_graph,
+                            extra_layer_fn=extra_layer_fn)
     try:
         for t in range(max_new_tokens - 1):
             if bool(done.all()):

@@ -5,15 +5,20 @@ host work in it).
 
 ``llm_generate`` builds one :class:`DecodeGraph` per call where the fused
 decode step takes the request: K8, K8-int8, and K8i with its injection
-inside, on one card; under a mesh (the LLM cut by
+inside, on one card; K9, the per-layer pair, with ORCA's injection in
+PyTorch between its layers (the opt-in ``DESTA_FUSED_PERLAYER`` on the f32
+stack); under a mesh (the LLM cut by
 ``parallel/sharding.apply_llm_sharding``) K10, the tensor-parallel step,
-with K8i inside too.  Both steps have one interface, ``fill`` / ``run`` /
+with K8i inside too.  The steps have one interface, ``fill`` / ``run`` /
 ``check``.  On one card the step is :class:`CardStep` (the fused layers,
 the final norm, the head: ``models/llm.decode_step`` past its embedding
-gather) on static device inputs: the tokens' embeddings [B, 1, D],
-positions and cache indices, which :meth:`DecodeGraph.step` gathers and
-fills before each step, and the call's mask, cache and injection spec,
-which stay put for the call.  Under a mesh it is
+gather) or :class:`PerLayerStep` (K9's layers with the hook, then the
+same norm and head) on static device inputs: the tokens' embeddings [B,
+1, D], positions and cache indices, which :meth:`DecodeGraph.step`
+gathers and fills before each step, and the call's mask, cache and
+injection spec or hook (whose audio K/V stay put), which stay put for the
+call; the step's RoPE tables and int32 cache indices are computed inside
+the step from those buffers.  Under a mesh it is
 ``ops/fused_decode_mesh.MeshStep``: the same inputs kept on every card, each
 rank's step built once per call, the all-reduce's epochs on the device
 (the step fills each group's base word before it, so a replay never
@@ -63,6 +68,7 @@ from ..ops import _build
 from ..ops.core import rms_norm
 from ..ops.fused_decode import fused_decode_layers
 from ..ops.fused_decode_mesh import MeshStep
+from ..ops.fused_decode_tp import step_scratch
 from ..parallel.sharding import ShardedLLM
 
 
@@ -171,22 +177,50 @@ class CardStep:
         pass
 
 
+class PerLayerStep(CardStep):
+    """K9's decode step with :class:`CardStep`'s interface and buffers:
+    :meth:`run` is ``ops/fused_decode_tp.fused_decode_layers_perlayer``
+    with the call's ``extra_layer_fn`` between layers, on the launches'
+    scratch allocated once here, then ``head`` on its hidden (the norm and
+    head of ``models/llm.llm_apply``'s per-layer branch)."""
+
+    def __init__(self, params, cfg: LLMConfig, mask: torch.Tensor, cache,
+                 extra_layer_fn):
+        super().__init__(params, cfg, mask, cache, None)
+        self.extra_layer_fn = extra_layer_fn
+        self.scratch = step_scratch(cfg, mask.shape[0], mask.device)
+
+    def run(self, head, only=None):
+        hidden, _ = tllm.fused_decode_layers_perlayer(
+            self.params, self.cfg, self.x, self.mask, self.pos, self.cache,
+            self.ci, extra_layer_fn=self.extra_layer_fn,
+            scratch=self.scratch)
+        return [head(self.params, hidden)]
+
+
 class DecodeGraph:
     """The decode steps of one ``llm_generate`` call over fixed buffers:
     ``mask`` [B, S] int32 and ``cache`` are the call's (written in place by
     the caller and by the steps; under a mesh the ShardedCache),
-    ``fused_injection`` the in-kernel ORCA spec or None.  The step is a
-    :class:`CardStep` or, for an LLM cut for a mesh, a ``MeshStep``.
+    ``fused_injection`` the in-kernel ORCA spec or None, ``extra_layer_fn``
+    the per-layer hook of K9's step or None.  The step is a
+    :class:`CardStep`, with a hook a :class:`PerLayerStep`, or, for an LLM
+    cut for a mesh, a ``MeshStep``.
     :meth:`step` returns the step's f32 logits [B, V] on the mask's device;
     with ``capture`` they are the graph's static buffer, overwritten by the
     next step."""
 
     def __init__(self, params, cfg: LLMConfig, mask: torch.Tensor,
-                 cache, fused_injection, capture: bool):
+                 cache, fused_injection, capture: bool,
+                 extra_layer_fn=None):
         self.params, self.cfg, self.mask = params, cfg, mask
-        self.stepper = (MeshStep if isinstance(params, ShardedLLM)
-                        else CardStep)(params, cfg, mask, cache,
-                                       fused_injection)
+        if extra_layer_fn is not None:
+            self.stepper = PerLayerStep(params, cfg, mask, cache,
+                                        extra_layer_fn)
+        else:
+            self.stepper = (MeshStep if isinstance(params, ShardedLLM)
+                            else CardStep)(params, cfg, mask, cache,
+                                           fused_injection)
         self.capture = capture and mask.device.type == "cuda"
         self.cards = CardGraphs(self.stepper.cards) if self.capture else None
         self.warm = False

@@ -60,8 +60,9 @@ SIGNATURES: Dict[str, Tuple] = {
     "desta_enc_attention_combine": (_P,) * 3 + (_I,) * 4 + (_P,),
     # a, w, bias, out, M, N, K, gelu, bm, bn, cluster, stream
     "desta_gemm_bias": (_P, _P, _P, _P) + (_I,) * 7 + (_P,),
-    # x, w, out, rows, D, eps, stream
+    # x, w, out, rows, D, eps, stream (x bf16; _f32: x f32)
     "desta_rms_norm": (_P, _P, _P, _I, _I, _F, _P),
+    "desta_rms_norm_f32": (_P, _P, _P, _I, _I, _F, _P),
     # x, w, scale, bias, out, M, N, K, epilogue, w_int8, stream
     "desta_skinny_gemm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # rows, K, w_int8, out [4]: ranks, k-tiles a rank, k-tiles, row tiles
@@ -107,8 +108,6 @@ SIGNATURES: Dict[str, Tuple] = {
     # audio, window, twiddles, fb_index, fb_weights, out, B, n, frames,
     # n_mels, stream
     "desta_log_mel": (_P,) * 6 + (_I,) * 4 + (_P,),
-    # h, ln_w, eps, w, scale, out, M, N, K, swiglu, stream
-    "desta_tp_norm_gemv": (_P, _P, _F, _P, _P, _P, _I, _I, _I, _I, _P),
     # qkv, k_cache, v_cache, cos, sin, mask, mask_stride, ci, q_norm,
     # k_norm, out, B, S, H, Hkv, Dh, eps, scale, stream
     "desta_tp_attention": (_P,) * 6 + (_I, _P, _P, _P, _P) + (_I,) * 5

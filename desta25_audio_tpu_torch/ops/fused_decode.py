@@ -548,21 +548,32 @@ def rms_plain(x: torch.Tensor, w: torch.Tensor, eps: float, dt):
 
 def decode_rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float
                     ) -> torch.Tensor:
-    """:func:`rms_plain`'s function on rows x [R, D] with weight w [D], in
-    bf16: one launch of the step's norm kernel (``csrc/fused_decode.cu``,
+    """:func:`rms_plain`'s function on rows x [R, D] with weight w [D], out
+    in bf16: one launch of the step's norm kernel (``csrc/fused_decode.cu``,
     counted as ``rms_norm``) on CUDA tensors (D a multiple of 8 up to
-    RMS_D_MAX), the plain version on CPU tensors.  The decode and verify
-    steps launch the same kernel from :class:`FusedStep`."""
+    RMS_D_MAX), the plain version on CPU tensors.  x is bf16, or the f32
+    residual of the per-layer pair K9 (``ops/fused_decode_tp.py``), each
+    value rounded to bf16 first (the TPU kernels' input cast), so that f32
+    rows give the bits of their bf16 cast.  The decode and verify steps and
+    K9 launch the same kernel from C."""
+    f32 = x.dtype == torch.float32
     if x.device.type == "cpu":
+        if f32:
+            x = x.to(torch.bfloat16)
         return rms_plain(x, w, eps, x.dtype)
     name = "rms_norm"
     R, D = x.shape
     if tuple(w.shape) != (D,) or D % 8 or D > RMS_D_MAX:
         raise ValueError(f"{name}: x {tuple(x.shape)}, w {tuple(w.shape)} "
                          f"(D a multiple of 8 up to {RMS_D_MAX})")
-    _build.require_cuda(name, x, w, dtype=torch.bfloat16)
-    out = torch.empty_like(x)
-    _build.check(_build.library().desta_rms_norm(
+    _build.require_cuda(name, x, w)
+    if x.dtype not in (torch.bfloat16, torch.float32) or w.dtype != \
+            torch.bfloat16:
+        raise ValueError(f"{name}: x {x.dtype}, w {w.dtype} (x bfloat16 or "
+                         "float32, w bfloat16)")
+    out = torch.empty(R, D, dtype=torch.bfloat16, device=x.device)
+    lib = _build.library()
+    _build.check((lib.desta_rms_norm_f32 if f32 else lib.desta_rms_norm)(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), R, D, float(eps),
         _build.stream_ptr(x.device)), name)
     _build.count_launch(name)

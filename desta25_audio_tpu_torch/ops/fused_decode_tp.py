@@ -26,12 +26,18 @@ down sums f32, times the scale, unrounded.  The attention and MLP math is
 K8's plain version (``ops/fused_decode.attention_plain`` / ``mlp_plain``);
 only the residual differs.
 
-On CUDA tensors the halves launch ``csrc/fused_decode_tp.cu``: the attention
-half 3 kernels (fused-RMSNorm q/k/v GEMV, attention with the cache write,
-wo), counted as ``fused_decode_tp_attn``; the MLP half 2 (fused-RMSNorm
-gate/up GEMV with SwiGLU, down), counted as ``fused_decode_tp_mlp``.  At
-p = 1 the layer loop adds the partials into h inside the wo / down epilogue
-(the same f32 add).  On CPU tensors the plain versions run.
+On CUDA tensors the halves launch K8's kernels on the f32 residual: the
+attention half 4 (ln1, the step's norm kernel on f32 rows; the q/k/v
+skinny GEMM; the attention with the cache write; wo), counted as
+``fused_decode_tp_attn``; the MLP half 3 (ln2; the gate/up skinny GEMM with
+SwiGLU; down), counted as ``fused_decode_tp_mlp``; in
+``_build.kernel_counts()`` as ``rms_norm``, ``skinny_gemm`` and
+``decode_attention``.  Every launch carries programmatic dependent launch,
+so a layer's seven chain on the stream and in a CUDA graph
+(``generate/graph.PerLayerStep`` replays the whole step with the hook
+between layers).  At p = 1 the layer loop adds the partials into h inside
+the wo / down epilogue (the same f32 add).  On CPU tensors the plain
+versions run.
 
 Under a mesh (``parallel/mesh.py``), :func:`fused_decode_layers_tp` runs the
 pair on every "model" rank of the LLM cut by
@@ -68,7 +74,6 @@ from ..parallel.sharding import (  # noqa: F401 (shard_*: this module's API)
 )
 from . import _build
 from .fused_decode import (
-    _SMEM_LIMIT,
     KVCache,
     _row_indices,
     attention_plain,
@@ -79,7 +84,7 @@ from .fused_decode import (
     tower_is_int8,
 )
 from .rope import llm_rope_cos_sin
-from .skinny_gemm import passes
+from .skinny_gemm import EPI_STORE, EPI_SWIGLU, passes
 from .tp_allreduce import (
     ATTN_SLOT,
     MLP_SLOT,
@@ -95,7 +100,6 @@ logger = logging.getLogger(__name__)
 # JAX package's default numerics (its greedy ids are the ones the port's
 # default must reproduce); on, K9's f32 residual, whose ids can differ.
 FUSED_PERLAYER = os.environ.get("DESTA_FUSED_PERLAYER", "0") == "1"
-NORM_ROWS = 16            # rows a pass of csrc/fused_decode_tp.cu norm_gemv
 _logged: set = set()      # the fallback reasons logged once each
 
 
@@ -124,8 +128,8 @@ def perlayer_limits(params, cfg, cache: KVCache, batch: int) -> List[str]:
     """Why the kernels cannot run this step (empty: they can): the JAX
     predicate's semantic conditions (an int8 tower, a bf16 cache; the port
     has no mesh and no LoRA on this path) and the CUDA kernels' own shape
-    limits (``ops/fused_decode.kernel_limits`` for the attention and the
-    weight loads, the fused-RMSNorm GEMV's shared memory)."""
+    limits (``ops/fused_decode.kernel_limits``: the norm kernel's width,
+    the attention's and the GEMMs' shapes)."""
     bad = []
     if not tower_is_int8(params):
         bad.append("the LLM is not int8 (apply_llm_quant)")
@@ -133,16 +137,12 @@ def perlayer_limits(params, cfg, cache: KVCache, batch: int) -> List[str]:
         bad.append(f"cache {cache.k.dtype} of rank {cache.k.dim()} (the "
                    "kernels take a bf16 [L, B, S, Hkv*Dh] cache)")
         return bad
-    Hkv, Dh, D = cfg.num_key_value_heads, cfg.head_dim, cfg.hidden_size
+    Hkv, Dh = cfg.num_key_value_heads, cfg.head_dim
     if cache.k.shape[3] != Hkv * Dh or cache.k.shape[1] != batch:
         bad.append(f"cache {tuple(cache.k.shape)} for B={batch}, "
                    f"Hkv*Dh={Hkv * Dh}")
     bad += kernel_limits(cfg, batch, 1, cache.k.shape[2], True,
                          _build.sm_count(cache.k.device))
-    smem = min(batch, NORM_ROWS) * D * 2
-    if smem > _SMEM_LIMIT:
-        bad.append(f"D={D} at {batch} rows needs {smem} bytes of shared "
-                   f"memory for the normalised rows (limit {_SMEM_LIMIT})")
     return bad
 
 
@@ -192,21 +192,43 @@ def mlp_half_plain(params, cfg, h: torch.Tensor, layer: int) -> torch.Tensor:
 
 # -- the halves: kernels ----------------------------------------------------------
 
+class Scratch(NamedTuple):
+    """A step's buffers between the launches, bf16: the normalised rows [B,
+    D], the q/k/v rows [B, (H+2Hkv)*Dh], the attention's output [B, H*Dh],
+    the MLP's [B, I]."""
+    xn: torch.Tensor
+    qkv: torch.Tensor
+    attn: torch.Tensor
+    mid: torch.Tensor
+
+
+def step_scratch(cfg, B: int, device) -> Scratch:
+    H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
+                  cfg.head_dim)
+    bf = dict(dtype=torch.bfloat16, device=device)
+    return Scratch(torch.empty(B, cfg.hidden_size, **bf),
+                   torch.empty(B, (H + 2 * Hkv) * Dh, **bf),
+                   torch.empty(B, H * Dh, **bf),
+                   torch.empty(B, cfg.intermediate_size, **bf))
+
+
 class _Operands(NamedTuple):
     lay: dict
-    qkv: torch.Tensor      # [B, (H+2Hkv)*Dh] bf16 scratch
-    attn: torch.Tensor     # [B, H*Dh] bf16 scratch
-    mid: torch.Tensor      # [B, I] bf16 scratch
+    xn: torch.Tensor       # the Scratch's buffers
+    qkv: torch.Tensor
+    attn: torch.Tensor
+    mid: torch.Tensor
     stream: int
 
 
 def _operands(params, cfg, h, name: str, step: Optional[DecodeStep] = None,
-              cache: Optional[KVCache] = None) -> _Operands:
+              cache: Optional[KVCache] = None,
+              scratch: Optional[Scratch] = None) -> _Operands:
     """Check once what the launches read (the attention's step inputs and
     cache when given): the leaves' and the step's shapes, devices, dtypes
-    and alignment; allocate the step's scratch.  Raises ValueError.  The
-    kernel limits (``perlayer_limits``) are the dispatch predicate's to
-    check; the entry points of ``csrc/fused_decode_tp.cu`` refuse what they
+    and alignment; take ``scratch`` or allocate the step's.  Raises
+    ValueError.  The kernel limits (``perlayer_limits``) are the dispatch
+    predicate's to check; the kernels' entry points refuse what they
     cannot take with an error status, which raises RuntimeError."""
     B, D = h.shape
     bad = [] if tower_is_int8(params) else ["the LLM is not int8"]
@@ -252,10 +274,9 @@ def _operands(params, cfg, h, name: str, step: Optional[DecodeStep] = None,
                         dtype=torch.int8)
     _build.require_cuda(name, *(lay[k]["s"] for k in shapes),
                         dtype=torch.float32)
-    bf = dict(dtype=torch.bfloat16, device=h.device)
-    return _Operands(lay, torch.empty(B, (H + 2 * Hkv) * Dh, **bf),
-                     torch.empty(B, H * Dh, **bf), torch.empty(B, I, **bf),
-                     _build.stream_ptr(h.device))
+    if scratch is None:
+        scratch = step_scratch(cfg, B, h.device)
+    return _Operands(lay, *scratch, _build.stream_ptr(h.device))
 
 
 def _launch(status: int, name: str) -> None:
@@ -263,10 +284,28 @@ def _launch(status: int, name: str) -> None:
     _build.count_launch(name)
 
 
+def _norm_gemm(op: _Operands, h, ln, leaf, l: int, eps: float, out, N: int,
+               epi: int, name: str) -> None:
+    """Layer l's norm of h into op.xn, then its int8 product ``leaf`` of
+    op.xn into ``out`` [B, N] bf16 through epilogue ``epi`` (STORE or
+    SWIGLU): two launches, K8's norm kernel on f32 rows and the skinny
+    GEMM."""
+    lib = _build.library()
+    B, D = h.shape
+    _launch(lib.desta_rms_norm_f32(
+        h.data_ptr(), ln["scale"][l].data_ptr(), op.xn.data_ptr(), B, D, eps,
+        op.stream), name)
+    _build.count_kernel("rms_norm")
+    _launch(lib.desta_skinny_gemm(
+        op.xn.data_ptr(), leaf["q"][l].data_ptr(), leaf["s"][l].data_ptr(),
+        None, out.data_ptr(), B, N, D, epi, 1, op.stream), name)
+    _build.count_kernel("skinny_gemm", passes(B))
+
+
 def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
                    l: int, out: torch.Tensor, accumulate: bool,
                    store=None) -> None:
-    """The attention half's 3 launches on checked operands; with ``store``
+    """The attention half's 4 launches on checked operands; with ``store``
     (``x, w, scale, name, stream``) the wo product goes there instead of
     into ``out`` (the mesh's all-reduce, ``ops/tp_allreduce.py``)."""
     name = "fused_decode_tp_attn"
@@ -276,10 +315,8 @@ def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
                   cfg.head_dim)
     eps = float(cfg.rms_norm_eps)
     wqkv, wo = lay["wqkv"], lay["wo"]
-    _launch(lib.desta_tp_norm_gemv(
-        h.data_ptr(), lay["ln1"]["scale"][l].data_ptr(), eps,
-        wqkv["q"][l].data_ptr(), wqkv["s"][l].data_ptr(), op.qkv.data_ptr(),
-        B, (H + 2 * Hkv) * Dh, D, 0, op.stream), name)
+    _norm_gemm(op, h, lay["ln1"], wqkv, l, eps, op.qkv, (H + 2 * Hkv) * Dh,
+               EPI_STORE, name)
     qn = lay["q_norm"]["scale"][l].data_ptr() if cfg.qk_norm else None
     kn = lay["k_norm"]["scale"][l].data_ptr() if cfg.qk_norm else None
     _launch(lib.desta_tp_attention(
@@ -299,18 +336,15 @@ def _attn_launches(op: _Operands, cfg, h, step: DecodeStep, cache: KVCache,
 
 def _mlp_launches(op: _Operands, cfg, h, l: int, out: torch.Tensor,
                   accumulate: bool, store=None) -> None:
-    """The MLP half's 2 launches on checked operands (``store``: as
+    """The MLP half's 3 launches on checked operands (``store``: as
     :func:`_attn_launches`'s, for the down product)."""
     name = "fused_decode_tp_mlp"
     lib, lay = _build.library(), op.lay
     B, D = h.shape
     I = cfg.intermediate_size
     wgu, wd = lay["w_gu"], lay["w_down"]
-    _launch(lib.desta_tp_norm_gemv(
-        h.data_ptr(), lay["ln2"]["scale"][l].data_ptr(),
-        float(cfg.rms_norm_eps), wgu["q"][l].data_ptr(),
-        wgu["s"][l].data_ptr(), op.mid.data_ptr(), B, I, D, 1, op.stream),
-        name)
+    _norm_gemm(op, h, lay["ln2"], wgu, l, float(cfg.rms_norm_eps), op.mid, I,
+               EPI_SWIGLU, name)
     if store is not None:
         store(op.mid, wd["q"][l], wd["s"][l], name, op.stream)
         return
@@ -347,14 +381,20 @@ def mlp_half(params, cfg, h: torch.Tensor, layer: int) -> torch.Tensor:
 
 def fused_decode_layers_perlayer(params, cfg, inputs_embeds, attention_mask,
                                  positions, cache: KVCache, cache_index,
-                                 extra_layer_fn=None):
+                                 extra_layer_fn=None,
+                                 scratch: Optional[Scratch] = None):
     """One decode step through every layer as per-layer halves on one
     device, the f32 residual carried between them, with an optional
     ``extra_layer_fn(layer, hidden [B, 1, D] bf16) -> hidden`` after each
     layer.  Same contract as ``ops/fused_decode.fused_decode_layers``:
     inputs_embeds [B, 1, D]; attention_mask [B, >=S]; positions [B, 1];
     the cache written in place at ``cache_index`` (int or [B]) and returned;
-    returns (hidden [B, 1, D] bf16 before the final norm, cache)."""
+    returns (hidden [B, 1, D] bf16 before the final norm, cache).  On the
+    card the residual is one f32 buffer for the whole step (the hook's
+    output copied into it) and ``scratch`` (:func:`step_scratch`, kept by
+    a caller across steps) the launches' buffers; a CUDA graph captures
+    the step whole (``generate/graph.PerLayerStep``) given a device
+    ``cache_index``."""
     B, T, D = inputs_embeds.shape
     if T != 1:
         raise ValueError("fused_decode_layers_perlayer takes one token a row")
@@ -365,13 +405,13 @@ def fused_decode_layers_perlayer(params, cfg, inputs_embeds, attention_mask,
     step = decode_step_inputs(cfg, attention_mask, positions, cache_index, B)
     h = inputs_embeds.reshape(B, D).to(torch.bfloat16).float().contiguous()
     op = _operands(params, cfg, h, "fused_decode_layers_perlayer", step,
-                   cache)
+                   cache, scratch)
     for l in range(cache.k.shape[0]):
         _attn_launches(op, cfg, h, step, cache, l, h, True)
         _mlp_launches(op, cfg, h, l, h, True)
         if extra_layer_fn is not None:
             hb = extra_layer_fn(l, h.to(torch.bfloat16).reshape(B, 1, D))
-            h = hb.reshape(B, D).float().contiguous()
+            h.copy_(hb.reshape(B, D))
     return h.to(torch.bfloat16).reshape(B, 1, D), cache
 
 

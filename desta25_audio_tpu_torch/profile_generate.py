@@ -23,9 +23,11 @@ stack (the injection in PyTorch between the layers of a torch layer loop);
 ``--orca --perlayer`` keeps it too and sets the per-layer opt-in
 (``ops/fused_decode_tp.FUSED_PERLAYER``, the ``DESTA_FUSED_PERLAYER``
 path): the decode steps run the per-layer pair K9 with the PyTorch
-injection between layers.  For each phase it prints the wall
-time (host clock, device synchronised), the device busy time (sum of kernel
-times), the idle share, and the kernels by total device time.  Needs CUDA;
+injection between layers (through the decode graph's per-layer stepper,
+``generate/graph.PerLayerStep``, and eagerly).  For each phase it prints
+the wall time (host clock, device synchronised), the device busy time
+(sum of kernel times), the idle share, and the kernels by total device
+time.  Needs CUDA;
 the numbers belong to the card it runs on (nvidia-smi's name and power
 limit are printed first).  Device time is the union of the kernels'
 spans (``_device_ms``: a kernel launched with programmatic dependent launch
@@ -38,10 +40,11 @@ host time a step with the graph's capture time, and the idle share of
 their mean against the profiled device time (the profiler's own host cost
 stretches the profiled walls).  The prefill and decode phases add the
 device time by kernel group (``DECODE_GROUPS``: the decode attention, the
-skinny GEMMs (K8's and, at M <= 16, K7's head: ``skinny_gemm_kernel<signed
-char, 1, 3>``), RMSNorm, K7's mma path (its wgmma kernel at 16 < M < 128:
-the b1 int8 prefill's layer products and its head over the prompt's
-rows), K8i's attention and gate, the W8A8 prefill, other).
+skinny GEMMs (K8's, K9's and, at M <= 16, K7's head:
+``skinny_gemm_kernel<signed char, 1, 3>``), RMSNorm (K8's and K9's), K7's
+mma path (its wgmma kernel at 16 < M < 128: the b1 int8 prefill's layer
+products and its head over the prompt's rows), K8i's attention and gate,
+the W8A8 prefill, other).
 Last, the launch counts over the profiled phases and the torch paths taken
 there (``_build.fallback_counts()``: a model shape a kernel's predicate
 refused).

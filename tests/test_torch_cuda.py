@@ -1092,8 +1092,8 @@ def test_fused_tp_halves_kernel(gen, B, qk_norm, heads, p):
         _build.reset_launch_counts()
         ak = ttp.attn_half(params, cfg, h, step, ck, l)
         mk = ttp.mlp_half(params, cfg, h, l)
-        assert _build.launch_counts() == {"fused_decode_tp_attn": 3,
-                                          "fused_decode_tp_mlp": 2}
+        assert _build.launch_counts() == {"fused_decode_tp_attn": 4,
+                                          "fused_decode_tp_mlp": 3}
         assert ak.dtype == mk.dtype == torch.float32
         assert _rel(ak, ttp.attn_half_plain(params, cfg, h, step, cp, l)) \
             < 3e-2
@@ -1125,8 +1125,8 @@ def test_fused_decode_layers_perlayer_kernel(gen):
     hk, _ = ttp.fused_decode_layers_perlayer(params, cfg, x, mask,
                                              ci[:, None], ck, ci, hook)
     L = cfg.num_hidden_layers
-    assert _build.launch_counts() == {"fused_decode_tp_attn": 3 * L,
-                                      "fused_decode_tp_mlp": 2 * L}
+    assert _build.launch_counts() == {"fused_decode_tp_attn": 4 * L,
+                                      "fused_decode_tp_mlp": 3 * L}
     hp, _ = ttp.fused_decode_layers_perlayer_plain(params, cfg, x, mask,
                                                    ci[:, None], cp, ci, hook)
     assert hk.shape == (B, 1, cfg.hidden_size) and hk.dtype == torch.bfloat16
@@ -1156,6 +1156,26 @@ def test_fused_tp_raises_on_what_it_does_not_take(gen):
     # the refusal leaves no error behind for the next, good, launch
     ttp.attn_half(params, cfg, h, step, cache0, 0)
     torch.cuda.synchronize()
+
+
+# K9's ln1 / ln2: the step's norm kernel on f32 rows, the bits of the norm
+# of the rows cast to bf16, and the plain version's within one bf16 ulp of
+# the output scale (the sum of squares in another order); D of Llama-3.1-8B
+# and Qwen3-4B, one to 33 rows
+@pytest.mark.parametrize("R,D", [(1, 4096), (2, 4096), (17, 4096),
+                                 (33, 4096), (2, 2560), (3, 32768)])
+def test_rms_norm_f32_kernel(gen, R, D):
+    from desta25_audio_tpu_torch.ops.fused_decode import (decode_rms_norm,
+                                                           rms_plain)
+    h = torch.randn(R, D, generator=gen, device="cuda") * 3
+    w = (1 + 0.2 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
+    _build.reset_launch_counts()
+    got = decode_rms_norm(h, w, 1e-5)
+    assert _build.launch_counts() == {"rms_norm": 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (R, D)
+    assert torch.equal(got, decode_rms_norm(h.bfloat16(), w, 1e-5))
+    assert _rel(got, rms_plain(h.bfloat16(), w, 1e-5, torch.bfloat16)) \
+        < 1e-2
 
 
 # -- K10 and its all-reduce on virtual ranks of the card -------------------------
@@ -1266,7 +1286,7 @@ def test_tp_pair_under_mesh_kernel(gen):
                                            ci)
         L = cfg.num_hidden_layers
         assert _build.launch_counts() == {
-            "fused_decode_tp_attn": 3 * L * 2, "fused_decode_tp_mlp": 2 * L * 2,
+            "fused_decode_tp_attn": 4 * L * 2, "fused_decode_tp_mlp": 3 * L * 2,
             "tp_allreduce": 2 * L * 2}
         hp, _ = ttp.fused_decode_layers_tp_plain(sp, cfg, x, mask,
                                                  ci[:, None], cp, ci)
@@ -1488,13 +1508,14 @@ def _generate_both_ways(monkeypatch, params, cfg, emb, amask, new, **kw):
     return runs
 
 
-@pytest.mark.parametrize("kind", ["bf16", "int8", "k8i"])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "k8i", "k9"])
 def test_decode_graph_matches_eager(gen, monkeypatch, kind):
     """Two layers at Llama-3.1-8B's width, B = 2 (a row left-padded), 8 new
     tokens: the graph's ids and every step's logits bit-identical to the
     eager step's, the launch and kernel counts equal, one decode_graph
-    replay for each decode step after the first; bf16 K8, K8-int8, and K8i
-    with an int8 ORCA stack."""
+    replay for each decode step after the first; bf16 K8, K8-int8, K8i
+    with an int8 ORCA stack, and K9 (the per-layer opt-in) with a bf16
+    stack's injection in PyTorch between its layers."""
     cfg = _llama_2layers()
     params = _tower(gen, cfg, int8=kind != "bf16")
     B, T, NEW = 2, 24, 8
@@ -1503,12 +1524,17 @@ def test_decode_graph_matches_eager(gen, monkeypatch, kind):
     amask = torch.ones(B, T, dtype=torch.int32, device="cuda")
     amask[0, :5] = 0
     kw = {}
-    if kind == "k8i":
+    if kind in ("k8i", "k9"):
         stack = init_orca_cross_attns(
             types.SimpleNamespace(llm_config=cfg, orca_gate_init=0.1),
             torch.bfloat16, "cuda", gen)
         stack["layers"]["gate2"]["w"].normal_(0.0, 0.2, generator=gen)
-        kw = dict(inject_params=quantize_orca_cross_attns(stack),
+        if kind == "k9":
+            from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
+            monkeypatch.setattr(ttp, "FUSED_PERLAYER", True)
+        else:
+            stack = quantize_orca_cross_attns(stack)
+        kw = dict(inject_params=stack,
                   inject_tokens=torch.randn(B, 40, cfg.hidden_size,
                                             generator=gen,
                                             device="cuda").bfloat16(),
@@ -1526,10 +1552,15 @@ def test_decode_graph_matches_eager(gen, monkeypatch, kind):
     assert steps == NEW - 1 and g_t["graph_capture_ms"] > 0
     assert g_n.pop("decode_graph") == steps - 1
     assert g_n == e_n and g_k == e_k
-    tower = ("fused_decode_layers" if kind == "bf16"
-             else "fused_decode_layers_int8")
-    assert e_n[tower] == 7 * cfg.num_hidden_layers * steps
-    assert e_k["rms_norm"] == 2 * cfg.num_hidden_layers * steps
+    L = cfg.num_hidden_layers
+    if kind == "k9":
+        assert e_n["fused_decode_tp_attn"] == 4 * L * steps
+        assert e_n["fused_decode_tp_mlp"] == 3 * L * steps
+    else:
+        tower = ("fused_decode_layers" if kind == "bf16"
+                 else "fused_decode_layers_int8")
+        assert e_n[tower] == 7 * L * steps
+    assert e_k["rms_norm"] == 2 * L * steps
     if kind == "k8i":
         assert e_n["fused_decode_inject"] == 5 * cfg.num_hidden_layers * steps
         assert (e_k["inject_attention"] == e_k["inject_gate"]

@@ -13,9 +13,15 @@ JAX package on the CPU.
   mesh in interpret mode, with the same bounds.
 - ``shard_layers`` at p = 2 and 4: the ranks' partials of each half sum to
   the unsharded half's within f32 reassociation.
+- K9's q/k/v and gate/up products (the step's norm kernel on the f32
+  residual, then the skinny GEMM): their plain versions against JAX
+  ``_rmsn`` and the int8 product; the norm's refusals on ``meta`` tensors,
+  which ``perlayer_limits`` reports.
 - Nano ORCA ``generate()`` with the int8 LLM and the float stack: greedy
   ids identical to JAX's on its kernel dispatch, with the opt-in set (both
-  sides through their per-layer pair) and with it off (both through their
+  sides through their per-layer pair; the port's steps through
+  ``generate/graph.PerLayerStep``, each step's logits bit-identical to
+  ``llm_apply``'s per-layer branch) and with it off (both through their
   layer loop, the JAX package's default).
 """
 
@@ -46,8 +52,11 @@ from desta25_audio_tpu_torch.models import llm as tllm
 from desta25_audio_tpu_torch.ops import _build
 from desta25_audio_tpu_torch.ops import fused_decode_tp as ttp
 from desta25_audio_tpu_torch.ops import quant as tq
+from desta25_audio_tpu_torch.ops import skinny_gemm as tsg
+from desta25_audio_tpu_torch.ops.fused_decode import RMS_D_MAX, decode_rms_norm
 from desta25_audio_tpu_torch.ops.core import rms_norm as t_rms
 from desta25_audio_tpu_torch.ops.fused_decode import KVCache
+from test_torch_dispatch import _meta_tower
 from test_torch_int8_llm import jax_tpu_dispatch
 
 S, N_STEPS = 128, 3
@@ -274,6 +283,67 @@ def test_perlayer_predicate_and_refusals(monkeypatch):
     wide = dataclasses.replace(tcfg, head_dim=64)
     assert any("head_dim" in r for r in ttp.perlayer_limits(
         tp, wide, tllm.init_kv_cache(wide, 2, S, torch.bfloat16, "cpu"), 2))
+    # the norm kernel's width on the f32 residual, and nothing else: 16
+    # rows of a 16384-wide model (which PRs 6-17's fused-norm GEMV refused
+    # for its shared memory) pass, a 40960-wide one does not (meta
+    # tensors: shapes only)
+    for D, refused in ((16384, False), (40960, True)):
+        big = dataclasses.replace(tcfg, hidden_size=D, intermediate_size=D,
+                                  num_hidden_layers=1)
+        cache = tllm.init_kv_cache(big, 16, S, torch.bfloat16, "meta")
+        why = ttp.perlayer_limits(_meta_tower(big, True), big, cache, 16)
+        assert any("norm kernel" in r for r in why) == refused, why
+        assert len(why) == refused, why
+
+
+# -- K9's q/k/v and gate/up products ------------------------------------------
+
+@pytest.mark.parametrize("M", [1, 2, 3, 16, 17])
+@pytest.mark.parametrize("swiglu", [False, True], ids=["store", "swiglu"])
+def test_norm_and_product_plain_match_jax_rmsn(M, swiglu):
+    """The half's ln then int8 product on the f32 residual (the norm on its
+    bf16 cast, the skinny GEMM's plain version): x = JAX ``_rmsn`` (the
+    Pallas kernels' norm) of bf16(h), identical, then the product with its
+    scale after the f32 sum and the epilogue."""
+    K, rows = 256, 96
+    rng = np.random.default_rng(M)
+    h = (3 * rng.standard_normal((M, K))).astype(np.float32)
+    lw = _bf16(1 + 0.2 * rng.standard_normal(K))
+    q = rng.integers(-127, 128, (rows, K)).astype(np.int8)
+    sc = (1e-2 * rng.random(rows)).astype(np.float32)
+    xn = jtp._rmsn(jnp.asarray(h).astype(jnp.bfloat16), lw[0][None], 1e-5)
+    got_x = decode_rms_norm(torch.from_numpy(h), lw[1], 1e-5)
+    assert got_x.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np(got_x), _np(xn))
+    v = (_np(xn) @ q.T.astype(np.float32)) * sc
+    if swiglu:
+        bf = lambda a: _np(jnp.asarray(a).astype(jnp.bfloat16))  # noqa: E731
+        gt, up = bf(v[:, 0::2]), bf(v[:, 1::2])
+        want = bf(bf(gt / (1 + np.exp(-gt))) * up)
+    else:
+        want = _np(jnp.asarray(v).astype(jnp.bfloat16))
+    got = tsg.skinny_gemm(got_x, torch.from_numpy(q), torch.from_numpy(sc),
+                          tsg.EPI_SWIGLU if swiglu else tsg.EPI_STORE)
+    assert got.shape == (M, rows // (2 if swiglu else 1))
+    err = np.abs(_np(got) - want).max() / (np.abs(want).max() + 1e-6)
+    assert err < 1e-2, err
+
+
+@pytest.mark.parametrize("D", [4096, 2560, 512, 100, 32768, 32776])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_refusals_on_meta(D, dtype):
+    """The step's norm kernel, on K9's f32 rows and K8's bf16 rows, takes
+    what ``kernel_limits`` takes: its wrapper on meta tensors stops at the
+    device check exactly where D is a multiple of 8 up to RMS_D_MAX."""
+    x = torch.empty(2, D, dtype=dtype, device="meta")
+    w = torch.empty(D, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError) as e:
+        decode_rms_norm(x, w, 1e-5)
+    took = "expected the CUDA device" in str(e.value)
+    assert took == (D % 8 == 0 and D <= RMS_D_MAX)
+    cfg = dataclasses.replace(_cfgs()[1], hidden_size=D)
+    assert any("norm kernel" in r for r in ttp.kernel_limits(
+        cfg, 2, 1, S, True)) == (D > RMS_D_MAX)
 
 
 @pytest.fixture(scope="module")
@@ -316,16 +386,30 @@ def _count_perlayer_calls(monkeypatch):
     return calls
 
 
+def _count_stepper_runs(monkeypatch):
+    from desta25_audio_tpu_torch.generate import graph as tgraph
+    runs = [0]
+    real = tgraph.PerLayerStep.run
+
+    def counted(self, *a, **k):
+        runs[0] += 1
+        return real(self, *a, **k)
+    monkeypatch.setattr(tgraph.PerLayerStep, "run", counted)
+    return runs
+
+
 def test_nano_orca_generate_perlayer_matches_jax(wav, monkeypatch):
     """int8 LLM, f32 cross-attention stack, the opt-in on both sides: JAX's
     decode steps run its per-layer pair in interpret mode with the XLA
     injection between layers, the port's the plain pair with the PyTorch
-    injection."""
+    injection, through the decode graph's per-layer stepper (eager on the
+    CPU)."""
     from test_torch_orca import _msgs
     jax_tpu_dispatch(monkeypatch)
     monkeypatch.setenv("DESTA_FUSED_PERLAYER", "1")
     monkeypatch.setattr(ttp, "FUSED_PERLAYER", True)
     calls = _count_perlayer_calls(monkeypatch)
+    stepper = _count_stepper_runs(monkeypatch)
     try:
         jm, tm = _orca_models()
         want = jm.generate(_msgs(wav), max_new_tokens=5, do_sample=False)
@@ -333,6 +417,7 @@ def test_nano_orca_generate_perlayer_matches_jax(wav, monkeypatch):
         assert got.generated_ids == want.generated_ids
         assert calls["jax"] > 0
         assert calls["port"] == tm.last_timings["decode_steps"] >= 1
+        assert stepper[0] == calls["port"]
         # a float stack falls back from speculation to this same loop
         spec = tm.generate(_msgs(wav), max_new_tokens=5, do_sample=False,
                            speculative_k=3)
@@ -361,3 +446,35 @@ def test_nano_orca_generate_layer_loop_matches_jax_default(wav, monkeypatch):
         assert calls == {"jax": 0, "port": 0}
     finally:
         jax.clear_caches()
+
+
+def test_nano_orca_perlayer_stepper_logits_match_llm_apply(wav, monkeypatch):
+    """The opt-in's decode steps through ``generate/graph.PerLayerStep``
+    (one run a step) against the same ``generate()`` with the stepper
+    turned away, whose steps take ``llm_apply``'s per-layer branch with the
+    hook: every sampled step's logits bit-identical, the same ids."""
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    from test_torch_orca import _msgs
+    monkeypatch.setattr(ttp, "FUSED_PERLAYER", True)
+    _, tm = _orca_models()
+    real_sample = tdecode.sample_token
+    runs = {}
+    for stepper in (True, False):
+        seen = []
+        monkeypatch.setattr(
+            tdecode, "sample_token",
+            lambda lg, *a: seen.append(lg.clone()) or real_sample(lg, *a))
+        if not stepper:
+            monkeypatch.setattr(tdecode, "fused_perlayer_supported",
+                                lambda *a: False)
+        used = _count_stepper_runs(monkeypatch)
+        calls = _count_perlayer_calls(monkeypatch)
+        out = tm.generate(_msgs(wav), max_new_tokens=5, do_sample=False)
+        steps = tm.last_timings["decode_steps"]
+        assert calls["port"] == steps >= 1
+        assert used[0] == (steps if stepper else 0)
+        runs[stepper] = (out.generated_ids, seen)
+    (g_ids, g_lg), (e_ids, e_lg) = runs[True], runs[False]
+    assert g_ids == e_ids
+    assert len(g_lg) == len(e_lg) == steps + 1
+    assert all(torch.equal(a, b) for a, b in zip(g_lg, e_lg))
