@@ -218,9 +218,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     by step 1 (lr 0) and changed by step 3; no frozen leaf requires or holds
     a gradient;
 24. two train steps at the flagship config's own shape, B=12, T=300: K11
-    must not launch (the JAX dispatch takes it at T >= 512 only).  23 and
-    24 print ms/step, tokens/s and the peak device memory beside the card's
-    name and power limit;
+    must not launch (the JAX dispatch takes it at T >= 512 only);
+24b. the same model's tower quantized in place (``apply_llm_quant()``),
+    the params split again, two train steps at B=12, T=300 (the JAX
+    package's train setting): K1, K2 and K3 launch, the W8A8 GEMM does not
+    (training's ``w8a8=False``), the loss finite, ``grad_norm`` > 0 and
+    finite, the trainable tree moved; the torch paths taken are printed
+    (K7's math as one library product at 128-256 rows counts as
+    ``quant_matmul_dequant``).
+    23, 24 and 24b print ms/step, tokens/s and the peak device memory
+    beside the card's name and power limit;
 25. the shipped configs/desta25_debug.yaml (whisper-nano Dh 32, llama-nano
     Dh 16, float32, random weights from a seed): greedy ``generate()`` at b2
     and one train step; no decode, encoder or Q-Former kernel takes these
@@ -236,7 +243,20 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     same model's on the CPU, the products the W8A8 GEMM refuses (llama-
     nano's N = 64, f32 x) counted in ``fallback_counts()`` as
     ``w8a8_matmul``, K7 launched for every decode step's products and its
-    head at M = B (f32 x cast to bf16).
+    head at M = B (f32 x cast to bf16);
+26. ORCA training at full width: free the Q-Former model, build
+    configs/desta25_llama31-8B_ORCAHybrid.yaml fresh (bf16 towers, the f32
+    cross-attention stack, random weights from a seed); (a)
+    ``DeSTA25Trainer.train()`` for 3 steps at B=4, T=512 on phase 22's
+    corpus with remat and a checkpoint: K11 forward and backward, K2, K1
+    and K3 launch every step, ``grad_norm`` finite (so every gradient is)
+    and > 0, ``L_ortho_diversity`` and ``L_ortho_qformer_local`` > 0,
+    ``L_align_layerwise`` == 0 (prompt-only batches), the tree unchanged
+    at lr 0 and changed by step 3, no frozen leaf with a gradient; (b) one
+    step at B=4, T=512 on a batch with 8 transcription positions a row:
+    ``L_align_layerwise`` > 0 and finite; (c) two steps at the config's
+    own B=12, T=300: K11 does not launch.  Each prints ms/step, tokens/s
+    and the peak device memory.
 
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
@@ -295,6 +315,7 @@ import gc
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3986,13 +4007,21 @@ def write_corpus(d: str, n: int = 12) -> str:
     return manifest
 
 
+def sampled(v):
+    """Every 509th element of a leaf: a tree's movement is read on these
+    (a copy of the whole 9 GB ORCA stack would count in the step's peak)."""
+    return v.detach().reshape(-1)[::509].clone()
+
+
 class StepProbe:
     """Wraps a trainer's train step: per step, the launches it made, its
     host-clock time (device synchronised), its peak device memory, its
-    metrics, and how far the trainable tree has moved from its start."""
+    metrics, and how far the trainable tree has moved from its start, read
+    through ``view`` (``start`` holds each leaf's view)."""
 
-    def __init__(self, trainer, start):
+    def __init__(self, trainer, start, view=lambda v: v.detach()):
         self.trainer, self.start, self.rows = trainer, start, []
+        self.view = view
         self.real = trainer.train_step
         trainer.train_step = self
 
@@ -4007,12 +4036,13 @@ class StepProbe:
         out = self.real(trainable, frozen, opt_state, batch)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
         after = _build.launch_counts()
-        moved = max(float((v.detach() - self.start[k]).abs().max())
+        moved = max(float((self.view(v) - self.start[k]).abs().max())
                     for k, v in flatten_tree(out[0]).items())
         self.rows.append({
             "ms": ms, "moved": moved, "shape": tuple(batch["input_ids"].shape),
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_gib": peak / 2 ** 30,
             "launches": {k: after[k] - before.get(k, 0) for k in after
                          if after[k] != before.get(k, 0)},
             "metrics": {k: float(v) for k, v in out[2].items()}})
@@ -4091,15 +4121,9 @@ def run_training(gpu: str, tmpdir: str):
     if len(probe.rows) != 3:
         raise AssertionError(f"train() ran {len(probe.rows)} steps, not 3")
     for i, r in enumerate(probe.rows):
-        for name in ("flash_attention", "flash_attention_bwd",
-                     "packed_encoder_attention", "encoder_ffn", "log_mel"):
-            if r["launches"].get(name, 0) <= 0:
-                raise AssertionError(f"train step {i + 1}: {name} not "
-                                     "launched")
-        m = r["metrics"]
-        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
-                and m["grad_norm"] > 0):
-            raise AssertionError(f"train step {i + 1}: metrics {m}")
+        check_train_row(f"train step {i + 1}", r, (
+            "flash_attention", "flash_attention_bwd",
+            "packed_encoder_attention", "encoder_ffn", "log_mel"))
     if probe.rows[0]["moved"] != 0.0:
         raise AssertionError("the trainable tree moved at step 1 (lr 0)")
     if not probe.rows[2]["moved"] > 0.0:
@@ -4134,8 +4158,187 @@ def run_training(gpu: str, tmpdir: str):
             raise AssertionError(f"B=12 step: metrics {r['metrics']}")
         if r["launches"].get("log_mel", 0) <= 0:
             raise AssertionError("B=12 step: log_mel was not launched")
+
+    # -- 24b. the int8 tower, the JAX package's train setting ----------------
+    from desta25_audio_tpu_torch.train.step import make_train_step
+    t0 = time.perf_counter()
+    model.apply_llm_quant()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    trainable, frozen = model.split_params()
+    start = {k: v.detach().clone()
+             for k, v in flatten_tree(trainable).items()}
+    print(f"tower quantized in place in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB)", flush=True)
+    box = types.SimpleNamespace(train_step=make_train_step(
+        model.config, trainer.optimizer, remat=True))
+    probe24b = StepProbe(box, start)
+    _build.reset_launch_counts()
+    for _ in range(2):
+        trainable, state, _ = box.train_step(trainable, frozen, state, batch)
+    print_steps("flagship-train int8 tower (24b)", probe24b.rows, gpu)
+    print(f"int8-tower steps: torch paths taken "
+          f"{json.dumps(_build.fallback_counts())}", flush=True)
+    for i, r in enumerate(probe24b.rows):
+        check_train_row(f"int8-tower step {i + 1}", r,
+                        ("packed_encoder_attention", "encoder_ffn",
+                         "log_mel"))
+        if r["launches"].get("w8a8_matmul", 0):
+            raise AssertionError("int8-tower step: the W8A8 GEMM launched "
+                                 "(training keeps the weight-only forward)")
+        if not r["moved"] > 0.0:
+            raise AssertionError("int8-tower step: the trainable tree did "
+                                 "not move")
     return {k: train_counts.get(k, 0)
             for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def check_train_row(tag: str, r, kernels) -> None:
+    """A StepProbe row: each of ``kernels`` launched, the loss finite and
+    ``grad_norm`` finite and > 0 (a finite global norm: every gradient
+    finite)."""
+    for name in kernels:
+        if r["launches"].get(name, 0) <= 0:
+            raise AssertionError(f"{tag}: {name} not launched")
+    m = r["metrics"]
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+            and m["grad_norm"] > 0):
+        raise AssertionError(f"{tag}: metrics {m}")
+
+
+def with_transcriptions(batch, n: int, vocab: int, gen):
+    """Phase 26b's batch: ``n`` positions after each row's audio tokens
+    hold transcription embeddings (kind 2, ids below ``vocab`` drawn from
+    ``gen``), which prompt-only training never has."""
+    import torch
+    b = {k: v.clone() for k, v in batch.items()}
+    N = b["trans_ids"].shape[0]
+    b["trans_ids"][:, :n] = torch.randint(10, vocab, (N, n), generator=gen,
+                                          device=gen.device)
+    b["trans_mask"][:, :n] = 1
+    for r in range(b["kind"].shape[0]):
+        last = int(torch.nonzero(b["kind"][r] == 1).max())
+        b["kind"][r, last + 1:last + 1 + n] = 2
+        b["aidx"][r, last + 1:last + 1 + n] = b["aidx"][r, last]
+        b["pos"][r, last + 1:last + 1 + n] = torch.arange(
+            n, device=b["pos"].device)
+    return b
+
+
+def run_orca_training(gpu: str, tmpdir: str) -> None:
+    """26.  ORCA training at full width: the trainer at B=4 T=512 (a), one
+    step with transcription positions (b), two at B=12 T=300 (c)."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+
+    cfg = config_from_yaml_file(ORCA_CONFIG)
+    t0 = time.perf_counter()
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=5,
+                              tokenizer=CharTokenizer("llama3"))
+    torch.cuda.synchronize()
+    trainable, frozen = model.split_params()
+    n_stack = sum(v.numel() for v in flatten_tree(
+        trainable["orca_cross_attns"]).values())
+    print(f"ORCA training model built in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB; the f32 "
+          f"cross-attention stack {n_stack / 1e9:.3f} B parameters)",
+          flush=True)
+    start = {k: sampled(v) for k, v in flatten_tree(trainable).items()}
+    manifest = os.path.join(tmpdir, "train.jsonl")
+
+    # -- 26a. DeSTA25Trainer.train(), 3 steps at B=4 T=512, remat ------------
+    dcfg = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
+                      batch_size=4, max_seq_length=512)
+    ds = AudioTextDataset(cfg, dcfg, model.tokenizer)
+    tcfg = TrainerConfig(exp_dir=os.path.join(tmpdir, "exp_orca"),
+                         max_steps=3, log_every_n_steps=1, remat=True,
+                         eval_before_train=False, val_check_interval=1e9,
+                         keep_checkpoints=1)
+    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    trainer = DeSTA25Trainer(model, ds, None,
+                             CollateFn(cfg, dcfg, model.tokenizer), ocfg,
+                             tcfg)
+    probe = StepProbe(trainer, start, sampled)
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    print_steps("orca-train (26a)", probe.rows, gpu)
+    ckpt = os.path.realpath(os.path.join(tcfg.exp_dir, "checkpoint-latest"))
+    print(f"ORCA train() {train_s:.1f} s for 3 steps and a checkpoint of "
+          f"{os.path.getsize(os.path.join(ckpt, 'state.pt')) / 2**30:.2f} "
+          f"GiB; aux losses {json.dumps([{k: v for k, v in r['metrics'].items() if k.startswith('L_')} for r in probe.rows])}",
+          flush=True)
+    if len(probe.rows) != 3:
+        raise AssertionError(f"ORCA train() ran {len(probe.rows)} steps")
+    for i, r in enumerate(probe.rows):
+        check_train_row(f"ORCA train step {i + 1}", r, (
+            "flash_attention", "flash_attention_bwd",
+            "packed_encoder_attention", "encoder_ffn", "log_mel"))
+        m = r["metrics"]
+        if not (m["L_ortho_diversity"] > 0 and m["L_ortho_qformer_local"] > 0
+                and m["L_align_layerwise"] == 0.0):
+            raise AssertionError(f"ORCA train step {i + 1}: aux {m}")
+    if probe.rows[0]["moved"] != 0.0:
+        raise AssertionError("ORCA: the trainable tree moved at step 1 "
+                             "(lr 0)")
+    if not probe.rows[2]["moved"] > 0.0:
+        raise AssertionError("ORCA: the trainable tree did not move by "
+                             "step 3")
+    if any(t.requires_grad or t.grad is not None
+           for t in flatten_tree(frozen).values()):
+        raise AssertionError("ORCA: a frozen leaf requires or holds a "
+                             "gradient")
+    shutil.rmtree(tcfg.exp_dir)
+
+    # -- 26b. one step with 8 transcription positions a row ------------------
+    trainable, _ = model.split_params()
+    batch = with_transcriptions(
+        trainer._device_batch(trainer.collate_fn(list(ds.iter_valid())[:4])),
+        8, model.llm_cfg.vocab_size, torch.Generator("cuda").manual_seed(6))
+    probe26b = StepProbe(types.SimpleNamespace(train_step=probe.real), start,
+                         sampled)
+    state = trainer.opt_state
+    trainable, state, _ = probe26b(trainable, frozen, state, batch)
+    print_steps("orca-train with transcriptions (26b)", probe26b.rows, gpu)
+    r = probe26b.rows[0]
+    check_train_row("ORCA step with transcriptions", r,
+                    ("flash_attention", "flash_attention_bwd"))
+    align = r["metrics"]["L_align_layerwise"]
+    print(f"L_align_layerwise {align:.6f} over 8 transcription positions a "
+          f"row", flush=True)
+    if not (np.isfinite(align) and align > 0):
+        raise AssertionError(f"ORCA: L_align_layerwise {align} with "
+                             "transcription positions")
+
+    # -- 26c. two steps at the config's own shape, B=12 T=300 ----------------
+    dcfg26 = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
+                        batch_size=12, max_seq_length=300)
+    batch = trainer._device_batch(CollateFn(cfg, dcfg26, model.tokenizer)(
+        list(ds.iter_valid())[:12]))
+    probe26c = StepProbe(types.SimpleNamespace(train_step=probe.real), start,
+                         sampled)
+    for _ in range(2):
+        trainable, state, _ = probe26c(trainable, frozen, state, batch)
+    print_steps("orca-train (26c)", probe26c.rows, gpu)
+    for i, r in enumerate(probe26c.rows):
+        check_train_row(f"ORCA B=12 step {i + 1}", r, (
+            "packed_encoder_attention", "encoder_ffn", "log_mel"))
+        if r["launches"].get("flash_attention", 0) \
+                or r["launches"].get("flash_attention_bwd", 0):
+            raise AssertionError("ORCA: K11 launched at T=300")
+    del trainer, model, trainable, frozen, start, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
@@ -4318,6 +4521,11 @@ def main() -> int:
 
     # -- 25. the debug config and a long cache: the torch paths -------------
     run_debug_config(gpu, tmp.name)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 26. ORCA training at full width --------------------------------------
+    run_orca_training(gpu, tmp.name)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -65,7 +65,11 @@ from ..ops.quant import (
 )
 from ..parallel.sharding import ShardedLLM, apply_llm_sharding
 from . import llm as tllm
-from .orca import init_orca_connector, init_orca_cross_attns
+from .orca import (
+    init_orca_connector,
+    init_orca_cross_attns,
+    orca_inject_tokens,
+)
 from .perception import perception_apply
 from .qformer import init_qformer_connector
 from .splice import (
@@ -272,19 +276,11 @@ class DeSTA25AudioModel:
         return embeds, (audio_feats, local_tokens)
 
     def _orca_inject_tokens(self, aux):
-        """The deep-injection tokens [N, Ta, D] from perception's aux: the
-        local tokens (with ``orca_global_cross_attn``, the global tokens
-        before them), or None when the model does not deep-inject
-        (``desta.py:415-427`` of the JAX package)."""
-        if not (self.config.is_orca
-                and self.config.orca_deep_injection_enabled
-                and "orca_cross_attns" in self.params
-                and aux is not None and aux[1] is not None):
+        """The deep-injection tokens [N, Ta, D] from perception's aux, or
+        None (``models/orca.orca_inject_tokens``)."""
+        if aux is None:
             return None
-        audio_feats, local_tokens = aux
-        if self.config.orca_global_cross_attn:
-            return torch.cat([audio_feats, local_tokens], dim=1)
-        return local_tokens
+        return orca_inject_tokens(self.config, self.params, *aux)
 
     # -- generate ---------------------------------------------------------
 

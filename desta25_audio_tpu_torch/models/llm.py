@@ -135,39 +135,45 @@ def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids]
 
 
-def head_logits(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+def head_logits(params: Params, hidden: torch.Tensor,
+                w8a8: bool = True) -> torch.Tensor:
     """Final hidden [..., D] -> f32 logits [..., V] (tied, untied or int8;
-    the int8 head's padded rows are sliced off)."""
+    the int8 head's padded rows are sliced off; ``w8a8`` as
+    ``quant_matmul``'s)."""
     w = params.get("lm_head", params["embed"])
     if is_quantized(w):
         V = params["embed"].shape[0]
-        return quant_matmul(hidden, w, torch.float32)[..., :V]
+        return quant_matmul(hidden, w, torch.float32, w8a8=w8a8)[..., :V]
     return matmul_f32(hidden, w.t())
 
 
-def _linear(w, x: torch.Tensor, l: int) -> torch.Tensor:
+def _linear(w, x: torch.Tensor, l: int, w8a8: bool = True) -> torch.Tensor:
     """x [..., in] through layer l's [out, in] weight (bf16, or an int8
-    leaf through quant_matmul), rounded once to x's dtype."""
+    leaf through quant_matmul with its ``w8a8``), rounded once to x's
+    dtype."""
     if is_quantized(w):
-        return quant_matmul(x, {"q": w["q"][l], "s": w["s"][l]})
+        return quant_matmul(x, {"q": w["q"][l], "s": w["s"][l]}, w8a8=w8a8)
     return matmul_f32(x, w[l].t()).to(x.dtype)
 
 
 def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
-               cache: Optional[KVCache], ci, attention_mask=None):
+               cache: Optional[KVCache], ci, attention_mask=None,
+               w8a8: bool = True):
     return _linear(p["wo"], _attention_heads(p, x, cos, sin, mask, cfg, l,
-                                             cache, ci, attention_mask), l)
+                                             cache, ci, attention_mask,
+                                             w8a8), l, w8a8)
 
 
 def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
-                     cache: Optional[KVCache], ci, attention_mask=None):
+                     cache: Optional[KVCache], ci, attention_mask=None,
+                     w8a8: bool = True):
     """Layer l's attention up to the wo product: [B, T, H*Dh] in x's
     dtype."""
     B, T, _ = x.shape
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     HD, KVD = H * Dh, Hkv * Dh
-    qkv = _linear(p["wqkv"], x, l)
+    qkv = _linear(p["wqkv"], x, l, w8a8)
     q = qkv[..., :HD].reshape(B, T, H, Dh)
     k = qkv[..., HD:HD + KVD].reshape(B, T, Hkv, Dh)
     v = qkv[..., HD + KVD:].reshape(B, T, Hkv, Dh)
@@ -200,13 +206,13 @@ def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
     return out.to(x.dtype).reshape(B, T, HD)
 
 
-def _mlp(p, x, l: int):
-    return _linear(p["w_down"], _mlp_mid(p, x, l), l)
+def _mlp(p, x, l: int, w8a8: bool = True):
+    return _linear(p["w_down"], _mlp_mid(p, x, l, w8a8), l, w8a8)
 
 
-def _mlp_mid(p, x, l: int):
+def _mlp_mid(p, x, l: int, w8a8: bool = True):
     """Layer l's MLP up to the down product: silu(gate) * up."""
-    gu = _linear(p["w_gu"], x, l)       # gate/up outputs rounded apart
+    gu = _linear(p["w_gu"], x, l, w8a8)  # gate/up outputs rounded apart
     g, u = gu[..., 0::2], gu[..., 1::2]
     return torch.nn.functional.silu(g.float()).to(x.dtype) * u
 
@@ -353,11 +359,14 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[KVCache] = None, cache_index=None,
               extra_layer_fn: Optional[Callable] = None,
+              extra_aux_init=None,
               fused_injection=None, return_hidden: bool = False,
-              skip_head: bool = False, remat: bool = False):
+              skip_head: bool = False, remat: bool = False,
+              w8a8: bool = True):
     """Forward pass -> (logits [B, T, V] f32, cache), or with
     ``return_hidden`` (logits, cache, final hidden [B, T, D] after the last
-    norm); ``skip_head`` leaves logits None.
+    norm); ``skip_head`` leaves logits None.  With ``extra_aux_init`` a
+    last element carries the hook's final aux.
 
     input_ids [B, T] or inputs_embeds [B, T, D] (exactly one).
     attention_mask [B, T] 1/0 (left padding), or [B, S] covering the cache.
@@ -367,7 +376,10 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     cache under a causal-by-position mask.
 
     extra_layer_fn(l, h) -> h runs after every layer (ORCA's injection in
-    PyTorch).  A cached T == 1 call takes the fused decode step where
+    PyTorch); with ``extra_aux_init`` (the cache-less forward only) it is
+    ``fn(l, h, aux) -> (h, aux)``, aux a tuple of tensors threaded through
+    the layers (ORCA's per-layer alignment sums, ``llm.py:303-321`` of the
+    JAX package).  A cached T == 1 call takes the fused decode step where
     ``ops/fused_decode.fused_decode_supported`` holds (else the layer loop,
     counted by ``_build.count_fallback``): with
     ``fused_injection`` (the ``inject`` spec of ``ops/fused_decode.py``) the
@@ -379,10 +391,16 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
 
     remat: without a cache and with grad mode on, each decoder layer runs
     under ``torch.utils.checkpoint`` (non-reentrant) and is recomputed in
-    the backward, as ``jax.checkpoint`` does in the JAX package.
+    the backward, as ``jax.checkpoint`` does in the JAX package; the hook
+    and its aux run inside it, so the recompute adds nothing to the aux.
+
+    w8a8: the int8 tower's products and head may quantize activations from
+    128 rows (``ops/qmm.quant_matmul``); training passes False.
     """
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("provide exactly one of input_ids / inputs_embeds")
+    if extra_aux_init is not None and cache is not None:
+        raise ValueError("extra_aux_init takes the cache-less forward only")
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     x = inputs_embeds
@@ -448,23 +466,31 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     cos, sin = llm_rope_cos_sin(cfg, positions)
     lay = params["layers"]
 
-    def layer(l: int, x: torch.Tensor) -> torch.Tensor:
+    def layer(l: int, x: torch.Tensor, *aux):
         x = x + _attention(lay, rms_norm(index_tree(lay["ln1"], l), x,
                                          cfg.rms_norm_eps),
                            cos, sin, mask, cfg, l, cache, ci,
-                           attention_mask)
+                           attention_mask, w8a8)
         x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
-                                   cfg.rms_norm_eps), l)
+                                   cfg.rms_norm_eps), l, w8a8)
+        if extra_aux_init is not None:
+            x, aux = extra_layer_fn(l, x, aux)
+            return (x, *aux)
         if extra_layer_fn is not None:
             x = extra_layer_fn(l, x)
         return x
 
     remat = remat and cache is None and torch.is_grad_enabled()
+    aux = extra_aux_init
     for l in range(cfg.num_hidden_layers):
-        x = (checkpoint(layer, l, x, use_reentrant=False) if remat
-             else layer(l, x))
+        args = (l, x) if aux is None else (l, x, *aux)
+        out = (checkpoint(layer, *args, use_reentrant=False) if remat
+               else layer(*args))
+        if aux is None:
+            x = out
+        else:
+            x, aux = out[0], tuple(out[1:])
     hidden = rms_norm(params["norm"], x, cfg.rms_norm_eps)
-    logits = None if skip_head else head_logits(params, hidden)
-    if return_hidden:
-        return logits, cache, hidden
-    return logits, cache
+    logits = None if skip_head else head_logits(params, hidden, w8a8)
+    out = (logits, cache, hidden) if return_hidden else (logits, cache)
+    return out if aux is None else out + (aux,)

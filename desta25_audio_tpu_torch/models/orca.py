@@ -23,14 +23,14 @@ modeling_desta25.py:208-490).
 Parameters follow the JAX trees in the port's layout (linear ``[out, in]``,
 conv ``[out, in, kernel]``, layers stacked on a leading axis).  The stack
 may hold int8 ``{q, s, b}`` leaves (``ops/quant.quantize_orca_cross_attns``),
-which go through ``ops/qmm.quant_matmul``.  The training aux losses
-(``make_deep_injection_fn``) are not ported yet.
+which go through ``ops/qmm.quant_matmul``.  Training builds the injection
+and its per-layer alignment term with :func:`make_deep_injection_fn`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -45,6 +45,7 @@ from ..ops.core import (
     mha,
 )
 from ..ops.qmm import quant_matmul
+from ..ops.rope import fractional_rope_apply
 from .qformer import bert_encoder_apply, init_bert_encoder
 from .whisper import _uniform, init_layer_norm_stack, init_linear_stack
 
@@ -186,3 +187,86 @@ def precompute_cross_kv(orca_params: Params, audio_roped: torch.Tensor):
         ks.append(_xattn_linear(index_tree(lay["k"], l), audio_roped))
         vs.append(_xattn_linear(index_tree(lay["v"], l), audio_roped))
     return torch.stack(ks), torch.stack(vs)
+
+
+def orca_inject_tokens(config: DeSTA25Config, params: Params,
+                       audio_feats: Optional[torch.Tensor],
+                       local_tokens: Optional[torch.Tensor]
+                       ) -> Optional[torch.Tensor]:
+    """The deep-injection tokens [N, Ta, D]: the local tokens (with
+    ``orca_global_cross_attn``, the global tokens before them), or None when
+    the model does not deep-inject (``desta.py:415-427`` and
+    ``train/step.py:77-91`` of the JAX package)."""
+    if not (config.is_orca and config.orca_deep_injection_enabled
+            and "orca_cross_attns" in params and local_tokens is not None):
+        return None
+    if config.orca_global_cross_attn and audio_feats is not None:
+        return torch.cat([audio_feats, local_tokens], dim=1)
+    return local_tokens
+
+
+def _l2norm(x: torch.Tensor) -> torch.Tensor:
+    """x * rsqrt(sum(x^2) + 1e-12) over the last axis: finite gradient at a
+    zero row, where ``x / (norm + eps)`` has a NaN one (a row without
+    transcription positions pools to exactly zero)."""
+    return x * torch.rsqrt(torch.sum(torch.square(x), dim=-1, keepdim=True)
+                           + 1e-12)
+
+
+def layer_trees(tree: Any, n: int) -> List[Any]:
+    """A stacked tree split into its ``n`` layers by ``torch.unbind(0)``
+    once: the backward stacks the layers' gradients in one pass, where
+    ``tree[l]`` for each layer would add a zero-filled gradient of the whole
+    stack per layer and leaf."""
+    if isinstance(tree, dict):
+        parts = {k: layer_trees(v, n) for k, v in tree.items()}
+        return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def make_deep_injection_fn(orca_params: Params, cfg: DeSTA25Config,
+                           audio_local: torch.Tensor,
+                           trans_pos_mask: Optional[torch.Tensor] = None,
+                           training: bool = False
+                           ) -> Tuple[Callable, Tuple[torch.Tensor,
+                                                      torch.Tensor]]:
+    """The ``extra_layer_fn`` of the cache-less forward and its aux init
+    (``models/orca.py:200-245`` of the JAX package).
+
+    ``fn(l, hidden, aux) -> (hidden, aux)`` injects the RoPE'd
+    ``audio_local`` [B, Ta, D] into layer l's output.  With ``training`` and
+    ``trans_pos_mask`` [B, T] (1 where transcription embeddings sit) it adds
+    the layer's alignment term, the mean over rows with such positions of
+    1 - cos(pooled audio, pooled hidden), the hidden being the layer's
+    output before the injection; ``aux = (sum, count)`` counts the layers
+    with any such row, so a batch without transcription positions leaves
+    (0, 0)."""
+    n_heads = cfg.llm_config.num_attention_heads
+    roped = fractional_rope_apply(audio_local, cfg.orca_audio_position_scale,
+                                  cfg.llm_config.rope_theta)
+    with torch.no_grad():
+        audio_pooled = _l2norm(roped.float().mean(1))             # [B, D]
+    lay = orca_params["layers"]
+    layers = layer_trees(lay, lay["ln"]["scale"].shape[0])
+    have_trans = trans_pos_mask is not None and training
+    if have_trans:
+        m = trans_pos_mask.float()[..., None]                    # [B, T, 1]
+        counts = m.sum(1)                                        # [B, 1]
+        has = (counts[:, 0] > 0).float()
+        n_has = has.sum()
+        valid = (n_has > 0).float()
+
+    def fn(l: int, hidden: torch.Tensor, aux):
+        new_hidden = gated_cross_attention_apply(layers[l], hidden, roped,
+                                                 n_heads)
+        if have_trans:
+            pooled = _l2norm((hidden.float() * m).sum(1)
+                             / torch.clamp(counts, min=1.0))
+            cos = torch.sum(audio_pooled * pooled, dim=-1)
+            per_layer = (torch.sum((1.0 - cos) * has)
+                         / torch.clamp(n_has, min=1.0))
+            aux = (aux[0] + per_layer * valid, aux[1] + valid)
+        return new_hidden, aux
+
+    zero = torch.zeros((), dtype=torch.float32, device=audio_local.device)
+    return fn, (zero, zero)

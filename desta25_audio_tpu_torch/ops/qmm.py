@@ -17,6 +17,19 @@ The rows M = prod(x.shape[:-1]) pick the path, as they do on the TPU:
   quantiser and the int8 GEMM of ``csrc/w8a8.cu`` (its LLM epilogue), bit
   for bit the plain version.
 
+With ``w8a8=False`` (training, ``quant.py:107-135``: activations are never
+quantized) the TPU dispatch runs K7 up to 256 rows and the dequant dot
+above.  The port's K7 takes fewer than 128 rows, so 128 <= M <= 256 runs
+K7's math as one library product, :func:`qmm_dot` (bf16 x against the
+int8 weight cast to bf16, which is exact, f32 sums, times ``s`` after the
+sum; cuBLAS on the card), counted off the CPU in
+``_build.fallback_counts()`` as ``quant_matmul_dequant``.  From 257 rows
+up it is the dequant dot, :func:`dequant_matmul`: ``w = (q * s)`` in f32
+rounded to x's dtype, a product with f32 sums.  Every branch has the
+straight-through backward of ``quant.py:193-209`` (:class:`_QuantMatmul`):
+``dx = bf16(g * s) @ bf16(q)`` with f32 sums, in x's dtype; q and s get no
+gradient.
+
 On a CPU tensor each runs its ``*_plain`` version; on a CUDA tensor it
 launches its kernel or raises.  :func:`quant_matmul` asks
 :func:`quant_matmul_limits` first, on every device: x of another dtype than
@@ -38,6 +51,7 @@ from typing import List, NamedTuple
 import torch
 
 from . import _build
+from .core import matmul_f32
 from .gemm import EPI_LLM_BF16, EPI_LLM_F32, cluster_ctas
 from .quant import (
     QuantLeaf,
@@ -50,6 +64,7 @@ from .quant import (
 )
 
 W8A8_MIN_ROWS = 128   # the TPU dispatch's crossover (quant.py:107)
+K7_TPU_MAX_ROWS = 256  # the TPU dispatch's K7 ceiling with w8a8 off (:112)
 QMM_K_MULTIPLE = 64   # csrc/qmm.cu takes K % 64 == 0, on both paths
 QMM_SKINNY_ROWS = 16  # csrc/skinny_gemm.cuh rows per pass: the skinny path
 # csrc/qmm.cu's wgmma path (16 < M <= 128)
@@ -208,26 +223,79 @@ def quant_matmul_limits(M: int, N: int, K: int, x_dtype) -> List[str]:
     return bad
 
 
-def quant_matmul(x: torch.Tensor, leaf: QuantLeaf, out_dtype=None,
-                 row_amax=None) -> torch.Tensor:
-    """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's).
-    ``row_amax`` [..., 1]: :func:`w8a8_matmul`'s, for W8A8 rows.  Where
-    :func:`quant_matmul_limits` refuses the call, the plain version of its
-    row regime runs (counted as a fallback off the CPU)."""
-    K = x.shape[-1]
-    x2 = x.reshape(-1, K).contiguous()
-    out_dtype = out_dtype or x.dtype
-    q, s = leaf["q"], leaf["s"]
-    M = x2.shape[0]
-    amax = None if row_amax is None else row_amax.reshape(-1, 1)
+def qmm_dot(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+            out_dtype) -> torch.Tensor:
+    """K7's math (:func:`qmm_plain`) as one product with f32 sums: bf16
+    x2 [M, K] @ bf16(q)^T, times s after the sum, one rounding to
+    out_dtype.  The rows 128-256 of the training dispatch."""
+    acc = matmul_f32(x2.to(torch.bfloat16), q.to(torch.bfloat16).t())
+    return (acc * s.float()).to(out_dtype)
+
+
+def dequant_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                   out_dtype) -> torch.Tensor:
+    """The dequant dot (``quant.py:131-135``): ``w = q * s`` in f32 rounded
+    once to x2's dtype, then x2 [M, K] @ w^T with f32 sums, rounded once to
+    out_dtype."""
+    w = (q.float() * s.float()[:, None]).to(x2.dtype)
+    return matmul_f32(x2, w.t()).to(out_dtype)
+
+
+def _qmm_dispatch(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
+                  out_dtype, w8a8: bool, amax) -> torch.Tensor:
+    """x2 [M, K] against the leaf, by rows (see :func:`quant_matmul`)."""
+    M, K = x2.shape
+    if not w8a8 and M > K7_TPU_MAX_ROWS:
+        return dequant_matmul(x2, q, s, out_dtype)
+    if not w8a8 and M >= W8A8_MIN_ROWS:
+        if x2.device.type != "cpu":
+            _build.count_fallback("quant_matmul_dequant")
+        return qmm_dot(x2, q, s, out_dtype)
     if quant_matmul_limits(M, q.shape[0], K, x2.dtype):
         if x2.device.type != "cpu":
             _build.count_fallback("quant_matmul" if M < W8A8_MIN_ROWS
                                   else "w8a8_matmul")
-        y = (qmm_plain(x2, q, s, out_dtype) if M < W8A8_MIN_ROWS
-             else w8a8_matmul_plain(x2, q, s, out_dtype, amax))
-    elif M < W8A8_MIN_ROWS:
-        y = qmm(x2.to(torch.bfloat16), q, s, out_dtype)
+        return (qmm_plain(x2, q, s, out_dtype) if M < W8A8_MIN_ROWS
+                else w8a8_matmul_plain(x2, q, s, out_dtype, amax))
+    if M < W8A8_MIN_ROWS:
+        return qmm(x2.to(torch.bfloat16), q, s, out_dtype)
+    return w8a8_matmul(x2, q, s, out_dtype, amax)
+
+
+class _QuantMatmul(torch.autograd.Function):
+    """:func:`_qmm_dispatch` with the straight-through backward of
+    ``_qmm_bwd`` (``quant.py:193-209``): one rule for every branch, the
+    frozen int8 weight and its scales get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, q, s, out_dtype, w8a8, amax):
+        ctx.save_for_backward(q, s)
+        ctx.x_dtype = x2.dtype
+        return _qmm_dispatch(x2, q, s, out_dtype, w8a8, amax)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s = ctx.saved_tensors
+        gs = (g.float() * s.float()).to(torch.bfloat16)
+        dx = matmul_f32(gs, q.to(torch.bfloat16)).to(ctx.x_dtype)
+        return dx, None, None, None, None, None
+
+
+def quant_matmul(x: torch.Tensor, leaf: QuantLeaf, out_dtype=None,
+                 row_amax=None, w8a8: bool = True) -> torch.Tensor:
+    """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's).
+    ``row_amax`` [..., 1]: :func:`w8a8_matmul`'s, for W8A8 rows.  Where
+    :func:`quant_matmul_limits` refuses the call, the plain version of its
+    row regime runs (counted as a fallback off the CPU).  ``w8a8=False``
+    takes K7's math at 128-256 rows and the dequant dot above.
+    Differentiable with respect to x (the straight-through rule)."""
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    out_dtype = out_dtype or x.dtype
+    amax = None if row_amax is None else row_amax.reshape(-1, 1)
+    if torch.is_grad_enabled() and x2.requires_grad:
+        y = _QuantMatmul.apply(x2, leaf["q"], leaf["s"], out_dtype, w8a8,
+                               amax)
     else:
-        y = w8a8_matmul(x2, q, s, out_dtype, amax)
+        y = _qmm_dispatch(x2, leaf["q"], leaf["s"], out_dtype, w8a8, amax)
     return y.reshape(*x.shape[:-1], y.shape[-1])

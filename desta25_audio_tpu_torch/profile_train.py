@@ -1,10 +1,13 @@
 """Where the time of one flagship training step goes, on one GPU.
 
     python -m desta25_audio_tpu_torch.profile_train [--batch 4] [--seq 512]
-        [--repeats 3]
+        [--repeats 3] [--orca] [--int8-llm]
 
 Builds the flagship configuration (configs/desta25_llama31-8B_Qformer6L.yaml,
-bf16 towers, f32 Q-Former, random weights from a seed, CharTokenizer),
+bf16 towers, f32 Q-Former, random weights from a seed, CharTokenizer; with
+``--orca`` configs/desta25_llama31-8B_ORCAHybrid.yaml and its f32
+cross-attention stack, injected after every layer; with ``--int8-llm`` the
+tower quantized, ``apply_llm_quant()``),
 collates ``--batch`` synthetic clips at ``max_seq_length=--seq`` and runs
 the train step of ``train/step.py`` with remat on (the config's
 ``gradient_checkpointing``) and Adafactor: one warm-up step, ``--repeats``
@@ -36,7 +39,7 @@ from .config import config_from_yaml_file
 from .data.dataset import AudioTextDataset, CollateFn, DataConfig
 from .data.tokenizer import CharTokenizer
 from .models.desta import DeSTA25AudioModel
-from .profile_generate import CONFIG, report
+from .profile_generate import CONFIG, ORCA_CONFIG, report
 from .train.optimizer import OptimizerConfig, flatten_tree, make_optimizer
 from .train.step import make_train_step
 
@@ -46,8 +49,8 @@ GROUPS = {
     "K2": ("enc_attention",),
     # csrc/gemm_sm90.cuh in bf16 (earlier checkouts: gemm_bias_kernel)
     "K3": ("gemm_kernel<__nv_bfloat16", "gemm_bias"),
-    "f32 GEMM (Q-Former, mel, conv)": ("f32f32", "sgemm", "cudnn",
-                                       "implicit_gemm", "conv"),
+    "f32 GEMM (connector, ORCA injection, mel, conv)": (
+        "f32f32", "sgemm", "cudnn", "implicit_gemm", "conv"),
     "bf16 GEMM (LLM, head)": ("nvjet", "sm90_xmma", "cutlass", "gemm"),
     "softmax, log-softmax, reductions": ("softmax", "reduce"),
     "copies and casts": ("copy",),
@@ -60,15 +63,22 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--orca", action="store_true",
+                    help="the ORCA hybrid config (deep injection)")
+    ap.add_argument("--int8-llm", action="store_true",
+                    help="train through the int8 tower (apply_llm_quant)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = config_from_yaml_file(CONFIG)
+    cfg = config_from_yaml_file(ORCA_CONFIG if args.orca else CONFIG)
     model = DeSTA25AudioModel(cfg, device="cuda", seed=0,
                               tokenizer=CharTokenizer("llama3"))
+    if args.int8_llm:
+        model.apply_llm_quant()
+        cfg = model.config
     rng = np.random.default_rng(0)
     with tempfile.TemporaryDirectory() as d:
         rows = []

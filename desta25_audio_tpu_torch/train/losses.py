@@ -4,8 +4,7 @@
   shift by one), full-logit and chunked.
 - The Q-Former ablation losses (diversity, margin-contrastive alignment).
 - The ORCA auxiliary losses (diversity, global-local orthogonality,
-  layer-wise alignment); ported as functions, not yet wired into a training
-  step (ORCA training is ROADMAP Queue 1).
+  layer-wise alignment).
 """
 
 from __future__ import annotations
@@ -50,14 +49,16 @@ def masked_lm_loss_chunked(llm_params, llm_cfg, hidden: torch.Tensor,
     per-chunk sums add in sequence order, as the JAX package's scan does.
 
     hidden [B, T, D] (``llm_apply(skip_head=True, return_hidden=True)``),
-    labels [B, T] with -100 ignore positions."""
+    labels [B, T] with -100 ignore positions.  An int8 head keeps its
+    weight-only product (``w8a8=False``, ``losses.py:72-73`` of the JAX
+    package)."""
     from ..models.llm import head_logits
 
     hidden = hidden[:, :-1]
     targets = labels[:, 1:]
 
     def chunk_sums(h, t):
-        return _token_logp_sums(head_logits(llm_params, h).float(), t)
+        return _token_logp_sums(head_logits(llm_params, h, w8a8=False).float(), t)
 
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     n = torch.zeros((), dtype=torch.long, device=hidden.device)

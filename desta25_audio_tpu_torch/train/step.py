@@ -10,9 +10,13 @@ optimizer update.  The frozen leaves never require grad, so no gradient
 memory is spent on the towers: only activations carry gradients through
 them.
 
-Not ported yet (ROADMAP.md Queue 1): ORCA training (deep injection and its
-aux losses in the step), the int8 tower's straight-through backward
-(``llm_quant="int8"``), LoRA.
+ORCA (``orca_hybrid``): the gated cross-attention stack is injected after
+every LLM layer (``models/orca.make_deep_injection_fn``, inside each
+layer's checkpoint), its per-layer alignment term comes back as the
+forward's aux, and ``orca_aux_losses`` join the loss.  An int8 tower trains
+through the straight-through backward of ``ops/qmm.quant_matmul`` with
+``w8a8=False``: the products and the CE's head never quantize activations
+(``train/step.py:95-120`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -24,30 +28,17 @@ import torch
 from ..audio.mel import log_mel, pad_or_trim
 from ..config import DeSTA25Config
 from ..models import llm as tllm
+from ..models.orca import make_deep_injection_fn, orca_inject_tokens
 from ..models.perception import perception_apply
 from ..models.splice import apply_splice
-from ..ops.quant import is_quantized
 from .losses import (
     IGNORE_INDEX,
     masked_lm_loss_chunked,
+    orca_aux_losses,
     qformer_aux_losses,
     total_loss_from_dict,
 )
 from .optimizer import apply_updates, flatten_tree, global_norm
-
-
-def check_trainable(config: DeSTA25Config, params: Dict[str, Any]) -> None:
-    """Raise NotImplementedError for what the port cannot train yet.  The
-    Q-Former ablation (``qformer_1`` with ``orca_enabled``) trains: it
-    builds no injection and adds ``qformer_aux_losses`` to the loss."""
-    if config.connector_mode == "orca_hybrid":
-        raise NotImplementedError(
-            "ORCA training (deep injection and its aux losses in the step) "
-            "is not ported yet (ROADMAP.md Queue 1, item 1)")
-    if is_quantized(params["llm"]["layers"]["wqkv"]):
-        raise NotImplementedError(
-            "training through the int8 tower (the straight-through backward "
-            "of ops/quant.py) is not ported yet (ROADMAP.md Queue 1, item 1)")
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -57,14 +48,16 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def forward_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
-                 config: DeSTA25Config, remat: bool
+                 config: DeSTA25Config, remat: bool, training: bool = True
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The shared forward -> (total loss, metrics)."""
+    """The shared forward -> (total loss, metrics).  ``training`` adds
+    ORCA's per-layer alignment term (eval leaves it out, as the JAX package
+    does)."""
     llm = params["llm"]
     llm_cfg = config.llm_config
     labels = batch["labels"]
     text_embeds = tllm.embed_tokens(llm, batch["input_ids"])
-    audio_feats = None
+    audio_feats = local_tokens = None
     mel = batch.get("mel")
     if mel is None and "audio" in batch:
         enc_cfg = config.encoder_config
@@ -72,7 +65,7 @@ def forward_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         mel = log_mel(wav, enc_cfg.num_mel_bins, layout="btm").to(
             text_embeds.dtype)
     if mel is not None:
-        audio_feats, _ = perception_apply(params, mel, config)
+        audio_feats, local_tokens = perception_apply(params, mel, config)
         with torch.no_grad():
             trans_embeds = tllm.embed_tokens(llm, batch["trans_ids"])
         inputs_embeds = apply_splice(text_embeds, audio_feats, trans_embeds,
@@ -80,17 +73,38 @@ def forward_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                                      batch["pos"])
     else:
         inputs_embeds = text_embeds
+    hook = aux_init = None
+    inject_tokens = orca_inject_tokens(config, params, audio_feats,
+                                       local_tokens)
+    if inject_tokens is not None:
+        # the transcription embeddings' positions, from the splice map
+        hook, aux_init = make_deep_injection_fn(
+            params["orca_cross_attns"], config, inject_tokens,
+            trans_pos_mask=(batch["kind"] == 2).int(), training=training)
     # skip_head + chunked CE: the [B, T, V] f32 logits (and their gradient)
-    # are never materialised whole
-    _, _, hidden = tllm.llm_apply(
+    # are never materialised whole; an int8 tower keeps its weight-only
+    # forward (w8a8=False)
+    out = tllm.llm_apply(
         llm, llm_cfg, inputs_embeds=inputs_embeds,
-        attention_mask=batch["attention_mask"], remat=remat,
-        return_hidden=True, skip_head=True)
+        attention_mask=batch["attention_mask"], extra_layer_fn=hook,
+        extra_aux_init=aux_init, remat=remat, return_hidden=True,
+        skip_head=True, w8a8=False)
+    hidden = out[2]
     d = masked_lm_loss_chunked(llm, llm_cfg, hidden, labels)
     metrics = {"lm_loss": d["lm_loss"], "ppl": d["ppl"],
                "n_tokens": d["n_tokens"]}
     aux: Dict[str, torch.Tensor] = {}
-    if (config.connector_mode == "qformer_1" and config.orca_enabled
+    if config.connector_mode == "orca_hybrid":
+        align = None
+        if aux_init is not None:
+            # the mean per-layer term, 0 without transcription positions
+            # (prompt-only training)
+            align_sum, align_n = out[3]
+            align = torch.where(align_n > 0,
+                                align_sum / torch.clamp(align_n, min=1.0),
+                                torch.zeros_like(align_sum)).reshape(1)
+        aux = orca_aux_losses(config, audio_feats, local_tokens, align)
+    elif (config.connector_mode == "qformer_1" and config.orca_enabled
             and (config.orca_ortho_diversity_weight > 0
                  or config.orca_align_weight_local > 0)
             and audio_feats is not None):
@@ -121,7 +135,6 @@ def make_train_step(config: DeSTA25Config, optimizer, remat: bool = False):
 
     def train_step(trainable, frozen, opt_state, batch):
         params = {**frozen, **trainable}
-        check_trainable(config, params)
         leaves = flatten_tree(trainable)
         total, metrics = forward_loss(params, batch, config, remat)
         grads = torch.autograd.grad(total, list(leaves.values()),
@@ -143,6 +156,7 @@ def make_eval_step(config: DeSTA25Config, remat: bool = False):
 
     @torch.no_grad()
     def eval_step(params, batch):
-        return forward_loss(params, batch, config, remat)[1]
+        return forward_loss(params, batch, config, remat,
+                            training=False)[1]
 
     return eval_step

@@ -24,13 +24,17 @@ not a multiple of 4 samples long, two launches' bits;
 the per-layer decode pair K9's halves at 1, 3 and 17 rows, at a p = 2
 shard's shapes, its layer loop with a hook between layers, and the requests it
 refuses; K10 at 2 and 4 virtual ranks, decode and verify, K9's pair under a
-mesh, and an all-reduce whose producers never run timing out).
+mesh, and an all-reduce whose producers never run timing out; a nano ORCA
+train step (its aux terms relative to the CPU's, beside a faulty Q-Former
+that must break them) and a nano int8-tower train step against the same
+model's step on the CPU, and training's int8 products at 128-256 rows).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import types
@@ -40,6 +44,7 @@ import torch
 
 from desta25_audio_tpu_torch.config import llm_config_for
 from desta25_audio_tpu_torch.models import llm as tllm
+from desta25_audio_tpu_torch.models import qformer as tqformer
 from desta25_audio_tpu_torch.models.orca import init_orca_cross_attns
 from desta25_audio_tpu_torch.ops import _build
 from desta25_audio_tpu_torch.ops.enc_attention import (
@@ -376,6 +381,31 @@ def test_quant_matmul_dispatch(gen, M, N, K, dtype, path):
         assert _rel(got, want) < TOL_QMM
         assert torch.equal(got, qmm(x.bfloat16(), leaf["q"], leaf["s"],
                                     torch.float32))
+
+
+# training's dispatch (w8a8=False) at 128-256 rows, where the TPU runs K7:
+# K7's math as one library product, counted; against qmm_plain in f32 and
+# the straight-through dx against the same rule on the CPU
+@pytest.mark.parametrize("M", [128, 200, 256])
+def test_quant_matmul_training_band(gen, M):
+    N, K = 1000, 512
+    x = torch.randn(M, K, generator=gen, device="cuda").bfloat16()
+    leaf = quantize_weight(torch.randn(N, K, generator=gen, device="cuda")
+                           / K ** .5)
+    g = torch.randn(M, N, generator=gen, device="cuda")
+    _build.reset_launch_counts()
+    x.requires_grad_(True)
+    got = quant_matmul(x, leaf, torch.float32, w8a8=False)
+    (dx,) = torch.autograd.grad(got, x, g)
+    assert _build.fallback_counts() == {"quant_matmul_dequant": 1}
+    assert _build.launch_counts() == {}
+    want = qmm_plain(x.detach(), leaf["q"], leaf["s"], torch.float32)
+    assert _rel(got.detach(), want) < TOL_QMM
+    xc = x.detach().cpu().requires_grad_(True)
+    cl = {k: v.cpu() for k, v in leaf.items()}
+    (dxc,) = torch.autograd.grad(quant_matmul(xc, cl, torch.float32,
+                                              w8a8=False), xc, g.cpu())
+    assert dx.dtype == torch.bfloat16 and _rel(dx, dxc.cuda()) < 2 ** -8
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -1744,3 +1774,156 @@ def test_pdl_chain_keeps_stream_order(gen, int8):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(hg, eager)
+
+
+# -- training: ORCA and the int8 tower on the card against the CPU ----------------
+
+# a train step's loss terms, bf16 towers on the card (K11, the card's GEMMs)
+# against the CPU's plain versions: loss and lm_loss within the bound of the
+# bf16 nano step against the JAX package (tests/test_torch_train.py);
+# grad_norm relative
+TOL_TRAIN = 2e-2
+TOL_TRAIN_GNORM = 5e-2
+# ORCA's f32 aux terms, relative to the CPU's value: read 6.0e-5
+# (L_ortho_diversity) and 9.8e-5 (L_align_layerwise) on an H100; the
+# global-local term is a mean of squared cosines near 0 (5.8e-6 here), so
+# its cancellation reads 2.7e-3 and it gets its own bound
+TOL_TRAIN_AUX = 1e-3
+TOL_TRAIN_AUX_LOCAL = 1e-2
+
+
+def _nano_train_pair(devices=("cuda", "cpu"), fault=None, **kw):
+    """One train step (remat, lr 0) of a bf16 nano model on the card and of
+    the same parameters on the CPU, on one batch: B=2, T=512 (K11 on the
+    card), 3 transcription positions a row.  ``fault``: a context manager
+    the card's step runs inside (the controls).  Returns {device:
+    metrics}."""
+    import numpy as np
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    from desta25_audio_tpu_torch.train.optimizer import (
+        OptimizerConfig, flatten_tree, make_optimizer)
+    from desta25_audio_tpu_torch.train.step import make_train_step
+    cfg = DeSTA25Config(**dict(dict(
+        llm_model_id="test/llama-nano128",
+        encoder_model_id="test/whisper-nano", qformer_num_hidden_layers=2,
+        dtype="bfloat16"), **kw))
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=0)
+    rng = np.random.default_rng(0)
+    B, L, K, n = 2, 512, cfg.audio_token_size, 3
+    ids = rng.integers(0, 500, size=(B, L))
+    labels = ids.copy()
+    labels[:, :L // 2] = -100
+    kind, aidx, pos = (np.zeros((B, L), np.int64) for _ in range(3))
+    kind[:, 2:2 + K] = 1
+    kind[:, 2 + K:2 + K + n] = 2
+    aidx[:, 2:2 + K + n] = np.arange(B)[:, None]
+    pos[:, 2:2 + K] = np.arange(K)
+    pos[:, 2 + K:2 + K + n] = np.arange(n)
+    batch = {"input_ids": ids, "attention_mask": np.ones((B, L), np.int64),
+             "labels": labels, "kind": kind, "aidx": aidx, "pos": pos,
+             "audio": (0.1 * rng.standard_normal((B, 16000))).astype(
+                 np.float32),
+             "trans_ids": rng.integers(10, 200, size=(B, 8)),
+             "trans_mask": np.ones((B, 8), np.int64)}
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        return tree.detach().to(dev).clone()
+
+    out = {}
+    for dev in devices:
+        params = to(model.params, dev)
+        tr = {k: params[k] for k in model.trainable_keys()}
+        fr = {k: v for k, v in params.items() if k not in tr}
+        leaves = flatten_tree(tr)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        tx = make_optimizer(OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=10))
+        step = make_train_step(model.config, tx, remat=True)
+        _build.reset_launch_counts()
+        with (fault or contextlib.nullcontext)() if dev == "cuda" else (
+                contextlib.nullcontext()):
+            _, _, m = step(tr, fr, tx.init(leaves), {
+                k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        out[dev] = {k: float(v) for k, v in m.items()}
+        if dev == "cuda":
+            out["launches"] = _build.launch_counts()
+            out["fallbacks"] = _build.fallback_counts()
+    return out
+
+
+def _aux_bound(key):
+    return TOL_TRAIN_AUX_LOCAL if key == "L_ortho_qformer_local" else (
+        TOL_TRAIN_AUX)
+
+
+def _aux_err(got, want, key):
+    return abs(got[key] - want[key]) / abs(want[key])
+
+
+def _check_train_pair(out, keys):
+    import math
+    got, want = out["cuda"], out["cpu"]
+    assert sorted(got) == sorted(want)
+    for k in keys:
+        assert math.isfinite(got[k]), (k, got[k])
+        if k in ("loss", "lm_loss"):
+            assert abs(got[k] - want[k]) <= TOL_TRAIN, (k, got[k], want[k])
+        else:
+            print(f"{k}: card {got[k]:.6e} cpu {want[k]:.6e} rel "
+                  f"{_aux_err(got, want, k):.3e} (tol {_aux_bound(k)})")
+            assert _aux_err(got, want, k) <= _aux_bound(k), (
+                k, got[k], want[k])
+    assert abs(got["grad_norm"] - want["grad_norm"]) <= (
+        TOL_TRAIN_GNORM * want["grad_norm"]), (got, want)
+    assert out["launches"].get("flash_attention", 0) > 0
+    assert out["launches"].get("flash_attention_bwd", 0) > 0
+
+
+@contextlib.contextmanager
+def _qformer_head_fault():
+    """The global Q-Former's attention with one head's output in the place
+    of another's (a wrong head index), on the card's step only."""
+    real = tqformer.mha
+
+    def mha(*args, **kw):
+        out = real(*args, **kw)
+        return torch.cat([out[..., 1:2, :], out[..., 1:, :]], dim=-2)
+
+    tqformer.mha = mha
+    try:
+        yield
+    finally:
+        tqformer.mha = real
+
+
+def test_nano_orca_train_step_matches_cpu(gen):
+    orca = dict(connector_mode="orca_hybrid", orca_global_num_tokens=4,
+                orca_local_downsample=4, orca_local_kernel_size=5)
+    aux = ("L_ortho_diversity", "L_ortho_qformer_local", "L_align_layerwise")
+    out = _nano_train_pair(**orca)
+    _check_train_pair(out, ("loss", "lm_loss") + aux)
+    assert out["cuda"]["L_align_layerwise"] > 0
+    # control: the faulty Q-Former moves loss and lm_loss by less than
+    # TOL_TRAIN (read 7.3e-4 and 6.6e-5), and every aux term past its bound
+    # (read 1.4e-2, 13.6 and 1.6e-2)
+    bad = _nano_train_pair(devices=("cuda",), fault=_qformer_head_fault,
+                           **orca)["cuda"]
+    want = out["cpu"]
+    assert all(abs(bad[k] - want[k]) <= TOL_TRAIN for k in ("loss",
+                                                            "lm_loss"))
+    for k in aux:
+        print(f"control {k}: rel {_aux_err(bad, want, k):.3e}")
+        assert _aux_err(bad, want, k) > _aux_bound(k), (k, bad[k], want[k])
+
+
+def test_nano_int8_tower_train_step_matches_cpu(gen):
+    out = _nano_train_pair(connector_mode="qformer_1", prompt_size=8,
+                           llm_quant="int8")
+    _check_train_pair(out, ("loss", "lm_loss"))
+    # M = 1024 rows a product, 128 a CE chunk: the dequant dot, the band
+    # counted; no activation quantized
+    assert out["fallbacks"].get("quant_matmul_dequant", 0) > 0
+    assert not out["launches"].get("w8a8_matmul", 0)
