@@ -69,6 +69,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     K5 and K6 do not), K4 three launches a call; the b2 path step by step
     as in 8;
 12. print the int8 encoder's per-phase times;
+12a. Whisper ASR in ``generate()`` (the flagship's decoder, 32 layers,
+    drawn with the model; a character detokenizer, ids below 128, in place
+    of the BPE files the repo lacks): b2 and b1 without transcriptions on
+    the int8 encoder and b2 on the bf16 encoder (kept from phase 9 and
+    swapped in for the call), greedy, 32 new tokens, each beside the same
+    call with transcriptions: every encoder kernel (K1, K2, K3 or K4-K6)
+    launches as often as there plus one mel and encoder pass at the same
+    batch (K1 and the encoder-only kernels twice), no shape takes a torch
+    path, at least one decoder step runs; transcripts and the phases'
+    times printed, ``asr_ms``, ``asr_steps`` and ms a decoder step among
+    them, with the time to the first token; a silent clip takes " "
+    without ASR;
+12b. the decoder's cached steps against its full forward over the prefix
+    and the emitted ids: a 2-layer f32 copy on the encoder's output within
+    TOL_ASR_CACHE, beside a control (every cached call writing its keys
+    one slot late) that must read above it; the 32-layer bf16 decoder's
+    emitted ids against the teacher-forced argmax (information, with the
+    top-2 margins where they part);
+12c. the fallback cascade at b2 (``asr_fallback``, temperatures 0.0 and
+    0.6): the rows retried printed, two calls identical;
+12d. the feature cache (``enable_audio_cache()``): the same b2 call twice;
+    the second launches no perception kernel, runs no ASR step and gives
+    the first's ids;
+12e. a 65 s clip without a transcription, ``auto_chunk_long_audio=True``:
+    three clips, their temporary WAVs removed;
 13. the int8 LLM's kernels against their plain versions, on the model's LLM
     quantized into a second tree (``quantize_llm_params``): K7
     quant_matmul at M=2 on the head (N=130560, the skinny GEMM) and its
@@ -149,7 +174,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     and K4 must launch, no shape may take a torch path (as in 11 and 15,
     K8i included); the b2 path step by step as in 8 (the
     prefill through the PyTorch injection hook, the decode step through
-    K8i); the b2 call both ways, as in 9b, K8i inside the graph;
+    K8i); the b2 call both ways, as in 9b, K8i inside the graph; 19b. one
+    b2 call with ASR, K8i launched, its times as in 12a;
 20. ``generate(speculative_k=4)`` at b2: the verify step with injection
     must launch; its first step's position-0 logits against one K8i decode
     step on the same cache, within TOL_DECODE, the hidden states bit for
@@ -381,6 +407,11 @@ TOL_MEL_WAV = 1e-3   # K1 on the synthetic WAVs zero-padded to 30 s: a bin
                      # ~eps * sum|terms| in its DFT sum, which log10 turns
                      # into up to ~1e-4 after / 4; the frames that straddle
                      # the zero padding are where such bins live
+TOL_ASR_CACHE = 1e-4  # the Whisper decoder's cached steps vs its full
+                     # forward over the prefix and the emitted ids, a 2-layer
+                     # f32 copy of whisper-large-v3's: summation order only
+                     # (1.2e-6 on the CPU); the control, every cached call
+                     # writing its keys one slot late, read 0.21 there
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
@@ -2353,6 +2384,291 @@ def check_int8_encoder(model, signals, convs, gpu):
     return total, times
 
 
+# the encoder's kernels: one ASR call adds one more mel and encoder pass
+ENC_KERNELS = ("log_mel", "packed_encoder_attention", "encoder_ffn",
+               "encoder_ffn_w8a8", "qkv_w8a8", "proj_w8a8")
+
+
+def texts(out) -> str:
+    """generate()'s transcripts, each cut to 40 characters."""
+    return repr([a[1][:40] for a in out.audios])
+
+
+def without_text(msgs):
+    """A conversation (or a batch of them) with every clip's transcription
+    left to ASR."""
+    if isinstance(msgs[0], list):
+        return [without_text(m) for m in msgs]
+    return [{**m, "audios": [{**a, "text": None} for a in m["audios"]]}
+            if "audios" in m else m for m in msgs]
+
+
+def ttft_ms(t) -> float:
+    """generate()'s time to its first token from its timings: host (phases
+    A+B without the ASR), ASR, perception (with ORCA's audio K/V
+    precompute), prefill."""
+    return (t["host_ms"] + t.get("asr_ms", 0.0) + t["perception_ms"]
+            + t.get("inject_kv_ms", 0.0) + t["prefill_ms"])
+
+
+def print_asr_times(label, t, gpu) -> None:
+    """One ASR generate()'s phases and the time to its first token."""
+    steps = int(t.get("asr_steps", 0))
+    kv = t.get("inject_kv_ms", 0.0)
+    asr = (f"ASR {t['asr_ms']:.1f} ms ({steps} decoder steps, "
+           f"{t['asr_decode_ms'] / max(steps, 1):.3f} ms a step)"
+           if steps else "no ASR")
+    print(f"{label}: host {t['host_ms']:.1f} ms, {asr}, perception "
+          f"{t['perception_ms'] + kv:.1f} ms, prefill {t['prefill_ms']:.1f} "
+          f"ms; time to the first token {ttft_ms(t):.1f} ms ({gpu})",
+          flush=True)
+
+
+def asr_generate(model, msgs, tag: str):
+    """generate() of msgs, greedy, 32 new tokens: (output, launch counts,
+    timings); no flagship shape may take a torch path."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    out = model.generate(msgs, do_sample=False, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    require_kernel_paths(tag)
+    require_graph_replays(tag, counts, model.last_timings)
+    return out, counts, dict(model.last_timings)
+
+
+def encoder_pass_counts(model, n: int):
+    """The launches of one mel and one encoder pass at a batch of n."""
+    import torch
+    from desta25_audio_tpu_torch.models import whisper as tw
+    from desta25_audio_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    mel = model._mel(np.zeros((n, model.enc_cfg.expected_mel_frames * 160),
+                              np.float32))
+    tw.whisper_encoder_apply(model.params["whisper"]["encoder"], mel,
+                             model.enc_cfg)
+    torch.cuda.synchronize()
+    return _build.launch_counts()
+
+
+def check_asr_launches(tag: str, supplied, asr, one) -> None:
+    """The ASR call launched each encoder kernel as often as the same call
+    with transcriptions plus one mel and encoder pass (``one``): K1 and
+    the encoder-only kernels twice; K2 twice less the Q-Former's share."""
+    rows = []
+    for name in ENC_KERNELS:
+        s_n, a_n, e_n = (supplied.get(name, 0), asr.get(name, 0),
+                         one.get(name, 0))
+        rows.append(f"{name} {s_n} -> {a_n} (one pass {e_n})")
+        if a_n != s_n + e_n or (name != "packed_encoder_attention"
+                                and a_n != 2 * s_n):
+            raise AssertionError(f"{tag}: {name} launched {a_n} times with "
+                                 f"ASR, {s_n} without, {e_n} in one pass")
+    if not one.get("log_mel") or not one.get("packed_encoder_attention"):
+        raise AssertionError(f"{tag}: the encoder pass ran no kernel: {one}")
+    print(f"{tag}: launches without -> with ASR: " + "; ".join(rows),
+          flush=True)
+
+
+def check_asr_generate(model, bf16_enc, convs, silent, gpu):
+    """12a.  generate() with ASR at b2 and b1 on the int8 encoder, b2 on
+    the bf16 encoder (swapped back in for the call), and a silent clip
+    that takes " " without ASR.  Returns the int8 b2 call's timings."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    runs = {"int8 encoder b2": convs[:2], "int8 encoder b1": convs[1]}
+    model.generate(without_text(runs["int8 encoder b2"]), do_sample=False,
+                   max_new_tokens=2)          # warm-up, ASR included
+    times = {}
+    int8_enc = model.params["whisper"]["encoder"]
+    for tag, msgs in (*runs.items(), ("bf16 encoder b2", convs[:2])):
+        if tag.startswith("bf16"):
+            model.params["whisper"]["encoder"] = bf16_enc
+        n = len(msgs) if isinstance(msgs[0], list) else 1
+        try:
+            _, supplied, _ = asr_generate(model, msgs, f"{tag}, supplied")
+            out, counts, t = asr_generate(model, without_text(msgs),
+                                          f"ASR {tag}")
+            one = encoder_pass_counts(model, n)
+        finally:
+            model.params["whisper"]["encoder"] = int8_enc
+        check_asr_launches(f"ASR {tag}", supplied, counts, one)
+        if t.get("asr_steps", 0) < 1:
+            raise AssertionError(f"ASR {tag}: no decoder step ran")
+        check_outputs(model, [(out, n)])
+        print(f"ASR {tag}: transcripts {texts(out)}, "
+              f"generated ids row0[:8]={shown(out, 0)}", flush=True)
+        print_asr_times(f"ASR {tag}", t, gpu)
+        times[tag] = t
+    msg = [{"role": "user", "content": "Anything in <|AUDIO|>?",
+            "audios": [{"audio": silent, "text": None}]}]
+    out, _, t = asr_generate(model, msg, "ASR silent clip")
+    if "asr_steps" in t or out.audios[0][1] != " ":
+        raise AssertionError(f"the silent clip: {out.audios}, {t}")
+    print(f"ASR silent clip: transcription {out.audios[0][1]!r}, no ASR "
+          f"step; the torch paths taken {_build.fallback_counts()}",
+          flush=True)
+    torch.cuda.synchronize()
+    return times["int8 encoder b2"]
+
+
+def asr_cached_vs_full(dec, cfg, enc_out, late: bool, n_new: int = 32):
+    """asr_decode on enc_out with the language given (the prefix known):
+    (emitted ids, each position's cached-path logits, the full forward's
+    logits over the prefix and the ids, the worst relative difference of
+    the two).  ``late``: every cached call writes its keys one slot past
+    their position (the control)."""
+    import torch
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    from desta25_audio_tpu_torch.models import whisper as tw
+    real = tw.whisper_decoder_apply
+
+    def late_apply(*a, cache=None, cache_index=0, **k):
+        return real(*a, cache=cache,
+                    cache_index=cache_index + (cache is not None), **k)
+    steps, lang = [], cfg.first_language_token_id
+    tw.whisper_decoder_apply = late_apply if late else real
+    try:
+        ids, _ = tdecode.asr_decode(dec, cfg, enc_out, max_new_tokens=n_new,
+                                    language_token=lang, step_logits=steps)
+    finally:
+        tw.whisper_decoder_apply = real
+    B, n = ids.shape[0], len(steps)
+    prefix = torch.tensor([[cfg.decoder_start_token_id, lang,
+                            cfg.transcribe_token_id,
+                            cfg.no_timestamps_token_id]] * B,
+                          device=enc_out.device)
+    full, _ = real(dec, torch.cat([prefix, ids[:, :n - 1]], 1),
+                   tw.whisper_cross_kv(dec, enc_out, cfg), cfg)
+    full = full[:, 3:3 + n]
+    cached = torch.stack(steps, 1)
+    return ids[:, :n], cached, full, rel_err(cached, full)[1]
+
+
+def check_asr_decoder(model, signals, gpu):
+    """12b.  The cached decode against the full forward: a 2-layer f32
+    copy of the model's decoder on its encoder's output (f32) within
+    TOL_ASR_CACHE, its control above it; then the 32-layer bf16 decoder's
+    emitted ids against the teacher-forced argmax (information: where they
+    part, the full forward's top-2 margin)."""
+    import torch
+    from desta25_audio_tpu_torch.models import whisper as tw
+    cfg = model.enc_cfg
+    batch = np.zeros((2, cfg.expected_mel_frames * 160), np.float32)
+    for j, sig in enumerate(signals):
+        batch[j, :min(sig.size, batch.shape[1])] = sig[:batch.shape[1]]
+    enc_out, _ = tw.whisper_encoder_apply(model.params["whisper"]["encoder"],
+                                          model._mel(batch), cfg)
+    dec = model.params["whisper"]["decoder"]
+    two = _map(lambda t: t.float(),
+               {**dec, "layers": _slice(dec["layers"], 0, 2)})
+    cfg2 = dataclasses.replace(cfg, decoder_layers=2)
+    errs = {late: asr_cached_vs_full(two, cfg2, enc_out.float(), late)[3]
+            for late in (False, True)}
+    print(f"ASR decoder, 2 layers f32 ({cfg.model_id} widths), cached "
+          f"steps vs the full forward: rel {errs[False]:.3e} (tol "
+          f"{TOL_ASR_CACHE}); control, the cache written one slot late: rel "
+          f"{errs[True]:.3e}", flush=True)
+    if not errs[False] < TOL_ASR_CACHE < errs[True]:
+        raise AssertionError(f"ASR cached decode {errs[False]} / control "
+                             f"{errs[True]} against {TOL_ASR_CACHE}")
+    ids, cached, full, rel = asr_cached_vs_full(dec, cfg, enc_out, False)
+    top = full.float().topk(2, dim=-1)
+    forced = top.indices[..., 0]
+    part = (forced != ids).nonzero().tolist()
+    margins = [round(float(top.values[b, j, 0] - top.values[b, j, 1]), 4)
+               for b, j in part]
+    print(f"ASR decoder, {cfg.decoder_layers} layers "
+          f"{str(dec['embed_tokens'].dtype)[6:]}: emitted ids equal the "
+          f"teacher-forced argmax at {int((forced == ids).sum())} of "
+          f"{ids.numel()} positions; where they part (row, step) {part[:8]} "
+          f"the full forward's top-2 margins {margins[:8]}; cached vs full "
+          f"rel {rel:.3e} (information)", flush=True)
+    del enc_out
+    torch.cuda.empty_cache()
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def run_asr(model, bf16_enc, convs, signals, gpu, tmpdir):
+    """12a-12e: Whisper ASR in generate() at full width (module
+    docstring)."""
+    import torch
+    from desta25_audio_tpu_torch.audio.io import write_wav
+    from desta25_audio_tpu_torch.ops import _build
+    silent = os.path.join(tmpdir, "silent.wav")
+    write_wav(silent, np.zeros(32000, np.float32))
+    with torch.no_grad():
+        t2 = check_asr_generate(model, bf16_enc, convs, silent, gpu)
+        check_asr_decoder(model, signals, gpu)
+
+    # -- 12c. the fallback cascade -----------------------------------------
+    b2 = without_text(convs[:2])
+    model.asr_fallback = dict(temperatures=(0.0, 0.6))
+    try:
+        outs = []
+        for _ in range(2):
+            out, _, t = asr_generate(model, b2, "ASR fallback")
+            outs.append((out, list(model.last_asr_retried), t))
+    finally:
+        model.asr_fallback = None
+    (o1, r1, t1), (o2, r2, _) = outs
+    print(f"ASR fallback (0.0, 0.6) b2: rows retried at 0.6 {r1}; "
+          f"transcripts {texts(o1)}; {t1['asr_steps']} "
+          f"decoder steps over both tiers; the second call's identical "
+          f"{o2.audios == o1.audios and r2 == r1}", flush=True)
+    if o2.audios != o1.audios or r2 != r1 \
+            or o2.generated_ids != o1.generated_ids:
+        raise AssertionError("the fallback cascade's two calls differ")
+
+    # -- 12d. the feature cache ----------------------------------------------
+    model.enable_audio_cache()
+    try:
+        first, _, tf = asr_generate(model, b2, "ASR cache miss")
+        second, counts, ts = asr_generate(model, b2, "ASR cache hit")
+    finally:
+        model.audio_cache = None
+    ran = {k: counts[k] for k in ENC_KERNELS if counts.get(k)}
+    print(f"feature cache b2: the hit launched {ran or 'no'} perception "
+          f"kernel, ASR steps {ts.get('asr_steps', 0)}, ids equal the miss's "
+          f"{second.generated_ids == first.generated_ids}; perception "
+          f"{tf['perception_ms']:.1f} -> {ts['perception_ms']:.1f} ms, time "
+          f"to the first token {ttft_ms(tf):.1f} -> {ttft_ms(ts):.1f} ms "
+          f"({gpu})", flush=True)
+    if ran or "asr_steps" in ts or second.generated_ids \
+            != first.generated_ids or second.audios != first.audios:
+        raise AssertionError("the feature cache's hit ran perception or ASR "
+                             "or changed the ids")
+
+    # -- 12e. a 65 s clip, chunked -------------------------------------------
+    long_path = os.path.join(tmpdir, "long.wav")
+    t = np.arange(65 * 16000) / 16000.0
+    write_wav(long_path, (0.5 * np.sin(2 * np.pi * 350 * t)
+                          * (np.sin(2 * np.pi * 3 * t) > 0)
+                          ).astype(np.float32))
+    msg = [{"role": "user", "content": "Summarise <|AUDIO|> in a line.",
+            "audios": [{"audio": long_path, "text": None}]}]
+    _build.reset_launch_counts()
+    out = model.generate(msg, do_sample=False, max_new_tokens=32,
+                         auto_chunk_long_audio=True)
+    torch.cuda.synchronize()
+    require_kernel_paths("ASR chunked 65 s")
+    tc = dict(model.last_timings)
+    print(f"chunked 65 s clip: {len(out.audios)} clips, transcripts "
+          f"{texts(out)}, ids row0[:8]="
+          f"{out.generated_ids[0][:8]}", flush=True)
+    print_asr_times("ASR chunked 65 s b1 (3 clips)", tc, gpu)
+    if len(out.audios) != 3 or any(os.path.exists(a[0])
+                                   for a in out.audios):
+        raise AssertionError(f"chunking: {out.audios}")
+    return t2
+
+
 def check_qmm_plan() -> None:
     """K7's wgmma plan: ``plan_qmm`` equal to the C twin's
     (``desta_qmm_plan``) on this card and at 132 SMs, and its cluster
@@ -3077,6 +3393,17 @@ def run_orca(model, convs, gpu):
     print_times("ORCA int8 stack (K8i)", sorted(times.items()), gpu)
     check_decode_graph(orca, runs[2], "ORCA int8 stack (K8i)", gpu,
                        orca=True)
+    # -- 19b. one b2 call with ASR (the model's character detokenizer) ------
+    orca._whisper_tokenizer = model.whisper_tokenizer
+    aout, acounts, at = asr_generate(orca, without_text(runs[2]),
+                                     "ORCA ASR b2")
+    if at.get("asr_steps", 0) < 1 or acounts.get("fused_decode_inject",
+                                                  0) <= 0:
+        raise AssertionError(f"ORCA ASR b2: {at}, {acounts}")
+    check_outputs(orca, [(aout, 2)])
+    print(f"ORCA ASR b2: transcripts {texts(aout)}, ids "
+          f"row0[:8]={aout.generated_ids[0][:8]}", flush=True)
+    print_asr_times("ORCA int8 stack ASR b2", at, gpu)
 
     # -- 20. speculative generate() at b2 ------------------------------------
     orca.generate(runs[2], do_sample=False, max_new_tokens=4,
@@ -4418,10 +4745,14 @@ def main() -> int:
         from desta25_audio_tpu_torch import DeSTA25AudioModel
         from desta25_audio_tpu_torch.config import config_from_yaml_file
         from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+        from desta25_audio_tpu_torch.models.desta import _CharASR
         cfg = config_from_yaml_file(CONFIG)
         t0 = time.perf_counter()
         model = DeSTA25AudioModel(cfg, device="cuda", seed=0,
                                   tokenizer=CharTokenizer("llama3"))
+        # ASR's detokenizer: whisper-large-v3's BPE files are not in the
+        # repo, so ids below 128 read as characters (the test/ encoders' rule)
+        model._whisper_tokenizer = _CharASR()
         torch.cuda.synchronize()
         print(f"flagship model built on the card in "
               f"{time.perf_counter() - t0:.1f} s "
@@ -4465,6 +4796,8 @@ def main() -> int:
         check_decode_graph(model, convs[:2], "bf16 LLM", gpu)
 
     # -- 10-12. the int8 (W8A8) inference encoder ----------------------------
+    # (the bf16 encoder is kept for 12a's bf16 ASR call)
+    bf16_enc = model.params["whisper"]["encoder"]
     with torch.no_grad():
         int8_launches, enc_times = check_int8_encoder(model, signals, convs,
                                                       gpu)
@@ -4474,6 +4807,15 @@ def main() -> int:
               f"{k_ms / perc:.4f} with the kernel ({k_ms:.4f} of {perc:.1f} "
               f"ms), {p_ms / (perc - k_ms + p_ms):.4f} with the plain "
               f"version ({p_ms:.4f} ms in its place)", flush=True)
+
+    # -- 12a-12e. Whisper ASR in generate() -----------------------------------
+    t_asr = time.perf_counter()
+    run_asr(model, bf16_enc, convs, signals, gpu, tmp.name)
+    del bf16_enc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ASR phases 12a-12e took {time.perf_counter() - t_asr:.1f} s",
+          flush=True)
 
     # -- 13. the int8 LLM's kernels vs plain, on a quantized copy ------------
     from desta25_audio_tpu_torch.ops.quant import quantize_llm_params

@@ -5,9 +5,9 @@ The JAX package stores linear weights ``[in, out]``, conv weights
 the stacking and stores weights in the layout its kernels read: linear
 ``[out, in]``, conv ``[out, in, kernel]``; the LLM's q/k/v weights fused
 into ``wqkv`` and its gate/up weights row-interleaved into ``w_gu`` (see
-``ops/fused_decode.py``).  Only the subtrees the port runs are converted
-(Whisper encoder, Q-Former or ORCA connector, ORCA cross-attention stack,
-LLM); the Whisper decoder is skipped.
+``ops/fused_decode.py``).  Every subtree the port runs is converted
+(Whisper encoder and decoder, Q-Former or ORCA connector, ORCA
+cross-attention stack, LLM).
 """
 
 from __future__ import annotations
@@ -68,6 +68,28 @@ def whisper_encoder_from_jax(p, device):
             "fc2": _linear(lay["fc2"], device),
         },
         "ln_post": _norm(p["ln_post"], device),
+    }
+
+
+def whisper_decoder_from_jax(p, device):
+    """JAX Whisper decoder subtree -> port layout: the linears go to
+    ``[L, out, in]``; ``embed_tokens`` [V, D] (the tied head) and the
+    learned ``embed_positions`` [max_target_positions, D] stay as they
+    are."""
+    lay = p["layers"]
+    return {
+        "embed_tokens": _tensor(p["embed_tokens"], device),
+        "embed_positions": _tensor(p["embed_positions"], device),
+        "layers": {
+            "ln1": _norm(lay["ln1"], device),
+            "self_attn": _attn(lay["self_attn"], device),
+            "ln_x": _norm(lay["ln_x"], device),
+            "cross_attn": _attn(lay["cross_attn"], device),
+            "ln2": _norm(lay["ln2"], device),
+            "fc1": _linear(lay["fc1"], device),
+            "fc2": _linear(lay["fc2"], device),
+        },
+        "ln": _norm(p["ln"], device),
     }
 
 
@@ -185,7 +207,8 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
     port's tree on ``device``.  A quantized encoder
     (``quantize_encoder_params``), a quantized LLM
     (``quantize_llm_params``) and a quantized ORCA stack
-    (``quantize_orca_cross_attns``) are carried across."""
+    (``quantize_orca_cross_attns``) are carried across; so is the Whisper
+    decoder where the tree has one."""
     if config.connector_mode == "qformer_1":
         connector = connector_from_jax(np_tree["connector"], device)
     elif config.connector_mode == "orca_hybrid":
@@ -193,9 +216,13 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
     else:
         raise NotImplementedError(
             f"connector_mode {config.connector_mode!r}")
+    whisper = {"encoder": whisper_encoder_from_jax(
+        np_tree["whisper"]["encoder"], device)}
+    if "decoder" in np_tree["whisper"]:
+        whisper["decoder"] = whisper_decoder_from_jax(
+            np_tree["whisper"]["decoder"], device)
     out = {
-        "whisper": {"encoder": whisper_encoder_from_jax(
-            np_tree["whisper"]["encoder"], device)},
+        "whisper": whisper,
         "connector": connector,
         "llm": llm_from_jax(np_tree["llm"], device),
     }

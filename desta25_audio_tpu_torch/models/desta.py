@@ -5,7 +5,11 @@ so far: bf16 (or f32) towers, the Whisper encoder in bf16 or int8 (W8A8,
 ``encoder_quant``), the LLM in bf16 or int8 (``llm_quant``), the Q-Former
 or the ORCA hybrid connector with deep injection (``models/orca.py``; its
 cross-attention stack float or int8), transcriptions supplied by the
-caller, plain or speculative (``speculative_k >= 2``) decoding.  The port
+caller or made by Whisper ASR in the loop (greedy, or the temperature
+fallback cascade with ``asr_fallback``), long clips chunked
+(``auto_chunk_long_audio``), the audio-feature cache
+(:meth:`DeSTA25AudioModel.enable_audio_cache`), plain or speculative
+(``speculative_k >= 2``) decoding.  The port
 has no ``from_pretrained`` yet, so the JAX package's inference default
 (``encoder_quant="auto"`` -> int8) is reached by calling
 :meth:`DeSTA25AudioModel.apply_inference_encoder_quant` after construction,
@@ -13,14 +17,19 @@ an existing bf16 LLM is quantized with
 :meth:`DeSTA25AudioModel.apply_llm_quant`, and the ORCA stack with
 :meth:`DeSTA25AudioModel.apply_orca_xattn_quant`.
 
-- host phase A: WAV decode + energy VAD (a clip without speech gets the
-  transcription " ");
+- phase A: WAV decode + energy VAD (a clip without speech gets the
+  transcription " "), then ASR on the device for every speech clip without
+  a transcription (its own mel and encoder pass, the Whisper decoder);
+  with the feature cache on, a hit skips the decode, the VAD and, once its
+  transcription is filled, the ASR;
 - host phase B: chat template, ``<start_audio><|AUDIO|><end_audio>`` wrap,
   placeholder expansion, left-pad tokenization, splice maps;
 - device phase C: mel -> Whisper encoder taps -> Q-Former (or ORCA's
   global and local branches) -> splice into the embedding stream ->
   prefill -> KV-cached decode (one token a step, or n-gram drafts verified
-  k at a time), with ORCA's gated cross-attention after every layer.
+  k at a time), with ORCA's gated cross-attention after every layer; with
+  the feature cache on, perception runs over the misses only (padded to a
+  power of two) and the splice over the cached tokens.
 
 Tensor-parallel serving: :meth:`DeSTA25AudioModel.apply_llm_sharding` cuts
 the LLM for a mesh (``parallel/mesh.make_mesh``), and ``generate()`` under
@@ -38,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import os
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -45,12 +55,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..audio.io import AudioSegment
+from ..audio.chunking import WINDOW, chunk_audio, expand_message_for_chunks
+from ..audio.io import AudioSegment, write_wav
 from ..audio.mel import log_mel, pad_or_trim
 from ..audio.vad import has_speech
 from ..config import DeSTA25Config
 from ..data.tokenizer import build_tokenizer
-from ..generate.decode import llm_generate
+from ..generate.decode import (
+    WHISPER_BEGIN_SUPPRESS_TOKEN_IDS,
+    WHISPER_NON_SPEECH_TOKEN_IDS,
+    llm_generate,
+    whisper_transcribe,
+    whisper_transcribe_with_fallback,
+)
 from ..generate.speculative import (
     left_aligned,
     llm_generate_spec,
@@ -65,6 +82,7 @@ from ..ops.quant import (
 )
 from ..parallel.sharding import ShardedLLM, apply_llm_sharding
 from . import llm as tllm
+from .feature_cache import AudioFeatureCache
 from .orca import (
     init_orca_connector,
     init_orca_cross_attns,
@@ -78,7 +96,7 @@ from .splice import (
     build_splice_maps,
     expand_audio_placeholders,
 )
-from .whisper import init_whisper_encoder
+from .whisper import init_whisper_decoder, init_whisper_encoder
 
 logger = logging.getLogger(__name__)
 
@@ -94,6 +112,15 @@ class GenerationOutput:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+class _CharASR:
+    """The ``test/`` encoders' detokenizer: ids below 128 as characters."""
+
+    @staticmethod
+    def batch_decode(ids_batch, skip_special_tokens=True):
+        return ["".join(chr(i) for i in ids if int(i) < 128)
+                for ids in np.asarray(ids_batch)]
 
 
 def check_slice(config: DeSTA25Config) -> None:
@@ -136,7 +163,17 @@ class DeSTA25AudioModel:
         self.params = (params if params is not None
                        else self.init_params(seed))
         self._tokenizer = tokenizer
+        self._whisper_tokenizer = None
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)
+        # the ASR temperature-fallback cascade: None keeps the reference's
+        # one greedy pass; a (possibly empty) dict of keyword arguments of
+        # whisper_transcribe_with_fallback turns it on
+        self.asr_fallback: Optional[Dict[str, Any]] = None
+        # the audio-feature cache (serving): None = off, enable_audio_cache()
+        self.audio_cache: Optional[AudioFeatureCache] = None
+        # the rows each fallback tier after the first decoded again in the
+        # last ASR call (empty without asr_fallback)
+        self.last_asr_retried: List[List[int]] = []
         # host-clock phase times of the last generate() call
         self.last_timings: Dict[str, float] = {}
         # why the last generate(speculative_k >= 2) decoded one token a step
@@ -164,6 +201,11 @@ class DeSTA25AudioModel:
                         self.config,
                         getattr(torch, self.config.orca_xattn_dtype),
                         self.device, g)
+            # drawn last, so the other weights stay those of a seed; it
+            # stays in the model dtype when the encoder is quantized, as in
+            # the JAX package
+            params["whisper"]["decoder"] = init_whisper_decoder(
+                self.enc_cfg, self.dtype, self.device, g)
             if self.config.llm_quant == "int8":
                 params["llm"] = quantize_llm_params(params["llm"])
             if self.config.resolved_encoder_quant(inference=False) == "int8":
@@ -252,6 +294,19 @@ class DeSTA25AudioModel:
                 chat_template=self.llm_cfg.chat_template)
         return self._tokenizer
 
+    @property
+    def whisper_tokenizer(self):
+        """The ASR detokenizer: :class:`_CharASR` for ``test/`` encoders,
+        else the encoder's HF ``AutoProcessor``, loaded on first use."""
+        if self._whisper_tokenizer is None:
+            if self.config.encoder_model_id.startswith("test/"):
+                self._whisper_tokenizer = _CharASR()
+            else:
+                from transformers import AutoProcessor
+                self._whisper_tokenizer = AutoProcessor.from_pretrained(
+                    self.config.encoder_model_id)
+        return self._whisper_tokenizer
+
     # -- device programs --------------------------------------------------
 
     def _mel(self, audio_batch: np.ndarray) -> torch.Tensor:
@@ -261,6 +316,55 @@ class DeSTA25AudioModel:
         x = pad_or_trim(a, self.enc_cfg.expected_mel_frames * 160)
         return log_mel(x, self.enc_cfg.num_mel_bins, layout="btm").to(
             self.dtype)
+
+    def _asr(self, audio_batch: np.ndarray, max_new_tokens: int = 128,
+             timings: Optional[Dict[str, float]] = None) -> List[str]:
+        """Transcribe [N, samples] on the model's device: its own mel and
+        encoder pass, then the Whisper decoder (the JAX package's ``_asr``,
+        ``desta.py:212-241``).  A real checkpoint's vocab blanks the
+        special-token block, the non-speech ids and, at the first token, a
+        bare space; the ``test/`` vocabs keep every id.  With
+        ``asr_fallback`` set the temperature cascade runs.  timings, if
+        given, gets ``asr_ms`` (host clock, device synchronised: mel,
+        encoder, cross K/V and decode), ``asr_steps`` (decoder steps after
+        the prefix, all tiers) and ``asr_decode_ms`` (those steps' share of
+        ``asr_ms``)."""
+        t0 = time.perf_counter()
+        mel = self._mel(audio_batch)
+        if self.config.encoder_model_id.startswith("test/"):
+            sup: Dict[str, Any] = dict(suppress_from=None)
+        else:
+            sup = dict(suppress_from=self.enc_cfg.decoder_start_token_id,
+                       suppress_ids=WHISPER_NON_SPEECH_TOKEN_IDS,
+                       begin_suppress_ids=WHISPER_BEGIN_SUPPRESS_TOKEN_IDS)
+        stats: Dict[str, Any] = {}
+        whisper = self.params["whisper"]
+        if "decoder" not in whisper:
+            raise ValueError("ASR needs params['whisper']['decoder'], which "
+                             "these params lack")
+        if self.asr_fallback is not None:
+            texts, _, _ = whisper_transcribe_with_fallback(
+                whisper, self.enc_cfg, mel, self._asr_detokenize,
+                max_new_tokens=max_new_tokens, stats=stats, **sup,
+                **self.asr_fallback)
+        else:
+            ids, _ = whisper_transcribe(whisper, self.enc_cfg, mel,
+                                        max_new_tokens=max_new_tokens,
+                                        stats=stats, **sup)
+            texts = self._asr_detokenize(ids.cpu().numpy())
+        self.last_asr_retried = stats.get("asr_retried", [])
+        if timings is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            timings["asr_ms"] = (timings.get("asr_ms", 0.0)
+                                 + (time.perf_counter() - t0) * 1e3)
+            for k in ("asr_steps", "asr_decode_ms"):
+                timings[k] = timings.get(k, 0) + stats[k]
+        return texts
+
+    def _asr_detokenize(self, ids) -> List[str]:
+        return self.whisper_tokenizer.batch_decode(
+            np.asarray(ids), skip_special_tokens=True)
 
     def prepare_inputs_embeds(self, input_ids, mel, trans_ids, kind, aidx,
                               pos):
@@ -274,6 +378,25 @@ class DeSTA25AudioModel:
         embeds = apply_splice(text_embeds, audio_feats, trans_embeds, kind,
                               aidx, pos)
         return embeds, (audio_feats, local_tokens)
+
+    def prepare_inputs_embeds_from_feats(self, input_ids, audio_feats,
+                                         trans_ids, kind, aidx, pos):
+        """The splice alone, on per-clip connector tokens [N, K, D] that
+        perception made earlier (the feature cache's path)."""
+        llm = self.params["llm"]
+        return apply_splice(tllm.embed_tokens(llm, input_ids), audio_feats,
+                            tllm.embed_tokens(llm, trans_ids), kind, aidx,
+                            pos)
+
+    def enable_audio_cache(self, capacity: int = 64) -> None:
+        """Turn on the per-clip feature cache (``models/feature_cache.py``:
+        hits skip file decode, VAD, ASR and perception); a capacity of 0 or
+        less turns it off.  A cache of the same capacity is kept."""
+        if capacity <= 0:
+            self.audio_cache = None
+        elif (self.audio_cache is None
+              or self.audio_cache.capacity != capacity):
+            self.audio_cache = AudioFeatureCache(capacity)
 
     def _orca_inject_tokens(self, aux):
         """The deep-injection tokens [N, Ta, D] from perception's aux, or
@@ -292,33 +415,90 @@ class DeSTA25AudioModel:
         """Reference-compatible inference entry point
         (modeling_desta25.py:1491-1721).  ``speculative_k >= 2`` decodes
         with n-gram drafts verified ``speculative_k`` tokens at a time
-        (``generate/speculative.py``); below 2, one token a step."""
-        if auto_chunk_long_audio:
-            raise NotImplementedError(
-                "long-audio chunking needs ASR (ROADMAP.md Queue 1: ASR)")
+        (``generate/speculative.py``); below 2, one token a step.
+
+        auto_chunk_long_audio: clips longer than Whisper's 30 s window and
+        without a transcription are split into overlapping windows, spliced
+        as consecutive audio blocks (``audio/chunking.py``; the reference
+        truncates at 30 s).  The chunks' temporary WAVs are removed before
+        the call returns."""
         if isinstance(messages, list):
             messages_list = ([messages] if isinstance(messages[0], dict)
                              else messages)
         else:
             raise ValueError(
                 "messages should be a list of dicts or a list of lists.")
-        with torch.no_grad():
-            return self._generate_impl(messages_list, temperature, top_p,
-                                       do_sample, max_new_tokens,
-                                       speculative_k)
+        cleanup_paths: List[str] = []
+        try:
+            if auto_chunk_long_audio:
+                messages_list = self._chunk_long_audios(messages_list,
+                                                        cleanup_paths)
+            with torch.no_grad():
+                return self._generate_impl(messages_list, temperature,
+                                           top_p, do_sample, max_new_tokens,
+                                           speculative_k)
+        finally:
+            for path in cleanup_paths:
+                try:
+                    os.unlink(path)
+                except OSError:
+                    pass
+
+    def _chunk_long_audios(self, messages_list, cleanup_paths: List[str]):
+        """Split each clip over 30 s that has no transcription into window
+        chunks (temporary WAVs, their paths appended to ``cleanup_paths``),
+        and repeat its locator once per chunk (the JAX package's
+        ``_chunk_long_audios``)."""
+        out_list = []
+        for msgs in messages_list:
+            new_msgs = []
+            for message in msgs:
+                audios = message.get("audios", [])
+                if not audios:
+                    new_msgs.append(message)
+                    continue
+                new_audios, n_chunks = [], []
+                for audio in audios:
+                    if audio.get("text") is not None:
+                        new_audios.append(audio)
+                        n_chunks.append(1)
+                        continue
+                    seg = AudioSegment.from_file(
+                        audio["audio"], target_sr=16000,
+                        channel_selector="average")
+                    if seg.num_samples <= WINDOW:
+                        new_audios.append(audio)
+                        n_chunks.append(1)
+                        continue
+                    chunks = chunk_audio(seg.samples)
+                    for c in chunks:
+                        fd, path = tempfile.mkstemp(suffix=".wav")
+                        os.close(fd)
+                        cleanup_paths.append(path)
+                        write_wav(path, c)
+                        new_audios.append({"audio": path, "text": None})
+                    n_chunks.append(len(chunks))
+                content = expand_message_for_chunks(
+                    message["content"], self.audio_locator, n_chunks)
+                new_msgs.append({**message, "content": content,
+                                 "audios": new_audios})
+            out_list.append(new_msgs)
+        return out_list
 
     def _run_generation_phases(self, messages_list,
                                timings: Dict[str, float],
                                return_prompt_ids: bool = False):
-        """Host phases A+B and device perception/splice.  Returns None for
-        a text-only batch, else (embeds, attn_mask, aux, audios,
-        transcripts), aux = (audio tokens, ORCA local tokens or None) per
-        clip, plus, with ``return_prompt_ids``, the prompt ids [B, T] (numpy)
-        with each transcription's ids at its splice positions -- the text
-        the model is most likely to echo, which n-gram drafting feeds on
-        (``desta.py:593-602`` of the JAX package).  Records ``host_ms``
-        (phases A+B) and ``perception_ms`` (mel, encoder, connector and
-        splice, device synchronised) in timings."""
+        """Host phases A+B (ASR on the device within A) and device
+        perception/splice.  Returns None for a text-only batch, else
+        (embeds, attn_mask, aux, audios, transcripts), aux = (audio tokens,
+        ORCA local tokens or None) per clip, plus, with
+        ``return_prompt_ids``, the prompt ids [B, T] (numpy) with each
+        transcription's ids at its splice positions -- the text the model is
+        most likely to echo, which n-gram drafting feeds on
+        (``desta.py:593-602`` of the JAX package).  Records in timings
+        ``host_ms`` (phases A+B without the ASR), ``asr_ms`` and
+        ``asr_steps`` where ASR ran (:meth:`_asr`), and ``perception_ms``
+        (mel, encoder, connector and splice, device synchronised)."""
         t0 = time.perf_counter()
         tk = self.tokenizer
         all_audios: List[str] = []
@@ -335,25 +515,64 @@ class DeSTA25AudioModel:
         if not all_audios:
             return None
 
-        # --- phase A: audio decode + VAD ---------------------------------
-        samples: List[np.ndarray] = []
+        # --- phase A: audio decode + VAD + ASR ---------------------------
+        # (with the feature cache on, a hit skips the decode and the VAD,
+        # and the ASR once the entry holds a transcription)
+        N = len(all_audios)
+        cache = self.audio_cache
+        keys: List[Any] = [None] * N
+        centries: List[Optional[Dict[str, Any]]] = [None] * N
+        samples: List[Optional[np.ndarray]] = [None] * N
+        speech_flags = [True] * N
+
+        def load(i):
+            if samples[i] is None:
+                samples[i] = AudioSegment.from_file(
+                    all_audios[i], target_sr=16000,
+                    channel_selector="average").samples
+            return samples[i]
+
+        asr_indices: List[int] = []
         for i, (path, trans) in enumerate(zip(all_audios,
                                               all_transcriptions)):
             if not os.path.exists(path):
                 raise ValueError(f"Audio file {path} does not exist.")
-            seg = AudioSegment.from_file(path, target_sr=16000,
-                                         channel_selector="average")
-            samples.append(seg.samples)
-            if not has_speech(seg.samples):
+            if cache is not None:
+                keys[i] = cache.key(path)
+                centries[i] = cache.get(keys[i])
+            speech = (centries[i]["speech"] if centries[i] is not None
+                      else has_speech(load(i)))
+            speech_flags[i] = speech
+            if not speech:
                 all_transcriptions[i] = " "
             elif trans is None:
-                raise NotImplementedError(
-                    "audio without a transcription needs ASR in the loop, "
-                    "not ported yet (ROADMAP.md Queue 1: ASR)")
+                hit_text = (centries[i] or {}).get("asr_text")
+                if hit_text is not None:
+                    all_transcriptions[i] = hit_text
+                else:
+                    # a hit without a transcription yet fills it now
+                    asr_indices.append(i)
+        max_len = self.enc_cfg.expected_mel_frames * 160
+
+        def audio_batch(idxs, pad_to=None):
+            ab = np.zeros((pad_to or len(idxs), max_len), np.float32)
+            for j, i in enumerate(idxs):
+                s = load(i)
+                ab[j, :min(len(s), max_len)] = s[:max_len]
+            return ab
+
+        asr_ms = 0.0
+        if asr_indices:
+            texts = self._asr(audio_batch(asr_indices), timings=timings)
+            asr_ms = timings["asr_ms"]
+            for i, text in zip(asr_indices, texts):
+                all_transcriptions[i] = text.strip()
+                if centries[i] is not None:
+                    centries[i]["asr_text"] = text.strip()
 
         # --- phase B: tokenize + expand + splice maps --------------------
         K = self.config.audio_token_size
-        audio_size_list = [K] * len(all_audios)
+        audio_size_list = [K] * N
         transcription_size_list = [
             len(tk.tokenize(t, add_special_tokens=False))
             for t in all_transcriptions]
@@ -393,23 +612,48 @@ class DeSTA25AudioModel:
                 audio_idx += 1
         kind, aidx, pos = build_splice_maps(B, T, entries)
         trans_max = max(1, _round_up(max(transcription_size_list + [1]), 8))
-        trans_ids = np.zeros((len(all_audios), trans_max), np.int64)
+        trans_ids = np.zeros((N, trans_max), np.int64)
         for i, t in enumerate(all_transcriptions):
             ids = tk.encode(t, add_special_tokens=False)[:trans_max]
             trans_ids[i, :len(ids)] = ids
 
         # --- phase C: device ----------------------------------------------
-        timings["host_ms"] = (time.perf_counter() - t0) * 1e3
+        timings["host_ms"] = (time.perf_counter() - t0) * 1e3 - asr_ms
         t0 = time.perf_counter()
-        max_len = self.enc_cfg.expected_mel_frames * 160
-        batch = np.zeros((len(all_audios), max_len), np.float32)
-        for j, s in enumerate(samples):
-            batch[j, :min(len(s), max_len)] = s[:max_len]
         dev = self.device
         as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-        embeds, aux = self.prepare_inputs_embeds(
-            as_dev(input_ids), self._mel(batch), as_dev(trans_ids),
-            as_dev(kind), as_dev(aidx), as_dev(pos))
+        maps = (as_dev(trans_ids), as_dev(kind), as_dev(aidx), as_dev(pos))
+        if cache is None:
+            # one pass: perception over every clip, then the splice
+            embeds, aux = self.prepare_inputs_embeds(
+                as_dev(input_ids), self._mel(audio_batch(range(N))), *maps)
+        else:
+            # perception over the misses only, padded to a power of two
+            # (the JAX package compiles for a handful of shapes; here the
+            # padding keeps the encoder's batch, and so its attention arm,
+            # the JAX package's), then the splice over every clip's tokens
+            miss = [i for i in range(N) if centries[i] is None]
+            if miss:
+                P = 1 << (len(miss) - 1).bit_length()
+                feats_m, local_m = perception_apply(
+                    self.params, self._mel(audio_batch(miss, pad_to=P)),
+                    self.config)
+                asr_set = set(asr_indices)
+                for j, i in enumerate(miss):
+                    entry = {"speech": speech_flags[i],
+                             "asr_text": (all_transcriptions[i]
+                                          if i in asr_set else None),
+                             "feats": feats_m[j].clone(),
+                             "local": (None if local_m is None
+                                       else local_m[j].clone())}
+                    cache.put(keys[i], entry)
+                    centries[i] = entry
+            audio_feats = torch.stack([e["feats"] for e in centries])
+            local_tokens = (None if centries[0]["local"] is None else
+                            torch.stack([e["local"] for e in centries]))
+            aux = (audio_feats, local_tokens)
+            embeds = self.prepare_inputs_embeds_from_feats(
+                as_dev(input_ids), audio_feats, *maps)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         timings["perception_ms"] = (time.perf_counter() - t0) * 1e3

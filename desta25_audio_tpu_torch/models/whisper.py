@@ -1,11 +1,20 @@
-"""Whisper encoder with layer taps (counterpart of
-``desta25_audio_tpu/models/whisper.py:276-347``).
+"""Whisper encoder with layer taps and the decoder for ASR in the loop
+(counterpart of ``desta25_audio_tpu/models/whisper.py``).
 
-conv1 -> gelu -> conv2 (stride 2) -> gelu -> + sinusoidal positions ->
-pre-LN layers, each ``x + attn(ln1(x))`` then ``x + ffn(ln2(x))``, with the
-hidden state after each target layer collected as a tap (pre final LN, what
-the connector consumes).  Mel input is NWC ([B, frames, n_mels]) as in the
-JAX package.  The decoder (ASR in the loop) is not ported yet.
+Encoder (``whisper.py:276-347`` of the JAX package): conv1 -> gelu -> conv2
+(stride 2) -> gelu -> + sinusoidal positions -> pre-LN layers, each
+``x + attn(ln1(x))`` then ``x + ffn(ln2(x))``, with the hidden state after
+each target layer collected as a tap (pre final LN, what the connector
+consumes).  Mel input is NWC ([B, frames, n_mels]) as in the JAX package.
+
+Decoder (``whisper.py:350-456``): learned positions, pre-LN layers of causal
+self-attention (written into a per-layer cache when one is given),
+cross-attention on K/V precomputed once from the encoder's ``ln_post``
+output (:func:`whisper_cross_kv`) and the GELU FFN, the final LayerNorm and
+logits from the tied ``embed_tokens`` with f32 sums.  It reaches no Pallas
+kernel in the JAX package (XLA products and ``ops/core.mha``), so here it is
+plain torch products and the port's ``ops/core.mha``.  Positions past the
+learned table read its last row, as JAX's clamped gather does.
 
 Kernels, with the JAX package's dispatch (``whisper.py:167-273``):
 
@@ -46,7 +55,9 @@ import torch
 from ..config import WhisperConfig
 from ..ops import _build
 from ..ops.attention import mha
-from ..ops.core import Params, conv1d, gelu, index_tree, layer_norm, linear
+from ..ops import core
+from ..ops.core import (Params, conv1d, gelu, index_tree, layer_norm, linear,
+                        matmul_f32)
 from ..ops.enc_attention import (
     enc_attention_supported,
     packed_encoder_attention,
@@ -126,6 +137,47 @@ def init_whisper_encoder(cfg: WhisperConfig, dtype, device,
         "ln_post": {"scale": torch.ones(d, dtype=dtype, device=device),
                     "bias": torch.zeros(d, dtype=dtype, device=device)},
     }
+
+
+def init_whisper_decoder(cfg: WhisperConfig, dtype, device,
+                         generator: torch.Generator) -> Params:
+    """Random decoder (the JAX package's ``init_whisper_decoder``):
+    N(0, 0.02) token and position embeddings, the linear init bounds of
+    :func:`init_linear_stack`, unit LayerNorms; stacked layers."""
+    L, d, Fd = cfg.decoder_layers, cfg.d_model, cfg.decoder_ffn_dim
+    lin = lambda i, o, bias=True: init_linear_stack(  # noqa: E731
+        L, i, o, dtype, device, generator, bias)
+
+    def normal(*shape):
+        return torch.empty(shape, dtype=dtype, device=device).normal_(
+            0.0, 0.02, generator=generator)
+
+    def attn():
+        return {"q": lin(d, d), "k": lin(d, d, bias=False), "v": lin(d, d),
+                "o": lin(d, d)}
+
+    return {
+        "embed_tokens": normal(cfg.vocab_size, d),
+        "embed_positions": normal(cfg.max_target_positions, d),
+        "layers": {
+            "ln1": init_layer_norm_stack(L, d, dtype, device),
+            "self_attn": attn(),
+            "ln_x": init_layer_norm_stack(L, d, dtype, device),
+            "cross_attn": attn(),
+            "ln2": init_layer_norm_stack(L, d, dtype, device),
+            "fc1": lin(d, Fd),
+            "fc2": lin(Fd, d),
+        },
+        "ln": {"scale": torch.ones(d, dtype=dtype, device=device),
+               "bias": torch.zeros(d, dtype=dtype, device=device)},
+    }
+
+
+def init_whisper(cfg: WhisperConfig, dtype, device,
+                 generator: torch.Generator) -> Params:
+    """Encoder and decoder, drawn in that order from ``generator``."""
+    return {"encoder": init_whisper_encoder(cfg, dtype, device, generator),
+            "decoder": init_whisper_decoder(cfg, dtype, device, generator)}
 
 
 # The largest encoder batch at which "dual" attention leaves take the W8A8
@@ -236,3 +288,94 @@ def whisper_encoder_apply(params: Params, mel: torch.Tensor,
                                                        dtype=x.dtype,
                                                        device=x.device)
     return final, taps
+
+
+def _heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    B, T, D = x.shape
+    return x.reshape(B, T, n_heads, D // n_heads)
+
+
+def _dec_layer_apply(p: Params, x: torch.Tensor, enc_kv, n_heads: int,
+                     self_mask: torch.Tensor, cache=None,
+                     cache_index: int = 0) -> torch.Tensor:
+    """One decoder layer (``whisper.py:350-383`` of the JAX package).
+    enc_kv: this layer's cross (k, v), each [B, T_enc, H, Dh].  cache: this
+    layer's self-attention (k, v), each [B, Tmax, H, Dh]; the new keys and
+    values of x [B, T, D] are written in place at ``cache_index`` and the
+    attention reads the whole cache under ``self_mask``."""
+    B, T, D = x.shape
+    a = p["self_attn"]
+    h = layer_norm(p["ln1"], x)
+    q, k, v = (_heads(linear(a[n], h), n_heads) for n in ("q", "k", "v"))
+    if cache is not None:
+        ck, cv = cache
+        ck[:, cache_index:cache_index + T] = k.to(ck.dtype)
+        cv[:, cache_index:cache_index + T] = v.to(cv.dtype)
+        k, v = ck, cv
+    attn = core.mha(q, k, v, self_mask)
+    x = x + linear(a["o"], attn.reshape(B, T, D))
+
+    c = p["cross_attn"]
+    h = layer_norm(p["ln_x"], x)
+    attn = core.mha(_heads(linear(c["q"], h), n_heads), *enc_kv)
+    x = x + linear(c["o"], attn.reshape(B, T, D))
+
+    h = layer_norm(p["ln2"], x)
+    return x + linear(p["fc2"], gelu(linear(p["fc1"], h)))
+
+
+def whisper_cross_kv(params: Params, enc_out: torch.Tensor,
+                     cfg: WhisperConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer cross-attention K/V of the encoder output [B, T_enc, D]:
+    (k, v), each [L, B, T_enc, H, Dh] in the encoder output's dtype."""
+    H = cfg.decoder_attention_heads
+    cross = params["layers"]["cross_attn"]
+    ks, vs = [], []
+    for i in range(cfg.decoder_layers):
+        ks.append(_heads(linear(index_tree(cross["k"], i), enc_out), H))
+        vs.append(_heads(linear(index_tree(cross["v"], i), enc_out), H))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def whisper_decoder_apply(params: Params, tokens: torch.Tensor, cross_kv,
+                          cfg: WhisperConfig, pos_offset: int = 0,
+                          cache=None, cache_index: int = 0):
+    """tokens [B, T] -> (logits [B, T, V] f32, cache).
+
+    Without a cache: causal self-attention over ``tokens``.  With
+    ``cache=(k, v)`` (each [L, B, Tmax, H, Dh], :func:`init_decoder_cache`):
+    the tokens' keys and values are written in place at ``cache_index`` and
+    each attends to every cached position up to its own; the same cache is
+    returned.  Positions ``pos_offset + t`` past the learned table take its
+    last row (the JAX gather clamps)."""
+    H = cfg.decoder_attention_heads
+    B, T = tokens.shape
+    dev = tokens.device
+    x = params["embed_tokens"][tokens]
+    table = params["embed_positions"]
+    positions = torch.clamp(torch.arange(T, device=dev) + pos_offset,
+                            max=table.shape[0] - 1)
+    x = x + table[positions][None].to(x.dtype)
+    if cache is None:
+        mask = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    else:
+        Tmax = cache[0].shape[2]
+        key_pos = torch.arange(Tmax, device=dev)[None, :]
+        q_pos = (torch.arange(T, device=dev) + cache_index)[:, None]
+        mask = key_pos <= q_pos  # causal within the appended tokens too
+    for i in range(cfg.decoder_layers):
+        layer_cache = None if cache is None else (cache[0][i], cache[1][i])
+        x = _dec_layer_apply(index_tree(params["layers"], i), x,
+                             (cross_kv[0][i], cross_kv[1][i]), H,
+                             mask[None, None], layer_cache, cache_index)
+    x = layer_norm(params["ln"], x)
+    return matmul_f32(x, params["embed_tokens"].t()), cache
+
+
+def init_decoder_cache(cfg: WhisperConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device=None):
+    """Zeroed self-attention cache: (k, v), each [L, batch, max_len, H, Dh]."""
+    H = cfg.decoder_attention_heads
+    shape = (cfg.decoder_layers, batch, max_len, H, cfg.d_model // H)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

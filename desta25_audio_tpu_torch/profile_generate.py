@@ -2,7 +2,7 @@
 
     python -m desta25_audio_tpu_torch.profile_generate [--batch 2] \
         [--int8-encoder] [--int8-llm] [--speculative-k K] [--orca
-        [--float-stack] [--perlayer]]
+        [--float-stack] [--perlayer]] [--asr]
 
 Builds the flagship configuration (configs/desta25_llama31-8B_Qformer6L.yaml,
 bf16, random weights from a seed, CharTokenizer; with ``--int8-encoder``
@@ -48,6 +48,17 @@ the W8A8 prefill, other).
 Last, the launch counts over the profiled phases and the torch paths taken
 there (``_build.fallback_counts()``: a model shape a kernel's predicate
 refused).
+
+``--asr`` profiles instead the ASR phase of ``generate()`` on the same clips
+without transcriptions (``DeSTA25AudioModel._asr``: its mel, the encoder
+pass, the cross K/V and the Whisper decoder's 128 eager steps, greedy, a
+character detokenizer standing in for the hub's): the wall and device time,
+the idle share and the top kernels, the device time by group (the encoder's
+hand-written kernels K1-K6 by name; the rest by the torch op that launched
+each kernel: the decoder's GEMMs ``aten::mm``/``addmm``, the attention's
+products ``aten::bmm``, the cuDNN conv stem, elementwise and casts, and
+kernels no op claims), then three unprofiled calls' ``asr_ms`` and ms a
+decode step.
 """
 
 from __future__ import annotations
@@ -63,12 +74,12 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from .audio.io import write_wav
+from .audio.io import AudioSegment, write_wav
 from .config import config_from_yaml_file
 from .data.tokenizer import CharTokenizer
 from .generate.decode import build_injection, llm_generate
 from .generate.speculative import left_aligned, llm_generate_spec
-from .models.desta import DeSTA25AudioModel
+from .models.desta import DeSTA25AudioModel, _CharASR
 from .ops import _build, fused_decode_tp
 
 NEW_TOKENS = 32
@@ -86,6 +97,17 @@ DECODE_GROUPS = {
     "K8i gate": ("inject_gate",),
     # the int8 GEMM of csrc/gemm_sm90.cuh (earlier checkouts: gemm_s8_kernel)
     "W8A8 prefill": ("gemm_kernel<signed char", "gemm_s8", "quant_rows"),
+}
+# the ASR phase's groups: the encoder's hand-written kernels (K1-K6) by name,
+# the torch kernels by the op that launched them
+ASR_ENCODER_KERNELS = ("log_mel", "enc_attention", "gemm_kernel",
+                       "quant_rows")
+ASR_OP_GROUPS = {
+    "decoder GEMMs": ("aten::mm", "aten::addmm", "aten::matmul",
+                      "aten::linear"),
+    "attention products": ("aten::bmm", "aten::baddbmm"),
+    "conv stem (cuDNN)": ("aten::cudnn_convolution", "aten::convolution",
+                          "aten::_convolution"),
 }
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
@@ -146,6 +168,64 @@ def report(name: str, fn, top: int = 12, groups=None, stats=None):
     return out
 
 
+def _op_device_ms(prof):
+    """{torch op name: device ms of the kernels the op launched itself}
+    (the profiler links each kernel to its launching op)."""
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
+            out[e.name] = (out.get(e.name, 0.0)
+                           + sum(k.duration for k in e.kernels) / 1e3)
+    return out
+
+
+def profile_asr(model, clips) -> None:
+    """The ASR phase of generate() on ``clips`` [N, samples] under the
+    profiler, grouped (module docstring), then unprofiled."""
+    model._asr(clips)                       # warm-up
+    timings = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        texts = model._asr(clips, timings=timings)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = _device_ms(prof)
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    steps = timings["asr_steps"]
+    print(f"== ASR b{clips.shape[0]} ({steps} decoder steps after the "
+          f"prefix): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}")
+    for key, (ms, n) in sorted(kernels.items(), key=lambda kv: kv[1][0],
+                               reverse=True)[:12]:
+        print(f"   {ms:9.3f} ms  x{n:<6d} {key[:100]}")
+    groups = {"encoder kernels (K1-K6)": sum(
+        ms for key, (ms, _) in kernels.items()
+        if any(s in key for s in ASR_ENCODER_KERNELS))}
+    ops = _op_device_ms(prof)
+    for label, names in ASR_OP_GROUPS.items():
+        groups[label] = sum(ms for op, ms in ops.items() if op in names)
+    claimed = {op for names in ASR_OP_GROUPS.values() for op in names}
+    groups["elementwise and casts"] = sum(ms for op, ms in ops.items()
+                                          if op not in claimed)
+    groups["no op"] = busy_ms - sum(groups.values())
+    print("   by group: " + "; ".join(f"{g} {ms:.2f} ms"
+                                      for g, ms in groups.items())
+          + (" (the profiler linked no kernel to an op: groups by op are "
+             "empty)" if not ops else ""))
+    print(f"   decode: {timings['asr_decode_ms'] / max(steps, 1):.3f} ms a "
+          f"step (profiled); transcripts {[t[:24] for t in texts]}")
+    for _ in range(UNPROFILED_RUNS):
+        t = {}
+        model._asr(clips, timings=t)
+        print(f"   unprofiled: asr_ms {t['asr_ms']:.1f}, decode "
+              f"{t['asr_decode_ms'] / max(t['asr_steps'], 1):.3f} ms a step "
+              f"over {t['asr_steps']} steps, idle share "
+              f"{1 - busy_ms / t['asr_ms']:.3f} against the profiled device "
+              "time")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=2)
@@ -168,6 +248,9 @@ def main() -> None:
     ap.add_argument("--perlayer", action="store_true",
                     help="with --orca: keep the f32 stack and decode through "
                     "the per-layer pair K9 (DESTA_FUSED_PERLAYER)")
+    ap.add_argument("--asr", action="store_true",
+                    help="profile the ASR phase (Whisper's mel, encoder "
+                    "pass and decoder) on the clips without transcriptions")
     args = ap.parse_args()
     if (args.perlayer or args.float_stack) and not args.orca:
         raise SystemExit("--float-stack and --perlayer profile the ORCA "
@@ -202,6 +285,18 @@ def main() -> None:
                            "content": f"Clip {i}: <|AUDIO|> What is it?",
                            "audios": [{"audio": path,
                                        "text": "a synthetic tone"}]}])
+        if args.asr:
+            model._whisper_tokenizer = _CharASR()
+            clips = np.zeros((args.batch, cfg.encoder_config
+                              .expected_mel_frames * 160), np.float32)
+            for j, conv in enumerate(convs):
+                seg = AudioSegment.from_file(conv[0]["audios"][0]["audio"])
+                clips[j, :seg.num_samples] = seg.samples
+            _build.reset_launch_counts()
+            profile_asr(model, clips)
+            print(f"launches: {_build.launch_counts()}; torch paths taken: "
+                  f"{_build.fallback_counts()}")
+            return
         model.generate(convs, do_sample=False, max_new_tokens=2,
                        speculative_k=args.speculative_k)  # warm-up
         _build.reset_launch_counts()

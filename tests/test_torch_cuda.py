@@ -27,7 +27,12 @@ refuses; K10 at 2 and 4 virtual ranks, decode and verify, K9's pair under a
 mesh, and an all-reduce whose producers never run timing out; a nano ORCA
 train step (its aux terms relative to the CPU's, beside a faulty Q-Former
 that must break them) and a nano int8-tower train step against the same
-model's step on the CPU, and training's int8 products at 128-256 rows).
+model's step on the CPU, and training's int8 products at 128-256 rows;
+Whisper ASR: a 2-layer f32 copy of whisper-large-v3's decoder, its cached
+steps against the full forward beside a cache written one slot late, and
+``generate()`` with ASR on whisper-large-v3 and a nano LLM, whose K1 and
+encoder-kernel launches are those of the call with transcriptions plus one
+more mel and encoder pass, then a feature-cache hit that launches none).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -1927,3 +1932,131 @@ def test_nano_int8_tower_train_step_matches_cpu(gen):
     # counted; no activation quantized
     assert out["fallbacks"].get("quant_matmul_dequant", 0) > 0
     assert not out["launches"].get("w8a8_matmul", 0)
+
+
+# -- Whisper ASR ----------------------------------------------------------------
+
+TOL_ASR_CACHE = 1e-4   # f32: the cached and the full forward differ in
+                       # summation order only
+
+
+def _asr_cached_vs_full(gen, late: bool):
+    """A 2-layer f32 decoder at whisper-large-v3's widths on a random
+    encoder output [2, 1500, 1280]: the worst relative difference of the
+    cached decode's logits, step by step, from the full forward over the
+    prefix and the emitted ids.  ``late``: every cached call writes its keys
+    one slot past their position (the control)."""
+    from desta25_audio_tpu_torch.config import whisper_config_for
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    from desta25_audio_tpu_torch.models import whisper as tw
+    cfg = dataclasses.replace(whisper_config_for("openai/whisper-large-v3"),
+                              decoder_layers=2)
+    dec = tw.init_whisper_decoder(cfg, torch.float32, "cuda", gen)
+    enc = torch.randn(2, 1500, cfg.d_model, device="cuda", generator=gen)
+    real = tw.whisper_decoder_apply
+
+    def late_apply(*a, cache=None, cache_index=0, **k):
+        return real(*a, cache=cache, cache_index=cache_index + (
+            cache is not None), **k)
+    steps = []
+    lang = cfg.first_language_token_id
+    tw.whisper_decoder_apply = late_apply if late else real
+    try:
+        ids, _ = tdecode.asr_decode(dec, cfg, enc, max_new_tokens=24,
+                                    language_token=lang, step_logits=steps)
+    finally:
+        tw.whisper_decoder_apply = real
+    ckv = tw.whisper_cross_kv(dec, enc, cfg)
+    prefix = torch.tensor([[cfg.decoder_start_token_id, lang,
+                            cfg.transcribe_token_id,
+                            cfg.no_timestamps_token_id]] * 2, device="cuda")
+    n = len(steps)
+    full, _ = real(dec, torch.cat([prefix, ids[:, :n - 1]], 1), ckv, cfg)
+    return max(_rel(steps[j], full[:, 3 + j]) for j in range(n))
+
+
+def test_asr_cached_decode_matches_full_forward(gen):
+    err = _asr_cached_vs_full(gen, late=False)
+    control = _asr_cached_vs_full(torch.Generator("cuda").manual_seed(0),
+                                  late=True)
+    assert err < TOL_ASR_CACHE < control, (err, control)
+
+
+@pytest.fixture(scope="module")
+def asr_model(tmp_path_factory):
+    """whisper-large-v3 (bf16, its kernels) with a nano LLM and two WAVs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written Hopper kernels)")
+    import numpy as np
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    from desta25_audio_tpu_torch.audio.io import write_wav
+    from desta25_audio_tpu_torch.models.desta import _CharASR
+    cfg = DeSTA25Config(llm_model_id="test/llama-nano",
+                        encoder_model_id="openai/whisper-large-v3",
+                        connector_mode="qformer_1",
+                        qformer_num_hidden_layers=2, prompt_size=8,
+                        dtype="bfloat16")
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=0)
+    model._whisper_tokenizer = _CharASR()
+    d = tmp_path_factory.mktemp("asr")
+    paths = []
+    for i, secs in enumerate((2.0, 3.5)):
+        t = np.arange(int(secs * 16000)) / 16000.0
+        paths.append(str(d / f"clip{i}.wav"))
+        write_wav(paths[-1], (0.5 * np.sin(2 * np.pi * (300 + 140 * i) * t)
+                              * (np.sin(2 * np.pi * 3 * t) > 0)
+                              ).astype(np.float32))
+    return model, paths
+
+
+def _asr_msgs(paths, text):
+    return [[{"role": "user", "content": "What is said? <|AUDIO|>",
+              "audios": [{"audio": p, "text": text}]}] for p in paths]
+
+
+ENC_KERNELS = ("log_mel", "packed_encoder_attention", "encoder_ffn")
+
+
+def test_asr_generate_runs_the_encoder_kernels_twice(asr_model):
+    import numpy as np
+    from desta25_audio_tpu_torch.models import whisper as tw
+    model, paths = asr_model
+    counts = {}
+    for text in ("a tone", None):
+        model.generate(_asr_msgs(paths, text), do_sample=False,
+                       max_new_tokens=2)       # warm-up
+        _build.reset_launch_counts()
+        model.generate(_asr_msgs(paths, text), do_sample=False,
+                       max_new_tokens=4)
+        counts[text] = _build.launch_counts()
+    assert model.last_timings["asr_steps"] >= 1
+    # one encoder pass and one mel alone, at the same batch
+    _build.reset_launch_counts()
+    mel = model._mel(np.zeros((2, 480000), np.float32))
+    tw.whisper_encoder_apply(model.params["whisper"]["encoder"], mel,
+                             model.enc_cfg)
+    one = _build.launch_counts()
+    for name in ENC_KERNELS:
+        assert one.get(name, 0) > 0, name
+        assert counts[None].get(name, 0) == counts["a tone"].get(name, 0) \
+            + one[name], (name, counts, one)
+    assert counts[None]["log_mel"] == 2 * counts["a tone"]["log_mel"]
+    assert counts[None]["encoder_ffn"] == 2 * counts["a tone"]["encoder_ffn"]
+
+
+def test_asr_feature_cache_hit_launches_no_perception_kernel(asr_model):
+    model, paths = asr_model
+    model.enable_audio_cache(8)
+    try:
+        first = model.generate(_asr_msgs(paths, None), do_sample=False,
+                               max_new_tokens=4)
+        _build.reset_launch_counts()
+        second = model.generate(_asr_msgs(paths, None), do_sample=False,
+                                max_new_tokens=4)
+        counts = _build.launch_counts()
+    finally:
+        model.audio_cache = None
+    assert not any(counts.get(k, 0) for k in ENC_KERNELS), counts
+    assert "asr_steps" not in model.last_timings
+    assert second.generated_ids == first.generated_ids
+    assert second.audios == first.audios

@@ -1,13 +1,14 @@
 """The port's whole slice against the JAX package on the CPU: the nano
 ``DeSTA25AudioModel`` of tests/test_generate_e2e.py (f32), its params
 bridged into the port, greedy ``generate()`` on the same WAVs with the
-transcriptions supplied.  The generated ids must be identical token for
+transcriptions supplied, or made by Whisper ASR in the loop.  The generated ids must be identical token for
 token (wav -> VAD -> mel -> encoder -> Q-Former -> splice -> prefill ->
 decode)."""
 
 import jax
 import numpy as np
 import pytest
+import torch
 
 from desta25_audio_tpu import DeSTA25AudioModel as JaxModel
 from desta25_audio_tpu import DeSTA25Config as JaxConfig
@@ -18,6 +19,16 @@ from desta25_audio_tpu_torch.ckpt.bridge import from_jax_params
 NANO = dict(llm_model_id="test/llama-nano",
             encoder_model_id="test/whisper-nano", connector_mode="qformer_1",
             qformer_num_hidden_layers=2, prompt_size=8, dtype="float32")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """ASR's eager decode loop runs thousands of tiny ops; with every test
+    worker's torch on all cores they wait on each other's threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -86,12 +97,25 @@ def test_sampled_generate_shapes_and_stop_padding(models, wavs):
             assert (row[hit[0] + 1:] == pad).all()
 
 
-def test_missing_transcription_needs_asr(models, wavs):
-    _, tm = models
-    msg = [{"role": "user", "content": "Describe <|AUDIO|>",
-            "audios": [{"audio": wavs[0], "text": None}]}]
-    with pytest.raises(NotImplementedError, match="ASR"):
-        tm.generate(msg, max_new_tokens=2)
+def test_missing_transcription_needs_asr(models, wavs, tmp_path):
+    """A clip without a transcription is transcribed by Whisper ASR in the
+    loop (a silent one takes " " without ASR), as JAX does: greedy ids,
+    texts and transcripts identical.  A missing file still raises."""
+    jm, tm = models
+    silent = str(tmp_path / "silent.wav")
+    write_wav(silent, np.zeros(8000, np.float32))
+    msgs = [[{"role": "user", "content": "Describe <|AUDIO|>",
+              "audios": [{"audio": wavs[0], "text": None}]}],
+            [{"role": "user", "content": "Compare <|AUDIO|> with <|AUDIO|>",
+              "audios": [{"audio": wavs[1], "text": None},
+                         {"audio": silent, "text": None}]}]]
+    want = jm.generate(msgs, max_new_tokens=4, do_sample=False)
+    got = tm.generate(msgs, max_new_tokens=4, do_sample=False)
+    assert got.generated_ids == want.generated_ids
+    assert got.text == want.text
+    assert got.audios == want.audios
+    assert got.audios[2] == (silent, " ")
+    assert tm.last_timings["asr_steps"] >= 1
     with pytest.raises(ValueError, match="does not exist"):
         tm.generate([{"role": "user", "content": "hi <|AUDIO|>",
                       "audios": [{"audio": "/nonexistent.wav",

@@ -214,3 +214,32 @@ def test_llm_prefill_and_decode_match(model_id):
         positions=torch.from_numpy(step_pos), cache=tcache, cache_index=T)
     _close(got, want)
     _close(tcache.v, jcache.v)
+
+
+def test_bridge_carries_the_whisper_decoder():
+    """Every leaf of the JAX model's Whisper decoder reaches the port: the
+    linears as [L, out, in], the embeddings, norms and biases as they are;
+    the port's own init draws a tree of the same structure and shapes."""
+    from desta25_audio_tpu import DeSTA25AudioModel as JModel
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    jm = JModel(JConfig(**NANO), seed=0)
+    cfg = DeSTA25Config(**NANO)
+    tree = bridge.from_jax_params(_np_tree(jm.params), cfg, "cpu")
+    jdec = _np_tree(jm.params["whisper"]["decoder"])
+    tdec = tree["whisper"]["decoder"]
+    jflat = jax.tree_util.tree_flatten_with_path(jdec)[0]
+    assert len(jflat) == len(jax.tree.leaves(tdec)) == 28
+    for path, want in jflat:
+        keys = [p.key for p in path]
+        got = tdec
+        for k in keys:
+            got = got[k]
+        if keys[-1] == "w":       # [L, in, out] -> [L, out, in]
+            want = np.swapaxes(want, -1, -2)
+        np.testing.assert_array_equal(got.numpy(), want)
+    from desta25_audio_tpu_torch.models.whisper import init_whisper
+    own = DeSTA25AudioModel(cfg, device="cpu", seed=0).params["whisper"]
+    drawn = init_whisper(cfg.encoder_config, torch.float32, "cpu",
+                         torch.Generator().manual_seed(0))
+    shapes = lambda t: jax.tree.map(lambda a: tuple(a.shape), t)  # noqa: E731
+    assert shapes(own) == shapes(drawn) == shapes(tree["whisper"])
