@@ -94,6 +94,16 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     the first's ids;
 12e. a 65 s clip without a transcription, ``auto_chunk_long_audio=True``:
     three clips, their temporary WAVs removed;
+12f. the serving engine (``serve/engine.ContinuousBatchingEngine``) on
+    the bf16 tower: 4 slots, 8 steps a tick, 4 greedy requests of 32 new
+    tokens: the decode steps are replays of one graph captured once (K8's
+    launches those of every step, one ``decode_graph`` replay for each
+    step but the first), no torch path, and the teacher-forced gate: each
+    emitted id is the argmax of a forward over the request's own bucketed
+    prompt and its emitted ids, or within TOL_ENGINE_MARGIN of it, the
+    margins printed, beside a control (each row's ids on the next row's
+    prompt) that must fail it; the model's feature cache, which the engine
+    turns on, is turned off again after each engine phase;
 13. the int8 LLM's kernels against their plain versions, on the model's LLM
     quantized into a second tree (``quantize_llm_params``): K7
     quant_matmul at M=2 on the head (N=130560, the skinny GEMM) and its
@@ -139,6 +149,25 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     step on the same cache, within TOL_DECODE; verify steps, tokens per
     step, ms per emitted token and the agreement with 15's greedy ids are
     printed (information);
+16a. the engine on the int8 encoder and LLM: 16 slots, 8 steps a tick,
+    ``max_ctx`` 256 and 64 new tokens (a 384-position cache), 24 requests
+    (12 through one ``submit_many``, 12 submitted while the first decode;
+    every other one sampled at 0.7 / 0.9; two text-only): replays of one
+    graph as in 12f with K8-int8 inside and not the bf16 K8, every request
+    finished with ``length`` or ``eos``, the greedy rows through the gate;
+    ticks, tokens/s and the time to the first token (p50, p90, submit to
+    first token) printed;
+16b. 8 greedy requests of 24 tokens: the same ids with pipelining off,
+    with one step a tick, and through ``submit`` instead of
+    ``submit_many``, each engine capturing once;
+16c. 4 slots under pipelining: a running request cancelled (its tokens so
+    far kept), a newcomer admitted into its slot and through the gate;
+    then a slot forced to ``t_max - 3`` ends ``cache_full`` with no device
+    error;
+16d. the engine's decode tick alone at 8, 16 and 32 busy slots
+    (``bench_serving.serving_ticks``): ms a tick, tokens/s, device time a
+    tick and idle share, the step's kernels against the sampling and glue,
+    the graph's replay alone, the step's byte bound;
 17. K8i, the decode / verify step with the ORCA injection inside, against
     its plain version: the 32-layer int8 Llama-3.1-8B tower with a random
     int8 cross-attention stack, B=2, S=256, per-row ci, Ta=375 audio
@@ -180,6 +209,11 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     must launch; its first step's position-0 logits against one K8i decode
     step on the same cache, within TOL_DECODE, the hidden states bit for
     bit;
+20d. the engine on the ORCA model (int8 stack and LLM): 4 slots, 3 audio
+    requests (one ``submit_many``) and a text-only one (``on`` = 0): K8i
+    inside the graph's replays (its launches and its attention's those of
+    every step), the gate per row with the injection through the PyTorch
+    hook;
 20a. the all-reduce of tensor-parallel partial sums (``tp_allreduce``,
     ``csrc/tp_allreduce.cu``: the consumer adds the ranks' sum into the
     residual and writes the next half's RMSNorm) alone, at p = 2 and 4
@@ -412,6 +446,20 @@ TOL_ASR_CACHE = 1e-4  # the Whisper decoder's cached steps vs its full
                      # f32 copy of whisper-large-v3's: summation order only
                      # (1.2e-6 on the CPU); the control, every cached call
                      # writing its keys one slot late, read 0.21 there
+
+TOL_ENGINE_MARGIN = 0.25  # the serving engine's greedy ids against a
+                     # forward over each request's own prompt (as the
+                     # engine's prefill runs it) and its emitted ids (in one
+                     # call, weight-only int8 products: the decode step's
+                     # numerics; with ORCA the PyTorch injection): where the
+                     # reference's argmax is not the emitted id, its top
+                     # logit less the emitted id's, in logit units (random
+                     # weights: logits of ~1.3 std, top-2 gaps of a few
+                     # tenths; the bf16 tower read <= 0.089); the control,
+                     # each row's ids on another row's prompt, read 7.5-8.9.
+                     # A reference with the prompt too in weight-only int8
+                     # (the engine's prefill quantizes activations, W8A8)
+                     # read 0.47 on the int8 tower
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
@@ -3438,6 +3486,8 @@ def run_orca(model, convs, gpu):
           f"(plain greedy: {times[2]['decode_ms'] / max(plain_tokens, 1):.3f}"
           f"); leading ids equal to the plain greedy run (information): "
           f"{agree} of 32", flush=True)
+    # -- 20d. the serving engine on the ORCA model ----------------------------
+    run_engine_orca(orca, convs, gpu)
     return launched, inj_kernels, k9_counts
 
 
@@ -4695,6 +4745,367 @@ def mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
     return 0
 
 
+# -- the serving engine (phases 12f, 16a-16d, 20d) ---------------------------
+
+def engine_convs(wavs, n: int, text_only=()):
+    """n conversations for the engine: phase 6's four with their prompt and
+    transcription varied by index, text-only at the indices ``text_only``."""
+    import copy
+    base = conversations(wavs)
+    out = []
+    for i in range(n):
+        if i in text_only:
+            out.append([{"role": "user", "content":
+                         f"Name {i % 7 + 2} colours of the rainbow."}])
+            continue
+        conv = copy.deepcopy(base[i % 4])
+        conv[-1]["content"] += f" (request {i})"
+        for a in conv[-1]["audios"]:
+            a["text"] = f"{a['text']} number {i}"
+        out.append(conv)
+    return out
+
+
+def submit_all(eng, convs, many: bool = True, **kw):
+    """Submit ``convs`` (one submit_many, or one submit each); returns the
+    ids and {rid: the engine's queued request} (its embeddings and ORCA
+    tokens, kept for the gate)."""
+    n0 = len(eng.queue)
+    rids = (eng.submit_many(convs, **kw) if many
+            else [eng.submit(c, **kw) for c in convs])
+    return rids, {r.rid: r for r in eng.queue[n0:]}
+
+
+def one_shot_margins(model, req, ids):
+    """The engine's gate reference for one request, a forward over its own
+    prefix in two calls on one cache: its bucketed prompt (left padding
+    masked, positions from 0) as the engine's prefill runs it (the int8
+    tower's products through W8A8 from 128 rows), then every emitted id
+    but the last in one call at the prompt's end with weight-only int8
+    products (``w8a8=False``, the decode step's numerics), ORCA's injection
+    through the PyTorch hook on the request's RoPE'd audio tokens.  Returns,
+    per emitted id, the reference's top logit less the id's (0 where the id
+    is the argmax), numpy [n]."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.models.orca import (
+        gated_cross_attention_apply, precompute_cross_kv)
+    from desta25_audio_tpu_torch.ops.core import index_tree
+    llm, cfg = model.params["llm"], model.llm_cfg
+    e = req.embeds
+    dev, Tb = e.device, e.shape[1]
+    y = torch.tensor(ids, dtype=torch.long, device=dev)
+    n = y.shape[0]
+    S = -(-(Tb + n) // 128) * 128
+    cache = tllm.init_kv_cache(cfg, 1, S, e.dtype, dev)
+    mask = torch.zeros(1, S, dtype=torch.int32, device=dev)
+    mask[0, Tb - req.ctx_len:Tb + n - 1] = 1
+    extra = None
+    if req.inject is not None:
+        xa = model.params["orca_cross_attns"]
+        k, v = precompute_cross_kv(xa, req.inject)
+        k, v = k.to(e.dtype), v.to(e.dtype)
+
+        def extra(l, h):
+            return gated_cross_attention_apply(
+                index_tree(xa["layers"], l), h, None,
+                cfg.num_attention_heads, cached_kv=(k[l], v[l]))
+    pos = torch.clamp(torch.cumsum(mask[:, :Tb], 1) - 1, min=0)
+    lg, cache = tllm.llm_apply(llm, cfg, inputs_embeds=e,
+                               attention_mask=mask, positions=pos,
+                               cache=cache, cache_index=0,
+                               extra_layer_fn=extra)
+    lg = [lg[0, -1:]]
+    if n > 1:
+        step, _ = tllm.llm_apply(
+            llm, cfg, input_ids=y[None, :-1], attention_mask=mask,
+            positions=req.ctx_len + torch.arange(n - 1, device=dev)[None],
+            cache=cache, cache_index=Tb, extra_layer_fn=extra, w8a8=False)
+        lg.append(step[0])
+    lg = torch.cat(lg)
+    return (lg.max(-1).values - lg.gather(-1, y[:, None])[:, 0]
+            ).float().cpu().numpy()
+
+
+def engine_gate(tag: str, model, rows) -> float:
+    """The teacher-forced gate of an engine's greedy rows ``rows`` [(the
+    queued request, its emitted ids)]: every emitted id is the one-shot
+    forward's argmax at its own prefix or within TOL_ENGINE_MARGIN of it;
+    the margins are printed.  The control, each row's ids checked against
+    the next row's prompt, must fail the gate.  Returns the largest
+    margin."""
+    import torch
+    worst, parted = 0.0, []
+    with torch.no_grad():
+        for req, ids in rows:
+            m = one_shot_margins(model, req, ids)
+            worst = max(worst, float(m.max()))
+            parted += [round(float(v), 4) for v in m if v > 0]
+        ctl = 0.0
+        for (_, ia), (rb, ib) in zip(rows, rows[1:] + rows[:1]):
+            n = min(len(ia), len(ib))
+            ctl = max(ctl, float(one_shot_margins(model, rb, ia[:n]).max()))
+    n_ids = sum(len(ids) for _, ids in rows)
+    print(f"{tag}: teacher-forced gate over {len(rows)} greedy rows, {n_ids}"
+          f" ids: {n_ids - len(parted)} the one-shot argmax, the others at "
+          f"margins {sorted(parted, reverse=True)[:24]} (worst {worst:.4f}, "
+          f"tol {TOL_ENGINE_MARGIN}); control (each row's ids on the next "
+          f"row's prompt) "
+          f"{ctl:.4f}", flush=True)
+    if worst > TOL_ENGINE_MARGIN:
+        raise AssertionError(f"{tag}: an engine greedy id is {worst} below "
+                             "the one-shot forward's argmax")
+    if ctl <= TOL_ENGINE_MARGIN:
+        raise AssertionError(f"{tag}: the gate passes another row's ids "
+                             f"({ctl})")
+    return worst
+
+
+def require_engine_replays(tag: str, eng, counts, tower: str,
+                           inject: bool = False) -> int:
+    """The engine's decode ran as replays of its one graph: captured once,
+    one ``decode_graph`` replay for each decode step but the first, the
+    tower's launches (7 a layer a step; K8i's 5 more) those of every step,
+    so none ran eagerly after the first; no torch path.  Returns the step
+    count."""
+    from desta25_audio_tpu_torch.ops import _build
+    L = eng.cfg.num_hidden_layers
+    steps = eng._n_plain_ticks * eng.steps_per_tick
+    want = {"decode_graph": steps - 1, tower: 7 * L * steps}
+    if inject:
+        want["fused_decode_inject"] = 5 * L * steps
+    got = {k: counts.get(k, 0) for k in want}
+    if eng.graph.captures != 1 or got != want:
+        raise AssertionError(f"{tag}: {eng.graph.captures} captures, "
+                             f"launches {got} for {steps} steps ({want})")
+    if _build.fallback_counts():
+        raise AssertionError(f"{tag}: torch paths taken: "
+                             f"{_build.fallback_counts()}")
+    return steps
+
+
+def check_finished(tag: str, model, info, rids, reasons=("eos", "length")):
+    V = model.llm_cfg.vocab_size
+    for rid in rids:
+        r = info[rid]
+        if (r["finish_reason"] not in reasons or not r["tokens"]
+                or min(r["tokens"]) < 0 or max(r["tokens"]) >= V):
+            raise AssertionError(f"{tag}: request {rid}: {r['finish_reason']}"
+                                 f", {len(r['tokens'])} tokens")
+
+
+def run_engine_bf16(model, wavs, gpu) -> None:
+    """Phase 12f: the engine on the bf16 tower: 4 slots, K = 8, 4 greedy
+    requests of 32 new tokens; K8 runs as the replays of one graph, and the
+    gate holds."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, n_slots=4, max_ctx=256,
+                                   max_new_tokens=32, ctx_bucket=64)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids, reqs = submit_all(eng, engine_convs(wavs, 4))
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    steps = require_engine_replays("bf16 engine", eng, counts,
+                                   "fused_decode_layers")
+    check_finished("bf16 engine", model, info, rids)
+    print(f"bf16 engine ({gpu}): 4 requests in {eng._n_plain_ticks} ticks "
+          f"({steps} steps, capture {eng.graph.capture_ms:.1f} ms), "
+          f"{wall * 1e3:.1f} ms; launches {json.dumps(counts)}", flush=True)
+    engine_gate("bf16 engine", model,
+                [(reqs[r], info[r]["tokens"]) for r in rids])
+    eng.close()
+    # the engine turned on the model's feature cache (as the JAX engine
+    # does); the phases after it count perception launches
+    model.enable_audio_cache(0)
+
+
+def run_engine(model, wavs, gpu) -> None:
+    """Phases 16a-16d on the model's int8 encoder and int8 LLM."""
+    import torch
+    from desta25_audio_tpu_torch.bench_serving import serving_ticks
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    sampled = dict(temperature=0.7, top_p=0.9, do_sample=True)
+    convs = engine_convs(wavs, 24, text_only=(6, 18))
+    # -- 16a. 24 requests into 16 slots, half of them arriving mid-run -------
+    eng = ContinuousBatchingEngine(model, n_slots=16, max_ctx=256,
+                                   max_new_tokens=64, ctx_bucket=64,
+                                   steps_per_tick=8)
+    if eng.t_max != 384:
+        raise AssertionError(f"engine t_max {eng.t_max}")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids, reqs = submit_all(eng, convs[:12])
+    for i, rid in enumerate(rids):
+        if i % 2:   # every other request sampled (one submit_many: set here)
+            for k, v in sampled.items():
+                setattr(reqs[rid], k, v)
+    eng.step()
+    eng.step()
+    for j, conv in enumerate(convs[12:]):
+        r, q = submit_all(eng, [conv], **(sampled if j % 2 else {}))
+        rids += r
+        reqs.update(q)
+        if j % 2:
+            eng.step()
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    kcounts = _build.kernel_counts()
+    steps = require_engine_replays("int8 engine", eng, counts,
+                                   "fused_decode_layers_int8")
+    if counts.get("fused_decode_layers", 0):
+        raise AssertionError("int8 engine: the bf16 K8 was launched")
+    check_finished("int8 engine", model, info, rids)
+    greedy = [r for r in rids if not reqs[r].do_sample]
+    ttft = np.asarray([eng.first_token_s[r] * 1e3 for r in rids])
+    n_tok = sum(len(info[r]["tokens"]) for r in rids)
+    print(f"int8 engine, 16 slots, K = 8, 24 requests (12 submit_many, 12 "
+          f"while decoding, every other sampled 0.7 / 0.9, 2 text-only) "
+          f"({gpu}): {eng._n_plain_ticks} ticks ({steps} steps, one capture "
+          f"of {eng.graph.capture_ms:.1f} ms), {n_tok} tokens in "
+          f"{wall * 1e3:.1f} ms = {n_tok / wall:.1f} tokens/s; time to the "
+          f"first token p50 {np.percentile(ttft, 50):.1f} ms, p90 "
+          f"{np.percentile(ttft, 90):.1f} ms (submit to first token, host "
+          f"clock); finish reasons "
+          f"{sorted(info[r]['finish_reason'] for r in rids)}; launches "
+          f"{json.dumps(counts)}; kernels {json.dumps(kcounts)}", flush=True)
+    engine_gate("int8 engine", model,
+                [(reqs[r], info[r]["tokens"]) for r in greedy])
+    eng.close()
+
+    # -- 16b. equal trajectories within one engine configuration -------------
+    eight = [c for i, c in enumerate(convs) if i % 2 == 0][:8]
+
+    def trajectory(pipeline, k, many=True):
+        e = ContinuousBatchingEngine(model, n_slots=16, max_ctx=256,
+                                     max_new_tokens=24, ctx_bucket=64,
+                                     steps_per_tick=k,
+                                     pipeline_ticks=pipeline)
+        ids, _ = submit_all(e, eight, many)
+        e.run_until_done()
+        out = e.results()
+        if e.graph.captures != 1:
+            raise AssertionError(f"engine {pipeline, k}: "
+                                 f"{e.graph.captures} captures")
+        e.close()
+        return [out[r]["tokens"] for r in ids]
+
+    base = trajectory(True, 8)
+    runs = {"pipeline_ticks=False": trajectory(False, 8),
+            "steps_per_tick=1": trajectory(True, 1),
+            "submit": trajectory(True, 8, many=False)}
+    for name, ids in runs.items():
+        if ids != base:
+            raise AssertionError(f"engine trajectories differ under {name}")
+    print(f"int8 engine: 8 greedy requests x 24 tokens identical with "
+          f"pipelining on / off, 8 / 1 steps a tick, submit_many / submit",
+          flush=True)
+
+    # -- 16c. slot reuse under pipelining, then a slot at the cache's end ----
+    eng = ContinuousBatchingEngine(model, n_slots=4, max_ctx=256,
+                                   max_new_tokens=64, ctx_bucket=64,
+                                   steps_per_tick=8)
+    rids, reqs = submit_all(eng, eight[:4])
+    for _ in range(3):
+        eng.step()
+    victim = rids[1]
+    slot = reqs[victim].slot
+    if not eng.cancel(victim):
+        raise AssertionError("engine: cancel of a running request failed")
+    r, q = submit_all(eng, [eight[4]])
+    rids += r
+    reqs.update(q)
+    eng.run_until_done()
+    info = eng.results()
+    kept = len(info[victim]["tokens"])
+    if (info[victim]["finish_reason"] != "cancelled" or not 0 < kept < 64
+            or reqs[r[0]].slot != slot):
+        raise AssertionError(f"engine cancel: {info[victim]['finish_reason']}"
+                             f", {kept} tokens, newcomer in slot "
+                             f"{reqs[r[0]].slot} (freed {slot})")
+    check_finished("engine slot reuse", model, info,
+                   [x for x in rids if x != victim])
+    engine_gate("engine slot reuse", model,
+                [(reqs[x], info[x]["tokens"]) for x in rids if x != victim])
+    r, q = submit_all(eng, [eight[5]])
+    eng.step()
+    eng.slot_pos[q[r[0]].slot] = eng.t_max - 3
+    eng.step()
+    info = eng.results()
+    torch.cuda.synchronize()
+    if info[r[0]]["finish_reason"] != "cache_full" or not info[r[0]][
+            "truncated"]:
+        raise AssertionError(f"engine: a slot at t_max - 3 ended "
+                             f"{info[r[0]]['finish_reason']}")
+    print(f"int8 engine slot reuse: the cancelled request kept {kept} "
+          f"tokens, the newcomer took its slot {slot}; a slot forced to "
+          f"t_max - 3 ended cache_full with {len(info[r[0]]['tokens'])} "
+          f"tokens", flush=True)
+    eng.close()
+
+    # -- 16d. decode-only ticks with every slot busy --------------------------
+    with torch.no_grad():
+        for b in (8, 16, 32):
+            serving_ticks(model.params["llm"], model.llm_cfg, b, gpu=gpu)
+    model.enable_audio_cache(0)
+
+
+def run_engine_orca(orca, convs, gpu) -> None:
+    """Phase 20d: the engine on the ORCA model with its int8 stack and int8
+    LLM: 4 slots, 3 audio requests (one submit_many) and a text-only one
+    (on = 0); K8i inside the graph's replays; the gate per row."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(orca, n_slots=4, max_ctx=256,
+                                   max_new_tokens=32, ctx_bucket=64)
+    if eng._fspec is None:
+        raise AssertionError("ORCA engine: the decode step does not inject "
+                             "inside its kernels (K8i)")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids, reqs = submit_all(eng, convs[:3])
+    r, q = submit_all(eng, [[{"role": "user",
+                              "content": "Name three rivers."}]])
+    rids += r
+    reqs.update(q)
+    eng.step()
+    on = {x.rid: float(eng.inject_on[s])
+          for s, x in enumerate(eng.slot_req) if x is not None}
+    if on != {rids[0]: 1.0, rids[1]: 1.0, rids[2]: 1.0, rids[3]: 0.0}:
+        raise AssertionError(f"ORCA engine on flags {on}")
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    kcounts = _build.kernel_counts()
+    steps = require_engine_replays("ORCA engine", eng, counts,
+                                   "fused_decode_layers_int8", inject=True)
+    L = eng.cfg.num_hidden_layers
+    if kcounts.get("inject_attention", 0) != L * steps:
+        raise AssertionError(f"ORCA engine: K8i kernels {kcounts}")
+    check_finished("ORCA engine", orca, info, rids)
+    print(f"ORCA engine (int8 stack, K8i; Ta {eng._inject_len} audio tokens "
+          f"a slot, buffers padded to {eng.inject_k.shape[2]}) ({gpu}): 3 "
+          f"audio + 1 text-only "
+          f"requests, {eng._n_plain_ticks} ticks ({steps} steps, capture "
+          f"{eng.graph.capture_ms:.1f} ms), {wall * 1e3:.1f} ms; launches "
+          f"{json.dumps(counts)}", flush=True)
+    engine_gate("ORCA engine", orca,
+                [(reqs[x], info[x]["tokens"]) for x in rids])
+    eng.close()
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -4817,6 +5228,11 @@ def main() -> int:
     print(f"ASR phases 12a-12e took {time.perf_counter() - t_asr:.1f} s",
           flush=True)
 
+    # -- 12f. the serving engine on the bf16 tower ----------------------------
+    t_eng = time.perf_counter()
+    run_engine_bf16(model, wavs, gpu)
+    engine_s = time.perf_counter() - t_eng
+
     # -- 13. the int8 LLM's kernels vs plain, on a quantized copy ------------
     from desta25_audio_tpu_torch.ops.quant import quantize_llm_params
     with torch.no_grad():
@@ -4840,6 +5256,12 @@ def main() -> int:
         # -- 14-16. the int8 LLM in generate(), plain and speculative -------
         llm_launches, spec_launches, _, attn_launches = run_int8_llm(
             model, convs, gpu)
+
+    # -- 16a-16d. the serving engine on the int8 encoder and LLM -------------
+    t_eng = time.perf_counter()
+    run_engine(model, wavs, gpu)
+    engine_s += time.perf_counter() - t_eng
+    with torch.no_grad():
 
         # -- 17. K8i vs plain; 18-20. ORCA generate() ------------------------
         k8i, k8i_attn, k8i_gate = check_fused_inject(
@@ -4869,7 +5291,8 @@ def main() -> int:
     # -- 26. ORCA training at full width --------------------------------------
     run_orca_training(gpu, tmp.name)
     tmp.cleanup()
-    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"total {time.perf_counter() - t_start:.1f} s (the serving engine's "
+          f"phases 12f and 16a-16d: {engine_s:.1f} s)", flush=True)
 
     # K2's entry: the worse error of its two shapes, the times, bound and
     # scaled_dot_product_attention time of the self-attention shape; K8's:

@@ -106,6 +106,44 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator,
     return _top_p_sample(scaled, generator, top_p)
 
 
+def _argmax_categorical(logits: torch.Tensor,
+                        generator: torch.Generator) -> torch.Tensor:
+    """One draw a row from softmax(logits) [B, n], -inf allowed: the argmax
+    of logits - log(E), E ~ Exp(1) (the Gumbel-max rule), so that nothing
+    reads a value back to the host (``torch.multinomial`` checks its input
+    on the host)."""
+    e = torch.empty_like(logits, dtype=torch.float32).exponential_(
+        1.0, generator=generator)
+    return torch.argmax(logits.float() - torch.log(e), dim=-1)
+
+
+def sample_token_dynamic(logits: torch.Tensor, generator: torch.Generator,
+                         temperature: torch.Tensor, top_p: torch.Tensor,
+                         do_sample: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling with the parameters as tensors (the JAX package's
+    ``sample_token_dynamic``, ``decode.py:91-114``), so that one decode batch
+    mixes greedy and sampled requests: logits [B, V] f32; temperature and
+    top_p [B] f32, do_sample [B] bool on logits' device -> [B] int64.
+    Greedy rows take the exact argmax; sampled rows with top_p < 1 the
+    256-candidate nucleus normalised by the full-vocab logsumexp (as
+    :func:`_top_p_sample`), those with top_p >= 1 the full-vocab categorical.
+    Every row draws from ``generator`` (two draws a call), and no value
+    reaches the host, so the call never blocks the stream."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
+    k = min(_TOP_P_CANDIDATES, scaled.shape[-1])
+    topv, topi = torch.topk(scaled, k, dim=-1)
+    lse = torch.logsumexp(scaled, dim=-1, keepdim=True)
+    probs = torch.exp(topv - lse)
+    keep = torch.cumsum(probs, dim=-1) - probs < top_p[:, None]
+    masked = torch.where(keep, topv, torch.full_like(topv, float("-inf")))
+    nucleus = torch.gather(topi, -1, _argmax_categorical(
+        masked, generator)[:, None])[:, 0]
+    full = _argmax_categorical(scaled, generator)
+    sampled = torch.where(top_p >= 1.0, full, nucleus)
+    return torch.where(do_sample, sampled, greedy)
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -46,10 +46,17 @@ Launch counts: what the capture counted is taken back out of the counters
 and added again at every replay, with one ``decode_graph`` launch a graph
 launch, so that ``_build.launch_counts()`` and ``kernel_counts()`` read as
 on the eager path.  Pointers and TMA maps enter the graph by value: the
-weights, the cache, the mask, the injection's audio K/V and the static
-inputs must not move while the graph lives, which is one ``llm_generate``
-call; :meth:`DecodeGraph.close` frees the graphs and their memory pools.
-A failed capture or replay raises; nothing falls back to the eager step.
+weights, the cache, the mask, the injection's audio K/V and ``on`` flags
+and the static inputs must not move while the graph lives.  For
+``llm_generate`` that is one call, whose rows all write at one cache index
+a step; the serving engine (``serve/engine.py``) keeps one graph for its
+whole life over its own fixed buffers ([L, n_slots, t_max] cache, [n_slots,
+t_max] mask, ORCA's Ta-padded audio K/V and per-slot ``on``), each row
+writing at its own cache index (a [B] int32 device tensor), and changes
+slots by writing into those buffers in place, so it captures once
+(``captures``) however its slots come and go.  :meth:`DecodeGraph.close`
+frees the graphs and their memory pools.  A failed capture or replay
+raises; nothing falls back to the eager step.
 Under a mesh the all-reduce's error words are read once, by
 :meth:`DecodeGraph.check` at the end of the call.
 """
@@ -162,10 +169,15 @@ class CardStep:
         self.pos = torch.zeros(B, 1, dtype=torch.long, device=dev)
         self.ci = torch.zeros(B, dtype=torch.int32, device=dev)
 
-    def fill(self, x: torch.Tensor, pos: torch.Tensor, ci: int) -> None:
+    def fill(self, x: torch.Tensor, pos: torch.Tensor, ci) -> None:
+        """ci: every row's cache write position (an int) or each row's (a
+        [B] int32 tensor on the device)."""
         self.x.copy_(x)
         self.pos.copy_(pos)
-        self.ci.fill_(ci)
+        if torch.is_tensor(ci):
+            self.ci.copy_(ci)
+        else:
+            self.ci.fill_(ci)
 
     def run(self, head, only=None):
         hidden, _ = fused_decode_layers(self.params, self.cfg, self.x,
@@ -227,6 +239,7 @@ class DecodeGraph:
         self.logits = None
         self.counts = None
         self.capture_ms = 0.0
+        self.captures = 0
 
     def _head(self, tree, hidden):
         return tllm.head_logits(tree, rms_norm(tree["norm"], hidden,
@@ -243,9 +256,11 @@ class DecodeGraph:
         return torch.cat([o.to(self.mask.device) for o in out])
 
     def step(self, cur: torch.Tensor, pos: torch.Tensor,
-             write_idx: int) -> torch.Tensor:
+             write_idx) -> torch.Tensor:
         """One decode step: tokens ``cur`` [B] at RoPE positions ``pos``
-        [B], every row's k/v written at cache position ``write_idx``."""
+        [B], the k/v written at cache position ``write_idx``: an int for
+        every row, or a [B] int32 device tensor, a position a row (a
+        position past the cache is not written)."""
         self.stepper.fill(tllm.embed_tokens(self.params, cur[:, None]),
                           pos[:, None], write_idx)
         if not self.capture:
@@ -269,6 +284,7 @@ class DecodeGraph:
         self.logits = self.cards.capture(self._run)
         self.counts = _build.take_counts(before)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.captures += 1
 
     def check(self) -> None:
         """Under a mesh, raise RuntimeError if an all-reduce of the call's

@@ -666,6 +666,42 @@ class DeSTA25AudioModel:
             out += (np.where(kind == 2, trans_ids[aidx, pos_c], input_ids),)
         return out
 
+    def _prepare_generation_inputs(self, messages_list):
+        """Host phases A+B and device perception and splice for a batch of
+        conversations: the serving engine's entry point (the JAX package's
+        ``_prepare_generation_inputs``, ``desta.py:381-413``), through the
+        feature cache when it is on.  Returns (inputs_embeds [B, T, D],
+        attention_mask [B, T] int32 on the device, ORCA's injection tokens
+        [B, Ta, D] or None, prompt ids [B, T] host int32 with each
+        transcription's ids at its splice positions).  A text-only batch
+        takes the chat-template path (modeling_desta25.py:1686-1703)."""
+        with torch.no_grad():
+            prep = self._run_generation_phases(messages_list, {},
+                                               return_prompt_ids=True)
+            if prep is None:
+                embeds, mask, ids = self._chat_inputs(messages_list)
+                return embeds, mask, None, ids.astype(np.int32)
+            embeds, mask, aux, _, _, prompt_ids = prep
+            return (embeds, mask, self._orca_inject_tokens(aux),
+                    np.asarray(prompt_ids, np.int32))
+
+    def _chat_inputs(self, messages_list):
+        """A text-only batch's inputs (modeling_desta25.py:1686-1703): the
+        chat template's left-padded ids [B, T] (numpy int64), their
+        embeddings and the mask on the model's device."""
+        tk = self.tokenizer
+        texts = tk.apply_chat_template(messages_list, tokenize=False,
+                                       add_generation_prompt=True)
+        if isinstance(texts, str):
+            texts = [texts]
+        enc = tk(texts, padding="longest", add_special_tokens=False)
+        ids = np.asarray(enc["input_ids"], np.int64)
+        embeds = tllm.embed_tokens(self.params["llm"],
+                                   torch.as_tensor(ids, device=self.device))
+        mask = torch.as_tensor(np.asarray(enc["attention_mask"], np.int32),
+                               device=self.device)
+        return embeds, mask, ids
+
     def _terminators(self) -> Tuple[int, ...]:
         tk = self.tokenizer
         terms = {tk.eos_token_id}
@@ -716,18 +752,7 @@ class DeSTA25AudioModel:
         prep = self._run_generation_phases(messages_list, timings,
                                            return_prompt_ids=True)
         if prep is None:  # text-only chat (modeling_desta25.py:1686-1721)
-            texts = tk.apply_chat_template(messages_list, tokenize=False,
-                                           add_generation_prompt=True)
-            if isinstance(texts, str):
-                texts = [texts]
-            enc = tk(texts, padding="longest", add_special_tokens=False)
-            prompt_ids = np.asarray(enc["input_ids"], np.int64)
-            embeds = tllm.embed_tokens(
-                self.params["llm"],
-                torch.as_tensor(prompt_ids, device=self.device))
-            attn_mask = torch.as_tensor(
-                np.asarray(enc["attention_mask"], np.int32),
-                device=self.device)
+            embeds, attn_mask, prompt_ids = self._chat_inputs(messages_list)
             audios, transcripts, aux = [], [], None
         else:
             embeds, attn_mask, aux, audios, transcripts, prompt_ids = prep

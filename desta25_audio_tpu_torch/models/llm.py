@@ -186,10 +186,14 @@ def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
         # the cache-less forward: the JAX dispatch (flash at T >= 512)
         out = attn.mha(q, k, v, causal=True, attention_mask=attention_mask)
         return out.reshape(B, T, HD)
-    # write the T new rows at each row's offset, then attend the cache
+    # write the T new rows at each row's offset, then attend the cache; an
+    # offset is clamped to [0, S - T] as JAX's dynamic_update_slice clamps
+    # its start (llm.py:213-224), so a write past the end lands on the last
+    # rows instead of raising
     ck, cv = cache.k[l], cache.v[l]
     rows = torch.arange(B, device=x.device)[:, None]
-    cols = ci[:, None] + torch.arange(T, device=x.device)[None, :]
+    start = torch.clamp(ci, 0, max(ck.shape[1] - T, 0))
+    cols = start[:, None] + torch.arange(T, device=x.device)[None, :]
     ck[rows, cols] = k.reshape(B, T, KVD).to(ck.dtype)
     cv[rows, cols] = v.reshape(B, T, KVD).to(cv.dtype)
     S = ck.shape[1]
@@ -373,7 +377,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     positions [B, T] RoPE positions; default cumsum(mask)-1 without a
     cache, cache_index + arange(T) with one.  With a cache the new k/v rows
     land at ``cache_index`` (int or [B]) and the queries attend the whole
-    cache under a causal-by-position mask.
+    cache under a causal-by-position mask.  On the layer loop a row's write
+    start is clamped to [0, S - T] (JAX's ``dynamic_update_slice``); the
+    fused decode step drops the positions past S instead.
 
     extra_layer_fn(l, h) -> h runs after every layer (ORCA's injection in
     PyTorch); with ``extra_aux_init`` (the cache-less forward only) it is

@@ -32,7 +32,10 @@ Whisper ASR: a 2-layer f32 copy of whisper-large-v3's decoder, its cached
 steps against the full forward beside a cache written one slot late, and
 ``generate()`` with ASR on whisper-large-v3 and a nano LLM, whose K1 and
 encoder-kernel launches are those of the call with transcriptions plus one
-more mel and encoder pass, then a feature-cache hit that launches none).
+more mel and encoder pass, then a feature-cache hit that launches none);
+the serving engine's kept decode graph on a nano int8 tower: captured once
+while requests come and go, its tokens equal the eager engine's, beside a
+control that places admissions into a new cache tensor and must part).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -2060,3 +2063,88 @@ def test_asr_feature_cache_hit_launches_no_perception_kernel(asr_model):
     assert "asr_steps" not in model.last_timings
     assert second.generated_ids == first.generated_ids
     assert second.audios == first.audios
+
+
+# -- the serving engine's kept decode graph (serve/engine.py) ----------------
+
+def _engine_run(model, graph: bool, engine_cls=None, pipeline=True):
+    """Six requests of 4-12 new tokens through 3 slots, 3 steps a tick, two
+    of them submitted mid-run: the slot set changes across ticks.  Returns
+    (each request's tokens, the engine, the launch counts)."""
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    cls = engine_cls or ContinuousBatchingEngine
+    eng = cls(model, n_slots=3, max_ctx=128, max_new_tokens=12,
+              ctx_bucket=64, steps_per_tick=3, decode_graph=graph,
+              pipeline_ticks=pipeline)
+    texts = [f"Tell me about the number {i}." for i in range(6)]
+    _build.reset_launch_counts()
+    rids = [eng.submit([{"role": "user", "content": t}],
+                       max_new_tokens=4 + 2 * i)
+            for i, t in enumerate(texts[:4])]
+    eng.step()
+    eng.step()
+    rids += [eng.submit([{"role": "user", "content": t}]) for t in texts[4:]]
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    return [info[r]["tokens"] for r in rids], eng, counts
+
+
+@pytest.fixture(scope="module")
+def engine_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written Hopper kernels)")
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    cfg = DeSTA25Config(llm_model_id="test/llama-nano128",
+                        encoder_model_id="test/whisper-nano",
+                        qformer_num_hidden_layers=2, prompt_size=8,
+                        dtype="bfloat16", llm_quant="int8")
+    return DeSTA25AudioModel(cfg, device="cuda", seed=3)
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_engine_graph_captures_once_and_matches_eager(engine_model,
+                                                      pipeline):
+    """The engine's decode steps as replays of the one graph it keeps:
+    captured once while requests come and go, one decode_graph replay for
+    each step but the first, the K8-int8 launches every step's; the
+    tokens equal the same engine's with every step eager."""
+    eager, e_eng, e_n = _engine_run(engine_model, graph=False,
+                                    pipeline=pipeline)
+    got, g_eng, g_n = _engine_run(engine_model, graph=True,
+                                  pipeline=pipeline)
+    steps = g_eng._n_plain_ticks * g_eng.steps_per_tick
+    L = g_eng.cfg.num_hidden_layers
+    assert g_eng.graph.captures == 1 and g_eng.graph.capture_ms > 0
+    assert e_eng.graph.captures == 0
+    assert g_n.pop("decode_graph") == steps - 1
+    assert g_n["fused_decode_layers_int8"] == 7 * L * steps
+    assert g_n == e_n
+    assert got == eager
+    assert all(len(t) >= 1 for t in got)
+    g_eng.close()
+    with pytest.raises(RuntimeError, match="closed"):
+        g_eng.step()
+
+
+def test_engine_graph_check_binds_on_a_rebound_cache(engine_model):
+    """Control: an engine that places each admission's K/V into a new
+    cache tensor (out of place, as a functional update would) leaves its
+    graph reading the old one: its replayed tokens part from the eager
+    engine's (which places them in place), so the equality of the test
+    above binds."""
+    from desta25_audio_tpu_torch.ops.fused_decode import KVCache
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    class Rebinding(ContinuousBatchingEngine):
+        def _place(self, sl, pcache, inj_k, inj_v):
+            R = sl.shape[0]
+            self.cache = KVCache(
+                self.cache.k.index_copy(1, sl, pcache.k[:, :R]),
+                self.cache.v.index_copy(1, sl, pcache.v[:, :R]))
+
+    eager, _, _ = _engine_run(engine_model, graph=False)
+    got, eng, _ = _engine_run(engine_model, graph=True, engine_cls=Rebinding)
+    assert eng.graph.captures == 1
+    assert got != eager

@@ -109,6 +109,47 @@ def test_decode_step_matches_llm_apply_bit_for_bit(kind):
         assert not torch.equal(got[0], plain[0])
 
 
+@pytest.mark.parametrize("kind", ["int8", "orca"])
+def test_graph_step_with_row_write_positions_matches_llm_apply(kind):
+    """DecodeGraph.step with a [B] int32 write-position tensor (the serving
+    engine's kept step: rows at 40, 90, the cache's last position and one
+    past it, which is not written) equals llm_apply's step with
+    cache_index=[B], logits and cache bit for bit, on the step's own mask
+    and cache buffers across two steps."""
+    gen = torch.Generator().manual_seed(5)
+    cfg, params, spec = _tower(kind, gen)
+    B, S = 4, 128
+    if spec is not None:
+        kv = torch.randn(2, cfg.num_hidden_layers, B, 24, cfg.hidden_size,
+                         generator=gen).bfloat16()
+        spec = dict(spec, k=kv[0], v=kv[1], ta_real=21,
+                    on=torch.tensor([1.0, 0.0, 1.0, 1.0]))
+    shape = (cfg.num_hidden_layers, B, S,
+             cfg.num_key_value_heads * cfg.head_dim)
+    cache0 = KVCache(torch.randn(shape, generator=gen).bfloat16(),
+                     torch.randn(shape, generator=gen).bfloat16())
+    mask = (torch.rand(B, S, generator=gen) > 0.2).int()
+    ca = KVCache(cache0.k.clone(), cache0.v.clone())
+    cb = KVCache(cache0.k.clone(), cache0.v.clone())
+    graph = tgraph.DecodeGraph(params, cfg, mask, ca, spec, capture=True)
+    ci = torch.tensor([40, 90, S - 1, S], dtype=torch.int32)
+    for step in range(2):
+        ids = torch.randint(2, cfg.vocab_size, (B,), generator=gen)
+        pos = ci.long() + 3
+        got = graph.step(ids, pos, ci)
+        want, _ = tllm.llm_apply(params, cfg, input_ids=ids[:, None],
+                                 attention_mask=mask, positions=pos[:, None],
+                                 cache=cb, cache_index=ci,
+                                 fused_injection=spec)
+        assert torch.equal(got, want[:, 0])
+        assert torch.equal(ca.k, cb.k) and torch.equal(ca.v, cb.v)
+        ci = ci + 1
+    assert graph.captures == 0            # the CPU runs the step eagerly
+    assert torch.equal(ca.k[:, :, S - 1:], cb.k[:, :, S - 1:])
+    assert torch.equal(ca.k[:, 3], cache0.k[:, 3])   # past the end: kept
+    assert not torch.equal(ca.k[:, 0], cache0.k[:, 0])
+
+
 def _nano_cfgs():
     kw = dict(model_id="test/graph-nano", vocab_size=512, hidden_size=512,
               intermediate_size=768, num_hidden_layers=2,
