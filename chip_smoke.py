@@ -168,6 +168,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     (``bench_serving.serving_ticks``): ms a tick, tokens/s, device time a
     tick and idle share, the step's kernels against the sampling and glue,
     the graph's replay alone, the step's byte bound;
+16e. the spec engine (``speculative_k=4``, ``adaptive_spec=False``) at 4
+    and 16 slots, 32 greedy tokens a request: its verify steps replays of
+    one verify graph captured once, K8v at B = n_slots and its launches
+    those of every verify step, K8-int8 not launched, no torch path; the
+    gate per row; ms a tick, tokens a verify step and tokens/s beside the
+    plain engine's; at 4 slots a drafter that proposes the plain engine's
+    own ids must accept more than one token a step (mean > 1.5, max 4),
+    its rows through the gate; then the spec tick alone beside the plain
+    one (``bench_serving.spec_ticks``: T_spec / T_plain, the verify
+    replay, the byte bound);
+16f. 16a's arrival run on the adaptive spec engine (the defaults,
+    ``speculative_k=4``): the tick mix, the controller's tick-duration
+    EMAs, each graph captured at most once, the greedy rows through the
+    gate;
+16g. the HTTP front end (``serve/http.start_http``) on the int8 engine at
+    8 slots: 8 concurrent clients (4 on /v1/generate, 4 on
+    /v1/chat/completions, inline base64 WAVs, 2 streaming), health during
+    them, then a streaming request cancelled by its id
+    (``DELETE /v1/requests/<id>``); every answer an engine result, every
+    row through the gate; the time to the first SSE token and to the
+    whole answer, p50 / p90;
 17. K8i, the decode / verify step with the ORCA injection inside, against
     its plain version: the 32-layer int8 Llama-3.1-8B tower with a random
     int8 cross-attention stack, B=2, S=256, per-row ci, Ta=375 audio
@@ -213,7 +234,8 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     requests (one ``submit_many``) and a text-only one (``on`` = 0): K8i
     inside the graph's replays (its launches and its attention's those of
     every step), the gate per row with the injection through the PyTorch
-    hook;
+    hook; 20e. the same with ``speculative_k=4`` on every tick: K8i inside
+    the verify graph's replays, the gate per row;
 20a. the all-reduce of tensor-parallel partial sums (``tp_allreduce``,
     ``csrc/tp_allreduce.cu``: the consumer adds the ranks' sum into the
     residual and writes the next half's RMSNorm) alone, at p = 2 and 4
@@ -255,7 +277,13 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     LLM's within TOL_MESH_GEN (the control, a dropped partial, above it);
     ms/step beside an unsharded run's (virtual ranks share one card: no
     tensor-parallel speed); ``speculative_k=4`` under the mesh
-    launches the tensor-parallel verify step; the cut copy is freed;
+    launches the tensor-parallel verify step; 20f. the serving engine
+    under the mesh at 4 slots, plain ticks and then every tick
+    speculative: one graph a card of K10 (then of its verify step)
+    captured once, ``tp_allreduce`` launched, the unsharded kernels not,
+    the error words read once a tick, each engine's rows through the gate
+    on the unsharded LLM beside the one-card engine's ms a tick; the cut
+    copy is freed;
 21. K11, the flash attention of the training forward, forward and backward
     against ``flash_attention_plain`` (output and dq/dk/dv, all rows, tol
     TOL_FLASH) at B=4, T=512, H=32, Hkv=8, Dh=128, causal, one row
@@ -3488,6 +3516,8 @@ def run_orca(model, convs, gpu):
           f"{agree} of 32", flush=True)
     # -- 20d. the serving engine on the ORCA model ----------------------------
     run_engine_orca(orca, convs, gpu)
+    # -- 20e. the spec engine on the ORCA model -------------------------------
+    run_engine_orca_spec(orca, convs, gpu)
     return launched, inj_kernels, k9_counts
 
 
@@ -4303,6 +4333,9 @@ def run_mesh_generate(model, convs, gpu, cards: bool):
         spec_counts = _build.launch_counts()
         t_spec = dict(model.last_timings)
         add_margins(model, runs, out)
+        # -- 20f. the serving engine under the mesh ---------------------------
+        tag = "mesh (1, 2)" + (" on 2 cards" if cards else "")
+        mesh_engine = run_mesh_engine(model, convs, gpu, mesh, tag)
     print(f"mesh (1, 2) speculative_k=4: launches {json.dumps(spec_counts)}",
           flush=True)
     if spec_counts.get("fused_verify_layers_mesh", 0) <= 0 or spec_counts.get(
@@ -4311,6 +4344,7 @@ def run_mesh_generate(model, convs, gpu, cards: bool):
                              "step did not run, or the unsharded one did")
     check_outputs(model, [(spec, 2)])
     model.params["llm"] = full
+    gate_mesh_engine(model, convs, gpu, mesh_engine, tag)
     tf_ref = teacher_forced_logits(model, runs, ids)
     model.generate(runs, do_sample=False, max_new_tokens=2)        # warm-up
     ref = model.generate(runs, do_sample=False, max_new_tokens=32)
@@ -4719,21 +4753,33 @@ def run_orca_training(gpu: str, tmpdir: str) -> None:
 
 
 def mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
-    """``--mesh-only``: phases 20a-20c alone, on the flagship model built
-    with the int8 LLM (bf16 encoder), for work on the tensor-parallel path;
-    with ``--cards`` the ranks are distinct cards (p = 2 and 4: run on four
-    cards).  Prints the two kernels' JSON rows and the last line."""
+    """``--mesh-only``: phases 20a-20c and 20f alone, on the flagship model
+    built with the int8 LLM (bf16 encoder), for work on the tensor-parallel
+    path; with ``--cards`` the ranks are distinct cards (p = 2 and 4: run
+    on four cards; 20f also on a (1, 4) mesh of four cards where there are
+    four).  Prints the two kernels' JSON rows and the last line."""
     import torch
     from desta25_audio_tpu_torch import DeSTA25AudioModel
     from desta25_audio_tpu_torch.config import config_from_yaml_file
     from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.parallel.mesh import use_mesh
     tmp = tempfile.TemporaryDirectory()
     wavs, _ = write_wavs(tmp.name)
     cfg = dataclasses.replace(config_from_yaml_file(CONFIG), llm_quant="int8")
     with torch.no_grad():
         model = DeSTA25AudioModel(cfg, device="cuda", seed=0,
                                   tokenizer=CharTokenizer("llama3"))
-        rows, launches = run_mesh(model, conversations(wavs), gpu, cards)
+        convs = conversations(wavs)
+        rows, launches = run_mesh(model, convs, gpu, cards)
+        if cards and count >= 4:
+            full, mesh = model.params["llm"], phase_mesh(4, True)
+            tag = "mesh (1, 4) on 4 cards"
+            model.apply_llm_sharding(mesh)
+            with use_mesh(mesh):
+                runs = run_mesh_engine(model, convs, gpu, mesh, tag)
+            model.params["llm"] = full
+            gate_mesh_engine(model, convs, gpu, runs, tag)
+            mesh.buffers.clear()
     tmp.cleanup()
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": SOURCES[n][0],
@@ -4745,7 +4791,7 @@ def mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
     return 0
 
 
-# -- the serving engine (phases 12f, 16a-16d, 20d) ---------------------------
+# -- the serving engine (phases 12f, 16a-16g, 20d-20f) ----------------------
 
 def engine_convs(wavs, n: int, text_only=()):
     """n conversations for the engine: phase 6's four with their prompt and
@@ -4926,7 +4972,7 @@ def run_engine_bf16(model, wavs, gpu) -> None:
 
 
 def run_engine(model, wavs, gpu) -> None:
-    """Phases 16a-16d on the model's int8 encoder and int8 LLM."""
+    """Phases 16a-16g on the model's int8 encoder and int8 LLM."""
     import torch
     from desta25_audio_tpu_torch.bench_serving import serving_ticks
     from desta25_audio_tpu_torch.ops import _build
@@ -4934,31 +4980,7 @@ def run_engine(model, wavs, gpu) -> None:
     sampled = dict(temperature=0.7, top_p=0.9, do_sample=True)
     convs = engine_convs(wavs, 24, text_only=(6, 18))
     # -- 16a. 24 requests into 16 slots, half of them arriving mid-run -------
-    eng = ContinuousBatchingEngine(model, n_slots=16, max_ctx=256,
-                                   max_new_tokens=64, ctx_bucket=64,
-                                   steps_per_tick=8)
-    if eng.t_max != 384:
-        raise AssertionError(f"engine t_max {eng.t_max}")
-    _build.reset_launch_counts()
-    t0 = time.perf_counter()
-    rids, reqs = submit_all(eng, convs[:12])
-    for i, rid in enumerate(rids):
-        if i % 2:   # every other request sampled (one submit_many: set here)
-            for k, v in sampled.items():
-                setattr(reqs[rid], k, v)
-    eng.step()
-    eng.step()
-    for j, conv in enumerate(convs[12:]):
-        r, q = submit_all(eng, [conv], **(sampled if j % 2 else {}))
-        rids += r
-        reqs.update(q)
-        if j % 2:
-            eng.step()
-    eng.run_until_done()
-    info = eng.results()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _build.launch_counts()
+    eng, rids, reqs, info, wall, counts = arrival_run(model, convs, sampled)
     kcounts = _build.kernel_counts()
     steps = require_engine_replays("int8 engine", eng, counts,
                                    "fused_decode_layers_int8")
@@ -5054,9 +5076,17 @@ def run_engine(model, wavs, gpu) -> None:
 
     # -- 16d. decode-only ticks with every slot busy --------------------------
     with torch.no_grad():
-        for b in (8, 16, 32):
-            serving_ticks(model.params["llm"], model.llm_cfg, b, gpu=gpu)
+        plain_ticks = {b: serving_ticks(model.params["llm"], model.llm_cfg, b,
+                                        gpu=gpu) for b in (8, 16, 32)}
     model.enable_audio_cache(0)
+    # -- 16e. the spec engine at 4 and 16 slots -------------------------------
+    t0 = time.perf_counter()
+    run_engine_spec(model, wavs, gpu, plain_ticks)
+    # -- 16f. the adaptive spec engine on 16a's arrivals ----------------------
+    run_engine_adaptive(model, wavs, gpu)
+    # -- 16g. HTTP on the int8 engine -----------------------------------------
+    run_http(model, wavs, gpu)
+    print(f"phases 16e-16g took {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def run_engine_orca(orca, convs, gpu) -> None:
@@ -5104,6 +5134,533 @@ def run_engine_orca(orca, convs, gpu) -> None:
     engine_gate("ORCA engine", orca,
                 [(reqs[x], info[x]["tokens"]) for x in rids])
     eng.close()
+
+
+def require_spec_replays(tag: str, eng, counts, inject: bool = False) -> int:
+    """A spec engine's steps ran as replays of its two kept graphs: each
+    captured once if it took two steps or more, one ``decode_graph``
+    replay for each of a graph's steps but its first, K8v's launches (7 a
+    layer) those of every verify step and K8-int8's those of every plain
+    step (K8i's 5 more on both with ``inject``), K8v at B = n_slots; no
+    torch path.  Returns the verify steps."""
+    from desta25_audio_tpu_torch.ops import _build
+    L, K = eng.cfg.num_hidden_layers, eng.steps_per_tick
+    vs, ps = eng._n_spec_ticks * K, eng._n_plain_ticks * K
+    want = {"decode_graph": max(vs - 1, 0) + max(ps - 1, 0),
+            "fused_verify_layers": 7 * L * vs,
+            "fused_decode_layers_int8": 7 * L * ps}
+    if inject:
+        want["fused_decode_inject"] = 5 * L * (vs + ps)
+    got = {k: counts.get(k, 0) for k in want}
+    caps = (eng.graph.captures, eng.vgraph.captures)
+    rows = tuple(eng.vgraph.stepper.x.shape[:2])
+    if (got != want or caps != (int(ps >= 2), int(vs >= 2))
+            or rows != (eng.n_slots, eng.speculative_k)):
+        raise AssertionError(f"{tag}: captures {caps}, verify rows {rows}, "
+                             f"launches {got} for {vs} verify and {ps} plain "
+                             f"steps ({want})")
+    if _build.fallback_counts():
+        raise AssertionError(f"{tag}: torch paths taken: "
+                             f"{_build.fallback_counts()}")
+    return vs
+
+
+def accept_spy(eng):
+    """Wrap the engine's spec-tick consume: the accepted counts of every
+    verify step of every live row (m > 0) land in the list returned."""
+    seen = []
+    consume = eng._consume_spec_tick
+    B, Kd = eng.n_slots, eng.speculative_k
+
+    def spy(slot_reqs, outs, write_pos):
+        ms = outs.numpy()[:, B * Kd:]
+        live = {s for s, r in slot_reqs if not r.done}
+        seen.extend(int(m) for row in ms for s, m in enumerate(row)
+                    if s in live and m > 0)
+        return consume(slot_reqs, outs, write_pos)
+
+    eng._consume_spec_tick = spy
+    return seen
+
+
+def drive(eng, convs, **kw):
+    """Submit ``convs`` in one submit_many, run the engine dry: (ids,
+    {rid: queued request}, results, wall s, launch counts, ms a tick: the
+    median host time of the steps after the first, which admitted)."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids, reqs = submit_all(eng, convs, **kw)
+    durs = []
+    while eng.queue or any(r is not None for r in eng.slot_req):
+        t1 = time.perf_counter()
+        eng.step()
+        durs.append(time.perf_counter() - t1)
+    info = eng.results()
+    torch.cuda.synchronize()
+    return (rids, reqs, info, time.perf_counter() - t0,
+            _build.launch_counts(), float(np.median(durs[1:] or durs)) * 1e3)
+
+
+def oracle_drafter(eng, want):
+    """A drafter for ``eng`` that proposes, for a row whose request has
+    generated a prefix of ``want[rid]``, the next ids of it (one host read
+    of the histories a verify step; elsewhere the n-gram drafts)."""
+    import torch
+    from desta25_audio_tpu_torch.generate.speculative import ngram_propose
+
+    def propose(hist, hlen, k):
+        out = ngram_propose(hist, hlen, k).cpu()
+        h, n = hist.cpu(), hlen.cpu()
+        for b, req in enumerate(eng.slot_req):
+            if req is None or req.rid not in want:
+                continue
+            s = len(req.prompt_ids)
+            gen_ids = h[b, s:int(n[b])].tolist()
+            ids = want[req.rid]
+            if gen_ids == ids[:len(gen_ids)]:
+                nxt = (ids + [ids[-1]] * k)[len(gen_ids):len(gen_ids) + k]
+                out[b] = torch.tensor(nxt)
+        return out.to(hist.device)
+
+    return propose
+
+
+def run_engine_spec(model, wavs, gpu, plain_ticks) -> None:
+    """Phases 16e-16f on the model's int8 encoder and LLM; ``plain_ticks``:
+    16d's readings by slot count."""
+    import torch
+    from unittest import mock
+    from desta25_audio_tpu_torch.bench_serving import (serving_ticks,
+                                                       spec_ticks)
+    from desta25_audio_tpu_torch.serve import engine as tengine
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    convs = engine_convs(wavs, 16, text_only=(6,))
+    args = dict(max_ctx=256, max_new_tokens=32, ctx_bucket=64,
+                steps_per_tick=8)
+    # -- 16e. the spec engine at 4 and 16 slots, every tick speculative ------
+    for B in (4, 16):
+        plain = ContinuousBatchingEngine(model, n_slots=B, **args)
+        p_rids, _, p_info, p_wall, _, p_ms = drive(plain, convs[:B])
+        plain.close()
+        eng = ContinuousBatchingEngine(model, n_slots=B, speculative_k=4,
+                                       adaptive_spec=False, **args)
+        if eng.speculative_k != 4:
+            raise AssertionError(f"spec engine b{B}: not eligible")
+        seen = accept_spy(eng)
+        rids, reqs, info, wall, counts, ms = drive(eng, convs[:B])
+        vs = require_spec_replays(f"spec engine b{B}", eng, counts)
+        check_finished(f"spec engine b{B}", model, info, rids)
+        n_tok = sum(len(info[r]["tokens"]) for r in rids)
+        p_tok = sum(len(p_info[r]["tokens"]) for r in p_rids)
+        same = sum(info[a]["tokens"] == p_info[b]["tokens"]
+                   for a, b in zip(rids, p_rids))
+        print(f"spec engine b{B}, Kd = 4, K = 8 ({gpu}): {B} requests of "
+              f"32 tokens in {eng._n_spec_ticks} spec ticks ({vs} verify "
+              f"steps, one capture of {eng.vgraph.capture_ms:.1f} ms), "
+              f"{ms:.2f} ms a tick (the median step() after the first), "
+              f"{np.mean(seen):.3f} tokens a verify step of a live row, "
+              f"{n_tok / wall:.1f} tokens/s over the whole run; the plain "
+              f"engine {plain._n_plain_ticks} ticks, {p_ms:.2f} ms a tick, "
+              f"{p_tok / p_wall:.1f} tokens/s; rows equal to the plain "
+              f"engine's {same} of {B} (information); launches "
+              f"{json.dumps(counts)}", flush=True)
+        engine_gate(f"spec engine b{B}", model,
+                    [(reqs[r], info[r]["tokens"]) for r in rids])
+        eng.close()
+        if B == 4:
+            # an oracle drafter: the plain engine's own ids (a fresh engine
+            # numbers its requests from 0 as the plain one did); a row's
+            # drafts stop matching where its verify step's argmax parts
+            # from the plain step's at a near-tie (the draft positions
+            # attend each other through the f32 draft block)
+            want = {r: p_info[r]["tokens"] for r in p_rids}
+            eng = ContinuousBatchingEngine(model, n_slots=B, speculative_k=4,
+                                           adaptive_spec=False, **args)
+            seen = accept_spy(eng)
+            with mock.patch.object(tengine, "ngram_propose",
+                                   oracle_drafter(eng, want)):
+                o_rids, o_reqs, o_info, _, _, _ = drive(eng, convs[:B])
+            lead = [next((i for i, (a, c) in enumerate(zip(
+                o_info[r]["tokens"], want[r])) if a != c), len(want[r]))
+                for r in o_rids]
+            multi = sum(m > 1 for m in seen)
+            print(f"spec engine b4, oracle drafts ({gpu}): {multi} verify "
+                  f"steps of a live row accepted 2-4 tokens (max "
+                  f"{max(seen)}; mean {np.mean(seen):.3f} over "
+                  f"{len(seen)}), {eng._n_spec_ticks} ticks; each row's ids "
+                  f"equal to the plain engine's for its first {lead} of 32",
+                  flush=True)
+            if max(seen) != 4 or multi < 4:
+                raise AssertionError(f"spec engine oracle: accepted {seen}")
+            engine_gate("spec engine b4 oracle", model,
+                        [(o_reqs[r], o_info[r]["tokens"]) for r in o_rids])
+            eng.close()
+        # the ticks alone: the spec tick beside the plain one
+        with torch.no_grad():
+            pl = plain_ticks.get(B) or serving_ticks(
+                model.params["llm"], model.llm_cfg, B, gpu=gpu)
+            spec_ticks(model.params["llm"], model.llm_cfg, B, 4, gpu=gpu,
+                       plain=pl)
+    model.enable_audio_cache(0)
+
+
+def arrival_run(model, convs, sampled, **kw):
+    """16a's arrival run: 24 requests into 16 slots (12 through one
+    submit_many, every other one sampled, then 12 while the first decode).
+    Returns (engine, ids, {rid: request}, results, wall s, launch
+    counts)."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, n_slots=16, max_ctx=256,
+                                   max_new_tokens=64, ctx_bucket=64,
+                                   steps_per_tick=8, **kw)
+    if eng.t_max != 384:
+        raise AssertionError(f"engine t_max {eng.t_max}")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids, reqs = submit_all(eng, convs[:12])
+    for i, rid in enumerate(rids):
+        if i % 2:   # every other request sampled (one submit_many: set here)
+            for k, v in sampled.items():
+                setattr(reqs[rid], k, v)
+    eng.step()
+    eng.step()
+    for j, conv in enumerate(convs[12:]):
+        r, q = submit_all(eng, [conv], **(sampled if j % 2 else {}))
+        rids += r
+        reqs.update(q)
+        if j % 2:
+            eng.step()
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    return (eng, rids, reqs, info, time.perf_counter() - t0,
+            _build.launch_counts())
+
+
+def run_engine_adaptive(model, wavs, gpu) -> None:
+    """Phase 16f: 16a's arrival run on an adaptive spec engine (the
+    defaults, ``speculative_k=4``)."""
+    sampled = dict(temperature=0.7, top_p=0.9, do_sample=True)
+    convs = engine_convs(wavs, 24, text_only=(6, 18))
+    eng, rids, reqs, info, wall, counts = arrival_run(model, convs, sampled,
+                                                      speculative_k=4)
+    if not eng.adaptive_spec or eng.speculative_k != 4:
+        raise AssertionError("adaptive engine: speculation refused")
+    require_spec_replays("adaptive engine", eng, counts)
+    check_finished("adaptive engine", model, info, rids)
+    n_tok = sum(len(info[r]["tokens"]) for r in rids)
+    ema = {k: (None if v is None else round(v * 1e3, 3))
+           for k, v in eng._dur_ema.items()}
+    print(f"adaptive engine, 16 slots, Kd = 4, 16a's 24 arrivals ({gpu}): "
+          f"{eng._n_spec_ticks} spec and {eng._n_plain_ticks} plain ticks, "
+          f"tick durations (ms, the controller's EMAs) {ema}, probe "
+          f"backoff {eng._reprobe_backoff}, live {eng._spec_live}; "
+          f"{n_tok} tokens in {wall * 1e3:.1f} ms = {n_tok / wall:.1f} "
+          f"tokens/s; launches {json.dumps(counts)}", flush=True)
+    engine_gate("adaptive engine", model,
+                [(reqs[r], info[r]["tokens"]) for r in rids
+                 if not reqs[r].do_sample])
+    eng.close()
+    model.enable_audio_cache(0)
+
+
+def http_json(port, method, path, obj=None, timeout=300):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, body=None if obj is None else json.dumps(obj),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    return resp.status, body
+
+
+def sse_events(port, path, obj, t0, first):
+    """POST ``obj`` and read its event stream: the events, with the host
+    seconds from ``t0`` to the first event that carries a token stored in
+    ``first``."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("POST", path, body=json.dumps(obj),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"HTTP {path}: {resp.status}")
+    events = []
+    while True:
+        line = resp.fp.readline()
+        if not line:
+            break
+        line = line.decode().strip()
+        if not line.startswith("data: "):
+            continue
+        ev = line[len("data: "):]
+        if ev == "[DONE]":
+            events.append(ev)
+            break
+        ev = json.loads(ev)
+        events.append(ev)
+        carries = ("token" in ev or ev.get("choices", [{}])[0].get(
+            "delta", {}).get("content"))
+        if carries and not first:
+            first.append(time.perf_counter() - t0)
+        if ev.get("done"):
+            break
+    while line and line.strip() != "0":   # the chunked body's last chunk
+        line = resp.fp.readline().decode()
+    resp.fp.readline()
+    conn.close()
+    return events
+
+
+def run_http(model, wavs, gpu) -> None:
+    """Phase 16g: the HTTP front end on the int8 engine (8 slots, K = 8):
+    8 concurrent clients, two of them streaming, on /v1/generate and
+    /v1/chat/completions with inline base64 WAVs, then health and a
+    cancel; every greedy answer through the gate."""
+    import base64
+    import threading
+    import torch
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    from desta25_audio_tpu_torch.serve.http import start_http
+    eng = ContinuousBatchingEngine(model, n_slots=8, max_ctx=256,
+                                   max_new_tokens=32, ctx_bucket=64,
+                                   steps_per_tick=8)
+    queued = {}
+    submit_many = eng.submit_many
+
+    def record(messages_list, **kw):
+        n0 = len(eng.queue)
+        out = submit_many(messages_list, **kw)
+        queued.update({r.rid: r for r in eng.queue[n0:]})
+        return out
+
+    eng.submit_many = record
+    httpd, es = start_http(eng, port=0)
+    port = httpd.server_address[1]
+    convs = engine_convs(wavs, 8)
+    results, firsts, done_s, errors = {}, {}, {}, []
+
+    def b64(path):
+        with open(path, "rb") as f:
+            return base64.b64encode(f.read()).decode()
+
+    def client(i):
+        try:
+            conv = convs[i]
+            stream = i < 2
+            t0 = time.perf_counter()
+            if i % 2 == 0:
+                msgs = [{**m, "audios": [{"audio_b64": b64(a["audio"]),
+                                          "text": a["text"]}
+                                         for a in m["audios"]]}
+                        if m.get("audios") else m for m in conv]
+                req = {"messages": msgs, "max_new_tokens": 32,
+                       "stream": stream}
+                path = "/v1/generate"
+            else:
+                parts = [{"type": "text", "text": conv[-1]["content"]
+                          .replace("<|AUDIO|>", "")}]
+                parts += [{"type": "input_audio", "input_audio": {
+                    "data": b64(a["audio"]), "format": "wav",
+                    "transcription": a["text"]}}
+                    for a in conv[-1].get("audios", [])]
+                req = {"messages": [{"role": "user", "content": parts}],
+                       "max_tokens": 32, "temperature": 0, "stream": stream}
+                path = "/v1/chat/completions"
+            if stream:
+                first = []
+                results[i] = sse_events(port, path, req, t0, first)
+                firsts[i] = first[0]
+            else:
+                status, body = http_json(port, "POST", path, req)
+                if status != 200:
+                    raise AssertionError(f"client {i}: HTTP {status}")
+                results[i] = body
+            done_s[i] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 (raised below, in order)
+            errors.append((i, e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    status, health = http_json(port, "GET", "/v1/health")
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise AssertionError(f"HTTP clients failed: {errors}")
+    if status != 200 or health["status"] != "ok" or health["slots"] != 8:
+        raise AssertionError(f"HTTP health: {status} {health}")
+    # a cancel: a streaming request cancelled by its id once its first
+    # token has streamed (31 more, about 4 ticks, are to come)
+    holder, started = {}, []
+    th = threading.Thread(target=lambda: holder.update(events=sse_events(
+        port, "/v1/generate", {"messages": convs[0], "max_new_tokens": 32,
+                               "stream": True}, time.perf_counter(),
+        started)))
+    th.start()
+    while not started and th.is_alive():
+        time.sleep(0.001)
+    rid = max(queued)
+    status, c = http_json(port, "DELETE", f"/v1/requests/{rid}")
+    th.join()
+    last = holder["events"][-1]
+    if status != 200 or not c["cancelled"] or last.get(
+            "finish_reason") != "cancelled":
+        raise AssertionError(f"HTTP cancel: {status} {c} {last}")
+    info = {r: es.result_now(r) for r in queued}
+    httpd.shutdown()
+    es.close()
+    torch.cuda.synchronize()
+    # every answer is its engine result; the streamed ids and text too
+    by_text = {}
+    for r, inf in info.items():
+        by_text.setdefault(inf["text"], []).append(r)
+    for i in range(8):
+        res = results[i]
+        if i < 2:
+            text = (res[-1]["text"] if i == 0 else "".join(
+                e["choices"][0]["delta"].get("content", "")
+                for e in res[:-1]))
+        else:
+            text = (res["text"] if i % 2 == 0
+                    else res["choices"][0]["message"]["content"])
+        if text not in by_text:
+            raise AssertionError(f"HTTP client {i}: an answer no request "
+                                 f"of the engine gave: {text!r}")
+    rows = [(queued[r], info[r]["tokens"]) for r in sorted(queued)
+            if r != rid]
+    ft = np.asarray(list(firsts.values())) * 1e3
+    dn = np.asarray(list(done_s.values())) * 1e3
+    print(f"HTTP, int8 engine, 8 slots ({gpu}): 8 concurrent clients (4 "
+          f"/v1/generate, 4 /v1/chat/completions, 2 streaming, inline WAV) in"
+          f" {wall * 1e3:.1f} ms, {eng._n_plain_ticks} ticks; time to the "
+          f"first SSE token event p50 {np.percentile(ft, 50):.1f} ms, p90 "
+          f"{np.percentile(ft, 90):.1f} ms; a client's whole answer p50 "
+          f"{np.percentile(dn, 50):.1f} ms, p90 {np.percentile(dn, 90):.1f} "
+          f"ms (host clock); health {health}; request {rid} cancelled with "
+          f"{len(info[rid]['tokens'])} tokens", flush=True)
+    engine_gate("HTTP engine", model, rows)
+    eng.close()
+    model.enable_audio_cache(0)
+
+
+def run_engine_orca_spec(orca, convs, gpu) -> None:
+    """Phase 20e: the spec engine on the ORCA model (int8 stack and LLM):
+    4 slots, ``speculative_k=4``, every tick speculative, 3 audio requests
+    and a text-only one: K8i inside the verify graph's replays, the gate
+    per row."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(orca, n_slots=4, max_ctx=256,
+                                   max_new_tokens=32, ctx_bucket=64,
+                                   speculative_k=4, adaptive_spec=False)
+    if eng._fspec is None or eng.speculative_k != 4:
+        raise AssertionError("ORCA spec engine: no K8i in the verify step")
+    seen = accept_spy(eng)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    # ORCA's audio requests go in one submit_many, the text-only apart
+    rids, reqs = submit_all(eng, convs[:3])
+    r, q = submit_all(eng, [[{"role": "user",
+                              "content": "Name three rivers."}]])
+    rids += r
+    reqs.update(q)
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    kcounts = _build.kernel_counts()
+    vs = require_spec_replays("ORCA spec engine", eng, counts, inject=True)
+    L = eng.cfg.num_hidden_layers
+    if kcounts.get("inject_attention", 0) != L * vs:
+        raise AssertionError(f"ORCA spec engine: K8i kernels {kcounts}")
+    check_finished("ORCA spec engine", orca, info, rids)
+    print(f"ORCA spec engine (int8 stack, K8v + K8i; Kd = 4) ({gpu}): 3 "
+          f"audio + 1 text-only requests, {eng._n_spec_ticks} spec ticks "
+          f"({vs} verify steps, capture {eng.vgraph.capture_ms:.1f} ms), "
+          f"{wall * 1e3:.1f} ms, {np.mean(seen):.3f} tokens a verify step "
+          f"of a live row; launches {json.dumps(counts)}", flush=True)
+    engine_gate("ORCA spec engine", orca,
+                [(reqs[x], info[x]["tokens"]) for x in rids])
+    eng.close()
+    orca.enable_audio_cache(0)
+
+
+def run_mesh_engine(model, convs, gpu, mesh, tag: str):
+    """Phase 20f, under ``use_mesh(mesh)`` with the model's LLM cut for it:
+    the engine (4 slots, K = 8, 4 greedy requests of 32 tokens), plain
+    ticks, then ``speculative_k=4`` with every tick speculative: one graph
+    a card for each kind, captured once; K10 and ``tp_allreduce`` launch
+    (the verify step's ``fused_verify_layers_mesh`` with speculation), the
+    unsharded kernels do not; the all-reduce's error words read once a
+    tick.  Returns [(rows for the gate, engine ms a tick)] of both runs
+    (the gate runs on the unsharded LLM, after the mesh)."""
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    n_cards = len({d for row in mesh.devices for d in row})
+    out = []
+    for kw in ({}, {"speculative_k": 4, "adaptive_spec": False}):
+        eng = ContinuousBatchingEngine(model, n_slots=4, max_ctx=256,
+                                       max_new_tokens=32, ctx_bucket=64,
+                                       **kw)
+        reads = []
+        check = eng._check_error_words
+        eng._check_error_words = lambda errs: (reads.append(len(errs)),
+                                               check(errs))
+        rids, reqs, info, wall, counts, ms = drive(eng, convs[:4])
+        spec = bool(kw)
+        name = "fused_verify_layers_mesh" if spec else \
+            "fused_decode_layers_mesh"
+        g = eng.vgraph if spec else eng.graph
+        steps = (eng._n_spec_ticks if spec else eng._n_plain_ticks) * \
+            eng.steps_per_tick
+        ticks = eng._n_spec_ticks + eng._n_plain_ticks
+        if (counts.get(name, 0) <= 0 or counts.get("tp_allreduce", 0) <= 0
+                or counts.get("fused_decode_layers_int8", 0)
+                or counts.get("fused_verify_layers", 0)
+                or g.captures != 1
+                or counts.get("decode_graph", 0) != n_cards * (steps - 1)
+                or len(reads) != ticks or min(reads) <= 0):
+            raise AssertionError(f"{tag} engine {kw}: captures {g.captures},"
+                                 f" error-word reads {reads} for {ticks} "
+                                 f"ticks, launches {counts}")
+        check_finished(f"{tag} engine", model, info, rids)
+        print(f"{tag} engine {kw or 'plain'} ({gpu}): {ticks} ticks "
+              f"({steps} steps, one graph a card, capture "
+              f"{g.capture_ms:.1f} ms), {ms:.2f} ms a tick (the median "
+              f"step() after the first), error words read {len(reads)} "
+              f"times; launches {json.dumps(counts)}", flush=True)
+        out.append(([(reqs[r], info[r]["tokens"]) for r in rids], ms))
+        eng.close()
+    model.enable_audio_cache(0)
+    return out
+
+
+def gate_mesh_engine(model, convs, gpu, runs, tag: str) -> None:
+    """Phase 20f's gate, on the unsharded LLM: the mesh engines' greedy rows
+    through the teacher-forced gate, beside the one-card engine's run of
+    the same requests (its ms a tick; rows equal, information)."""
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, n_slots=4, max_ctx=256,
+                                   max_new_tokens=32, ctx_bucket=64)
+    rids, _, info, _, _, ms = drive(eng, convs[:4])
+    ref = [info[r]["tokens"] for r in rids]
+    eng.close()
+    model.enable_audio_cache(0)
+    for kind, (rows, tick_ms) in zip(("plain", "spec"), runs):
+        same = sum(ids == r for (_, ids), r in zip(rows, ref))
+        print(f"{tag} engine, {kind} ticks ({gpu}): {tick_ms:.2f} ms a tick "
+              f"against the one-card engine's {ms:.2f}; rows equal to the "
+              f"one-card engine's {same} of 4 (information)", flush=True)
+        engine_gate(f"{tag} engine ({kind})", model, rows)
 
 
 def main() -> int:
@@ -5257,7 +5814,7 @@ def main() -> int:
         llm_launches, spec_launches, _, attn_launches = run_int8_llm(
             model, convs, gpu)
 
-    # -- 16a-16d. the serving engine on the int8 encoder and LLM -------------
+    # -- 16a-16g. the serving engine on the int8 encoder and LLM -------------
     t_eng = time.perf_counter()
     run_engine(model, wavs, gpu)
     engine_s += time.perf_counter() - t_eng
@@ -5292,7 +5849,7 @@ def main() -> int:
     run_orca_training(gpu, tmp.name)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s (the serving engine's "
-          f"phases 12f and 16a-16d: {engine_s:.1f} s)", flush=True)
+          f"phases 12f and 16a-16g: {engine_s:.1f} s)", flush=True)
 
     # K2's entry: the worse error of its two shapes, the times, bound and
     # scaled_dot_product_attention time of the self-attention shape; K8's:

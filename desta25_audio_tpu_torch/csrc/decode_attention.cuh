@@ -85,6 +85,7 @@ constexpr int DA_SPLITS_MAX = 8;  // the portable cluster size
 constexpr int DA_HALF_BYTES = DA_TILE * 64 * 2;       // [32 keys, 64 dims]
 constexpr int DA_TILE_BYTES = 2 * DA_HALF_BYTES;      // 8 KB
 constexpr int DA_SMEM_MAX = 227 * 1024;
+constexpr int DA_MAX_DEVICES = 64;
 
 // NS key ranges of `keys` keys each (the last may be shorter)
 struct DecodePlan {
@@ -424,10 +425,17 @@ cudaError_t launch_attention_kdm(const bf16* qkv, bf16* kc, bf16* vc,
   const DecodePlan p = plan_decode(B, Hkv, S, sm_count());
   const size_t smem = decode_smem(G, KDM, p.keys);
   if (smem > DA_SMEM_MAX) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
+  // the kernel's dynamic shared-memory limit, raised to DA_SMEM_MAX once per
+  // device: without it a launch past the default limit is refused with
+  // cudaErrorInvalidValue, and that limit lies below 48 KB (the verify step
+  // at B = 16, Kd = 4, S = 384 asks 48,544 bytes and was refused)
+  static bool raised[DA_MAX_DEVICES] = {};
+  const int dev = current_device();
+  if (dev < 0 || dev >= DA_MAX_DEVICES || !raised[dev]) {
     const cudaError_t e = sm90::allow_smem(decode_attention_kernel<G, KDM>,
-                                           (int)smem);
+                                           DA_SMEM_MAX);
     if (e != cudaSuccess) return e;
+    if (dev >= 0 && dev < DA_MAX_DEVICES) raised[dev] = true;
   }
   // the layer's cache as [B*S, Hkv*128] bf16, read in boxes of 32 keys x
   // 64 dims (two a tile)

@@ -49,8 +49,9 @@ on the eager path.  Pointers and TMA maps enter the graph by value: the
 weights, the cache, the mask, the injection's audio K/V and ``on`` flags
 and the static inputs must not move while the graph lives.  For
 ``llm_generate`` that is one call, whose rows all write at one cache index
-a step; the serving engine (``serve/engine.py``) keeps one graph for its
-whole life over its own fixed buffers ([L, n_slots, t_max] cache, [n_slots,
+a step; the serving engine (``serve/engine.py``) keeps one graph (with
+speculation a second, the verify step at ``kd``) for its whole life over
+its own fixed buffers ([L, n_slots, t_max] cache, [n_slots,
 t_max] mask, ORCA's Ta-padded audio K/V and per-slot ``on``), each row
 writing at its own cache index (a [B] int32 device tensor), and changes
 slots by writing into those buffers in place, so it captures once
@@ -58,7 +59,9 @@ slots by writing into those buffers in place, so it captures once
 frees the graphs and their memory pools.  A failed capture or replay
 raises; nothing falls back to the eager step.
 Under a mesh the all-reduce's error words are read once, by
-:meth:`DecodeGraph.check` at the end of the call.
+:meth:`DecodeGraph.check` at the end of the call (the serving engine copies
+them to the host after each tick, :meth:`DecodeGraph.error_words`, and
+reads them when it consumes the tick).
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ from ..config import LLMConfig
 from ..models import llm as tllm
 from ..ops import _build
 from ..ops.core import rms_norm
-from ..ops.fused_decode import fused_decode_layers
+from ..ops.fused_decode import fused_decode_layers, fused_verify_layers
 from ..ops.fused_decode_mesh import MeshStep
 from ..ops.fused_decode_tp import step_scratch
 from ..parallel.sharding import ShardedLLM
@@ -152,22 +155,25 @@ class CardGraphs:
 
 
 class CardStep:
-    """The one-card decode step with :class:`ops.fused_decode_mesh.
-    MeshStep`'s interface: static embeddings, positions and cache indices
-    on the mask's device, which :meth:`fill` writes; :meth:`run` is
-    ``ops/fused_decode.fused_decode_layers`` (K8, K8-int8, K8i) on them and
-    ``head`` on its hidden, the body of ``models/llm.decode_step``."""
+    """The one-card decode (``kd`` = 1) or verify (``kd`` > 1) step with
+    :class:`ops.fused_decode_mesh.MeshStep`'s interface: static embeddings
+    [B, kd, D], positions [B, kd] and cache indices [B] on the mask's
+    device, which :meth:`fill` writes; :meth:`run` is
+    ``ops/fused_decode.fused_decode_layers`` (K8, K8-int8, K8i) or, at kd >
+    1, ``fused_verify_layers`` (K8v, with K8i inside) on them and ``head``
+    on its hidden, the body of ``models/llm.decode_step``."""
 
     def __init__(self, params, cfg: LLMConfig, mask: torch.Tensor, cache,
-                 inject):
+                 inject, kd: int = 1):
         B, dev = mask.shape[0], mask.device
         self.params, self.cfg, self.mask, self.cache = params, cfg, mask, cache
         self.inject = inject
         self.cards = [dev]
-        self.x = torch.zeros(B, 1, cfg.hidden_size,
+        self.x = torch.zeros(B, kd, cfg.hidden_size,
                              dtype=params["embed"].dtype, device=dev)
-        self.pos = torch.zeros(B, 1, dtype=torch.long, device=dev)
+        self.pos = torch.zeros(B, kd, dtype=torch.long, device=dev)
         self.ci = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.layers = fused_decode_layers if kd == 1 else fused_verify_layers
 
     def fill(self, x: torch.Tensor, pos: torch.Tensor, ci) -> None:
         """ci: every row's cache write position (an int) or each row's (a
@@ -180,13 +186,16 @@ class CardStep:
             self.ci.fill_(ci)
 
     def run(self, head, only=None):
-        hidden, _ = fused_decode_layers(self.params, self.cfg, self.x,
-                                        self.mask, self.pos, self.cache,
-                                        self.ci, inject=self.inject)
+        hidden, _ = self.layers(self.params, self.cfg, self.x, self.mask,
+                                self.pos, self.cache, self.ci,
+                                inject=self.inject)
         return [head(self.params, hidden)]
 
     def check(self) -> None:
         pass
+
+    def error_words(self):
+        return []
 
 
 class PerLayerStep(CardStep):
@@ -217,22 +226,23 @@ class DecodeGraph:
     ``fused_injection`` the in-kernel ORCA spec or None, ``extra_layer_fn``
     the per-layer hook of K9's step or None.  The step is a
     :class:`CardStep`, with a hook a :class:`PerLayerStep`, or, for an LLM
-    cut for a mesh, a ``MeshStep``.
-    :meth:`step` returns the step's f32 logits [B, V] on the mask's device;
-    with ``capture`` they are the graph's static buffer, overwritten by the
-    next step."""
+    cut for a mesh, a ``MeshStep``; ``kd`` > 1 (without a hook) makes it
+    the verify step of ``kd`` tokens a row (K8v, K10's verify).
+    :meth:`step` returns the step's f32 logits [B, V] (at kd > 1 [B, kd,
+    V]) on the mask's device; with ``capture`` they are the graph's static
+    buffer, overwritten by the next step."""
 
     def __init__(self, params, cfg: LLMConfig, mask: torch.Tensor,
                  cache, fused_injection, capture: bool,
-                 extra_layer_fn=None):
-        self.params, self.cfg, self.mask = params, cfg, mask
+                 extra_layer_fn=None, kd: int = 1):
+        self.params, self.cfg, self.mask, self.kd = params, cfg, mask, kd
         if extra_layer_fn is not None:
             self.stepper = PerLayerStep(params, cfg, mask, cache,
                                         extra_layer_fn)
         else:
             self.stepper = (MeshStep if isinstance(params, ShardedLLM)
                             else CardStep)(params, cfg, mask, cache,
-                                           fused_injection)
+                                           fused_injection, kd=kd)
         self.capture = capture and mask.device.type == "cuda"
         self.cards = CardGraphs(self.stepper.cards) if self.capture else None
         self.warm = False
@@ -242,8 +252,9 @@ class DecodeGraph:
         self.captures = 0
 
     def _head(self, tree, hidden):
-        return tllm.head_logits(tree, rms_norm(tree["norm"], hidden,
-                                               self.cfg.rms_norm_eps))[:, 0]
+        lg = tllm.head_logits(tree, rms_norm(tree["norm"], hidden,
+                                             self.cfg.rms_norm_eps))
+        return lg[:, 0] if self.kd == 1 else lg
 
     def _run(self, only=None):
         return self.stepper.run(self._head, only)
@@ -258,11 +269,14 @@ class DecodeGraph:
     def step(self, cur: torch.Tensor, pos: torch.Tensor,
              write_idx) -> torch.Tensor:
         """One decode step: tokens ``cur`` [B] at RoPE positions ``pos``
-        [B], the k/v written at cache position ``write_idx``: an int for
+        [B] (at kd > 1 [B, kd] each: a row's last token and its drafts),
+        the k/v written from cache position ``write_idx`` on: an int for
         every row, or a [B] int32 device tensor, a position a row (a
         position past the cache is not written)."""
-        self.stepper.fill(tllm.embed_tokens(self.params, cur[:, None]),
-                          pos[:, None], write_idx)
+        if self.kd == 1:
+            cur, pos = cur[:, None], pos[:, None]
+        self.stepper.fill(tllm.embed_tokens(self.params, cur), pos,
+                          write_idx)
         if not self.capture:
             return self._logits(self._run())
         if not self.warm:
@@ -290,6 +304,12 @@ class DecodeGraph:
         """Under a mesh, raise RuntimeError if an all-reduce of the call's
         steps timed out (reads the error words: one host sync)."""
         self.stepper.check()
+
+    def error_words(self):
+        """Under a mesh, the all-reduce's error words (int32 device tensors,
+        nonzero after a timed-out round), for a caller that reads them
+        without a sync of its own; none on one card."""
+        return self.stepper.error_words()
 
     def close(self) -> None:
         """Free the graphs and their memory pools (the static logits with

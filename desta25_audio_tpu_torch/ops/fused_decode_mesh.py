@@ -370,26 +370,54 @@ class MeshStep:
         positions ``pos`` [B, Kd] on the caller's device, and every row's
         cache write position ``ci``, a [B] tensor or an int (which the
         caller's mask already attends; fill marks it on the mask's copies);
-        then every group's epoch base."""
+        then every group's epoch base.  With a [B] tensor (a server's rows,
+        each at its own position, its mask and ``on`` flags changed in
+        place between steps) the mask's and the flags' copies are taken
+        anew from the caller's."""
         if self.cpu:
             self.ins = (x, pos, ci)
             return
         if x.dtype != torch.bfloat16:
             raise ValueError(f"{self.name}: x is {x.dtype}, the kernels take "
                              "bfloat16")
-        if torch.is_tensor(ci):
+        rows_ci = torch.is_tensor(ci)
+        if rows_ci:
             ci = _row_indices(ci, x.shape[0], ci.device)
         for g, rows, ins, steps, bufs in self.groups:
             for inp in ins.values():
                 inp["x"].copy_(x[rows])
                 inp["pos"].copy_(pos[rows])
-                if torch.is_tensor(ci):
+                if rows_ci:
                     inp["ci"].copy_(ci[rows])
+                    if inp["mask"] is not self.mask:
+                        inp["mask"].copy_(self.mask[rows])
                 else:
                     inp["ci"].fill_(int(ci))
                     if inp["mask"] is not self.mask:
                         inp["mask"][:, int(ci)] = 1
+            if rows_ci and self.inject is not None:
+                on = torch.as_tensor(self.inject["on"])
+                for st in steps:
+                    st.inj["on"].copy_(on[rows])
             bufs.begin(2 * steps[0].L)
+
+    def sync_inject(self) -> None:
+        """Take the caller's audio K/V (``inject["k"]`` / ``["v"]``, written
+        in place since this step was built) into the copies the ranks read
+        where they are copies (another card, or a block of rows)."""
+        if self.cpu or self.inject is None:
+            return
+        for g, rows, ins, steps, bufs in self.groups:
+            for st in steps:
+                for key in ("k", "v"):
+                    src = self.inject[key][:, rows]
+                    if st.inj[key].data_ptr() != src.data_ptr():
+                        st.inj[key].copy_(src)
+
+    def error_words(self) -> List[torch.Tensor]:
+        """Every rank's all-reduce error word (nonzero after a timed-out
+        round; :meth:`check` reads and clears them)."""
+        return [e for *_, bufs in self.groups for e in bufs.err]
 
     def run(self, head=None, only=None, serial: bool = False
             ) -> List[torch.Tensor]:

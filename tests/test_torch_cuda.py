@@ -670,10 +670,14 @@ def _attn_inputs(gen, B, S, H, Hkv, kd, ci, qk_norm=False, Dh=128):
 # 3e-2: a row with ci = 0 (its draft block alone), the draft block ending at
 # S, ci at S (nothing written), ranges wholly past ci (a long cache), one
 # range (B = 33: the clusters fill the card), G = 1 and 8, qk-norm, Kd = 8,
-# a range ragged at S; the written rows within 3e-2, no other row changed,
-# and two launches bit for bit
+# a range ragged at S, the serving engine's verify step at 16 slots (one
+# range of 384 keys at Kd = 4: 48,544 bytes of shared memory, past the
+# launch's default limit); the written rows within 3e-2, no other row
+# changed, and two launches bit for bit
 @pytest.mark.parametrize("B,S,H,Hkv,kd,ci,qk_norm", [
     (2, 256, 32, 8, 1, (0, 200), False),
+    (16, 384, 32, 8, 4, tuple((64 + 16 * i) % 256 for i in range(16)),
+     False),
     (2, 256, 32, 8, 4, (0, 252), False),
     (2, 256, 8, 8, 1, (256, 17), True),
     (2, 4096, 32, 8, 1, (40, 300), False),
@@ -2067,7 +2071,7 @@ def test_asr_feature_cache_hit_launches_no_perception_kernel(asr_model):
 
 # -- the serving engine's kept decode graph (serve/engine.py) ----------------
 
-def _engine_run(model, graph: bool, engine_cls=None, pipeline=True):
+def _engine_run(model, graph: bool, engine_cls=None, pipeline=True, **kw):
     """Six requests of 4-12 new tokens through 3 slots, 3 steps a tick, two
     of them submitted mid-run: the slot set changes across ticks.  Returns
     (each request's tokens, the engine, the launch counts)."""
@@ -2075,7 +2079,7 @@ def _engine_run(model, graph: bool, engine_cls=None, pipeline=True):
     cls = engine_cls or ContinuousBatchingEngine
     eng = cls(model, n_slots=3, max_ctx=128, max_new_tokens=12,
               ctx_bucket=64, steps_per_tick=3, decode_graph=graph,
-              pipeline_ticks=pipeline)
+              pipeline_ticks=pipeline, **kw)
     texts = [f"Tell me about the number {i}." for i in range(6)]
     _build.reset_launch_counts()
     rids = [eng.submit([{"role": "user", "content": t}],
@@ -2148,3 +2152,155 @@ def test_engine_graph_check_binds_on_a_rebound_cache(engine_model):
     got, eng, _ = _engine_run(engine_model, graph=True, engine_cls=Rebinding)
     assert eng.graph.captures == 1
     assert got != eager
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_engine_verify_graph_captures_once_and_matches_eager(engine_model,
+                                                             pipeline):
+    """The spec engine (speculative_k=4, every tick speculative): its
+    verify steps are replays of the one verify graph it keeps, captured
+    once while requests come and go (one decode_graph replay a verify step
+    but the first, K8v's launches every step's, K8-int8 none); its tokens
+    equal the same engine's with every step eager."""
+    kw = dict(speculative_k=4, adaptive_spec=False)
+    eager, e_eng, e_n = _engine_run(engine_model, graph=False,
+                                    pipeline=pipeline, **kw)
+    got, g_eng, g_n = _engine_run(engine_model, graph=True,
+                                  pipeline=pipeline, **kw)
+    steps = g_eng._n_spec_ticks * g_eng.steps_per_tick
+    L = g_eng.cfg.num_hidden_layers
+    assert g_eng.speculative_k == 4 and g_eng._n_plain_ticks == 0
+    assert g_eng.vgraph.captures == 1 and g_eng.graph.captures == 0
+    assert g_n.pop("decode_graph") == steps - 1
+    assert g_n["fused_verify_layers"] == 7 * L * steps
+    assert "fused_decode_layers_int8" not in g_n
+    assert g_n == e_n
+    assert got == eager
+    assert _build.fallback_counts() == {}
+    g_eng.close()
+
+
+def test_verify_graph_logits_match_eager(engine_model, gen):
+    """A kept verify graph (kd = 4, 3 rows at their own cache indices, one
+    at the cache's end): three steps, eager, captured then replayed, each
+    step's logits [B, 4, V] and written cache rows bit-equal to the same
+    steps run eagerly on a copy of the cache."""
+    from desta25_audio_tpu_torch.generate.graph import DecodeGraph
+    llm, cfg = engine_model.params["llm"], engine_model.llm_cfg
+    B, S, kd = 3, 256, 4
+    base = tllm.init_kv_cache(cfg, B, S, torch.bfloat16, "cuda")
+    base.k.normal_(generator=gen)
+    base.v.normal_(generator=gen)
+    mask = (torch.rand(B, S, generator=gen, device="cuda") > 0.1).int()
+    ci0 = torch.tensor([40, 130, S - kd], dtype=torch.int32, device="cuda")
+    runs = []
+    for capture in (True, False):
+        cache = tllm.KVCache(base.k.clone(), base.v.clone())
+        g = DecodeGraph(llm, cfg, mask, cache, None, capture=capture, kd=kd)
+        draw = torch.Generator("cuda").manual_seed(1)
+        out = []
+        for s in range(3):
+            toks = torch.randint(0, cfg.vocab_size, (B, kd), generator=draw,
+                                 device="cuda")
+            ci = torch.clamp(ci0 + s, max=S - kd)
+            pos = ci.long()[:, None] + torch.arange(kd, device="cuda")
+            out.append(g.step(toks, pos, ci).clone())
+        torch.cuda.synchronize()
+        runs.append((out, cache, g.captures))
+        g.close()
+    (got, gc_, n), (want, wc, _) = runs
+    assert n == 1
+    for a, b in zip(got, want):
+        assert a.shape == (B, kd, cfg.vocab_size) and a.dtype == torch.float32
+        assert torch.equal(a, b)
+    assert torch.equal(gc_.k, wc.k) and torch.equal(gc_.v, wc.v)
+    assert not torch.equal(gc_.k, base.k)
+
+
+@pytest.mark.parametrize("spec", [False, True])
+def test_mesh_engine_graph_matches_eager(engine_model, spec):
+    """The engine under a (1, 2) mesh of virtual ranks on the card, plain
+    ticks or every tick speculative (speculative_k=4): its steps are
+    replays of one graph for the card (K10 or its verify step), captured
+    once, the all-reduce's error words read once a tick; its tokens equal
+    the same engine's with every step eager."""
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    model = DeSTA25AudioModel(engine_model.config, device="cuda", seed=3)
+    mesh = make_mesh(1, 2, ["cuda:0"] * 2)
+    model.apply_llm_sharding(mesh)
+    kw = dict(speculative_k=4, adaptive_spec=False) if spec else {}
+    runs = []
+    for graph in (False, True):
+        with use_mesh(mesh):
+            got, eng, counts = _engine_run(model, graph=graph, **kw)
+        runs.append((got, eng, counts))
+    (eager, _, e_n), (got, g_eng, g_n) = runs
+    name = "fused_verify_layers_mesh" if spec else "fused_decode_layers_mesh"
+    g = g_eng.vgraph if spec else g_eng.graph
+    steps = (g_eng._n_spec_ticks if spec else g_eng._n_plain_ticks) * 3
+    assert g.captures == 1
+    assert g_n.pop("decode_graph") == steps - 1
+    assert g_n[name] > 0 and g_n["tp_allreduce"] > 0
+    assert "fused_decode_layers_int8" not in g_n
+    assert g_n == e_n
+    assert got == eager
+    g_eng.close()
+    mesh.buffers.clear()
+
+
+def test_mesh_engine_orca_copies_follow_the_slots(tmp_path):
+    """The ORCA engine (int8 stack and tower, K8i inside K10) under a (2, 2)
+    mesh of virtual ranks: a data row's ranks read copies of the slots'
+    audio K/V and ``on`` flags, which must follow every admission and tick
+    (``MeshStep.sync_inject`` and ``fill``): after the run every rank's
+    copies equal the engine's rows, and every request finishes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written Hopper kernels)")
+    import numpy as np
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    from desta25_audio_tpu_torch.audio.io import write_wav
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import data_rows
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    cfg = DeSTA25Config(llm_model_id="test/llama-nano128",
+                        encoder_model_id="test/whisper-nano",
+                        qformer_num_hidden_layers=2, prompt_size=8,
+                        dtype="bfloat16", llm_quant="int8",
+                        connector_mode="orca_hybrid",
+                        orca_global_num_tokens=4, orca_local_downsample=4,
+                        orca_local_kernel_size=5,
+                        orca_audio_position_scale=2.5)
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=4)
+    model.apply_orca_xattn_quant()
+    mesh = make_mesh(2, 2, ["cuda:0"] * 4)
+    model.apply_llm_sharding(mesh)
+    t = np.arange(12000) / 16000.0
+    msgs = []
+    for i in range(3):
+        path = str(tmp_path / f"w{i}.wav")
+        write_wav(path, (0.5 * np.sin(2 * np.pi * (300 + 80 * i) * t))
+                  .astype(np.float32))
+        msgs.append([{"role": "user", "content": f"Sound {i}: <|AUDIO|>",
+                      "audios": [{"audio": path, "text": f"tone {i}"}]}])
+    msgs.append([{"role": "user", "content": "Say hello."}])
+    with use_mesh(mesh):
+        eng = ContinuousBatchingEngine(model, n_slots=2, max_ctx=128,
+                                       max_new_tokens=6, ctx_bucket=64,
+                                       steps_per_tick=2)
+        assert eng._fspec is not None and eng.graph is not None
+        rids = [eng.submit(m) for m in msgs]
+        eng.run_until_done()
+        info = eng.results()
+    torch.cuda.synchronize()
+    assert all(info[r]["finish_reason"] in ("eos", "length") for r in rids)
+    step = eng.graph.stepper
+    on = torch.as_tensor(eng._on)
+    for g, rows, ins, steps, bufs in step.groups:
+        assert rows == data_rows(mesh, 2, g)
+        for st in steps:
+            assert torch.equal(st.inj["k"], eng.inject_k[:, rows])
+            assert torch.equal(st.inj["v"], eng.inject_v[:, rows])
+            assert torch.equal(st.inj["on"], on[rows])
+    eng.close()
+    mesh.buffers.clear()

@@ -15,11 +15,13 @@ package's params carried across by the bridge.
   K8-int8 and K8i on a bf16 nano tower with 128-wide heads): ticks of 1
   and 3 steps, pipelined and sequential, ``submit`` and ``submit_many``
   give the same greedy ids, ORCA's text-only slot runs with ``on`` = 0.
-- Refusals (speculative ticks, a mesh: ROADMAP.md Queue 1 item 3b), the
-  repair of ``models/llm.py`` (a per-row cache write past the end, clamped
-  as JAX's ``dynamic_update_slice`` clamps, against JAX ``llm_apply``), and
-  ``sample_token_dynamic`` (greedy rows the exact argmax, sampled rows in
-  their nucleus and reproducible for a seed).
+- The repair of ``models/llm.py`` (a per-row cache write past the end,
+  clamped as JAX's ``dynamic_update_slice`` clamps, against JAX
+  ``llm_apply``), and ``sample_token_dynamic`` (greedy rows the exact
+  argmax, sampled rows in their nucleus and reproducible for a seed).
+
+Speculative ticks: tests/test_torch_serving_spec.py; the engine under a
+mesh: tests/test_torch_serving_mesh.py; HTTP: tests/test_torch_http.py.
 """
 
 import jax
@@ -513,18 +515,7 @@ def test_engine_fused_step_invariants(fused_models, wavs, kind):
     assert run(3, False, True) == base
 
 
-# -- refusals, the cache-write repair, the sampler ----------------------------
-
-def test_engine_refuses_speculation_and_a_mesh(model):
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        ContinuousBatchingEngine(model, n_slots=2, max_ctx=64,
-                                 max_new_tokens=4, speculative_k=4)
-    from desta25_audio_tpu_torch.parallel.mesh import make_mesh, use_mesh
-    with use_mesh(make_mesh(1, 2, ["cpu"] * 2)):
-        with pytest.raises(NotImplementedError, match="item 3b"):
-            ContinuousBatchingEngine(model, n_slots=2, max_ctx=64,
-                                     max_new_tokens=4)
-
+# -- the cache-write repair, the sampler ----------------------------------------
 
 def _nano_llm():
     kw = dict(model_id="test/srv-nano", vocab_size=512, hidden_size=64,
