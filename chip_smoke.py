@@ -100,7 +100,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     launches those of every step, one ``decode_graph`` replay for each
     step but the first), no torch path, and the teacher-forced gate: each
     emitted id is the argmax of a forward over the request's own bucketed
-    prompt and its emitted ids, or within TOL_ENGINE_MARGIN of it, the
+    prompt and its emitted ids (fed back one at a time through the layer
+    loop, none of the engine's decode kernels), or within
+    TOL_ENGINE_MARGIN of it, the
     margins printed, beside a control (each row's ids on the next row's
     prompt) that must fail it; the model's feature cache, which the engine
     turns on, is turned off again after each engine phase;
@@ -154,8 +156,9 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     (12 through one ``submit_many``, 12 submitted while the first decode;
     every other one sampled at 0.7 / 0.9; two text-only): replays of one
     graph as in 12f with K8-int8 inside and not the bf16 K8, every request
-    finished with ``length`` or ``eos``, the greedy rows through the gate;
-    ticks, tokens/s and the time to the first token (p50, p90, submit to
+    finished with ``length`` or ``eos``, the greedy rows through the gate
+    (and, as information, through two other references: the ids in one
+    call, and one at a time through the fused step); ticks, tokens/s and the time to the first token (p50, p90, submit to
     first token) printed;
 16b. 8 greedy requests of 24 tokens: the same ids with pipelining off,
     with one step a tick, and through ``submit`` instead of
@@ -345,6 +348,42 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``L_align_layerwise`` > 0 and finite; (c) two steps at the config's
     own B=12, T=300: K11 does not launch.  Each prints ms/step, tokens/s
     and the peak device memory.
+27. int8 weights quantized on the card against the CPU, bit for bit
+    (``ops/quant.quantize_weight``'s scale is an IEEE division): 4096 rows
+    whose max / 127 and max * fl(1/127) round apart, then one
+    Llama-3.1-8B layer and its head through ``quantize_llm_params``;
+28. checkpoints, Qwen3-0.6B whole and full size
+    (configs/desta25_qwen3-0.6b_Qformer6L.yaml): (a) a seeded HF-layout
+    snapshot written by the port's codec (whisper-large-v3 in f16, 2
+    shards; Qwen3-0.6B in bf16, tied); (b) staged through
+    ``python -m desta25_audio_tpu_torch.ckpt.hf_convert`` in a subprocess,
+    the whisper tower plain and Qwen3 with --int8 (preset found by dims);
+    (c) the in-memory model converted from the same state dicts, its
+    checkpoint written by ``save_pretrained``; (d) ``from_pretrained`` on
+    the card from the raw shards and from the staged bf16 file, then
+    with ``llm_quant="int8"`` from the staged int8 file (quantized on the
+    CPU) and from the raw shards (quantized on the card): each tree
+    bit-identical to the in-memory model's (bf16, then quantized on the
+    card) and its greedy ids at b2 equal; (e) ``cli.generate --json``
+    with ``$DESTA_TPU_WEIGHTS``, its ids those of ``generate()``; (f)
+    ``cli.serve`` through ``start_http`` on an ephemeral port, one
+    /v1/chat/completions request; (g) the ORCA config with the int8
+    stack and LLM (K8i) loaded from the raw shards, the staged bf16 file
+    alone and the staged int8 file, each equal to its in-memory model.
+    The CLIs build CharTokenizers (the repo holds no BPE files, and the
+    script needs no ``transformers``);
+29. the flagship's Llama-3.1-8B full size: the free disk space of the
+    work dir; a 4-shard bf16 snapshot (8.03 B params, 16.06 GB), staged
+    int8 on the host CPU (the CLI's --int8 conversion in a subprocess,
+    writing its 8.6 GB int8 file but not its 16 GB bf16 one, which would
+    take the script's disk writes past 45 GiB), then ``from_pretrained`` of
+    configs/desta25_llama31-8B_Qformer6L.yaml with ``llm_quant="int8"``
+    from the staged int8 file and from the raw shards: every leaf
+    bit-identical (the 32 layers and the head quantized on the CPU and on
+    the card) and equal greedy ids.  Each load of 28-29 prints its wall
+    time, the bytes of its files and their read rate alone onto the card
+    (page cache warm), its peak device memory and the time to the first
+    token after it; each step of 28-29 its wall time.
 
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
@@ -477,17 +516,22 @@ TOL_ASR_CACHE = 1e-4  # the Whisper decoder's cached steps vs its full
 
 TOL_ENGINE_MARGIN = 0.25  # the serving engine's greedy ids against a
                      # forward over each request's own prompt (as the
-                     # engine's prefill runs it) and its emitted ids (in one
-                     # call, weight-only int8 products: the decode step's
-                     # numerics; with ORCA the PyTorch injection): where the
-                     # reference's argmax is not the emitted id, its top
-                     # logit less the emitted id's, in logit units (random
+                     # engine's prefill runs it) and its emitted ids (one at
+                     # a time, in the decode step's order, through the layer
+                     # loop: the torch attention and weight-only products,
+                     # none of the engine's decode kernels; with ORCA the
+                     # PyTorch injection): where the reference's argmax is
+                     # not the emitted id, its top logit less the emitted
+                     # id's, in logit units (random
                      # weights: logits of ~1.3 std, top-2 gaps of a few
                      # tenths; the bf16 tower read <= 0.089); the control,
                      # each row's ids on another row's prompt, read 7.5-8.9.
                      # A reference with the prompt too in weight-only int8
                      # (the engine's prefill quantizes activations, W8A8)
-                     # read 0.47 on the int8 tower
+                     # read 0.47 on the int8 tower; 16a prints two other
+                     # references beside it (the ids in one call, and one at
+                     # a time through the fused step), which differ from it
+                     # by up to ~0.3 in a logit
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
@@ -4685,9 +4729,11 @@ def run_orca_training(gpu: str, tmpdir: str) -> None:
     train_s = time.perf_counter() - t0
     print_steps("orca-train (26a)", probe.rows, gpu)
     ckpt = os.path.realpath(os.path.join(tcfg.exp_dir, "checkpoint-latest"))
+    ck_bytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                   for f in os.listdir(ckpt))
     print(f"ORCA train() {train_s:.1f} s for 3 steps and a checkpoint of "
-          f"{os.path.getsize(os.path.join(ckpt, 'state.pt')) / 2**30:.2f} "
-          f"GiB; aux losses {json.dumps([{k: v for k, v in r['metrics'].items() if k.startswith('L_')} for r in probe.rows])}",
+          f"{ck_bytes / 2**30:.2f} GiB (state.pt and model.safetensors); aux "
+          f"losses {json.dumps([{k: v for k, v in r['metrics'].items() if k.startswith('L_')} for r in probe.rows])}",
           flush=True)
     if len(probe.rows) != 3:
         raise AssertionError(f"ORCA train() ran {len(probe.rows)} steps")
@@ -4822,20 +4868,33 @@ def submit_all(eng, convs, many: bool = True, **kw):
     return rids, {r.rid: r for r in eng.queue[n0:]}
 
 
-def one_shot_margins(model, req, ids):
-    """The engine's gate reference for one request, a forward over its own
-    prefix in two calls on one cache: its bucketed prompt (left padding
-    masked, positions from 0) as the engine's prefill runs it (the int8
-    tower's products through W8A8 from 128 rows), then every emitted id
-    but the last in one call at the prompt's end with weight-only int8
-    products (``w8a8=False``, the decode step's numerics), ORCA's injection
-    through the PyTorch hook on the request's RoPE'd audio tokens.  Returns,
-    per emitted id, the reference's top logit less the id's (0 where the id
-    is the argmax), numpy [n]."""
+def reference_logits(model, req, ids, how: str = "loop"):
+    """A forward over one engine request's own prefix on one cache: its
+    bucketed prompt (left padding masked, positions from 0) in one call as
+    the engine's prefill runs it (the int8 tower's products through W8A8
+    from 128 rows), then every emitted id but the last; with ORCA the
+    injection through the PyTorch hook on the request's RoPE'd audio
+    tokens.  ``how`` feeds the ids back:
+
+    - "loop", the gate's reference: one at a time, in the decode step's
+      order, through the layer loop (a per-layer hook keeps each T == 1
+      call off the fused decode step: the torch attention over the cache
+      and weight-only products, K7 at one row on an int8 tower; from the
+      second id on replayed as one CUDA graph, without ORCA), so it runs
+      none of the decode kernels the engine runs; raises if a fused kernel
+      launched;
+    - "fused": one at a time through the fused decode step, the kernel the
+      engine runs (without ORCA; information only);
+    - "one_call": all in one call, weight-only products (K7's ``wgmma``
+      path) and the masked torch attention over the rows at once
+      (information only).
+
+    Returns (f32 logits [n, V] predicting each emitted id, the ids [n])."""
     import torch
     from desta25_audio_tpu_torch.models import llm as tllm
     from desta25_audio_tpu_torch.models.orca import (
         gated_cross_attention_apply, precompute_cross_kv)
+    from desta25_audio_tpu_torch.ops import _build
     from desta25_audio_tpu_torch.ops.core import index_tree
     llm, cfg = model.params["llm"], model.llm_cfg
     e = req.embeds
@@ -4845,8 +4904,10 @@ def one_shot_margins(model, req, ids):
     S = -(-(Tb + n) // 128) * 128
     cache = tllm.init_kv_cache(cfg, 1, S, e.dtype, dev)
     mask = torch.zeros(1, S, dtype=torch.int32, device=dev)
-    mask[0, Tb - req.ctx_len:Tb + n - 1] = 1
-    extra = None
+    mask[0, Tb - req.ctx_len:Tb] = 1
+
+    def extra(l, h):
+        return h
     if req.inject is not None:
         xa = model.params["orca_cross_attns"]
         k, v = precompute_cross_kv(xa, req.inject)
@@ -4856,51 +4917,117 @@ def one_shot_margins(model, req, ids):
             return gated_cross_attention_apply(
                 index_tree(xa["layers"], l), h, None,
                 cfg.num_attention_heads, cached_kv=(k[l], v[l]))
+    elif how != "loop":
+        extra = None
+
+    def fused():
+        return sum(v for k, v in _build.launch_counts().items()
+                   if k.startswith("fused_"))
+    before = fused()
     pos = torch.clamp(torch.cumsum(mask[:, :Tb], 1) - 1, min=0)
     lg, cache = tllm.llm_apply(llm, cfg, inputs_embeds=e,
                                attention_mask=mask, positions=pos,
                                cache=cache, cache_index=0,
                                extra_layer_fn=extra)
     lg = [lg[0, -1:]]
-    if n > 1:
+    if how == "one_call" and n > 1:
+        mask[0, Tb:Tb + n - 1] = 1
         step, _ = tllm.llm_apply(
             llm, cfg, input_ids=y[None, :-1], attention_mask=mask,
             positions=req.ctx_len + torch.arange(n - 1, device=dev)[None],
             cache=cache, cache_index=Tb, extra_layer_fn=extra, w8a8=False)
         lg.append(step[0])
-    lg = torch.cat(lg)
-    return (lg.max(-1).values - lg.gather(-1, y[:, None])[:, 0]
-            ).float().cpu().numpy()
+    elif how != "one_call":
+        # the step's inputs in place, so that from its second call the
+        # layer loop replays as one CUDA graph (its ~1,000 small launches a
+        # token at 32 layers are host-bound eagerly; the first call warms
+        # up); ORCA's few rows stay eager
+        tok = torch.zeros(1, 1, dtype=torch.long, device=dev)
+        at = torch.zeros(1, 1, dtype=torch.long, device=dev)
+        ci = torch.zeros((), dtype=torch.long, device=dev)
+        graph = out = None
+
+        def step():
+            return tllm.llm_apply(
+                llm, cfg, input_ids=tok, attention_mask=mask, positions=at,
+                cache=cache, cache_index=ci, extra_layer_fn=extra,
+                w8a8=False)[0][0]
+        for t in range(n - 1):
+            mask[0, Tb + t] = 1
+            tok.copy_(y[None, t:t + 1])
+            at.fill_(req.ctx_len + t)
+            ci.fill_(Tb + t)
+            if t == 1 and how == "loop" and req.inject is None:
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = step()
+            if graph is None:
+                lg.append(step())
+            else:
+                graph.replay()
+                lg.append(out.clone())
+    if how == "loop" and fused() != before:
+        raise AssertionError("the gate's reference ran a fused decode step")
+    return torch.cat(lg).float(), y
 
 
-def engine_gate(tag: str, model, rows) -> float:
+def top_less(lg, y):
+    """Per row of logits lg [n, V], its top logit less that of the id in y
+    [n] (0 where the id is the argmax)."""
+    return lg.max(-1).values - lg.gather(-1, y[:, None])[:, 0]
+
+
+def reference_margins(model, req, ids):
+    """The gate's margins for one request: ``top_less`` of its
+    ``reference_logits``, numpy [n]."""
+    return top_less(*reference_logits(model, req, ids)).cpu().numpy()
+
+
+def engine_gate(tag: str, model, rows, others: bool = False) -> float:
     """The teacher-forced gate of an engine's greedy rows ``rows`` [(the
-    queued request, its emitted ids)]: every emitted id is the one-shot
-    forward's argmax at its own prefix or within TOL_ENGINE_MARGIN of it;
+    queued request, its emitted ids)]: every emitted id is the reference
+    forward's argmax at its own prefix (``reference_margins``, the layer
+    loop) or within TOL_ENGINE_MARGIN of it;
     the margins are printed.  The control, each row's ids checked against
-    the next row's prompt, must fail the gate.  Returns the largest
-    margin."""
+    the next row's prompt, must fail the gate.  With ``others`` the
+    one-call and fused-step references (``reference_logits``) are read on
+    the same rows and printed beside it, as information: their worst
+    margins and their largest logit difference from the gate's reference.
+    Returns the largest margin."""
     import torch
     worst, parted = 0.0, []
+    other = {h: [0.0, 0.0] for h in (("one_call", "fused") if others
+                                      else ())}
     with torch.no_grad():
         for req, ids in rows:
-            m = one_shot_margins(model, req, ids)
+            lg, y = reference_logits(model, req, ids)
+            m = top_less(lg, y).cpu().numpy()
             worst = max(worst, float(m.max()))
             parted += [round(float(v), 4) for v in m if v > 0]
+            for h, w in other.items():
+                lo, _ = reference_logits(model, req, ids, h)
+                w[0] = max(w[0], float(top_less(lo, y).max()))
+                w[1] = max(w[1], float((lo - lg).abs().max()))
         ctl = 0.0
         for (_, ia), (rb, ib) in zip(rows, rows[1:] + rows[:1]):
             n = min(len(ia), len(ib))
-            ctl = max(ctl, float(one_shot_margins(model, rb, ia[:n]).max()))
+            ctl = max(ctl, float(reference_margins(model, rb, ia[:n]).max()))
     n_ids = sum(len(ids) for _, ids in rows)
     print(f"{tag}: teacher-forced gate over {len(rows)} greedy rows, {n_ids}"
-          f" ids: {n_ids - len(parted)} the one-shot argmax, the others at "
+          f" ids: {n_ids - len(parted)} the reference's argmax, the others at "
           f"margins {sorted(parted, reverse=True)[:24]} (worst {worst:.4f}, "
           f"tol {TOL_ENGINE_MARGIN}); control (each row's ids on the next "
           f"row's prompt) "
           f"{ctl:.4f}", flush=True)
+    if other:
+        print(f"{tag}: other references on the same rows (information, not "
+              f"gated): " + "; ".join(
+                  f"{h} worst margin {w[0]:.4f}, largest logit difference "
+                  f"from the gate's reference {w[1]:.4f}"
+                  for h, w in other.items()), flush=True)
     if worst > TOL_ENGINE_MARGIN:
         raise AssertionError(f"{tag}: an engine greedy id is {worst} below "
-                             "the one-shot forward's argmax")
+                             "the reference forward's argmax")
     if ctl <= TOL_ENGINE_MARGIN:
         raise AssertionError(f"{tag}: the gate passes another row's ids "
                              f"({ctl})")
@@ -5001,7 +5128,7 @@ def run_engine(model, wavs, gpu) -> None:
           f"{sorted(info[r]['finish_reason'] for r in rids)}; launches "
           f"{json.dumps(counts)}; kernels {json.dumps(kcounts)}", flush=True)
     engine_gate("int8 engine", model,
-                [(reqs[r], info[r]["tokens"]) for r in greedy])
+                [(reqs[r], info[r]["tokens"]) for r in greedy], others=True)
     eng.close()
 
     # -- 16b. equal trajectories within one engine configuration -------------
@@ -5663,6 +5790,469 @@ def gate_mesh_engine(model, convs, gpu, runs, tag: str) -> None:
         engine_gate(f"{tag} engine ({kind})", model, rows)
 
 
+# -- 27. int8 weight scales quantized on the card against the CPU -----------
+
+def check_quant_on_card(gen) -> None:
+    """Phase 27: ``ckpt/synthetic.quantize_card_vs_cpu``, bit for bit, on
+    one Llama-3.1-8B layer and the head; raises on any differing scale or
+    q."""
+    from desta25_audio_tpu_torch.ckpt.synthetic import quantize_card_vs_cpu
+    r = quantize_card_vs_cpu(gen)
+    print(f"27. quantize_weight on 4096 chosen rows: {r['scales']} scales "
+          f"and {r['q_rows']} rows of q differ card vs CPU", flush=True)
+    print(f"27. quantize_llm_params, 1 meta-llama/Llama-3.1-8B-Instruct "
+          f"layer(s) and the head ({r['weights'] / 1e9:.3f} B weights): "
+          f"{r['leaves']} leaves differ card vs CPU (card {r['card_s']:.2f} "
+          f"s, CPU {r['cpu_s']:.2f} s)", flush=True)
+    if r["scales"] or r["q_rows"] or r["leaves"]:
+        raise AssertionError("int8 quantization on the card differs from "
+                             "the CPU's")
+
+
+# -- 28-29. checkpoints: staging and from_pretrained at full size ------------
+
+QWEN_CONFIG = "configs/desta25_qwen3-0.6b_Qformer6L.yaml"
+QWEN_ORCA_CONFIG = "configs/desta25_qwen3-0.6b_ORCAHybrid.yaml"
+
+
+@contextlib.contextmanager
+def char_tokenizers(template: str):
+    """The entry points build their tokenizer from the model id (HF
+    ``AutoTokenizer``); the repo holds no BPE files and the script needs no
+    ``transformers``, so for the CLI runs the hub-free CharTokenizer of
+    ``template`` stands in."""
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.models import desta as tdesta
+    real = tdesta.build_tokenizer
+    tdesta.build_tokenizer = lambda *a, **k: CharTokenizer(template)
+    try:
+        yield
+    finally:
+        tdesta.build_tokenizer = real
+
+
+def card_maker(gen):
+    """``make(shape, kind)`` for ``fill_state``: N(0, 0.02) weights and
+    biases, 1 + N(0, 0.02) norm scales, drawn on the card from ``gen``."""
+    import torch
+
+    def make(dtype):
+        def f(shape, kind):
+            x = torch.randn(*shape, generator=gen, device="cuda") * 0.02
+            return (x + 1.0 if kind == "n" else x).to(dtype)
+        return f
+    return make
+
+
+def host_run(cmd, label: str) -> float:
+    """``cmd`` in a subprocess on the host CPU; its last line of output and
+    wall time printed; the wall time in seconds.  Raises on a failure."""
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    print(f"  {label}: {last} ({secs:.1f} s)", flush=True)
+    if out.returncode:
+        raise AssertionError(f"{label} failed ({out.returncode}):\n"
+                             f"{out.stderr[-3000:]}")
+    return secs
+
+
+def stage(src: str, root: str, *extra) -> float:
+    """``python -m desta25_audio_tpu_torch.ckpt.hf_convert SRC ROOT ...``, the
+    CLI as a user runs it."""
+    return host_run([sys.executable, "-m",
+                     "desta25_audio_tpu_torch.ckpt.hf_convert", src, root,
+                     *extra],
+                    f"stage {os.path.basename(src)} {' '.join(extra)}")
+
+
+def stage_int8_only(src: str, root: str, model_id: str) -> float:
+    """The flagship's staging: ``hf_convert.stage_int8``, the int8 half of
+    the CLI's ``--int8`` staging alone, without its 16 GB bf16 file (it
+    would take the script's disk writes past 45 GiB: the flagship's
+    snapshot and int8 file are 24.6 GB of them)."""
+    return host_run([sys.executable, "-c",
+                     "import sys; from desta25_audio_tpu_torch.ckpt."
+                     "hf_convert import stage_int8; stage_int8(*sys.argv[1:])",
+                     src, root, model_id],
+                    f"stage {os.path.basename(src)} --int8 (the int8 file "
+                    "only)")
+
+
+def read_rate(files) -> float:
+    """GB/s of reading ``files``' tensors alone onto the card through the
+    port's codec (the page cache warm, as the load found it)."""
+    import torch
+    from desta25_audio_tpu_torch.ckpt.flat_io import SafetensorsState
+    sd = SafetensorsState(files, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in sd:
+        t = sd[k]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del t
+    n = sd.nbytes()
+    sd.close()
+    return n / secs / 1e9
+
+
+def tower_files(root: str, cfg, quant: str):
+    """The files a load under ``root`` reads (as ``load_frozen_tower``
+    picks them)."""
+    from desta25_audio_tpu_torch.ckpt.flat_io import shard_files
+    from desta25_audio_tpu_torch.ckpt.hf_convert import (
+        STAGED,
+        STAGED_INT8,
+        STAGED_NAMES,
+    )
+    files = []
+    for mid, tower in ((cfg.encoder_model_id, "whisper"),
+                       (cfg.llm_model_id, "llm")):
+        d = os.path.join(root, mid)
+        for name in ((STAGED_INT8, STAGED) if tower == "llm"
+                     and quant == "int8" else (STAGED,)):
+            if os.path.exists(os.path.join(d, name)):
+                files.append(os.path.join(d, name))
+                break
+        else:
+            files += shard_files(d, exclude=STAGED_NAMES)
+    return files
+
+
+def timed_load(label: str, ck: str, root: str, gpu: str, template: str,
+               msgs, **over):
+    """``from_pretrained(ck, "cuda", weights_root=root)``; prints the
+    load's wall time, the bytes of the files it read and their
+    read rate alone, its peak device memory above what was resident, and
+    the time to the first token after it (a 1-token ``generate()`` of
+    ``msgs``)."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m = DeSTA25AudioModel.from_pretrained(
+        ck, "cuda", weights_root=root, tokenizer=CharTokenizer(template),
+        config_overrides=over or None)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    t0 = time.perf_counter()
+    m.generate(msgs, do_sample=False, max_new_tokens=1)
+    torch.cuda.synchronize()
+    ttft = (time.perf_counter() - t0) * 1e3
+    files = tower_files(root, m.config, m.config.llm_quant)
+    nbytes = sum(os.path.getsize(f) for f in files)
+    rate = read_rate(files)
+    print(f"  load [{label}]: {load_s:.2f} s for {nbytes / 1e9:.3f} GB of "
+          f"files (those bytes alone onto the card: {rate:.2f} GB/s, page "
+          f"cache warm), peak device memory of the load {peak:.2f} GiB above "
+          f"the resident {base / 2**30:.2f} GiB, first token {ttft:.1f} ms "
+          f"after the load ({gpu})", flush=True)
+    return m
+
+
+def check_loaded(tag: str, m, want, msgs, want_out, gpu: str, launch=()):
+    """A model from ``from_pretrained``: its params bit-identical to
+    ``want``'s and its greedy ids those of ``want_out``; the kernels in
+    ``launch`` launched; the torch paths taken printed."""
+    import torch
+    from desta25_audio_tpu_torch.ckpt.synthetic import count_differing
+    from desta25_audio_tpu_torch.ops import _build
+    bad = count_differing(m.params, want.params)
+    _build.reset_launch_counts()
+    out = m.generate(msgs, do_sample=False, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts, taken = _build.launch_counts(), _build.fallback_counts()
+    t = m.last_timings
+    print(f"  {tag}: {bad} leaves differ from the in-memory model; ids "
+          f"{'equal' if out.generated_ids == want_out.generated_ids else 'DIFFER'}"
+          f" (row0[:8] {out.generated_ids[0][:8]}); decode "
+          f"{t['decode_ms'] / max(t['decode_steps'], 1):.3f} ms/step over "
+          f"{t['decode_steps']} steps, prefill {t['prefill_ms']:.1f} ms "
+          f"({gpu}); launches {json.dumps(counts)}; torch paths taken "
+          f"{json.dumps(taken)}", flush=True)
+    if bad or out.generated_ids != want_out.generated_ids:
+        raise AssertionError(f"{tag}: the loaded model is not the one "
+                             "whose weights were written")
+    for name in launch:
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"{tag}: {name} did not launch")
+    return counts
+
+
+def run_cli_generate(ck: str, root: str, wav: str, want) -> None:
+    """``cli.generate`` on the card (``$DESTA_TPU_WEIGHTS`` = the staged
+    root): its JSON ids are ``want``'s."""
+    import io
+    from desta25_audio_tpu_torch.cli import generate as cli_generate
+    buf = io.StringIO()
+    os.environ["DESTA_TPU_WEIGHTS"] = root
+    try:
+        t0 = time.perf_counter()
+        with char_tokenizers("qwen3"), contextlib.redirect_stdout(buf):
+            cli_generate.main(["--model", ck, "--audio", wav,
+                               "--transcription", "a test tone",
+                               "--prompt", "What do you hear?",
+                               "--max-new-tokens", "32", "--json"])
+        secs = time.perf_counter() - t0
+    finally:
+        del os.environ["DESTA_TPU_WEIGHTS"]
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"28e. cli.generate --json on the card: {secs:.1f} s with the load;"
+          f" ids row0[:8] {out['generated_ids'][0][:8]}, "
+          f"{'equal to' if out['generated_ids'] == want.generated_ids else 'DIFFERENT from'}"
+          f" from_pretrained + generate()", flush=True)
+    if out["generated_ids"] != want.generated_ids:
+        raise AssertionError("cli.generate's ids differ")
+
+
+def run_cli_serve(ck: str, root: str) -> None:
+    """``cli.serve`` on the card with ``serve_http`` swapped for the
+    non-blocking ``start_http`` on an ephemeral port: one
+    /v1/chat/completions request, then the server and the engine shut."""
+    from desta25_audio_tpu_torch.cli import serve as cli_serve
+    from desta25_audio_tpu_torch.serve import http as http_mod
+    started = {}
+
+    def serve(engine, host, port):
+        started["httpd"], started["es"] = http_mod.start_http(engine, host, 0)
+
+    real = http_mod.serve_http
+    http_mod.serve_http = serve
+    os.environ["DESTA_TPU_WEIGHTS"] = root
+    try:
+        with char_tokenizers("qwen3"):
+            cli_serve.main(["--model", ck, "--slots", "2", "--max-ctx",
+                            "256", "--max-new-tokens", "16"])
+    finally:
+        http_mod.serve_http = real
+        del os.environ["DESTA_TPU_WEIGHTS"]
+    httpd, es = started["httpd"], started["es"]
+    try:
+        t0 = time.perf_counter()
+        status, body = http_json(httpd.server_address[1], "POST",
+                                 "/v1/chat/completions", {
+                                     "messages": [{"role": "user",
+                                                   "content": "Say hello."}],
+                                     "max_tokens": 16})
+        secs = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        es.close()
+    print(f"28f. cli.serve on the card: /v1/chat/completions -> {status} in "
+          f"{secs * 1e3:.0f} ms, {body.get('usage')}", flush=True)
+    if status != 200 or not isinstance(
+            body["choices"][0]["message"]["content"], str):
+        raise AssertionError(f"cli.serve: {status} {body}")
+
+
+def run_checkpoints_qwen3(gpu: str, work: str, wavs) -> None:
+    """Phase 28: Qwen3-0.6B whole and full size, from disk."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.ckpt.hf_convert import (
+        STAGED,
+        convert_llm_state,
+        convert_whisper_state,
+    )
+    from desta25_audio_tpu_torch.ckpt.synthetic import (
+        fill_state,
+        hf_llm_shapes,
+        hf_whisper_shapes,
+        write_snapshot,
+    )
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.ops import _build
+    cfg = config_from_yaml_file(QWEN_CONFIG)
+    ecfg, lcfg = cfg.encoder_config, cfg.llm_config
+    raw, staged = os.path.join(work, "raw"), os.path.join(work, "staged")
+    make = card_maker(torch.Generator("cuda").manual_seed(28))
+    # -- 28a. a seeded HF-layout snapshot, written by the port's codec -----
+    t0 = time.perf_counter()
+    sw = fill_state(hf_whisper_shapes(ecfg), make(torch.float16))
+    sl = fill_state(hf_llm_shapes(lcfg), make(torch.bfloat16))
+    nw = write_snapshot(os.path.join(raw, ecfg.model_id), "whisper", ecfg,
+                        sw, shards=2)
+    nl = write_snapshot(os.path.join(raw, lcfg.model_id), "llm", lcfg, sl)
+    print(f"28a. HF snapshot written: {ecfg.model_id} f16 {nw / 1e9:.3f} GB "
+          f"({sum(t.numel() for t in sw.values()) / 1e9:.3f} B params, 2 "
+          f"shards), {lcfg.model_id} bf16 {nl / 1e9:.3f} GB "
+          f"({sum(t.numel() for t in sl.values()) / 1e9:.3f} B params, tied)"
+          f" in {time.perf_counter() - t0:.1f} s", flush=True)
+    # -- 28b. staged through the CLI, plain and --int8 ----------------------
+    stage(os.path.join(raw, ecfg.model_id), staged)
+    stage(os.path.join(raw, lcfg.model_id), staged, "--int8")
+    # -- 28c. the in-memory model whose weights were written ----------------
+    tok = CharTokenizer("qwen3")
+    with torch.no_grad():
+        mem = DeSTA25AudioModel(cfg, "cuda", seed=0, tokenizer=tok)
+        mem.params["whisper"] = convert_whisper_state(sw, ecfg, mem.dtype,
+                                                      "cuda")
+        mem.params["llm"] = convert_llm_state(sl, lcfg, mem.dtype, "cuda")
+        mem.apply_inference_encoder_quant()
+    del sw, sl
+    ck = os.path.join(work, "ck_qwen3_qformer")
+    mem.save_pretrained(ck)
+    msgs = conversations(wavs)[:2]
+    _build.reset_launch_counts()
+    want = mem.generate(msgs, do_sample=False, max_new_tokens=32)
+    print(f"28c. in-memory {QWEN_CONFIG} (int8 encoder, bf16 LLM): ids "
+          f"row0[:8] {want.generated_ids[0][:8]}; torch paths taken "
+          f"{json.dumps(_build.fallback_counts())}", flush=True)
+    # -- 28d. from_pretrained: raw shards, staged bf16, then int8 ----------
+    for label, root in (("Q-Former, raw shards", raw),
+                        ("Q-Former, staged bf16", staged)):
+        m = timed_load(label, ck, root, gpu, "qwen3", msgs)
+        check_loaded(label, m, mem, msgs, want, gpu,
+                     launch=("fused_decode_layers", "log_mel"))
+        del m
+    # 28e: cli.generate, compared with the bf16 in-memory model
+    one = [{"role": "user", "content": "What do you hear? <|AUDIO|>",
+            "audios": [{"audio": wavs[0], "text": "a test tone"}]}]
+    run_cli_generate(ck, staged, wavs[0], mem.generate(
+        one, do_sample=False, max_new_tokens=32))
+    run_cli_serve(ck, staged)
+    with torch.no_grad():
+        mem.apply_llm_quant()             # on the card
+    want8 = mem.generate(msgs, do_sample=False, max_new_tokens=32)
+    for label, root in (("Q-Former, staged int8 (quantized on the CPU)",
+                         staged),
+                        ("Q-Former, raw shards, int8 (quantized on the "
+                         "card)", raw)):
+        m = timed_load(label, ck, root, gpu, "qwen3", msgs,
+                       llm_quant="int8")
+        check_loaded(label, m, mem, msgs, want8, gpu,
+                     launch=("fused_decode_layers_int8", "quant_matmul"))
+        del m
+    # -- 28g. the ORCA config, the int8 stack and LLM: K8i -------------------
+    ocfg = dataclasses.replace(config_from_yaml_file(QWEN_ORCA_CONFIG),
+                               llm_quant="int8", orca_xattn_quant="int8")
+    with torch.no_grad():
+        orca = DeSTA25AudioModel(ocfg, "cuda", seed=0, tokenizer=tok)
+        orca.params["whisper"] = mem.params["whisper"]
+        orca.params["llm"] = mem.params["llm"]
+    cko = os.path.join(work, "ck_qwen3_orca")
+    orca.save_pretrained(cko)             # the float stack, as it trains
+    orca.apply_orca_xattn_quant()
+    wanto = orca.generate(msgs, do_sample=False, max_new_tokens=32)
+    # a root with the staged bf16 files alone: its LLM is quantized on
+    # the card as it loads
+    bf16_root = os.path.join(work, "staged_bf16")
+    for mid in (ecfg.model_id, lcfg.model_id):
+        os.makedirs(os.path.join(bf16_root, mid))
+        os.symlink(os.path.join(staged, mid, STAGED),
+                   os.path.join(bf16_root, mid, STAGED))
+    for label, root in (("ORCA, raw shards (int8 on the card)", raw),
+                        ("ORCA, staged bf16 (int8 on the card)", bf16_root),
+                        ("ORCA, staged int8 (int8 on the CPU)", staged)):
+        m = timed_load(label, cko, root, gpu, "qwen3", msgs)
+        check_loaded(label, m, orca, msgs, wanto, gpu,
+                     launch=("fused_decode_inject",))
+        del m
+    del mem, orca
+    # the flagship keeps the whisper tower's files only
+    for d in (os.path.join(raw, lcfg.model_id), os.path.join(staged,
+              lcfg.model_id), bf16_root, ck, cko):
+        shutil.rmtree(d)
+
+
+def run_checkpoints_flagship(gpu: str, work: str, wavs) -> None:
+    """Phase 29: the flagship's Llama-3.1-8B, full size, from disk."""
+    import torch
+    from desta25_audio_tpu_torch.ckpt.desta_io import (
+        save_trainable_safetensors,
+    )
+    from desta25_audio_tpu_torch.ckpt.synthetic import (
+        count_differing,
+        fill_state,
+        hf_llm_shapes,
+        write_snapshot,
+    )
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.models.qformer import init_qformer_connector
+    cfg = dataclasses.replace(config_from_yaml_file(CONFIG), llm_quant="int8")
+    lcfg = cfg.llm_config
+    raw, staged = os.path.join(work, "raw"), os.path.join(work, "staged")
+    src = os.path.join(raw, lcfg.model_id)
+    du = shutil.disk_usage(work)
+    print(f"29. {work}: {du.free / 1e9:.1f} GB free of {du.total / 1e9:.1f} "
+          f"GB before the flagship's files", flush=True)
+    # -- 29a. a 4-shard bf16 snapshot ---------------------------------------
+    t0 = time.perf_counter()
+    make = card_maker(torch.Generator("cuda").manual_seed(29))
+    state = fill_state(hf_llm_shapes(lcfg), make(torch.bfloat16))
+    n = write_snapshot(src, "llm", lcfg, state, shards=4)
+    n_params = sum(t.numel() for t in state.values())
+    del state
+    torch.cuda.empty_cache()
+    print(f"29a. {lcfg.model_id} HF snapshot: {n_params / 1e9:.3f} B params,"
+          f" {n / 1e9:.2f} GB bf16 in 4 shards, written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # -- 29b. staged int8 (host CPU) -----------------------------------------
+    stage_int8_only(src, staged, lcfg.model_id)
+    for name in sorted(os.listdir(os.path.join(staged, lcfg.model_id))):
+        print(f"  {name}: {os.path.getsize(os.path.join(staged, lcfg.model_id, name)) / 1e9:.3f} GB",
+              flush=True)
+    # the checkpoint dir: config.json and a seeded Q-Former's
+    # model.safetensors (the towers come from the weights roots)
+    ck = os.path.join(work, "ck_flagship")
+    os.makedirs(ck)
+    with open(os.path.join(ck, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    with torch.no_grad():
+        conn = init_qformer_connector(
+            cfg, torch.float32, "cuda", torch.Generator("cuda").manual_seed(0))
+    save_trainable_safetensors({"connector": conn}, cfg,
+                               os.path.join(ck, "model.safetensors"))
+    del conn
+    msgs = conversations(wavs)[:2]
+    # -- 29c. from the staged int8 file, then from the raw shards ----------
+    models = [timed_load(label, ck, root, gpu, "llama3", msgs)
+              for label, root in (
+                  ("flagship, staged int8 (quantized on the CPU)", staged),
+                  ("flagship, raw shards (quantized on the card)", raw))]
+    a, b = models
+    bad = count_differing(a.params, b.params)
+    outs = [m.generate(msgs, do_sample=False, max_new_tokens=32)
+            for m in models]
+    t = b.last_timings
+    print(f"29d. the two flagship loads: {bad} leaves differ (the 32 layers "
+          f"and the head quantized on the CPU vs on the card); greedy ids "
+          f"{'equal' if outs[0].generated_ids == outs[1].generated_ids else 'DIFFER'}"
+          f" (row0[:8] {outs[0].generated_ids[0][:8]}); decode "
+          f"{t['decode_ms'] / max(t['decode_steps'], 1):.3f} ms/step ({gpu})",
+          flush=True)
+    if bad or outs[0].generated_ids != outs[1].generated_ids:
+        raise AssertionError("the flagship's staged int8 load differs from "
+                             "its load from the raw shards")
+
+
+def run_checkpoints(gpu: str, tmpdir: str, wavs) -> None:
+    """Phases 28-29 in one work dir under the run's temporary directory
+    (~35 GB written in all: the snapshots, staged files and checkpoints),
+    removed at the end."""
+    work = tempfile.mkdtemp(prefix="ckpt", dir=tmpdir)
+    try:
+        t0 = time.perf_counter()
+        run_checkpoints_qwen3(gpu, work, wavs)
+        gc.collect()
+        t1 = time.perf_counter()
+        run_checkpoints_flagship(gpu, work, wavs)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"checkpoint phases: 28 took {t1 - t0:.1f} s, 29 {t2 - t1:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -5847,6 +6437,15 @@ def main() -> int:
 
     # -- 26. ORCA training at full width --------------------------------------
     run_orca_training(gpu, tmp.name)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 27. int8 weights quantized on the card against the CPU -------------
+    with torch.no_grad():
+        check_quant_on_card(torch.Generator("cuda").manual_seed(27))
+
+    # -- 28-29. checkpoints: HF snapshots staged and loaded at full size -----
+    run_checkpoints(gpu, tmp.name, wavs)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s (the serving engine's "
           f"phases 12f and 16a-16g: {engine_s:.1f} s)", flush=True)

@@ -8,6 +8,11 @@ into ``wqkv`` and its gate/up weights row-interleaved into ``w_gu`` (see
 ``ops/fused_decode.py``).  Every subtree the port runs is converted
 (Whisper encoder and decoder, Q-Former or ORCA connector, ORCA
 cross-attention stack, LLM).
+
+Leaves may be numpy arrays (``jax.tree.map(np.asarray, params)``; bf16 as
+ml_dtypes) or torch tensors (the JAX package's staged files read by the
+port's codec, ``ckpt/flat_io.py``).  Each leaf goes to ``device`` first, in
+its own dtype, and is transposed or joined there: nothing is upcast.
 """
 
 from __future__ import annotations
@@ -18,14 +23,19 @@ import numpy as np
 import torch
 
 from ..config import DeSTA25Config
+from .flat_io import as_tensor
 
 
 def _tensor(a, device) -> torch.Tensor:
-    a = np.array(a)  # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16 from jax
-        return torch.from_numpy(a.view(np.uint16)).view(
-            torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+    """A numpy or torch leaf -> a tensor on ``device`` in its own dtype (a
+    numpy leaf is copied: the tree never aliases the caller's arrays)."""
+    if not isinstance(a, torch.Tensor):
+        a = as_tensor(np.array(a))
+    return a.to(device)
+
+
+def _swap(a, device) -> torch.Tensor:
+    return _tensor(a, device).transpose(-1, -2).contiguous()
 
 
 def _linear(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
@@ -36,9 +46,9 @@ def _linear(p: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     out = {}
     for k in ("w", "q"):
         if k in p:
-            out[k] = _tensor(np.swapaxes(np.asarray(p[k]), -1, -2), device)
+            out[k] = _swap(p[k], device)
     if "s" in p:
-        out["s"] = _tensor(np.asarray(p["s"], np.float32), device)
+        out["s"] = _tensor(p["s"], device).float()
     if "b" in p:
         out["b"] = _tensor(p["b"], device)
     return out
@@ -106,7 +116,7 @@ def _bert_encoder(p, device):
 
 def _conv(p, device):
     """Conv1d leaf: JAX ``[kernel, in, out]`` -> ``[out, in, kernel]``."""
-    return {"w": _tensor(np.transpose(np.asarray(p["w"]), (2, 1, 0)), device),
+    return {"w": _tensor(p["w"], device).permute(2, 1, 0).contiguous(),
             "b": _tensor(p["b"], device)}
 
 
@@ -158,10 +168,10 @@ def _fused_weight(leaves, how: str, device):
     along ``out`` (``how="concat"``: q, k, v) or row-interleaved
     (``how="interleave"``: gate, up), then stored ``[L, out, in]``."""
     def join(arrs):
-        arrs = [np.asarray(a) for a in arrs]
+        arrs = [_tensor(a, device) for a in arrs]
         if how == "concat":
-            return np.concatenate(arrs, axis=-1)
-        return np.stack(arrs, axis=-1).reshape(*arrs[0].shape[:-1], -1)
+            return torch.cat(arrs, dim=-1)
+        return torch.stack(arrs, dim=-1).reshape(*arrs[0].shape[:-1], -1)
     if isinstance(leaves[0], dict):
         return _linear({"q": join([l["q"] for l in leaves]),
                         "s": join([l["s"] for l in leaves])}, device)

@@ -2,15 +2,19 @@
 (port of ``desta25_audio_tpu/ckpt/checkpoint.py:30-80`` in the port's own
 format).
 
-- ``<exp_dir>/checkpoint-<step>/state.pt``: one ``torch.save`` of
-  ``{"trainable", "opt_state", "step"}`` (the frozen towers are never
-  written), plus ``config.json``;
+- ``<exp_dir>/checkpoint-<step>/``: with a config, ``config.json``, the
+  trainable params as the reference-format ``model.safetensors``
+  (``ckpt/desta_io.py``; the directory loads with ``from_pretrained``, in
+  the JAX package and in the reference) and ``state.pt``, one
+  ``torch.save`` of ``{"opt_state", "step"}``; without a config
+  ``state.pt`` also holds ``"trainable"``.  The trainable params are
+  written once (an ORCA flagship's f32 stack is ~9 GB); the frozen towers
+  are never written;
 - ``<exp_dir>/checkpoint-latest`` is a symlink to the newest one, for
   resume;
 - only the newest ``keep`` checkpoints are kept.
 
-Orbax checkpoints of the JAX package and the reference's safetensors export
-are not read or written (ROADMAP.md Queue 1).
+Orbax checkpoints of the JAX package are not read or written.
 """
 
 from __future__ import annotations
@@ -52,13 +56,18 @@ def save_train_state(exp_dir: str, step: int, trainable: Dict[str, Any],
         logger.info("checkpoint-%d already exists; skipping save", step)
         return path
     os.makedirs(path, exist_ok=True)
-    tmp = state + ".tmp"
-    torch.save({"trainable": _to_cpu(trainable),
-                "opt_state": _to_cpu(opt_state), "step": int(step)}, tmp)
-    os.replace(tmp, state)
+    out = {"opt_state": _to_cpu(opt_state), "step": int(step)}
     if config is not None:
+        from .desta_io import save_trainable_safetensors
         with open(os.path.join(path, "config.json"), "w") as f:
             f.write(config.to_json())
+        save_trainable_safetensors(trainable, config,
+                                   os.path.join(path, "model.safetensors"))
+    else:
+        out["trainable"] = _to_cpu(trainable)
+    tmp = state + ".tmp"
+    torch.save(out, tmp)      # last: its presence marks a whole checkpoint
+    os.replace(tmp, state)
     latest = os.path.join(exp_dir, "checkpoint-latest")
     if os.path.islink(latest) or os.path.exists(latest):
         os.unlink(latest)
@@ -105,7 +114,16 @@ def restore_train_state(path: str, trainable_template: Dict[str, Any],
     path = os.path.realpath(path)
     restored = torch.load(os.path.join(path, "state.pt"), map_location="cpu",
                           weights_only=True)
-    _copy_into(trainable_template, restored["trainable"], "trainable")
+    loaded = restored.get("trainable")
+    if loaded is None:
+        from ..config import DeSTA25Config
+        from .desta_io import load_trainable_safetensors
+        with open(os.path.join(path, "config.json")) as f:
+            config = DeSTA25Config.from_json(f.read())
+        loaded = load_trainable_safetensors(
+            trainable_template, config,
+            os.path.join(path, "model.safetensors"))
+    _copy_into(trainable_template, loaded, "trainable")
     opt_state = restored["opt_state"]
     if set(opt_state) != set(opt_state_template):
         raise ValueError(f"checkpoint opt_state: keys {sorted(opt_state)} "

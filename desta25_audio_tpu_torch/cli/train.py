@@ -8,9 +8,9 @@ reference-schema YAML config (``model:``, ``trainer:``, ``optim:``,
 
 ``--device`` picks the device (default ``cuda``).  The config is dumped to
 ``exp_dir/config.yaml``; fresh runs evaluate and checkpoint before training;
-``resume_from_checkpoint`` resumes.  Warm-starting from
-``init_from_pretrained_weights`` needs the safetensors key maps, which are
-not ported yet (ROADMAP.md Queue 1, item 4).
+``resume_from_checkpoint`` resumes; ``init_from_pretrained_weights`` (a
+checkpoint dir or its ``model.safetensors``) warm-starts the trainable params
+instead (the two exclude each other).
 """
 
 from __future__ import annotations
@@ -71,14 +71,23 @@ def build_from_config(cfg: Dict[str, Any], device: str = "cuda"):
     from ..train.optimizer import OptimizerConfig
     from ..train.trainer import DeSTA25Trainer, MetricsLogger, TrainerConfig
 
+    model_cfg = config_from_yaml_model_section(cfg["model"])
+    model = DeSTA25AudioModel(model_cfg, device=device, seed=cfg.get("seed", 0))
+
+    # warm-start from a pretrained trainable-only checkpoint
+    # (train_desta.py:73-83, :188-189) -- mutually exclusive with resume
     init_w = (cfg.get("init_from_pretrained_weights")
               or cfg.get("model", {}).get("init_from_pretrained_weights"))
     if init_w and init_w != "null":
-        raise NotImplementedError(
-            "init_from_pretrained_weights needs the safetensors key maps of "
-            "ckpt/desta_io.py, not ported yet (ROADMAP.md Queue 1, item 4)")
-    model_cfg = config_from_yaml_model_section(cfg["model"])
-    model = DeSTA25AudioModel(model_cfg, device=device, seed=cfg.get("seed", 0))
+        if cfg.get("resume_from_checkpoint"):
+            raise ValueError("Cannot provide both resume_from_checkpoint and "
+                             "init_from_pretrained_weights")
+        from ..ckpt.desta_io import load_trainable_safetensors
+        path = (os.path.join(init_w, "model.safetensors")
+                if os.path.isdir(init_w) else init_w)
+        logger.info("warm-starting trainable params from %s", path)
+        model.params = load_trainable_safetensors(model.params, model_cfg,
+                                                  path)
 
     ds_cfg = cfg.get("dataset", {})
     trainer_cfg = cfg.get("trainer", {})

@@ -9,13 +9,16 @@ caller or made by Whisper ASR in the loop (greedy, or the temperature
 fallback cascade with ``asr_fallback``), long clips chunked
 (``auto_chunk_long_audio``), the audio-feature cache
 (:meth:`DeSTA25AudioModel.enable_audio_cache`), plain or speculative
-(``speculative_k >= 2``) decoding.  The port
-has no ``from_pretrained`` yet, so the JAX package's inference default
-(``encoder_quant="auto"`` -> int8) is reached by calling
-:meth:`DeSTA25AudioModel.apply_inference_encoder_quant` after construction,
-an existing bf16 LLM is quantized with
-:meth:`DeSTA25AudioModel.apply_llm_quant`, and the ORCA stack with
-:meth:`DeSTA25AudioModel.apply_orca_xattn_quant`.
+(``speculative_k >= 2``) decoding.
+:meth:`DeSTA25AudioModel.from_pretrained` loads a checkpoint directory
+(``config.json`` + the reference's trainable-only ``model.safetensors``) with
+the frozen towers from a weights root (``ckpt/desta_io.load_frozen_tower``)
+and applies the JAX package's inference default (``encoder_quant="auto"`` ->
+int8, ``orca_xattn_quant``); :meth:`DeSTA25AudioModel.save_pretrained` writes
+one.  A model built directly reaches the int8 encoder through
+:meth:`DeSTA25AudioModel.apply_inference_encoder_quant`; an existing bf16 LLM
+is quantized with :meth:`DeSTA25AudioModel.apply_llm_quant`, and the ORCA
+stack with :meth:`DeSTA25AudioModel.apply_orca_xattn_quant`.
 
 - phase A: WAV decode + energy VAD (a clip without speech gets the
   transcription " "), then ASR on the device for every speech clip without
@@ -130,7 +133,7 @@ def check_slice(config: DeSTA25Config) -> None:
             f"connector_mode {config.connector_mode!r} not implemented")
     if config.use_lora:
         raise NotImplementedError(
-            "LoRA is not ported yet (ROADMAP.md Queue 1: training)")
+            "LoRA is not ported yet (ROADMAP.md Queue 1, item 1)")
     if config.llm_quant not in ("none", "int8"):
         raise ValueError(f"llm_quant={config.llm_quant!r} (none | int8)")
 
@@ -285,6 +288,89 @@ class DeSTA25AudioModel:
         trainable = {k: self.params[k] for k in self.trainable_keys()}
         frozen = {k: v for k, v in self.params.items() if k not in trainable}
         return trainable, frozen
+
+    # -- persistence ------------------------------------------------------
+
+    def save_pretrained(self, path: str) -> None:
+        """``path/config.json`` and the trainable params as the reference's
+        ``model.safetensors`` (``ckpt/desta_io.py``); the frozen towers are
+        not written."""
+        from ..ckpt.desta_io import save_trainable_safetensors
+        os.makedirs(path, exist_ok=True)
+        with open(os.path.join(path, "config.json"), "w") as f:
+            f.write(self.config.to_json())
+        trainable, _ = self.split_params()
+        save_trainable_safetensors(trainable, self.config,
+                                   os.path.join(path, "model.safetensors"))
+
+    def _load_frozen_towers(self, weights_root: str, warn: bool) -> None:
+        from ..ckpt.desta_io import load_frozen_tower
+        cfg = self.config
+        for tower, model_id in (("whisper", cfg.encoder_model_id),
+                                ("llm", cfg.llm_model_id)):
+            quant = (cfg.llm_quant if tower == "llm"
+                     else cfg.resolved_encoder_quant(inference=True))
+            loaded = load_frozen_tower(tower, model_id, weights_root, cfg,
+                                       self.dtype, self.device, quant=quant)
+            if loaded is not None:
+                self.params[tower] = loaded
+            elif warn:
+                logger.warning("no local weights for %s (%s); keeping "
+                               "random init", tower, model_id)
+
+    @classmethod
+    def from_pretrained(cls, path: str, device,
+                        weights_root: Optional[str] = None, seed: int = 0,
+                        config_overrides: Optional[Dict[str, Any]] = None,
+                        **kwargs) -> "DeSTA25AudioModel":
+        """Load ``path/config.json`` and the trainable weights of
+        ``path/model.safetensors`` onto ``device`` (the JAX package's
+        ``from_pretrained``, ``desta.py:763-837``).  The frozen Whisper and
+        LLM towers come from ``weights_root`` (or ``$DESTA_TPU_WEIGHTS``),
+        built on ``device``; a tower without weights there keeps its random
+        draw of ``seed``, with a warning.  ``config_overrides`` replaces
+        config fields after ``config.json`` loads (e.g. ``{"encoder_quant":
+        "none"}``).  A checkpoint whose ORCA tap count differs from the
+        config's rebuilds the model with ``orca_use_all_layers`` set from
+        it (the reference's shape-driven reconfiguration).  Then the ORCA
+        stack is quantized where ``orca_xattn_quant="int8"`` and the
+        encoder where ``encoder_quant`` resolves to int8 for inference.
+        ``kwargs`` go to the constructor (``tokenizer``)."""
+        from ..ckpt.desta_io import load_trainable_safetensors
+        from ..ckpt.flat_io import SafetensorsFile
+        with open(os.path.join(path, "config.json")) as f:
+            config = DeSTA25Config.from_json(f.read())
+        if config_overrides:
+            config = dataclasses.replace(config, **config_overrides)
+        model = cls(config, device, seed=seed, **kwargs)
+        weights_root = weights_root or os.environ.get("DESTA_TPU_WEIGHTS")
+        if weights_root:
+            model._load_frozen_towers(weights_root, warn=True)
+        st = os.path.join(path, "model.safetensors")
+        if os.path.exists(st):
+            try:
+                model.params = load_trainable_safetensors(model.params,
+                                                          config, st)
+            except ValueError as e:
+                if "tapped layers" not in str(e):
+                    raise
+                n_taps = SafetensorsFile(st).entries[
+                    "perception.connector.global_layer_weights"]["shape"][1]
+                all_layers = n_taps == config.encoder_config.encoder_layers
+                logger.warning("checkpoint has %d tapped layers; "
+                               "reconfiguring connector with "
+                               "orca_use_all_layers=%s", n_taps, all_layers)
+                config = dataclasses.replace(config,
+                                             orca_use_all_layers=all_layers)
+                model = cls(config, device, seed=seed, **kwargs)
+                if weights_root:
+                    model._load_frozen_towers(weights_root, warn=False)
+                model.params = load_trainable_safetensors(model.params,
+                                                          config, st)
+        if config.orca_xattn_quant == "int8":
+            model.apply_orca_xattn_quant()
+        model.apply_inference_encoder_quant()
+        return model
 
     @property
     def tokenizer(self):

@@ -24,6 +24,14 @@ import torch.nn.functional as F
 Params = Dict[str, Any]
 
 
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """``x / d`` rounded as one IEEE division on every device.  PyTorch's
+    CUDA kernel multiplies by ``1 / d`` when the divisor is a Python
+    number, which rounds differently (by one ulp in a few per cent of
+    elements) from the JAX package's division; a tensor divisor divides."""
+    return x / torch.full_like(x, d)
+
+
 class _MatmulBf16F32(torch.autograd.Function):
     """bf16 x bf16 -> f32 on the card, differentiable.  The backward's two
     products are bf16 cuBLAS products with f32 sums, the incoming f32

@@ -24,6 +24,7 @@ from typing import Any, Dict, List
 import torch
 
 from . import _build
+from .core import div_exact
 from .gemm import plan_gemm
 
 QuantLeaf = Dict[str, torch.Tensor]
@@ -38,10 +39,12 @@ LLM_QUANT_KEYS = ("wqkv", "wo", "w_gu", "w_down")
 def quantize_weight(w: torch.Tensor) -> QuantLeaf:
     """[..., out, in] float -> {"q": int8, "s": f32 [..., out]}.
 
-    ``s = max(max|w| / 127, 1e-8)`` (a division, as in the JAX package) and
-    ``q = clip(round_half_even(w / s), -127, 127)``, all in f32."""
+    ``s = max(max|w| / 127, 1e-8)`` and ``q = clip(round_half_even(w / s),
+    -127, 127)``, all in f32.  Both are IEEE divisions, as in the JAX
+    package, on every device (``ops/core.div_exact``): a weight quantized on
+    the card gets the bits it gets on the CPU."""
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(-1) / 127.0, min=1e-8)
+    s = torch.clamp(div_exact(wf.abs().amax(-1), 127.0), min=1e-8)
     q = torch.clamp(torch.round(wf / s[..., None]), -127, 127)
     return {"q": q.to(torch.int8), "s": s}
 

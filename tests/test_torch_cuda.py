@@ -35,7 +35,11 @@ encoder-kernel launches are those of the call with transcriptions plus one
 more mel and encoder pass, then a feature-cache hit that launches none);
 the serving engine's kept decode graph on a nano int8 tower: captured once
 while requests come and go, its tokens equal the eager engine's, beside a
-control that places admissions into a new cache tensor and must part).
+control that places admissions into a new cache tensor and must part;
+checkpoints: int8 weights quantized on the card bit-identical to the CPU's
+on rows where the reciprocal product rounds apart, a bf16 file read
+straight onto the card, and a nano ``from_pretrained(device="cuda")`` whose
+tree and greedy ids equal the CPU's load).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -2304,3 +2308,87 @@ def test_mesh_engine_orca_copies_follow_the_slots(tmp_path):
             assert torch.equal(st.inj["on"], on[rows])
     eng.close()
     mesh.buffers.clear()
+
+
+def test_quantize_on_the_card_equals_the_cpu(gen):
+    """The int8 weight quantiser on the card against the CPU, bit for bit:
+    rows whose ``max / 127`` and ``max * fl(1/127)`` round apart (every row
+    parted before ``quantize_weight`` divided by a tensor), then one
+    Llama-3.1-8B layer at full width and its head (chip_smoke phase 27)."""
+    from desta25_audio_tpu_torch.ckpt.synthetic import quantize_card_vs_cpu
+    r = quantize_card_vs_cpu(gen)
+    assert (r["scales"], r["q_rows"], r["leaves"]) == (0, 0, 0), r
+
+
+def test_codec_reads_bf16_onto_the_card(gen, tmp_path):
+    """A bf16 file (native BF16, and a flat tree's U16 + desta_dtypes) read
+    straight onto the card, equal to the tensors written."""
+    from desta25_audio_tpu_torch.ckpt import flat_io
+    w = {"w": torch.randn(300, 7, generator=gen, device="cuda").bfloat16(),
+         "q": torch.randint(-127, 128, (5, 9), generator=gen, device="cuda",
+                            dtype=torch.int8)}
+    p = str(tmp_path / "a.safetensors")
+    flat_io.save_safetensors(w, p)
+    got = flat_io.load_safetensors(p, device="cuda")
+    for k, v in w.items():
+        assert got[k].device.type == "cuda" and got[k].dtype == v.dtype
+        assert torch.equal(got[k], v)
+    q = str(tmp_path / "t.safetensors")
+    flat_io.save_tree_safetensors({"a": w}, q)
+    got = flat_io.load_tree_safetensors(q, device="cuda")["a"]
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], w["w"])
+
+
+def test_from_pretrained_on_the_card_matches_cpu(tmp_path):
+    """A nano checkpoint and a weights root staged from a nano HF snapshot
+    (whisper f16, Llama bf16): ``from_pretrained(device="cuda")`` builds
+    every tower on the card, equal to the CPU's load leaf for leaf (the
+    int8 LLM too: the card quantizes the raw shards as the CPU does), and
+    greedy ids equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written Hopper kernels)")
+    import numpy as np
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    from desta25_audio_tpu_torch.audio.io import write_wav
+    from desta25_audio_tpu_torch.ckpt.synthetic import (
+        count_differing,
+        fill_state,
+        hf_llm_shapes,
+        hf_whisper_shapes,
+        write_snapshot,
+    )
+    rng = np.random.default_rng(0)
+
+    def make(dtype):
+        def f(shape, kind):
+            x = rng.standard_normal(shape).astype(np.float32) * 0.05
+            return torch.from_numpy(x + (kind == "n")).to(dtype)
+        return f
+    cfg = DeSTA25Config(llm_model_id="test/llama-nano",
+                        encoder_model_id="test/whisper-nano",
+                        qformer_num_hidden_layers=2, prompt_size=8,
+                        dtype="float32", llm_quant="int8")
+    root = tmp_path / "w"
+    write_snapshot(str(root / cfg.encoder_model_id), "whisper",
+                   cfg.encoder_config,
+                   fill_state(hf_whisper_shapes(cfg.encoder_config),
+                              make(torch.float16)))
+    write_snapshot(str(root / cfg.llm_model_id), "llm", cfg.llm_config,
+                   fill_state(hf_llm_shapes(cfg.llm_config),
+                              make(torch.bfloat16)), shards=2)
+    DeSTA25AudioModel(cfg, "cpu", seed=3).save_pretrained(str(tmp_path / "ck"))
+    t = np.arange(16000) / 16000.0
+    wav = str(tmp_path / "a.wav")
+    write_wav(wav, (0.5 * np.sin(2 * np.pi * 440 * t)
+                    * (np.sin(2 * np.pi * 3 * t) > 0)).astype(np.float32))
+    msgs = [[{"role": "user", "content": "What is it? <|AUDIO|>",
+              "audios": [{"audio": wav, "text": "a tone"}]}],
+            [{"role": "user", "content": "Say hi."}]]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = DeSTA25AudioModel.from_pretrained(str(tmp_path / "ck"), dev,
+                                              weights_root=str(root))
+        assert m.params["llm"]["layers"]["wqkv"]["q"].device.type == dev
+        out[dev] = m, m.generate(msgs, do_sample=False, max_new_tokens=6)
+    assert count_differing(out["cuda"][0].params, out["cpu"][0].params) == 0
+    assert out["cuda"][1].generated_ids == out["cpu"][1].generated_ids

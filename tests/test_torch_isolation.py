@@ -48,6 +48,16 @@ def test_sources_never_import_jax_or_the_jax_package():
     assert not pat.search(smoke)
 
 
+def test_sources_never_import_safetensors():
+    """The port reads and writes safetensors itself (ckpt/flat_io.py), so
+    it runs where the safetensors package is not installed."""
+    pat = re.compile(r"^\s*(import|from)\s+safetensors\b", re.M)
+    offenders = [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")
+                 if pat.search(p.read_text())]
+    assert offenders == []
+    assert not pat.search((REPO / "chip_smoke.py").read_text())
+
+
 @pytest.mark.parametrize("name", ["_WHISPER_PRESETS", "_LLM_PRESETS",
                                   "TARGET_LAYER_IDS"])
 def test_presets_equal_the_jax_package(name):

@@ -539,9 +539,14 @@ def test_cli_trains_the_debug_config(corpus, tmp_path):
     out = apply_overrides({}, ["+dataset=debug", "trainer.max_steps=3"],
                           config_dir="configs")
     assert out["dataset"]["validation_ds"]["max_seq_length"] == 512
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    # a warm start reads the donor's model.safetensors, and excludes resume
+    with pytest.raises(FileNotFoundError):
         main(["--config", "configs/desta25_debug.yaml", "--device", "cpu",
-              f"exp_dir={exp}", "init_from_pretrained_weights=/x"])
+              f"exp_dir={exp}", f"init_from_pretrained_weights={tmp_path}"])
+    with pytest.raises(ValueError, match="Cannot provide both"):
+        main(["--config", "configs/desta25_debug.yaml", "--device", "cpu",
+              f"exp_dir={exp}", "init_from_pretrained_weights=/x",
+              f"resume_from_checkpoint={exp}"])
 
 
 @pytest.mark.parametrize("what", ["mesh", "prefetch"])
