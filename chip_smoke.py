@@ -384,6 +384,31 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     time, the bytes of its files and their read rate alone onto the card
     (page cache warm), its peak device memory and the time to the first
     token after it; each step of 28-29 its wall time.
+30. the native decoders, the prefetching loader and LoRA.  30a: the
+    port's native libraries built by g++ (``native/build.py``; the FFmpeg
+    codec only where the libavformat headers exist, else said and the WAV
+    path alone runs), a 2 s 22.05 kHz stereo clip as 24-bit WAV (decoded
+    exactly), FLAC (lossless to 16-bit quantization), MP3 and OGG (a
+    correlation above 0.95 with the WAV's decode), each through
+    ``AudioSegment.from_file``, with the host ms a clip.  30b: the
+    flagship with LoRA (r 16, alpha 16, dropout 0.1, the reference's peft
+    setting) trained by DeSTA25Trainer for 3 steps at B=4 T=512 with
+    ``num_workers`` 0 and then 2 over phase 22's corpus as FLAC clips: K11
+    forward and backward, K1, K2 and K3 in every step, ms a step, the
+    host's wait for each batch and peak memory, the adapters' B off zero;
+    evaluate() with the adapters.  30c: the adapters' B moved further (N(0,
+    0.02)), generate() b2 through the layer loop (no fused kernel, no
+    graph; K1, K2, K3 launched); 30d: the engine at 4 slots under LoRA
+    (plain layer-loop ticks; ``speculative_k=4`` refused), its greedy ids
+    against generate()'s of the same four requests at b4 (equal, or
+    parted where generate()'s own top-2 margin is within
+    TOL_ENGINE_MARGIN: the prompts are padded apart) and the
+    teacher-forced gate; then
+    (30c) the merge and quantizer on the card against the CPU over two
+    full-width layers and 4096 head rows, bit for bit,
+    ``merge_lora_for_serving(quantize=True)``, the merged int8 model's
+    first-step logits beside the adapter model's (margins), and generate()
+    b2 through the K8-int8 graph.  Prints the phase's seconds.
 
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
@@ -431,6 +456,17 @@ runs phases 1-3 and 20a-20c alone, on the flagship model built with the
 int8 LLM (work on the tensor-parallel path); ``--mesh-only --cards`` puts
 the ranks on distinct cards (p = 2 and 4: four cards, peer access over
 NVLink) instead of virtual ranks of the first.
+
+    python3 chip_smoke.py --phase30-only
+
+runs phases 1-3 and 30 alone (work on the decoders, the loader and LoRA).
+
+    python3 chip_smoke.py --http-rounds N
+
+runs phases 1-3, then phase 16g N times on the flagship model with its
+int8 encoder and LLM (work on the HTTP front end: each round's 8 clients,
+its cancel and its gate; a round that hangs 120 s dumps every thread's
+stack and exits).
 """
 
 from __future__ import annotations
@@ -4437,10 +4473,12 @@ def run_mesh(model, convs, gpu, cards: bool = False):
     return rows, run_mesh_generate(model, convs, gpu, cards)
 
 
-def write_corpus(d: str, n: int = 12) -> str:
-    """A synthetic training corpus: n gated tones as 16 kHz WAVs (1.5-4.25
-    s) and a jsonl manifest of the reference schema (id, dataset, prompt
-    with the audio locator, response)."""
+def write_corpus(d: str, n: int = 12, fmt: str = "wav") -> str:
+    """A synthetic training corpus: n gated tones at 16 kHz (1.5-4.25 s) as
+    WAVs, or as ``fmt`` files through the native FFmpeg codec (phase 30b:
+    "flac"), and a jsonl manifest of the reference schema (id, dataset,
+    prompt with the audio locator, response)."""
+    from desta25_audio_tpu_torch import native
     from desta25_audio_tpu_torch.audio.io import write_wav
     rng = np.random.default_rng(1)
     os.makedirs(os.path.join(d, "clips"), exist_ok=True)
@@ -4450,12 +4488,15 @@ def write_corpus(d: str, n: int = 12) -> str:
         sig = (0.5 * np.sin(2 * np.pi * (200 + 40 * i) * t)
                * (np.sin(2 * np.pi * 3 * t) > 0)).astype(np.float32)
         sig += 0.01 * rng.standard_normal(t.size).astype(np.float32)
-        rel = f"clips/tone{i}.wav"
-        write_wav(os.path.join(d, rel), sig)
+        rel = f"clips/tone{i}.{fmt}"
+        if fmt == "wav":
+            write_wav(os.path.join(d, rel), sig)
+        else:
+            native.ff_encode(os.path.join(d, rel), sig, 16000)
         rows.append({"id": rel, "dataset": f"synthetic{i % 2}",
                      "prompt": f"Describe sound {i}. <|AUDIO|>",
                      "response": f"A gated tone at {200 + 40 * i} hertz."})
-    manifest = os.path.join(d, "train.jsonl")
+    manifest = os.path.join(d, f"train_{fmt}.jsonl")
     with open(manifest, "w") as f:
         for r in rows:
             f.write(json.dumps(r) + "\n")
@@ -4479,11 +4520,15 @@ class StepProbe:
         self.view = view
         self.real = trainer.train_step
         trainer.train_step = self
+        self.t_end = None
 
     def __call__(self, trainable, frozen, opt_state, batch):
         import torch
         from desta25_audio_tpu_torch.ops import _build
         from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+        # the host's wait for this step's batch since the last step ended
+        wait = (None if self.t_end is None
+                else (time.perf_counter() - self.t_end) * 1e3)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = _build.launch_counts()
@@ -4500,7 +4545,9 @@ class StepProbe:
             "peak_gib": peak / 2 ** 30,
             "launches": {k: after[k] - before.get(k, 0) for k in after
                          if after[k] != before.get(k, 0)},
-            "metrics": {k: float(v) for k, v in out[2].items()}})
+            "metrics": {k: float(v) for k, v in out[2].items()},
+            "wait_ms": wait})
+        self.t_end = time.perf_counter()
         return out
 
 
@@ -4708,7 +4755,7 @@ def run_orca_training(gpu: str, tmpdir: str) -> None:
           f"cross-attention stack {n_stack / 1e9:.3f} B parameters)",
           flush=True)
     start = {k: sampled(v) for k, v in flatten_tree(trainable).items()}
-    manifest = os.path.join(tmpdir, "train.jsonl")
+    manifest = os.path.join(tmpdir, "train_wav.jsonl")
 
     # -- 26a. DeSTA25Trainer.train(), 3 steps at B=4 T=512, remat ------------
     dcfg = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
@@ -4925,17 +4972,21 @@ def reference_logits(model, req, ids, how: str = "loop"):
                    if k.startswith("fused_"))
     before = fused()
     pos = torch.clamp(torch.cumsum(mask[:, :Tb], 1) - 1, min=0)
+    # a LoRA model's adapters join every call (phase 30d)
+    lora = dict(lora=model.params.get("lora"),
+                lora_scale=model.config.lora_scale)
     lg, cache = tllm.llm_apply(llm, cfg, inputs_embeds=e,
                                attention_mask=mask, positions=pos,
                                cache=cache, cache_index=0,
-                               extra_layer_fn=extra)
+                               extra_layer_fn=extra, **lora)
     lg = [lg[0, -1:]]
     if how == "one_call" and n > 1:
         mask[0, Tb:Tb + n - 1] = 1
         step, _ = tllm.llm_apply(
             llm, cfg, input_ids=y[None, :-1], attention_mask=mask,
             positions=req.ctx_len + torch.arange(n - 1, device=dev)[None],
-            cache=cache, cache_index=Tb, extra_layer_fn=extra, w8a8=False)
+            cache=cache, cache_index=Tb, extra_layer_fn=extra, w8a8=False,
+            **lora)
         lg.append(step[0])
     elif how != "one_call":
         # the step's inputs in place, so that from its second call the
@@ -4951,7 +5002,7 @@ def reference_logits(model, req, ids, how: str = "loop"):
             return tllm.llm_apply(
                 llm, cfg, input_ids=tok, attention_mask=mask, positions=at,
                 cache=cache, cache_index=ci, extra_layer_fn=extra,
-                w8a8=False)[0][0]
+                w8a8=False, **lora)[0][0]
         for t in range(n - 1):
             mask[0, Tb + t] = 1
             tok.copy_(y[None, t:t + 1])
@@ -5678,6 +5729,33 @@ def run_http(model, wavs, gpu) -> None:
     model.enable_audio_cache(0)
 
 
+def http_rounds(gpu: str, n: int) -> None:
+    """``--http-rounds``: phase 16g ``n`` times on the flagship model
+    with its int8 encoder and LLM, each round under a 120 s watchdog that
+    dumps every thread's stack and exits."""
+    import faulthandler
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.models.desta import _CharASR
+    model = DeSTA25AudioModel(config_from_yaml_file(CONFIG), device="cuda",
+                              seed=0, tokenizer=CharTokenizer("llama3"))
+    model._whisper_tokenizer = _CharASR()
+    model.apply_inference_encoder_quant()
+    model.apply_llm_quant()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        wavs = write_wavs(d)[0]
+        for i in range(n):
+            faulthandler.dump_traceback_later(120, exit=True)
+            t0 = time.perf_counter()
+            run_http(model, wavs, gpu)
+            faulthandler.cancel_dump_traceback_later()
+            print(f"HTTP round {i}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+
+
 def run_engine_orca_spec(orca, convs, gpu) -> None:
     """Phase 20e: the spec engine on the ORCA model (int8 stack and LLM):
     4 slots, ``speculative_k=4``, every tick speculative, 3 audio requests
@@ -6253,6 +6331,365 @@ def run_checkpoints(gpu: str, tmpdir: str, wavs) -> None:
           flush=True)
 
 
+# -- phase 30: the native decoders, the prefetching loader and LoRA ----------
+
+LORA = dict(use_lora=True, lora_rank=16, lora_alpha=16.0, lora_dropout=0.1)
+# the reference's peft setting (r 16, alpha 16, dropout 0.1 on q/k/v)
+
+
+def _corr(a, b) -> float:
+    n = min(len(a), len(b))
+    a, b = a[:n] - a[:n].mean(), b[:n] - b[:n].mean()
+    return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)
+                                 + 1e-12))
+
+
+def run_decoders(gpu: str, tmpdir: str) -> str:
+    """30a.  The port's native libraries built (g++, under their lock), a
+    22.05 kHz stereo clip as 24-bit WAV and, where the FFmpeg codec is
+    built, FLAC, MP3 and OGG, each decoded through
+    ``AudioSegment.from_file``: the WAV's 24-bit samples exact, FLAC
+    lossless to 16-bit quantization, MP3 and OGG correlated with the WAV's
+    decode above 0.95 at the best lag.  Returns the corpus format of 30b:
+    "flac" with the codec, else "wav"."""
+    from desta25_audio_tpu_torch import native
+    from desta25_audio_tpu_torch.audio.io import (AudioSegment, read_wav,
+                                                  write_wav)
+    from desta25_audio_tpu_torch.native import build as nbuild
+    t0 = time.perf_counter()
+    built = [nbuild.build_library("audio").name]
+    ff = nbuild.have_ffmpeg_headers()
+    if ff:
+        built.append(nbuild.build_library("ffmpeg").name)
+    print(f"30a: native libraries {built} built or found in "
+          f"{time.perf_counter() - t0:.1f} s ({nbuild.compiler_version()})",
+          flush=True)
+    if not ff:
+        print("30a: the libavformat headers are not installed on this "
+              "machine: the FFmpeg codec is not built, FLAC/MP3/OGG do not "
+              "decode here; the WAV path runs", flush=True)
+    sr = 22050
+    d = os.path.join(tmpdir, "decoders")
+    os.makedirs(d, exist_ok=True)
+    t = np.arange(2 * sr) / sr
+    x = np.stack([0.4 * np.sin(2 * np.pi * 440 * t),
+                  0.3 * np.sin(2 * np.pi * 660 * t)], 1).astype(np.float32)
+    clips = {"wav24": os.path.join(d, "clip.wav")}
+    write_wav(clips["wav24"], x, sr, bits=24)
+    raw, rate = read_wav(clips["wav24"])
+    err24 = float(np.abs(raw - np.round(x.astype(np.float64) * (2 ** 23 - 1))
+                         / 2 ** 23).max())
+    if rate != sr or err24 > 0:
+        raise AssertionError(f"30a: 24-bit WAV decoded at {rate} Hz, error "
+                             f"{err24}")
+    if ff:
+        for fmt, rate_bits in (("flac", 128000), ("mp3", 128000),
+                               ("ogg", 64000)):
+            clips[fmt] = os.path.join(d, f"clip.{fmt}")
+            native.ff_encode(clips[fmt], x, sr, bit_rate=rate_bits)
+    # the WAV through the Python path (scipy's resampler): the reference
+    ref = AudioSegment.from_file(clips["wav24"], duration=10.0).samples
+    rows = []
+    for name, p in clips.items():
+        ms = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            seg = AudioSegment.from_file(p)
+            ms.append((time.perf_counter() - t1) * 1e3)
+        if seg.sample_rate != 16000 or not np.isfinite(seg.samples).all():
+            raise AssertionError(f"30a: {name}: {seg.sample_rate} Hz")
+        if name == "wav24":
+            # the native fast path's resampler against scipy's (<= 5e-3)
+            check = float(np.abs(seg.samples[:len(ref)]
+                                 - ref[:seg.num_samples]).max())
+            ok = check <= 5e-3
+        elif name == "flac":
+            got, _ = native.ff_decode_raw(p)
+            q = np.round(x * 32767.0) / 32768.0
+            check = float(np.abs(got[:len(q)] - q[:len(got)]).max())
+            ok = got.shape == x.shape and check <= 2 ** -15
+        else:
+            check = max(_corr(seg.samples[lag:lag + 16000], ref[:16000])
+                        for lag in range(0, 2400, 8))
+            ok = check > 0.95
+        rows.append(f"{name} {seg.num_samples} samples, median "
+                    f"{sorted(ms)[1]:.2f} ms, check {check:.3g}")
+        if not ok:
+            raise AssertionError(f"30a: {name}: check {check}")
+    print(f"30a: AudioSegment.from_file of a 2 s 22.05 kHz stereo clip, host "
+          f"ms a clip ({gpu} host): " + "; ".join(rows), flush=True)
+    return "flac" if ff else "wav"
+
+
+def run_lora_training(gpu: str, tmpdir: str, fmt: str):
+    """30b.  The flagship with LoRA (r 16, alpha 16, dropout 0.1):
+    DeSTA25Trainer 3 steps at B=4 T=512 with ``num_workers`` 0, then 2,
+    over phase 22's corpus as ``fmt`` clips; K11 forward and backward in
+    every step; the adapters' B moves from zero; evaluate() generates with
+    the adapters (the layer loop).  Returns the model, its adapters frozen
+    again."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+    cfg = dataclasses.replace(config_from_yaml_file(CONFIG), **LORA)
+    t0 = time.perf_counter()
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=30,
+                              tokenizer=CharTokenizer("llama3"))
+    torch.cuda.synchronize()
+    d = os.path.join(tmpdir, "lora")
+    manifest = write_corpus(d, fmt=fmt)
+    n_lora = sum(v.numel() for v in flatten_tree(
+        model.params["lora"]).values())
+    print(f"30b: LoRA model built in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB; adapters "
+          f"{n_lora / 1e6:.2f} M parameters); corpus of {fmt} clips",
+          flush=True)
+    dcfg = DataConfig(manifest_filepaths=[manifest], data_root=d,
+                      batch_size=4, max_seq_length=512)
+    ds = AudioTextDataset(cfg, dcfg, model.tokenizer)
+    collate = CollateFn(cfg, dcfg, model.tokenizer)
+    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    kernels = ("flash_attention", "flash_attention_bwd",
+               "packed_encoder_attention", "encoder_ffn", "log_mel")
+    for workers in (0, 2):
+        trainable, _ = model.split_params()
+        start = {k: v.detach().clone()
+                 for k, v in flatten_tree(trainable).items()}
+        tcfg = TrainerConfig(exp_dir=os.path.join(d, f"exp{workers}"),
+                             max_steps=3, log_every_n_steps=1, remat=True,
+                             eval_before_train=False, val_check_interval=1e9,
+                             eval_max_batches=1, eval_max_new_tokens=8,
+                             keep_checkpoints=1, num_workers=workers)
+        trainer = DeSTA25Trainer(model, ds, ds, collate, ocfg, tcfg)
+        probe = StepProbe(trainer, start)
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        print_steps(f"30b LoRA train num_workers={workers}", probe.rows, gpu)
+        waits = [r["wait_ms"] for r in probe.rows[1:]]
+        print(f"30b num_workers={workers} ({gpu}): train() {train_s:.1f} s "
+              f"for 3 steps and a checkpoint; steps "
+              f"{[round(r['ms'], 1) for r in probe.rows]} ms; the host's "
+              f"wait for steps 2-3's batches {[round(w, 1) for w in waits]} "
+              f"ms; peak {max(r['peak_gib'] for r in probe.rows):.2f} GiB",
+              flush=True)
+        if len(probe.rows) != 3:
+            raise AssertionError(f"30b: {len(probe.rows)} steps, not 3")
+        for i, r in enumerate(probe.rows):
+            check_train_row(f"30b step {i + 1} (num_workers={workers})", r,
+                            kernels)
+        b = max(float(v["b"].detach().abs().max())
+                for v in model.params["lora"]["layers"].values())
+        if workers == 0 and not b > 0:
+            raise AssertionError("30b: the adapters' B did not move from 0")
+    print(f"30b: the adapters' B reached max |B| {b:.3e}", flush=True)
+    _build.reset_launch_counts()
+    report = trainer.evaluate(tag="lora")
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    print(f"30b: evaluate() with the adapters: loss {report['loss']:.4f}, "
+          f"launches {json.dumps(counts)}", flush=True)
+    if counts.get("log_mel", 0) <= 0 or any(k.startswith("fused_")
+                                            for k in counts):
+        raise AssertionError(f"30b: evaluate() launches {counts}")
+    for t in flatten_tree(model.params).values():
+        t.requires_grad_(False)
+    del trainer, probe
+    return model
+
+
+def first_step_logits(model, convs):
+    """The prefill's last-position f32 logits [B, V] of a greedy
+    generate() of ``convs`` (with the model's adapters, if any)."""
+    import torch
+    from desta25_audio_tpu_torch.models import llm as tllm
+    with torch.no_grad():
+        embeds, mask = model._run_generation_phases(convs, {})[:2]
+        B, T = mask.shape
+        S = -(-(T + 1) // 128) * 128
+        full = torch.zeros(B, S, dtype=torch.int32, device=embeds.device)
+        full[:, :T] = mask
+        cache = tllm.init_kv_cache(model.llm_cfg, B, S, embeds.dtype,
+                                   embeds.device)
+        pos = torch.clamp(torch.cumsum(full[:, :T], 1) - 1, min=0)
+        lg, _ = tllm.llm_apply(
+            model.params["llm"], model.llm_cfg, inputs_embeds=embeds,
+            attention_mask=full, positions=pos, cache=cache, cache_index=0,
+            lora=model.params.get("lora"),
+            lora_scale=model.config.lora_scale)
+    return lg[:, -1].float()
+
+
+def run_lora_serving(model, wavs, gpu: str) -> None:
+    """30c-30d.  The adapters' B moved off zero; generate() b2 through the
+    layer loop (no fused kernel, K1 and the encoder's kernels); the engine
+    at 4 slots under LoRA (layer-loop ticks, speculation refused) whose
+    greedy ids equal generate()'s; then the merge on the card against the
+    CPU's, ``merge_lora_for_serving(quantize=True)`` and generate() b2
+    through the K8-int8 graph, with the merged model's first-step logits
+    beside the adapter model's."""
+    import torch
+    from desta25_audio_tpu_torch.ckpt.synthetic import merge_card_vs_cpu
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.serve.engine import ContinuousBatchingEngine
+    g = torch.Generator("cuda").manual_seed(31)
+    with torch.no_grad():
+        for ab in model.params["lora"]["layers"].values():
+            ab["b"].add_(torch.randn(ab["b"].shape, generator=g,
+                                     device="cuda") * 0.02)
+    convs = conversations(wavs)
+    # -- 30c. generate() b2 with the adapters: the layer loop ---------------
+    model.generate(convs[:2], do_sample=False, max_new_tokens=2)
+    _build.reset_launch_counts()
+    out = model.generate(convs[:2], do_sample=False, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    t = model.last_timings
+    print(f"30c LoRA generate() b2 ({gpu}): prefill {t['prefill_ms']:.1f} ms,"
+          f" decode {t['decode_ms'] / max(t['decode_steps'], 1):.2f} ms a "
+          f"step (the layer loop, eager); launches {json.dumps(counts)}",
+          flush=True)
+    require_kernel_paths("30c LoRA b2")
+    if any(k.startswith("fused_") or k == "decode_graph" for k in counts):
+        raise AssertionError(f"30c: a fused step ran under LoRA: {counts}")
+    for name in ("log_mel", "packed_encoder_attention", "encoder_ffn"):
+        if counts.get(name, 0) <= 0:
+            raise AssertionError(f"30c: {name} was not launched")
+    check_outputs(model, ((out, 2),))
+    add_margins(model, convs[:2], out)
+    print(f"30c LoRA b2 row0[:8]={shown(out, 0)}", flush=True)
+
+    # -- 30d. the engine at 4 slots under LoRA --------------------------------
+    eng_convs = engine_convs(wavs, 4)
+    eng = ContinuousBatchingEngine(model, n_slots=4, max_ctx=256,
+                                   max_new_tokens=32, ctx_bucket=64,
+                                   speculative_k=4)
+    if eng.graph is not None or eng.speculative_k != 0:
+        raise AssertionError("30d: the engine kept a graph or speculates "
+                             "under LoRA")
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rids, reqs = submit_all(eng, eng_convs)
+    eng.run_until_done()
+    info = eng.results()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    check_finished("30d LoRA engine", model, info, rids)
+    if any(k.startswith("fused_") for k in counts) or _build.fallback_counts():
+        raise AssertionError(f"30d: launches {counts}, torch paths "
+                             f"{_build.fallback_counts()}")
+    eng.close()
+    model.enable_audio_cache(0)
+    # generate() of the same four requests at b4, each step's top-2 margin
+    # recorded: where a row parts from the engine's (their prompts are
+    # padded apart, so the products' bits may differ), generate()'s own
+    # margin there says whether the step was a near-tie
+    from desta25_audio_tpu_torch.generate import decode as tdecode
+    real_sample, tops = tdecode.sample_token, []
+
+    def sample(logits, *args):
+        tops.append(logits.topk(2, dim=-1).values.float())
+        return real_sample(logits, *args)
+
+    tdecode.sample_token = sample
+    try:
+        gen = model.generate(eng_convs, do_sample=False, max_new_tokens=32)
+    finally:
+        tdecode.sample_token = real_sample
+    top = torch.stack(tops)
+    margins = (top[..., 0] - top[..., 1]).T.cpu().numpy()     # [B, steps]
+    parted = []
+    for i, r in enumerate(rids):
+        got, want = info[r]["tokens"], gen.generated_ids[i]
+        p = next((j for j, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if p is not None:
+            parted.append((i, p, round(float(margins[i][p]), 4)))
+    print(f"30d LoRA engine ({gpu}): 4 requests in {eng._n_plain_ticks} "
+          f"plain ticks, {wall * 1e3:.1f} ms; greedy ids equal generate()'s "
+          f"b4 in {4 - len(parted)} of 4 rows; the others part at (row, "
+          f"position, generate()'s top-2 margin there) {parted}; launches "
+          f"{json.dumps(counts)}", flush=True)
+    engine_gate("30d LoRA engine", model,
+                [(reqs[r], info[r]["tokens"]) for r in rids])
+    bad = [p for p in parted if p[2] > TOL_ENGINE_MARGIN]
+    if bad:
+        raise AssertionError(f"30d: engine ids part from generate()'s away "
+                             f"from a near-tie: {bad}")
+
+    # -- 30c (cont.). merge on the card, then the K8-int8 graph --------------
+    adapter_first = first_step_logits(model, convs[:2])
+    with torch.no_grad():
+        r = merge_card_vs_cpu(model.params["llm"], model.params["lora"],
+                              model.config.lora_scale)
+    print(f"30c: merge_lora + quantize_llm_params on the card against the "
+          f"CPU over 2 full-width layers and 4096 head rows: {r['merged']} "
+          f"merged bf16 weights and {r['leaves']} int8 leaves differ of "
+          f"{r['weights']} weights (card {r['card_s']:.2f} s, CPU "
+          f"{r['cpu_s']:.2f} s)", flush=True)
+    if r["merged"] or r["leaves"]:
+        raise AssertionError(f"30c: the card's merge differs: {r}")
+    t0 = time.perf_counter()
+    model.merge_lora_for_serving(quantize=True)
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    merged_first = first_step_logits(model, convs[:2])
+    top2 = adapter_first.topk(2, -1).values
+    a_id = adapter_first.argmax(-1)
+    below = merged_first.max(-1).values - merged_first.gather(
+        -1, a_id[:, None])[:, 0]
+    print(f"30c: merged + int8 against the adapter model, first step: "
+          f"adapter top-2 margins {(top2[:, 0] - top2[:, 1]).tolist()}, the "
+          f"adapter's argmax below the merged model's top by "
+          f"{below.tolist()}, largest logit difference "
+          f"{float((merged_first - adapter_first).abs().max()):.4f} "
+          f"(merge and quantize {merge_s:.1f} s on the card)", flush=True)
+    model.generate(convs[:2], do_sample=False, max_new_tokens=2)
+    _build.reset_launch_counts()
+    out8 = model.generate(convs[:2], do_sample=False, max_new_tokens=32)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    require_kernel_paths("30c merged int8 b2")
+    require_graph_replays("30c merged int8 b2", counts, model.last_timings)
+    if counts.get("fused_decode_layers_int8", 0) <= 0:
+        raise AssertionError(f"30c: K8-int8 did not run: {counts}")
+    check_outputs(model, ((out8, 2),))
+    t = model.last_timings
+    print(f"30c merged int8 generate() b2 ({gpu}): decode "
+          f"{t['decode_ms'] / max(t['decode_steps'], 1):.2f} ms a step "
+          f"through the K8-int8 graph; row0[:8]="
+          f"{out8.generated_ids[0][:8]}; launches {json.dumps(counts)}",
+          flush=True)
+
+
+def run_phase30(gpu: str, tmpdir: str, wavs) -> None:
+    """Phase 30 (30a-30d)."""
+    import torch
+    t0 = time.perf_counter()
+    fmt = run_decoders(gpu, tmpdir)
+    model = run_lora_training(gpu, tmpdir, fmt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_lora_serving(model, wavs, gpu)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 30 took {time.perf_counter() - t0:.1f} s ({gpu})",
+          flush=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
@@ -6282,6 +6719,20 @@ def main() -> int:
     print(f"kernels built in {secs:.1f} s: {path}", flush=True)
     if "--mesh-only" in sys.argv[1:]:
         return mesh_only(kind, count, gpu, "--cards" in sys.argv[1:])
+    if "--phase30-only" in sys.argv[1:]:
+        # phase 30 alone, for work on the decoders, the loader and LoRA
+        with tempfile.TemporaryDirectory() as d:
+            run_phase30(gpu, d, write_wavs(d)[0])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    if "--http-rounds" in sys.argv[1:]:
+        n = int(sys.argv[sys.argv.index("--http-rounds") + 1])
+        http_rounds(gpu, n)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
 
     # -- 4. kernels vs plain at the slice shapes -----------------------------
     # (the synthetic WAVs of phase 6 are written first: K1 reads them)
@@ -6446,6 +6897,11 @@ def main() -> int:
 
     # -- 28-29. checkpoints: HF snapshots staged and loaded at full size -----
     run_checkpoints(gpu, tmp.name, wavs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 30. native decoders, the prefetching loader, LoRA -------------------
+    run_phase30(gpu, tmp.name, wavs)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s (the serving engine's "
           f"phases 12f and 16a-16g: {engine_s:.1f} s)", flush=True)

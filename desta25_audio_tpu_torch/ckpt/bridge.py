@@ -7,7 +7,7 @@ the stacking and stores weights in the layout its kernels read: linear
 into ``wqkv`` and its gate/up weights row-interleaved into ``w_gu`` (see
 ``ops/fused_decode.py``).  Every subtree the port runs is converted
 (Whisper encoder and decoder, Q-Former or ORCA connector, ORCA
-cross-attention stack, LLM).
+cross-attention stack, LLM, LoRA adapters).
 
 Leaves may be numpy arrays (``jax.tree.map(np.asarray, params)``; bf16 as
 ml_dtypes) or torch tensors (the JAX package's staged files read by the
@@ -217,8 +217,8 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
     port's tree on ``device``.  A quantized encoder
     (``quantize_encoder_params``), a quantized LLM
     (``quantize_llm_params``) and a quantized ORCA stack
-    (``quantize_orca_cross_attns``) are carried across; so is the Whisper
-    decoder where the tree has one."""
+    (``quantize_orca_cross_attns``) are carried across; so are the Whisper
+    decoder and the LoRA adapters where the tree has them."""
     if config.connector_mode == "qformer_1":
         connector = connector_from_jax(np_tree["connector"], device)
     elif config.connector_mode == "orca_hybrid":
@@ -239,4 +239,14 @@ def from_jax_params(np_tree: Dict[str, Any], config: DeSTA25Config,
     if "orca_cross_attns" in np_tree:
         out["orca_cross_attns"] = orca_cross_attns_from_jax(
             np_tree["orca_cross_attns"], device)
+    if "lora" in np_tree:
+        out["lora"] = lora_from_jax(np_tree["lora"], device)
     return out
+
+
+def lora_from_jax(p: Dict[str, Any], device) -> Dict[str, Any]:
+    """JAX LoRA adapters (``init_lora``: ``a`` [L, in, r], ``b`` [L, r,
+    out] for q, k and v) -> the port's, which keep that layout."""
+    return {"layers": {t: {ab: _tensor(p["layers"][t][ab], device)
+                           for ab in ("a", "b")}
+                       for t in ("q", "k", "v")}}

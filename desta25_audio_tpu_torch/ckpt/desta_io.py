@@ -10,7 +10,9 @@ unstack (or stack) the layer axis, in both directions:
 - a reference checkpoint loads into the port (:func:`load_trainable_safetensors`,
   the legacy ``ocar_`` prefixes renamed ``orca_``);
 - a model trained here exports a file the reference and the JAX package
-  load (:func:`save_trainable_safetensors`).
+  load (:func:`save_trainable_safetensors`);
+- LoRA adapters travel in both directions under peft's key names
+  (``ckpt/lora_io.py``; the JAX package's ``desta_io.py:165-167,191-193``).
 
 The frozen towers come from ``weights_root/<model_id>/``
 (:func:`load_frozen_tower`): the port's staged files
@@ -30,6 +32,7 @@ import torch
 from ..config import DeSTA25Config
 from .flat_io import load_safetensors, save_safetensors
 from .hf_convert import _map
+from .lora_io import lora_from_ref, lora_to_ref
 from .orca_io import (
     _PRE,
     _bert_from_ref,
@@ -85,12 +88,15 @@ def trainable_state_dict(trainable: Dict[str, Any],
                          config: DeSTA25Config) -> Dict[str, torch.Tensor]:
     """The port's trainable tree -> reference-named f32 ``[out, in]``
     tensors, on the tree's device (meta tensors give keys and shapes
-    without data)."""
+    without data); LoRA adapters under peft's names (``ckpt/lora_io.py``)."""
+    out: Dict[str, torch.Tensor] = {}
     if config.connector_mode == "qformer_1":
-        return _qformer_to_ref(trainable["connector"])
-    if config.connector_mode == "orca_hybrid":
-        return orca_to_ref(trainable, config)
-    return {}
+        out.update(_qformer_to_ref(trainable["connector"]))
+    elif config.connector_mode == "orca_hybrid":
+        out.update(orca_to_ref(trainable, config))
+    if "lora" in trainable:
+        out.update(lora_to_ref(trainable["lora"], config))
+    return out
 
 
 def save_trainable_safetensors(trainable: Dict[str, Any],
@@ -112,6 +118,8 @@ def load_trainable_safetensors(params: Dict[str, Any],
             params["connector"] = _qformer_from_ref(params["connector"], sd)
         elif config.connector_mode == "orca_hybrid":
             params = orca_from_ref(params, sd, config)
+        if "lora" in params and any("lora_A" in k for k in sd):
+            params["lora"] = lora_from_ref(params["lora"], sd)
     return params
 
 

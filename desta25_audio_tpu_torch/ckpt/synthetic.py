@@ -4,8 +4,8 @@ phases of ``chip_smoke.py`` and the tests build them: HF-layout snapshots
 ``LlamaForCausalLM`` and ``Qwen3ForCausalLM``, with the ``config.json``
 fields ``hf_convert.match_preset`` reads) written by the port's codec; the
 int8 quantizer's rows whose ``max / 127`` and ``max * fl(1/127)`` round
-apart, and ``quantize_llm_params`` on the card against the CPU; and a
-count of the leaves two trees differ in."""
+apart, and ``quantize_llm_params`` on the card against the CPU (alone, and
+after a LoRA merge); and a count of the leaves two trees differ in."""
 
 import json
 import os
@@ -204,3 +204,52 @@ def write_snapshot(d: str, kind: str, cfg, state, shards: int = 1) -> int:
                 d, f"model-{i:05d}-of-{shards:05d}.safetensors"))
             part = {}
     return total
+
+
+def merge_card_vs_cpu(llm, lora, scale: float, layers: int = 2,
+                      head_rows: int = 4096) -> dict:
+    """``merge_lora`` then ``quantize_llm_params`` (what
+    ``merge_lora_for_serving(quantize=True)`` runs) on the card against
+    the same on the CPU, over the first ``layers`` layers of a bf16 tower
+    ``llm`` on the card at full width, its adapters ``lora`` and the first
+    ``head_rows`` rows of its head.  Returns {"leaves": of the merged int8
+    trees, those that differ; "merged": of the merged bf16 ``wqkv``
+    elements, those that differ; "weights": the merged int8 weights
+    compared; "card_s", "cpu_s": the merge and quantizer's wall times}."""
+    from ..models.llm import merge_lora
+    from ..ops.quant import quantize_llm_params
+
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        return t[:layers]
+
+    head = llm.get("lm_head", llm["embed"])[:head_rows]
+    tree = {"embed": head, "norm": llm["norm"], "lm_head": head,
+            "layers": cut(llm["layers"])}
+    ad = {"layers": cut(lora["layers"])}
+    out = {}
+    t0 = time.perf_counter()
+    card_m = merge_lora(tree, ad, scale)
+    card_q = quantize_llm_params(card_m)
+    if head.is_cuda:
+        torch.cuda.synchronize()
+    out["card_s"] = time.perf_counter() - t0
+
+    def host(t):
+        if isinstance(t, dict):
+            return {k: host(v) for k, v in t.items()}
+        return t.cpu()
+
+    tree_h, ad_h = host(tree), host(ad)
+    t0 = time.perf_counter()
+    host_m = merge_lora(tree_h, ad_h, scale)
+    host_q = quantize_llm_params(host_m)
+    out["cpu_s"] = time.perf_counter() - t0
+    out["merged"] = int((card_m["layers"]["wqkv"].cpu()
+                         != host_m["layers"]["wqkv"]).sum())
+    out["leaves"] = count_differing(card_q, host_q)
+    out["weights"] = (sum(v["q"].numel() for v in card_q["layers"].values()
+                          if isinstance(v, dict) and "q" in v)
+                      + card_q["lm_head"]["q"].numel())
+    return out

@@ -11,8 +11,10 @@ The reference has no serving stack (its generate() is a blocking HF
 call); see docs/serve.md for the API (POST /v1/generate with the
 generate() message schema, SSE streaming, DELETE /v1/requests/<id>,
 GET /v1/health, POST /v1/chat/completions).  The frozen towers come from
-``$DESTA_TPU_WEIGHTS`` (``from_pretrained``).  LoRA checkpoints are refused
-by the port (ROADMAP.md Queue 1, item 1).
+``$DESTA_TPU_WEIGHTS`` (``from_pretrained``).  A LoRA checkpoint's adapters
+are merged into the LLM and the tower quantized to int8 before the engine is
+built (``merge_lora_for_serving``), so serving decodes through the fused
+int8 step.
 """
 
 from __future__ import annotations
@@ -50,6 +52,9 @@ def main(argv=None):
     from ..serve.http import serve_http
 
     model = DeSTA25AudioModel.from_pretrained(args.model, args.device)
+    if "lora" in model.params:
+        logger.info("merging LoRA adapters for serving (fused decode)")
+        model.merge_lora_for_serving()
     engine = ContinuousBatchingEngine(
         model, n_slots=args.slots, max_ctx=args.max_ctx,
         max_new_tokens=args.max_new_tokens, ctx_bucket=args.ctx_bucket,

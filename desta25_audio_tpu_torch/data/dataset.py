@@ -14,8 +14,9 @@ carried in the metadata for the per-category eval report.
   skip samples and a fully failed batch returns ``{"_empty_batch": True}``.
 - The mel transform runs on the device inside the train step; collate emits
   raw padded waveforms.
-- Audio is WAV only (``audio/io.py``: the JAX package's native FFmpeg codec
-  is not ported) and manifests and audio are local files: a URL raises.
+- Audio decodes through ``audio/io.AudioSegment`` (WAV natively, FLAC, MP3,
+  OGG, M4A, ... through the native FFmpeg codec); manifests and audio are
+  local files: a URL raises.
 - One process reads the whole manifest (the JAX package's per-process
   slicing waits for multi-GPU training, ROADMAP.md Queue 1).
 """
@@ -334,8 +335,8 @@ class CollateFn:
 def data_loader(dataset: AudioTextDataset, collate: CollateFn,
                 batch_size: int, epoch: int = 0,
                 drop_last: bool = True) -> Iterator[Dict[str, Any]]:
-    """Single-threaded host-side loader (the JAX package's prefetching
-    loader, ``data/prefetch.py``, is not ported yet)."""
+    """Single-threaded host-side loader (``data/prefetch.PrefetchLoader``
+    collates in background threads)."""
     buf: List[Dict[str, Any]] = []
     for item in dataset.iter_valid(epoch):
         buf.append(item)

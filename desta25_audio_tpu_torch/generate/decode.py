@@ -183,7 +183,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                  timings: Optional[Dict[str, float]] = None,
                  inject_params=None, inject_tokens=None,
                  inject_scale: float = 2.5, inject_heads: int = 0,
-                 decode_graph: bool = True
+                 decode_graph: bool = True, lora=None,
+                 lora_scale: float = 1.0
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill + decode.  inputs_embeds [B, T, D] (left-padded context),
     attention_mask [B, T] 1/0.  Returns (tokens [B, max_new_tokens] int64,
@@ -197,7 +198,12 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     with injection ``inject_kv_ms`` (RoPE + audio K/V projection), and
     with a captured decode step ``graph_capture_ms`` (inside ``decode_ms``).
 
-    Where the fused decode step takes the request (``models/llm.
+    lora / lora_scale: LoRA adapters (``models/llm.init_lora``) on q, k
+    and v; the prefill and every step then run ``models/llm.llm_apply``'s
+    layer loop, eagerly, with the injection between layers
+    (``decode.py:136-137,197,235`` of the JAX package).
+
+    Without LoRA, where the fused decode step takes the request (``models/llm.
     decode_step``, or under a mesh K10 where ``fused_mesh_takes``
     holds; no per-layer hook without the in-kernel injection), and where
     the per-layer pair K9 takes a hooked step (the opt-in, ``ops/
@@ -216,10 +222,11 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         t0 = time.perf_counter()
         extra_layer_fn, spec = build_injection(
             cfg, inject_params, inject_tokens, inject_scale, inject_heads)
-        if fused_inject_supported(params, cfg, inject_params, inject_heads,
-                                  spec["ta_real"]):
+        # under LoRA the hook runs in the layer loop: no fused step takes it
+        if lora is None and fused_inject_supported(
+                params, cfg, inject_params, inject_heads, spec["ta_real"]):
             fused_spec = spec
-        elif (tower_is_int8(params)
+        elif (lora is None and tower_is_int8(params)
               and is_quantized(inject_params["layers"].get("q"))):
             # the int8 stack K8i takes, at a shape its limits refuse
             _build.count_fallback("fused_decode_inject")
@@ -237,7 +244,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     logits, cache = tllm.llm_apply(params, cfg, inputs_embeds=inputs_embeds,
                                    attention_mask=mask, positions=positions,
                                    cache=cache, cache_index=0,
-                                   extra_layer_fn=extra_layer_fn)
+                                   extra_layer_fn=extra_layer_fn, lora=lora,
+                                   lora_scale=lora_scale)
     cur = sample_token(logits[:, -1], generator, temperature, top_p,
                        do_sample)
     if timings is not None:
@@ -255,8 +263,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     done = is_eos(cur)
     pos = positions[:, -1] + 1
     steps = 0
-    graph = None
-    if extra_layer_fn is None or fused_spec is not None:
+    graph = None        # under LoRA every step runs the layer loop
+    if lora is None and (extra_layer_fn is None or fused_spec is not None):
         if isinstance(params, ShardedLLM):      # under its mesh: K10
             fused = fused_mesh_takes(params, cfg, cache, fused_spec)
         else:
@@ -265,7 +273,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
         if fused:
             graph = DecodeGraph(params, cfg, mask, cache, fused_spec,
                                 capture=decode_graph)
-    elif (not isinstance(params, ShardedLLM) and current_mesh() is None
+    elif (lora is None and not isinstance(params, ShardedLLM)
+          and current_mesh() is None
           and fused_perlayer_supported(params, cfg, cache)):
         # K9 (the opt-in) with the injection hook between its layers
         graph = DecodeGraph(params, cfg, mask, cache, None,
@@ -284,7 +293,8 @@ def llm_generate(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                     params, cfg, input_ids=cur[:, None], attention_mask=mask,
                     positions=pos[:, None], cache=cache,
                     cache_index=write_idx, extra_layer_fn=extra_layer_fn,
-                    fused_injection=fused_spec)
+                    fused_injection=fused_spec, lora=lora,
+                    lora_scale=lora_scale)
                 logits = logits[:, -1]
             nxt = sample_token(logits, generator, temperature, top_p,
                                do_sample)

@@ -9,7 +9,10 @@ caller or made by Whisper ASR in the loop (greedy, or the temperature
 fallback cascade with ``asr_fallback``), long clips chunked
 (``auto_chunk_long_audio``), the audio-feature cache
 (:meth:`DeSTA25AudioModel.enable_audio_cache`), plain or speculative
-(``speculative_k >= 2``) decoding.
+(``speculative_k >= 2``) decoding, LoRA adapters on the LLM's q, k and v
+(``use_lora``: trained with the connector, decoded through the layer loop;
+:meth:`DeSTA25AudioModel.merge_lora_for_serving` folds them in for the
+fused steps).
 :meth:`DeSTA25AudioModel.from_pretrained` loads a checkpoint directory
 (``config.json`` + the reference's trainable-only ``model.safetensors``) with
 the frozen towers from a weights root (``ckpt/desta_io.load_frozen_tower``)
@@ -20,7 +23,8 @@ one.  A model built directly reaches the int8 encoder through
 is quantized with :meth:`DeSTA25AudioModel.apply_llm_quant`, and the ORCA
 stack with :meth:`DeSTA25AudioModel.apply_orca_xattn_quant`.
 
-- phase A: WAV decode + energy VAD (a clip without speech gets the
+- phase A: audio decode (``audio/io.py``: WAV natively, other containers
+  through the native FFmpeg codec) + energy VAD (a clip without speech gets the
   transcription " "), then ASR on the device for every speech clip without
   a transcription (its own mel and encoder pass, the Whisper decoder);
   with the feature cache on, a hit skips the decode, the VAD and, once its
@@ -41,8 +45,8 @@ prefill and decode on every rank (``models/llm.py``: the tensor-parallel
 decode step K10, its verify step, the layer loop elsewhere); sampling stays
 on the first device.  ORCA's stack is replicated on every rank.
 
-Everything the slice does not cover raises ``NotImplementedError`` naming
-the ROADMAP item (Queue 1 of ``ROADMAP.md``).
+A connector mode other than ``qformer_1`` / ``orca_hybrid`` raises
+``NotImplementedError`` (:func:`check_slice`).
 """
 
 from __future__ import annotations
@@ -103,6 +107,10 @@ from .whisper import init_whisper_decoder, init_whisper_encoder
 
 logger = logging.getLogger(__name__)
 
+# the LoRA adapters' generator is seeded from the model's seed plus this,
+# so that turning LoRA on leaves the rest of a seed's tree as it was
+_LORA_SEED_OFFSET = 104729
+
 
 @dataclass
 class GenerationOutput:
@@ -131,9 +139,6 @@ def check_slice(config: DeSTA25Config) -> None:
     if config.connector_mode not in ("qformer_1", "orca_hybrid"):
         raise NotImplementedError(
             f"connector_mode {config.connector_mode!r} not implemented")
-    if config.use_lora:
-        raise NotImplementedError(
-            "LoRA is not ported yet (ROADMAP.md Queue 1, item 1)")
     if config.llm_quant not in ("none", "int8"):
         raise ValueError(f"llm_quant={config.llm_quant!r} (none | int8)")
 
@@ -213,7 +218,39 @@ class DeSTA25AudioModel:
                 params["llm"] = quantize_llm_params(params["llm"])
             if self.config.resolved_encoder_quant(inference=False) == "int8":
                 params["whisper"]["encoder"] = quantize_encoder_params(enc)
+            if self.config.use_lora:
+                # last and from its own generator (the JAX package's own
+                # key, desta.py:132-134): the other weights stay a seed's
+                params["lora"] = tllm.init_lora(
+                    self.llm_cfg, self.config.lora_rank, self.device,
+                    torch.Generator(self.device).manual_seed(
+                        seed + _LORA_SEED_OFFSET))
             return params
+
+    def merge_lora_for_serving(self, quantize: bool = True) -> None:
+        """Fold the LoRA adapters into the LLM's q/k/v weights and drop them
+        (peft ``merge_and_unload``; the JAX package's
+        ``merge_lora_for_serving``, ``desta.py:137-156``): a serving
+        transform that re-opens the fused decode steps.  ``quantize`` then
+        makes the merged tower int8 on the model's device
+        (``quantize_llm_params``, which divides exactly: the card's leaves
+        equal the CPU's) and the config ``llm_quant="int8"``.  The base must
+        be unquantized (else ValueError, and the adapters stay).  A no-op
+        without adapters.  Exact at inference; do not train or save a
+        checkpoint afterwards."""
+        lora = self.params.get("lora")
+        if lora is None:
+            return
+        with torch.no_grad():
+            merged = tllm.merge_lora(self.params["llm"], lora,
+                                     self.config.lora_scale)
+            if quantize:
+                merged = quantize_llm_params(merged)
+        # the adapters go only once the merge succeeded
+        self.params["llm"] = merged
+        del self.params["lora"]
+        if quantize:
+            self.config = dataclasses.replace(self.config, llm_quant="int8")
 
     def apply_llm_quant(self) -> None:
         """Replace the model's bf16 LLM with its int8 tree
@@ -809,10 +846,17 @@ class DeSTA25AudioModel:
         verify step injects inside the kernel, which needs the int8 stack
         and the int8 LLM); then the plain loop runs, as the JAX package's
         ``_spec_eligible`` falls back (``desta.py:607-633``), and the
-        reasons are logged and kept in ``last_spec_fallback``.  LoRA, which
-        the JAX package also checks here, is refused by :func:`check_slice`."""
+        reasons are logged and kept in ``last_spec_fallback``.  Under LoRA
+        (``desta.py:617``) the plain loop runs too: no verify step takes the
+        adapters."""
         self.last_spec_fallback = []
         if speculative_k < 2:
+            return False
+        if self.params.get("lora") is not None:
+            self.last_spec_fallback = [
+                "LoRA adapters (merge_lora_for_serving folds them in)"]
+            logger.info("speculative_k=%d under LoRA: decoding one token a "
+                        "step", speculative_k)
             return False
         inj = inject_kwargs or {}
         bad = spec_limits(self.params["llm"], self.llm_cfg, B,
@@ -847,6 +891,8 @@ class DeSTA25AudioModel:
                       top_p=top_p, do_sample=do_sample,
                       eos_ids=self._terminators(), pad_id=tk.pad_token_id,
                       timings=timings)
+        lora = dict(lora=self.params.get("lora"),
+                    lora_scale=self.config.lora_scale)
         inject_tokens = self._orca_inject_tokens(aux)
         inject_kwargs = {}
         if inject_tokens is not None:
@@ -874,7 +920,7 @@ class DeSTA25AudioModel:
         else:
             tokens, _ = llm_generate(
                 self.params["llm"], self.llm_cfg, embeds, attn_mask,
-                self.generator, **common)
+                self.generator, **common, **lora)
         self.last_timings = timings
         tokens = tokens.cpu().numpy()
         return GenerationOutput(

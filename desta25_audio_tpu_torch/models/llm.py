@@ -26,6 +26,14 @@ int8 leaves (``ops/quant.quantize_llm_params``, ``llm_quant="int8"``) every
 projection and the head go through ``ops/qmm.quant_matmul`` (K7 below 128
 rows, W8A8 above), as ``llm.py:136-156`` does.
 
+LoRA (``lora``, :func:`init_lora`; ``llm.py:113-197`` of the JAX package):
+the adapters' deltas ``scale * dropout(x) @ A @ B`` (peft's semantics, f32
+sums) are added to q, k and v before RoPE in every layer of the layer loop:
+prefill, cached decode and the cache-less training forward under ``remat``.
+Under LoRA no fused step takes a call (the JAX package's dispatch): that is
+a dispatch rule, not a kernel's refusal, so it is not counted as a fallback.
+:func:`merge_lora` folds the adapters into ``wqkv`` for serving.
+
 Under a mesh (``parallel/mesh.use_mesh``, the LLM cut by
 ``parallel/sharding.apply_llm_sharding``, the cache a ``ShardedCache``) a
 cached T == 1 step takes the tensor-parallel kernels (K10, whose predicate
@@ -78,10 +86,13 @@ from ..parallel.sharding import (
     ShardedLLM,
     data_rows,
     init_sharded_cache,
+    qkv_rows,
 )
 
-__all__ = ["KVCache", "init_kv_cache", "init_llm", "llm_apply",
-           "embed_tokens", "decode_step"]
+__all__ = ["KVCache", "init_kv_cache", "init_llm", "init_lora", "llm_apply",
+           "embed_tokens", "decode_step", "merge_lora"]
+
+LORA_TARGETS = ("q", "k", "v")
 
 
 def init_kv_cache(cfg: LLMConfig, batch: int, max_len: int, dtype,
@@ -131,6 +142,93 @@ def init_llm(cfg: LLMConfig, dtype, device,
     return p
 
 
+def init_lora(cfg: LLMConfig, rank: int, device, generator: torch.Generator,
+              dtype=torch.float32) -> Params:
+    """LoRA adapters for q, k and v of every layer (``init_lora`` of the JAX
+    package, ``llm.py:113-131``): ``{"layers": {t: {"a", "b"}}}`` with A ~
+    N(0, 0.02) [L, D, r] and B zero [L, r, out], f32, in the JAX package's
+    [in, r] / [r, out] layout."""
+    L, D, Dh = cfg.num_hidden_layers, cfg.hidden_size, cfg.head_dim
+    outs = {"q": cfg.num_attention_heads * Dh,
+            "k": cfg.num_key_value_heads * Dh,
+            "v": cfg.num_key_value_heads * Dh}
+    return {"layers": {t: {
+        "a": torch.empty(L, D, rank, dtype=dtype, device=device).normal_(
+            0.0, 0.02, generator=generator),
+        "b": torch.zeros(L, rank, outs[t], dtype=dtype, device=device)}
+        for t in LORA_TARGETS}}
+
+
+def _lora_delta(x: torch.Tensor, lp: Params, scale: float,
+                dropout: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """peft's LoRA delta ``scale * dropout(x) @ A @ B`` -> f32 (scale =
+    alpha / r; ``llm.py:159-172`` of the JAX package): the dropout (training
+    only, with a generator) on the adapter's input with inverted scaling,
+    the first product in x's dtype with f32 sums, the second in f32."""
+    if generator is not None and dropout > 0.0:
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < 1.0 - dropout
+        x = torch.where(keep, x, torch.zeros_like(x)) / torch.tensor(
+            1.0 - dropout, dtype=x.dtype, device=x.device)
+    a = matmul_f32(x, lp["a"].to(x.dtype))
+    return scale * matmul_f32(a, lp["b"].float())
+
+
+def lora_layer_seed(seed: int, l: int) -> int:
+    """Layer l's dropout seed of a step's seed (JAX's ``fold_in(key, l)``,
+    ``llm.py:490``): fixed outside the layer, so a recompute under
+    ``remat`` draws the masks of the forward again."""
+    return (int(seed) * 1_000_003 + l) % (1 << 63)
+
+
+def lora_qkv_delta(lora: Params, l: int, x: torch.Tensor, scale: float,
+                   dropout: float = 0.0,
+                   seed: Optional[int] = None) -> torch.Tensor:
+    """Layer l's q|k|v deltas of the normed input x [..., D] -> f32 [...,
+    (H + 2 Hkv) Dh], wqkv's row order.  With a seed and dropout > 0 each
+    adapter draws its own mask from one generator seeded inside the layer
+    (peft has one dropout a wrapped linear)."""
+    gen = None
+    if seed is not None and dropout > 0.0:
+        gen = torch.Generator(x.device).manual_seed(lora_layer_seed(seed, l))
+    lp = index_tree(lora["layers"], l)
+    return torch.cat([_lora_delta(x, lp[t], scale, dropout, gen)
+                      for t in LORA_TARGETS], dim=-1)
+
+
+def merge_lora(params: Params, lora: Params,
+               lora_scale: float = 1.0) -> Params:
+    """Fold the adapters into ``wqkv`` (peft ``merge_and_unload``; the JAX
+    package's ``merge_lora``, ``llm.py:564-589``): W + scale * A @ B in f32,
+    rounded once to W's dtype.  A @ B is summed over the rank one term at a
+    time by elementwise f32 ops, an order every device keeps, so a merge on
+    the card equals the CPU's bit for bit (and so do the int8 leaves
+    quantized from it).  A serving transform: the merged tree decodes
+    without the adapters, through the fused steps.  Raises ValueError on an
+    int8 base (merge first, then quantize).  Returns a new tree; the input
+    is not modified."""
+    if isinstance(params, ShardedLLM):
+        raise ValueError("merge_lora before apply_llm_sharding")
+    w = params["layers"]["wqkv"]
+    if is_quantized(w):
+        raise ValueError("merge_lora needs the unquantized base weights "
+                         "(wqkv is int8): merge first, then quantize")
+    lay = lora["layers"]
+    merged = torch.empty_like(w)
+    for l in range(w.shape[0]):
+        parts = []
+        for t in LORA_TARGETS:
+            a = lay[t]["a"][l].float().to(w.device)      # [D, r]
+            b = lay[t]["b"][l].float().to(w.device)      # [r, out]
+            acc = a[:, 0, None] * b[0]
+            for k in range(1, a.shape[1]):
+                acc = acc + a[:, k, None] * b[k]
+            parts.append((acc * lora_scale).t())         # [out, D]
+        merged[l] = (w[l].float() + torch.cat(parts)).to(w.dtype)
+    return {**params, "layers": {**params["layers"], "wqkv": merged}}
+
+
 def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids]
 
@@ -158,22 +256,26 @@ def _linear(w, x: torch.Tensor, l: int, w8a8: bool = True) -> torch.Tensor:
 
 def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
                cache: Optional[KVCache], ci, attention_mask=None,
-               w8a8: bool = True):
+               w8a8: bool = True, qkv_delta=None):
     return _linear(p["wo"], _attention_heads(p, x, cos, sin, mask, cfg, l,
                                              cache, ci, attention_mask,
-                                             w8a8), l, w8a8)
+                                             w8a8, qkv_delta), l, w8a8)
 
 
 def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
                      cache: Optional[KVCache], ci, attention_mask=None,
-                     w8a8: bool = True):
+                     w8a8: bool = True, qkv_delta=None):
     """Layer l's attention up to the wo product: [B, T, H*Dh] in x's
-    dtype."""
+    dtype.  qkv_delta (f32, wqkv's rows; LoRA's) is added to the rounded
+    q, k and v, which are rounded again (``llm.py:185-197`` of the JAX
+    package)."""
     B, T, _ = x.shape
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     HD, KVD = H * Dh, Hkv * Dh
     qkv = _linear(p["wqkv"], x, l, w8a8)
+    if qkv_delta is not None:
+        qkv = (qkv.float() + qkv_delta).to(qkv.dtype)
     q = qkv[..., :HD].reshape(B, T, H, Dh)
     k = qkv[..., HD:HD + KVD].reshape(B, T, Hkv, Dh)
     v = qkv[..., HD + KVD:].reshape(B, T, Hkv, Dh)
@@ -246,28 +348,37 @@ def _rank_sum(ws, xs, l: int, device) -> torch.Tensor:
 
 def _mesh_layers(params: ShardedLLM, cfg: LLMConfig, x, cos, sin, mask,
                  cache: ShardedCache, ci, attention_mask,
-                 extra_layer_fn) -> torch.Tensor:
+                 extra_layer_fn, lora_delta=None) -> torch.Tensor:
     """The layer loop under a mesh, driven from the first rank's device:
     per data row of the mesh and layer, each model rank's attention (its
     heads, its cache slice) and MLP (its I/p) on its device; the wo and
     down partials summed in f32 across the ranks (:func:`_rank_sum`) and
     rounded once into the residual, which stays whole on the first device
-    for the norms and ``extra_layer_fn``."""
+    for the norms and ``extra_layer_fn``.  ``lora_delta(l, xn)`` (LoRA's
+    q|k|v deltas) runs whole on the first device; each rank adds its heads'
+    columns."""
     mesh, lcfg, lay = params.mesh, params.local_cfg, params["layers"]
     dev0, eps = x.device, cfg.rms_norm_eps
     groups = [data_rows(mesh, x.shape[0], g) for g in range(mesh.n_data)]
+    p = mesh.n_model
+    cols = [qkv_rows(cfg, p, m).to(dev0) for m in range(p)]
     for l in range(cfg.num_hidden_layers):
         xn = rms_norm(index_tree(lay["ln1"], l), x, eps)
+        delta = None if lora_delta is None else lora_delta(l, xn)
         outs = []
         for g, rows in enumerate(groups):
             lays = [r["layers"] for r in params.ranks[g]]
             heads = []
-            for lp, c, dev in zip(lays, cache.shards[g], mesh.devices[g]):
+            for m, (lp, c, dev) in enumerate(zip(lays, cache.shards[g],
+                                                 mesh.devices[g])):
+                d = (None if delta is None
+                     else delta[rows][..., cols[m]].to(dev))
                 with on_device(dev):
                     heads.append(_attention_heads(
                         lp, xn[rows].to(dev), cos[rows].to(dev),
                         sin[rows].to(dev), mask[rows].to(dev), lcfg, l, c,
-                        ci[rows].to(dev), attention_mask[rows].to(dev)))
+                        ci[rows].to(dev), attention_mask[rows].to(dev),
+                        qkv_delta=d))
             outs.append(_rank_sum([lp["wo"] for lp in lays], heads, l, dev0))
         x = x + torch.cat(outs).to(x.dtype)
         xn = rms_norm(index_tree(lay["ln2"], l), x, eps)
@@ -366,7 +477,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
               extra_aux_init=None,
               fused_injection=None, return_hidden: bool = False,
               skip_head: bool = False, remat: bool = False,
-              w8a8: bool = True):
+              w8a8: bool = True, lora: Optional[Params] = None,
+              lora_scale: float = 1.0, lora_dropout: float = 0.0,
+              lora_seed: Optional[int] = None):
     """Forward pass -> (logits [B, T, V] f32, cache), or with
     ``return_hidden`` (logits, cache, final hidden [B, T, D] after the last
     norm); ``skip_head`` leaves logits None.  With ``extra_aux_init`` a
@@ -402,11 +515,24 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
 
     w8a8: the int8 tower's products and head may quantize activations from
     128 rows (``ops/qmm.quant_matmul``); training passes False.
+
+    lora (:func:`init_lora`'s tree), lora_scale (alpha / r): the adapters'
+    deltas on q, k and v in every layer, through the layer loop only (no
+    fused step, K9 or K10 takes the call; under a mesh the per-rank loop).
+    lora_dropout with a lora_seed (training) drops the adapters' inputs,
+    each layer's masks from a generator seeded by (lora_seed, layer)
+    inside the layer, so the recompute under ``remat`` draws them again;
+    without a seed there is no dropout.  An injection under LoRA comes as
+    ``extra_layer_fn``.
     """
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("provide exactly one of input_ids / inputs_embeds")
     if extra_aux_init is not None and cache is not None:
         raise ValueError("extra_aux_init takes the cache-less forward only")
+    if lora is not None and fused_injection is not None \
+            and extra_layer_fn is None:
+        raise ValueError("under LoRA the layer loop runs: give the injection "
+                         "as extra_layer_fn")
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids)
     x = inputs_embeds
@@ -429,21 +555,25 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
             positions = q_pos
         if sharded:
             hidden = None
-            if T == 1:
+            if T == 1 and lora is None:
                 hidden = _mesh_decode_step(params, cfg, x, attention_mask,
                                            positions, cache, ci,
                                            extra_layer_fn, fused_injection)
             if hidden is None:
                 cos, sin = llm_rope_cos_sin(cfg, positions)
-                x = _mesh_layers(params, cfg, x, cos, sin, mask, cache, ci,
-                                 attention_mask, extra_layer_fn)
+                x = _mesh_layers(
+                    params, cfg, x, cos, sin, mask, cache, ci,
+                    attention_mask, extra_layer_fn,
+                    None if lora is None else
+                    lambda l, xn: lora_qkv_delta(lora, l, xn, lora_scale))
                 hidden = x
             hidden = rms_norm(params["norm"], hidden, cfg.rms_norm_eps)
             logits = None if skip_head else head_logits(params, hidden)
             return (logits, cache, hidden) if return_hidden else (logits,
                                                                   cache)
-        if T == 1 and (fused_injection is not None
-                       or extra_layer_fn is None):
+        # under LoRA the layer loop below runs: no fused step takes it
+        if lora is None and T == 1 and (fused_injection is not None
+                                        or extra_layer_fn is None):
             if fused_decode_supported(params, cfg, x, cache):
                 return fused_step_logits(params, cfg, x, attention_mask,
                                          positions, cache, ci,
@@ -454,7 +584,8 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
             # the kernels cannot take this step: the layer loop below (the
             # JAX package's XLA path), with the injection hook if any
             _build.count_fallback("fused_decode_layers")
-        if T == 1 and fused_perlayer_supported(params, cfg, cache):
+        if (T == 1 and lora is None
+                and fused_perlayer_supported(params, cfg, cache)):
             # opt-in: the per-layer kernel pair with the hook between
             # layers (llm.py:436-454 of the JAX package)
             hidden, cache = fused_decode_layers_perlayer(
@@ -473,10 +604,12 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     lay = params["layers"]
 
     def layer(l: int, x: torch.Tensor, *aux):
-        x = x + _attention(lay, rms_norm(index_tree(lay["ln1"], l), x,
-                                         cfg.rms_norm_eps),
-                           cos, sin, mask, cfg, l, cache, ci,
-                           attention_mask, w8a8)
+        xn = rms_norm(index_tree(lay["ln1"], l), x, cfg.rms_norm_eps)
+        delta = (None if lora is None else
+                 lora_qkv_delta(lora, l, xn, lora_scale, lora_dropout,
+                                lora_seed))
+        x = x + _attention(lay, xn, cos, sin, mask, cfg, l, cache, ci,
+                           attention_mask, w8a8, delta)
         x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
                                    cfg.rms_norm_eps), l, w8a8)
         if extra_aux_init is not None:

@@ -56,20 +56,27 @@ def local_config(cfg, p: int):
                                intermediate_size=I // p)
 
 
+def qkv_rows(cfg, p: int, rank: int) -> torch.Tensor:
+    """The rows of ``wqkv`` (q | k | v) that rank ``rank`` of p holds: its
+    H/p query heads, then its Hkv/p key and value heads."""
+    sc = local_config(cfg, p)
+    Dh = cfg.head_dim
+    HD, KVD = cfg.num_attention_heads * Dh, cfg.num_key_value_heads * Dh
+    hd, kvd = sc.num_attention_heads * Dh, sc.num_key_value_heads * Dh
+    return torch.cat([torch.arange(rank * hd, (rank + 1) * hd),
+                      HD + torch.arange(rank * kvd, (rank + 1) * kvd),
+                      HD + KVD + torch.arange(rank * kvd, (rank + 1) * kvd)])
+
+
 def shard_layers(params, cfg, p: int, rank: int):
     """Rank ``rank`` of p's shard of the layer stack, int8 or bf16 -> (params
     with the shard's ``layers``, the shard's config) (module docstring)."""
     sc = local_config(cfg, p)
     if not 0 <= rank < p:
         raise ValueError(f"rank {rank} of {p}")
-    Dh = cfg.head_dim
-    HD, KVD = cfg.num_attention_heads * Dh, cfg.num_key_value_heads * Dh
-    hd, kvd, il = (sc.num_attention_heads * Dh, sc.num_key_value_heads * Dh,
-                   sc.intermediate_size)
+    hd, il = sc.num_attention_heads * cfg.head_dim, sc.intermediate_size
     lay = params["layers"]
-    rows = torch.cat([torch.arange(rank * hd, (rank + 1) * hd),
-                      HD + torch.arange(rank * kvd, (rank + 1) * kvd),
-                      HD + KVD + torch.arange(rank * kvd, (rank + 1) * kvd)])
+    rows = qkv_rows(cfg, p, rank)
 
     def out_rows(leaf, idx):
         if is_quantized(leaf):

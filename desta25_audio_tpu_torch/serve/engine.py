@@ -37,10 +37,14 @@ never by a new tensor, and every engine launch goes to the engine's stream
 (the caller's at construction; every public method makes it current, so
 that another thread may call it), so a queued tick reads the buffers as
 they were when it was queued.  Elsewhere (an f32 tower, ORCA's float
-stack) each step is ``models/llm.llm_apply`` with the injection between
-layers.  Sampling (``generate/decode.sample_token_dynamic``), the mask bit
-of each step and the stop flags run eagerly on the device between the
-steps, with no host read until the tick's tokens are copied out.
+stack, LoRA adapters) each step is ``models/llm.llm_apply`` with the
+injection between layers; under LoRA the adapters join every prefill and
+step, no graph is kept, and ``speculative_k`` is refused with a warning
+(plain ticks; JAX ``engine.py:272``).  A server folds the adapters in first
+(``cli/serve.py``: ``merge_lora_for_serving``).  Sampling
+(``generate/decode.sample_token_dynamic``), the mask bit of each step and
+the stop flags run eagerly on the device between the steps, with no host
+read until the tick's tokens are copied out.
 
 Speculative ticks (``speculative_k`` = Kd >= 2, where the verify step takes
 the engine: ``generate/speculative.spec_limits``): each of the tick's steps
@@ -440,7 +444,10 @@ class ContinuousBatchingEngine:
         self._extra = self._inject_fn(self.inject_k, self.inject_v, self._on)
         self._fspec = None
         llm = model.params["llm"]
-        if self._inject_len:
+        self._lora = dict(lora=model.params.get("lora"),
+                          lora_scale=model.config.lora_scale)
+        lora_on = self._lora["lora"] is not None
+        if self._inject_len and not lora_on:
             if fused_inject_supported(llm, cfg, self._inject_params, heads,
                                       self._inject_len):
                 self._fspec = dict(params=self._inject_params,
@@ -451,7 +458,7 @@ class ContinuousBatchingEngine:
                     self._inject_params["layers"].get("q"))):
                 _build.count_fallback("fused_decode_inject")
         self.graph: Optional[DecodeGraph] = None
-        if self._extra is None or self._fspec is not None:
+        if not lora_on and (self._extra is None or self._fspec is not None):
             if self.mesh is not None:        # K10, one graph per card
                 fused = fused_mesh_takes(llm, cfg, self.cache, self._fspec)
             else:
@@ -465,7 +472,13 @@ class ContinuousBatchingEngine:
         # speculative verify ticks: eligibility (``engine.py:260-295``)
         self.speculative_k = 0
         self.vgraph: Optional[DecodeGraph] = None
-        if speculative_k >= 2:
+        if speculative_k >= 2 and lora_on:
+            # a dispatch rule, not a kernel's refusal: no fallback count
+            logger.warning(
+                "speculative_k=%d requested under LoRA adapters, which no "
+                "verify step takes; serving runs plain decode ticks "
+                "(merge_lora_for_serving folds them in)", speculative_k)
+        elif speculative_k >= 2:
             bad = spec_limits(
                 llm, cfg, n_slots, self.t_max, speculative_k, self.dtype,
                 inject_params=self._inject_params,
@@ -566,7 +579,7 @@ class ContinuousBatchingEngine:
             self.model.params["llm"], self.cfg, inputs_embeds=embeds,
             attention_mask=full, positions=positions, cache=cache,
             cache_index=0,
-            extra_layer_fn=self._inject_fn(inj_k, inj_v, on))
+            extra_layer_fn=self._inject_fn(inj_k, inj_v, on), **self._lora)
         tok = sample_token_dynamic(logits[:, -1].float(), self.generator,
                                    temp, top_p, do_sample)
         return tok, cache, inj_k, inj_v
@@ -580,7 +593,7 @@ class ContinuousBatchingEngine:
             self.model.params["llm"], self.cfg, input_ids=cur[:, None],
             attention_mask=self._mask, positions=pos[:, None],
             cache=self.cache, cache_index=ci, extra_layer_fn=self._extra,
-            fused_injection=self._fspec)
+            fused_injection=self._fspec, **self._lora)
         return logits[:, -1]
 
     def _upload(self, write_pos: np.ndarray):

@@ -35,7 +35,12 @@ API (JSON in and out):
 
 Concurrency: one engine thread steps the engine in a loop that sleeps only
 when idle; every engine call (submit, step, cancel, results) runs under
-one lock.  The engine makes its own device, stream and mesh current in
+one lock, and after each one every request the engine has finished is
+signalled, whichever call finished it: ``results()`` and ``cancel()``
+consume the in-flight pipelined tick too, and the requests that tick ends
+are not in ``step()``'s list (the JAX server signals only that list, so a
+handler reading a result while a tick is in flight can leave the others
+waiting forever).  The engine makes its own device, stream and mesh current in
 each call, so the engine thread and the handler threads
 (``ThreadingHTTPServer``, each blocked on its request's event) share the
 engine's stream, whose order its kept graphs rely on.  N concurrent
@@ -71,6 +76,7 @@ class EngineServer:
         self._lock = threading.Lock()
         self._events: Dict[int, threading.Event] = {}
         self._streams: Dict[int, "queue.Queue"] = {}
+        self._open_streams: set = set()   # no sentinel put yet
         self._idle_sleep_s = idle_sleep_s
         self._stop = threading.Event()
         engine.on_token = self._on_token
@@ -84,19 +90,24 @@ class EngineServer:
         if q is not None:
             q.put(tok)
 
+    def _signal_finished(self):
+        """Wake the waiter and end the stream of every request the engine
+        has finished (call under the lock, after any engine call)."""
+        done = self.engine.finished_info
+        for rid in [r for r in self._events if r in done]:
+            self._events.pop(rid).set()
+        for rid in [r for r in self._open_streams if r in done]:
+            self._open_streams.discard(rid)
+            self._streams[rid].put(None)  # stream sentinel
+
     def _run(self):
         while not self._stop.is_set():
             with self._lock:
                 busy = (bool(self.engine.queue)
                         or any(r is not None for r in self.engine.slot_req))
-                finished = self.engine.step() if busy else []
-                for rid in finished:
-                    ev = self._events.pop(rid, None)
-                    if ev is not None:
-                        ev.set()
-                    q = self._streams.get(rid)
-                    if q is not None:
-                        q.put(None)  # stream sentinel
+                if busy:
+                    self.engine.step()
+                self._signal_finished()
             # between ticks a handler waiting on the lock (a submit, a
             # cancel) takes it: without the yield this thread takes the
             # lock straight back and starves them while the engine is busy
@@ -116,6 +127,8 @@ class EngineServer:
             self._events[rid] = ev
             if stream:
                 self._streams[rid] = queue.Queue()
+                self._open_streams.add(rid)
+            self._signal_finished()
         return rid
 
     def wait(self, rid: int, timeout: Optional[float] = None
@@ -124,22 +137,20 @@ class EngineServer:
         if ev is not None and not ev.wait(timeout):
             raise TimeoutError(f"request {rid} still running")
         with self._lock:
-            return self.engine.results()[rid]
+            res = self.engine.results()[rid]
+            self._signal_finished()
+        return res
 
     def result_now(self, rid: int) -> Optional[Dict[str, Any]]:
         with self._lock:
-            return self.engine.results().get(rid)
+            res = self.engine.results().get(rid)
+            self._signal_finished()
+        return res
 
     def cancel(self, rid: int) -> bool:
         with self._lock:
             ok = self.engine.cancel(rid)
-        if ok:
-            ev = self._events.pop(rid, None)
-            if ev is not None:
-                ev.set()
-            q = self._streams.get(rid)
-            if q is not None:
-                q.put(None)
+            self._signal_finished()
         return ok
 
     def stream_tokens(self, rid: int):
@@ -152,7 +163,9 @@ class EngineServer:
                     return
                 yield tok
         finally:
-            self._streams.pop(rid, None)
+            with self._lock:
+                self._streams.pop(rid, None)
+                self._open_streams.discard(rid)
 
 
 def _decode_inline_audio(messages: List[Dict[str, Any]],

@@ -17,6 +17,12 @@ forward's aux, and ``orca_aux_losses`` join the loss.  An int8 tower trains
 through the straight-through backward of ``ops/qmm.quant_matmul`` with
 ``w8a8=False``: the products and the CE's head never quantize activations
 (``train/step.py:95-120`` of the JAX package).
+
+LoRA (``params["lora"]``, trained with the connector): the adapters' deltas
+join q, k and v in every LLM layer; a training step with
+``batch["lora_seed"]`` (the trainer's per-step seed) drops the adapters'
+inputs at ``lora_dropout``, and eval runs without dropout
+(``step.py:99-102`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -88,7 +94,10 @@ def forward_loss(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         llm, llm_cfg, inputs_embeds=inputs_embeds,
         attention_mask=batch["attention_mask"], extra_layer_fn=hook,
         extra_aux_init=aux_init, remat=remat, return_hidden=True,
-        skip_head=True, w8a8=False)
+        skip_head=True, w8a8=False, lora=params.get("lora"),
+        lora_scale=config.lora_scale,
+        lora_dropout=config.lora_dropout if training else 0.0,
+        lora_seed=batch.get("lora_seed") if training else None)
     hidden = out[2]
     d = masked_lm_loss_chunked(llm, llm_cfg, hidden, labels)
     metrics = {"lm_loss": d["lm_loss"], "ppl": d["ppl"],

@@ -10,10 +10,16 @@ per-category report JSON (config and git commit), epoch checkpoints, resume
 from ``checkpoint-latest``, and ``auto_find_batch_size`` (halve the batch
 and restart the epoch on a device OOM before the first successful step).
 
+``num_workers > 0`` collates in background threads
+(``data/prefetch.PrefetchLoader``).  With LoRA (``use_lora``) each train
+step draws its adapter-dropout masks from a seed of ``global_step`` (the
+JAX package's per-step key, ``trainer.py:297-301``), and ``evaluate()``
+generates with the adapters and without dropout.
+
 One device, one process.  The JAX package's mesh options (``mesh``,
 ``mesh_model``, ``mesh_pipe``, ``fsdp``, ``pipeline_microbatches``,
-``sequence_parallel``) and its prefetching loader (``num_workers``) raise
-NotImplementedError naming their ROADMAP.md items.
+``sequence_parallel``) raise NotImplementedError naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from ..audio.mel import log_mel, pad_or_trim
 from ..ckpt.checkpoint import restore_train_state, save_train_state
 from ..data.dataset import AudioTextDataset, CollateFn, data_loader
+from ..data.prefetch import PrefetchLoader
 from ..eval.metrics import ConsecutiveWordsAccuracyMetric
 from ..generate.decode import llm_generate
 from ..models.desta import DeSTA25AudioModel
@@ -74,10 +81,6 @@ def check_trainer_config(tc: TrainerConfig) -> None:
             "multi-device training (mesh, tensor/pipeline/sequence "
             "parallelism, fsdp) is not ported yet (ROADMAP.md Queue 1, "
             "item 5: multi-GPU)")
-    if tc.num_workers > 0:
-        raise NotImplementedError(
-            "the prefetching loader (data/prefetch.py) is not ported yet "
-            "(ROADMAP.md Queue 1, item 1: training); use num_workers=0")
 
 
 class MetricsLogger:
@@ -194,8 +197,13 @@ class DeSTA25Trainer:
         for epoch in range(start_epoch, max_epochs):
             while True:  # auto_find_batch_size retry (restarts the epoch)
                 bs = self.collate_fn.data_cfg.batch_size
-                loader = data_loader(self.train_dataset, self.collate_fn, bs,
-                                     epoch=epoch)
+                if self.tcfg.num_workers > 0:
+                    loader = PrefetchLoader(
+                        self.train_dataset, self.collate_fn, bs, epoch=epoch,
+                        num_workers=self.tcfg.num_workers)
+                else:
+                    loader = data_loader(self.train_dataset,
+                                         self.collate_fn, bs, epoch=epoch)
                 try:
                     for batch in loader:
                         if batch.get("_empty_batch"):
@@ -203,6 +211,10 @@ class DeSTA25Trainer:
                                            self.global_step)
                             continue
                         db = self._device_batch(batch)
+                        if (self.config.use_lora
+                                and self.config.lora_dropout > 0):
+                            # this step's adapter-dropout seed (peft train())
+                            db["lora_seed"] = self.global_step
                         trainable, opt_state, metrics = self.train_step(
                             trainable, frozen, opt_state, db)
                         if not stepped_ok:
@@ -310,7 +322,8 @@ class DeSTA25Trainer:
             torch.Generator(model.device).manual_seed(self.tcfg.seed),
             max_new_tokens=self.tcfg.eval_max_new_tokens,
             do_sample=self.tcfg.eval_do_sample,
-            eos_ids=model._terminators(), pad_id=tk.pad_token_id)
+            eos_ids=model._terminators(), pad_id=tk.pad_token_id,
+            lora=model.params.get("lora"), lora_scale=self.config.lora_scale)
         return tk.batch_decode(tokens.cpu().numpy(), skip_special_tokens=True)
 
     def _save_results(self, results, losses, tag: str) -> Dict[str, Any]:

@@ -39,7 +39,9 @@ control that places admissions into a new cache tensor and must part;
 checkpoints: int8 weights quantized on the card bit-identical to the CPU's
 on rows where the reciprocal product rounds apart, a bf16 file read
 straight onto the card, and a nano ``from_pretrained(device="cuda")`` whose
-tree and greedy ids equal the CPU's load).
+tree and greedy ids equal the CPU's load; LoRA: the merge and the int8
+quantizer after it on the card bit-identical to the CPU's, at Llama-3.1-8B's
+width and through ``merge_lora_for_serving(quantize=True)``).
 Marked ``cuda``: each test skips
 where torch.cuda.is_available() is False.  On a GPU machine (no jax needed):
 
@@ -2318,6 +2320,47 @@ def test_quantize_on_the_card_equals_the_cpu(gen):
     from desta25_audio_tpu_torch.ckpt.synthetic import quantize_card_vs_cpu
     r = quantize_card_vs_cpu(gen)
     assert (r["scales"], r["q_rows"], r["leaves"]) == (0, 0, 0), r
+
+
+def test_merge_lora_for_serving_on_the_card_equals_the_cpu(gen):
+    """LoRA merged into two Llama-3.1-8B layers at full width (r = 16, B
+    moved off zero) and quantized, on the card and on the CPU: the merged
+    bf16 weights and every int8 leaf and scale bit for bit (the merge sums
+    the rank one term at a time; the quantizer divides), then
+    ``merge_lora_for_serving(quantize=True)`` on a nano model on the card
+    against the same on the CPU (chip_smoke phase 30c runs the first part
+    at the flagship)."""
+    from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
+    from desta25_audio_tpu_torch.ckpt.synthetic import (count_differing,
+                                                        merge_card_vs_cpu)
+    cfg = dataclasses.replace(
+        llm_config_for("meta-llama/Llama-3.1-8B-Instruct"),
+        num_hidden_layers=2)
+    llm = tllm.init_llm(cfg, torch.bfloat16, "cuda", gen)
+    lora = tllm.init_lora(cfg, 16, "cuda", gen)
+    for ab in lora["layers"].values():
+        ab["b"].normal_(0.0, 0.02, generator=gen)
+    r = merge_card_vs_cpu(llm, lora, 1.0)
+    assert (r["merged"], r["leaves"]) == (0, 0), r
+    ncfg = DeSTA25Config(llm_model_id="test/llama-nano128",
+                         encoder_model_id="test/whisper-nano",
+                         qformer_num_hidden_layers=2, prompt_size=8,
+                         dtype="bfloat16", use_lora=True, lora_rank=4)
+    host = DeSTA25AudioModel(ncfg, "cpu", seed=0)
+    for ab in host.params["lora"]["layers"].values():
+        ab["b"].normal_(0.0, 0.02, generator=torch.Generator().manual_seed(1))
+    card = DeSTA25AudioModel(ncfg, "cuda", params=_tree_to(host.params,
+                                                           "cuda"))
+    host.merge_lora_for_serving(quantize=True)
+    card.merge_lora_for_serving(quantize=True)
+    assert "lora" not in card.params and card.config.llm_quant == "int8"
+    assert count_differing(card.params["llm"], host.params["llm"]) == 0
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def test_codec_reads_bf16_onto_the_card(gen, tmp_path):

@@ -329,3 +329,78 @@ def test_http_cancel_running_request(model, wav_path):
     finally:
         httpd.shutdown()
         es.close()
+
+
+class _FlushingEngine:
+    """An engine stub whose ``results()`` finishes every submitted request,
+    as the pipelined engine's flush of its in-flight tick can: none of them
+    is in any ``step()``'s list of finished ids."""
+
+    def __init__(self):
+        self.queue, self.slot_req, self.on_token = [], [None], None
+        self.finished_info, self._submitted = {}, []
+
+    def submit(self, messages, **kw):
+        self._submitted.append(len(self._submitted))
+        return self._submitted[-1]
+
+    def step(self):
+        return []
+
+    def results(self):
+        for rid in self._submitted:
+            self.finished_info.setdefault(
+                rid, {"tokens": [], "finish_reason": "length"})
+        return dict(self.finished_info)
+
+    def cancel(self, rid):
+        return False
+
+
+def test_requests_finished_outside_step_are_signalled():
+    """A result read that consumes the in-flight tick (``results()``)
+    finishes other requests too: their waiters wake and their streams
+    end (the JAX server signals only ``step()``'s list, and they waited
+    forever)."""
+    from desta25_audio_tpu_torch.serve.http import EngineServer
+    es = EngineServer(_FlushingEngine())
+    try:
+        waiting = es.submit([], stream=False)
+        streaming = es.submit([], stream=True)
+        reader = es.submit([], stream=False)
+        assert es.result_now(reader)["finish_reason"] == "length"
+        assert es.wait(waiting, timeout=5)["finish_reason"] == "length"
+        assert list(es.stream_tokens(streaming)) == []
+    finally:
+        es.close()
+
+
+def test_concurrent_clients_all_answered(model, wav_path):
+    """Eight concurrent clients on a pipelined engine, two streaming, the
+    streams' handlers reading their results while the engine's tick is in
+    flight: every client gets its answer."""
+    import concurrent.futures
+    eng = ContinuousBatchingEngine(model, n_slots=8, max_ctx=128,
+                                   max_new_tokens=MAX_NEW, ctx_bucket=128,
+                                   steps_per_tick=2)
+    httpd, es, port = _serve(eng, start_http)
+
+    def client(i):
+        req = {"messages": _msgs(wav_path), "max_new_tokens": MAX_NEW,
+               "stream": i < 2}
+        if i >= 2:
+            status, body = _post(port, "/v1/generate", req)
+            return status == 200 and body["finish_reason"] in ("eos", "length")
+        resp, conn = _post(port, "/v1/generate", req, stream=True)
+        done = '"done": true' in resp.read().decode()
+        conn.close()
+        return done
+
+    try:
+        for _ in range(3):
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                futs = [ex.submit(client, i) for i in range(8)]
+                assert all(f.result(timeout=120) for f in futs)
+    finally:
+        httpd.shutdown()
+        es.close()

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports no jax, its re-homed host
 modules (config presets, tokenizer, WAV I/O, VAD, splice maps) stay equal to
-the JAX package's, and it refuses what the slices do not cover (LoRA) while
-taking the Q-Former and ORCA configurations."""
+the JAX package's, its native audio libraries build from its own C++
+sources, and it refuses what the slices do not cover (other connectors)
+while taking the Q-Former and ORCA configurations, with or without LoRA."""
 
 import dataclasses
 import os
@@ -115,12 +116,15 @@ def test_wav_io_vad_and_splice_maps_match(tmp_path):
     np.testing.assert_array_equal(got_raw, raw)
     assert got_sr == sr == 8000
     want = jio.resample(jio.select_channels(raw, "average"), sr, 16000)
-    b = tio.AudioSegment.from_file(path, target_sr=16000)
+    # a duration takes the Python path (the native fast path's resampler is
+    # not scipy's: tests/test_torch_native.py holds it against JAX's)
+    b = tio.AudioSegment.from_file(path, target_sr=16000, duration=2.0)
     np.testing.assert_array_equal(b.samples, want)
     assert b.sample_rate == 16000
     assert jvad.energy_vad(want) == tvad.energy_vad(b.samples)
     assert tvad.has_speech(b.samples)
-    with pytest.raises(ValueError, match="only WAV"):
+    # not audio: the WAV parsers refuse it, then the FFmpeg codec
+    with pytest.raises(ValueError, match="decode"):
         tio.AudioSegment.from_file(__file__)
     entries = [jsp.SpliceEntry(0, 2, 0, 3, 2), jsp.SpliceEntry(1, 0, 1, 3, 1)]
     got = tsp.build_splice_maps(2, 8, [tsp.SpliceEntry(**vars(e))
@@ -135,8 +139,8 @@ def test_wav_io_vad_and_splice_maps_match(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    (dict(use_lora=True), "LoRA"),
-    (dict(connector_mode="orca_hybrid", use_lora=True), "LoRA"),
+    (dict(connector_mode="qformer_2"), "connector_mode"),
+    (dict(connector_mode="perceiver", use_lora=True), "connector_mode"),
 ])
 def test_outside_the_slice_raises(override, match):
     from desta25_audio_tpu_torch.models.desta import check_slice
@@ -144,6 +148,29 @@ def test_outside_the_slice_raises(override, match):
                              encoder_model_id="test/whisper-nano", **override)
     with pytest.raises(NotImplementedError, match=match):
         check_slice(cfg)
+
+
+@pytest.mark.parametrize("module", ["native", "native.build", "audio.io",
+                                    "data.prefetch", "ckpt.lora_io"])
+def test_new_modules_import_neither_jax_nor_the_jax_package(module):
+    path = PKG / (module.replace(".", "/") + ".py")
+    if not path.exists():
+        path = PKG / module.replace(".", "/") / "__init__.py"
+    pat = re.compile(r"^\s*(import|from)\s+(jax\b|desta25_audio_tpu\b(?!_))",
+                     re.M)
+    assert not pat.search(path.read_text())
+
+
+def test_native_sources_lie_in_the_port():
+    """The C++ the port builds is its own copy under
+    desta25_audio_tpu_torch/native/, and the builder writes under build/."""
+    from desta25_audio_tpu_torch.native import build as tbuild
+    for src, _, _ in tbuild.LIBS.values():
+        path = (tbuild.HERE / src).resolve()
+        assert path.is_file() and PKG in path.parents, path
+    assert tbuild.BUILD_DIR == REPO / "build" / "desta25_audio_tpu_torch"
+    for name in tbuild.LIBS:
+        assert tbuild.library_path(name).parent == tbuild.BUILD_DIR
 
 
 def test_the_slice_takes_orca():
@@ -154,3 +181,5 @@ def test_the_slice_takes_orca():
         cfg = tcfg.config_from_yaml_file(str(REPO / "configs" / path))
         assert cfg.is_orca and cfg.orca_deep_injection_enabled
         check_slice(cfg)
+        check_slice(tcfg.DeSTA25Config(**{**dataclasses.asdict(cfg),
+                                          "use_lora": True}))
