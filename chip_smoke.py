@@ -410,6 +410,22 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     first-step logits beside the adapter model's (margins), and generate()
     b2 through the K8-int8 graph.  Prints the phase's seconds.
 
+31. training on a mesh and across processes (run inside phase 22-24's
+    block, on its bf16 model, after 24 and before 24b quantizes the
+    tower): (a) ``DeSTA25Trainer`` with ``mesh="on"`` for 3 steps at B=4
+    T=512 on phase 23's batches from phase 22's trainable values, on a
+    (2, 1) mesh of virtual ranks of the card with ``fsdp`` and on a (1, 2)
+    mesh (the LLM cut 2 ways): each step's lm_loss and grad_norm against
+    phase 23's within TOL_TRAIN_MESH_LOSS / _GN beside the control (phase
+    23's next batch), K11 forward and backward launched once a rank for
+    each of phase 23's launches at H/p heads, every leaf fsdp cuts still
+    cut after the steps, ms a step and peak memory; (b) two processes on
+    the card over gloo (``--train-worker``), each a 1 x 1 mesh at B=2, one
+    step, against the one-process (2, 1) step on their batches
+    concatenated within TOL_TRAIN_PROC; (c) the ORCA yaml of Qwen3-0.6B
+    (full width, D=1024, L=28) for 2 steps on one device, then 2 with
+    ``fsdp`` on a (2, 1) virtual mesh, held alike.
+
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
 once (``cudaOccupancyMaxActiveClusters``), equal on a 132-SM card.
@@ -460,6 +476,14 @@ NVLink) instead of virtual ranks of the first.
     python3 chip_smoke.py --phase30-only
 
 runs phases 1-3 and 30 alone (work on the decoders, the loader and LoRA).
+
+    python3 chip_smoke.py --train-mesh-only [--cards]
+
+runs phases 1-3 and 31 alone on a fresh flagship training model (its
+one-device reference run first); with ``--cards`` (four cards) the flagship
+Q-Former at (4, 1) with fsdp and at (2, 2) over the cards, four processes
+one a card over NCCL, and the flagship ORCA step with fsdp over the four
+cards beside its one-card run, each with each card's peak memory.
 
     python3 chip_smoke.py --http-rounds N
 
@@ -568,6 +592,63 @@ TOL_ENGINE_MARGIN = 0.25  # the serving engine's greedy ids against a
                      # references beside it (the ids in one call, and one at
                      # a time through the fused step), which differ from it
                      # by up to ~0.3 in a logit
+TOL_TRAIN_MESH_LOSS = 3e-3  # phase 31: a train step's lm_loss on a mesh
+                     # vs the one-device trainer's on the same batch
+                     # (relative), Llama-3.1-8B's 32 random layers: bf16
+                     # products over another split of the rows (cuBLAS
+                     # picks its kernel by shape) or of the heads (the rank
+                     # sums in f32, rounded once) flip bf16 roundings, which
+                     # the random layers amplify; the first two steps run
+                     # on equal parameters (lr 0 at step 1), the third after
+                     # an update that Adafactor's sign-like first steps
+                     # spread.  The H100 read <= 7.3e-4 at equal
+                     # parameters, 1.4e-3 at step 3; the control, the
+                     # one-device run's next batch at equal parameters,
+                     # read 6.0e-3 (grad_norm 7.9e-2).  Each cell's best
+                     # control must read 10x its gate: here the gradients'
+                     # (TOL_TRAIN_MESH_G), with fsdp the update's too
+TOL_TRAIN_MESH_GN = 3e-2  # the same step's grad_norm (relative): read
+                     # <= 2.5e-3 at equal parameters, 1.6e-2 at step 3
+TOL_TRAIN_MESH_ORCA = (3e-3, 1e-2, 1e-1)  # the same for the flagship ORCA
+                     # model on four cards (--cards): its next batch's loss at
+                     # equal parameters reads only 2.3e-4 (random weights
+                     # and the injection flatten the loss across batches;
+                     # grad_norm's 2.6e-2), so the update's control (fsdp)
+                     # carries the cell; four H100s read <= 1.1e-3 / 1.9e-3
+                     # / 4.6e-2 (gradients: control 0.50)
+TOL_TRAIN_MESH_SMALL = (5e-4, 5e-3, 1e-2)  # the same for 31c's Qwen3-0.6B
+                     # ORCA model (28 layers of D=1024, f32 stack): read
+                     # <= 7.6e-5 / 4.9e-4 / 5.1e-3; controls 1.7e-3 /
+                     # 4.3e-5 / 6.8e-2
+TOL_TRAIN_MESH_G = 5e-2  # phase 31: the gradients' sampled elements of a
+                     # flagship mesh step at equal parameters (steps 1-2)
+                     # against the one-device step's, the L2 norm of the
+                     # difference over that of the one-device gradients,
+                     # every leaf together (chip_smoke.rel_l2): the H100 read
+                     # 3.4e-2 - 4.0e-2 at (2, 1) and (1, 2), four read
+                     # 3.6e-2 - 4.5e-2 at (4, 1) and (2, 2) (32 random bf16
+                     # layers amplify another split's roundings, as in the
+                     # loss); the control, the one-device gradients of the
+                     # next batch, 0.56
+TOL_TRAIN_MESH_U = 1e-5  # phase 31: a step's update of the leaves fsdp cuts
+                     # against Adafactor's on whole tensors from the same
+                     # gradients on the host (chip_smoke.UpdateReplay; sums
+                     # in another order): read 1.1e-7 - 1.4e-7; its
+                     # control, the rule on each shard alone, 8.7e-3 - 0.14
+                     # (0 where no cut leaf is factored and the block RMS
+                     # clips nothing, as at nano widths).  The trained
+                     # leaves against the one-device run's are printed, not
+                     # gated: Adafactor scales each update to about lr
+                     # whatever the gradient's size, so leaves whose
+                     # gradient is rounding noise at equal parameters move
+                     # apart by ~lr an element
+TOL_TRAIN_PROC = 1e-5  # phase 31b: processes, each a 1 x 1 mesh, vs one
+                     # process's (n, 1) mesh on their batches: the same
+                     # rows on the same shapes a device, the gradients of
+                     # two terms summed in either order; the loss's parts
+                     # divide before they add (a few f32 ulps).  The
+                     # H100 read 0 (bit for bit); control, the next
+                     # batches, 2.5e-3
 
 CONFIG = "configs/desta25_llama31-8B_Qformer6L.yaml"
 ORCA_CONFIG = "configs/desta25_llama31-8B_ORCAHybrid.yaml"
@@ -4509,20 +4590,47 @@ def sampled(v):
     return v.detach().reshape(-1)[::509].clone()
 
 
+@contextlib.contextmanager
+def update_tap(optimizer, params: bool = False):
+    """Inside, ``optimizer.update`` keeps its call's gradients and updates
+    in the yielded dict (references, no copies: nothing is added to the
+    step's time or memory); with ``params`` also the parameters it was
+    given, whole on the host (a copy inside the step: its first only)."""
+    from desta25_audio_tpu_torch.parallel.sharding import gather_leaf
+    real = optimizer.update
+    got: dict = {}
+
+    def update(grads, state, params_):
+        if params:
+            got["params"] = {k: gather_leaf(p, "cpu")
+                             for k, p in params_.items()}
+        updates, new = real(grads, state, params_)
+        got.update(grads=grads, updates=updates)
+        return updates, new
+    optimizer.update = update
+    try:
+        yield got
+    finally:
+        del optimizer.update
+
+
 class StepProbe:
     """Wraps a trainer's train step: per step, the launches it made, its
     host-clock time (device synchronised), its peak device memory, its
     metrics, and how far the trainable tree has moved from its start, read
-    through ``view`` (``start`` holds each leaf's view)."""
+    through ``view`` (``start`` holds each leaf's view); with ``keep`` the
+    ``sampled`` elements of the gradients and of the trained leaves after
+    the step too (read after the step's time and peak)."""
 
-    def __init__(self, trainer, start, view=lambda v: v.detach()):
+    def __init__(self, trainer, start, view=lambda v: v.detach(),
+                 keep: bool = False):
         self.trainer, self.start, self.rows = trainer, start, []
-        self.view = view
+        self.view, self.keep = view, keep
         self.real = trainer.train_step
         trainer.train_step = self
         self.t_end = None
 
-    def __call__(self, trainable, frozen, opt_state, batch):
+    def __call__(self, trainable, layout, opt_state, batch):
         import torch
         from desta25_audio_tpu_torch.ops import _build
         from desta25_audio_tpu_torch.train.optimizer import flatten_tree
@@ -4532,10 +4640,12 @@ class StepProbe:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         before = _build.launch_counts()
-        t0 = time.perf_counter()
-        out = self.real(trainable, frozen, opt_state, batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        with (update_tap(self.trainer.optimizer) if self.keep
+              else contextlib.nullcontext({})) as tap:
+            t0 = time.perf_counter()
+            out = self.real(trainable, layout, opt_state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
         peak = torch.cuda.max_memory_allocated()
         after = _build.launch_counts()
         moved = max(float((self.view(v) - self.start[k]).abs().max())
@@ -4547,6 +4657,12 @@ class StepProbe:
                          if after[k] != before.get(k, 0)},
             "metrics": {k: float(v) for k, v in out[2].items()},
             "wait_ms": wait})
+        if self.keep:
+            self.rows[-1].update(
+                sample={k: sampled(v).float().cpu()
+                        for k, v in flatten_tree(out[0]).items()},
+                grads={k: sampled(g).float().cpu()
+                       for k, g in tap["grads"].items()})
         self.t_end = time.perf_counter()
         return out
 
@@ -4604,7 +4720,7 @@ def run_training(gpu: str, tmpdir: str):
     # warm-up 2 steps: the first update has lr 0, the third lr 1e-4
     ocfg = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
     trainer = DeSTA25Trainer(model, ds, ds, collate, ocfg, tcfg)
-    probe = StepProbe(trainer, start)
+    probe = StepProbe(trainer, start, keep=True)
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     trainer.train()
@@ -4648,8 +4764,8 @@ def run_training(gpu: str, tmpdir: str):
     probe24 = StepProbe(trainer, start)
     state = trainer.opt_state
     for _ in range(2):       # the second step is the one without warm-up
-        trainable, state, _ = trainer.train_step(trainable, frozen, state,
-                                                 batch)
+        trainable, state, _ = trainer.train_step(trainable, trainer.layout,
+                                                 state, batch)
     print_steps("flagship-train (24)", probe24.rows, gpu)
     for r in probe24.rows:
         if r["launches"].get("flash_attention", 0) \
@@ -4661,9 +4777,19 @@ def run_training(gpu: str, tmpdir: str):
         if r["launches"].get("log_mel", 0) <= 0:
             raise AssertionError("B=12 step: log_mel was not launched")
 
+    # -- 31. training on a mesh and across processes: here, on this bf16
+    # model and phase 23's rows, before 24b quantizes its tower -------------
+    run_train_mesh(gpu, tmpdir, model, start, {
+        "rows": probe.rows,
+        "start": {k: sampled(v).float().cpu() for k, v in start.items()}},
+        manifest)
+
     # -- 24b. the int8 tower, the JAX package's train setting ----------------
-    from desta25_audio_tpu_torch.train.step import make_train_step
+    from desta25_audio_tpu_torch.train.step import TrainLayout, make_train_step
     t0 = time.perf_counter()
+    # the trainer's layout holds the bf16 tower: dropped before it is
+    # quantized, and the step takes a layout of the int8 tower
+    trainer.layout = trainer.eval_step = None
     model.apply_llm_quant()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4676,8 +4802,9 @@ def run_training(gpu: str, tmpdir: str):
         model.config, trainer.optimizer, remat=True))
     probe24b = StepProbe(box, start)
     _build.reset_launch_counts()
+    layout = TrainLayout(None, frozen, model.config)
     for _ in range(2):
-        trainable, state, _ = box.train_step(trainable, frozen, state, batch)
+        trainable, state, _ = box.train_step(trainable, layout, state, batch)
     print_steps("flagship-train int8 tower (24b)", probe24b.rows, gpu)
     print(f"int8-tower steps: torch paths taken "
           f"{json.dumps(_build.fallback_counts())}", flush=True)
@@ -4812,7 +4939,7 @@ def run_orca_training(gpu: str, tmpdir: str) -> None:
     probe26b = StepProbe(types.SimpleNamespace(train_step=probe.real), start,
                          sampled)
     state = trainer.opt_state
-    trainable, state, _ = probe26b(trainable, frozen, state, batch)
+    trainable, state, _ = probe26b(trainable, trainer.layout, state, batch)
     print_steps("orca-train with transcriptions (26b)", probe26b.rows, gpu)
     r = probe26b.rows[0]
     check_train_row("ORCA step with transcriptions", r,
@@ -4832,7 +4959,8 @@ def run_orca_training(gpu: str, tmpdir: str) -> None:
     probe26c = StepProbe(types.SimpleNamespace(train_step=probe.real), start,
                          sampled)
     for _ in range(2):
-        trainable, state, _ = probe26c(trainable, frozen, state, batch)
+        trainable, state, _ = probe26c(trainable, trainer.layout, state,
+                                       batch)
     print_steps("orca-train (26c)", probe26c.rows, gpu)
     for i, r in enumerate(probe26c.rows):
         check_train_row(f"ORCA B=12 step {i + 1}", r, (
@@ -6690,7 +6818,696 @@ def run_phase30(gpu: str, tmpdir: str, wavs) -> None:
           flush=True)
 
 
+
+# -- phase 31: training on a mesh, and across processes -----------------------
+
+def restore_trainable(model, start) -> None:
+    """The model's trainable leaves back to ``start`` (phase 22's clones)."""
+    import torch
+    from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+    with torch.no_grad():
+        for k, v in flatten_tree(model.split_params()[0]).items():
+            v.copy_(start[k])
+
+
+@contextlib.contextmanager
+def flash_heads_spy():
+    """Record the heads of every K11 forward call (``ops/attention.mha``'s
+    flash path): a rank of a ``1 x p`` group passes H/p of them."""
+    from desta25_audio_tpu_torch.ops import attention as tatt
+    real = tatt.flash_attention
+    heads = []
+
+    def spy(q, *args):
+        heads.append(int(q.shape[2]))
+        return real(q, *args)
+
+    tatt.flash_attention = spy
+    try:
+        yield heads
+    finally:
+        tatt.flash_attention = real
+
+
+class MeshStepProbe:
+    """A mesh trainer's train step, per step: host ms (every card of the
+    mesh synchronised), the peak memory of each card, the launches, the
+    K11 heads a forward call, the metrics, and, gathered on the host after
+    the step's time and peak are read, the ``sampled`` elements of the
+    gradients and of the trained leaves and, where fsdp cut leaves, the
+    error of the step's update (:class:`UpdateReplay`)."""
+
+    def __init__(self, trainer):
+        import torch
+        trainer._layout()
+        self.trainer, self.rows = trainer, []
+        self.replay = None
+        self.cards = sorted({d for row in trainer.mesh.devices for d in row
+                             if d.type == "cuda"}, key=str)
+        self.real = trainer.train_step
+        trainer.train_step = self
+        self.torch = torch
+
+    def __call__(self, trainable, layout, opt_state, batch):
+        from desta25_audio_tpu_torch.ops import _build
+        torch = self.torch
+        for c in self.cards:
+            torch.cuda.synchronize(c)
+            torch.cuda.reset_peak_memory_stats(c)
+        before = _build.launch_counts()
+        with flash_heads_spy() as heads, \
+                update_tap(self.trainer.optimizer,
+                           self.trainer.tcfg.fsdp and not self.rows) as tap:
+            t0 = time.perf_counter()
+            out = self.real(trainable, layout, opt_state, batch)
+            for c in self.cards:
+                torch.cuda.synchronize(c)
+            ms = (time.perf_counter() - t0) * 1e3
+        after = _build.launch_counts()
+        from desta25_audio_tpu_torch.parallel.sharding import (Shards,
+                                                               gather_leaf)
+        from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+        cuts = {k: (len(g.parts), g.dim) for k, g in tap["grads"].items()
+                if isinstance(g, Shards)}
+        grads = {k: gather_leaf(g, "cpu") for k, g in tap["grads"].items()}
+        updates = {k: gather_leaf(u, "cpu")
+                   for k, u in tap["updates"].items()}
+        if cuts and self.replay is None:
+            self.replay = UpdateReplay(self.trainer.optimizer,
+                                       tap["params"], cuts)
+        tap.clear()
+        self.rows.append({
+            "ms": ms, "shape": tuple(batch["input_ids"].shape),
+            "peaks_gib": [torch.cuda.max_memory_allocated(c) / 2 ** 30
+                          for c in self.cards],
+            "launches": {k: after[k] - before.get(k, 0) for k in after
+                         if after[k] != before.get(k, 0)},
+            "heads": sorted(set(heads)),
+            "metrics": {k: float(v) for k, v in out[2].items()},
+            "sample": {k: sampled(gather_leaf(v, "cpu")).float()
+                       for k, v in flatten_tree(out[0]).items()},
+            "grads": {k: sampled(g).float() for k, g in grads.items()},
+            "update": (None if self.replay is None
+                       else self.replay(grads, updates))})
+        return out
+
+
+class UpdateReplay:
+    """Adafactor on the owners fsdp cut, held against the rule on whole
+    tensors: each step's update (gathered on the host) against the update
+    the optimizer makes on the host from the same gradients, whole, and
+    against the one it makes from each data row's part of every cut leaf
+    alone (the control: Adafactor with its factored means and block RMS
+    per shard).  ``__call__`` -> (the error, the control): L2 norms of the
+    differences over that of the whole update, all leaves together; None
+    where the update is 0 (lr 0 at step 1)."""
+
+    def __init__(self, optimizer, params, cuts):
+        self.opt, self.cuts = optimizer, cuts
+        # copies: a CPU owner gathers to itself
+        self.whole = {k: v.clone() for k, v in params.items()}
+        self.naive = {k: v.clone() for k, v in self.split(params).items()}
+        self.states = (self.opt.init(self.whole), self.opt.init(self.naive))
+
+    def split(self, flat):
+        import torch
+        out = {}
+        for k, v in flat.items():
+            if k in self.cuts:
+                n, dim = self.cuts[k]
+                for e, c in enumerate(torch.chunk(v, n, dim)):
+                    out[f"{k}#{e}"] = c.contiguous()
+            else:
+                out[k] = v
+        return out
+
+    def __call__(self, grads, updates):
+        import torch
+        from desta25_audio_tpu_torch.train.optimizer import apply_updates
+        ws, ns = self.states
+        want, ws = self.opt.update(grads, ws, self.whole)
+        naive, ns = self.opt.update(self.split(grads), ns, self.naive)
+        self.states = (ws, ns)
+        apply_updates(self.whole, want)
+        apply_updates(self.naive, naive)
+        naive = {k: torch.cat([naive[f"{k}#{e}"]
+                               for e in range(self.cuts[k][0])],
+                              self.cuts[k][1]) if k in self.cuts
+                 else naive[k] for k in want}
+        keys = sorted(want)
+
+        def norm(a, b=None):
+            return float(torch.cat([
+                (a[k] if b is None else a[k] - b[k]).double().reshape(-1)
+                for k in keys]).norm())
+        size = norm(want)
+        if size == 0.0:
+            return None
+        return norm(updates, want) / size, norm(naive, want) / size
+
+
+def mesh_train_run(label: str, model, ds, collate, ocfg, exp: str,
+                   steps: int, ref, gpu: str,
+                   tol=(TOL_TRAIN_MESH_LOSS, TOL_TRAIN_MESH_GN,
+                        TOL_TRAIN_MESH_G), **mesh_kw):
+    """``DeSTA25Trainer.train()`` for ``steps`` steps on a mesh
+    (``mesh_kw``: mesh_model, fsdp, mesh_devices), each step held against
+    ``ref`` (``rows``: the one-device run's StepProbe rows on the same
+    batches, with their samples; ``start``: the samples before): lm_loss
+    and grad_norm within ``tol``'s first two (TOL_TRAIN_MESH_LOSS / _GN)
+    beside the control (the one-device run's next batch at equal
+    parameters); at the first two steps (equal parameters: lr 0 at step 1)
+    the gradients' samples within its third (TOL_TRAIN_MESH_G) beside the
+    control (the one-device gradients of the next batch); where fsdp cut
+    leaves each update within TOL_TRAIN_MESH_U of the whole rule's beside
+    the rule per shard (:class:`UpdateReplay`).  One of these controls
+    must read at least 10x its gate.  The trained leaves against the
+    one-device run's are printed, not gated (:func:`trained_err`); K11
+    forward and
+    backward launched once a rank for each of the one-device step's
+    launches, at H / mesh_model heads; under fsdp every leaf
+    ``fsdp_partition_specs`` cuts still cut after the steps.  Prints a line
+    a step.  Returns the probe's rows."""
+    import torch
+    from desta25_audio_tpu_torch.parallel.sharding import (
+        Shards, fsdp_partition_specs)
+    from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+    tcfg = TrainerConfig(exp_dir=exp, max_steps=steps, log_every_n_steps=1,
+                         remat=True, eval_before_train=False,
+                         val_check_interval=1e9, keep_checkpoints=1,
+                         mesh="on", **mesh_kw)
+    trainer = DeSTA25Trainer(model, ds, None, collate, ocfg, tcfg)
+    mesh = trainer.mesh
+    ranks = mesh.n_data * mesh.n_model
+    t0 = time.perf_counter()
+    probe = MeshStepProbe(trainer)
+    layout_s = time.perf_counter() - t0
+    trainer.train()
+    if len(probe.rows) != steps:
+        raise AssertionError(f"{label}: train() ran {len(probe.rows)} steps")
+    H = model.config.llm_config.num_attention_heads
+    ref_rows, start = ref["rows"], ref["start"]
+    ctl_g = rel_l2(ref_rows[1]["grads"], ref_rows[0]["grads"])
+    ctl_loss = abs(ref_rows[1]["metrics"]["lm_loss"]
+                   - ref_rows[0]["metrics"]["lm_loss"]
+                   ) / abs(ref_rows[0]["metrics"]["lm_loss"])
+    ctl_gn = abs(ref_rows[1]["metrics"]["grad_norm"]
+                 - ref_rows[0]["metrics"]["grad_norm"]) / ref_rows[0][
+                     "metrics"]["grad_norm"]
+    for i, (r, w) in enumerate(zip(probe.rows, ref_rows)):
+        m, wm = r["metrics"], w["metrics"]
+        err_loss = abs(m["lm_loss"] - wm["lm_loss"]) / abs(wm["lm_loss"])
+        err_gn = abs(m["grad_norm"] - wm["grad_norm"]) / wm["grad_norm"]
+        before = start if i == 0 else ref_rows[i - 1]["sample"]
+        err_w, worst, ctl_w = trained_err(r["sample"], w["sample"], start,
+                                          before)
+        err_g = rel_l2(r["grads"], w["grads"])
+        err_u, ctl_u = r["update"] or (None, None)
+        fw = r["launches"].get("flash_attention", 0)
+        bw = r["launches"].get("flash_attention_bwd", 0)
+        B, T = r["shape"]
+        print(f"{label} ({mesh.n_data}x{mesh.n_model}, "
+              f"fsdp={trainer.tcfg.fsdp}) step {i + 1} B={B} T={T} ({gpu}): "
+              f"{r['ms']:.1f} ms (one device {w['ms']:.1f}), peak "
+              f"{' / '.join(f'{p:.2f}' for p in r['peaks_gib'])} GiB "
+              f"(one device {w['peak_gib']:.2f}); lm_loss {m['lm_loss']:.6f} "
+              f"(one device {wm['lm_loss']:.6f}, rel {err_loss:.2e}), "
+              f"grad_norm {m['grad_norm']:.6f} ({wm['grad_norm']:.6f}, rel "
+              f"{err_gn:.2e}); gate {tol[0]:.0e} / "
+              f"{tol[1]:.0e}, control (the next batch) "
+              f"{ctl_loss:.2e} / {ctl_gn:.2e}; gradients {err_g:.2e} (gate "
+              f"{tol[2]:.0e} at equal parameters, control, the "
+              f"next batch, {ctl_g:.2e}); update "
+              f"{'-' if err_u is None else f'{err_u:.2e}'} against the "
+              f"whole rule (gate {TOL_TRAIN_MESH_U:.0e}, control, the rule "
+              f"per shard, {'-' if ctl_u is None else f'{ctl_u:.2e}'}); "
+              f"trained leaves {err_w:.2e} (worst leaf {worst[1]:.2e}, "
+              f"{worst[0]}; not gated), one update behind "
+              f"{'-' if ctl_w is None else f'{ctl_w:.2e}'}; K11 a rank "
+              f"{fw / ranks:g} "
+              f"forward at {r['heads']} heads, {bw / ranks:g} backward "
+              f"(one device {w['launches'].get('flash_attention', 0)}, "
+              f"{w['launches'].get('flash_attention_bwd', 0)})", flush=True)
+        if not (err_loss <= tol[0] and err_gn <= tol[1]):
+            raise AssertionError(f"{label} step {i + 1}: the mesh's loss / "
+                                 f"grad_norm part from one device's: "
+                                 f"{err_loss:.3e} / {err_gn:.3e}")
+        if i < 2 and not err_g <= tol[2]:
+            raise AssertionError(f"{label} step {i + 1}: the gradients part "
+                                 f"from one device's: {err_g:.3e}")
+        if i == 0 and err_w != 0.0:
+            raise AssertionError(f"{label}: the trained leaves moved at "
+                                 f"step 1 (lr 0) or part from one device's")
+        if err_u is not None and not err_u <= TOL_TRAIN_MESH_U:
+            raise AssertionError(f"{label} step {i + 1}: the update part "
+                                 f"from the whole rule's: {err_u:.3e}")
+        if fw != ranks * w["launches"].get("flash_attention", -1) \
+                or bw != ranks * w["launches"].get("flash_attention_bwd", -1) \
+                or r["heads"] != [H // mesh.n_model]:
+            raise AssertionError(f"{label} step {i + 1}: K11 launches "
+                                 f"{fw} / {bw} at heads {r['heads']}")
+        for name in ("packed_encoder_attention", "encoder_ffn", "log_mel"):
+            if r["launches"].get(name, 0) <= 0:
+                raise AssertionError(f"{label}: {name} not launched")
+    # each control over its gate; the best must read 10 or more
+    ratios = {"loss": ctl_loss / tol[0], "grad_norm": ctl_gn / tol[1],
+              "gradients": ctl_g / tol[2]}
+    if trainer.tcfg.fsdp:
+        if not any(r["update"] for r in probe.rows):
+            raise AssertionError(f"{label}: no fsdp update was replayed")
+        ratios["update"] = max(r["update"][1] for r in probe.rows
+                               if r["update"]) / TOL_TRAIN_MESH_U
+    print(f"{label}: each control over its gate: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in ratios.items()), flush=True)
+    if not max(ratios.values()) >= 10.0:
+        raise AssertionError(f"{label}: no control reads 10x its gate")
+    if trainer.tcfg.fsdp:
+        flat = flatten_tree(model.split_params()[0])
+        want = {k for k, d in fsdp_partition_specs(flat, mesh.n_data).items()
+                if d is not None}
+        got = {k for k, v in trainer._owners.items()
+               if isinstance(v, Shards)}
+        if not want or got != want:
+            raise AssertionError(f"{label}: {len(got)} leaves cut after the "
+                                 f"steps, fsdp cuts {len(want)}")
+        n_cut = sum(flat[k].numel() for k in want)
+        print(f"{label}: {len(want)} of {len(flat)} trainable leaves "
+              f"({n_cut / 1e6:.1f} M of "
+              f"{sum(v.numel() for v in flat.values()) / 1e6:.1f} M "
+              f"parameters) cut over {mesh.n_data} data rows after the "
+              f"steps; the layout set up in {layout_s:.1f} s", flush=True)
+    rows = probe.rows
+    del trainer, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rel_l2(got, want) -> float:
+    """The L2 norm of ``got - want`` over that of ``want``, every leaf's
+    samples together."""
+    import torch
+    keys = sorted(want)
+    diff = torch.cat([(got[k] - want[k]).double().reshape(-1) for k in keys])
+    whole = torch.cat([want[k].double().reshape(-1) for k in keys])
+    return float(diff.norm()) / float(whole.norm())
+
+
+def trained_err(got, want, start, before):
+    """The trained leaves' ``sampled`` elements after a mesh step (``got``)
+    against the one-device run's (``want``), all leaves together: the L2
+    norm of the difference over that of the one-device run's movement from
+    ``start``, or, where it has not moved (lr 0 at step 1), the largest
+    difference itself, which must then be 0.  -> (that, (the worst leaf of
+    64 samples or more, its own ratio), the control: the same ratio for
+    ``before``, the one-device values one update behind, None where nothing
+    moved)."""
+    import torch
+    keys = sorted(want)
+
+    def vec(a, b):
+        return torch.cat([(a[k] - b[k]).reshape(-1).double() for k in keys])
+    moved = float(vec(want, start).norm())
+    if moved == 0.0:
+        return float(vec(got, want).abs().max()), ("-", 0.0), None
+    worst = max(((k, float((got[k] - want[k]).double().norm())
+                  / max(float((want[k] - start[k]).double().norm()), 1e-30))
+                 for k in keys if want[k].numel() >= 64),
+                key=lambda kv: kv[1], default=("-", 0.0))
+    return (float(vec(got, want).norm()) / moved, worst,
+            float(vec(before, want).norm()) / moved)
+
+
+def train_worker(path: str) -> int:
+    """``--train-worker SPEC``: one process of phase 31b / the four-card
+    run (spawned by :func:`run_processes`): joins the process group from
+    its environment (torchrun's variables), trains ``steps`` steps of the
+    spec's config on its own rows (``rows[rank::world]``) at its batch
+    size on a ``1 x 1`` mesh of its card, and writes its metrics, its
+    rows, a sample of the trained leaves, ms and peak memory."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.parallel import distributed as pdist
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+    with open(path) as f:
+        spec = json.load(f)
+    if not torch.cuda.is_available():
+        raise SystemExit("train worker: no GPU")
+    if not pdist.maybe_initialize(spec["backend"], "cuda"):
+        raise SystemExit("train worker: no process group in the environment")
+    rank, world = pdist.world()
+    dev = pdist.local_device(spec["device"])
+    torch.cuda.set_device(dev)
+    _build.library()
+    cfg = config_from_yaml_file(spec["config"])
+    model = DeSTA25AudioModel(cfg, device=dev, seed=spec["seed"],
+                              tokenizer=CharTokenizer("llama3"))
+    dcfg = DataConfig(manifest_filepaths=[spec["manifest"]],
+                      data_root=spec["root"], batch_size=spec["batch_size"],
+                      max_seq_length=spec["max_seq_length"])
+    ds = AudioTextDataset(cfg, dcfg, model.tokenizer)
+    tcfg = TrainerConfig(exp_dir=spec["exp"], max_steps=spec["steps"],
+                         log_every_n_steps=1, remat=True,
+                         eval_before_train=False, val_check_interval=1e9,
+                         keep_checkpoints=1, mesh="auto",
+                         mesh_devices=[str(dev)])
+    trainer = DeSTA25Trainer(model, ds, None,
+                             CollateFn(cfg, dcfg, model.tokenizer),
+                             OptimizerConfig(**spec["opt"]), tcfg)
+    probe = MeshStepProbe(trainer)
+    trainer.train()
+    trained = flatten_tree(model.split_params()[0])
+    out = {"rank": rank, "world": world, "device": str(dev),
+           "rows": [r["id"] for r in ds.rows],
+           "steps": [{k: r[k] for k in ("ms", "peaks_gib", "metrics",
+                                        "launches")} for r in probe.rows],
+           "sampled": {k: sampled(v).float().cpu().tolist()
+                       for k, v in trained.items()}}
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    pdist.barrier()
+    return 0
+
+
+def run_processes(label: str, n: int, tmpdir: str, manifest: str, gpu: str,
+                  backend: str, cards: bool, model, start, ocfg_kw,
+                  batch_size: int = 2) -> None:
+    """n processes (``--train-worker``), each one step at ``batch_size`` on
+    a 1 x 1 mesh over ``backend`` (on one card: virtual, every process on
+    cuda:0; with ``cards``: one a card, cuda:LOCAL_RANK), against the one-
+    process (n, 1) step of ``model`` (from ``start``) on their first
+    batches concatenated: lm_loss, grad_norm and every sampled trained
+    element within TOL_TRAIN_PROC; the control is the one-process run's
+    next step (other batches at equal parameters: lr 0 at step 1)."""
+    import socket
+    import torch
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    from desta25_audio_tpu_torch.parallel.mesh import make_mesh
+    from desta25_audio_tpu_torch.parallel.sharding import (
+        gather_trainable, shard_trainable)
+    from desta25_audio_tpu_torch.train import step as tstep
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree,
+                                                         make_optimizer)
+    out = os.path.join(tmpdir, f"procs_{label}")
+    os.makedirs(out, exist_ok=True)
+    spec = {"config": CONFIG, "seed": 3, "manifest": manifest,
+            "root": tmpdir, "batch_size": batch_size, "max_seq_length": 512,
+            "steps": 1, "backend": backend, "opt": ocfg_kw,
+            "device": "cuda" if cards else "cuda:0",
+            "exp": os.path.join(out, "exp"), "out": out}
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env.update(WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+               MASTER_PORT=str(port),
+               LOCAL_WORLD_SIZE=str(n if cards else 1))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-worker",
+         spec_path], env=dict(env, RANK=str(r),
+                              LOCAL_RANK=str(r if cards else 0)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=420)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    if any(p.returncode != 0 for p in procs):
+        for r, log in enumerate(logs):
+            print(f"--- worker {r} (rc {procs[r].returncode}) ---\n"
+                  f"{log[-3000:]}", flush=True)
+        raise AssertionError(f"{label}: a worker failed")
+    runs = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            runs.append(json.load(f))
+
+    # the one-process (n, 1) step on the concatenated first batches
+    restore_trainable(model, start)
+    cfg = model.config
+    dcfg = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
+                      batch_size=batch_size, max_seq_length=512)
+    items, nxt = [], []
+    for r, run in enumerate(runs):
+        ds = AudioTextDataset(cfg, dcfg, model.tokenizer,
+                              shard_by_process=False)
+        ds.rows = ds.rows[r::n]
+        if [row["id"] for row in ds.rows] != run["rows"]:
+            raise AssertionError(f"{label}: process {r}'s rows differ")
+        valid = list(ds.iter_valid(0))
+        items += valid[:batch_size]
+        nxt += valid[batch_size:2 * batch_size]
+    collate = CollateFn(cfg, dcfg, model.tokenizer)
+    devices = ([f"cuda:{r}" for r in range(n)] if cards
+               else ["cuda:0"] * n)
+    mesh = make_mesh(n, 1, devices)
+    layout = tstep.TrainLayout(mesh, model.split_params()[1], cfg)
+    optimizer = make_optimizer(OptimizerConfig(**ocfg_kw))
+    owners = shard_trainable({k: v.detach().clone() for k, v in flatten_tree(
+        model.split_params()[0]).items()}, mesh)
+    state = optimizer.init(owners)
+    step = tstep.make_train_step(cfg, optimizer, remat=True)
+    ms = []
+    metrics = []
+    for its in (items, nxt):
+        batch = {k: torch.as_tensor(v) if v.dtype.kind == "f"
+                 else torch.as_tensor(v).long()
+                 for k, v in collate(its).items()
+                 if isinstance(v, np.ndarray)}
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        owners, state, m = step(owners, layout, state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if len(metrics) == 1:
+            want = {k: sampled(v).float().cpu() for k, v in
+                    gather_trainable(owners).items()}
+    del layout, owners, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = runs[0]["steps"][0]["metrics"]
+    errs = {k: abs(got[k] - metrics[0][k]) / abs(metrics[0][k])
+            for k in ("lm_loss", "grad_norm")}
+    err_w = max(float((torch.tensor(run["sampled"][k]) - w).abs().max())
+                / (float(w.abs().max()) + 1e-30)
+                for run in runs for k, w in want.items())
+    ctl = abs(metrics[1]["lm_loss"] - metrics[0]["lm_loss"]) / abs(
+        metrics[0]["lm_loss"])
+    print(f"{label}: {n} processes over {backend} "
+          f"({'one a card' if cards else 'on one card'}), B={batch_size} "
+          f"each, wall {wall:.1f} s with start-up ({gpu}): the step "
+          f"{', '.join(f'{r['steps'][0]['ms']:.1f}' for r in runs)} ms, "
+          f"peak {', '.join(f'{max(r['steps'][0]['peaks_gib'], default=0):.2f}' for r in runs)}"
+          f" GiB; lm_loss {got['lm_loss']:.6f} against the one-process "
+          f"({n}, 1) step's {metrics[0]['lm_loss']:.6f} ({ms[0]:.1f} ms): "
+          f"rel {errs['lm_loss']:.2e}, grad_norm rel {errs['grad_norm']:.2e}"
+          f", trained elements {err_w:.2e}; gate {TOL_TRAIN_PROC:.0e}, "
+          f"control (the next batches) {ctl:.2e}; K11 a process "
+          f"{runs[0]['steps'][0]['launches'].get('flash_attention', 0)} "
+          f"forward, "
+          f"{runs[0]['steps'][0]['launches'].get('flash_attention_bwd', 0)}"
+          f" backward", flush=True)
+    if max(max(errs.values()), err_w) > TOL_TRAIN_PROC:
+        raise AssertionError(f"{label}: the processes part from one "
+                             f"process: {errs}, {err_w:.3e}")
+    if not ctl > TOL_TRAIN_PROC:
+        raise AssertionError(f"{label}: the control reads within the gate")
+    for run in runs:
+        if run["steps"][0]["launches"].get("flash_attention_bwd", 0) <= 0:
+            raise AssertionError(f"{label}: K11 backward not launched in "
+                                 f"process {run['rank']}")
+
+
+def train_data(cfg, model, tmpdir: str, manifest: str, batch_size: int = 4):
+    from desta25_audio_tpu_torch.data.dataset import (AudioTextDataset,
+                                                      CollateFn, DataConfig)
+    dcfg = DataConfig(manifest_filepaths=[manifest], data_root=tmpdir,
+                      batch_size=batch_size, max_seq_length=512)
+    return (AudioTextDataset(cfg, dcfg, model.tokenizer),
+            CollateFn(cfg, dcfg, model.tokenizer))
+
+
+def one_device_run(label: str, model, ds, collate, ocfg, exp: str,
+                   steps: int, gpu: str, start):
+    """The one-device trainer's run, the reference of phase 31's mesh runs:
+    ``rows`` (its StepProbe rows, with the trained samples) and ``start``
+    (the samples before), the trainable restored to ``start`` first (None:
+    the model is fresh)."""
+    import torch
+    from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+    from desta25_audio_tpu_torch.train.trainer import (DeSTA25Trainer,
+                                                       TrainerConfig)
+    if start is not None:
+        restore_trainable(model, start)
+    trainer = DeSTA25Trainer(model, ds, None, collate, ocfg, TrainerConfig(
+        exp_dir=exp, max_steps=steps, log_every_n_steps=1, remat=True,
+        eval_before_train=False, val_check_interval=1e9, keep_checkpoints=1))
+    probe = StepProbe(trainer, {k: sampled(v) for k, v in flatten_tree(
+        model.split_params()[0]).items()}, sampled, keep=True)
+    trainer.train()
+    print_steps(label, probe.rows, gpu)
+    ref = {"rows": probe.rows,
+           "start": {k: v.float().cpu() for k, v in probe.start.items()}}
+    del trainer, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def run_orca_qwen_mesh(gpu: str, tmpdir: str) -> None:
+    """31c.  The ORCA yaml of Qwen3-0.6B at full width (D=1024, L=28, the
+    f32 cross-attention stack): 2 steps on one device, then 2 with fsdp on
+    a (2, 1) mesh of virtual ranks of the card, on the same batches."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    cfg = config_from_yaml_file(QWEN_ORCA_CONFIG)
+    model = DeSTA25AudioModel(cfg, device="cuda", seed=7,
+                              tokenizer=CharTokenizer("qwen3"))
+    start = {k: v.detach().clone()
+             for k, v in flatten_tree(model.split_params()[0]).items()}
+    ds, collate = train_data(cfg, model, tmpdir,
+                             os.path.join(tmpdir, "train_wav.jsonl"))
+    ocfg = OptimizerConfig(lr=1e-4, warmup_steps=2, total_steps=100)
+    ref = one_device_run("orca-qwen3 one device (31c)", model, ds, collate,
+                         ocfg, os.path.join(tmpdir, "exp31c0"), 2, gpu,
+                         start)
+    restore_trainable(model, start)
+    rows = mesh_train_run("orca-qwen3 (31c)", model, ds, collate, ocfg,
+                          os.path.join(tmpdir, "exp31c"), 2, ref, gpu,
+                          tol=TOL_TRAIN_MESH_SMALL, fsdp=True,
+                          mesh_devices=["cuda:0"] * 2)
+    for r in rows:
+        m = r["metrics"]
+        if not (m["L_ortho_diversity"] > 0 and m["L_ortho_qformer_local"] > 0):
+            raise AssertionError(f"31c: aux {m}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_mesh(gpu: str, tmpdir: str, model, start, ref,
+                   manifest: str) -> None:
+    """31a-31c on one card: the flagship Q-Former model (from ``start``)
+    at B=4 T=512 on a (2, 1) mesh of virtual ranks with fsdp and on a
+    (1, 2) mesh, each held step by step against the one-device rows
+    ``ref``; 31b two processes over gloo; 31c ORCA Qwen3-0.6B."""
+    from desta25_audio_tpu_torch.train.optimizer import OptimizerConfig
+    t0 = time.perf_counter()
+    ocfg_kw = dict(lr=1e-4, warmup_steps=2, total_steps=100)
+    ds, collate = train_data(model.config, model, tmpdir, manifest)
+    for n_data, n_model, fsdp in ((2, 1, True), (1, 2, False)):
+        restore_trainable(model, start)
+        mesh_train_run("flagship-train-mesh (31a)", model, ds, collate,
+                       OptimizerConfig(**ocfg_kw),
+                       os.path.join(tmpdir, f"exp31a{n_data}{n_model}"), 3,
+                       ref, gpu, mesh_model=n_model, fsdp=fsdp,
+                       mesh_devices=["cuda:0"] * (n_data * n_model))
+    t1 = time.perf_counter()
+    run_processes("flagship-train-processes (31b)", 2, tmpdir, manifest, gpu,
+                  "gloo", False, model, start, ocfg_kw)
+    t2 = time.perf_counter()
+    run_orca_qwen_mesh(gpu, tmpdir)
+    print(f"phase 31 took {time.perf_counter() - t0:.1f} s (31a "
+          f"{t1 - t0:.1f}, 31b {t2 - t1:.1f}, 31c "
+          f"{time.perf_counter() - t2:.1f}) ({gpu})", flush=True)
+
+
+def train_mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
+    """``--train-mesh-only``: phase 31 alone on a fresh flagship training
+    model and corpus (its one-device reference run first); ``--cards``: on
+    four cards instead, the flagship Q-Former at (4, 1) with fsdp and at
+    (2, 2), four processes one a card over NCCL, and the flagship ORCA step
+    with fsdp over the four cards beside its one-card run."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.train.optimizer import (OptimizerConfig,
+                                                         flatten_tree)
+    if cards and count < 4:
+        raise SystemExit(f"--train-mesh-only --cards needs 4 cards, {count}")
+    with tempfile.TemporaryDirectory() as d:
+        manifest = write_corpus(d)
+        cfg = config_from_yaml_file(CONFIG)
+        model = DeSTA25AudioModel(cfg, device="cuda", seed=3,
+                                  tokenizer=CharTokenizer("llama3"))
+        start = {k: v.detach().clone()
+                 for k, v in flatten_tree(model.split_params()[0]).items()}
+        ds, collate = train_data(cfg, model, d, manifest)
+        ocfg_kw = dict(lr=1e-4, warmup_steps=2, total_steps=100)
+        ref = one_device_run("flagship-train one device", model, ds, collate,
+                             OptimizerConfig(**ocfg_kw),
+                             os.path.join(d, "exp0"), 3, gpu, start)
+        if not cards:
+            run_train_mesh(gpu, d, model, start, ref, manifest)
+        else:
+            cards4 = [f"cuda:{i}" for i in range(4)]
+            for n_data, n_model, fsdp in ((4, 1, True), (2, 2, False)):
+                restore_trainable(model, start)
+                mesh_train_run("flagship-train-cards", model, ds, collate,
+                               OptimizerConfig(**ocfg_kw),
+                               os.path.join(d, f"exp{n_data}{n_model}"), 3,
+                               ref, gpu, mesh_model=n_model, fsdp=fsdp,
+                               mesh_devices=cards4)
+            run_processes("flagship-train-processes-cards", 4, d, manifest,
+                          gpu, "nccl", True, model, start, ocfg_kw,
+                          batch_size=1)
+            del model, start
+            gc.collect()
+            torch.cuda.empty_cache()
+            ocfg = config_from_yaml_file(ORCA_CONFIG)
+            # the 9 GB f32 stack is not copied: the mesh run's model is
+            # drawn again from the same seed
+            orca = DeSTA25AudioModel(ocfg, device="cuda", seed=5,
+                                     tokenizer=CharTokenizer("llama3"))
+            ds, collate = train_data(ocfg, orca, d, manifest)
+            oref = one_device_run("orca-train one card", orca, ds, collate,
+                                  OptimizerConfig(**ocfg_kw),
+                                  os.path.join(d, "expo0"), 2, gpu, None)
+            del orca
+            gc.collect()
+            torch.cuda.empty_cache()
+            orca = DeSTA25AudioModel(ocfg, device="cuda", seed=5,
+                                     tokenizer=CharTokenizer("llama3"))
+            mesh_train_run("orca-train-cards", orca, ds, collate,
+                           OptimizerConfig(**ocfg_kw),
+                           os.path.join(d, "expo4"), 2, oref, gpu,
+                           tol=TOL_TRAIN_MESH_ORCA, fsdp=True,
+                           mesh_devices=cards4)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}))
+    return 0
+
+
 def main() -> int:
+    if "--train-worker" in sys.argv[1:]:
+        return train_worker(sys.argv[sys.argv.index("--train-worker") + 1])
     t_start = time.perf_counter()
     # -- 1. environment ------------------------------------------------------
     gpu = gpu_line()
@@ -6719,6 +7536,8 @@ def main() -> int:
     print(f"kernels built in {secs:.1f} s: {path}", flush=True)
     if "--mesh-only" in sys.argv[1:]:
         return mesh_only(kind, count, gpu, "--cards" in sys.argv[1:])
+    if "--train-mesh-only" in sys.argv[1:]:
+        return train_mesh_only(kind, count, gpu, "--cards" in sys.argv[1:])
     if "--phase30-only" in sys.argv[1:]:
         # phase 30 alone, for work on the decoders, the loader and LoRA
         with tempfile.TemporaryDirectory() as d:

@@ -7,9 +7,11 @@ reference.  This package imports torch and never jax.  Ported so far:
 configurations with transcriptions supplied, the Whisper encoder in bf16 or
 int8 (W8A8), the LLM in bf16 or int8, the ORCA cross-attention stack float
 or int8, plain or speculative decoding, on one GPU or tensor-parallel on a
-device mesh (``parallel/``, K10); and training of the Q-Former
-configuration on one GPU (``train/``, ``cli/train.py``) with the flash
-attention kernel K11; see ROADMAP.md for what follows.
+device mesh (``parallel/``, K10); and training of the Q-Former and ORCA
+configurations (``train/``, ``cli/train.py``) with the flash attention
+kernel K11, on one GPU, on a device mesh (data parallel, the frozen LLM
+cut tensor-parallel, the trainable state cut by fsdp) and across processes
+(``parallel/distributed.py``); see ROADMAP.md for what follows.
 """
 
 from .config import DeSTA25Config

@@ -14,6 +14,12 @@ format).
   resume;
 - only the newest ``keep`` checkpoints are kept.
 
+Under a mesh the trainable leaves and their optimizer state may be cut over
+the data rows (``parallel/sharding.Shards``): a save gathers every shard to
+its whole leaf, so a checkpoint does not depend on the layout, and only the
+main process writes; a restore cuts the values again for the template's
+layout, whatever mesh (or none) resumes.
+
 Orbax checkpoints of the JAX package are not read or written.
 """
 
@@ -27,31 +33,47 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from ..train.optimizer import flatten_tree
+from ..parallel.distributed import is_main_process
+from ..parallel.sharding import Shards
 
 logger = logging.getLogger(__name__)
 
 
 def _to_cpu(tree: Any) -> Any:
+    """Whole CPU tensors of a tree (shards gathered)."""
     if isinstance(tree, dict):
         return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return tree.gather("cpu")
     if isinstance(tree, torch.Tensor):
         return tree.detach().cpu()
     return tree
 
 
-def _to_device(tree: Any, device) -> Any:
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree
+def _lay_out(template: Any, loaded: Any) -> Any:
+    """``loaded`` (whole tensors) in the template's layout: a tensor on its
+    device, a Shards cut alike; other values as loaded."""
+    if isinstance(template, dict):
+        return {k: _lay_out(template[k], v) if k in template else v
+                for k, v in loaded.items()}
+    if isinstance(template, Shards):
+        n = len(template.parts)
+        return Shards([c.to(p.device).contiguous() for c, p in zip(
+            torch.chunk(loaded, n, template.dim), template.parts)],
+            template.dim)
+    if isinstance(template, torch.Tensor):
+        return loaded.to(template.device)
+    return loaded
 
 
 def save_train_state(exp_dir: str, step: int, trainable: Dict[str, Any],
                      opt_state: Any, config=None, keep: int = 3) -> str:
+    """Write ``checkpoint-<step>`` (module docstring) on the main process;
+    the others return its path without writing."""
     path = os.path.abspath(os.path.join(exp_dir, f"checkpoint-{step}"))
     state = os.path.join(path, "state.pt")
+    if not is_main_process():
+        return path
     if os.path.exists(state):
         logger.info("checkpoint-%d already exists; skipping save", step)
         return path
@@ -61,7 +83,7 @@ def save_train_state(exp_dir: str, step: int, trainable: Dict[str, Any],
         from .desta_io import save_trainable_safetensors
         with open(os.path.join(path, "config.json"), "w") as f:
             f.write(config.to_json())
-        save_trainable_safetensors(trainable, config,
+        save_trainable_safetensors(_to_cpu(trainable), config,
                                    os.path.join(path, "model.safetensors"))
     else:
         out["trainable"] = _to_cpu(trainable)
@@ -99,7 +121,12 @@ def _copy_into(template: Any, loaded: Any, what: str) -> None:
         raise ValueError(f"checkpoint {what}: shape {tuple(loaded.shape)} != "
                          f"{tuple(template.shape)}")
     with torch.no_grad():
-        template.copy_(loaded)
+        if isinstance(template, Shards):
+            for p, c in zip(template.parts, torch.chunk(
+                    loaded, len(template.parts), template.dim)):
+                p.copy_(c)
+        else:
+            template.copy_(loaded)
 
 
 def restore_train_state(path: str, trainable_template: Dict[str, Any],
@@ -107,8 +134,9 @@ def restore_train_state(path: str, trainable_template: Dict[str, Any],
                         ) -> Tuple[Dict[str, Any], Any, int]:
     """path: a ``checkpoint-*`` dir, or an exp_dir (its
     ``checkpoint-latest``).  The trainable values are copied into the
-    template's tensors (which keep their device and ``requires_grad``); the
-    optimizer state lands on the template's device."""
+    template's tensors (which keep their device and ``requires_grad``; a
+    Shards template gets its slices); the optimizer state takes the
+    template's layout."""
     if not os.path.basename(os.path.normpath(path)).startswith("checkpoint-"):
         path = os.path.join(path, "checkpoint-latest")
     path = os.path.realpath(path)
@@ -128,6 +156,5 @@ def restore_train_state(path: str, trainable_template: Dict[str, Any],
     if set(opt_state) != set(opt_state_template):
         raise ValueError(f"checkpoint opt_state: keys {sorted(opt_state)} "
                          f"!= {sorted(opt_state_template)}")
-    device = next(iter(flatten_tree(trainable_template).values())).device
-    return (trainable_template, _to_device(opt_state, device),
+    return (trainable_template, _lay_out(opt_state_template, opt_state),
             int(restored["step"]))

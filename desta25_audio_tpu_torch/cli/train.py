@@ -6,7 +6,20 @@ reference-schema YAML config (``model:``, ``trainer:``, ``optim:``,
         --config configs/desta25_llama31-8B_Qformer6L.yaml \\
         exp_dir=exp/run1 +dataset=DestaAQA-5M trainer.max_steps=10
 
-``--device`` picks the device (default ``cuda``).  The config is dumped to
+``--device`` picks the device (default ``cuda``).  The YAML keys
+``trainer.mesh`` ("off" / "auto" / "on"), ``trainer.mesh_model``,
+``trainer.fsdp`` and ``trainer.mesh_devices`` train on a device mesh
+(``train/trainer.py``).  Under torchrun (or SLURM, one process a node) the
+processes join one process group before any device is touched
+(``parallel/distributed.maybe_initialize``: NCCL for ``--device cuda``,
+gloo for the CPU), each on its own card, and sum their gradients:
+
+    torchrun --nproc_per_node 4 -m desta25_audio_tpu_torch.cli.train \
+        --config configs/desta25_llama31-8B_Qformer6L.yaml \
+        exp_dir=exp/run1 +dataset=DestaAQA-5M trainer.mesh=on
+
+The main process logs at INFO (the others at WARNING) and writes the
+config, metrics, reports and checkpoints.  The config is dumped to
 ``exp_dir/config.yaml``; fresh runs evaluate and checkpoint before training;
 ``resume_from_checkpoint`` resumes; ``init_from_pretrained_weights`` (a
 checkpoint dir or its ``model.safetensors``) warm-starts the trainable params
@@ -64,15 +77,24 @@ def apply_overrides(cfg: Dict[str, Any], overrides: List[str],
     return cfg
 
 
+def _mesh_key(value) -> str:
+    """``trainer.mesh``: YAML 1.1 reads a bare on / off as a boolean."""
+    if isinstance(value, bool):
+        return "on" if value else "off"
+    return str(value)
+
+
 def build_from_config(cfg: Dict[str, Any], device: str = "cuda"):
     from ..config import config_from_yaml_model_section
     from ..data.dataset import AudioTextDataset, CollateFn, DataConfig
     from ..models.desta import DeSTA25AudioModel
     from ..train.optimizer import OptimizerConfig
+    from ..parallel.distributed import local_device
     from ..train.trainer import DeSTA25Trainer, MetricsLogger, TrainerConfig
 
     model_cfg = config_from_yaml_model_section(cfg["model"])
-    model = DeSTA25AudioModel(model_cfg, device=device, seed=cfg.get("seed", 0))
+    model = DeSTA25AudioModel(model_cfg, device=local_device(device),
+                              seed=cfg.get("seed", 0))
 
     # warm-start from a pretrained trainable-only checkpoint
     # (train_desta.py:73-83, :188-189) -- mutually exclusive with resume
@@ -144,10 +166,11 @@ def build_from_config(cfg: Dict[str, Any], device: str = "cuda"):
         pipeline_microbatches=int(
             trainer_cfg.get("pipeline_microbatches", 0) or 0),
         sequence_parallel=bool(trainer_cfg.get("sequence_parallel", False)),
-        mesh=str(trainer_cfg.get("mesh", "off")),
+        mesh=_mesh_key(trainer_cfg.get("mesh", "off")),
         mesh_model=int(trainer_cfg.get("mesh_model", 1)),
         mesh_pipe=int(trainer_cfg.get("mesh_pipe", 1)),
         fsdp=bool(trainer_cfg.get("fsdp", False)),
+        mesh_devices=trainer_cfg.get("mesh_devices"),
         seed=cfg.get("seed", 0),
         auto_find_batch_size=bool(
             trainer_cfg.get("auto_find_batch_size", True)),
@@ -170,8 +193,11 @@ def main(argv=None):
                         help="torch device for the model and every step")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
+    # join the run's processes before any device is touched
+    from ..parallel.distributed import is_main_process, maybe_initialize
+    maybe_initialize(device=args.device)
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if is_main_process() else logging.WARNING,
         format="[%(asctime)s %(levelname)s %(name)s] %(message)s")
 
     with open(args.config) as f:
@@ -180,8 +206,9 @@ def main(argv=None):
                           config_dir=os.path.dirname(args.config) or ".")
     exp_dir = cfg.get("exp_dir") or "exp/default"
     os.makedirs(exp_dir, exist_ok=True)
-    with open(os.path.join(exp_dir, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f)
+    if is_main_process():
+        with open(os.path.join(exp_dir, "config.yaml"), "w") as f:
+            yaml.safe_dump(cfg, f)
 
     _, trainer = build_from_config(cfg, device=args.device)
     trainer.train(resume_from_checkpoint=cfg.get("resume_from_checkpoint"))

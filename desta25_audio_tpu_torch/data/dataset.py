@@ -17,8 +17,10 @@ carried in the metadata for the per-category eval report.
 - Audio decodes through ``audio/io.AudioSegment`` (WAV natively, FLAC, MP3,
   OGG, M4A, ... through the native FFmpeg codec); manifests and audio are
   local files: a URL raises.
-- One process reads the whole manifest (the JAX package's per-process
-  slicing waits for multi-GPU training, ROADMAP.md Queue 1).
+- Across processes (``parallel/distributed.py``) each process keeps every
+  ``world``-th manifest row from its rank on (``shard_by_process``, the JAX
+  package's ``rows[process_index::process_count]``), and ``batch_size`` is
+  per process: the global batch is ``world x batch_size``.
 """
 
 from __future__ import annotations
@@ -85,7 +87,7 @@ class AudioTextDataset:
     """Prompt-only dataset: one audio per sample, target = response + eos."""
 
     def __init__(self, config: DeSTA25Config, data_cfg: DataConfig,
-                 tokenizer):
+                 tokenizer, shard_by_process: bool = True):
         self.config = config
         self.data_cfg = data_cfg
         self.tokenizer = tokenizer
@@ -102,6 +104,10 @@ class AudioTextDataset:
                     line = line.strip()
                     if line:
                         rows.append(json.loads(line))
+        if shard_by_process:
+            from ..parallel.distributed import world
+            rank, size = world()
+            rows = rows[rank::size]
         self.rows = rows
         logger.info("loaded %d rows from %d manifests", len(rows),
                     len(data_cfg.manifest_filepaths))

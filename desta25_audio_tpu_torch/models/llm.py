@@ -41,7 +41,9 @@ takes every step K9's pair under a mesh could: the port has no VMEM
 budgets; ``llm.py:363-434`` of the JAX package), and every other cached
 call a
 per-rank layer loop whose wo / down partials are summed in f32 across the
-ranks and rounded once, as the JAX package leaves it to XLA's psum.
+ranks and rounded once, as the JAX package leaves it to XLA's psum.  The
+cache-less forward (training) runs under one data row's ``1 x p`` group the
+same per-rank loop, with K11 per rank at H/p, Hkv/p heads.
 
 Parameters (layers stacked on a leading axis, linear weights ``[out, in]``):
 ``embed`` [V, D], ``lm_head`` [V, D] (untied only), ``norm``, and
@@ -55,7 +57,7 @@ in place.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -161,14 +163,19 @@ def init_lora(cfg: LLMConfig, rank: int, device, generator: torch.Generator,
 
 def _lora_delta(x: torch.Tensor, lp: Params, scale: float,
                 dropout: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """peft's LoRA delta ``scale * dropout(x) @ A @ B`` -> f32 (scale =
     alpha / r; ``llm.py:159-172`` of the JAX package): the dropout (training
     only, with a generator) on the adapter's input with inverted scaling,
-    the first product in x's dtype with f32 sums, the second in f32."""
+    the first product in x's dtype with f32 sums, the second in f32.
+    ``rows`` (first, total): x holds batch rows first.. of a batch of
+    ``total`` rows, whose mask is drawn whole and sliced, so that a batch
+    split over devices drops what the whole batch drops."""
     if generator is not None and dropout > 0.0:
-        keep = torch.rand(x.shape, generator=generator,
-                          device=x.device) < 1.0 - dropout
+        lo, total = rows or (0, x.shape[0])
+        keep = torch.rand((total,) + tuple(x.shape[1:]), generator=generator,
+                          device=x.device)[lo:lo + x.shape[0]] < 1.0 - dropout
         x = torch.where(keep, x, torch.zeros_like(x)) / torch.tensor(
             1.0 - dropout, dtype=x.dtype, device=x.device)
     a = matmul_f32(x, lp["a"].to(x.dtype))
@@ -184,16 +191,18 @@ def lora_layer_seed(seed: int, l: int) -> int:
 
 def lora_qkv_delta(lora: Params, l: int, x: torch.Tensor, scale: float,
                    dropout: float = 0.0,
-                   seed: Optional[int] = None) -> torch.Tensor:
+                   seed: Optional[int] = None,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Layer l's q|k|v deltas of the normed input x [..., D] -> f32 [...,
     (H + 2 Hkv) Dh], wqkv's row order.  With a seed and dropout > 0 each
     adapter draws its own mask from one generator seeded inside the layer
-    (peft has one dropout a wrapped linear)."""
+    (peft has one dropout a wrapped linear); ``rows`` as
+    :func:`_lora_delta`'s."""
     gen = None
     if seed is not None and dropout > 0.0:
         gen = torch.Generator(x.device).manual_seed(lora_layer_seed(seed, l))
     lp = index_tree(lora["layers"], l)
-    return torch.cat([_lora_delta(x, lp[t], scale, dropout, gen)
+    return torch.cat([_lora_delta(x, lp[t], scale, dropout, gen, rows)
                       for t in LORA_TARGETS], dim=-1)
 
 
@@ -234,37 +243,41 @@ def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def head_logits(params: Params, hidden: torch.Tensor,
-                w8a8: bool = True) -> torch.Tensor:
+                w8a8: bool = True, row_scale: int = 1) -> torch.Tensor:
     """Final hidden [..., D] -> f32 logits [..., V] (tied, untied or int8;
-    the int8 head's padded rows are sliced off; ``w8a8`` as
-    ``quant_matmul``'s)."""
+    the int8 head's padded rows are sliced off; ``w8a8`` and ``row_scale``
+    as ``quant_matmul``'s)."""
     w = params.get("lm_head", params["embed"])
     if is_quantized(w):
         V = params["embed"].shape[0]
-        return quant_matmul(hidden, w, torch.float32, w8a8=w8a8)[..., :V]
+        return quant_matmul(hidden, w, torch.float32, w8a8=w8a8,
+                            row_scale=row_scale)[..., :V]
     return matmul_f32(hidden, w.t())
 
 
-def _linear(w, x: torch.Tensor, l: int, w8a8: bool = True) -> torch.Tensor:
+def _linear(w, x: torch.Tensor, l: int, w8a8: bool = True,
+            row_scale: int = 1) -> torch.Tensor:
     """x [..., in] through layer l's [out, in] weight (bf16, or an int8
-    leaf through quant_matmul with its ``w8a8``), rounded once to x's
-    dtype."""
+    leaf through quant_matmul with its ``w8a8`` and ``row_scale``), rounded
+    once to x's dtype."""
     if is_quantized(w):
-        return quant_matmul(x, {"q": w["q"][l], "s": w["s"][l]}, w8a8=w8a8)
+        return quant_matmul(x, {"q": w["q"][l], "s": w["s"][l]}, w8a8=w8a8,
+                            row_scale=row_scale)
     return matmul_f32(x, w[l].t()).to(x.dtype)
 
 
 def _attention(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
                cache: Optional[KVCache], ci, attention_mask=None,
-               w8a8: bool = True, qkv_delta=None):
+               w8a8: bool = True, qkv_delta=None, row_scale: int = 1):
     return _linear(p["wo"], _attention_heads(p, x, cos, sin, mask, cfg, l,
                                              cache, ci, attention_mask,
-                                             w8a8, qkv_delta), l, w8a8)
+                                             w8a8, qkv_delta, row_scale),
+                   l, w8a8, row_scale)
 
 
 def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
                      cache: Optional[KVCache], ci, attention_mask=None,
-                     w8a8: bool = True, qkv_delta=None):
+                     w8a8: bool = True, qkv_delta=None, row_scale: int = 1):
     """Layer l's attention up to the wo product: [B, T, H*Dh] in x's
     dtype.  qkv_delta (f32, wqkv's rows; LoRA's) is added to the rounded
     q, k and v, which are rounded again (``llm.py:185-197`` of the JAX
@@ -273,7 +286,7 @@ def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
     H, Hkv, Dh = (cfg.num_attention_heads, cfg.num_key_value_heads,
                   cfg.head_dim)
     HD, KVD = H * Dh, Hkv * Dh
-    qkv = _linear(p["wqkv"], x, l, w8a8)
+    qkv = _linear(p["wqkv"], x, l, w8a8, row_scale)
     if qkv_delta is not None:
         qkv = (qkv.float() + qkv_delta).to(qkv.dtype)
     q = qkv[..., :HD].reshape(B, T, H, Dh)
@@ -312,25 +325,30 @@ def _attention_heads(p, x, cos, sin, mask, cfg: LLMConfig, l: int,
     return out.to(x.dtype).reshape(B, T, HD)
 
 
-def _mlp(p, x, l: int, w8a8: bool = True):
-    return _linear(p["w_down"], _mlp_mid(p, x, l, w8a8), l, w8a8)
+def _mlp(p, x, l: int, w8a8: bool = True, row_scale: int = 1):
+    return _linear(p["w_down"], _mlp_mid(p, x, l, w8a8, row_scale), l, w8a8,
+                   row_scale)
 
 
-def _mlp_mid(p, x, l: int, w8a8: bool = True):
+def _mlp_mid(p, x, l: int, w8a8: bool = True, row_scale: int = 1):
     """Layer l's MLP up to the down product: silu(gate) * up."""
-    gu = _linear(p["w_gu"], x, l, w8a8)  # gate/up outputs rounded apart
+    gu = _linear(p["w_gu"], x, l, w8a8, row_scale)  # gate/up rounded apart
     g, u = gu[..., 0::2], gu[..., 1::2]
     return torch.nn.functional.silu(g.float()).to(x.dtype) * u
 
 
-def _rank_sum(ws, xs, l: int, device) -> torch.Tensor:
+def _rank_sum(ws, xs, l: int, device, w8a8: bool = True,
+              row_scale: int = 1) -> torch.Tensor:
     """Sum over the ranks of one model group of xs[m] [..., K/p] through
     their input-column shards ws[m] of layer l: each rank's product in f32,
     unrounded, summed in rank order on ``device`` (what the JAX package's
     XLA psum does on a mesh).  An int8 W8A8 product quantizes each row
-    with its amax over every rank's columns, the row's amax unsharded."""
+    with its amax over every rank's columns, the row's amax unsharded;
+    ``w8a8=False`` (training) keeps the weight-only product, its regime
+    read on ``row_scale`` times the rows (``quant_matmul``)."""
     amax = None
-    if is_quantized(ws[0]) and xs[0][..., :1].numel() >= W8A8_MIN_ROWS:
+    if w8a8 and is_quantized(ws[0]) \
+            and xs[0][..., :1].numel() >= W8A8_MIN_ROWS:
         amax = torch.stack([x.float().abs().amax(-1, keepdim=True).to(device)
                             for x in xs]).amax(0)
     tot = None
@@ -339,7 +357,8 @@ def _rank_sum(ws, xs, l: int, device) -> torch.Tensor:
             if is_quantized(w):
                 part = quant_matmul(
                     x, {"q": w["q"][l], "s": w["s"][l]}, torch.float32,
-                    row_amax=None if amax is None else amax.to(x.device))
+                    row_amax=None if amax is None else amax.to(x.device),
+                    w8a8=w8a8, row_scale=row_scale)
             else:
                 part = matmul_f32(x, w[l].t())
         tot = part.to(device) if tot is None else tot + part.to(device)
@@ -397,6 +416,65 @@ def _mesh_layers(params: ShardedLLM, cfg: LLMConfig, x, cos, sin, mask,
     return x
 
 
+def _spans_cards(params) -> bool:
+    """True when a ``1 x p`` group's ranks lie on more than one device."""
+    return len({str(d) for d in params.mesh.devices[0]}) > 1
+
+
+def _group_layer(params: ShardedLLM, cfg: LLMConfig, l: int, x, pre, cos,
+                 sin, attention_mask, w8a8: bool,
+                 parts_remat: bool = False,
+                 row_scale: int = 1) -> torch.Tensor:
+    """Layer l of the cache-less forward on a ``1 x p`` group (training:
+    one data row's group, ``train/step.py``), without the hook: each rank's
+    attention heads (K11 at H/p, Hkv/p from T >= 512) and its I/p of the
+    MLP on its device, the wo and down partials summed in f32 in rank order
+    (:func:`_rank_sum`) and rounded once into the residual x, which stays
+    on the group's first device with the norms.  ``pre(x) -> (x after ln1,
+    LoRA's f32 q|k|v deltas or None)`` runs there; each rank adds its
+    heads' columns of the deltas.  Autograd carries the backward through
+    the moves.
+
+    ``parts_remat`` (under ``remat``, a group whose ranks lie on several
+    cards): each device's share runs under a checkpoint of its own (the
+    first device's norms, each rank's heads, each rank's MLP middle; the
+    rank sums keep their inputs), in place of one checkpoint of the layer,
+    which each card's autograd thread would recompute at once."""
+    def run(fn, *args):
+        if parts_remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    mesh, lcfg = params.mesh, params.local_cfg
+    ranks = [r["layers"] for r in params.ranks[0]]
+    dev0, p = x.device, mesh.n_model
+    xn, delta = run(pre, x)
+    heads = []
+    for m, (lp, dev) in enumerate(zip(ranks, mesh.devices[0])):
+        d = (None if delta is None
+             else delta[..., qkv_rows(cfg, p, m).to(dev0)].to(dev))
+
+        def attention(xm, cm, sm, am, dm, lp=lp, dev=dev):
+            with on_device(dev):
+                return _attention_heads(lp, xm, cm, sm, None, lcfg, l, None,
+                                        None, am, w8a8, dm, row_scale)
+        heads.append(run(attention, xn.to(dev), cos.to(dev), sin.to(dev),
+                         attention_mask.to(dev), d))
+    x = x + _rank_sum([lp["wo"] for lp in ranks], heads, l, dev0,
+                      w8a8, row_scale).to(x.dtype)
+    xn = run(lambda h: rms_norm(index_tree(params["layers"]["ln2"], l), h,
+                                cfg.rms_norm_eps), x)
+    mids = []
+    for lp, dev in zip(ranks, mesh.devices[0]):
+
+        def mlp_mid(xm, lp=lp, dev=dev):
+            with on_device(dev):
+                return _mlp_mid(lp, xm, l, w8a8, row_scale)
+        mids.append(run(mlp_mid, xn.to(dev)))
+    return x + _rank_sum([lp["w_down"] for lp in ranks], mids, l, dev0,
+                         w8a8, row_scale).to(x.dtype)
+
+
 def _mesh_decode_step(params: ShardedLLM, cfg: LLMConfig, x, attention_mask,
                       positions, cache: ShardedCache, ci, extra_layer_fn,
                       fused_injection):
@@ -450,7 +528,8 @@ def decode_step(params: Params, cfg: LLMConfig, ids: torch.Tensor,
 
 def _check_mesh(params, cache) -> bool:
     """True when the call runs under a mesh (the params cut for the current
-    one, with a cache); raises on a mismatch."""
+    one; with a cache, a ShardedCache; without, a ``1 x p`` mesh: one data
+    row's group); raises on a mismatch."""
     mesh = current_mesh()
     sharded = isinstance(params, ShardedLLM)
     if mesh is None and not sharded:
@@ -459,11 +538,15 @@ def _check_mesh(params, cache) -> bool:
         raise ValueError("under a mesh llm_apply takes the LLM cut for it by "
                          "parallel/sharding.apply_llm_sharding, and that LLM "
                          "only under its mesh")
-    if not isinstance(cache, ShardedCache):
-        raise NotImplementedError(
-            "under a mesh llm_apply takes a ShardedCache (init_kv_cache under "
-            "use_mesh); the cache-less forward under a mesh is training "
-            "(ROADMAP.md Queue 1)")
+    if cache is None:
+        if mesh.n_data != 1:
+            raise ValueError(
+                "the cache-less forward under a mesh runs on one data row's "
+                "1 x p group (Mesh.row_mesh, parallel/sharding.row_llm); "
+                "train/step.py splits the batch over the data rows")
+    elif not isinstance(cache, ShardedCache):
+        raise ValueError("under a mesh llm_apply takes a ShardedCache "
+                         "(init_kv_cache under use_mesh)")
     return True
 
 
@@ -479,7 +562,8 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
               skip_head: bool = False, remat: bool = False,
               w8a8: bool = True, lora: Optional[Params] = None,
               lora_scale: float = 1.0, lora_dropout: float = 0.0,
-              lora_seed: Optional[int] = None):
+              lora_seed: Optional[int] = None,
+              batch_rows: Optional[Tuple[int, int]] = None):
     """Forward pass -> (logits [B, T, V] f32, cache), or with
     ``return_hidden`` (logits, cache, final hidden [B, T, D] after the last
     norm); ``skip_head`` leaves logits None.  With ``extra_aux_init`` a
@@ -516,6 +600,12 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     w8a8: the int8 tower's products and head may quantize activations from
     128 rows (``ops/qmm.quant_matmul``); training passes False.
 
+    batch_rows (first, total): these B rows are rows first.. of a training
+    batch of ``total`` rows split over devices or processes.  The int8
+    tower's weight-only products pick their row regime for the whole batch
+    (``quant_matmul``'s ``row_scale`` = total / B), and LoRA's dropout
+    masks are drawn over the whole batch and sliced.
+
     lora (:func:`init_lora`'s tree), lora_scale (alpha / r): the adapters'
     deltas on q, k and v in every layer, through the layer loop only (no
     fused step, K9 or K10 takes the call; under a mesh the per-rank loop).
@@ -524,6 +614,13 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     inside the layer, so the recompute under ``remat`` draws them again;
     without a seed there is no dropout.  An injection under LoRA comes as
     ``extra_layer_fn``.
+
+    The cache-less forward under a ``1 x p`` mesh (training's data row
+    group) runs each layer through :func:`_group_layer`, with the hook,
+    its aux, LoRA and ``remat`` as above: a layer's checkpoint spans the
+    group's ranks and its recompute runs each rank's part on its device;
+    where the ranks lie on several cards, each device's share (and the
+    hook) is checkpointed alone instead.
     """
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("provide exactly one of input_ids / inputs_embeds")
@@ -603,33 +700,51 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     cos, sin = llm_rope_cos_sin(cfg, positions)
     lay = params["layers"]
 
+    row_scale = 1 if batch_rows is None else batch_rows[1] // B
+    remat = remat and cache is None and torch.is_grad_enabled()
+    # a group across cards checkpoints each device's share of a layer alone
+    parts_remat = remat and sharded and _spans_cards(params)
+
+    def run(fn, *args):
+        if parts_remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def layer(l: int, x: torch.Tensor, *aux):
-        xn = rms_norm(index_tree(lay["ln1"], l), x, cfg.rms_norm_eps)
-        delta = (None if lora is None else
-                 lora_qkv_delta(lora, l, xn, lora_scale, lora_dropout,
-                                lora_seed))
-        x = x + _attention(lay, xn, cos, sin, mask, cfg, l, cache, ci,
-                           attention_mask, w8a8, delta)
-        x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
-                                   cfg.rms_norm_eps), l, w8a8)
+        def pre(x):
+            xn = rms_norm(index_tree(lay["ln1"], l), x, cfg.rms_norm_eps)
+            return xn, (None if lora is None else lora_qkv_delta(
+                lora, l, xn, lora_scale, lora_dropout, lora_seed, batch_rows))
+
+        if sharded:
+            x = _group_layer(params, cfg, l, x, pre, cos, sin,
+                             attention_mask, w8a8, parts_remat, row_scale)
+        else:
+            xn, delta = pre(x)
+            x = x + _attention(lay, xn, cos, sin, mask, cfg, l, cache, ci,
+                               attention_mask, w8a8, delta, row_scale)
+            x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
+                                       cfg.rms_norm_eps), l, w8a8, row_scale)
         if extra_aux_init is not None:
-            x, aux = extra_layer_fn(l, x, aux)
-            return (x, *aux)
+            def hook(x, *aux):
+                x, aux = extra_layer_fn(l, x, aux)
+                return (x, *aux)
+            return run(hook, x, *aux)
         if extra_layer_fn is not None:
-            x = extra_layer_fn(l, x)
+            x = run(lambda h: extra_layer_fn(l, h), x)
         return x
 
-    remat = remat and cache is None and torch.is_grad_enabled()
     aux = extra_aux_init
     for l in range(cfg.num_hidden_layers):
         args = (l, x) if aux is None else (l, x, *aux)
-        out = (checkpoint(layer, *args, use_reentrant=False) if remat
-               else layer(*args))
+        out = (checkpoint(layer, *args, use_reentrant=False)
+               if remat and not parts_remat else layer(*args))
         if aux is None:
             x = out
         else:
             x, aux = out[0], tuple(out[1:])
     hidden = rms_norm(params["norm"], x, cfg.rms_norm_eps)
-    logits = None if skip_head else head_logits(params, hidden, w8a8)
+    logits = None if skip_head else head_logits(params, hidden, w8a8,
+                                                row_scale)
     out = (logits, cache, hidden) if return_hidden else (logits, cache)
     return out if aux is None else out + (aux,)

@@ -46,6 +46,7 @@ from ..ops.core import (
 )
 from ..ops.qmm import quant_matmul
 from ..ops.rope import fractional_rope_apply
+from ..parallel.sharding import Shards
 from .qformer import bert_encoder_apply, init_bert_encoder
 from .whisper import _uniform, init_layer_norm_stack, init_linear_stack
 
@@ -217,17 +218,37 @@ def layer_trees(tree: Any, n: int) -> List[Any]:
     """A stacked tree split into its ``n`` layers by ``torch.unbind(0)``
     once: the backward stacks the layers' gradients in one pass, where
     ``tree[l]`` for each layer would add a zero-filled gradient of the whole
-    stack per layer and leaf."""
+    stack per layer and leaf.  A ``Shards`` leaf (fsdp: the stack cut over
+    a mesh's data rows) is unbound part by part: each layer a Shards of its
+    parts' slices (or, cut along the layers, its one part's slice), gathered
+    where it is used (:func:`gather_layer`)."""
     if isinstance(tree, dict):
         parts = {k: layer_trees(v, n) for k, v in tree.items()}
         return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    if isinstance(tree, Shards):
+        per = [torch.unbind(p, 0) for p in tree.parts]
+        if tree.dim == 0:
+            return [v for u in per for v in u]
+        return [Shards([u[l] for u in per], tree.dim - 1) for l in range(n)]
     return list(torch.unbind(tree, 0))
+
+
+def gather_layer(tree: Any, device) -> Any:
+    """A layer tree of :func:`layer_trees` whole on ``device``: a Shards
+    leaf's parts moved there and joined, differentiably (its gradient goes
+    back to each part on its own device)."""
+    if isinstance(tree, dict):
+        return {k: gather_layer(v, device) for k, v in tree.items()}
+    if isinstance(tree, Shards):
+        return torch.cat([p.to(device) for p in tree.parts], tree.dim)
+    return tree.to(device)
 
 
 def make_deep_injection_fn(orca_params: Params, cfg: DeSTA25Config,
                            audio_local: torch.Tensor,
                            trans_pos_mask: Optional[torch.Tensor] = None,
-                           training: bool = False
+                           training: bool = False,
+                           n_has: Optional[int] = None
                            ) -> Tuple[Callable, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
     """The ``extra_layer_fn`` of the cache-less forward and its aux init
@@ -240,7 +261,10 @@ def make_deep_injection_fn(orca_params: Params, cfg: DeSTA25Config,
     1 - cos(pooled audio, pooled hidden), the hidden being the layer's
     output before the injection; ``aux = (sum, count)`` counts the layers
     with any such row, so a batch without transcription positions leaves
-    (0, 0)."""
+    (0, 0).  ``n_has``: the number of such rows in the whole batch when
+    these rows are a part of it (a split over devices or processes); the
+    parts' sums then add up to the whole batch's and every part counts the
+    same layers."""
     n_heads = cfg.llm_config.num_attention_heads
     roped = fractional_rope_apply(audio_local, cfg.orca_audio_position_scale,
                                   cfg.llm_config.rope_theta)
@@ -253,12 +277,13 @@ def make_deep_injection_fn(orca_params: Params, cfg: DeSTA25Config,
         m = trans_pos_mask.float()[..., None]                    # [B, T, 1]
         counts = m.sum(1)                                        # [B, 1]
         has = (counts[:, 0] > 0).float()
-        n_has = has.sum()
+        n_has = (has.sum() if n_has is None else
+                 torch.tensor(float(n_has), device=has.device))
         valid = (n_has > 0).float()
 
     def fn(l: int, hidden: torch.Tensor, aux):
-        new_hidden = gated_cross_attention_apply(layers[l], hidden, roped,
-                                                 n_heads)
+        new_hidden = gated_cross_attention_apply(
+            gather_layer(layers[l], hidden.device), hidden, roped, n_heads)
         if have_trans:
             pooled = _l2norm((hidden.float() * m).sum(1)
                              / torch.clamp(counts, min=1.0))

@@ -242,12 +242,14 @@ def dequant_matmul(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
 
 
 def _qmm_dispatch(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
-                  out_dtype, w8a8: bool, amax) -> torch.Tensor:
+                  out_dtype, w8a8: bool, amax,
+                  row_scale: int = 1) -> torch.Tensor:
     """x2 [M, K] against the leaf, by rows (see :func:`quant_matmul`)."""
     M, K = x2.shape
-    if not w8a8 and M > K7_TPU_MAX_ROWS:
+    rows = M * row_scale
+    if not w8a8 and rows > K7_TPU_MAX_ROWS:
         return dequant_matmul(x2, q, s, out_dtype)
-    if not w8a8 and M >= W8A8_MIN_ROWS:
+    if not w8a8 and rows >= W8A8_MIN_ROWS:
         if x2.device.type != "cpu":
             _build.count_fallback("quant_matmul_dequant")
         return qmm_dot(x2, q, s, out_dtype)
@@ -268,34 +270,38 @@ class _QuantMatmul(torch.autograd.Function):
     frozen int8 weight and its scales get no gradient."""
 
     @staticmethod
-    def forward(ctx, x2, q, s, out_dtype, w8a8, amax):
+    def forward(ctx, x2, q, s, out_dtype, w8a8, amax, row_scale):
         ctx.save_for_backward(q, s)
         ctx.x_dtype = x2.dtype
-        return _qmm_dispatch(x2, q, s, out_dtype, w8a8, amax)
+        return _qmm_dispatch(x2, q, s, out_dtype, w8a8, amax, row_scale)
 
     @staticmethod
     def backward(ctx, g):
         q, s = ctx.saved_tensors
         gs = (g.float() * s.float()).to(torch.bfloat16)
         dx = matmul_f32(gs, q.to(torch.bfloat16)).to(ctx.x_dtype)
-        return dx, None, None, None, None, None
+        return dx, None, None, None, None, None, None
 
 
 def quant_matmul(x: torch.Tensor, leaf: QuantLeaf, out_dtype=None,
-                 row_amax=None, w8a8: bool = True) -> torch.Tensor:
+                 row_amax=None, w8a8: bool = True,
+                 row_scale: int = 1) -> torch.Tensor:
     """x [..., K] @ int8 leaf -> [..., N] in out_dtype (default x's).
     ``row_amax`` [..., 1]: :func:`w8a8_matmul`'s, for W8A8 rows.  Where
     :func:`quant_matmul_limits` refuses the call, the plain version of its
     row regime runs (counted as a fallback off the CPU).  ``w8a8=False``
-    takes K7's math at 128-256 rows and the dequant dot above.
-    Differentiable with respect to x (the straight-through rule)."""
+    takes K7's math at 128-256 rows and the dequant dot above, counting
+    ``row_scale`` times x's rows: x is one of that many equal parts of a
+    training batch split over devices or processes, and each part takes
+    the products the whole batch takes.  Differentiable with respect to x (the straight-through rule)."""
     K = x.shape[-1]
     x2 = x.reshape(-1, K).contiguous()
     out_dtype = out_dtype or x.dtype
     amax = None if row_amax is None else row_amax.reshape(-1, 1)
     if torch.is_grad_enabled() and x2.requires_grad:
         y = _QuantMatmul.apply(x2, leaf["q"], leaf["s"], out_dtype, w8a8,
-                               amax)
+                               amax, row_scale)
     else:
-        y = _qmm_dispatch(x2, leaf["q"], leaf["s"], out_dtype, w8a8, amax)
+        y = _qmm_dispatch(x2, leaf["q"], leaf["s"], out_dtype, w8a8, amax,
+                          row_scale)
     return y.reshape(*x.shape[:-1], y.shape[-1])

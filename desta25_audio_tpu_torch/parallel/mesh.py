@@ -12,9 +12,14 @@ devices the ranks' kernels write each other's memory through plain device
 pointers; :meth:`Mesh.enable_peer_access` turns that on between every pair
 of distinct cards (never from a card to itself: the runtime refuses that).
 
-No "pipe" axis: pipeline parallelism belongs to training and is not ported.
-:func:`use_mesh` installs a mesh for the code below it, as in the JAX
-package.
+Serving drives a mesh's every rank at once; training (``train/step.py``)
+gives each data row its own ``1 x n_model`` group (:meth:`Mesh.row_mesh`):
+the row's batch rows run their whole forward there, and the LLM sees the
+group as its mesh.  Between processes (one a host, or one a card under
+``torchrun``) ``parallel/distributed.py`` sums the gradients; each process's
+default mesh is then its own card.  No "pipe" axis yet: GPipe pipelining and
+sequence parallelism are ROADMAP.md Queue 1, item 5b.  :func:`use_mesh`
+installs a mesh for the code below it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -72,6 +77,10 @@ class Mesh:
                             f"peer access {a} -> {b}")
         self._peer_done = True
 
+    def row_mesh(self, d: int) -> "Mesh":
+        """Data row d's ``1 x n_model`` group as a mesh of its own."""
+        return Mesh([self.devices[d]])
+
     def __repr__(self) -> str:
         return f"Mesh({self.n_data}x{self.n_model}: {self.devices})"
 
@@ -79,10 +88,13 @@ class Mesh:
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """A ``("data", "model")`` mesh over ``devices`` (default: every CUDA
-    device), ``n_data`` defaulting to ``len(devices) // n_model``."""
+    device; a process's own card when several processes share the host under
+    a launcher), ``n_data`` defaulting to ``len(devices) // n_model``."""
     if devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        from .distributed import local_device, shares_host
+        devices = ([local_device("cuda")] if shares_host() else
+                   [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())])
     devices = [torch.device(d) for d in devices]
     if n_data is None:
         n_data = len(devices) // n_model

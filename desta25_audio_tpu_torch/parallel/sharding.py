@@ -30,12 +30,20 @@ once, on the first rank's device.
 The "data" axis splits the batch rows: data row d of the mesh holds rows
 ``d*B/n_data .. (d+1)*B/n_data`` in its model group's cache slices, and each
 of its ranks holds the same layer shard as the ranks of the other rows.
+
+Training (``train/step.py``) adds the trainable state's layout
+(``sharding.py:167-200`` of the JAX package): with ``fsdp`` each large
+trainable leaf is cut over the data rows (:func:`fsdp_partition_specs`,
+:class:`Shards`), and every other leaf lives whole on the first data row's
+device (its owner).  Across processes each process holds a replica of that
+layout over its own data rows (hybrid sharding), where the JAX package cuts
+over every host's devices: the layout differs, the numbers do not.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -203,3 +211,107 @@ def gather_cache(cache: ShardedCache, device=None) -> KVCache:
         return torch.cat([torch.cat([getattr(c, side).to(device) for c in row],
                                     -1) for row in cache.shards], 1)
     return KVCache(cat("k"), cat("v"))
+
+
+def row_llm(sharded: ShardedLLM, d: int) -> ShardedLLM:
+    """Data row d's group of a cut LLM as an LLM cut for that group's own
+    ``1 x n_model`` mesh (``Mesh.row_mesh``), sharing the row's tensors."""
+    ranks = sharded.ranks[d]
+    return ShardedLLM(ranks[0], sharded.mesh.row_mesh(d), sharded.cfg,
+                      sharded.local_cfg, [ranks])
+
+
+# -- the trainable state under fsdp ----------------------------------------
+
+FSDP_MIN_SIZE = 8192
+
+
+class Shards:
+    """A tensor cut over a mesh's data rows along ``dim``: ``parts[d]``, on
+    data row d's device, holds its d-th equal slice."""
+
+    def __init__(self, parts: Sequence[torch.Tensor], dim: int):
+        self.parts = list(parts)
+        self.dim = dim
+
+    @property
+    def shape(self):
+        s = list(self.parts[0].shape)
+        s[self.dim] = sum(p.shape[self.dim] for p in self.parts)
+        return torch.Size(s)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    @property
+    def device(self):
+        return self.parts[0].device
+
+    def numel(self) -> int:
+        return sum(p.numel() for p in self.parts)
+
+    def gather(self, device=None) -> torch.Tensor:
+        """The whole tensor on ``device`` (default: the first part's)."""
+        device = device or self.parts[0].device
+        return torch.cat([p.detach().to(device) for p in self.parts],
+                         self.dim)
+
+    def map(self, fn) -> "Shards":
+        return Shards([fn(p) for p in self.parts], self.dim)
+
+
+def fsdp_partition_specs(flat: Dict[str, torch.Tensor], n: int,
+                         min_size: int = FSDP_MIN_SIZE
+                         ) -> Dict[str, Optional[int]]:
+    """The dim each trainable leaf is cut along over n data rows, or None
+    (whole): a leaf of at least ``min_size`` elements on its largest dim
+    that n divides, the later dim on a tie (``fsdp_partition_specs`` of the
+    JAX package, ``sharding.py:167-200``)."""
+    specs: Dict[str, Optional[int]] = {}
+    for k, t in flat.items():
+        specs[k] = None
+        if n <= 1 or t.numel() < min_size:
+            continue
+        cand = [(d, i) for i, d in enumerate(t.shape) if d % n == 0]
+        if cand:
+            specs[k] = max(cand)[1]
+    return specs
+
+
+def shard_leaf(t: torch.Tensor, dim: Optional[int], devices) -> object:
+    """``t`` cut along ``dim`` over ``devices`` (one part each, copies), or
+    whole on the first device (shared where it is there already)."""
+    if dim is None:
+        return t.detach().to(devices[0])
+    n = len(devices)
+    return Shards([c.detach().to(dev).contiguous() for c, dev in
+                   zip(torch.chunk(t, n, dim), devices)], dim)
+
+
+def shard_trainable(flat: Dict[str, torch.Tensor], mesh: Mesh,
+                    fsdp: bool = True,
+                    min_size: int = FSDP_MIN_SIZE) -> Dict[str, object]:
+    """A flat trainable dict laid out on ``mesh``'s data rows (the first
+    device of each row): with ``fsdp`` the leaves of
+    :func:`fsdp_partition_specs` as :class:`Shards`, the others whole on
+    the first row's device; without, every leaf whole there."""
+    devices = [row[0] for row in mesh.devices]
+    specs = (fsdp_partition_specs(flat, len(devices), min_size) if fsdp
+             else dict.fromkeys(flat))
+    return {k: shard_leaf(t, specs[k], devices) for k, t in flat.items()}
+
+
+def gather_leaf(t, device=None) -> torch.Tensor:
+    """A whole tensor of a :class:`Shards` or a tensor (detached)."""
+    if isinstance(t, Shards):
+        return t.gather(device)
+    t = t.detach()
+    return t if device is None else t.to(device)
+
+
+def gather_trainable(flat: Dict[str, object], device=None
+                     ) -> Dict[str, torch.Tensor]:
+    """:func:`shard_trainable` undone: every leaf whole on ``device``
+    (default: where its first part is)."""
+    return {k: gather_leaf(t, device) for k, t in flat.items()}

@@ -41,7 +41,7 @@ from .data.tokenizer import CharTokenizer
 from .models.desta import DeSTA25AudioModel
 from .profile_generate import CONFIG, ORCA_CONFIG, report
 from .train.optimizer import OptimizerConfig, flatten_tree, make_optimizer
-from .train.step import make_train_step
+from .train.step import TrainLayout, make_train_step
 
 # kernel-name substrings of the step's device time, by where it is spent
 GROUPS = {
@@ -100,17 +100,16 @@ def main() -> None:
                  else torch.as_tensor(v).long()).to("cuda")
              for k, v in np_batch.items() if isinstance(v, np.ndarray)}
     trainable, frozen = model.split_params()
-    for t in flatten_tree(trainable).values():
-        t.requires_grad_(True)
+    layout = TrainLayout(None, frozen, cfg)
     tx = make_optimizer(OptimizerConfig(lr=1e-4, warmup_steps=2))
     state = tx.init(flatten_tree(trainable))
     step = make_train_step(cfg, tx, remat=True)
-    trainable, state, _ = step(trainable, frozen, state, batch)   # warm-up
+    trainable, state, _ = step(trainable, layout, state, batch)   # warm-up
     torch.cuda.reset_peak_memory_stats()
     for _ in range(args.repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainable, state, _ = step(trainable, frozen, state, batch)
+        trainable, state, _ = step(trainable, layout, state, batch)
         torch.cuda.synchronize()
         print(f"train step B={args.batch} T={args.seq} without the profiler: "
               f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
@@ -118,7 +117,7 @@ def main() -> None:
     for i in range(args.repeats):
         trainable, state, _ = report(
             f"train step B={args.batch} T={args.seq}, profiled step {i}",
-            lambda: step(trainable, frozen, state, batch),
+            lambda: step(trainable, layout, state, batch),
             top=16 if i == 0 else 0, groups=GROUPS if i == 0 else None,
             stats=stats)
     idle = [1 - busy / wall for wall, busy in stats]

@@ -52,13 +52,28 @@ def masked_lm_loss_chunked(llm_params, llm_cfg, hidden: torch.Tensor,
     labels [B, T] with -100 ignore positions.  An int8 head keeps its
     weight-only product (``w8a8=False``, ``losses.py:72-73`` of the JAX
     package)."""
+    s, n = masked_lm_sums_chunked(llm_params, llm_cfg, hidden, labels, chunk)
+    n = torch.clamp(n, min=1)
+    loss = -s / n
+    return {"lm_loss": loss, "n_tokens": n, "ppl": torch.exp(loss)}
+
+
+def masked_lm_sums_chunked(llm_params, llm_cfg, hidden: torch.Tensor,
+                           labels: torch.Tensor, chunk: int = 64,
+                           row_scale: int = 1):
+    """(the summed target log-probabilities f32, the count of target
+    tokens) of :func:`masked_lm_loss_chunked`, before the division: a batch
+    split over devices or processes adds both and divides once, so its loss
+    is the whole batch's.  ``row_scale``: these rows are one of that many
+    equal parts of the batch (an int8 head's regime, ``quant_matmul``)."""
     from ..models.llm import head_logits
 
     hidden = hidden[:, :-1]
     targets = labels[:, 1:]
 
     def chunk_sums(h, t):
-        return _token_logp_sums(head_logits(llm_params, h, w8a8=False).float(), t)
+        return _token_logp_sums(head_logits(llm_params, h, w8a8=False,
+                                            row_scale=row_scale).float(), t)
 
     s = torch.zeros((), dtype=torch.float32, device=hidden.device)
     n = torch.zeros((), dtype=torch.long, device=hidden.device)
@@ -70,9 +85,7 @@ def masked_lm_loss_chunked(llm_params, llm_cfg, hidden: torch.Tensor,
             ds, dn = chunk_sums(h, t)
         s = s + ds
         n = n + dn
-    n = torch.clamp(n, min=1)
-    loss = -s / n
-    return {"lm_loss": loss, "n_tokens": n, "ppl": torch.exp(loss)}
+    return s, n
 
 
 def _normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:

@@ -22,6 +22,14 @@ beta-2 schedule, epsilon and update clipping differ):
 Gradients, updates and parameters are flat ``{path: tensor}`` dicts
 (:func:`flatten_tree`); the state is a dict of ints and such dicts, so
 ``torch.save`` writes it as it is.
+
+Under ``fsdp`` a leaf may be a ``parallel/sharding.Shards`` (cut over a
+mesh's data rows): its gradient, its unfactored second moment and its
+MultiSteps mean are cut alike, a factored statistic is cut where it keeps
+the cut dim and whole (on the first row's device) where it averaged that dim
+away, and every quantity over the whole leaf or tree sums its parts: the
+clip's global norm, the factored row and column means, ``row_col_mean`` and
+the block RMS.  The rule's numbers are those of the whole leaf.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import Shards
 
 Flat = Dict[str, torch.Tensor]
 
@@ -56,6 +66,18 @@ def flatten_tree(tree: Any, prefix: str = "") -> Flat:
             out.update(flatten_tree(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: tree}
+
+
+def unflatten_tree(flat: Flat) -> Dict[str, Any]:
+    """:func:`flatten_tree` undone: {"a/b/c": x} -> {"a": {"b": {"c": x}}}."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return out
 
 
 def _linear(init: float, end: float, steps: int) -> Callable[[int], float]:
@@ -109,9 +131,79 @@ def factored_dims(shape, min_dim_size_to_factor: int = 128
     return int(order[-2]), int(order[-1])
 
 
+def _ew(fn, *xs):
+    """fn over tensors, and over :class:`Shards` part by part (a whole
+    tensor meets each part on that part's device; it never holds the cut
+    dim, so it broadcasts against the part as against the whole)."""
+    sh = next((x for x in xs if isinstance(x, Shards)), None)
+    if sh is None:
+        return fn(*xs)
+    out = []
+    for i, p in enumerate(sh.parts):
+        out.append(fn(*[x.parts[i] if isinstance(x, Shards)
+                        else x.to(p.device) if isinstance(x, torch.Tensor)
+                        else x for x in xs]))
+    return Shards(out, sh.dim)
+
+
+def _mean(x, dim: int, keepdim: bool = False):
+    """``x.mean(dim)``; over a Shards' cut dim the parts' sums add in part
+    order on the first part's device, whole."""
+    if not isinstance(x, Shards):
+        return x.mean(dim, keepdim=keepdim)
+    if dim != x.dim:
+        cut = x.dim if (keepdim or dim > x.dim) else x.dim - 1
+        return Shards([p.mean(dim, keepdim=keepdim) for p in x.parts], cut)
+    dev = x.parts[0].device
+    tot = None
+    for p in x.parts:
+        s = p.sum(dim, keepdim=keepdim).to(dev)
+        tot = s if tot is None else tot + s
+    return tot / x.shape[dim]
+
+
+def _unsqueeze(x, dim: int):
+    if not isinstance(x, Shards):
+        return x.unsqueeze(dim)
+    return Shards([p.unsqueeze(dim) for p in x.parts],
+                  x.dim + (dim <= x.dim))
+
+
+def _sum_sq(x) -> torch.Tensor:
+    """sum(x^2) in f32 over a tensor or every part of a Shards."""
+    if not isinstance(x, Shards):
+        return torch.sum(torch.square(x.float()))
+    dev = x.parts[0].device
+    return sum(torch.sum(torch.square(p.float())).to(dev) for p in x.parts)
+
+
+def _rms(u) -> torch.Tensor:
+    if not isinstance(u, Shards):
+        return torch.sqrt(torch.mean(torch.square(u)))
+    dev = u.parts[0].device
+    tot = sum(torch.sum(torch.square(p)).to(dev) for p in u.parts)
+    return torch.sqrt(tot / u.numel())
+
+
+def zeros_like(x):
+    return _ew(torch.zeros_like, x)
+
+
+def _zeros_without(p, drop: int):
+    """Zeros of p's shape without dim ``drop``: whole where ``drop`` is a
+    Shards' cut dim, else cut as p is."""
+    if isinstance(p, Shards) and drop != p.dim:
+        return Shards([_zeros_without(q, drop) for q in p.parts],
+                      p.dim - (drop < p.dim))
+    shape = list(p.shape)
+    return torch.zeros(shape[:drop] + shape[drop + 1:], dtype=p.dtype,
+                       device=p.device)
+
+
 def global_norm(tree: Flat) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree.values()))
+    sums = [_sum_sq(g) for g in tree.values()]
+    dev = sums[0].device
+    return torch.sqrt(sum(s.to(dev) for s in sums))
 
 
 class Adafactor:
@@ -134,14 +226,12 @@ class Adafactor:
         for k, p in params.items():
             fd = factored_dims(tuple(p.shape), self.min_dim)
             if fd is None:
-                v[k] = torch.zeros_like(p, memory_format=torch.contiguous_format)
+                v[k] = _ew(lambda t: torch.zeros_like(
+                    t, memory_format=torch.contiguous_format), p)
             else:
                 d1, d0 = fd
-                shape = list(p.shape)
-                v_row[k] = torch.zeros(shape[:d0] + shape[d0 + 1:],
-                                       dtype=p.dtype, device=p.device)
-                v_col[k] = torch.zeros(shape[:d1] + shape[d1 + 1:],
-                                       dtype=p.dtype, device=p.device)
+                v_row[k] = _zeros_without(p, d0)
+                v_col[k] = _zeros_without(p, d1)
         return {"count": 0, "v_row": v_row, "v_col": v_col, "v": v}
 
     def update(self, grads: Flat, state: Dict[str, Any], params: Flat
@@ -150,34 +240,45 @@ class Adafactor:
         max_norm = self.cfg.gradient_clip_val
         g_norm = global_norm(grads)
         if not bool(g_norm < max_norm):
-            grads = {k: (g / g_norm.to(g.dtype)) * max_norm
-                     for k, g in grads.items()}
+            grads = {k: _ew(lambda t, n: (t / n.to(t.dtype)) * max_norm,
+                            g, g_norm) for k, g in grads.items()}
         dr = 1.0 - np.float32(count + 1) ** np.float32(-self.decay_rate)
         dr = float(np.float32(dr))
         lr = self.schedule(count)
+        thr = self.clipping_threshold
         v_row, v_col, v = (dict(state[k]) for k in ("v_row", "v_col", "v"))
         updates: Flat = {}
+
+        def ema(old, new):
+            return _ew(lambda a, b: dr * a + (1.0 - dr) * b, old, new)
+
         for k, g in grads.items():
             fd = factored_dims(tuple(g.shape), self.min_dim)
-            g_sq = torch.square(g) + self.eps
+            g_sq = _ew(lambda t: torch.square(t) + self.eps, g)
             if fd is not None:
                 d1, d0 = fd
-                v_row[k] = dr * v_row[k] + (1.0 - dr) * g_sq.mean(d0)
-                v_col[k] = dr * v_col[k] + (1.0 - dr) * g_sq.mean(d1)
+                v_row[k] = ema(v_row[k], _mean(g_sq, d0))
+                v_col[k] = ema(v_col[k], _mean(g_sq, d1))
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_col_mean = v_row[k].mean(reduced_d1, keepdim=True)
-                row_factor = torch.pow(v_row[k] / row_col_mean, -0.5)
-                col_factor = torch.pow(v_col[k], -0.5)
-                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                row_col_mean = _mean(v_row[k], reduced_d1, keepdim=True)
+                row_factor = _ew(lambda a, b: torch.pow(a / b, -0.5),
+                                 v_row[k], row_col_mean)
+                col_factor = _ew(lambda a: torch.pow(a, -0.5), v_col[k])
+                u = _ew(lambda a, b, c: a * b * c, g,
+                        _unsqueeze(row_factor, d0),
+                        _unsqueeze(col_factor, d1))
             else:
-                v[k] = dr * v[k] + (1.0 - dr) * g_sq
-                u = g * torch.pow(v[k], -0.5)
-            rms = torch.sqrt(torch.mean(torch.square(u)))
-            u = u / torch.clamp(rms / self.clipping_threshold, min=1.0)
-            u = lr * u
+                v[k] = ema(v[k], g_sq)
+                u = _ew(lambda a, b: a * torch.pow(b, -0.5), g, v[k])
+            # two steps: one fused expression holds a third leaf-sized
+            # temporary at once
+            u = _ew(lambda a, r: a / torch.clamp(r / thr, min=1.0), u,
+                    _rms(u))
+            u = _ew(lambda a: lr * a, u)
             if self.cfg.weight_decay:
-                u = u + self.cfg.weight_decay * params[k]
-            updates[k] = -u
+                u = _ew(lambda a, w: a + self.cfg.weight_decay * w, u,
+                        params[k])
+            updates[k] = _ew(torch.neg, u)
         return updates, {"count": count + 1, "v_row": v_row, "v_col": v_col,
                          "v": v}
 
@@ -192,23 +293,23 @@ class MultiSteps:
 
     def init(self, params: Flat) -> Dict[str, Any]:
         return {"mini_step": 0, "gradient_step": 0,
-                "acc": {k: torch.zeros_like(p) for k, p in params.items()},
+                "acc": {k: zeros_like(p) for k, p in params.items()},
                 "inner": self.inner.init(params)}
 
     def update(self, grads: Flat, state: Dict[str, Any], params: Flat
                ) -> Tuple[Flat, Dict[str, Any]]:
         n = state["mini_step"]
         div = torch.tensor(float(n + 1))
-        acc = {k: a + (grads[k] - a) / div.to(a.device)
+        acc = {k: _ew(lambda a, g: a + (g - a) / div.to(a.device), a,
+                      grads[k])
                for k, a in state["acc"].items()}
         if n != self.k - 1:
-            return ({k: torch.zeros_like(g) for k, g in grads.items()},
+            return ({k: zeros_like(g) for k, g in grads.items()},
                     {**state, "mini_step": n + 1, "acc": acc})
         updates, inner = self.inner.update(acc, state["inner"], params)
         return updates, {"mini_step": 0,
                          "gradient_step": state["gradient_step"] + 1,
-                         "acc": {k: torch.zeros_like(a)
-                                 for k, a in acc.items()},
+                         "acc": {k: zeros_like(a) for k, a in acc.items()},
                          "inner": inner}
 
 
@@ -222,6 +323,6 @@ def make_optimizer(cfg: OptimizerConfig):
 @torch.no_grad()
 def apply_updates(params: Flat, updates: Flat) -> None:
     """params += updates, in place on the parameter tensors (which the
-    model's param tree holds), outside autograd."""
+    model's param tree holds; a Shards part by part), outside autograd."""
     for k, p in params.items():
-        p.add_(updates[k].to(p.dtype))
+        _ew(lambda a, u: a.add_(u.to(a.dtype)), p, updates[k])

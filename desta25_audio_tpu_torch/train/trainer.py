@@ -16,10 +16,24 @@ step draws its adapter-dropout masks from a seed of ``global_step`` (the
 JAX package's per-step key, ``trainer.py:297-301``), and ``evaluate()``
 generates with the adapters and without dropout.
 
-One device, one process.  The JAX package's mesh options (``mesh``,
-``mesh_model``, ``mesh_pipe``, ``fsdp``, ``pipeline_microbatches``,
-``sequence_parallel``) raise NotImplementedError naming their ROADMAP.md
-item.
+The trainer always trains on a mesh (``train/step.TrainLayout``): with
+``mesh`` "on", or "auto" with more than one device in the run (every
+process's), or ``mesh_model`` > 1 or ``fsdp`` (JAX's rule,
+``trainer.py:150-168``) a ``(n_data, mesh_model)`` mesh over
+``mesh_devices`` (default: every card, or the process's own card under
+torchrun), else the ``1 x 1`` mesh of the model's device.  Each data row's
+group runs its rows' forward with the LLM cut over its ``mesh_model``
+ranks, the gradients meet on each trainable leaf's owner (with ``fsdp`` the
+large leaves and their optimizer state cut over the data rows), and across
+processes (``parallel/distributed.py``) they are summed; the batch size is
+per process and must divide over the data rows.  ``mesh="off"`` under
+several processes raises ValueError (each would train a model of its own).
+Metrics, the eval report and checkpoints are written by the main process
+only; ``evaluate()`` computes its loss on the mesh and generates on the
+model's device.  GPipe
+pipelining and sequence parallelism (``mesh_pipe``,
+``pipeline_microbatches``, ``sequence_parallel``) raise NotImplementedError
+(ROADMAP.md Queue 1, item 5b).
 """
 
 from __future__ import annotations
@@ -42,8 +56,16 @@ from ..data.prefetch import PrefetchLoader
 from ..eval.metrics import ConsecutiveWordsAccuracyMetric
 from ..generate.decode import llm_generate
 from ..models.desta import DeSTA25AudioModel
-from .optimizer import OptimizerConfig, flatten_tree, make_optimizer
-from .step import make_eval_step, make_train_step
+from ..parallel.distributed import is_main_process, world
+from ..parallel.mesh import Mesh, make_mesh
+from ..parallel.sharding import Shards, gather_leaf, shard_trainable
+from .optimizer import (
+    OptimizerConfig,
+    flatten_tree,
+    make_optimizer,
+    unflatten_tree,
+)
+from .step import TrainLayout, make_eval_step, make_train_step
 
 logger = logging.getLogger(__name__)
 
@@ -66,6 +88,10 @@ class TrainerConfig:
     mesh_model: int = 1
     mesh_pipe: int = 1
     fsdp: bool = False
+    # the mesh's devices, data row by data row (e.g. ["cpu"] * 8, or
+    # ["cuda:0"] * 2 for two virtual ranks of one card); None: every card,
+    # or the process's own under torchrun
+    mesh_devices: Optional[List[str]] = None
     eval_before_train: bool = True
     eval_max_batches: int = -1
     num_workers: int = 0
@@ -74,13 +100,41 @@ class TrainerConfig:
 
 
 def check_trainer_config(tc: TrainerConfig) -> None:
-    """Raise NotImplementedError for the options the port lacks."""
-    if (tc.mesh != "off" or tc.mesh_model > 1 or tc.mesh_pipe > 1 or tc.fsdp
-            or tc.pipeline_microbatches or tc.sequence_parallel):
+    """Raise ValueError for a bad ``mesh`` and NotImplementedError for the
+    options the port lacks."""
+    if tc.mesh not in ("off", "auto", "on"):
+        raise ValueError(f"trainer.mesh={tc.mesh!r} (expected 'off', 'auto', "
+                         "or 'on')")
+    if tc.mesh_pipe > 1 or tc.pipeline_microbatches or tc.sequence_parallel:
         raise NotImplementedError(
-            "multi-device training (mesh, tensor/pipeline/sequence "
-            "parallelism, fsdp) is not ported yet (ROADMAP.md Queue 1, "
-            "item 5: multi-GPU)")
+            "GPipe pipelining (mesh_pipe, pipeline_microbatches) and "
+            "sequence parallelism are not ported yet (ROADMAP.md Queue 1, "
+            "item 5b)")
+
+
+def trainer_mesh(tc: TrainerConfig, device) -> Mesh:
+    """The trainer's mesh by JAX's rule (``trainer.py:152-160``): over
+    ``mesh_devices`` when ``mesh`` is "on", or "auto" with more than one
+    device in the run (counting every process's, as ``jax.devices()``
+    does), or ``mesh_model`` > 1 or ``fsdp`` ask for one (never when
+    "off"); else the ``1 x 1`` mesh of ``device``.  Raises ValueError for
+    ``mesh="off"`` under several processes: each would train a model of its
+    own on its share of the rows."""
+    processes = world()[1]
+    if tc.mesh != "off":
+        devices = tc.mesh_devices
+        if devices is None and torch.device(device).type != "cuda":
+            raise ValueError("a mesh on the CPU needs trainer.mesh_devices "
+                             "(e.g. ['cpu'] * 8)")
+        mesh = make_mesh(n_model=tc.mesh_model, devices=devices)
+        if (tc.mesh == "on" or tc.mesh_model > 1 or tc.fsdp
+                or mesh.n_data * mesh.n_model * processes > 1):
+            return mesh
+    if processes > 1:
+        raise ValueError(
+            f"trainer.mesh={tc.mesh!r} under {processes} processes would "
+            "train a model a process: set trainer.mesh to 'auto' or 'on'")
+    return make_mesh(devices=[device])
 
 
 class MetricsLogger:
@@ -91,7 +145,7 @@ class MetricsLogger:
         os.makedirs(exp_dir, exist_ok=True)
         self.path = os.path.join(exp_dir, "metrics.jsonl")
         self.wandb = None
-        if use_wandb:
+        if use_wandb and is_main_process():
             try:
                 import wandb
             except ImportError:
@@ -101,6 +155,8 @@ class MetricsLogger:
                 wandb.init(**(wandb_kwargs or {}))
 
     def log(self, metrics: Dict[str, Any], step: int) -> None:
+        if not is_main_process():
+            return
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()
                                 if np.ndim(v) == 0}}
         with open(self.path, "a") as f:
@@ -137,26 +193,59 @@ class DeSTA25Trainer:
         self.tcfg = trainer_config
         self.metrics = logger_ or MetricsLogger(trainer_config.exp_dir)
         self.accuracy = ConsecutiveWordsAccuracyMetric()
+        self.mesh = trainer_mesh(trainer_config, model.device)
+        bs = collate_fn.data_cfg.batch_size
+        if bs % self.mesh.n_data:
+            raise ValueError(
+                f"batch_size={bs} not divisible by the mesh's data axis "
+                f"({self.mesh.n_data}); pick a divisible batch size or a "
+                f"larger mesh_model")
         self.optimizer = make_optimizer(optimizer_config)
+        self.layout: Optional[TrainLayout] = None
+        self._owners: Optional[Dict[str, Any]] = None
         self.train_step = make_train_step(self.config, self.optimizer,
                                           remat=trainer_config.remat)
-        self.eval_step = make_eval_step(self.config,
-                                        remat=trainer_config.remat)
         self.global_step = 0
 
     # -- helpers ----------------------------------------------------------
 
+    def _layout(self) -> TrainLayout:
+        """The frozen towers laid out on the mesh, and the eval step there
+        (made at first use: a cut LLM takes device memory)."""
+        if self.layout is None:
+            import torch.distributed as dist
+            group = dist.group.WORLD if world()[1] > 1 else None
+            self.layout = TrainLayout(self.mesh, self.model.split_params()[1],
+                                      self.config, group)
+            self.eval_step = make_eval_step(self.config, self.layout,
+                                            remat=self.tcfg.remat)
+        return self.layout
+
+    def _shard_state(self, trainable) -> Dict[str, Any]:
+        """The trainable leaves' owners on the mesh: with ``fsdp`` the large
+        ones cut over the data rows (``Shards``), the others whole on the
+        first row's device (the model's own tensors where that is their
+        device)."""
+        return shard_trainable(flatten_tree(trainable), self.mesh,
+                               fsdp=self.tcfg.fsdp)
+
+    def _write_back(self, owners: Dict[str, Any]) -> None:
+        """The owners' values into the model's trainable tensors."""
+        with torch.no_grad():
+            for k, t in flatten_tree(self.model.split_params()[0]).items():
+                o = owners[k]
+                if isinstance(o, Shards) or o.data_ptr() != t.data_ptr():
+                    t.copy_(gather_leaf(o, t.device))
+
     def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The batch's arrays on the model's device; integer arrays as
-        int64 (index tensors)."""
-        dev = self.model.device
+        """The batch's arrays as host tensors, for the step to split over
+        the data rows and move to their devices; integer arrays as int64
+        (index tensors)."""
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray):
                 t = torch.as_tensor(v)
-                if not t.is_floating_point():
-                    t = t.long()
-                out[k] = t.to(dev)
+                out[k] = t if t.is_floating_point() else t.long()
         return out
 
     def _steps_per_epoch(self) -> int:
@@ -172,21 +261,23 @@ class DeSTA25Trainer:
     # -- train ------------------------------------------------------------
 
     def train(self, resume_from_checkpoint: Optional[str] = None):
-        trainable, frozen = self.model.split_params()
-        for t in flatten_tree(trainable).values():
-            t.requires_grad_(True)
-        opt_state = self.optimizer.init(flatten_tree(trainable))
+        layout = self._layout()
+        trainable = self._owners = self._shard_state(
+            self.model.split_params()[0])
+        opt_state = self.optimizer.init(trainable)
         start_epoch = 0
         if resume_from_checkpoint:
-            trainable, opt_state, self.global_step = restore_train_state(
-                resume_from_checkpoint, trainable, opt_state)
+            # the values are copied into the owners
+            _, opt_state, self.global_step = restore_train_state(
+                resume_from_checkpoint, unflatten_tree(trainable), opt_state)
             start_epoch = self.global_step // self._steps_per_epoch()
             logger.info("resumed from step %d (epoch %d)", self.global_step,
                         start_epoch)
         elif self.tcfg.eval_before_train and self.eval_dataset is not None:
             self.evaluate(tag="initial")
-            save_train_state(self.tcfg.exp_dir, 0, trainable, opt_state,
-                             self.config, keep=self.tcfg.keep_checkpoints)
+            save_train_state(self.tcfg.exp_dir, 0, unflatten_tree(trainable),
+                             opt_state, self.config,
+                             keep=self.tcfg.keep_checkpoints)
 
         val_every = self._val_every()
         t_last = time.time()
@@ -216,7 +307,7 @@ class DeSTA25Trainer:
                             # this step's adapter-dropout seed (peft train())
                             db["lora_seed"] = self.global_step
                         trainable, opt_state, metrics = self.train_step(
-                            trainable, frozen, opt_state, db)
+                            trainable, layout, opt_state, db)
                         if not stepped_ok:
                             # an allocation failure surfaces here
                             metrics = {k: float(v)
@@ -242,10 +333,10 @@ class DeSTA25Trainer:
                         if 0 < self.tcfg.max_steps <= self.global_step:
                             break
                 except torch.cuda.OutOfMemoryError:
-                    if (not self.tcfg.auto_find_batch_size or stepped_ok
-                            or bs <= 1):
-                        raise
                     new_bs = max(bs // 2, 1)
+                    if (not self.tcfg.auto_find_batch_size or stepped_ok
+                            or bs <= 1 or new_bs % self.mesh.n_data):
+                        raise
                     logger.warning(
                         "device OOM at batch_size=%d; retrying the epoch at "
                         "batch_size=%d (auto_find_batch_size)", bs, new_bs)
@@ -257,14 +348,16 @@ class DeSTA25Trainer:
                 break
             if self.tcfg.save_strategy == "epoch":
                 save_train_state(self.tcfg.exp_dir, self.global_step,
-                                 trainable, opt_state, self.config,
+                                 unflatten_tree(trainable), opt_state,
+                                 self.config,
                                  keep=self.tcfg.keep_checkpoints)
             if 0 < self.tcfg.max_steps <= self.global_step:
                 break
 
-        save_train_state(self.tcfg.exp_dir, self.global_step, trainable,
-                         opt_state, self.config,
+        save_train_state(self.tcfg.exp_dir, self.global_step,
+                         unflatten_tree(trainable), opt_state, self.config,
                          keep=self.tcfg.keep_checkpoints)
+        self._write_back(trainable)
         self.opt_state = opt_state
         return self.model
 
@@ -273,8 +366,18 @@ class DeSTA25Trainer:
     @torch.no_grad()
     def evaluate(self, tag: str = "val") -> Dict[str, Any]:
         """Eval loss / ppl and greedy generation from the context view,
-        with the per-category accuracy report."""
+        with the per-category accuracy report.  The loss runs on the mesh
+        (this process's eval rows) and the generation on the model's device
+        with the trained values written back; the main process writes the
+        report of its rows."""
         assert self.eval_dataset is not None
+        self._layout()
+        owners = self._owners
+        if owners is None:
+            owners = self._shard_state(self.model.split_params()[0])
+        else:
+            # generation reads the model's own tensors
+            self._write_back(owners)
         losses: List[float] = []
         results: List[Dict[str, Any]] = []
         self.accuracy.reset()
@@ -285,8 +388,9 @@ class DeSTA25Trainer:
             if batch.get("_empty_batch"):
                 continue
             db = self._device_batch(batch)
-            m = self.eval_step(self.model.params, db)
+            m = self.eval_step(owners, db)
             losses.append(float(m["lm_loss"]))
+            db = {k: v.to(self.model.device) for k, v in db.items()}
             gen = dict(db)
             for key in ("input_ids", "attention_mask", "kind", "aidx", "pos"):
                 gen[key] = db[f"context_{key}"]
@@ -339,17 +443,18 @@ class DeSTA25Trainer:
             per_cat.setdefault(r["dataset"], []).append(r["correct"])
         for cat, oks in sorted(per_cat.items()):
             report[f"accuracy/{cat}"] = float(np.mean(oks))
-        os.makedirs(self.tcfg.exp_dir, exist_ok=True)
-        base = os.path.join(self.tcfg.exp_dir, f"val@{tag}")
-        with open(base + ".jsonl", "w") as f:
-            for r in results:
-                f.write(json.dumps(r) + "\n")
-        full = dict(report)
-        full["config"] = self.config.to_dict()
-        full["git_commit"] = _git_commit()
-        full["step"] = self.global_step
-        with open(base + "-report.json", "w") as f:
-            json.dump(full, f, indent=2)
+        if is_main_process():
+            os.makedirs(self.tcfg.exp_dir, exist_ok=True)
+            base = os.path.join(self.tcfg.exp_dir, f"val@{tag}")
+            with open(base + ".jsonl", "w") as f:
+                for r in results:
+                    f.write(json.dumps(r) + "\n")
+            full = dict(report)
+            full["config"] = self.config.to_dict()
+            full["git_commit"] = _git_commit()
+            full["step"] = self.global_step
+            with open(base + "-report.json", "w") as f:
+                json.dump(full, f, indent=2)
         logger.info("eval %s: %s", tag, {k: v for k, v in report.items()
                                          if isinstance(v, (int, float))})
         return report

@@ -1820,7 +1820,8 @@ def _nano_train_pair(devices=("cuda", "cpu"), fault=None, **kw):
     from desta25_audio_tpu_torch import DeSTA25AudioModel, DeSTA25Config
     from desta25_audio_tpu_torch.train.optimizer import (
         OptimizerConfig, flatten_tree, make_optimizer)
-    from desta25_audio_tpu_torch.train.step import make_train_step
+    from desta25_audio_tpu_torch.train.step import (TrainLayout,
+                                                    make_train_step)
     cfg = DeSTA25Config(**dict(dict(
         llm_model_id="test/llama-nano128",
         encoder_model_id="test/whisper-nano", qformer_num_hidden_layers=2,
@@ -1863,7 +1864,8 @@ def _nano_train_pair(devices=("cuda", "cpu"), fault=None, **kw):
         _build.reset_launch_counts()
         with (fault or contextlib.nullcontext)() if dev == "cuda" else (
                 contextlib.nullcontext()):
-            _, _, m = step(tr, fr, tx.init(leaves), {
+            _, _, m = step(tr, TrainLayout(None, fr, model.config),
+                           tx.init(leaves), {
                 k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
         out[dev] = {k: float(v) for k, v in m.items()}
         if dev == "cuda":

@@ -151,7 +151,12 @@ def test_outside_the_slice_raises(override, match):
 
 
 @pytest.mark.parametrize("module", ["native", "native.build", "audio.io",
-                                    "data.prefetch", "ckpt.lora_io"])
+                                    "data.prefetch", "ckpt.lora_io",
+                                    "parallel.distributed",
+                                    "parallel.sharding", "parallel.mesh",
+                                    "train.step", "train.optimizer",
+                                    "train.trainer", "ckpt.checkpoint",
+                                    "data.dataset", "cli.train"])
 def test_new_modules_import_neither_jax_nor_the_jax_package(module):
     path = PKG / (module.replace(".", "/") + ".py")
     if not path.exists():

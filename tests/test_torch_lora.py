@@ -332,12 +332,13 @@ def test_nano_lora_train_step_matches_jax(models, corpus):
         t.requires_grad_(True)
     tst = ttx.init(topt.flatten_tree(ttr))
     tstep_fn = tstep.make_train_step(tm.config, ttx, remat=True)
+    tlay = tstep.TrainLayout(None, tfr, tm.config)
     tb = {k: (torch.as_tensor(v) if v.dtype.kind == "f"
               else torch.as_tensor(v).long())
           for k, v in batch.items() if isinstance(v, np.ndarray)}
     tms = []
     for _ in range(2):
-        ttr, tst, m = tstep_fn(ttr, tfr, tst, tb)
+        ttr, tst, m = tstep_fn(ttr, tlay, tst, tb)
         tms.append({k: float(v) for k, v in m.items()})
     for j, t in zip(jms, tms):
         for k in ("lm_loss", "loss", "grad_norm"):

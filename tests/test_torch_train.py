@@ -339,12 +339,13 @@ def _step_pair(corpus, dtype, monkeypatch, max_seq_length=512, **extra):
         t.requires_grad_(True)
     tst = ttx.init(topt.flatten_tree(ttr))
     tstep_fn = tstep.make_train_step(cfg, ttx, remat=True)
+    tlay = tstep.TrainLayout(None, tfr, cfg)
     tb = {k: (torch.as_tensor(v) if v.dtype.kind == "f"
               else torch.as_tensor(v).long())
           for k, v in batch.items() if isinstance(v, np.ndarray)}
     tms = []
     for _ in range(3):
-        ttr, tst, m = tstep_fn(ttr, tfr, tst, tb)
+        ttr, tst, m = tstep_fn(ttr, tlay, tst, tb)
         tms.append({k: float(v) for k, v in m.items()})
     return jms, tms, jtr, ttr, init, (jgrads, ttx.grads), uses
 
@@ -549,10 +550,14 @@ def test_cli_trains_the_debug_config(corpus, tmp_path):
               f"resume_from_checkpoint={exp}"])
 
 
-@pytest.mark.parametrize("what", ["mesh", "fsdp"])
+@pytest.mark.parametrize("what", ["mesh_pipe", "pipeline_microbatches",
+                                  "sequence_parallel"])
 def test_outside_the_training_slice_raises(corpus, tmp_path, what):
     # (num_workers > 0 trains through data/prefetch.PrefetchLoader:
-    # tests/test_torch_native.py and tests/test_torch_lora.py)
-    kw = {"mesh": "auto"} if what == "mesh" else {"fsdp": True}
-    with pytest.raises(NotImplementedError, match="Queue 1, item"):
+    # tests/test_torch_native.py and tests/test_torch_lora.py; a mesh and
+    # fsdp train: tests/test_torch_train_mesh.py)
+    kw = {"mesh_pipe": {"mesh_pipe": 2},
+          "pipeline_microbatches": {"pipeline_microbatches": 2},
+          "sequence_parallel": {"sequence_parallel": True}}[what]
+    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
         _trainer(corpus, tmp_path, **kw)

@@ -212,9 +212,10 @@ def test_nano_orca_train_step_matches_jax(model_id):
         t.requires_grad_(True)
     tst = ttx.init(topt.flatten_tree(ttr))
     tstep_fn = tstep.make_train_step(tm.config, ttx, remat=True)
+    tlay = tstep.TrainLayout(None, tfr, tm.config)
     tms = []
     for _ in range(3):
-        ttr, tst, m = tstep_fn(ttr, tfr, tst, tb)
+        ttr, tst, m = tstep_fn(ttr, tlay, tst, tb)
         tms.append({k: float(v) for k, v in m.items()})
 
     for j, t in zip(jms, tms):
