@@ -425,6 +425,19 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     concatenated within TOL_TRAIN_PROC; (c) the ORCA yaml of Qwen3-0.6B
     (full width, D=1024, L=28) for 2 steps on one device, then 2 with
     ``fsdp`` on a (2, 1) virtual mesh, held alike.
+32. GPipe pipelining and sequence parallelism (run beside 31a, on the same
+    model, batches and one-device rows): (a) ``DeSTA25Trainer`` with
+    ``mesh_pipe=2`` on two virtual ranks of the card (the LLM's 32 layers
+    in 2 stages of views), 3 steps at ``pipeline_microbatches`` 2, then 2
+    at 4: each step's lm_loss and grad_norm against phase 23's within
+    TOL_TRAIN_MESH_LOSS / _GN beside the control, K11 launched M times
+    each of phase 23's launches (64 M forward, 96 M backward a step, at
+    B / M rows), ms a step and peak memory; (b) a (1, 2, 2) mesh
+    (tensor-parallel 2 x pipe 2) on four virtual ranks, 2 steps, held
+    alike, K11 at H/2 heads; (c) 31a's (1, 2) steps again with
+    ``sequence_parallel=True``: lm_loss and grad_norm equal to 31a's
+    (TOL_TRAIN_SP) beside the control, both runs' peaks; no torch path
+    taken (``_build.fallback_counts()``); the phase's seconds.
 
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
@@ -479,11 +492,14 @@ runs phases 1-3 and 30 alone (work on the decoders, the loader and LoRA).
 
     python3 chip_smoke.py --train-mesh-only [--cards]
 
-runs phases 1-3 and 31 alone on a fresh flagship training model (its
+runs phases 1-3, 31 and 32 alone on a fresh flagship training model (its
 one-device reference run first); with ``--cards`` (four cards) the flagship
 Q-Former at (4, 1) with fsdp and at (2, 2) over the cards, four processes
-one a card over NCCL, and the flagship ORCA step with fsdp over the four
-cards beside its one-card run, each with each card's peak memory.
+one a card over NCCL, phase 32 with its stages and ranks on distinct cards
+(GPipe over cards 0-1, (1, 2, 2) over the four, sequence parallelism over
+cards 0-1 beside the same (1, 2) run without it), and the flagship ORCA
+step with fsdp over the four cards beside its one-card run, each with each
+card's peak memory.
 
     python3 chip_smoke.py --http-rounds N
 
@@ -642,6 +658,21 @@ TOL_TRAIN_MESH_U = 1e-5  # phase 31: a step's update of the leaves fsdp cuts
                      # whatever the gradient's size, so leaves whose
                      # gradient is rounding noise at equal parameters move
                      # apart by ~lr an element
+TOL_TRAIN_SP = 0.0  # phase 32c: a train step's lm_loss and grad_norm with
+                     # sequence parallelism against the same (1, 2) step
+                     # without it (relative): RMSNorm is per row and each
+                     # slice of the reduce-scatter sums the ranks' f32
+                     # products in the order the whole sum does, and the
+                     # backward sums the same two terms a tensor, so the
+                     # numbers are the same bit for bit
+TOL_TRAIN_PIPE = 0.0  # phase 32a / 32b: a GPipe step's lm_loss, grad_norm
+                       # and gradient samples (relative) against the same
+                       # step without a pipe (32a: phase 23's one device;
+                       # 32b: the (1, 2) step): a stage runs the same layer
+                       # on each microbatch's rows that one device runs on
+                       # the batch (K11 and the products are per row), so
+                       # the numbers are the same bit for bit; a race
+                       # between the stages' streams would show here
 TOL_TRAIN_PROC = 1e-5  # phase 31b: processes, each a 1 x 1 mesh, vs one
                      # process's (n, 1) mesh on their batches: the same
                      # rows on the same shapes a device, the gradients of
@@ -6862,7 +6893,7 @@ class MeshStepProbe:
         trainer._layout()
         self.trainer, self.rows = trainer, []
         self.replay = None
-        self.cards = sorted({d for row in trainer.mesh.devices for d in row
+        self.cards = sorted({d for d in trainer.mesh.all_devices()
                              if d.type == "cuda"}, key=str)
         self.real = trainer.train_step
         trainer.train_step = self
@@ -6985,9 +7016,11 @@ def mesh_train_run(label: str, model, ds, collate, ocfg, exp: str,
     one-device run's are printed, not gated (:func:`trained_err`); K11
     forward and
     backward launched once a rank for each of the one-device step's
-    launches, at H / mesh_model heads; under fsdp every leaf
-    ``fsdp_partition_specs`` cuts still cut after the steps.  Prints a line
-    a step.  Returns the probe's rows."""
+    launches (on a pipe mesh with ``pipeline_microbatches`` M, M times: a
+    stage runs its layers once a microbatch at B / M rows), at H /
+    mesh_model heads; under fsdp every leaf ``fsdp_partition_specs`` cuts
+    still cut after the steps.  Prints a line a step.  Returns the probe's
+    rows."""
     import torch
     from desta25_audio_tpu_torch.parallel.sharding import (
         Shards, fsdp_partition_specs)
@@ -7001,6 +7034,8 @@ def mesh_train_run(label: str, model, ds, collate, ocfg, exp: str,
     trainer = DeSTA25Trainer(model, ds, None, collate, ocfg, tcfg)
     mesh = trainer.mesh
     ranks = mesh.n_data * mesh.n_model
+    micro = (max(trainer.tcfg.pipeline_microbatches, 1) if mesh.n_pipe > 1
+             else 1)
     t0 = time.perf_counter()
     probe = MeshStepProbe(trainer)
     layout_s = time.perf_counter() - t0
@@ -7028,7 +7063,10 @@ def mesh_train_run(label: str, model, ds, collate, ocfg, exp: str,
         fw = r["launches"].get("flash_attention", 0)
         bw = r["launches"].get("flash_attention_bwd", 0)
         B, T = r["shape"]
-        print(f"{label} ({mesh.n_data}x{mesh.n_model}, "
+        shape = f"{mesh.n_data}x{mesh.n_model}" + (
+            f"x{mesh.n_pipe}, M={micro}" if mesh.n_pipe > 1 else "") + (
+            ", sp" if trainer.tcfg.sequence_parallel else "")
+        print(f"{label} ({shape}, "
               f"fsdp={trainer.tcfg.fsdp}) step {i + 1} B={B} T={T} ({gpu}): "
               f"{r['ms']:.1f} ms (one device {w['ms']:.1f}), peak "
               f"{' / '.join(f'{p:.2f}' for p in r['peaks_gib'])} GiB "
@@ -7045,9 +7083,9 @@ def mesh_train_run(label: str, model, ds, collate, ocfg, exp: str,
               f"per shard, {'-' if ctl_u is None else f'{ctl_u:.2e}'}); "
               f"trained leaves {err_w:.2e} (worst leaf {worst[1]:.2e}, "
               f"{worst[0]}; not gated), one update behind "
-              f"{'-' if ctl_w is None else f'{ctl_w:.2e}'}; K11 a rank "
-              f"{fw / ranks:g} "
-              f"forward at {r['heads']} heads, {bw / ranks:g} backward "
+              f"{'-' if ctl_w is None else f'{ctl_w:.2e}'}; K11 "
+              f"{fw:g} forward, {bw:g} backward ({fw / ranks:g} / "
+              f"{bw / ranks:g} a rank) at {r['heads']} heads "
               f"(one device {w['launches'].get('flash_attention', 0)}, "
               f"{w['launches'].get('flash_attention_bwd', 0)})", flush=True)
         if not (err_loss <= tol[0] and err_gn <= tol[1]):
@@ -7063,8 +7101,9 @@ def mesh_train_run(label: str, model, ds, collate, ocfg, exp: str,
         if err_u is not None and not err_u <= TOL_TRAIN_MESH_U:
             raise AssertionError(f"{label} step {i + 1}: the update part "
                                  f"from the whole rule's: {err_u:.3e}")
-        if fw != ranks * w["launches"].get("flash_attention", -1) \
-                or bw != ranks * w["launches"].get("flash_attention_bwd", -1) \
+        if fw != ranks * micro * w["launches"].get("flash_attention", -1) \
+                or bw != ranks * micro * w["launches"].get(
+                    "flash_attention_bwd", -1) \
                 or r["heads"] != [H // mesh.n_model]:
             raise AssertionError(f"{label} step {i + 1}: K11 launches "
                                  f"{fw} / {bw} at heads {r['heads']}")
@@ -7423,27 +7462,127 @@ def run_train_mesh(gpu: str, tmpdir: str, model, start, ref,
     ds, collate = train_data(model.config, model, tmpdir, manifest)
     for n_data, n_model, fsdp in ((2, 1, True), (1, 2, False)):
         restore_trainable(model, start)
-        mesh_train_run("flagship-train-mesh (31a)", model, ds, collate,
-                       OptimizerConfig(**ocfg_kw),
-                       os.path.join(tmpdir, f"exp31a{n_data}{n_model}"), 3,
-                       ref, gpu, mesh_model=n_model, fsdp=fsdp,
-                       mesh_devices=["cuda:0"] * (n_data * n_model))
+        rows = mesh_train_run("flagship-train-mesh (31a)", model, ds, collate,
+                              OptimizerConfig(**ocfg_kw),
+                              os.path.join(tmpdir, f"exp31a{n_data}{n_model}"),
+                              3, ref, gpu, mesh_model=n_model, fsdp=fsdp,
+                              mesh_devices=["cuda:0"] * (n_data * n_model))
     t1 = time.perf_counter()
+    # 32: GPipe and sequence parallelism, beside 31a's (1, 2) rows
+    run_pipeline_sp(gpu, tmpdir, model, start, ref, ds, collate,
+                    ["cuda:0"] * 4, rows)
+    t2 = time.perf_counter()
     run_processes("flagship-train-processes (31b)", 2, tmpdir, manifest, gpu,
                   "gloo", False, model, start, ocfg_kw)
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
     run_orca_qwen_mesh(gpu, tmpdir)
-    print(f"phase 31 took {time.perf_counter() - t0:.1f} s (31a "
-          f"{t1 - t0:.1f}, 31b {t2 - t1:.1f}, 31c "
-          f"{time.perf_counter() - t2:.1f}) ({gpu})", flush=True)
+    print(f"phase 31 took {time.perf_counter() - t0 - (t2 - t1):.1f} s (31a "
+          f"{t1 - t0:.1f}, 31b {t3 - t2:.1f}, 31c "
+          f"{time.perf_counter() - t3:.1f}) ({gpu})", flush=True)
+
+
+def run_pipeline_sp(gpu: str, tmpdir: str, model, start, ref, ds, collate,
+                    devices, tp_rows=None) -> None:
+    """32.  The flagship Q-Former model (from ``start``) at B=4 T=512 on
+    phase 23's batches, each step held against the one-device rows ``ref``
+    by :func:`mesh_train_run` (lm_loss, grad_norm, the gradients at equal
+    parameters, K11 M launches a one-device launch a rank) and against the
+    same step without the option (:func:`same_steps`): (a) GPipe over a
+    pipe of 2 stages (``devices[:2]``), 3 steps at ``pipeline_microbatches``
+    2, then 2 at 4, against ``ref`` itself within TOL_TRAIN_PIPE (0: bit for
+    bit); (b) dp x tp x pp on a (1, 2, 2) mesh of ``devices[:4]``, 2 steps
+    at M = 2 (K11 at H/2 heads), against the (1, 2) steps without a pipe
+    (``tp_rows``: phase 31a's; None: run here on ``devices[:2]``) within
+    TOL_TRAIN_PIPE; (c) sequence parallelism on a (1, 2) mesh of
+    ``devices[:2]``, 3 steps, against the same (1, 2) steps within
+    TOL_TRAIN_SP (0), and both runs' peaks.  No torch path
+    (``_build.fallback_counts()``) is taken.  ``devices``: ``["cuda:0"] *
+    4`` (virtual ranks of one card), or four cards.  Prints the phase's
+    seconds and what it left allocated on each card: PyTorch keeps a cuBLAS
+    workspace for every stream that ran a GEMM, here each stage's, so the
+    phase then frees those (``torch._C._cuda_clearCublasWorkspaces``) to
+    leave the later phases' peaks as they were without it."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.train.optimizer import OptimizerConfig
+    t0 = time.perf_counter()
+    taken = _build.fallback_counts()
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    held = [torch.cuda.memory_allocated(c) for c in cards]
+    ocfg_kw = dict(lr=1e-4, warmup_steps=2, total_steps=100)
+    one = ref["rows"]
+    ctl = abs(one[1]["metrics"]["lm_loss"] - one[0]["metrics"]["lm_loss"]
+              ) / abs(one[0]["metrics"]["lm_loss"])
+
+    def run(tag: str, steps: int, **kw):
+        restore_trainable(model, start)
+        return mesh_train_run(
+            f"flagship-train-pipe ({tag})", model, ds, collate,
+            OptimizerConfig(**ocfg_kw),
+            os.path.join(tmpdir, f"exp{tag}_{len(kw)}"), steps, ref, gpu,
+            **kw)
+
+    def peaks(row) -> str:        # a mesh run's per card, one device's
+        return " / ".join(f"{p:.2f}" for p in row.get("peaks_gib")
+                          or [row["peak_gib"]])
+
+    def same_steps(tag: str, rows, want, what: str, gate: float):
+        for i, (r, w) in enumerate(zip(rows, want)):
+            m, wm = r["metrics"], w["metrics"]
+            errs = [abs(m[k] - wm[k]) / abs(wm[k]) for k in ("lm_loss",
+                                                              "grad_norm")]
+            errs.append(rel_l2(r["grads"], w["grads"]))
+            print(f"flagship-train-pipe ({tag}) step {i + 1} ({gpu}): "
+                  f"lm_loss {m['lm_loss']!r} grad_norm {m['grad_norm']!r}, "
+                  f"{what} {wm['lm_loss']!r} / {wm['grad_norm']!r}: rel "
+                  f"{errs[0]:.2e} / {errs[1]:.2e}, gradients {errs[2]:.2e} "
+                  f"(gate {gate:g}; control, the one-device run's next "
+                  f"batch, {ctl:.2e}); {r['ms']:.1f} ms against "
+                  f"{w['ms']:.1f}, peak {peaks(r)} GiB against {peaks(w)}",
+                  flush=True)
+            if max(errs) > gate:
+                raise AssertionError(f"{tag} step {i + 1}: parts from "
+                                     f"{what}: {errs}")
+    for M, steps in ((2, 3), (4, 2)):
+        same_steps(f"32a, M={M}", run("32a", steps, mesh_pipe=2,
+                                      pipeline_microbatches=M,
+                                      mesh_devices=devices[:2]),
+                   one, "one device", TOL_TRAIN_PIPE)
+    if tp_rows is None:
+        tp_rows = run("32c without sp", 3, mesh_model=2,
+                      mesh_devices=devices[:2])
+    same_steps("32b", run("32b", 2, mesh_model=2, mesh_pipe=2,
+                          pipeline_microbatches=2, mesh_devices=devices[:4]),
+               tp_rows, "the (1, 2) step", TOL_TRAIN_PIPE)
+    same_steps("32c", run("32c", 3, mesh_model=2, sequence_parallel=True,
+                          mesh_devices=devices[:2]),
+               tp_rows, "without sequence parallelism", TOL_TRAIN_SP)
+    if not ctl > 0.0:
+        raise AssertionError("32: the control reads 0")
+    new = {k: v - taken.get(k, 0) for k, v in _build.fallback_counts().items()
+           if v != taken.get(k, 0)}
+    if new:
+        raise AssertionError(f"phase 32 took torch paths: {new}")
+    left = [torch.cuda.memory_allocated(c) for c in cards]
+    torch._C._cuda_clearCublasWorkspaces()
+    after = [torch.cuda.memory_allocated(c) for c in cards]
+
+    def gib(xs):
+        return " / ".join(f"{(x - h) / 2 ** 30:+.3f}"
+                          for x, h in zip(xs, held))
+    print(f"phase 32 took {time.perf_counter() - t0:.1f} s, no torch path "
+          f"taken; left allocated beyond what it found {gib(left)} GiB, "
+          f"{gib(after)} once the cuBLAS workspaces are freed ({gpu})",
+          flush=True)
 
 
 def train_mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
-    """``--train-mesh-only``: phase 31 alone on a fresh flagship training
-    model and corpus (its one-device reference run first); ``--cards``: on
-    four cards instead, the flagship Q-Former at (4, 1) with fsdp and at
-    (2, 2), four processes one a card over NCCL, and the flagship ORCA step
-    with fsdp over the four cards beside its one-card run."""
+    """``--train-mesh-only``: phases 31 and 32 alone on a fresh flagship
+    training model and corpus (its one-device reference run first);
+    ``--cards``: on four cards instead, the flagship Q-Former at (4, 1) with
+    fsdp and at (2, 2), four processes one a card over NCCL, phase 32 over
+    the cards, and the flagship ORCA step with fsdp over the four cards
+    beside its one-card run."""
     import torch
     from desta25_audio_tpu_torch import DeSTA25AudioModel
     from desta25_audio_tpu_torch.config import config_from_yaml_file
@@ -7478,6 +7617,7 @@ def train_mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
             run_processes("flagship-train-processes-cards", 4, d, manifest,
                           gpu, "nccl", True, model, start, ocfg_kw,
                           batch_size=1)
+            run_pipeline_sp(gpu, d, model, start, ref, ds, collate, cards4)
             del model, start
             gc.collect()
             torch.cuda.empty_cache()

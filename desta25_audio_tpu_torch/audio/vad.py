@@ -7,10 +7,11 @@ clips without user transcription go through ASR.)
 
 Offline default here is an energy+spectral VAD with hangover smoothing; a
 real silero model takes over when ``DESTA_SILERO_JIT`` names its
-TorchScript export (staged by ``scripts/fetch_silero.py``).  VAD gates host
-control flow, not device math, so it stays on the host.  (Re-homed from
-``desta25_audio_tpu/audio/vad.py`` for the PyTorch port; the JAX package's
-ONNX loader is not carried over.)
+TorchScript export (staged by ``scripts/fetch_silero.py``) or, failing
+that, when ``DESTA_SILERO_ONNX`` names its ONNX export and ``onnxruntime``
+is importable: the JAX package's order (``desta25_audio_tpu/audio/vad.py``,
+re-homed here for the PyTorch port).  VAD gates host control flow, not
+device math, so it stays on the host.
 
 Failure economics (why the heuristic is deliberately RECALL-biased, and
 tested so on the reference's real clips — tests/test_vad_real_clips.py):
@@ -104,6 +105,30 @@ def _probs_to_segments(probs: np.ndarray, threshold: float = 0.5
     return segs
 
 
+class SileroOnnxVAD:
+    """silero-vad via its ONNX export and ``onnxruntime`` (CPU provider):
+    512-sample frames, the model's recurrent state (2, 1, 128) f32 carried
+    from frame to frame and reset per clip, ``sr`` as an int64 scalar."""
+
+    def __init__(self, model_path: str):
+        import onnxruntime as ort
+        self.sess = ort.InferenceSession(
+            model_path, providers=["CPUExecutionProvider"])
+
+    def speech_probs(self, audio: np.ndarray, sr: int = 16000) -> np.ndarray:
+        state = np.zeros((2, 1, 128), np.float32)
+        probs = []
+        for frame in _frame_signal(audio):
+            out, state = self.sess.run(
+                None, {"input": frame[None], "state": state,
+                       "sr": np.array(sr, np.int64)})
+            probs.append(float(np.asarray(out).reshape(-1)[0]))
+        return np.asarray(probs)
+
+    def get_speech_timestamps(self, audio, sr=16000, threshold=0.5):
+        return _probs_to_segments(self.speech_probs(audio, sr), threshold)
+
+
 class SileroJitVAD:
     """silero-vad via its published TorchScript export.
 
@@ -136,14 +161,40 @@ class SileroJitVAD:
 _silero = None
 
 
+def _onnx_errors() -> tuple:
+    """What a missing or broken onnxruntime raises: ImportError, OSError
+    (its shared library), RuntimeError, and the runtime's own errors
+    (``onnxruntime.capi.onnxruntime_pybind11_state.Fail`` and kin, where
+    the runtime imports)."""
+    errors = (ImportError, OSError, RuntimeError)
+    try:
+        from onnxruntime.capi import onnxruntime_pybind11_state as state
+    except (ImportError, OSError, AttributeError):
+        return errors
+    own = tuple(e for e in vars(state).values()
+                if isinstance(e, type) and issubclass(e, Exception))
+    return errors + own
+
+
 def _load_silero():
-    """The configured silero TorchScript VAD, or None (energy VAD)."""
+    """The configured silero VAD, or None (the energy VAD), in the JAX
+    package's order: the TorchScript export (``DESTA_SILERO_JIT``), then the
+    ONNX export (``DESTA_SILERO_ONNX``), then None.  A step that fails falls
+    through to the next: the TorchScript load on RuntimeError or OSError
+    (not a loadable file), the ONNX load on what :func:`_onnx_errors`
+    names.  Any other exception is a fault and propagates."""
     jit_path = os.environ.get("DESTA_SILERO_JIT")
     if jit_path and os.path.exists(jit_path):
         try:
             return SileroJitVAD(jit_path)
-        except (RuntimeError, OSError):  # not a loadable TorchScript file
-            return None
+        except (RuntimeError, OSError):
+            pass
+    onnx_path = os.environ.get("DESTA_SILERO_ONNX")
+    if onnx_path and os.path.exists(onnx_path):
+        try:
+            return SileroOnnxVAD(onnx_path)
+        except _onnx_errors():
+            pass
     return None
 
 

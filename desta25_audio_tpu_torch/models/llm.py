@@ -43,7 +43,11 @@ call a
 per-rank layer loop whose wo / down partials are summed in f32 across the
 ranks and rounded once, as the JAX package leaves it to XLA's psum.  The
 cache-less forward (training) runs under one data row's ``1 x p`` group the
-same per-rank loop, with K11 per rank at H/p, Hkv/p heads.
+same per-rank loop, with K11 per rank at H/p, Hkv/p heads; with
+``sequence_parallel`` the residual is cut over T between the blocks
+(:func:`_group_layer`).  On a pipe mesh (``parallel/sharding.pipe_stages``)
+the cache-less forward runs the stages as GPipe's schedule
+(``parallel/pipeline.py``) or one after the other.
 
 Parameters (layers stacked on a leading axis, linear weights ``[out, in]``):
 ``embed`` [V, D], ``lm_head`` [V, D] (untied only), ``norm``, and
@@ -83,6 +87,7 @@ from ..ops.qmm import W8A8_MIN_ROWS, quant_matmul
 from ..ops.quant import is_quantized
 from ..ops.rope import apply_rope, llm_rope_cos_sin
 from ..parallel.mesh import current_mesh, on_device
+from ..parallel.pipeline import pipeline_decoder_hidden, pipeline_enabled
 from ..parallel.sharding import (
     ShardedCache,
     ShardedLLM,
@@ -337,32 +342,47 @@ def _mlp_mid(p, x, l: int, w8a8: bool = True, row_scale: int = 1):
     return torch.nn.functional.silu(g.float()).to(x.dtype) * u
 
 
-def _rank_sum(ws, xs, l: int, device, w8a8: bool = True,
-              row_scale: int = 1) -> torch.Tensor:
-    """Sum over the ranks of one model group of xs[m] [..., K/p] through
-    their input-column shards ws[m] of layer l: each rank's product in f32,
-    unrounded, summed in rank order on ``device`` (what the JAX package's
-    XLA psum does on a mesh).  An int8 W8A8 product quantizes each row
-    with its amax over every rank's columns, the row's amax unsharded;
-    ``w8a8=False`` (training) keeps the weight-only product, its regime
-    read on ``row_scale`` times the rows (``quant_matmul``)."""
+def _rank_parts(ws, xs, l: int, w8a8: bool = True,
+                row_scale: int = 1) -> list:
+    """Each rank's product of xs[m] [..., K/p] through its input-column
+    shard ws[m] of layer l, in f32 and unrounded, on the rank's device.  An
+    int8 W8A8 product quantizes each row with its amax over every rank's
+    columns, the row's amax unsharded; ``w8a8=False`` (training) keeps the
+    weight-only product, its regime read on ``row_scale`` times the rows
+    (``quant_matmul``)."""
     amax = None
     if w8a8 and is_quantized(ws[0]) \
             and xs[0][..., :1].numel() >= W8A8_MIN_ROWS:
-        amax = torch.stack([x.float().abs().amax(-1, keepdim=True).to(device)
+        dev = xs[0].device
+        amax = torch.stack([x.float().abs().amax(-1, keepdim=True).to(dev)
                             for x in xs]).amax(0)
-    tot = None
+    parts = []
     for w, x in zip(ws, xs):
         with on_device(x.device):
             if is_quantized(w):
-                part = quant_matmul(
+                parts.append(quant_matmul(
                     x, {"q": w["q"][l], "s": w["s"][l]}, torch.float32,
                     row_amax=None if amax is None else amax.to(x.device),
-                    w8a8=w8a8, row_scale=row_scale)
+                    w8a8=w8a8, row_scale=row_scale))
             else:
-                part = matmul_f32(x, w[l].t())
+                parts.append(matmul_f32(x, w[l].t()))
+    return parts
+
+
+def _sum_on(parts, device) -> torch.Tensor:
+    """``parts`` summed in their order on ``device``."""
+    tot = None
+    for part in parts:
         tot = part.to(device) if tot is None else tot + part.to(device)
     return tot
+
+
+def _rank_sum(ws, xs, l: int, device, w8a8: bool = True,
+              row_scale: int = 1) -> torch.Tensor:
+    """Sum over the ranks of one model group of their products
+    (:func:`_rank_parts`), in f32 and in rank order on ``device``: what the
+    JAX package's XLA psum does on a mesh."""
+    return _sum_on(_rank_parts(ws, xs, l, w8a8, row_scale), device)
 
 
 def _mesh_layers(params: ShardedLLM, cfg: LLMConfig, x, cos, sin, mask,
@@ -417,27 +437,63 @@ def _mesh_layers(params: ShardedLLM, cfg: LLMConfig, x, cos, sin, mask,
 
 
 def _spans_cards(params) -> bool:
-    """True when a ``1 x p`` group's ranks lie on more than one device."""
-    return len({str(d) for d in params.mesh.devices[0]}) > 1
+    """True when a group's ranks (and a pipe mesh's stages) lie on more
+    than one device."""
+    return len(params.mesh.all_devices()) > 1
 
 
-def _group_layer(params: ShardedLLM, cfg: LLMConfig, l: int, x, pre, cos,
-                 sin, attention_mask, w8a8: bool,
-                 parts_remat: bool = False,
-                 row_scale: int = 1) -> torch.Tensor:
+def _split_seq(x: torch.Tensor, devices) -> tuple:
+    """The residual's slices over T, slice m on ``devices[m]``
+    (``torch.tensor_split``: T need not divide); one device: x whole."""
+    if len(devices) == 1:
+        return (x.to(devices[0]),)
+    return tuple(c.to(dev) for c, dev in
+                 zip(torch.tensor_split(x, len(devices), dim=1), devices))
+
+
+def _gather_seq(xs, device) -> torch.Tensor:
+    """The slices gathered whole on ``device`` (an all-gather's share)."""
+    if len(xs) == 1:
+        return xs[0].to(device)
+    return torch.cat([x.to(device) for x in xs], dim=1)
+
+
+def _scatter_sum(parts, xs) -> tuple:
+    """A reduce-scatter into the residual's slices ``xs``: slice m of the
+    ranks' f32 products ``parts`` (each [B, T, D] on its rank), summed in
+    rank order on slice m's device (:func:`_sum_on`, as :func:`_rank_sum`
+    sums the whole), rounded once and added to ``xs[m]``."""
+    out, lo = [], 0
+    for x in xs:
+        hi = lo + x.shape[1]
+        tot = _sum_on(parts if len(xs) == 1 else
+                      [part[:, lo:hi] for part in parts], x.device)
+        out.append(x + tot.to(x.dtype))
+        lo = hi
+    return tuple(out)
+
+
+def _group_layer(params: ShardedLLM, cfg: LLMConfig, l: int, xs, qkv_delta,
+                 cos, sin, attention_mask, w8a8: bool,
+                 parts_remat: bool = False, row_scale: int = 1) -> tuple:
     """Layer l of the cache-less forward on a ``1 x p`` group (training:
-    one data row's group, ``train/step.py``), without the hook: each rank's
-    attention heads (K11 at H/p, Hkv/p from T >= 512) and its I/p of the
-    MLP on its device, the wo and down partials summed in f32 in rank order
-    (:func:`_rank_sum`) and rounded once into the residual x, which stays
-    on the group's first device with the norms.  ``pre(x) -> (x after ln1,
-    LoRA's f32 q|k|v deltas or None)`` runs there; each rank adds its
-    heads' columns of the deltas.  Autograd carries the backward through
-    the moves.
+    one data row's group, ``train/step.py``), without the hook, on the
+    residual's slices ``xs``: one, whole on the group's first device, or p
+    of them cut over T (Megatron sequence parallelism, ``llm.py:310-330``
+    of the JAX package), slice m [B, T_m, D] on rank m's device.  Each
+    slice takes its ln1 / ln2 and residual adds; the normed slices are
+    gathered on every rank before its attention heads (K11 at H/p, Hkv/p
+    from T >= 512) and its I/p of the MLP; the wo and down partials are
+    summed in f32 in rank order and rounded once into each slice
+    (:func:`_scatter_sum`; one slice: :func:`_rank_sum`'s sum).  RMSNorm is
+    per row, so both cuts give the same numbers.  ``qkv_delta(xn)`` (LoRA's
+    f32 q|k|v deltas, or None) runs on the normed input whole on the first
+    device; each rank adds its heads' columns.  Autograd carries the
+    backward through the moves.
 
     ``parts_remat`` (under ``remat``, a group whose ranks lie on several
     cards): each device's share runs under a checkpoint of its own (the
-    first device's norms, each rank's heads, each rank's MLP middle; the
+    norms, LoRA's deltas, each rank's heads, each rank's MLP middle; the
     rank sums keep their inputs), in place of one checkpoint of the layer,
     which each card's autograd thread would recompute at once."""
     def run(fn, *args):
@@ -445,34 +501,128 @@ def _group_layer(params: ShardedLLM, cfg: LLMConfig, l: int, x, pre, cos,
             return checkpoint(fn, *args, use_reentrant=False)
         return fn(*args)
 
+    def norm(name, lp):
+        return lambda h: rms_norm(index_tree(lp[name], l), h,
+                                  cfg.rms_norm_eps)
+
     mesh, lcfg = params.mesh, params.local_cfg
     ranks = [r["layers"] for r in params.ranks[0]]
-    dev0, p = x.device, mesh.n_model
-    xn, delta = run(pre, x)
+    devs, p = mesh.devices[0], mesh.n_model
+    xn = [run(norm("ln1", lp), x) for lp, x in zip(ranks, xs)]
+    delta = (None if qkv_delta is None
+             else run(qkv_delta, _gather_seq(xn, devs[0])))
     heads = []
-    for m, (lp, dev) in enumerate(zip(ranks, mesh.devices[0])):
+    for m, (lp, dev) in enumerate(zip(ranks, devs)):
         d = (None if delta is None
-             else delta[..., qkv_rows(cfg, p, m).to(dev0)].to(dev))
+             else delta[..., qkv_rows(cfg, p, m).to(delta.device)].to(dev))
 
         def attention(xm, cm, sm, am, dm, lp=lp, dev=dev):
             with on_device(dev):
                 return _attention_heads(lp, xm, cm, sm, None, lcfg, l, None,
                                         None, am, w8a8, dm, row_scale)
-        heads.append(run(attention, xn.to(dev), cos.to(dev), sin.to(dev),
-                         attention_mask.to(dev), d))
-    x = x + _rank_sum([lp["wo"] for lp in ranks], heads, l, dev0,
-                      w8a8, row_scale).to(x.dtype)
-    xn = run(lambda h: rms_norm(index_tree(params["layers"]["ln2"], l), h,
-                                cfg.rms_norm_eps), x)
+        heads.append(run(attention, _gather_seq(xn, dev), cos.to(dev),
+                         sin.to(dev), attention_mask.to(dev), d))
+    xs = _scatter_sum(_rank_parts([lp["wo"] for lp in ranks], heads, l,
+                                  w8a8, row_scale), xs)
+    xn = [run(norm("ln2", lp), x) for lp, x in zip(ranks, xs)]
     mids = []
-    for lp, dev in zip(ranks, mesh.devices[0]):
+    for lp, dev in zip(ranks, devs):
 
         def mlp_mid(xm, lp=lp, dev=dev):
             with on_device(dev):
                 return _mlp_mid(lp, xm, l, w8a8, row_scale)
-        mids.append(run(mlp_mid, xn.to(dev)))
-    return x + _rank_sum([lp["w_down"] for lp in ranks], mids, l, dev0,
-                         w8a8, row_scale).to(x.dtype)
+        mids.append(run(mlp_mid, _gather_seq(xn, dev)))
+    return _scatter_sum(_rank_parts([lp["w_down"] for lp in ranks], mids, l,
+                                    w8a8, row_scale), xs)
+
+
+def _plain_layer(lay, cfg: LLMConfig, l: int, x, qkv_delta, cos, sin, mask,
+                 cache, ci, attention_mask, w8a8: bool,
+                 row_scale: int = 1) -> torch.Tensor:
+    """Layer l of one device's layer loop, without the hook."""
+    xn = rms_norm(index_tree(lay["ln1"], l), x, cfg.rms_norm_eps)
+    delta = None if qkv_delta is None else qkv_delta(xn)
+    x = x + _attention(lay, xn, cos, sin, mask, cfg, l, cache, ci,
+                       attention_mask, w8a8, delta, row_scale)
+    return x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
+                                  cfg.rms_norm_eps), l, w8a8, row_scale)
+
+
+def _decoder_layer(tree, cfg: LLMConfig, l: int, xs, cos, sin,
+                   attention_mask, w8a8: bool, row_scale: int = 1,
+                   parts_remat: bool = False, qkv_delta=None, mask=None,
+                   cache=None, ci=None) -> tuple:
+    """Layer l (``tree``'s own index) without the hook -> the residual's
+    slices after it: on a ``1 x p`` group's ShardedLLM
+    (:func:`_group_layer`, ``xs`` one slice or p), else on
+    ``{"layers": ...}`` on the residual's device, ``xs`` its one slice
+    (under ``parts_remat`` the layer is a checkpoint of its own).
+    ``llm_apply``'s layer loop and a pipeline stage
+    (``parallel/pipeline.py``) run it."""
+    if isinstance(tree, ShardedLLM):
+        return _group_layer(tree, cfg, l, xs, qkv_delta, cos, sin,
+                            attention_mask, w8a8, parts_remat, row_scale)
+    args = (tree["layers"], cfg, l, xs[0], qkv_delta, cos, sin, mask, cache,
+            ci, attention_mask, w8a8, row_scale)
+    if parts_remat:
+        return (checkpoint(_plain_layer, *args, use_reentrant=False),)
+    return (_plain_layer(*args),)
+
+
+def _layer_loop(params, cfg: LLMConfig, layer, x, cos, sin, attention_mask,
+                stages, *, remat: bool, parts_remat: bool,
+                sequence_parallel: bool, qkv_delta, extra_layer_fn,
+                extra_aux_init):
+    """``llm_apply``'s layer loop -> (hidden before the final norm on x's
+    device, the hook's aux or None).  ``layer(tree, l, xs, cos, sin,
+    attention_mask, qkv_delta=)`` runs layer l of ``tree`` on the
+    residual's slices ``xs`` (:func:`_decoder_layer`).  On a pipe mesh
+    (``stages``) the layers run through the stages one after the other, the
+    residual moving to each stage's first device; else over ``params``.
+    With ``sequence_parallel`` the residual is held cut over T on the
+    group's ranks.  ``qkv_delta(l, xn)`` (LoRA) and the hook run on x's
+    device on whole rows.  Under ``remat`` each layer (with its hook) is a
+    checkpoint, or each device's share is where ``parts_remat``."""
+    dev = x.device
+    res_devs = params.mesh.devices[0] if sequence_parallel else [dev]
+    n_res = len(res_devs)
+
+    def run(fn, *args):
+        if parts_remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def step(l, lo, tree, tabs, *state):
+        xs, aux = state[:n_res], state[n_res:]
+        delta = None if qkv_delta is None else (
+            lambda xn: qkv_delta(l, xn.to(dev)).to(xn.device))
+        xs = layer(tree, l - lo, xs, *tabs, qkv_delta=delta)
+        if extra_layer_fn is None:
+            return (*xs, *aux)
+        whole = _gather_seq(xs, dev)
+        if extra_aux_init is not None:
+            def hook(h, *aux):
+                h, aux = extra_layer_fn(l, h, aux)
+                return (h, *aux)
+            whole, *aux = run(hook, whole, *aux)
+        else:
+            whole = run(lambda h: extra_layer_fn(l, h), whole)
+        return (*_split_seq(whole, [h.device for h in xs]), *aux)
+
+    segments = ([(st.lo, st.hi, st.tree, st.device) for st in stages]
+                if stages is not None else
+                [(0, cfg.num_hidden_layers, params, dev)])
+    state = (*_split_seq(x, res_devs), *(extra_aux_init or ()))
+    for lo, hi, tree, sdev in segments:
+        tabs = (cos.to(sdev), sin.to(sdev), attention_mask.to(sdev))
+        if not sequence_parallel:
+            state = (state[0].to(sdev), *state[1:])
+        for l in range(lo, hi):
+            args = (l, lo, tree, tabs, *state)
+            state = (checkpoint(step, *args, use_reentrant=False)
+                     if remat and not parts_remat else step(*args))
+    aux = tuple(state[n_res:]) if extra_aux_init is not None else None
+    return _gather_seq(state[:n_res], dev), aux
 
 
 def _mesh_decode_step(params: ShardedLLM, cfg: LLMConfig, x, attention_mask,
@@ -544,6 +694,9 @@ def _check_mesh(params, cache) -> bool:
                 "the cache-less forward under a mesh runs on one data row's "
                 "1 x p group (Mesh.row_mesh, parallel/sharding.row_llm); "
                 "train/step.py splits the batch over the data rows")
+    elif mesh.n_pipe > 1:
+        raise ValueError("a pipe mesh runs the cache-less forward only "
+                         "(training); serve on a mesh without one")
     elif not isinstance(cache, ShardedCache):
         raise ValueError("under a mesh llm_apply takes a ShardedCache "
                          "(init_kv_cache under use_mesh)")
@@ -563,7 +716,9 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
               w8a8: bool = True, lora: Optional[Params] = None,
               lora_scale: float = 1.0, lora_dropout: float = 0.0,
               lora_seed: Optional[int] = None,
-              batch_rows: Optional[Tuple[int, int]] = None):
+              batch_rows: Optional[Tuple[int, int]] = None,
+              pipeline_microbatches: int = 0,
+              sequence_parallel: bool = False):
     """Forward pass -> (logits [B, T, V] f32, cache), or with
     ``return_hidden`` (logits, cache, final hidden [B, T, D] after the last
     norm); ``skip_head`` leaves logits None.  With ``extra_aux_init`` a
@@ -621,6 +776,21 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
     group's ranks and its recompute runs each rank's part on its device;
     where the ranks lie on several cards, each device's share (and the
     hook) is checkpointed alone instead.
+
+    sequence_parallel (``llm.py:310-330`` of the JAX package): on such a
+    group with p > 1 and without a cache, the residual is cut over T
+    between blocks (:func:`_group_layer`); the numbers are those without it.
+    A no-op without a group, with a cache, or on a pipe mesh.
+
+    pipeline_microbatches: under a ``1 x n_model x n_pipe`` mesh (a data
+    row's group of a pipe mesh, ``parallel/sharding.pipe_stages``) and
+    without a cache, LoRA or a hook, the layers run as a GPipe schedule of
+    that many microbatches over the stages
+    (``parallel/pipeline.pipeline_decoder_hidden``; ``llm.py:458-473`` of
+    the JAX package).  Otherwise on a pipe mesh (0 microbatches, LoRA, the
+    hook) the layers run in order through the stages as one microbatch,
+    each stage on its own devices, the hook and LoRA on the first device:
+    the numbers of one device.  Without a pipe axis it is a no-op.
     """
     if (input_ids is None) == (inputs_embeds is None):
         raise ValueError("provide exactly one of input_ids / inputs_embeds")
@@ -698,51 +868,34 @@ def llm_apply(params: Params, cfg: LLMConfig, *,
             positions = torch.clamp(torch.cumsum(attention_mask, 1) - 1, min=0)
 
     cos, sin = llm_rope_cos_sin(cfg, positions)
-    lay = params["layers"]
-
     row_scale = 1 if batch_rows is None else batch_rows[1] // B
     remat = remat and cache is None and torch.is_grad_enabled()
-    # a group across cards checkpoints each device's share of a layer alone
+    stages = params.stages[0] if sharded and pipeline_enabled() else None
+    # a group or stages across cards checkpoint each device's share of a
+    # layer alone
     parts_remat = remat and sharded and _spans_cards(params)
 
-    def run(fn, *args):
-        if parts_remat:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
+    def layer(tree, l, xs, co, si, am, parts_remat=parts_remat,
+              qkv_delta=None):
+        return _decoder_layer(tree, cfg, l, xs, co, si, am, w8a8, row_scale,
+                              parts_remat, qkv_delta, mask, cache, ci)
 
-    def layer(l: int, x: torch.Tensor, *aux):
-        def pre(x):
-            xn = rms_norm(index_tree(lay["ln1"], l), x, cfg.rms_norm_eps)
-            return xn, (None if lora is None else lora_qkv_delta(
-                lora, l, xn, lora_scale, lora_dropout, lora_seed, batch_rows))
-
-        if sharded:
-            x = _group_layer(params, cfg, l, x, pre, cos, sin,
-                             attention_mask, w8a8, parts_remat, row_scale)
-        else:
-            xn, delta = pre(x)
-            x = x + _attention(lay, xn, cos, sin, mask, cfg, l, cache, ci,
-                               attention_mask, w8a8, delta, row_scale)
-            x = x + _mlp(lay, rms_norm(index_tree(lay["ln2"], l), x,
-                                       cfg.rms_norm_eps), l, w8a8, row_scale)
-        if extra_aux_init is not None:
-            def hook(x, *aux):
-                x, aux = extra_layer_fn(l, x, aux)
-                return (x, *aux)
-            return run(hook, x, *aux)
-        if extra_layer_fn is not None:
-            x = run(lambda h: extra_layer_fn(l, h), x)
-        return x
-
-    aux = extra_aux_init
-    for l in range(cfg.num_hidden_layers):
-        args = (l, x) if aux is None else (l, x, *aux)
-        out = (checkpoint(layer, *args, use_reentrant=False)
-               if remat and not parts_remat else layer(*args))
-        if aux is None:
-            x = out
-        else:
-            x, aux = out[0], tuple(out[1:])
+    if stages is not None and pipeline_microbatches and lora is None \
+            and extra_layer_fn is None and extra_aux_init is None:
+        x, aux = pipeline_decoder_hidden(
+            stages, layer, x, attention_mask, cos, sin,
+            n_micro=pipeline_microbatches, remat=remat), None
+    else:
+        x, aux = _layer_loop(
+            params, cfg, layer, x, cos, sin, attention_mask, stages,
+            remat=remat, parts_remat=parts_remat,
+            sequence_parallel=(sequence_parallel and cache is None
+                               and sharded and stages is None
+                               and params.mesh.n_model > 1),
+            qkv_delta=None if lora is None else
+            lambda l, xn: lora_qkv_delta(lora, l, xn, lora_scale,
+                                         lora_dropout, lora_seed, batch_rows),
+            extra_layer_fn=extra_layer_fn, extra_aux_init=extra_aux_init)
     hidden = rms_norm(params["norm"], x, cfg.rms_norm_eps)
     logits = None if skip_head else head_logits(params, hidden, w8a8,
                                                 row_scale)

@@ -31,6 +31,14 @@ The "data" axis splits the batch rows: data row d of the mesh holds rows
 ``d*B/n_data .. (d+1)*B/n_data`` in its model group's cache slices, and each
 of its ranks holds the same layer shard as the ranks of the other rows.
 
+On a mesh with a "pipe" axis (``parallel/mesh.make_mesh(n_pipe=P)``) the
+layer stack is cut into P stages first, as the JAX package's
+``pipe_layer_specs`` (``parallel/pipeline.py:56``) prefixes each stacked
+leaf's layer axis with "pipe": stage s holds layers ``s*L/P ..
+(s+1)*L/P - 1`` (:class:`PipeStage`), and within the stage they are cut over
+"model" as above.  A stage on the device the layers already lie on holds
+views of the stacked leaves, not copies.  ``L % P != 0`` raises ValueError.
+
 Training (``train/step.py``) adds the trainable state's layout
 (``sharding.py:167-200`` of the JAX package): with ``fsdp`` each large
 trainable leaf is cut over the data rows (:func:`fsdp_partition_specs`,
@@ -43,7 +51,7 @@ over every host's devices: the layout differs, the numbers do not.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -126,15 +134,50 @@ class ShardedLLM(dict):
     layer shard and the replicated leaves, on its device), ``cfg`` the full
     config and ``local_cfg`` a rank's.  As a dict it is the first rank's
     tree, so embedding, the head and the checks of the tower's kind read it
-    as they read an unsharded tree."""
+    as they read an unsharded tree.  On a pipe mesh ``stages[d][s]`` is data
+    row d's stage s (:class:`PipeStage`), and ``ranks`` and the dict's
+    ``layers`` are stage 0's."""
 
     def __init__(self, tree: dict, mesh: Mesh, cfg, local_cfg,
-                 ranks: List[List[dict]]):
+                 ranks: List[List[dict]],
+                 stages: Optional[List[List["PipeStage"]]] = None):
         super().__init__(tree)
         self.mesh = mesh
         self.cfg = cfg
         self.local_cfg = local_cfg
         self.ranks = ranks
+        self.stages = stages
+
+
+class PipeStage(NamedTuple):
+    """One data row's stage: layers ``lo .. hi - 1`` of the LLM on the
+    stage's ``1 x n_model`` group ``mesh``.  ``tree`` holds them at local
+    indices ``0 .. hi - lo - 1``: a :class:`ShardedLLM` over ``mesh`` where
+    n_model > 1, else ``{"layers": ...}`` on the stage's one device."""
+    lo: int
+    hi: int
+    tree: dict
+    mesh: Mesh
+
+    @property
+    def device(self) -> torch.device:
+        """The stage's first device (its residual's)."""
+        return self.mesh.devices[0][0]
+
+
+def pipe_layer_ranges(n_layers: int, n_pipe: int) -> List[Tuple[int, int]]:
+    """Each stage's layers ``(lo, hi)``; ValueError unless P divides L."""
+    if n_layers % n_pipe:
+        raise ValueError(f"{n_layers} layers do not split into {n_pipe} "
+                         "pipeline stages")
+    n = n_layers // n_pipe
+    return [(s * n, (s + 1) * n) for s in range(n_pipe)]
+
+
+def stage_layers(layers: dict, lo: int, hi: int) -> dict:
+    """Layers ``lo .. hi - 1`` of a stacked layer tree (views)."""
+    return {k: stage_layers(v, lo, hi) if isinstance(v, dict) else v[lo:hi]
+            for k, v in layers.items()}
 
 
 class ShardedCache(NamedTuple):
@@ -156,8 +199,11 @@ class ShardedCache(NamedTuple):
 def apply_llm_sharding(params, cfg, mesh: Mesh) -> ShardedLLM:
     """Cut an LLM param tree (int8 or bf16, ``models/llm.py`` layouts) for
     ``mesh``: every rank of model index m gets shard m of the layers, on its
-    device; the other leaves are replicated (module docstring).  The source
-    tree is left as it is; the caller drops it to free it."""
+    device; the other leaves are replicated (module docstring).  On a pipe
+    mesh the layers are cut into stages first (:func:`pipe_stages`).  The
+    source tree is left as it is; the caller drops it to free it."""
+    if mesh.n_pipe > 1:
+        return pipe_stages(params, cfg, mesh)
     p = mesh.n_model
     shards = [shard_layers(params, cfg, p, m) for m in range(p)]
     top = {k: v for k, v in params.items() if k != "layers"}
@@ -165,6 +211,43 @@ def apply_llm_sharding(params, cfg, mesh: Mesh) -> ShardedLLM:
         shards[m][0]["layers"], dev)} for m, dev in enumerate(row)]
         for row in mesh.devices]
     return ShardedLLM(ranks[0][0], mesh, cfg, shards[0][1], ranks)
+
+
+def pipe_stages(params, cfg, mesh: Mesh) -> ShardedLLM:
+    """The LLM cut for a pipe mesh: data row d's stage s holds layers
+    :func:`pipe_layer_ranges` gives it, views where its device is the
+    layers', cut over the stage's "model" ranks by
+    :func:`apply_llm_sharding` where n_model > 1; the other leaves whole on
+    each data row's first device."""
+    ranges = pipe_layer_ranges(cfg.num_hidden_layers, mesh.n_pipe)
+    top = {k: v for k, v in params.items() if k != "layers"}
+    p = mesh.n_model
+    lcfg = local_config(cfg, p)
+    # each stage's layers (views), cut over "model" once for every data row
+    cuts = [[stage_layers(params["layers"], lo, hi)] if p == 1 else
+            [shard_layers({"layers": stage_layers(params["layers"], lo, hi)},
+                          cfg, p, m)[0]["layers"] for m in range(p)]
+            for lo, hi in ranges]
+    stages = []
+    for d in range(mesh.n_data):
+        row = []
+        for s, (lo, hi) in enumerate(ranges):
+            sm = mesh.stage_mesh(d, s)
+            trees = [{"layers": to_device(c, dev)}
+                     for c, dev in zip(cuts[s], sm.devices[0])]
+            tree = trees[0] if p == 1 else ShardedLLM(
+                trees[0], sm, dataclasses.replace(
+                    cfg, num_hidden_layers=hi - lo), lcfg, [trees])
+            row.append(PipeStage(lo, hi, tree, sm))
+        stages.append(row)
+    ranks = []
+    for d, row in enumerate(mesh.devices):
+        first = stages[d][0].tree
+        lays = ([r["layers"] for r in first.ranks[0]] if p > 1
+                else [first["layers"]])
+        ranks.append([{**to_device(top, dev), "layers": lay}
+                      for dev, lay in zip(row, lays)])
+    return ShardedLLM(ranks[0][0], mesh, cfg, lcfg, ranks, stages)
 
 
 def data_rows(mesh: Mesh, B: int, d: int) -> slice:
@@ -215,10 +298,13 @@ def gather_cache(cache: ShardedCache, device=None) -> KVCache:
 
 def row_llm(sharded: ShardedLLM, d: int) -> ShardedLLM:
     """Data row d's group of a cut LLM as an LLM cut for that group's own
-    ``1 x n_model`` mesh (``Mesh.row_mesh``), sharing the row's tensors."""
+    ``1 x n_model`` mesh (``Mesh.row_mesh``; ``1 x n_model x n_pipe`` with
+    the row's stages on a pipe mesh), sharing the row's tensors."""
     ranks = sharded.ranks[d]
     return ShardedLLM(ranks[0], sharded.mesh.row_mesh(d), sharded.cfg,
-                      sharded.local_cfg, [ranks])
+                      sharded.local_cfg, [ranks],
+                      None if sharded.stages is None
+                      else [sharded.stages[d]])
 
 
 # -- the trainable state under fsdp ----------------------------------------

@@ -11,9 +11,14 @@ memory is spent on the towers: only activations carry gradients through
 them.
 
 Every step runs on a :class:`TrainLayout`: a ``(n_data, n_model)`` mesh
-(one device is its ``1 x 1`` case) and, across processes, a process group.
-The batch's rows split over the data rows (each row's clips travel with
-it), each data row runs its rows' forward on its ``1 x n_model`` group,
+(one device is its ``1 x 1`` case), or a ``(n_data, n_model, n_pipe)`` one
+whose "pipe" axis cuts the LLM's layers into stages, and, across
+processes, a process group.  The batch's rows split over the data rows
+(each row's clips travel with it), each data row runs its rows' forward on
+its ``1 x n_model`` group (``1 x n_model x n_pipe`` with stages: GPipe with
+``pipeline_microbatches``, ``parallel/pipeline.py``; Megatron sequence
+parallelism over the group's "model" ranks with ``sequence_parallel``;
+both as ``models/llm.llm_apply`` takes them),
 the loss is the whole batch's (:func:`loss_from_parts`), and the rows'
 gradients are summed in row order onto each trainable leaf's owner, then
 across processes.
@@ -77,8 +82,9 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 def forward_parts(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
                   config: DeSTA25Config, remat: bool, training: bool = True,
                   n_has: Optional[int] = None,
-                  batch_rows: Optional[Tuple[int, int]] = None
-                  ) -> Dict[str, Any]:
+                  batch_rows: Optional[Tuple[int, int]] = None,
+                  pipeline_microbatches: int = 0,
+                  sequence_parallel: bool = False) -> Dict[str, Any]:
     """The forward of one device's rows -> the pieces its loss is made of
     (:func:`loss_from_parts`): the summed target log-probabilities ``s`` and
     their count ``n``, and the aux losses' inputs (``audio_feats``,
@@ -86,7 +92,9 @@ def forward_parts(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
     ablation's pooled embeddings).  ``training`` adds ORCA's per-layer
     alignment term (eval leaves it out, as the JAX package does); ``n_has``
     and ``batch_rows`` say what whole batch these rows belong to
-    (``make_deep_injection_fn``, ``llm_apply``)."""
+    (``make_deep_injection_fn``, ``llm_apply``); ``pipeline_microbatches``
+    and ``sequence_parallel`` go to ``llm_apply`` (no-ops off a pipe mesh /
+    a group, as in the JAX package)."""
     llm = params["llm"]
     llm_cfg = config.llm_config
     labels = batch["labels"]
@@ -127,7 +135,8 @@ def forward_parts(params: Dict[str, Any], batch: Dict[str, torch.Tensor],
         lora_scale=config.lora_scale,
         lora_dropout=config.lora_dropout if training else 0.0,
         lora_seed=batch.get("lora_seed") if training else None,
-        batch_rows=batch_rows)
+        batch_rows=batch_rows, pipeline_microbatches=pipeline_microbatches,
+        sequence_parallel=sequence_parallel)
     s, n = masked_lm_sums_chunked(
         llm, llm_cfg, out[2], labels,
         row_scale=1 if batch_rows is None else batch_rows[1] // len(labels))
@@ -242,22 +251,31 @@ class TrainLayout:
     """Where a model trains on ``mesh``: data row d's group (its first
     device ``devices[d]``) holds the frozen towers (``frozen[d]``: the
     encoder and the non-LLM leaves whole, shared where the device repeats;
-    the LLM whole, or with ``n_model`` > 1 cut by
-    ``parallel/sharding.apply_llm_sharding`` and seen as the group's own
-    ``1 x n_model`` mesh, ``meshes[d]``).  ``mesh`` None: the ``1 x 1``
+    the LLM whole, or with ``n_model`` > 1 or ``n_pipe`` > 1 cut by
+    ``parallel/sharding.apply_llm_sharding`` (on a pipe mesh into the row's
+    stages, views of the stacked layers where a stage's device is theirs)
+    and seen as the group's own ``1 x n_model (x n_pipe)`` mesh,
+    ``meshes[d]``).  ``mesh`` None: the ``1 x 1``
     mesh of the device the frozen LLM lies on (one device, the frozen tree
     as it is).  ``group``: the process group the gradients are summed over
-    (None: one process)."""
+    (None: one process).  ``pipeline_microbatches`` (GPipe on a pipe mesh)
+    and ``sequence_parallel`` (on a group of p > 1 ranks) are how each
+    group's forward runs, as ``train/step.py:42-43`` of the JAX package
+    takes them (:func:`forward_parts`; no-ops elsewhere)."""
 
     def __init__(self, mesh: Optional[Mesh], frozen: Dict[str, Any],
-                 config: DeSTA25Config, group=None):
+                 config: DeSTA25Config, group=None,
+                 pipeline_microbatches: int = 0,
+                 sequence_parallel: bool = False):
         if mesh is None:
             mesh = Mesh([[frozen["llm"]["embed"].device]])
         self.mesh, self.group = mesh, group
+        self.pipeline_microbatches = pipeline_microbatches
+        self.sequence_parallel = sequence_parallel
         self.devices = [row[0] for row in mesh.devices]
         llm = frozen["llm"]
         cut = (apply_llm_sharding(llm, config.llm_config, mesh)
-               if mesh.n_model > 1 else None)
+               if mesh.n_model > 1 or mesh.n_pipe > 1 else None)
         rest = {k: v for k, v in frozen.items() if k != "llm"}
         self.frozen: List[Dict[str, Any]] = []
         self.meshes: List[Optional[Mesh]] = []
@@ -433,7 +451,9 @@ def mesh_forward(trainable, layout: TrainLayout, batch, config, remat,
             parts.append(forward_parts(
                 params, part, config, remat, training,
                 n_has=counts["has_trans"],
-                batch_rows=part.pop("batch_rows")))
+                batch_rows=part.pop("batch_rows"),
+                pipeline_microbatches=layout.pipeline_microbatches,
+                sequence_parallel=layout.sequence_parallel))
     shares = None
     if world > 1:
         shares = {k: local[k] / max(counts[k], 1) for k in ("clips", "pairs")}
@@ -538,7 +558,9 @@ def make_eval_step(config: DeSTA25Config, layout: TrainLayout,
                    remat: bool = False):
     """``eval_step(trainable, batch) -> metrics`` (loss / ppl) on
     ``layout``'s mesh, no grad: this process's batch alone (no collective,
-    so processes may see different numbers of eval batches)."""
+    so processes may see different numbers of eval batches); the layout's
+    ``pipeline_microbatches`` and ``sequence_parallel`` as the train step's
+    (the JAX package's ``make_eval_step``, ``step.py:202-210``)."""
 
     @torch.no_grad()
     def eval_step(trainable, batch):

@@ -18,22 +18,24 @@ generates with the adapters and without dropout.
 
 The trainer always trains on a mesh (``train/step.TrainLayout``): with
 ``mesh`` "on", or "auto" with more than one device in the run (every
-process's), or ``mesh_model`` > 1 or ``fsdp`` (JAX's rule,
-``trainer.py:150-168``) a ``(n_data, mesh_model)`` mesh over
-``mesh_devices`` (default: every card, or the process's own card under
-torchrun), else the ``1 x 1`` mesh of the model's device.  Each data row's
-group runs its rows' forward with the LLM cut over its ``mesh_model``
-ranks, the gradients meet on each trainable leaf's owner (with ``fsdp`` the
-large leaves and their optimizer state cut over the data rows), and across
-processes (``parallel/distributed.py``) they are summed; the batch size is
-per process and must divide over the data rows.  ``mesh="off"`` under
-several processes raises ValueError (each would train a model of its own).
+process's), or ``mesh_model`` > 1, ``mesh_pipe`` > 1 or ``fsdp`` (JAX's
+rule, ``trainer.py:150-168``) a ``(n_data, mesh_model, mesh_pipe)`` mesh
+over ``mesh_devices`` (default: every card, or the process's own card under
+torchrun; "pipe" innermost), else the ``1 x 1`` mesh of the model's device.
+Each data row's group runs its rows' forward with the LLM cut into
+``mesh_pipe`` stages of layers and over each stage's ``mesh_model`` ranks:
+GPipe over the stages with ``pipeline_microbatches`` > 0, the stages in
+order otherwise (and under LoRA or ORCA's hook), and the residual cut over
+the sequence between blocks with ``sequence_parallel``
+(``parallel/pipeline.py``, ``models/llm.llm_apply``); the gradients meet
+on each trainable leaf's owner (with ``fsdp`` the large leaves and their
+optimizer state cut over the data rows), and across processes
+(``parallel/distributed.py``) they are summed; the batch size is per
+process and must divide over the data rows.  ``mesh="off"`` under several
+processes raises ValueError (each would train a model of its own).
 Metrics, the eval report and checkpoints are written by the main process
 only; ``evaluate()`` computes its loss on the mesh and generates on the
-model's device.  GPipe
-pipelining and sequence parallelism (``mesh_pipe``,
-``pipeline_microbatches``, ``sequence_parallel``) raise NotImplementedError
-(ROADMAP.md Queue 1, item 5b).
+model's device.
 """
 
 from __future__ import annotations
@@ -100,24 +102,18 @@ class TrainerConfig:
 
 
 def check_trainer_config(tc: TrainerConfig) -> None:
-    """Raise ValueError for a bad ``mesh`` and NotImplementedError for the
-    options the port lacks."""
+    """Raise ValueError for a bad ``mesh``."""
     if tc.mesh not in ("off", "auto", "on"):
         raise ValueError(f"trainer.mesh={tc.mesh!r} (expected 'off', 'auto', "
                          "or 'on')")
-    if tc.mesh_pipe > 1 or tc.pipeline_microbatches or tc.sequence_parallel:
-        raise NotImplementedError(
-            "GPipe pipelining (mesh_pipe, pipeline_microbatches) and "
-            "sequence parallelism are not ported yet (ROADMAP.md Queue 1, "
-            "item 5b)")
 
 
 def trainer_mesh(tc: TrainerConfig, device) -> Mesh:
     """The trainer's mesh by JAX's rule (``trainer.py:152-160``): over
     ``mesh_devices`` when ``mesh`` is "on", or "auto" with more than one
     device in the run (counting every process's, as ``jax.devices()``
-    does), or ``mesh_model`` > 1 or ``fsdp`` ask for one (never when
-    "off"); else the ``1 x 1`` mesh of ``device``.  Raises ValueError for
+    does), or ``mesh_model`` > 1, ``mesh_pipe`` > 1 or ``fsdp`` ask for one
+    (never when "off"); else the ``1 x 1`` mesh of ``device``.  Raises ValueError for
     ``mesh="off"`` under several processes: each would train a model of its
     own on its share of the rows."""
     processes = world()[1]
@@ -126,9 +122,11 @@ def trainer_mesh(tc: TrainerConfig, device) -> Mesh:
         if devices is None and torch.device(device).type != "cuda":
             raise ValueError("a mesh on the CPU needs trainer.mesh_devices "
                              "(e.g. ['cpu'] * 8)")
-        mesh = make_mesh(n_model=tc.mesh_model, devices=devices)
-        if (tc.mesh == "on" or tc.mesh_model > 1 or tc.fsdp
-                or mesh.n_data * mesh.n_model * processes > 1):
+        mesh = make_mesh(n_model=tc.mesh_model, devices=devices,
+                         n_pipe=tc.mesh_pipe)
+        if (tc.mesh == "on" or tc.mesh_model > 1 or tc.mesh_pipe > 1
+                or tc.fsdp
+                or mesh.n_data * mesh.n_model * mesh.n_pipe * processes > 1):
             return mesh
     if processes > 1:
         raise ValueError(
@@ -199,7 +197,7 @@ class DeSTA25Trainer:
             raise ValueError(
                 f"batch_size={bs} not divisible by the mesh's data axis "
                 f"({self.mesh.n_data}); pick a divisible batch size or a "
-                f"larger mesh_model")
+                f"larger mesh_model/mesh_pipe")
         self.optimizer = make_optimizer(optimizer_config)
         self.layout: Optional[TrainLayout] = None
         self._owners: Optional[Dict[str, Any]] = None
@@ -215,8 +213,10 @@ class DeSTA25Trainer:
         if self.layout is None:
             import torch.distributed as dist
             group = dist.group.WORLD if world()[1] > 1 else None
-            self.layout = TrainLayout(self.mesh, self.model.split_params()[1],
-                                      self.config, group)
+            self.layout = TrainLayout(
+                self.mesh, self.model.split_params()[1], self.config, group,
+                pipeline_microbatches=self.tcfg.pipeline_microbatches,
+                sequence_parallel=self.tcfg.sequence_parallel)
             self.eval_step = make_eval_step(self.config, self.layout,
                                             remat=self.tcfg.remat)
         return self.layout

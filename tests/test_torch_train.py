@@ -553,11 +553,55 @@ def test_cli_trains_the_debug_config(corpus, tmp_path):
 @pytest.mark.parametrize("what", ["mesh_pipe", "pipeline_microbatches",
                                   "sequence_parallel"])
 def test_outside_the_training_slice_raises(corpus, tmp_path, what):
-    # (num_workers > 0 trains through data/prefetch.PrefetchLoader:
-    # tests/test_torch_native.py and tests/test_torch_lora.py; a mesh and
-    # fsdp train: tests/test_torch_train_mesh.py)
-    kw = {"mesh_pipe": {"mesh_pipe": 2},
-          "pipeline_microbatches": {"pipeline_microbatches": 2},
-          "sequence_parallel": {"sequence_parallel": True}}[what]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5b"):
-        _trainer(corpus, tmp_path, **kw)
+    """The options once outside the training slice train now:
+    DeSTA25Trainer and cli/train.py each take a step with ``what`` on a
+    mesh of "cpu" ranks, the trainer's loss the one-device trainer's
+    (1e-5); what still raises is a bad value (stages that do not divide the
+    layers, microbatches that do not divide a data row's rows).
+    (num_workers > 0 trains through data/prefetch.PrefetchLoader:
+    tests/test_torch_native.py and tests/test_torch_lora.py; a mesh and
+    fsdp train: tests/test_torch_train_mesh.py; GPipe and sequence
+    parallelism against JAX: tests/test_torch_pipeline.py and
+    tests/test_torch_seq_parallel.py)"""
+    from desta25_audio_tpu_torch.cli.train import main
+    kw, cli, bad = {
+        "mesh_pipe": (dict(mesh_pipe=2, mesh_devices=["cpu"] * 2),
+                      ["trainer.mesh_pipe=2", "trainer.mesh_devices=[cpu,cpu]"],
+                      (dict(mesh_pipe=4, mesh_devices=["cpu"] * 4),
+                       "do not split into 4")),
+        "pipeline_microbatches": (
+            dict(mesh_pipe=2, pipeline_microbatches=2,
+                 mesh_devices=["cpu"] * 4),
+            ["trainer.mesh_pipe=2", "trainer.pipeline_microbatches=2",
+             "trainer.mesh_devices=[cpu,cpu,cpu,cpu]"],
+            (dict(mesh_pipe=2, pipeline_microbatches=3,
+                  mesh_devices=["cpu"] * 2), "not divisible by n_micro")),
+        "sequence_parallel": (
+            dict(mesh_model=2, sequence_parallel=True,
+                 mesh_devices=["cpu"] * 2),
+            ["trainer.mesh_model=2", "trainer.sequence_parallel=true",
+             "trainer.mesh_devices=[cpu,cpu]"], None)}[what]
+    losses = []
+    for name, extra in (("one", {}), ("mesh", dict(mesh="on", **kw))):
+        _, trainer = _trainer(corpus, tmp_path / name, max_steps=1, **extra)
+        trainer.train()
+        recs = [json.loads(line) for line in open(os.path.join(
+            trainer.tcfg.exp_dir, "metrics.jsonl"))]
+        losses.append([r["train/lm_loss"] for r in recs
+                       if "train/lm_loss" in r])
+    assert trainer.mesh.n_pipe == kw.get("mesh_pipe", 1)
+    assert len(losses[1]) == 1
+    assert abs(losses[1][0] - losses[0][0]) <= 1e-5 * abs(losses[0][0])
+    manifest, root = corpus
+    exp = tmp_path / "cli"
+    main(["--config", "configs/desta25_debug.yaml", "--device", "cpu",
+          f"exp_dir={exp}", f"dataset.manifest_filepaths=[{manifest}]",
+          f"dataset.data_root={root}", "trainer.max_steps=1",
+          "trainer.mesh=on"] + cli)
+    recs = [json.loads(line) for line in open(exp / "metrics.jsonl")]
+    assert any(np.isfinite(r.get("train/lm_loss", np.nan)) for r in recs)
+    if bad is not None:
+        _, trainer = _trainer(corpus, tmp_path / "bad", max_steps=1,
+                              mesh="on", **bad[0])
+        with pytest.raises(ValueError, match=bad[1]):
+            trainer.train()
