@@ -438,6 +438,27 @@ Phases, in order; any failure exits non-zero and nothing is caught:
     ``sequence_parallel=True``: lm_loss and grad_norm equal to 31a's
     (TOL_TRAIN_SP) beside the control, both runs' peaks; no torch path
     taken (``_build.fallback_counts()``); the phase's seconds.
+33. the flagship training setup and Qwen3-4B-Instruct-2507 at full depth.
+    33a: ``train/bench_utils.build_flagship_train_setup()`` (the int8
+    Llama-3.1-8B tower and the bf16 encoder at random, the f32 Q-Former,
+    B=12 T=300, remat, Adafactor): ``hbm_analysis`` (one step on clones,
+    all three keys), then three steps: lm_loss and grad_norm finite, step
+    2's loss equal to step 1's (lr 0 at count 0), step 3's not, every
+    trainable part moved by steps 2-3, K1, K2 and K3 launched, K11 not
+    (T=300), no torch path taken; ms a step and peaks beside
+    ``hbm_analysis``' sum.  33b: the same with ``connector_mode=
+    "orca_hybrid"``: Qwen3-4B at all 36 layers, the int8 tower, the stack in
+    bf16, its aux terms.  33c: ``generate()`` on
+    configs/desta25_qwen3-4B_Qformer6L.yaml (36 layers, random weights from
+    a seed, ``CharTokenizer("qwen3")``, the int8 encoder) with the bf16 LLM
+    (K8), then after ``apply_llm_quant()`` (K8-int8, K7 on the tied int8
+    head of 153,600 rows), then configs/desta25_qwen3-4b_ORCAHybrid.yaml on
+    that encoder and LLM with ``apply_orca_xattn_quant()`` (K8i at
+    injection head dim 80): b2 and b1, greedy, 32 new tokens, each run's
+    decode through its graph, its kernels launched and no torch path
+    taken, the first two ids against a step-by-step run and every id
+    against the layer loop teacher-forced (TOL_ENGINE_MARGIN, the b2 run
+    beside a control), ms a step and peak memory; the phase's seconds.
 
 Phase 4 first holds the GEMM planner's wave (``ops/gemm.cluster_ctas``)
 against the card: the clusters of 1..8 CTAs of the int8 GEMM it runs at
@@ -500,6 +521,10 @@ one a card over NCCL, phase 32 with its stages and ranks on distinct cards
 cards 0-1 beside the same (1, 2) run without it), and the flagship ORCA
 step with fsdp over the four cards beside its one-card run, each with each
 card's peak memory.
+
+    python3 chip_smoke.py --phase33-only
+
+runs phases 1-3 and 33 alone (work on the training setup and Qwen3-4B).
 
     python3 chip_smoke.py --http-rounds N
 
@@ -607,7 +632,10 @@ TOL_ENGINE_MARGIN = 0.25  # the serving engine's greedy ids against a
                      # read 0.47 on the int8 tower; 16a prints two other
                      # references beside it (the ids in one call, and one at
                      # a time through the fused step), which differ from it
-                     # by up to ~0.3 in a logit
+                     # by up to ~0.3 in a logit.  Phase 33c holds generate()'s
+                     # ids to it alike (the reference, generate()'s own
+                     # prefill, then the ids through the layer loop); its
+                     # control, each id + 1, must exceed it
 TOL_TRAIN_MESH_LOSS = 3e-3  # phase 31: a train step's lm_loss on a mesh
                      # vs the one-device trainer's on the same batch
                      # (relative), Llama-3.1-8B's 32 random layers: bf16
@@ -4435,31 +4463,50 @@ def mesh_step_replay_ms(sp, cfg, mask, cache, cards: bool):
     return ms, q_ms
 
 
-def teacher_forced_logits(model, convs, ids):
-    """The b2 path's logits with ``ids`` [B, 32] fed back: the prefill's
-    last position, then 31 decode steps (generate()'s cache length and
-    positions), [32, B, V] f32; under a mesh through its dispatch."""
+def teacher_forced_logits(model, convs, ids, loop: bool = False):
+    """generate()'s path for ``convs`` with ``ids`` [B, n] fed back: the
+    prefill's last position, then n - 1 decode steps (generate()'s cache
+    length and positions), [n, B, V] f32; under a mesh through its
+    dispatch.  With ``loop`` a per-layer hook (ORCA's injection, else the
+    identity) joins every call, which keeps each one-token call in the
+    layer loop, off the fused decode step, with weight-only products;
+    raises if a fused kernel launched."""
     import torch
     from desta25_audio_tpu_torch.models import llm as tllm
+    from desta25_audio_tpu_torch.ops import _build
     llm, cfg = model.params["llm"], model.llm_cfg
-    embeds, mask, _, _, _ = model._run_generation_phases(convs, {})
+    embeds, mask, aux, _, _ = model._run_generation_phases(convs, {})
+    hook = {}
+    if loop:
+        extra, _ = orca_injection(model, aux)
+        hook = {"extra_layer_fn": extra or (lambda l, h: h)}
+
+    def fused():
+        return {k: v for k, v in _build.launch_counts().items()
+                if k.startswith("fused_")}
+    before = fused()
     B, T, _ = embeds.shape
-    S = -(-(T + 32) // 128) * 128
+    n = ids.shape[1]
+    S = -(-(T + n) // 128) * 128
     cache = tllm.init_kv_cache(cfg, B, S, embeds.dtype, embeds.device)
     full = torch.zeros(B, S, dtype=torch.int32, device=embeds.device)
     full[:, :T] = mask
     pos = torch.clamp(torch.cumsum(mask, 1) - 1, min=0)
     logits, cache = tllm.llm_apply(llm, cfg, inputs_embeds=embeds,
                                    attention_mask=full, positions=pos,
-                                   cache=cache, cache_index=0)
+                                   cache=cache, cache_index=0, **hook)
     out = [logits[:, -1]]
     nxt = pos[:, -1:] + 1
-    for t in range(31):
+    if loop:
+        hook["w8a8"] = False
+    for t in range(n - 1):
         full[:, T + t] = 1
         logits, cache = tllm.llm_apply(llm, cfg, input_ids=ids[:, t:t + 1],
                                        attention_mask=full, positions=nxt + t,
-                                       cache=cache, cache_index=T + t)
+                                       cache=cache, cache_index=T + t, **hook)
         out.append(logits[:, 0])
+    if loop and fused() != before:
+        raise AssertionError("the layer-loop reference ran a fused step")
     return torch.stack(out)
 
 
@@ -7645,6 +7692,309 @@ def train_mesh_only(kind: str, count: int, gpu: str, cards: bool) -> int:
     return 0
 
 
+# -- phase 33: the flagship training setup, Qwen3-4B at full depth ----------
+
+QWEN4B_CONFIG = "configs/desta25_qwen3-4B_Qformer6L.yaml"
+QWEN4B_ORCA_CONFIG = "configs/desta25_qwen3-4b_ORCAHybrid.yaml"
+
+
+def run_flagship_setups(gpu: str) -> None:
+    """33a-33b: ``train/bench_utils.build_flagship_train_setup`` as a
+    benchmark would call it (B=12, T=300, the int8 tower at random, remat,
+    Adafactor): ``hbm_analysis``, then three steps, each gated."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    from desta25_audio_tpu_torch.train.bench_utils import (
+        build_flagship_train_setup, hbm_analysis)
+    from desta25_audio_tpu_torch.train.optimizer import flatten_tree
+    for tag, mode in (("33a", "qformer_1"), ("33b", "orca_hybrid")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg, step, tr, layout, st, batch = build_flagship_train_setup(
+            connector_mode=mode)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        lcfg = cfg.llm_config
+        leaves = flatten_tree(tr)
+        kinds = sorted({str(t.dtype).replace("torch.", "")
+                        for t in leaves.values()})
+        print(f"{tag}. build_flagship_train_setup(connector_mode={mode!r}): "
+              f"{cfg.llm_model_id} int8, {lcfg.num_hidden_layers} layers, "
+              f"D={lcfg.hidden_size}; whisper-large-v3 bf16; trainable "
+              f"{sum(t.numel() for t in leaves.values()) / 1e9:.3f} B "
+              f"parameters in {kinds}; batch "
+              f"{tuple(batch['input_ids'].shape)}; built in {built:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+              f"({gpu})", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        hbm = hbm_analysis(step, tr, layout, st, batch)
+        hbm_peak = torch.cuda.max_memory_allocated() / 2**30
+        if set(hbm) != {"argument_gb", "temp_gb", "output_gb"} or not all(
+                v > 0 for v in hbm.values()):
+            raise AssertionError(f"{tag}: hbm_analysis {hbm}")
+        start = {k: t.detach().to("cpu", copy=True)
+                 for k, t in leaves.items()}
+        rows = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            tr, st, m = step(tr, layout, st, batch)
+            torch.cuda.synchronize()
+            rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "launches": _build.launch_counts(),
+                         "taken": _build.fallback_counts(),
+                         "metrics": {k: float(v) for k, v in m.items()}})
+        for i, r in enumerate(rows):
+            print(f"{tag} step {i + 1} ({gpu}): {r['ms']:.1f} ms, peak "
+                  f"{r['peak_gib']:.2f} GiB allocated; metrics "
+                  f"{json.dumps(r['metrics'])}; launches "
+                  f"{json.dumps(r['launches'])}; torch paths taken "
+                  f"{json.dumps(r['taken'])}", flush=True)
+            check_train_row(f"{tag} step {i + 1}", r, (
+                "log_mel", "packed_encoder_attention", "encoder_ffn"))
+            if not np.isfinite(r["metrics"]["lm_loss"]):
+                raise AssertionError(f"{tag}: lm_loss {r['metrics']}")
+            if r["launches"].get("flash_attention", 0) \
+                    or r["launches"].get("flash_attention_bwd", 0):
+                raise AssertionError(f"{tag}: K11 launched at T=300")
+            if r["taken"]:
+                raise AssertionError(f"{tag}: torch paths taken {r['taken']}")
+            if mode == "orca_hybrid" and not (
+                    r["metrics"]["L_ortho_diversity"] > 0
+                    and r["metrics"]["L_align_layerwise"] == 0.0):
+                raise AssertionError(f"{tag}: aux terms {r['metrics']}")
+        if rows[1]["metrics"]["loss"] != rows[0]["metrics"]["loss"]:
+            raise AssertionError(f"{tag}: step 2's loss differs from step 1's"
+                                 " (lr 0 at count 0)")
+        # step 2 updated the trainable tree (lr 1e-6 at count 1 of a
+        # 100-step warmup): step 3 reads it, and each part moved
+        if rows[2]["metrics"]["loss"] == rows[1]["metrics"]["loss"]:
+            raise AssertionError(f"{tag}: step 3's loss equals step 2's")
+        moved = {}
+        for k, t in flatten_tree(tr).items():
+            part = k.split("/")[0]
+            n = moved.setdefault(part, [0, 0])
+            n[0] += int((t != start[k].to(t.device)).sum())
+            n[1] += t.numel()
+        shares = {p: n[0] / n[1] for p, n in moved.items()}
+        print(f"{tag}: the share of each part's elements that steps 2-3 "
+              f"moved {json.dumps(shares)}; loss {rows[1]['metrics']['loss']}"
+              f" -> {rows[2]['metrics']['loss']}", flush=True)
+        if not all(v > 0 for v in shares.values()):
+            raise AssertionError(f"{tag}: a trainable part did not move "
+                                 f"{shares}")
+        total = sum(hbm.values())
+        print(f"{tag}: hbm_analysis {json.dumps(hbm)}, sum {total:.2f} GiB, "
+              f"beside the peak of its step {hbm_peak:.2f} GiB (its clones of"
+              f" the trainable tree and state included) and the timed steps' "
+              f"peaks {[round(r['peak_gib'], 2) for r in rows]} GiB; ms a "
+              f"step after the first {rows[1]['ms']:.1f}, {rows[2]['ms']:.1f}"
+              f" ({gpu})", flush=True)
+        del cfg, step, tr, layout, st, batch, leaves, m, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def generate_gate(tag: str, model, convs, out, control: bool) -> float:
+    """``out``'s greedy ids, each up to its row's first terminator, the
+    layer loop's argmax teacher-forced (:func:`teacher_forced_logits` with
+    ``loop``) or within TOL_ENGINE_MARGIN of it (``top_less``); with
+    ``control`` the ids moved to the next id of the vocabulary must not
+    be.  Returns the worst margin."""
+    import torch
+    ids = np.asarray(out.generated_ids)
+    live = np.ones(ids.shape, bool)
+    for r, row in enumerate(ids):
+        ends = np.flatnonzero(np.isin(row, model._terminators()))
+        if ends.size:
+            live[r, ends[0] + 1:] = False
+    if isinstance(convs[0], dict):
+        convs = [convs]                                # one conversation
+
+    def margins(y):
+        y = torch.as_tensor(y, dtype=torch.long, device=model.device)
+        with torch.no_grad():
+            lg = teacher_forced_logits(model, convs, y, loop=True)
+        m = top_less(lg.reshape(-1, lg.shape[-1]), y.T.reshape(-1))
+        return m.reshape(y.shape[1], -1).T.cpu().numpy()[live]
+    m = margins(ids)
+    worst = float(m.max())
+    parted = sorted((round(float(v), 4) for v in m if v > 0), reverse=True)
+    msg = (f"{tag}: teacher-forced gate over {int(live.sum())} ids: "
+           f"{int(live.sum()) - len(parted)} the layer loop's argmax, the "
+           f"others at margins {parted[:16]} (worst {worst:.4f}, tol "
+           f"{TOL_ENGINE_MARGIN})")
+    if control:
+        ctl = float(margins((ids + 1) % model.llm_cfg.vocab_size).max())
+        msg += f"; control (each id + 1) {ctl:.4f}"
+        if ctl <= TOL_ENGINE_MARGIN:
+            raise AssertionError(f"{tag}: the gate passes the control")
+    print(msg, flush=True)
+    if worst > TOL_ENGINE_MARGIN:
+        raise AssertionError(f"{tag}: a greedy id is {worst} below the "
+                             "layer-loop reference's argmax")
+    return worst
+
+
+def run_generate_qwen4b(gpu: str, label: str, model, convs, must,
+                        must_not=()):
+    """33c, one tower: generate() b2 and b1, greedy, 32 new tokens, after a
+    warm-up: the decode through its graph, ``must`` launched and
+    ``must_not`` not in each run, no torch path taken; the ids checked
+    (shape and range, the first two against a step-by-step run, all of
+    them by the teacher-forced gate, the b2 run beside its control); ms a
+    step and peak memory printed.  Returns the launch counts summed over
+    the two runs."""
+    import torch
+    from desta25_audio_tpu_torch.ops import _build
+    runs = {2: convs[:2], 1: convs[2]}
+    model.generate(runs[2], do_sample=False, max_new_tokens=2)   # warm-up
+    outs, times, total = {}, {}, {}
+    for b, msgs in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        outs[b] = model.generate(msgs, do_sample=False, max_new_tokens=32)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        counts = {**_build.launch_counts(), **_build.kernel_counts()}
+        times[b] = dict(model.last_timings)
+        print(f"{label} b{b}: launches during generate() "
+              f"{json.dumps(counts)}; peak {peak:.2f} GiB allocated ({gpu})",
+              flush=True)
+        require_graph_replays(f"{label} b{b}", counts, times[b])
+        require_kernel_paths(f"{label} b{b}")
+        for name in must:
+            if counts.get(name, 0) <= 0:
+                raise AssertionError(f"{label} b{b}: {name} not launched")
+        for name in must_not:
+            if counts.get(name, 0):
+                raise AssertionError(f"{label} b{b}: {name} launched")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    check_outputs(model, [(outs[b], b) for b in runs])
+    check_step_by_step(model, runs[2], outs[2])
+    for b, msgs in runs.items():
+        generate_gate(f"{label} b{b}", model, msgs, outs[b], control=b == 2)
+        add_margins(model, msgs, outs[b])
+    print(f"{label} generated ids b2 row0[:8]={shown(outs[2], 0)} "
+          f"b1[:8]={shown(outs[1], 0)}", flush=True)
+    print_times(label, sorted(times.items()), gpu)
+    return total
+
+
+def run_qwen4b_generate(gpu: str, wavs) -> dict:
+    """33c: both Qwen3-4B yamls at all 36 layers, random weights from a
+    seed, the int8 encoder: the Q-Former config with the bf16 LLM (K8),
+    then the same model after ``apply_llm_quant()`` (K8-int8, K7 on the
+    tied int8 head), then the ORCA config on that encoder and int8 LLM
+    with ``apply_orca_xattn_quant()`` (K8i at injection head dim 80).
+    Returns each tower's launch counts."""
+    import torch
+    from desta25_audio_tpu_torch import DeSTA25AudioModel
+    from desta25_audio_tpu_torch.config import config_from_yaml_file
+    from desta25_audio_tpu_torch.data.tokenizer import CharTokenizer
+    from desta25_audio_tpu_torch.models.orca import (init_orca_connector,
+                                                     init_orca_cross_attns)
+    from desta25_audio_tpu_torch.ops.fused_decode import fused_decode_limits
+    from desta25_audio_tpu_torch.ops.quant import is_quantized
+    cfg = config_from_yaml_file(QWEN4B_CONFIG)
+    tok = CharTokenizer("qwen3")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model = DeSTA25AudioModel(cfg, device="cuda", seed=33, tokenizer=tok)
+        model.apply_inference_encoder_quant()
+    torch.cuda.synchronize()
+    lcfg = model.llm_cfg
+    print(f"33c. {QWEN4B_CONFIG}: {lcfg.model_id}, {lcfg.num_hidden_layers} "
+          f"layers, D={lcfg.hidden_size}, {lcfg.num_attention_heads} q / "
+          f"{lcfg.num_key_value_heads} kv heads of {lcfg.head_dim}, "
+          f"F={lcfg.intermediate_size}, tied vocabulary {lcfg.vocab_size}; "
+          f"built on the card in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
+    for b in (1, 2):
+        bad = fused_decode_limits(model.params["llm"], lcfg, torch.bfloat16,
+                                  b, 1, 256)
+        if bad:
+            raise AssertionError(f"fused_decode_limits refuses Qwen3-4B "
+                                 f"b{b}: {bad}")
+    convs = conversations(wavs)
+    counts = {}
+    counts["bf16"] = run_generate_qwen4b(
+        gpu, "Qwen3-4B bf16 LLM", model, convs,
+        ("log_mel", "encoder_ffn_w8a8", "fused_decode_layers"),
+        ("fused_decode_layers_int8",))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model.apply_llm_quant()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    head = model.params["llm"]["lm_head"]
+    if not (is_quantized(model.params["llm"]["layers"]["w_gu"])
+            and head["q"].shape[0] == 153600):
+        raise AssertionError(f"apply_llm_quant: head {head['q'].shape}")
+    print(f"Qwen3-4B LLM quantized in place in {time.perf_counter() - t0:.1f}"
+          f" s (the tied head int8, {head['q'].shape[0]} rows; "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
+    counts["int8"] = run_generate_qwen4b(
+        gpu, "Qwen3-4B int8 LLM", model, convs,
+        ("log_mel", "encoder_ffn_w8a8", "fused_decode_layers_int8",
+         "quant_matmul"), ("fused_decode_layers",))
+    ocfg = dataclasses.replace(config_from_yaml_file(QWEN4B_ORCA_CONFIG),
+                               llm_quant="int8")
+    t0 = time.perf_counter()
+    g = torch.Generator("cuda").manual_seed(34)
+    with torch.no_grad():
+        params = {"whisper": model.params["whisper"],
+                  "llm": model.params["llm"],
+                  "connector": init_orca_connector(ocfg, torch.float32,
+                                                   "cuda", g),
+                  "orca_cross_attns": init_orca_cross_attns(
+                      ocfg, getattr(torch, ocfg.orca_xattn_dtype), "cuda",
+                      g)}
+        orca = DeSTA25AudioModel(ocfg, device="cuda", params=params,
+                                 tokenizer=tok)
+        del model, params
+        orca.apply_orca_xattn_quant()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{QWEN4B_ORCA_CONFIG}: the ORCA model on that encoder and int8 "
+          f"LLM, its {orca.config.orca_xattn_dtype} stack quantized to int8 "
+          f"(injection head dim {lcfg.hidden_size // lcfg.num_attention_heads}"
+          f"), in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)",
+          flush=True)
+    counts["orca"] = run_generate_qwen4b(
+        gpu, "Qwen3-4B ORCA int8 stack", orca, convs,
+        ("log_mel", "encoder_ffn_w8a8", "fused_decode_inject",
+         "fused_decode_layers_int8", "quant_matmul") + INJECT_KERNELS,
+        ("fused_decode_layers",))
+    del orca
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_phase33(gpu: str, wavs) -> None:
+    """Phase 33 (33a-33c)."""
+    t0 = time.perf_counter()
+    run_flagship_setups(gpu)
+    counts = run_qwen4b_generate(gpu, wavs)
+    keys = ("fused_decode_layers", "fused_decode_layers_int8",
+            "fused_decode_inject", "quant_matmul", "decode_graph")
+    print("33c: launches over b2 + b1 (" + gpu + "): " + "; ".join(
+        f"{label} {json.dumps({k: c.get(k, 0) for k in keys})}"
+        for label, c in counts.items()), flush=True)
+    print(f"phase 33 took {time.perf_counter() - t0:.1f} s ({gpu})",
+          flush=True)
+
+
 def main() -> int:
     if "--train-worker" in sys.argv[1:]:
         return train_worker(sys.argv[sys.argv.index("--train-worker") + 1])
@@ -7682,6 +8032,14 @@ def main() -> int:
         # phase 30 alone, for work on the decoders, the loader and LoRA
         with tempfile.TemporaryDirectory() as d:
             run_phase30(gpu, d, write_wavs(d)[0])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": count}}))
+        return 0
+
+    if "--phase33-only" in sys.argv[1:]:
+        # phase 33 alone, for work on the training setup and Qwen3-4B
+        with tempfile.TemporaryDirectory() as d:
+            run_phase33(gpu, write_wavs(d)[0])
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}))
         return 0
@@ -7861,6 +8219,11 @@ def main() -> int:
 
     # -- 30. native decoders, the prefetching loader, LoRA -------------------
     run_phase30(gpu, tmp.name, wavs)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 33. the flagship training setup; Qwen3-4B at full depth -------------
+    run_phase33(gpu, wavs)
     tmp.cleanup()
     print(f"total {time.perf_counter() - t_start:.1f} s (the serving engine's "
           f"phases 12f and 16a-16g: {engine_s:.1f} s)", flush=True)

@@ -14,7 +14,9 @@ package: audio is reshaped to hop-sized rows; since n_fft = 2.5 * hop every
 frame is three row slices, so ``frames @ DFT`` is three dense f32 products
 with the window folded into the DFT matrices.  Plain torch in f32; TF32
 must be off on the card (the model turns it off).
-The filterbank and DFT builders are re-homed verbatim.
+The filterbank and DFT functions are re-homed verbatim, and so is the f64
+host path :func:`log_mel_np_precise`; :func:`log_mel_np` is the f32 host
+wrapper.
 """
 
 from __future__ import annotations
@@ -108,6 +110,15 @@ def _dft_window_matrices(n_fft: int = N_FFT) -> Tuple[np.ndarray, np.ndarray]:
     return cos_m, sin_m
 
 
+@functools.lru_cache(maxsize=4)
+def mel_frontend_matrices(num_mel_bins: int) -> Tuple[np.ndarray, np.ndarray,
+                                                      np.ndarray]:
+    """(cos, sin, mel) matrices for the GEMM-native frontend."""
+    cos_m, sin_m = _dft_window_matrices()
+    mel = mel_filter_bank(num_mel_bins)
+    return cos_m, sin_m, mel
+
+
 def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES) -> torch.Tensor:
     """Zero-pad / truncate the last axis to ``length`` (feature extractor
     behavior: 30 s fixed window)."""
@@ -172,3 +183,42 @@ def log_mel(audio: torch.Tensor, num_mel_bins: int,
     if layout == "bmt":
         return log_spec.transpose(1, 2)
     return log_spec
+
+
+def log_mel_np(audio: np.ndarray, num_mel_bins: int) -> np.ndarray:
+    """Host/numpy convenience wrapper returning HF layout [B, n_mels, 3000]
+    f32: :func:`log_mel` on CPU tensors (the plain version of K1)."""
+    audio = np.asarray(audio, dtype=np.float32)
+    if audio.ndim == 1:
+        audio = audio[None]
+    x = pad_or_trim(torch.from_numpy(np.ascontiguousarray(audio)))
+    return log_mel(x, num_mel_bins, layout="bmt").numpy()
+
+
+def log_mel_np_precise(audio: np.ndarray, num_mel_bins: int) -> np.ndarray:
+    """Float64 host path, bit-comparable to HF WhisperFeatureExtractor.
+
+    The f32 paths (the plain version and K1) part from the f64 reference by
+    up to ~0.1 in normalized log-mel units at near-floor bins within 8
+    decades of the clip's max (cancellation in the DFT); the mean
+    divergence is below 5e-4.  Use this path where exact HF parity matters
+    (golden fixtures, data-preparation checks)."""
+    audio = np.asarray(audio, dtype=np.float64)
+    if audio.ndim == 1:
+        audio = audio[None]
+    B = audio.shape[0]
+    padded = np.zeros((B, N_SAMPLES), dtype=np.float64)
+    t = min(audio.shape[1], N_SAMPLES)
+    padded[:, :t] = audio[:, :t]
+    refl = np.pad(padded, ((0, 0), (N_FFT // 2, N_FFT // 2)), mode="reflect")
+    idx = (np.arange(N_FRAMES)[:, None] * HOP_LENGTH
+           + np.arange(N_FFT)[None, :])
+    frames = refl[:, idx] * hann_window()  # [B, F, 400]
+    spec = np.abs(np.fft.rfft(frames, axis=-1)) ** 2  # [B, F, 201]
+    mel_fb = mel_filter_bank(num_mel_bins).astype(np.float64)
+    mel = spec @ mel_fb
+    log_spec = np.log10(np.maximum(mel, 1e-10))
+    max_val = log_spec.max(axis=(1, 2), keepdims=True)
+    log_spec = np.maximum(log_spec, max_val - 8.0)
+    log_spec = (log_spec + 4.0) / 4.0
+    return np.swapaxes(log_spec, 1, 2).astype(np.float32)

@@ -20,13 +20,11 @@ import json
 import logging
 import os
 
-from ..data.dataset import _refuse_url
+from ..utils.misc import resolve_filepath
 
 
 def load_items(path: str, data_root: str = ""):
-    _refuse_url(path)
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
+    path = resolve_filepath(path)
     items = []
     if path.endswith(".jsonl"):
         with open(path) as f:

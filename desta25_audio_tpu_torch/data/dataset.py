@@ -41,6 +41,7 @@ from ..models.splice import (
     expand_audio_blocks,
     expand_audio_placeholders,
 )
+from ..utils.misc import resolve_filepath
 
 logger = logging.getLogger(__name__)
 
@@ -61,16 +62,11 @@ class DataConfig:
     trans_max_tokens: int = 64
 
 
-def _refuse_url(path: str) -> None:
-    if path.startswith(("http://", "https://")):
-        raise NotImplementedError(
-            f"{path}: remote manifests and audio are not supported by the "
-            "port; copy them to local files")
-
-
 def _resolve_audio_filepath(path: str) -> str:
-    """Fallback to .wav extension (simple_dataset.py:103-114)."""
-    _refuse_url(path)
+    """Fallback to .wav extension (simple_dataset.py:103-114); a URL goes to
+    ``utils/misc.resolve_filepath``, which refuses it."""
+    if path.startswith(("http://", "https://")):
+        return resolve_filepath(path)
     if os.path.exists(path):
         return path
     alt = path + ".wav"
@@ -98,8 +94,7 @@ class AudioTextDataset:
 
         rows: List[Dict[str, Any]] = []
         for path in data_cfg.manifest_filepaths:
-            _refuse_url(path)
-            with open(path) as f:
+            with open(resolve_filepath(path)) as f:
                 for line in f:
                     line = line.strip()
                     if line:

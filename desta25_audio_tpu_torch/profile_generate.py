@@ -72,7 +72,6 @@ import time
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from .audio.io import AudioSegment, write_wav
 from .config import config_from_yaml_file
@@ -81,6 +80,7 @@ from .generate.decode import build_injection, llm_generate
 from .generate.speculative import left_aligned, llm_generate_spec
 from .models.desta import DeSTA25AudioModel, _CharASR
 from .ops import _build, fused_decode_tp
+from .utils.profiling import trace
 
 NEW_TOKENS = 32
 UNPROFILED_RUNS = 3   # the decode's host-clock time, without the profiler
@@ -142,8 +142,7 @@ def report(name: str, fn, top: int = 12, groups=None, stats=None):
     matching group taking a kernel, the rest counted as "other".  A
     ``stats`` list gets (wall ms, busy ms) appended."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -185,8 +184,7 @@ def profile_asr(model, clips) -> None:
     model._asr(clips)                       # warm-up
     timings = {}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         t0 = time.perf_counter()
         texts = model._asr(clips, timings=timings)
         torch.cuda.synchronize()

@@ -19,6 +19,12 @@ beta-2 schedule, epsilon and update clipping differ):
   Welford form); every k-th mini-step the inner rule runs on it, else the
   update is zero and the inner state is kept.
 
+A leaf of a lower precision (a bf16 ORCA stack) takes optax's dtypes: its
+statistics and update are in its dtype, the decay's blend is computed in f32
+and rounded once, the learning rate is rounded to the leaf's dtype before
+it scales the update, and the global norm adds each leaf's sum of squares
+rounded to that dtype.
+
 Gradients, updates and parameters are flat ``{path: tensor}`` dicts
 (:func:`flatten_tree`); the state is a dict of ints and such dicts, so
 ``torch.save`` writes it as it is.
@@ -170,11 +176,17 @@ def _unsqueeze(x, dim: int):
 
 
 def _sum_sq(x) -> torch.Tensor:
-    """sum(x^2) in f32 over a tensor or every part of a Shards."""
+    """sum(x^2) over a tensor or every part of a Shards, as optax's
+    ``global_norm`` takes it: the squares in x's dtype, summed in f32 and
+    rounded to x's dtype (a bf16 leaf's sum is a bf16 number); returned in
+    f32."""
     if not isinstance(x, Shards):
-        return torch.sum(torch.square(x.float()))
-    dev = x.parts[0].device
-    return sum(torch.sum(torch.square(p.float())).to(dev) for p in x.parts)
+        tot = torch.sum(torch.square(x), dtype=torch.float32)
+    else:
+        dev = x.parts[0].device
+        tot = sum(torch.sum(torch.square(p), dtype=torch.float32).to(dev)
+                  for p in x.parts)
+    return tot.to(x.dtype).float()
 
 
 def _rms(u) -> torch.Tensor:
@@ -183,6 +195,11 @@ def _rms(u) -> torch.Tensor:
     dev = u.parts[0].device
     tot = sum(torch.sum(torch.square(p)).to(dev) for p in u.parts)
     return torch.sqrt(tot / u.numel())
+
+
+def _as_dtype(x: np.float32, dtype: torch.dtype) -> float:
+    """The f32 number ``x`` rounded to ``dtype``, as a Python float."""
+    return float(torch.tensor(x, dtype=torch.float32).to(dtype))
 
 
 def zeros_like(x):
@@ -243,14 +260,17 @@ class Adafactor:
             grads = {k: _ew(lambda t, n: (t / n.to(t.dtype)) * max_norm,
                             g, g_norm) for k, g in grads.items()}
         dr = 1.0 - np.float32(count + 1) ** np.float32(-self.decay_rate)
-        dr = float(np.float32(dr))
-        lr = self.schedule(count)
+        dr, dr1 = float(np.float32(dr)), float(np.float32(1) - np.float32(dr))
+        lr = np.float32(self.schedule(count))
         thr = self.clipping_threshold
         v_row, v_col, v = (dict(state[k]) for k in ("v_row", "v_col", "v"))
         updates: Flat = {}
 
         def ema(old, new):
-            return _ew(lambda a, b: dr * a + (1.0 - dr) * b, old, new)
+            # in f32, one rounding to the statistic's dtype (optax's
+            # decay rate is an f32 array, which promotes a bf16 leaf's)
+            return _ew(lambda a, b: (dr * a.float() + dr1 * b.float()
+                                     ).to(a.dtype), old, new)
 
         for k, g in grads.items():
             fd = factored_dims(tuple(g.shape), self.min_dim)
@@ -274,7 +294,9 @@ class Adafactor:
             # temporary at once
             u = _ew(lambda a, r: a / torch.clamp(r / thr, min=1.0), u,
                     _rms(u))
-            u = _ew(lambda a: lr * a, u)
+            # the learning rate rounded to the leaf's dtype first, as
+            # optax's scale_by_learning_rate casts it
+            u = _ew(lambda a: _as_dtype(lr, a.dtype) * a, u)
             if self.cfg.weight_decay:
                 u = _ew(lambda a, w: a + self.cfg.weight_decay * w, u,
                         params[k])

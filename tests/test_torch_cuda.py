@@ -2437,3 +2437,41 @@ def test_from_pretrained_on_the_card_matches_cpu(tmp_path):
         out[dev] = m, m.generate(msgs, do_sample=False, max_new_tokens=6)
     assert count_differing(out["cuda"][0].params, out["cpu"][0].params) == 0
     assert out["cuda"][1].generated_ids == out["cpu"][1].generated_ids
+
+
+@pytest.mark.parametrize("mode", ["qformer_1", "orca_hybrid"])
+def test_flagship_train_setup_on_the_card(mode, monkeypatch):
+    """``build_flagship_train_setup(device="cuda")`` at the flagship's
+    widths with its LLM cut to 2 layers (B=12, T=300, the int8 tower at
+    random, the ORCA stack in bf16): one step with a finite loss and
+    gradient norm, and ``hbm_analysis`` with all three keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the hand-written Hopper kernels)")
+    from desta25_audio_tpu_torch import config as tconfig
+    from desta25_audio_tpu_torch.train import bench_utils as tbu
+    real = tbu.flagship_config
+
+    def two_layers(m="qformer_1"):
+        cfg = real(m)
+        cut = cfg.llm_model_id + "@2L"
+        monkeypatch.setitem(tconfig._LLM_PRESETS, cut, dict(
+            tconfig._LLM_PRESETS[cfg.llm_model_id], num_hidden_layers=2))
+        return dataclasses.replace(cfg, llm_model_id=cut)
+    monkeypatch.setattr(tbu, "flagship_config", two_layers)
+    cfg, step, tr, layout, st, batch = tbu.build_flagship_train_setup(
+        connector_mode=mode)
+    assert cfg.llm_config.num_hidden_layers == 2
+    assert batch["input_ids"].shape == (12, 300)
+    assert layout.devices[0].type == "cuda"
+    hbm = tbu.hbm_analysis(step, tr, layout, st, batch)
+    assert set(hbm) == {"argument_gb", "temp_gb", "output_gb"}
+    assert all(v > 0 for v in hbm.values()), hbm
+    _build.reset_launch_counts()
+    tr, st, m = step(tr, layout, st, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(m["lm_loss"])) and float(m["grad_norm"]) > 0
+    assert bool(torch.isfinite(m["grad_norm"]))
+    counts = _build.launch_counts()
+    for name in ("log_mel", "packed_encoder_attention", "encoder_ffn"):
+        assert counts.get(name, 0) > 0, (name, counts)
+    assert not _build.fallback_counts()
